@@ -1,0 +1,258 @@
+// K2: backward of the fused render (K1) for a frozen decoder.
+//
+// Replaces the TPU kernel supnerf_tpu/ops/pallas_render.py:_render_bwd_kernel
+// in its shared-z mode (pallas_call in _render_bwd_call, wrapped by
+// _make_render_core for field_composite_apply). Per ray it recomputes the
+// field and the compositing, applies the manual compositing VJP in stable
+// product form (the algebra of the _render_bwd_kernel docstring; no
+// reverse differentiation through log/exp, the only division is by a
+// transmittance factor >= 1e-10), then runs the transposed decoder chain.
+// Outputs: dxyz (B,R,S,3) through the positional-encoding chain rule on the
+// recomputed sin/cos values; dviewdir (B,R,3) per ray; per-ray partial sums
+// of dz_shape (B,R,n_shape,W), dz_tex (B,R,n_tex,W) and dz (B,R,S), which the
+// wrapper sums over rays (the second pass of the cross-block reduction, as
+// the TPU version sums its per-tile partials in XLA; deterministic, no
+// atomics). The decoder weights get no gradient (TTO freezes the network).
+//
+// The stash: the transposed chain needs every ReLU's sign pattern, about
+// 7 layers x 64 x 256 values per ray, which would not fit in shared memory
+// as floats. The forward recompute stores each pattern as bits instead
+// (__ballot_sync, 2 KB per layer), so the whole stash stays on chip and
+// nothing is recomputed twice or spilled to a scratch tensor.
+//
+// What bounds it on the H100: arithmetic, as K1. The forward recompute is
+// 0.89 MFLOP per point and the transposed chain another 0.89 (it skips
+// only the tiny sigma and rgb heads), about 1.8 MFLOP per point or 116 GFLOP
+// for one object's 1024 x 64 loss render, against 7 MB of points in and
+// 7 MB of dxyz out. The design is K1's: float32 CUDA-core FMAs with the
+// ray's activations in shared memory; tensor cores are later work.
+#include "render_common.cuh"
+
+namespace supnerf {
+
+static __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// Column sums over the S real rows: the cotangent of a latent that was added
+// to every row of a block's input.
+static __device__ void column_sums(const float* buf, int stride, int N, int S, float* out) {
+  for (int c = threadIdx.x; c < N; c += kThreads) {
+    float s = 0.f;
+    for (int r = 0; r < S; ++r) s += buf[r * stride + c];
+    out[c] = s;
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
+                  const float* __restrict__ z, const float* __restrict__ zs,
+                  const float* __restrict__ zt, DecoderWeights w, Dims d,
+                  int white_bkgd, const float* __restrict__ g_rgb,
+                  const float* __restrict__ g_depth, const float* __restrict__ g_acc,
+                  float* __restrict__ dxyz, float* __restrict__ dvd,
+                  float* __restrict__ dzs_part, float* __restrict__ dzt_part,
+                  float* __restrict__ dz_part) {
+  const int ray = blockIdx.x, obj = blockIdx.y;
+  const int W = d.W, W2 = d.W / 2, S = d.S;
+  const int nj = W / 32;
+  const size_t ray_idx = (size_t)obj * d.R + ray;
+  const int n_masks = d.n_shape + d.n_tex + 3;
+
+  extern __shared__ float smem[];
+  float* buf_a = smem;                         // kRows x W
+  float* buf_b = buf_a + kRows * W;            // kRows x W
+  float* pe = buf_b + kRows * W;               // kRows x kPeStride
+  float* hdir = pe + kRows * kPeStride;        // W (later: column sums)
+  float* dpe = hdir + W;                       // kMaxDirPe
+  float* ddpe = dpe + kMaxDirPe;               // kMaxDirPe
+  float* logit = ddpe + kMaxDirPe;             // kRows
+  float* rgb = logit + kRows;                  // kRows x 3
+  float* dsig = rgb + kRows * 3;               // kRows
+  float* drgb = dsig + kRows;                  // kRows x 3
+  uint32_t* masks = reinterpret_cast<uint32_t*>(drgb + kRows * 3);  // n_masks x kRows x nj
+  // stash slots: 0 = encoding_xyz, 1..n_shape = shape blocks, then viewdir,
+  // texture blocks, rgb_hidden
+  auto mask_of = [&](int layer) { return masks + (size_t)layer * kRows * nj; };
+  const int m_vd = d.n_shape + 1, m_tx0 = d.n_shape + 2, m_r1 = n_masks - 1;
+
+  // ---- forward recompute, stashing ReLU patterns -------------------------
+  encode_points(xyz + ray_idx * S * 3, S, d.l_xyz, pe);
+  direction_term(vd + ray_idx * 3, d.l_dir, w, W, dpe, hdir);
+
+  dense(pe, kPeStride, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, W, true, mask_of(0));
+  float* cur = buf_a;
+  float* nxt = buf_b;
+  for (int j = 0; j < d.n_shape; ++j) {
+    add_row_vector(cur, W, W, zs + ((size_t)obj * d.n_shape + j) * W);
+    dense(cur, W, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, W, true,
+          mask_of(1 + j));
+    float* t = cur; cur = nxt; nxt = t;
+  }
+  dense(cur, W, W, w.w_es, W, w.b_es, nxt, W, false, nullptr);
+  { float* t = cur; cur = nxt; nxt = t; }
+  head(cur, W, W, w.w_sg, 1, w.b_sg, logit);
+  dense(cur, W, W, w.w_vd_a, W, hdir, nxt, W, true, mask_of(m_vd));
+  { float* t = cur; cur = nxt; nxt = t; }
+  for (int j = 0; j < d.n_tex; ++j) {
+    add_row_vector(cur, W, W, zt + ((size_t)obj * d.n_tex + j) * W);
+    dense(cur, W, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, W, true,
+          mask_of(m_tx0 + j));
+    float* t = cur; cur = nxt; nxt = t;
+  }
+  dense(cur, W, W, w.w_r1, W2, w.b_r1, nxt, W2, true, mask_of(m_r1));
+  head(nxt, W2, W2, w.w_r2, 3, w.b_r2, rgb);
+
+  // ---- compositing forward replay + manual VJP (one thread per ray) -------
+  // Reuses buf_a as per-sample scratch: alpha, T (exclusive), w, gw.
+  if (threadIdx.x == 0) {
+    const float* zr = z + (size_t)obj * S;
+    float* alpha = buf_a;
+    float* T = alpha + kRows;
+    float* wt = T + kRows;
+    float* gw = wt + kRows;
+    const float gr0 = g_rgb[ray_idx * 3], gr1 = g_rgb[ray_idx * 3 + 1],
+                gr2 = g_rgb[ray_idx * 3 + 2];
+    const float gd = g_depth[ray_idx], ga = g_acc[ray_idx];
+    const float gwhite = white_bkgd ? (gr0 + gr1 + gr2) : 0.f;
+    float Tc = 1.f;
+    for (int s = 0; s < S; ++s) {
+      const float delta = (s < S - 1) ? zr[s + 1] - zr[s] : kLastDelta;
+      const float a = 1.f - expf(-fmaxf(softplus(logit[s]), 0.f) * delta);
+      alpha[s] = a;
+      T[s] = Tc;
+      wt[s] = a * Tc;
+      gw[s] = gr0 * rgb[3 * s] + gr1 * rgb[3 * s + 1] + gr2 * rgb[3 * s + 2]
+              + gd * zr[s] - gwhite;
+      Tc *= fmaxf(1.f - a, 0.f) + kEpsTrans;
+    }
+    const float acc = T[S - 1];
+    float suffix = 0.f;          // sum_{i > s} gw_i w_i
+    float* dzr = dz_part + ray_idx * S;
+    for (int s = S - 1; s >= 0; --s) {
+      const float sg = softplus(logit[s]);
+      const float delta = (s < S - 1) ? zr[s + 1] - zr[s] : kLastDelta;
+      const float tt = fmaxf(1.f - alpha[s], 0.f) + kEpsTrans;
+      const float not_last = (s < S - 1) ? 1.f : 0.f;
+      const float g_t = (suffix + ga * acc * not_last) / tt;
+      const float de = g_t - gw[s] * T[s];
+      const float e_val = 1.f - alpha[s];
+      dsig[s] = (sg > 0.f) ? de * (-delta) * e_val : 0.f;
+      const float dd = de * (-fmaxf(sg, 0.f)) * e_val * not_last;
+      // dz_s = g_depth w_s + ddelta_{s-1} - ddelta_s (delta_s = z_{s+1} - z_s);
+      // sample s + 1, written one step earlier, receives its ddelta_s here
+      dzr[s] = gd * wt[s] - dd;
+      if (s + 1 < S) dzr[s + 1] += dd;
+      suffix += gw[s] * wt[s];
+      drgb[3 * s] = wt[s] * gr0;
+      drgb[3 * s + 1] = wt[s] * gr1;
+      drgb[3 * s + 2] = wt[s] * gr2;
+    }
+    for (int s = S; s < kRows; ++s) {
+      dsig[s] = 0.f;
+      drgb[3 * s] = drgb[3 * s + 1] = drgb[3 * s + 2] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  // ---- transposed decoder chain ------------------------------------------
+  // rgb_out: g_hh[r][c] = relu'(hh) * sum_k drgb[r][k] w_r2[c][k]
+  for (int e = threadIdx.x; e < kRows * W2; e += kThreads) {
+    const int r = e / W2, c = e - r * W2;
+    buf_a[r * W2 + c] = drgb[3 * r] * w.w_r2[3 * c] + drgb[3 * r + 1] * w.w_r2[3 * c + 1]
+                        + drgb[3 * r + 2] * w.w_r2[3 * c + 2];
+  }
+  __syncthreads();
+  apply_mask(buf_a, W2, W2, mask_of(m_r1));
+  dense(buf_a, W2, W2, w.wt_r1, W, nullptr, buf_b, W, false, nullptr);
+  cur = buf_b; nxt = buf_a;
+  float* colsum = hdir;   // the direction term is no longer needed
+  for (int j = d.n_tex - 1; j >= 0; --j) {
+    apply_mask(cur, W, W, mask_of(m_tx0 + j));
+    dense(cur, W, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, W, false, nullptr);
+    { float* t = cur; cur = nxt; nxt = t; }
+    column_sums(cur, W, W, S, colsum);
+    for (int c = threadIdx.x; c < W; c += kThreads)
+      dzt_part[(ray_idx * d.n_tex + j) * W + c] = colsum[c];
+  }
+  apply_mask(cur, W, W, mask_of(m_vd));            // cur = g_v
+  // viewdir: the direction encoding is per ray, so its cotangent is
+  // (sum over the ray's rows of g_v) @ Wvd_b^T
+  column_sums(cur, W, W, S, colsum);
+  {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int d_dir = pe_width(d.l_dir);
+    for (int k = warp; k < d_dir; k += kThreads / 32) {
+      float s = 0.f;
+      for (int n = lane; n < W; n += 32) s = fmaf(colsum[n], __ldg(w.w_vd_b + k * W + n), s);
+      s = warp_sum(s);
+      if (lane == 0) ddpe[k] = s;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float dv[3];
+    encode_backward_one(dpe, ddpe, d.l_dir, dv);
+    dvd[ray_idx * 3] = dv[0];
+    dvd[ray_idx * 3 + 1] = dv[1];
+    dvd[ray_idx * 3 + 2] = dv[2];
+  }
+  // encoding_shape output e feeds both the viewdir layer and the sigma head
+  dense(cur, W, W, w.wt_vd_a, W, nullptr, nxt, W, false, nullptr);
+  for (int e = threadIdx.x; e < kRows * W; e += kThreads) {
+    const int r = e / W, c = e - r * W;
+    const float g_sig = (r < S) ? dsig[r] * sigmoid(logit[r]) : 0.f;
+    nxt[r * W + c] = fmaf(g_sig, w.w_sg[c], nxt[r * W + c]);
+  }
+  __syncthreads();
+  { float* t = cur; cur = nxt; nxt = t; }
+  dense(cur, W, W, w.wt_es, W, nullptr, nxt, W, false, nullptr);
+  { float* t = cur; cur = nxt; nxt = t; }
+  for (int j = d.n_shape - 1; j >= 0; --j) {
+    apply_mask(cur, W, W, mask_of(1 + j));
+    dense(cur, W, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, W, false, nullptr);
+    { float* t = cur; cur = nxt; nxt = t; }
+    column_sums(cur, W, W, S, colsum);
+    for (int c = threadIdx.x; c < W; c += kThreads)
+      dzs_part[(ray_idx * d.n_shape + j) * W + c] = colsum[c];
+  }
+  apply_mask(cur, W, W, mask_of(0));
+  const int d_xyz = pe_width(d.l_xyz);
+  dense(cur, W, W, w.wt_xyz, d_xyz, nullptr, nxt, kPeStride, false, nullptr);
+  for (int r = threadIdx.x; r < S; r += kThreads) {
+    float dx[3];
+    encode_backward_one(pe + r * kPeStride, nxt + r * kPeStride, d.l_xyz, dx);
+    float* o = dxyz + (ray_idx * S + r) * 3;
+    o[0] = dx[0]; o[1] = dx[1]; o[2] = dx[2];
+  }
+}
+
+size_t render_bwd_smem_bytes(int W, int n_shape, int n_tex) {
+  const size_t floats = (size_t)2 * kRows * W + kRows * kPeStride + W + 2 * kMaxDirPe
+                        + kRows * 8;
+  const size_t words = (size_t)(n_shape + n_tex + 3) * kRows * (W / 32);
+  return sizeof(float) * floats + sizeof(uint32_t) * words;
+}
+
+}  // namespace supnerf
+
+// Plain C entry, bound with ctypes. Launches on `stream` and returns
+// cudaGetLastError() (0 on success); never synchronises or allocates.
+extern "C" int supnerf_render_bwd(const float* xyz, const float* vd, const float* z,
+                                  const float* zs, const float* zt,
+                                  const supnerf::DecoderWeights* w, int B, int R, int S,
+                                  int W, int n_shape, int n_tex, int l_xyz, int l_dir,
+                                  int white_bkgd, const float* g_rgb, const float* g_depth,
+                                  const float* g_acc, float* dxyz, float* dvd,
+                                  float* dzs_part, float* dzt_part, float* dz_part,
+                                  void* stream) {
+  using namespace supnerf;
+  const Dims d{B, R, S, W, n_shape, n_tex, l_xyz, l_dir};
+  const size_t smem = render_bwd_smem_bytes(W, n_shape, n_tex);
+  cudaError_t err = cudaFuncSetAttribute(
+      render_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  render_bwd_kernel<<<dim3(R, B), kThreads, smem, (cudaStream_t)stream>>>(
+      xyz, vd, z, zs, zt, *w, d, white_bkgd, g_rgb, g_depth, g_acc, dxyz, dvd, dzs_part,
+      dzt_part, dz_part);
+  return (int)cudaGetLastError();
+}

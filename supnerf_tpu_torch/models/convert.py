@@ -1,0 +1,108 @@
+"""Weights carried across from the JAX package: its variables, as nested dicts
+of numpy arrays ({'params': ..., 'batch_stats': ...}), become this package's
+state_dict. The port's modules use the reference's torch parameter names, so
+the result loads with load_state_dict(strict=True) — and so does a reference
+models.pth. This is the port's own copy of the mapping in
+supnerf_tpu/models/torch_import.py (export_encoder, export_decoder,
+export_pose_refiner, export_state_dict).
+
+Layouts: flax conv kernels (H, W, I, O) -> torch (O, I, H, W); dense kernels
+(I, O) -> (O, I); BatchNorm scale/bias -> weight/bias, batch_stats
+mean/var -> running_mean/running_var, plus num_batches_tracked.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
+
+
+def _conv(out, name, k):
+    out[name] = _t(np.asarray(k).transpose(3, 2, 0, 1))
+
+
+def _dense(out, name, p):
+    out[f"{name}.weight"] = _t(np.asarray(p["kernel"]).T)
+    out[f"{name}.bias"] = _t(p["bias"])
+
+
+def _bn(out, name, p, bs):
+    out[f"{name}.weight"] = _t(p["scale"])
+    out[f"{name}.bias"] = _t(p["bias"])
+    out[f"{name}.running_mean"] = _t(bs["mean"])
+    out[f"{name}.running_var"] = _t(bs["var"])
+    out[f"{name}.num_batches_tracked"] = torch.tensor(0, dtype=torch.int64)
+
+
+def _stage(out, prefix, params, stats):
+    for i in range(len(params)):
+        p, bs, pre = params[f"BasicBlock_{i}"], stats[f"BasicBlock_{i}"], f"{prefix}.{i}"
+        _conv(out, f"{pre}.conv1.weight", p["Conv_0"]["kernel"])
+        _bn(out, f"{pre}.bn1", p["BatchNorm_0"], bs["BatchNorm_0"])
+        _conv(out, f"{pre}.conv2.weight", p["Conv_1"]["kernel"])
+        _bn(out, f"{pre}.bn2", p["BatchNorm_1"], bs["BatchNorm_1"])
+        if "Conv_2" in p:
+            _conv(out, f"{pre}.downsample.0.weight", p["Conv_2"]["kernel"])
+            _bn(out, f"{pre}.downsample.1", p["BatchNorm_2"], bs["BatchNorm_2"])
+
+
+def convert_encoder(params, stats, heads=("shape", "texture", "pose"), pred_wlh=False):
+    """flax ImgEncoder subtrees -> state_dict entries under 'img_encoder.'."""
+    pre = "img_encoder."
+    out = {}
+    _conv(out, pre + "conv1.weight", params["conv1"]["kernel"])
+    _bn(out, pre + "bn1", params["bn1"], stats["bn1"])
+    for layer in ("layer1", "layer2", "layer3"):
+        _stage(out, pre + layer, params[layer], stats[layer])
+    for h in heads:
+        _stage(out, pre + f"layer4_{h}", params[f"layer4_{h}"], stats[f"layer4_{h}"])
+        _dense(out, pre + f"fc_{h}", params[f"fc_{h}"])
+    if "pose" in heads:
+        _dense(out, pre + "fc_uv", params["fc_uv"])
+    if pred_wlh:
+        _stage(out, pre + "layer4_wlh", params["layer4_wlh"], stats["layer4_wlh"])
+        _dense(out, pre + "fc_wlh.0", params["fc_wlh_hidden"])
+        _dense(out, pre + "fc_wlh.2", params["fc_wlh_out"])
+    return out
+
+
+def convert_decoder(params, shape_blocks: int, texture_blocks: int):
+    """flax CodeNeRFDecoder params -> the reference decoder names."""
+    out = {}
+    for name, src in (("encoding_xyz.0", "encoding_xyz"), ("encoding_shape", "encoding_shape"),
+                      ("sigma.0", "sigma"), ("encoding_viewdir.0", "encoding_viewdir"),
+                      ("rgb.0", "rgb_hidden"), ("rgb.2", "rgb_out")):
+        _dense(out, name, params[src])
+    for j in range(1, shape_blocks + 1):
+        _dense(out, f"shape_latent_layer_{j}.0", params[f"shape_latent_layer_{j}"])
+        _dense(out, f"shape_layer_{j}.0", params[f"shape_layer_{j}"])
+    for j in range(1, texture_blocks + 1):
+        _dense(out, f"texture_latent_layer_{j}.0", params[f"texture_latent_layer_{j}"])
+        _dense(out, f"texture_layer_{j}.0", params[f"texture_layer_{j}"])
+    return out
+
+
+def convert_pose_refiner(params, pose_blocks: int, regress_blocks: int):
+    out = {}
+    _dense(out, "out_delta_layer", params["out_delta_layer"])
+    for j in range(pose_blocks):
+        _dense(out, f"pose_layer_{j}.0", params[f"pose_layer_{j}"])
+    for j in range(regress_blocks):
+        _dense(out, f"regress_layer_{j}.0", params[f"regress_layer_{j}"])
+    return out
+
+
+def convert_supnerf_variables(variables, net_hyperparams: dict) -> dict:
+    """JAX SUPNeRF variables -> this package's SUPNeRF state_dict."""
+    hp = net_hyperparams
+    params = variables["params"]
+    sd = convert_encoder(params["img_encoder"], variables["batch_stats"]["img_encoder"],
+                         pred_wlh=bool(hp.get("pred_wlh", 0)))
+    sd.update(convert_decoder(params["decoder"], hp.get("shape_blocks", 5),
+                              hp.get("texture_blocks", 5)))
+    sd.update(convert_pose_refiner(params["pose_refiner"], hp.get("pose_blocks", 3),
+                                   hp.get("regress_blocks", 3)))
+    return sd

@@ -1,0 +1,1 @@
+"""Ray-level renderers over a fused field+compositing callable."""
