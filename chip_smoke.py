@@ -6,15 +6,21 @@
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and nvcc.
 Phases, each timed; any failure exits non-zero before the result line:
   1. environment: card name and power limit (nvidia-smi), torch and CUDA;
-  2. build: one nvcc call over supnerf_tpu_torch/csrc/*.cu;
-  3. kernels: K1 (render_fwd) and K2 (render_bwd) at the main path's shapes
-     (2 objects, W 256, 1024 rays, 64 samples) against their plain PyTorch
-     versions on the same inputs, each error beside its tolerance, and
-     kernel / plain times beside the card's bound; then the branches the
-     main path does not take (white background, S < 64, odd R, W 64/128);
-  4. main path: the port's CLI test-time optimization at the published
+  2. build: supnerf_tpu_torch/csrc/*.cu, one nvcc per source in parallel;
+  3. kernels: K1 (render_fwd) and K2 (render_bwd) at the TTO path's shapes
+     (2 objects, W 256, 1024 rays, 64 samples), K1 again and K3 + K4 (the
+     training backward: render_train_bwd_stash, wgrad) at the training
+     path's (8 objects), each against its plain PyTorch version on the same
+     inputs, each error beside its tolerance, kernel / plain times beside
+     the card's bound; then the branches neither path takes (white
+     background, S < 64, odd R, W 64/128, several stash chunks);
+  4. TTO path: the port's CLI test-time optimization at the published
      config (full width, 100 iterations) on 2 synthetic objects, with the
-     launch counts of both kernels, the final metrics and the result file.
+     launch counts, the final metrics and the result file;
+  5. training path: the port's CLI training at the published config on 16
+     synthetic objects, batch 8, 2 epochs (4 steps), with the launch counts,
+     finite losses, the checkpoints, a resume from epoch 0 that repeats
+     step 3's loss, and the TTO loader strict-loading the result.
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -43,6 +49,12 @@ PEAK_BYTES_PER_S = 3.35e12
 # since dz_shape / dz_tex / dz are sums over 1024 x 64 points per object.
 VALUE_ATOL = {"rgb": 3e-4, "depth": 3e-3, "acc": 3e-4}
 GRAD_RTOL = 1e-3
+# K4 against its plain version (cuBLAS SGEMM, TF32 off) on the same stash:
+# float32 sums of up to 262,144 products in another order
+WGRAD_RTOL = 1e-4
+# A resumed run repeats a step's loss: the same weights, batch and kernels
+RESUME_RTOL = 1e-5
+TRAIN_OBJECTS, TRAIN_BATCH = 16, 8
 
 def decoder_macs(W, n_shape, n_tex, d_xyz=63):
     """Multiply-adds per point of the decoder (csrc/render_fwd.cu's count)."""
@@ -53,6 +65,38 @@ def decoder_macs(W, n_shape, n_tex, d_xyz=63):
 def transposed_macs(W, n_shape, n_tex, d_xyz=63):
     """Multiply-adds per point of K2's transposed chain (no sigma/rgb heads)."""
     return (W // 2) * W + n_tex * W * W + W * W + W * W + n_shape * W * W + W * d_xyz
+
+
+def bound(flops, nbytes):
+    """The least time (ms) of `flops` float32 operations moving `nbytes`."""
+    t_ops, t_mem = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+
+
+def record(name, ports, tpu, src, t_k, t_p, err, b, library_ms=None):
+    print(f"   {name}: {t_k:.3f} ms (plain {t_p:.3f} ms, bound {b[0]:.3f} ms by {b[1]}"
+          + (f", library {library_ms:.3f} ms" if library_ms is not None else "") + ")")
+    return {"name": name, "route": "cuda", "source": src, "replaces": tpu, "ports": ports,
+            "launches": 0, "max_abs_err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": library_ms}
+
+
+def compare(names, got, ref, tol_of):
+    """Print each output's max abs error beside its tolerance; returns
+    (worst error, all within tolerance and finite)."""
+    import torch
+
+    worst, ok = 0.0, True
+    for name, a, b in zip(names, got, ref):
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        tol = tol_of(name, scale)
+        good = err <= tol and bool(torch.isfinite(a).all())
+        ok &= good
+        worst = max(worst, err)
+        print(f"   {name:22s} max_abs_err {err:.3e}  tol {tol:.3e}  (max |plain| {scale:.3e})  "
+              f"{'ok' if good else 'FAIL'}")
+    return worst, ok
 
 
 def phase(name):
@@ -138,9 +182,10 @@ def kernel_inputs(seed=0, B=2, R=1024, S=64):
 
 
 def check_kernel_branches():
-    """K1 and K2 against their plain versions on the branches the main path
-    does not take: white background, fewer than 64 samples per ray, odd ray
-    counts, W 64 and 128. Same tolerances; not timed."""
+    """K1, K2 and K3 + K4 against their plain versions on the branches the
+    main paths do not take: white background, fewer than 64 samples per ray,
+    odd ray counts, W 64 and 128, a stash budget of one object (three
+    chunks). Same tolerances; not timed."""
     import torch
     import torch.nn.functional as F
 
@@ -168,8 +213,19 @@ def check_kernel_branches():
         bwd = zip(("dxyz", "dviewdir", "dz", "dzs", "dzt"),
                   render.render_bwd(wts, *args, white, *cot),
                   render.render_bwd_plain(wts, *args, white, *cot))
+        budget = render.STASH_BYTES
+        if W == 256:      # one object per chunk: three K3 + K4 rounds, accumulated
+            render.STASH_BYTES = R * S * render.stash_layout(wts)["ld_pt"] * 4
+        try:
+            k, p = (fn(wts, *args, white, *cot) for fn in (render.render_train_bwd,
+                                                          render.render_train_bwd_plain))
+        finally:
+            render.STASH_BYTES = budget
+        train = [("dzs(train)", k[0], p[0]), ("dzt(train)", k[1], p[1]),
+                 ("dW(train)", torch.cat([t.flatten() / p_.abs().max().clamp_min(1e-30) for t, p_ in zip(k[2], p[2])]),
+                  torch.cat([t.flatten() / t.abs().max().clamp_min(1e-30) for t in p[2]]))]
         errs = []
-        for name, a, b in list(fwd) + list(bwd):
+        for name, a, b in list(fwd) + list(bwd) + train:
             err = float((a - b).abs().max())
             tol = VALUE_ATOL[name] if name in VALUE_ATOL else GRAD_RTOL * float(b.abs().max())
             good = err <= tol and bool(torch.isfinite(a).all())
@@ -190,33 +246,18 @@ def check_kernels():
     xyz = args[0]
     B, R, S = xyz.shape[:3]
     W, ns, nt = wts.W, wts.n_shape, wts.n_tex
-    ok = True
-    records = []
-
-    def compare(names, got, ref, tol_of):
-        nonlocal ok
-        worst = 0.0
-        for name, a, b in zip(names, got, ref):
-            err = float((a - b).abs().max())
-            scale = float(b.abs().max())
-            tol = tol_of(name, scale)
-            status = "ok" if err <= tol and torch.isfinite(a).all() else "FAIL"
-            ok &= status == "ok"
-            worst = max(worst, err)
-            print(f"   {name:8s} max_abs_err {err:.3e}  tol {tol:.3e}  (max |plain| {scale:.3e})  {status}")
-        return worst
-
+    print(f"   at the TTO path's shape, {B} objects x {R} rays x {S} samples:")
     with torch.no_grad():
         fwd_k = render.render_fwd(wts, *args)
         torch.cuda.synchronize()
         fwd_p = render.render_fwd_plain(wts, *args)
-    err_fwd = compare(("rgb", "depth", "acc"), fwd_k, fwd_p, lambda n, s: VALUE_ATOL[n])
+    err_fwd, ok_fwd = compare(("rgb", "depth", "acc"), fwd_k, fwd_p, lambda n, s: VALUE_ATOL[n])
 
     bwd_k = render.render_bwd(wts, *args, False, *cot)
     torch.cuda.synchronize()
     bwd_p = render.render_bwd_plain(wts, *args, False, *cot)
-    err_bwd = compare(("dxyz", "dviewdir", "dz", "dzs", "dzt"), bwd_k, bwd_p,
-                      lambda n, s: GRAD_RTOL * s)
+    err_bwd, ok_bwd = compare(("dxyz", "dviewdir", "dz", "dzs", "dzt"), bwd_k, bwd_p,
+                              lambda n, s: GRAD_RTOL * s)
 
     t_fwd = _timed(lambda: render.render_fwd(wts, *args), 10)
     with torch.no_grad():
@@ -236,36 +277,150 @@ def check_kernels():
     bwd_bytes = (act_bytes + w_all * 4 + B * R * 5 * 4
                  + (pts * 3 + B * R * 3 + B * S + B * (ns + nt) * W) * 4)
 
-    def bound(flops, nbytes):
-        t_ops, t_mem = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-        return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
-
-    for name, tpu, src, t_k, t_p, err, (b_ms, b_by), flops in (
-            ("render_fwd", "supnerf_tpu/ops/pallas_render.py:127", "supnerf_tpu_torch/csrc/render_fwd.cu",
-             t_fwd, t_fwd_p, err_fwd, bound(fwd_flops, fwd_bytes), fwd_flops),
-            ("render_bwd", "supnerf_tpu/ops/pallas_render.py:478", "supnerf_tpu_torch/csrc/render_bwd.cu",
-             t_bwd, t_bwd_p, err_bwd, bound(bwd_flops, bwd_bytes), bwd_flops)):
-        print(f"   {name}: {t_k:.3f} ms (plain {t_p:.3f} ms, bound {b_ms:.3f} ms by {b_by}; "
-              f"{flops / t_k / 1e9:.1f} TFLOP/s)")
-        records.append({"name": name, "route": "cuda", "source": src, "replaces": tpu,
-                        "launches": 0, "max_abs_err": err, "ms": t_k, "plain_ms": t_p,
-                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
-    if not ok:
+    records = [record("render_fwd", ["A1", "A5"], "supnerf_tpu/ops/pallas_render.py:127",
+                      "supnerf_tpu_torch/csrc/render_fwd.cu", t_fwd, t_fwd_p, err_fwd,
+                      bound(fwd_flops, fwd_bytes)),
+               record("render_bwd", ["A2"], "supnerf_tpu/ops/pallas_render.py:478",
+                      "supnerf_tpu_torch/csrc/render_bwd.cu", t_bwd, t_bwd_p, err_bwd,
+                      bound(bwd_flops, bwd_bytes))]
+    if not (ok_fwd and ok_bwd):
         raise RuntimeError("a kernel disagrees with its plain version")
     return records
 
 
-def main_path(records):
-    """The port's CLI TTO at the published config on 2 synthetic objects,
-    writing into a temporary directory that is removed afterwards."""
+def check_train_kernels():
+    """K1 at the training path's shape (8 objects, per-object latents) and
+    K3 + K4 against render_train_bwd_plain on the same inputs; K4 alone
+    against its plain version on the stash K3 wrote. Returns the records of
+    K1 (at this shape), K3 and K4."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    wts, args, cot = kernel_inputs(seed=1, B=TRAIN_BATCH)
+    B, R, S = args[0].shape[:3]
+    W, ns, nt = wts.W, wts.n_shape, wts.n_tex
+    names = ["d" + n for n in _linear_param_names(wts)]
+    print(f"   at the training path's shape, {B} objects x {R} rays x {S} samples:")
+    with torch.no_grad():
+        fwd_k = render.render_fwd(wts, *args)
+        torch.cuda.synchronize()
+        fwd_p = render.render_fwd_plain(wts, *args)
+    err_fwd, ok = compare(("rgb", "depth", "acc"), fwd_k, fwd_p, lambda n, s: VALUE_ATOL[n])
+
+    got = render.render_train_bwd(wts, *args, False, *cot)
+    torch.cuda.synchronize()
+    ref = render.render_train_bwd_plain(wts, *args, False, *cot)
+    err_k3, ok_k3 = compare(("dzs", "dzt"), got[:2], ref[:2], lambda n, s: GRAD_RTOL * s)
+    err_w, ok_w = compare(names, got[2], ref[2], lambda n, s: GRAD_RTOL * s)
+    del got, ref
+
+    # one stash buffer of a chunk, reused chunk by chunk as render_train_bwd does
+    L = render.stash_layout(wts)
+    chunk = max(1, min(B, render.STASH_BYTES // (R * S * L["ld_pt"] * 4)))
+    pt = torch.empty((chunk * R * S, L["ld_pt"]), device="cuda")
+    ray = torch.empty((chunk * R, L["ld_ray"]), device="cuda")
+    chunks = [slice(o, min(B, o + chunk)) for o in range(0, B, chunk)]
+
+    def view(sl):
+        n = sl.stop - sl.start
+        return pt[:n * R * S], ray[:n * R]
+
+    def k3(fn):
+        for sl in chunks:
+            fn(wts, *(t[sl] for t in args), False, *(c[sl] for c in cot), *view(sl))
+
+    k3(render.render_train_bwd_stash)
+    gk, gp = (render._linear_grad_buffers(wts, "cuda") for _ in range(2))
+    probs = {sl: render.wgrad_problems(wts, *view(sl), gk) for sl in chunks}
+    probs_p = {sl: render.wgrad_problems(wts, *view(sl), gp) for sl in chunks}
+    render.wgrad(probs[chunks[-1]])
+    torch.cuda.synchronize()
+    render.wgrad_plain(probs_p[chunks[-1]])
+    err_k4, ok_k4 = compare(names, gk, gp, lambda n, s: WGRAD_RTOL * s)
+
+    t_fwd = _timed(lambda: render.render_fwd(wts, *args), 5)
+    with torch.no_grad():
+        t_fwd_p = _timed(lambda: render.render_fwd_plain(wts, *args), 3)
+    t_k3 = _timed(lambda: k3(render.render_train_bwd_stash), 3)
+    t_k3_p = _timed(lambda: k3(render.render_train_bwd_stash_plain), 2)
+    t_k4 = _timed(lambda: [render.wgrad(probs[sl]) for sl in chunks], 5)
+    t_k4_p = _timed(lambda: [render.wgrad_plain(probs_p[sl]) for sl in chunks], 5)
+    t_k4_lib = _timed(lambda: [torch.mm(p.G.t(), p.A) for sl in chunks for p in probs_p[sl]], 5)
+    t_all = _timed(lambda: render.render_train_bwd(wts, *args, False, *cot), 3)
+    t_all_p = _timed(lambda: render.render_train_bwd_plain(wts, *args, False, *cot), 2)
+    print(f"   training backward K3 + K4 through render_train_bwd: {t_all:.3f} ms "
+          f"(render_train_bwd_plain {t_all_p:.3f} ms; {len(chunks)} chunks of {chunk} objects)")
+
+    pts, rays = B * R * S, B * R
+    w_fwd = sum(getattr(wts, f).numel() for f in render._PTR_FIELDS if not f.startswith("wt_"))
+    w_all = sum(getattr(wts, f).numel() for f in render._PTR_FIELDS)
+    act_bytes = sum(t.numel() for t in args) * 4
+    # the stash K3 writes and K4 reads: its used columns once
+    stash_bytes = (pts * _stash_width(L, wts) + rays * (L["r_gv"] + W)) * 4
+    fwd_flops = 2 * pts * decoder_macs(W, ns, nt)
+    fwd_bytes = act_bytes + w_fwd * 4 + rays * 5 * 4
+    k3_flops = fwd_flops + 2 * pts * (transposed_macs(W, ns, nt) - W * 63)
+    k3_bytes = act_bytes + w_all * 4 + rays * 5 * 4 + stash_bytes + rays * (ns + nt) * W * 4
+    k4_flops = sum(2 * p.A.shape[0] * p.A.shape[1] * p.G.shape[1]
+                   + (p.A.shape[0] * p.G.shape[1] if p.b_out is not None else 0)
+                   for sl in chunks for p in probs[sl])
+    k4_bytes = stash_bytes + sum(t.numel() for t in gk) * 4
+    records = [
+        record("render_fwd", ["A1", "A5"], "supnerf_tpu/ops/pallas_render.py:127",
+               "supnerf_tpu_torch/csrc/render_fwd.cu", t_fwd, t_fwd_p, err_fwd,
+               bound(fwd_flops, fwd_bytes)),
+        record("render_train_bwd", ["A6"], "supnerf_tpu/ops/pallas_render.py:991",
+               "supnerf_tpu_torch/csrc/render_train_bwd.cu", t_k3, t_k3_p, err_k3,
+               bound(k3_flops, k3_bytes)),
+        record("wgrad", ["A6"], "supnerf_tpu/ops/pallas_render.py:991",
+               "supnerf_tpu_torch/csrc/wgrad.cu", t_k4, t_k4_p, err_k4,
+               bound(k4_flops, k4_bytes), library_ms=t_k4_lib)]
+    if not (ok and ok_k3 and ok_w and ok_k4):
+        raise RuntimeError("a training kernel disagrees with its plain version")
+    return records
+
+
+def _linear_param_names(wts):
+    from supnerf_tpu_torch.ops import render
+
+    return [f"{n}.{k}" for n in render.linear_names(wts.n_shape, wts.n_tex)
+            for k in ("weight", "bias")]
+
+
+def _stash_width(L, wts):
+    """Columns of a stash row that K3 writes (ld_pt less its padding)."""
+    from supnerf_tpu_torch.ops import render
+
+    last = max(render._STASH_POINT_COLS, key=lambda n: L[n])
+    return L[last] + 3          # g_rgb, the last block, is 3 wide
+
+
+TTO_KERNELS = ("render_fwd", "render_bwd")
+TRAIN_KERNELS = ("render_fwd", "render_train_bwd", "wgrad")
+
+
+def _in_temp_dir(fn):
     out_dir = tempfile.mkdtemp(prefix="supnerf_smoke_")
     try:
-        return _main_path(records, out_dir)
+        return fn(out_dir)
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def _main_path(records, out_dir):
+def _path_counts(name, kernels):
+    from supnerf_tpu_torch.ops import render
+
+    counts = {k: render.LAUNCHES[k] for k in kernels}
+    print(f"   launches on the {name} path: {counts}")
+    if min(counts.values()) == 0:
+        raise RuntimeError(f"a kernel of the {name} path never launched: {counts}")
+    return counts
+
+
+def tto_path(out_dir):
+    """The port's CLI TTO at the published config on 2 synthetic objects,
+    writing into a temporary directory. Returns the launch counts."""
     import numpy as np
     import torch
 
@@ -280,15 +435,10 @@ def _main_path(records, out_dir):
         "--device", "cuda", "--seed", "0", "--save_dir", out_dir])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = dict(render.LAUNCHES)
-    print(f"   main path: {seconds:.2f} s for 2 objects, {2 * 60 / seconds:.1f} objects/min "
+    counts = _path_counts("TTO", TTO_KERNELS)
+    print(f"   TTO path: {seconds:.2f} s for 2 objects, {2 * 60 / seconds:.1f} objects/min "
           "end to end through the CLI; phases: " + ", ".join(
         f"{k} {v:.2f} s" for k, v in summary["phase_seconds"].items()))
-    print(f"   launches: {counts}")
-    for r in records:
-        r["launches"] = counts[r["name"]]
-    if min(counts.values()) == 0:
-        raise RuntimeError(f"a kernel of the main path never launched: {counts}")
     result_file = os.path.join(out_dir, "codes+poses.pkl")
     if not os.path.exists(result_file):
         raise RuntimeError("codes+poses.pkl was not written")
@@ -305,6 +455,88 @@ def _main_path(records, out_dir):
           f"trans err {agg['trans_err'][-1]:.4f} m, depth err {agg['depth_err'][-1]:.4f} m "
           f"(iteration 0: psnr {agg['psnr'][0]:.3f}, rot {agg['rot_err_deg'][0]:.3f}, "
           f"trans {agg['trans_err'][0]:.4f})")
+    return counts
+
+
+def train_path(out_dir):
+    """The port's CLI training at the published config: 16 synthetic objects,
+    batch 8, 2 epochs (4 steps), then a run resumed from epoch_0 and the TTO
+    loader on the checkpoint. Returns the launch counts of the 4 steps."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.cli import train
+    from supnerf_tpu_torch.cli.common import load_model_and_codes
+    from supnerf_tpu_torch.config import load_hpams
+    from supnerf_tpu_torch.ops import render
+
+    config = os.path.join(HERE, "jsonfiles", "supnerf.nusc.vehicle.car.json")
+    run_dir, resume_dir = os.path.join(out_dir, "run"), os.path.join(out_dir, "resumed")
+    argv = ["--config_file", config, "--dataset", "synthetic",
+            "--num_objects", str(TRAIN_OBJECTS), "--batch_size", str(TRAIN_BATCH),
+            "--epochs", "2", "--device", "cuda", "--seed", "0", "--check_iter", "1"]
+    render.reset_launch_counts()
+    summary = train.main(argv + ["--save_dir", run_dir])
+    torch.cuda.synchronize()
+    counts = _path_counts("training", TRAIN_KERNELS)
+    steps = summary["metrics"]
+    if len(steps) != 2 * TRAIN_OBJECTS // TRAIN_BATCH:
+        raise RuntimeError(f"{len(steps)} training steps instead of 4")
+    if not all(math.isfinite(m[k]) for m in steps for k in ("loss_total", "loss_rgb",
+                                                            "loss_occ", "psnr")):
+        raise RuntimeError(f"a training loss is not finite: {steps}")
+    for name in ("epoch_0.pth", "epoch_1.pth", "epoch_1_optim.pth", "models.pth"):
+        if not os.path.exists(os.path.join(run_dir, name)):
+            raise RuntimeError(f"{name} was not written")
+    ph = summary["phase_seconds"]
+    loop = sum(m["seconds"] for m in steps)
+    print(f"   training path: {len(steps)} steps of {TRAIN_BATCH} objects in "
+          f"{summary['seconds']:.2f} s end to end through the CLI (checkpoints included): "
+          f"{len(steps) / summary['seconds']:.2f} steps/s, "
+          f"{len(steps) * TRAIN_BATCH / summary['seconds']:.1f} objects/s; "
+          f"the step loop alone {len(steps) / loop:.2f} steps/s")
+    print("   phase split (s, 4 steps; forward includes render): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in ph.items()))
+    print("   per step (s): " + ", ".join(f"{m['seconds']:.3f}" for m in steps))
+    print("   last step's split (s; forward includes render): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in steps[-1]["phase_seconds"].items()))
+    print("   losses: " + ", ".join(f"{m['loss_total']:.4f}" for m in steps))
+
+    resumed = train.main(argv + ["--save_dir", resume_dir, "--resume_dir", run_dir,
+                                 "--resume_from_epoch", "0"])["metrics"]
+    want, got = steps[2]["loss_total"], resumed[0]["loss_total"]
+    print(f"   resumed from epoch_0: step 3 loss {got:.7f} against {want:.7f} "
+          f"(rel diff {abs(got - want) / abs(want):.2e}, tol {RESUME_RTOL:.0e})")
+    if not abs(got - want) <= RESUME_RTOL * abs(want):
+        raise RuntimeError("the resumed run does not repeat step 3's loss")
+
+    hpams = dict(load_hpams(config), model_dir=run_dir)
+    model, mean_shape, mean_texture = load_model_and_codes(hpams, "cuda", model_epoch=1)
+    if not (np.isfinite(mean_shape).all() and np.isfinite(mean_texture).all()):
+        raise RuntimeError("the checkpoint's mean codes are not finite")
+    print(f"   load_model_and_codes strict-loaded epoch_1.pth "
+          f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
+    return counts
+
+
+def kernel_records(tto_records, train_records, tto_counts, train_counts):
+    """One record per kernel, launches from the path that runs it (K1 from
+    the training path, this slice's; launches_by_path has both); K1's
+    numbers are the training shape's, with the TTO shape's beside them."""
+    by_name = {r["name"]: r for r in train_records}
+    for r in tto_records:
+        if r["name"] in by_name:
+            by_name[r["name"]]["tto_shape"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                  "bound_by", "max_abs_err")}
+        else:
+            by_name[r["name"]] = r
+    records = [by_name[n] for n in ("render_fwd", "render_bwd", "render_train_bwd", "wgrad")]
+    for r in records:
+        paths = {"tto": tto_counts.get(r["name"], 0), "train": train_counts.get(r["name"], 0)}
+        r["launches_by_path"] = paths
+        r["launches"] = paths["train"] if r["name"] in TRAIN_KERNELS else paths["tto"]
     return records
 
 
@@ -329,14 +561,19 @@ def main():
     build()
     done(t0, "build")
     t0 = phase("kernels vs plain versions")
-    records = check_kernels()
+    tto_records = check_kernels()
+    train_records = check_train_kernels()
     check_kernel_branches()
     done(t0, "kernels")
-    t0 = phase("main path: TTO through the CLI")
-    records = main_path(records)
-    done(t0, "main path")
+    t0 = phase("TTO path through the CLI")
+    tto_counts = _in_temp_dir(tto_path)
+    done(t0, "TTO path")
+    t0 = phase("training path through the CLI")
+    train_counts = _in_temp_dir(train_path)
+    done(t0, "training path")
+    records = kernel_records(tto_records, train_records, tto_counts, train_counts)
     print(f"total {time.perf_counter() - t_all:.1f} s")
-    print("kernels: " + " ".join(f"{r['name']}({t})" for r, t in zip(records, ("A1", "A2"))))
+    print("kernels: " + " ".join(f"{r['name']}({','.join(r['ports'])})" for r in records))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

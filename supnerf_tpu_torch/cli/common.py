@@ -33,6 +33,17 @@ def add_optimize_args(p: argparse.ArgumentParser):
     return p
 
 
+def mean_codes(shape_codes, texture_codes, optimized_idx) -> tuple:
+    """Mean shape / texture codes (numpy) over the instances that were
+    trained (reference load_model :1799-1808), over all of them when none
+    was; tensors or arrays of one state or checkpoint."""
+    sc, tc, opt = (torch.as_tensor(t).detach().cpu().numpy()
+                   for t in (shape_codes, texture_codes, optimized_idx))
+    if (opt > 0).any():
+        sc, tc = sc[opt > 0], tc[opt > 0]
+    return sc.mean(0), tc.mean(0)
+
+
 def load_model_and_codes(hpams: dict, device, model_epoch=None, seed: int = 0):
     """Build the model and load a reference-format checkpoint
     (model_dir/models.pth or epoch_N.pth: {'model_params', 'shape_code_params',
@@ -50,12 +61,10 @@ def load_model_and_codes(hpams: dict, device, model_epoch=None, seed: int = 0):
     if path is not None:
         saved = torch.load(path, map_location="cpu", weights_only=False)
         model.load_state_dict(saved["model_params"], strict=True)
-        shape_w = saved["shape_code_params"]["weight"].numpy()
-        tex_w = saved["texture_code_params"]["weight"].numpy()
-        if "optimized_idx" in saved and (saved["optimized_idx"].numpy() > 0).any():
-            mask = saved["optimized_idx"].numpy() > 0
-            shape_w, tex_w = shape_w[mask], tex_w[mask]
-        mean_shape, mean_texture = shape_w.mean(0), tex_w.mean(0)
+        shape_w = saved["shape_code_params"]["weight"]
+        mean_shape, mean_texture = mean_codes(
+            shape_w, saved["texture_code_params"]["weight"],
+            saved.get("optimized_idx", torch.zeros(len(shape_w))))
         print(f"loaded reference checkpoint {path}")
     else:
         init_model(model, seed)

@@ -106,3 +106,48 @@ def convert_supnerf_variables(variables, net_hyperparams: dict) -> dict:
     sd.update(convert_pose_refiner(params["pose_refiner"], hp.get("pose_blocks", 3),
                                    hp.get("regress_blocks", 3)))
     return sd
+
+
+def _adam_moments(opt_state):
+    """The (count, mu, nu) of optax's scale_by_adam inside an adamw state
+    (a tuple of states, found by its fields)."""
+    for s in opt_state:
+        if hasattr(s, "mu") and hasattr(s, "nu"):
+            return int(np.asarray(s.count)), s.mu, s.nu
+    raise ValueError("no scale_by_adam state (mu, nu) in the optimizer state")
+
+
+def convert_train_state(jax_state, hpams: dict, device="cpu", cfg=None):
+    """A JAX TrainState (supnerf_tpu/training/train_step.py; its leaves as
+    numpy arrays) -> this package's training.train_step.TrainState on
+    `device`: the variables into a SUPNeRF (load_state_dict strict), both
+    code tables, optimized_idx, niter, and both optimizers' counts and
+    moments, so that the two packages continue from the same numbers."""
+    from supnerf_tpu_torch.models.factory import build_model
+    from supnerf_tpu_torch.training.train_step import TrainConfig, init_train_state
+
+    hp = hpams["net_hyperparams"]
+    cfg = cfg or TrainConfig(latent_dim=hp.get("latent_dim", 256))
+    model = build_model(hpams["arch"], hp)
+    stats = jax_state.batch_stats
+    model.load_state_dict(convert_supnerf_variables(
+        {"params": jax_state.params, "batch_stats": stats}, hp), strict=True)
+    n = np.asarray(jax_state.shape_codes).shape[0]
+    state = init_train_state(model, n, cfg, device)
+    with torch.no_grad():
+        for dst, src in ((state.shape_codes, jax_state.shape_codes),
+                         (state.texture_codes, jax_state.texture_codes),
+                         (state.optimized_idx, jax_state.optimized_idx)):
+            dst.copy_(_t(src))
+    state.niter = int(np.asarray(jax_state.niter))
+
+    names = [name for name, _ in state.model.named_parameters()]
+    count, mu, nu = _adam_moments(jax_state.opt_state_model)
+    moments = [convert_supnerf_variables({"params": tree, "batch_stats": stats}, hp)
+               for tree in (mu, nu)]
+    state.opt_model.load_state_dict({"m": [moments[0][k] for k in names],
+                                     "v": [moments[1][k] for k in names], "count": count})
+    count, mu, nu = _adam_moments(jax_state.opt_state_codes)
+    state.opt_codes.load_state_dict({"m": [_t(a) for a in mu], "v": [_t(a) for a in nu],
+                                     "count": count})
+    return state

@@ -9,6 +9,7 @@ on every device for one seed.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -16,18 +17,47 @@ from torch import nn
 
 
 class BatchStatNorm2d(nn.BatchNorm2d):
-    """BatchNorm2d that always normalises with the current batch's statistics
-    and never updates its running buffers: the reference never calls .eval(),
-    and test-time optimization encodes each object as a batch of one. The
-    running buffers stay only so that reference checkpoints load strictly.
-    The statistics are computed here rather than by F.batch_norm, which
-    refuses a single value per channel (a 1 x 1 feature map of one image)
-    where the JAX package's BatchNorm returns the bias."""
+    """BatchNorm2d that always normalises with the current batch's statistics:
+    the reference never calls .eval(), and test-time optimization encodes
+    each object as a batch of one. The statistics are computed here rather
+    than by F.batch_norm, which refuses a single value per channel (a 1 x 1
+    feature map of one image) where the JAX package's BatchNorm returns the
+    bias.
+
+    The running buffers move only while update_stats is set (the training
+    step sets it through batch_stat_updates; test-time optimization never
+    does), and then by flax's rule (supnerf_tpu/models/layers.py:batch_norm,
+    momentum 0.9): mean <- 0.9 mean + 0.1 batch_mean and var <- 0.9 var +
+    0.1 batch_var with the BIASED batch variance. torch's own BatchNorm2d
+    would use the unbiased one, n/(n-1) larger: a factor of 4/3 on the 1 x 1
+    maps of the last stage at batch 4."""
+
+    update_stats = False
 
     def forward(self, x):
         var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False, keepdim=True)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.mul_(0.9).add_(mean.flatten(), alpha=0.1)
+                self.running_var.mul_(0.9).add_(var.flatten(), alpha=0.1)
+                self.num_batches_tracked += 1
         scale = self.weight[:, None, None] * torch.rsqrt(var + self.eps)
         return (x - mean) * scale + self.bias[:, None, None]
+
+
+@contextlib.contextmanager
+def batch_stat_updates(module: nn.Module):
+    """Within the block, every BatchStatNorm2d of `module` updates its
+    running buffers on each forward (the JAX train step's
+    mutable=["batch_stats"])."""
+    norms = [m for m in module.modules() if isinstance(m, BatchStatNorm2d)]
+    for m in norms:
+        m.update_stats = True
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.update_stats = False
 
 
 @torch.no_grad()

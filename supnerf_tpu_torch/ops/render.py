@@ -1,27 +1,36 @@
-"""Fused conditioned-field + compositing render on two hand-written CUDA
-kernels, their plain PyTorch versions, and the autograd.Function that joins
-them; the port of supnerf_tpu/ops/pallas_render.py (A1, A2) and of the parts
-of supnerf_tpu/ops/pallas_field.py it uses (pack_decoder_params,
+"""Fused conditioned-field + compositing render on hand-written CUDA
+kernels, their plain PyTorch versions, and the autograd.Functions that join
+them; the port of supnerf_tpu/ops/pallas_render.py (A1, A2, A5, A6) and of
+the parts of supnerf_tpu/ops/pallas_field.py it uses (pack_decoder_params,
 conditioned_latents, flatten_weights).
 
-  render_fwd  (K1, csrc/render_fwd.cu): per ray, the decoder on every sample
-              and the compositing -> rgb (B,R,3), depth (B,R), acc (B,R).
-  render_bwd  (K2, csrc/render_bwd.cu): recompute + manual compositing VJP +
-              transposed decoder chain -> dxyz, dviewdir, dz, dz_shape, dz_tex.
+  render_fwd        (K1, csrc/render_fwd.cu): per ray, the decoder on every
+                    sample and the compositing -> rgb (B,R,3), depth (B,R),
+                    acc (B,R). Serves test-time optimization (A1) and, with
+                    per-object latents, the training forward (A5).
+  render_bwd        (K2, csrc/render_bwd.cu): frozen-decoder backward,
+                    recompute + manual compositing VJP + transposed decoder
+                    chain -> dxyz, dviewdir, dz, dz_shape, dz_tex (A2).
+  render_train_bwd  (K3, csrc/render_train_bwd.cu + K4, csrc/wgrad.cu): the
+                    training backward (A6 with data_grads=False): dz_shape,
+                    dz_tex and every decoder weight and bias gradient. K3
+                    runs K2's per-ray work and stashes each layer's input
+                    and pre-activation-gradient rows; K4 (wgrad) reduces
+                    them into the weight gradients.
 
 Shapes: objects B along axis 0, R rays, S <= 64 samples per ray shared by all
 rays of an object (xyz (B,R,S,3), per-ray viewdir (B,R,3), z (B,S)), latent
 projections zs (B,n_shape,W), zt (B,n_tex,W). Everything is float32.
 
 Each wrapper takes its plain version for tensors on the CPU, and only then.
-For CUDA tensors it launches its kernel or raises; there is no fallback. The
-decoder is frozen: the weights are constants of the autograd.Function and get
-no gradient (test-time optimization, reference optimizer_nuscenes.py:1762).
+For CUDA tensors it launches its kernel or raises; there is no fallback.
+FieldComposite freezes the decoder (test-time optimization, reference
+optimizer_nuscenes.py:1762); FieldCompositeTrain trains it.
 
-The kernels are built at first use by one nvcc call over csrc/*.cu into
-supnerf_tpu_torch/_build/ (git-ignored), under a name keyed by a hash of the
-sources and flags, and bound through ctypes; importing this module builds
-nothing.
+The kernels are built at first use by nvcc over csrc/*.cu (one process per
+source, started together, then one link) into supnerf_tpu_torch/_build/
+(git-ignored), under a name keyed by a hash of the sources and flags, and
+bound through ctypes; importing this module builds nothing.
 """
 from __future__ import annotations
 
@@ -50,7 +59,7 @@ MAX_SAMPLES = 64          # kRows in csrc/render_common.cuh
 
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one where it launches its kernel and nowhere else.
-LAUNCHES = {"render_fwd": 0, "render_bwd": 0}
+LAUNCHES = {"render_fwd": 0, "render_bwd": 0, "render_train_bwd": 0, "wgrad": 0}
 
 
 def reset_launch_counts():
@@ -64,10 +73,10 @@ def reset_launch_counts():
 
 @dataclasses.dataclass(frozen=True)
 class DecoderWeights:
-    """The frozen decoder as kernel operands: w_* in the (in, out) layout the
+    """The decoder as kernel operands: w_* in the (in, out) layout the
     forward chain reads, wt_* in torch's (out, in) layout for the backward's
     transposed chain, and the latent projections (applied outside the
-    kernels, once per object)."""
+    kernels, once per object; None where only the kernels need the pack)."""
 
     w_xyz: torch.Tensor
     b_xyz: torch.Tensor
@@ -92,10 +101,10 @@ class DecoderWeights:
     wt_vd_a: torch.Tensor
     wt_tx: torch.Tensor
     wt_r1: torch.Tensor
-    w_shape_latent: torch.Tensor   # (n_shape, latent, W)
-    b_shape_latent: torch.Tensor   # (n_shape, W)
-    w_tex_latent: torch.Tensor     # (n_tex, latent, W)
-    b_tex_latent: torch.Tensor     # (n_tex, W)
+    w_shape_latent: torch.Tensor | None   # (n_shape, latent, W)
+    b_shape_latent: torch.Tensor | None   # (n_shape, W)
+    w_tex_latent: torch.Tensor | None     # (n_tex, latent, W)
+    b_tex_latent: torch.Tensor | None     # (n_tex, W)
     num_xyz_freq: int
     num_dir_freq: int
 
@@ -122,46 +131,78 @@ class _DecoderPtrs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _PTR_FIELDS]
 
 
-def pack_decoder_params(decoder) -> DecoderWeights:
-    """Frozen, contiguous float32 copies of a CodeNeRF-style decoder's weights
-    (any module holding the reference layer names: CodeNeRFDecoder, SUPNeRF),
-    on the decoder's device."""
-    n_sh, n_tx = decoder.shape_blocks, decoder.texture_blocks
-    W = decoder.encoding_shape.weight.shape[0]
+def linear_names(n_shape: int, n_tex: int) -> list:
+    """The decoder layers the render kernels run, in kernel order (the
+    reference's module names; the latent projections are not among them)."""
+    return (["encoding_xyz.0"] + [f"shape_layer_{j}.0" for j in range(1, n_shape + 1)]
+            + ["encoding_shape", "sigma.0", "encoding_viewdir.0"]
+            + [f"texture_layer_{j}.0" for j in range(1, n_tex + 1)] + ["rgb.0", "rgb.2"])
 
-    def lin(name):
+
+def decoder_linear_params(decoder) -> list:
+    """The live weight and bias of every layer of linear_names, flattened
+    [w0, b0, w1, b1, ...] in torch.nn.Linear's (out, in) layout."""
+    out = []
+    for name in linear_names(decoder.shape_blocks, decoder.texture_blocks):
         layer = decoder.get_submodule(name)
-        return layer.weight.detach().float(), layer.bias.detach().float()
+        out += [layer.weight, layer.bias]
+    return out
+
+
+def pack_linear_params(params, n_shape: int, n_tex: int, num_xyz_freq: int,
+                       num_dir_freq: int, latents=None) -> DecoderWeights:
+    """Kernel operands from the flat Linear-layout list of
+    decoder_linear_params: the (in, out) copies the forward chain reads,
+    w_vd split into its trunk and direction rows, w_sg flattened, the block
+    layers stacked, and the (out, in) wt_* copies of the transposed chain.
+    Differentiable in `params` (the plain training backward relies on it).
+    latents: optional ((w, b) of each shape latent layer, (w, b) of each
+    texture latent layer); without it the latent fields are None."""
+    lin = [(params[2 * i], params[2 * i + 1]) for i in range(len(params) // 2)]
+    (w_xyz, b_xyz), sh = lin[0], lin[1:1 + n_shape]
+    (w_es, b_es), (w_sg, b_sg), (w_vd, b_vd) = lin[1 + n_shape:4 + n_shape]
+    tx = lin[4 + n_shape:4 + n_shape + n_tex]
+    (w_r1, b_r1), (w_r2, b_r2) = lin[4 + n_shape + n_tex:]
+    W = w_es.shape[0]
 
     def c(t):
         return t.contiguous()
 
-    w_xyz, b_xyz = lin("encoding_xyz.0")
-    sh = [lin(f"shape_layer_{j}.0") for j in range(1, n_sh + 1)]
-    sl = [lin(f"shape_latent_layer_{j}.0") for j in range(1, n_sh + 1)]
-    tx = [lin(f"texture_layer_{j}.0") for j in range(1, n_tx + 1)]
-    tl = [lin(f"texture_latent_layer_{j}.0") for j in range(1, n_tx + 1)]
-    w_es, b_es = lin("encoding_shape")
-    w_sg, b_sg = lin("sigma.0")
-    w_vd, b_vd = lin("encoding_viewdir.0")
-    w_r1, b_r1 = lin("rgb.0")
-    w_r2, b_r2 = lin("rgb.2")
+    def stack(pairs, i, transpose=False):
+        return c(torch.stack([p[i].t() if transpose else p[i] for p in pairs]))
+
+    lat = {k: None for k in ("w_shape_latent", "b_shape_latent", "w_tex_latent", "b_tex_latent")}
+    if latents is not None:
+        sl, tl = latents
+        lat = {"w_shape_latent": stack(sl, 0, True), "b_shape_latent": stack(sl, 1),
+               "w_tex_latent": stack(tl, 0, True), "b_tex_latent": stack(tl, 1)}
     return DecoderWeights(
-        w_xyz=c(w_xyz.t()), b_xyz=c(b_xyz),
-        w_sh=c(torch.stack([w.t() for w, _ in sh])), b_sh=c(torch.stack([b for _, b in sh])),
-        w_es=c(w_es.t()), b_es=c(b_es),
-        w_sg=c(w_sg.reshape(-1)), b_sg=c(b_sg),
+        w_xyz=c(w_xyz.t()), b_xyz=c(b_xyz), w_sh=stack(sh, 0, True), b_sh=stack(sh, 1),
+        w_es=c(w_es.t()), b_es=c(b_es), w_sg=c(w_sg.reshape(-1)), b_sg=c(b_sg),
         w_vd_a=c(w_vd[:, :W].t()), w_vd_b=c(w_vd[:, W:].t()), b_vd=c(b_vd),
-        w_tx=c(torch.stack([w.t() for w, _ in tx])), b_tx=c(torch.stack([b for _, b in tx])),
+        w_tx=stack(tx, 0, True), b_tx=stack(tx, 1),
         w_r1=c(w_r1.t()), b_r1=c(b_r1), w_r2=c(w_r2.t()), b_r2=c(b_r2),
-        wt_xyz=c(w_xyz), wt_sh=c(torch.stack([w for w, _ in sh])), wt_es=c(w_es),
-        wt_vd_a=c(w_vd[:, :W]), wt_tx=c(torch.stack([w for w, _ in tx])), wt_r1=c(w_r1),
-        w_shape_latent=c(torch.stack([w.t() for w, _ in sl])),
-        b_shape_latent=c(torch.stack([b for _, b in sl])),
-        w_tex_latent=c(torch.stack([w.t() for w, _ in tl])),
-        b_tex_latent=c(torch.stack([b for _, b in tl])),
-        num_xyz_freq=decoder.num_xyz_freq, num_dir_freq=decoder.num_dir_freq,
+        wt_xyz=c(w_xyz), wt_sh=stack(sh, 0), wt_es=c(w_es), wt_vd_a=c(w_vd[:, :W]),
+        wt_tx=stack(tx, 0), wt_r1=c(w_r1), **lat,
+        num_xyz_freq=num_xyz_freq, num_dir_freq=num_dir_freq,
     )
+
+
+def pack_decoder_params(decoder) -> DecoderWeights:
+    """Frozen (detached), contiguous float32 kernel operands of a
+    CodeNeRF-style decoder (any module holding the reference layer names:
+    CodeNeRFDecoder, SUPNeRF), latent projections included, on the
+    decoder's device."""
+    n_sh, n_tx = decoder.shape_blocks, decoder.texture_blocks
+
+    def pair(name):
+        layer = decoder.get_submodule(name)
+        return layer.weight.detach(), layer.bias.detach()
+
+    latents = ([pair(f"shape_latent_layer_{j}.0") for j in range(1, n_sh + 1)],
+               [pair(f"texture_latent_layer_{j}.0") for j in range(1, n_tx + 1)])
+    return pack_linear_params([t.detach() for t in decoder_linear_params(decoder)], n_sh, n_tx,
+                              decoder.num_xyz_freq, decoder.num_dir_freq, latents)
 
 
 def conditioned_latents(wts: DecoderWeights, shapecode, texturecode):
@@ -234,21 +275,42 @@ def library_path() -> Path:
 
 
 def build_kernels() -> dict:
-    """Compile csrc/*.cu with one nvcc call unless this source hash is built.
+    """Compile csrc/*.cu unless this source hash is built: one nvcc process
+    per source, all started together, then one link into a shared library.
     Returns {'path', 'seconds', 'log'} ('seconds' 0.0 when already built)."""
     out = library_path()
     if out.exists():
         return {"path": out, "seconds": 0.0, "log": ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [str(s) for s in sorted(CSRC_DIR.glob("*.cu"))]
+    tag = f"{out.stem}.{os.getpid()}"
+    compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC_DIR.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        jobs.append((obj, subprocess.Popen([_nvcc(), *compile_flags, "-c", "-o", str(obj), str(src)],
+                                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                           text=True)))
+    logs, failed = [], []
+    for obj, proc in jobs:
+        logs.append(proc.communicate()[0])
+        if proc.returncode != 0:
+            failed.append(obj.name)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    if not failed:
+        link = subprocess.run([_nvcc(), "-shared", "-Xcompiler", "-fPIC", "-o", str(tmp)]
+                              + [str(o) for o, _ in jobs], capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode != 0:
+            failed.append("link")
+    for obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     os.replace(tmp, out)
-    return {"path": out, "seconds": seconds, "log": proc.stdout + proc.stderr}
+    return {"path": out, "seconds": seconds, "log": log}
 
 
 @functools.cache
@@ -260,6 +322,10 @@ def _library():
     lib.supnerf_render_fwd.restype = i
     lib.supnerf_render_bwd.argtypes = head + [p] * 3 + [p] * 5 + [p]
     lib.supnerf_render_bwd.restype = i
+    lib.supnerf_render_train_bwd.argtypes = head + [p] * 3 + [ctypes.POINTER(_StashLayout)] + [p] * 3
+    lib.supnerf_render_train_bwd.restype = i
+    lib.supnerf_wgrad.argtypes = [ctypes.POINTER(_WgradProblem), i, i, p]
+    lib.supnerf_wgrad.restype = i
     return lib
 
 
@@ -394,3 +460,341 @@ def field_composite(wts: DecoderWeights, xyz, viewdir, z, shapecode, texturecode
         raise ValueError(f"unknown field_impl {impl!r}")
     return FieldComposite.apply(xyz.contiguous(), viewdir.contiguous(), z.contiguous(),
                                 zs.contiguous(), zt.contiguous(), wts, white_bkgd)
+
+
+# --------------------------------------------------------------------------
+# training render: A5 forward on K1, A6 backward on K3 + K4
+# --------------------------------------------------------------------------
+
+# Budget of K3's stash per launch (about 1 GB per object at the published
+# 1024 x 64 rays and W 256); the batch is cut into chunks of objects to fit.
+STASH_BYTES = 4 << 30
+_STASH_POINT_COLS = ("a_xyz", "a_sh", "a_es", "a_e", "a_tx", "a_r1", "a_hh",
+                     "g_xyz", "g_sh", "g_e", "g_sig", "g_v", "g_tx", "g_hh", "g_rgb")
+
+
+class _StashLayout(ctypes.Structure):
+    """csrc/render_train_bwd.cu:StashLayout."""
+    _fields_ = ([("pt", ctypes.c_void_p), ("ray", ctypes.c_void_p),
+                 ("ld_pt", ctypes.c_int), ("ld_ray", ctypes.c_int)]
+                + [(name, ctypes.c_int) for name in _STASH_POINT_COLS]
+                + [("r_dpe", ctypes.c_int), ("r_gv", ctypes.c_int)])
+
+
+class _WgradProblem(ctypes.Structure):
+    """csrc/wgrad.cu:WgradProblem."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in ("A", "G", "partial", "w_out", "b_out")]
+                + [(name, ctypes.c_int) for name in ("lda", "ldg", "M", "K", "N", "ldw", "col0",
+                                                     "n_split", "rows_per_split", "block0",
+                                                     "rblock0")])
+
+
+def stash_layout(wts: DecoderWeights) -> dict:
+    """Float column offsets of K3's stash: per point, every layer's input
+    rows (a_*) and pre-activation gradient rows (g_*), ld_pt floats a row;
+    per ray, the direction encoding (r_dpe) and the viewdir layer's
+    gradient summed over the ray's samples (r_gv), ld_ray floats a row."""
+    W, ns, nt = wts.W, wts.n_shape, wts.n_tex
+    widths = {"a_xyz": 3 * (2 * wts.num_xyz_freq + 1), "a_sh": ns * W, "a_es": W, "a_e": W,
+              "a_tx": nt * W, "a_r1": W, "a_hh": W // 2, "g_xyz": W, "g_sh": ns * W,
+              "g_e": W, "g_sig": 1, "g_v": W, "g_tx": nt * W, "g_hh": W // 2, "g_rgb": 3}
+    out, off = {}, 0
+    for name in _STASH_POINT_COLS:
+        out[name] = off
+        off += widths[name]
+    d_dir = 3 * (2 * wts.num_dir_freq + 1)
+    out.update(ld_pt=-(-off // 4) * 4, r_dpe=0, r_gv=d_dir, ld_ray=-(-(d_dir + W) // 4) * 4)
+    return out
+
+
+def linear_params_of(wts: DecoderWeights) -> list:
+    """decoder_linear_params recovered from kernel operands (Linear layout)."""
+    out = [wts.wt_xyz, wts.b_xyz]
+    for j in range(wts.n_shape):
+        out += [wts.wt_sh[j], wts.b_sh[j]]
+    out += [wts.wt_es, wts.b_es, wts.w_sg[None], wts.b_sg,
+            torch.cat([wts.wt_vd_a, wts.w_vd_b.t()], 1), wts.b_vd]
+    for j in range(wts.n_tex):
+        out += [wts.wt_tx[j], wts.b_tx[j]]
+    return out + [wts.wt_r1, wts.b_r1, wts.w_r2.t(), wts.b_r2]
+
+
+@dataclasses.dataclass
+class WgradProblem:
+    """One layer's weight gradient for K4:
+    w_out[n, col0 + k] (+)= sum_r A[r, k] G[r, n] and b_out[n] (+)= sum_r G[r, n]."""
+
+    A: torch.Tensor                 # (M, K), unit column stride
+    G: torch.Tensor                 # (M, N), unit column stride
+    w_out: torch.Tensor             # (N, >= col0 + K), contiguous
+    col0: int
+    b_out: torch.Tensor | None      # (N,) or None
+
+
+def wgrad_problems(wts: DecoderWeights, pt, ray, grads) -> list:
+    """The decoder's weight-gradient problems over a stash (pt rows per
+    point, ray rows per ray; stash_layout) into `grads`, the flat
+    Linear-layout list of linear_params_of."""
+    L, W, ns, nt = stash_layout(wts), wts.W, wts.n_shape, wts.n_tex
+    d_xyz, d_dir = 3 * (2 * wts.num_xyz_freq + 1), 3 * (2 * wts.num_dir_freq + 1)
+
+    def col(name, j=0, width=W):
+        return pt[:, L[name] + j * W:L[name] + j * W + width]
+
+    def prob(a, g, layer, col0=0, bias=True):       # layer: index in linear_names
+        return WgradProblem(a, g, grads[2 * layer], col0, grads[2 * layer + 1] if bias else None)
+
+    probs = [prob(col("a_xyz", width=d_xyz), col("g_xyz"), 0)]
+    probs += [prob(col("a_sh", j), col("g_sh", j), 1 + j) for j in range(ns)]
+    i = 1 + ns                   # encoding_shape, sigma, encoding_viewdir
+    probs += [prob(col("a_es"), col("g_e"), i), prob(col("a_e"), col("g_sig", width=1), i + 1),
+              prob(col("a_e"), col("g_v"), i + 2),
+              prob(ray[:, L["r_dpe"]:L["r_dpe"] + d_dir], ray[:, L["r_gv"]:L["r_gv"] + W], i + 2,
+                   col0=W, bias=False)]
+    probs += [prob(col("a_tx", j), col("g_tx", j), i + 3 + j) for j in range(nt)]
+    i += 3 + nt                  # rgb.0, rgb.2
+    probs += [prob(col("a_r1"), col("g_hh", width=W // 2), i),
+              prob(col("a_hh", width=W // 2), col("g_rgb", width=3), i + 1)]
+    return probs
+
+
+def wgrad_plain(problems, accumulate: bool = False):
+    """K4's plain version: G^T A and the column sums of G, in place."""
+    for p in problems:
+        K = p.A.shape[1]
+        pairs = [(p.w_out[:, p.col0:p.col0 + K], p.G.t() @ p.A)]
+        if p.b_out is not None:
+            pairs.append((p.b_out, p.G.sum(0)))
+        for out, val in pairs:
+            if accumulate:
+                out.add_(val)
+            else:
+                out.copy_(val)
+
+
+def _split_rows(M: int) -> int:
+    """Rows per split of K4's first pass: about 64 splits of a large problem,
+    at least 256 rows each, a multiple of its 16-row stage."""
+    return -(-max(256, -(-M // 64)) // 16) * 16
+
+
+def wgrad(problems, accumulate: bool = False):
+    """K4 wrapper: every problem's weight and bias gradient in one grouped
+    launch (plus its fixed-order reduction pass), written into (or, with
+    accumulate, added to) w_out and b_out."""
+    dev = problems[0].A.device
+    if dev.type == "cpu":
+        return wgrad_plain(problems, accumulate)
+    if len(problems) > 24:
+        raise ValueError(f"wgrad takes at most 24 problems, got {len(problems)}")
+    table = (_WgradProblem * len(problems))()
+    partials = []
+    for s, p in zip(table, problems):
+        (M, K), N = p.A.shape, p.G.shape[1]
+        for name, t in (("A", p.A), ("G", p.G), ("w_out", p.w_out), ("b_out", p.b_out)):
+            if t is not None and (t.device != dev or t.dtype != torch.float32 or t.stride(-1) != 1):
+                raise ValueError(f"wgrad {name}: expected float32 rows with unit stride on {dev}")
+        if (p.G.shape[0] != M or not p.w_out.is_contiguous() or p.w_out.shape[0] != N
+                or p.w_out.shape[1] < p.col0 + K or (p.b_out is not None and p.b_out.shape != (N,))):
+            raise ValueError("wgrad: inconsistent problem shapes")
+        rows = _split_rows(M)
+        part = torch.empty((-(-M // rows), K + 1, N), device=dev)
+        partials.append(part)
+        s.A, s.G, s.partial, s.w_out = (p.A.data_ptr(), p.G.data_ptr(), part.data_ptr(),
+                                        p.w_out.data_ptr())
+        s.b_out = p.b_out.data_ptr() if p.b_out is not None else None
+        s.lda, s.ldg, s.M, s.K, s.N = p.A.stride(0), p.G.stride(0), M, K, N
+        s.ldw, s.col0, s.n_split, s.rows_per_split = p.w_out.shape[1], p.col0, part.shape[0], rows
+    with torch.cuda.device(dev):
+        err = _library().supnerf_wgrad(table, len(problems), int(bool(accumulate)),
+                                       torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "wgrad")
+    LAUNCHES["wgrad"] += 1
+
+
+def _linear_grad_buffers(wts: DecoderWeights, device) -> list:
+    return [torch.empty(t.shape, device=device) for t in linear_params_of(wts)]
+
+
+def render_train_bwd_stash_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
+                                 g_rgb, g_depth, g_acc, pt, ray):
+    """K3's plain version: the decoder chain written out with every layer
+    input kept, autograd for the pre-activation gradients, the rows written
+    into pt and ray as stash_layout places them. Returns (dzs, dzt)."""
+    L, nx, nd = stash_layout(wts), wts.num_xyz_freq, wts.num_dir_freq
+    rows = {}
+    with torch.enable_grad():
+        lat = [t.detach().requires_grad_(True) for t in (zs, zt)]
+        pre = {}
+
+        def layer(key, x, w, b):
+            rows["a_" + key] = x
+            pre[key] = x @ w + b
+            if not pre[key].requires_grad:      # the first layer: inputs and weights are data
+                pre[key].requires_grad_(True)
+            return pre[key]
+
+        y = F.relu(layer("xyz", positional_encoding(xyz, nx), wts.w_xyz, wts.b_xyz))
+        for j in range(wts.n_shape):
+            y = F.relu(layer(f"sh{j}", y + lat[0][:, None, None, j], wts.w_sh[j], wts.b_sh[j]))
+        e = layer("e", y, wts.w_es, wts.b_es)
+        rows["a_es"], rows["a_e"] = rows.pop("a_e"), e
+        logit = e @ wts.w_sg[:, None] + wts.b_sg
+        dpe = positional_encoding(viewdir, nd)
+        h = F.relu(layer("v", e, wts.w_vd_a, (dpe @ wts.w_vd_b)[:, :, None] + wts.b_vd))
+        del rows["a_v"]                                  # = a_e
+        for j in range(wts.n_tex):
+            h = F.relu(layer(f"tx{j}", h + lat[1][:, None, None, j], wts.w_tx[j], wts.b_tx[j]))
+        hh = F.relu(layer("hh", h, wts.w_r1, wts.b_r1))
+        rows["a_r1"], rows["a_hh"] = rows.pop("a_hh"), hh
+        rgb = hh @ wts.w_r2 + wts.b_r2
+        outs = volume_render(F.softplus(logit), rgb, z[:, None, :], white_bkgd=white_bkgd)
+        keys = list(pre)
+        g = torch.autograd.grad(outs, [pre[k] for k in keys] + [logit, rgb] + lat,
+                                (g_rgb, g_depth, g_acc), allow_unused=True,
+                                materialize_grads=True)
+    g = dict(zip(keys + ["sig", "rgb", "zs", "zt"], g))
+    rows.update(g_xyz=g["xyz"], g_e=g["e"], g_sig=g["sig"], g_v=g["v"], g_hh=g["hh"],
+                g_rgb=g["rgb"])
+    for kind, n in (("sh", wts.n_shape), ("tx", wts.n_tex)):
+        rows["a_" + kind] = torch.cat([rows.pop(f"a_{kind}{j}") for j in range(n)], -1)
+        rows["g_" + kind] = torch.cat([g[f"{kind}{j}"] for j in range(n)], -1)
+    with torch.no_grad():
+        for name, t in rows.items():
+            pt[:, L[name]:L[name] + t.shape[-1]] = t.reshape(-1, t.shape[-1])
+        ray[:, L["r_dpe"]:L["r_gv"]] = dpe.reshape(-1, dpe.shape[-1])
+        ray[:, L["r_gv"]:L["r_gv"] + wts.W] = g["v"].sum(2).reshape(-1, wts.W)
+    return g["zs"], g["zt"]
+
+
+def render_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
+                           g_rgb, g_depth, g_acc, pt, ray):
+    """K3 wrapper: writes the stash rows of these B objects into pt
+    (B*R*S, ld_pt) and ray (B*R, ld_ray) and returns (dzs (B,n_shape,W),
+    dzt (B,n_tex,W)), summed over rays here (the second, deterministic pass
+    of that reduction)."""
+    if xyz.device.type == "cpu":
+        return render_train_bwd_stash_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd,
+                                            g_rgb, g_depth, g_acc, pt, ray)
+    _check_inputs(wts, xyz, viewdir, z, zs, zt, g_rgb, g_depth, g_acc)
+    B, R, S = xyz.shape[:3]
+    dev = xyz.device
+    if g_rgb.shape != (B, R, 3) or g_depth.shape != (B, R) or g_acc.shape != (B, R):
+        raise ValueError("cotangent shapes do not match the render outputs")
+    L = stash_layout(wts)
+    if (pt.shape != (B * R * S, L["ld_pt"]) or ray.shape != (B * R, L["ld_ray"])
+            or not (pt.is_contiguous() and ray.is_contiguous()) or pt.device != dev):
+        raise ValueError("stash buffers do not match stash_layout")
+    dzs_part = torch.empty((B, R, wts.n_shape, wts.W), device=dev)
+    dzt_part = torch.empty((B, R, wts.n_tex, wts.W), device=dev)
+    layout = _StashLayout(pt.data_ptr(), ray.data_ptr(), L["ld_pt"], L["ld_ray"],
+                          *[L[name] for name in _STASH_POINT_COLS], L["r_dpe"], L["r_gv"])
+    ptrs = _ptrs(wts)
+    with torch.cuda.device(dev):
+        err = _library().supnerf_render_train_bwd(
+            xyz.data_ptr(), viewdir.data_ptr(), z.data_ptr(), zs.data_ptr(), zt.data_ptr(),
+            ctypes.byref(ptrs), *_dims(wts, xyz, white_bkgd),
+            g_rgb.data_ptr(), g_depth.data_ptr(), g_acc.data_ptr(), ctypes.byref(layout),
+            dzs_part.data_ptr(), dzt_part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "render_train_bwd")
+    LAUNCHES["render_train_bwd"] += 1
+    return dzs_part.sum(1), dzt_part.sum(1)
+
+
+def render_train_bwd_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
+                           g_rgb, g_depth, g_acc):
+    """K3 + K4's plain version: autograd through render_fwd_plain with the
+    layer weights as inputs. Returns (dzs, dzt, grads), grads in the order
+    and Linear layout of linear_params_of."""
+    with torch.enable_grad():
+        params = [t.detach().requires_grad_(True) for t in linear_params_of(wts)]
+        lat = [t.detach().requires_grad_(True) for t in (zs, zt)]
+        live = pack_linear_params(params, wts.n_shape, wts.n_tex, wts.num_xyz_freq,
+                                  wts.num_dir_freq)
+        outs = render_fwd_plain(live, xyz, viewdir, z, *lat, white_bkgd=white_bkgd)
+        g = torch.autograd.grad(outs, lat + params, (g_rgb, g_depth, g_acc),
+                                allow_unused=True, materialize_grads=True)
+    return g[0], g[1], list(g[2:])
+
+
+def render_train_bwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
+                     g_rgb, g_depth, g_acc):
+    """The training backward (A6, data_grads=False): K3 then K4 on each chunk
+    of objects that fits STASH_BYTES, the weight gradients accumulated over
+    chunks in order. Returns (dzs (B,n_shape,W), dzt (B,n_tex,W), grads) with
+    grads in the order and Linear layout of linear_params_of."""
+    if xyz.device.type == "cpu":
+        return render_train_bwd_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd,
+                                      g_rgb, g_depth, g_acc)
+    B, R, S = xyz.shape[:3]
+    dev = xyz.device
+    L = stash_layout(wts)
+    chunk = max(1, min(B, STASH_BYTES // (R * S * L["ld_pt"] * 4)))
+    pt = torch.empty((chunk * R * S, L["ld_pt"]), device=dev)
+    ray = torch.empty((chunk * R, L["ld_ray"]), device=dev)
+    grads = _linear_grad_buffers(wts, dev)
+    dzs, dzt = [], []
+    for o0 in range(0, B, chunk):
+        sl = slice(o0, min(B, o0 + chunk))
+        nb = sl.stop - o0
+        pt_c, ray_c = pt[:nb * R * S], ray[:nb * R]
+        a, b = render_train_bwd_stash(wts, xyz[sl], viewdir[sl], z[sl], zs[sl], zt[sl],
+                                      white_bkgd, g_rgb[sl], g_depth[sl], g_acc[sl], pt_c, ray_c)
+        dzs.append(a)
+        dzt.append(b)
+        wgrad(wgrad_problems(wts, pt_c, ray_c, grads), accumulate=o0 > 0)
+    return torch.cat(dzs), torch.cat(dzt), grads
+
+
+class FieldCompositeTrain(torch.autograd.Function):
+    """(xyz, viewdir, z, zs, zt, decoder layer weights) -> (rgb, depth, acc)
+    with K1 as the forward and K3 + K4 as the backward. The weights enter in
+    torch.nn.Linear's layout (decoder_linear_params) and get their gradients
+    in it; xyz, viewdir and z are data and get none (data_grads=False)."""
+
+    @staticmethod
+    def forward(ctx, xyz, viewdir, z, zs, zt, meta, white_bkgd, *params):
+        if any(ctx.needs_input_grad[:3]):
+            raise ValueError("the training render gives no gradient for xyz, viewdir or z")
+        wts = pack_linear_params(params, *meta)
+        ctx.save_for_backward(xyz, viewdir, z, zs, zt)
+        ctx.wts, ctx.white_bkgd = wts, white_bkgd
+        return render_fwd(wts, xyz, viewdir, z, zs, zt, white_bkgd)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_depth, g_acc):
+        xyz, viewdir, z, zs, zt = ctx.saved_tensors
+        dzs, dzt, grads = render_train_bwd(ctx.wts, xyz, viewdir, z, zs, zt, ctx.white_bkgd,
+                                           g_rgb.contiguous(), g_depth.contiguous(),
+                                           g_acc.contiguous())
+        return (None, None, None, dzs, dzt, None, None, *grads)
+
+
+def conditioned_latents_of(decoder, shapecode, texturecode):
+    """conditioned_latents through the decoder's live latent layers, so the
+    layers and the codes get gradients: (zs (B,n_shape,W), zt (B,n_tex,W))."""
+    zs = torch.stack([decoder.get_submodule(f"shape_latent_layer_{j}")(shapecode)
+                      for j in range(1, decoder.shape_blocks + 1)], 1)
+    zt = torch.stack([decoder.get_submodule(f"texture_latent_layer_{j}")(texturecode)
+                      for j in range(1, decoder.texture_blocks + 1)], 1)
+    return zs, zt
+
+
+def field_composite_train(decoder, xyz, viewdir, z, shapecode, texturecode,
+                          white_bkgd: bool = False):
+    """The training render of B objects (the NeRF branch of a training step;
+    counterpart of pallas_render.field_composite_train_pallas with
+    data_grads=False): xyz (B,R,S,3), viewdir (B,R,3), z (B,S), codes
+    (B, latent) -> (rgb, depth, acc_trans). Gradients reach every weight and
+    bias of the decoder and, through the latent projections, the codes; xyz,
+    viewdir and z are data and must not require a gradient. Runs
+    FieldCompositeTrain: K1 and K3 + K4 for CUDA tensors, their plain
+    versions inside the same wrappers for CPU tensors."""
+    if any(t.requires_grad for t in (xyz, viewdir, z)):
+        raise ValueError("the training render gives no gradient for xyz, viewdir or z")
+    zs, zt = conditioned_latents_of(decoder, shapecode, texturecode)
+    meta = (decoder.shape_blocks, decoder.texture_blocks, decoder.num_xyz_freq,
+            decoder.num_dir_freq)
+    return FieldCompositeTrain.apply(xyz.contiguous(), viewdir.contiguous(), z.contiguous(),
+                                     zs.contiguous(), zt.contiguous(), meta, white_bkgd,
+                                     *decoder_linear_params(decoder))

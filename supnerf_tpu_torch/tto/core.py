@@ -25,6 +25,7 @@ import torch
 from supnerf_tpu_torch.geometry.boxes import invert_pose
 from supnerf_tpu_torch.geometry.poses import calc_pose_err
 from supnerf_tpu_torch.geometry.rotations import axis_angle_to_matrix, matrix_to_axis_angle
+from supnerf_tpu_torch.optim import AdamW
 from supnerf_tpu_torch.ops.render import field_composite
 from supnerf_tpu_torch.ops.volume_render import masked_psnr, occupancy_loss, rgb_loss_masked
 from supnerf_tpu_torch.render.renderer import render_rays_at_pixels, render_rays_frustum
@@ -33,9 +34,6 @@ from supnerf_tpu_torch.tto.refiner import fw_pose_refine
 # snapshot iterations of the saved codes and poses (reference CODE_SAVE_ITERS_,
 # optimizer_nuscenes.py:24); the last equals num_opts and is taken after the loop
 CODE_SAVE_ITERS = (0, 5, 10, 20, 50, 100)
-
-_ADAM_B1, _ADAM_B2, _ADAM_EPS = 0.9, 0.999, 1e-8
-
 
 @dataclasses.dataclass(frozen=True)
 class TTOConfig:
@@ -143,33 +141,6 @@ def encode_and_refine(model, batch: ObjectBatch, mean_shape, mean_texture, cfg: 
     traj = fw_pose_refine(model.pose_update, pc, batch.pose_init, batch.wlh, batch.roi_refine,
                           batch.K, batch.K_inv, iters=cfg.reg_iters)
     return ((sc + mean_shape) / 2, (tc + mean_texture) / 2, traj, uv, wlh_pred, batch.wlh)
-
-
-class AdamW:
-    """optax.adamw per parameter, written out: b1 0.9, b2 0.999, eps 1e-8
-    outside the square root, bias-corrected moments, decoupled weight decay
-    multiplied by the learning rate. `scale` multiplies the whole update
-    (the lr halving); reset() re-creates the state (zero moments, count 0)."""
-
-    def __init__(self, params, lrs, weight_decay: float):
-        self.params, self.lrs, self.wd = params, lrs, weight_decay
-        self.reset()
-
-    def reset(self):
-        self.m = [torch.zeros_like(p) for p in self.params]
-        self.v = [torch.zeros_like(p) for p in self.params]
-        self.count = 0
-
-    @torch.no_grad()
-    def step(self, grads, scale: float):
-        self.count += 1
-        c1 = 1.0 - _ADAM_B1 ** self.count
-        c2 = 1.0 - _ADAM_B2 ** self.count
-        for i, (p, g, lr) in enumerate(zip(self.params, grads, self.lrs)):
-            self.m[i].mul_(_ADAM_B1).add_(g, alpha=1 - _ADAM_B1)
-            self.v[i].mul_(_ADAM_B2).addcmul_(g, g, value=1 - _ADAM_B2)
-            u = (self.m[i] / c1) / (torch.sqrt(self.v[i] / c2) + _ADAM_EPS) + self.wd * p
-            p.sub_(u * (lr * scale))
 
 
 def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg: TTOConfig,

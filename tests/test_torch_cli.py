@@ -1,7 +1,9 @@
-"""The port's optimize CLI end to end on the CPU at a tiny size, its result
-files against the JAX driver's schema, the device rule of its entry points,
-and the import isolation of the port and chip_smoke.py."""
+"""The port's optimize and train CLIs end to end on the CPU at a tiny size,
+their result files and checkpoints against the JAX package's schemas, the
+device rule of their entry points, and the import isolation of the port and
+chip_smoke.py."""
 import json
+import math
 import os
 import pickle
 import subprocess
@@ -114,3 +116,149 @@ def test_port_imports_nothing_of_the_jax_world():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[-1]) >= 20
+
+
+# --------------------------------------------------------------------------
+# the training entry point (supnerf_tpu_torch.cli.train)
+# --------------------------------------------------------------------------
+
+TRAIN_CONFIG = {
+    "arch": "supnerf",
+    "net_hyperparams": {"shape_blocks": 1, "texture_blocks": 1, "latent_dim": 32,
+                        "pose_shortcut": 1, "pred_wlh": 0},
+    "n_rays": 32, "n_samples": 8, "in_img_sz": 32,
+}
+
+
+def _train_argv(cfg, out, *extra):
+    return ["--config_file", str(cfg), "--dataset", "synthetic", "--num_objects", "4",
+            "--batch_size", "4", "--epochs", "2", "--device", "cpu", "--save_dir", str(out),
+            "--check_iter", "1", *extra]
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """A tiny CPU training run: 4 objects (2 instances), batch 4, 2 epochs."""
+    from supnerf_tpu_torch.cli import train
+
+    d = tmp_path_factory.mktemp("train")
+    cfg = d / "tiny.json"
+    cfg.write_text(json.dumps(dict(TRAIN_CONFIG, model_dir=str(d / "no_checkpoint"))))
+    return cfg, d / "run", train.main(_train_argv(cfg, d / "run"))
+
+
+def test_cli_train_runs_resumes_and_loads(trained, tmp_path):
+    """Two epochs of one step each write both epochs' checkpoints; a run
+    resumed from epoch_0 repeats the second step's loss exactly; the
+    optimize CLI's loader strict-loads the result."""
+    from supnerf_tpu_torch.cli import train
+    from supnerf_tpu_torch.cli.common import load_model_and_codes
+    from supnerf_tpu_torch.config import load_hpams
+
+    cfg, out, summary = trained
+    assert summary["steps"] == 2
+    assert all(math.isfinite(m[k]) for m in summary["metrics"] for k in ("loss_total", "psnr"))
+    assert [m["epoch"] for m in summary["metrics"]] == [0, 1]
+    for name in ("epoch_0.pth", "epoch_1.pth", "epoch_0_optim.pth", "epoch_1_optim.pth",
+                 "models.pth", "instoken2idx.json", "hpam.json"):
+        assert (out / name).exists(), name
+    assert json.loads((out / "instoken2idx.json").read_text()) == {"ins_0": 0, "ins_1": 1}
+    assert {"forward", "render", "backward", "optimizer", "prep"} <= set(summary["phase_seconds"])
+
+    resumed = train.main(_train_argv(cfg, tmp_path / "resumed", "--resume_dir", str(out),
+                                     "--resume_from_epoch", "0"))
+    assert resumed["steps"] == 1 and resumed["metrics"][0]["niter"] == 2
+    for k in ("loss_total", "loss_rgb", "loss_pose_iter3"):
+        assert resumed["metrics"][0][k] == pytest.approx(summary["metrics"][1][k], rel=1e-6), k
+
+    hpams = load_hpams(str(cfg))
+    model, mean_shape, mean_texture = load_model_and_codes(dict(hpams, model_dir=str(out)),
+                                                           "cpu", model_epoch=1)
+    saved = torch.load(out / "epoch_1.pth", weights_only=False)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, saved["model_params"][k]), k
+    assert saved["niter"] == 2 and saved["nepoch"] == 1
+    assert torch.allclose(torch.from_numpy(mean_shape),
+                          saved["shape_code_params"]["weight"].mean(0))
+
+
+def test_train_checkpoint_schema_matches_reference(trained, tmp_path):
+    """epoch_{n}.pth holds exactly the keys, model_params names and shapes
+    that supnerf_tpu.training.checkpoints.export_reference_checkpoint writes
+    for the same configuration."""
+    import jax
+    import numpy as np
+    from supnerf_tpu.models import build_model as jax_build_model
+    from supnerf_tpu.models.initialization import make_init_fn
+    from supnerf_tpu.training.checkpoints import export_reference_checkpoint
+
+    _, out, _ = trained
+    jmodel = jax_build_model("supnerf", TRAIN_CONFIG["net_hyperparams"])
+    shapes = jax.eval_shape(lambda k: jmodel.init(k, method=make_init_fn(jmodel, 32)),
+                            jax.random.PRNGKey(0))
+    zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    state = types.SimpleNamespace(params=zeros["params"], batch_stats=zeros["batch_stats"],
+                                  shape_codes=np.zeros((2, 32), np.float32),
+                                  texture_codes=np.zeros((2, 32), np.float32), niter=0,
+                                  optimized_idx=np.zeros(2, np.float32))
+    export_reference_checkpoint(jmodel, state, {"ins_0": 0, "ins_1": 1}, str(tmp_path / "ref.pth"))
+    ref = torch.load(tmp_path / "ref.pth", weights_only=False)
+    ours = torch.load(out / "epoch_1.pth", weights_only=False)
+    assert set(ours) == set(ref)
+    assert {k: tuple(v.shape) for k, v in ours["model_params"].items()} == \
+        {k: tuple(v.shape) for k, v in ref["model_params"].items()}
+    for k in ("shape_code_params", "texture_code_params"):
+        assert set(ours[k]) == set(ref[k]) == {"weight"}
+        assert ours[k]["weight"].shape == ref[k]["weight"].shape
+    assert ours["instoken2idx"] == ref["instoken2idx"]
+    assert ours["optimized_idx"].shape == ref["optimized_idx"].shape
+
+
+def test_train_entry_point_refuses_a_missing_card(monkeypatch):
+    from supnerf_tpu_torch.cli import train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--dataset", "synthetic", "--num_objects", "1"])
+
+
+@pytest.mark.parametrize("option", ["aug_box2d", "aug_wlh", "finetune_wlh", "im_enc_rate",
+                                    "dataset"])
+def test_train_unported_options_raise(tmp_path, option):
+    from supnerf_tpu_torch.cli import train
+
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(dict(TRAIN_CONFIG, model_dir=str(tmp_path / "no_checkpoint"))))
+    argv = _train_argv(cfg, tmp_path / "run")
+    if option == "dataset":
+        with pytest.raises(ValueError, match="not ported"):
+            train.main(argv + ["--dataset", "nusc"])
+        return
+    value = "0.5" if option == "im_enc_rate" else "1"
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train.main(argv + [f"--{option}", value])
+
+
+_TRAIN_ISOLATION = _ISOLATION.split("import supnerf_tpu_torch\n")[0] + r"""
+import supnerf_tpu_torch.training
+names = ["supnerf_tpu_torch.cli.train"] + [
+    m.name for m in pkgutil.walk_packages(supnerf_tpu_torch.training.__path__,
+                                          "supnerf_tpu_torch.training.")]
+for name in names:
+    importlib.import_module(name)
+leaked = sorted(m for m in sys.modules if hit(m))
+assert not leaked, leaked
+print(" ".join(names))
+"""
+
+
+def test_training_modules_import_nothing_of_the_jax_world():
+    """The training entry point and every supnerf_tpu_torch.training module
+    import where jax, flax, optax, supnerf_tpu, cv2, PIL and matplotlib
+    raise on import."""
+    proc = subprocess.run([sys.executable, "-c", _TRAIN_ISOLATION % (_BLOCKED,)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    imported = proc.stdout.split()
+    for name in ("ray_prep", "train_step", "checkpoints", "trainer"):
+        assert f"supnerf_tpu_torch.training.{name}" in imported

@@ -83,7 +83,7 @@ def test_render_gradients_match_pallas(impl, white):
     out = render.field_composite(wts, *args, white_bkgd=white, impl=impl)
     loss = sum((o * torch.from_numpy(c)).sum() for o, c in zip(out, cots))
     grads = torch.autograd.grad(loss, args)
-    assert render.LAUNCHES == {"render_fwd": 0, "render_bwd": 0}   # CPU: no kernel
+    assert not any(render.LAUNCHES.values())   # CPU: no kernel
     for b in range(n):
         def jloss(x, v, zz, sc, tc):
             o = field_composite_apply(packed, x, v, zz, sc, tc, dtype=jnp.float32, tile_fwd=32,
