@@ -10,17 +10,23 @@ Phases, each timed; any failure exits non-zero before the result line:
   3. kernels: K1 (render_fwd) and K2 (render_bwd) at the TTO path's shapes
      (2 objects, W 256, 1024 rays, 64 samples), K1 again and K3 + K4 (the
      training backward: render_train_bwd_stash, wgrad) at the training
-     path's (8 objects), each against its plain PyTorch version on the same
-     inputs, each error beside its tolerance, kernel / plain times beside
-     the card's bound; then the branches neither path takes (white
-     background, S < 64, odd R, W 64/128, several stash chunks);
+     path's (8 objects), K1 and K2 in their AABB mode (per-ray z, about a
+     third of the rays missing their box) at the demo path's (3 objects),
+     each against its plain PyTorch version on the same inputs, each error
+     beside its tolerance, kernel / plain times beside the card's bound;
+     then the branches no path takes (white background, S < 64, odd R,
+     W 64/128, several stash chunks), in both modes of K1 and K2;
   4. TTO path: the port's CLI test-time optimization at the published
      config (full width, 100 iterations) on 2 synthetic objects, with the
      launch counts, the final metrics and the result file;
   5. training path: the port's CLI training at the published config on 16
      synthetic objects, batch 8, 2 epochs (4 steps), with the launch counts,
      finite losses, the checkpoints, a resume from epoch 0 that repeats
-     step 3's loss, and the TTO loader strict-loading the result.
+     step 3's loss, and the TTO loader strict-loading the result;
+  6. demo path: the port's demo CLI at hpam_demo.json (full width, 100
+     iterations of AABB-bounded TTO on 3 objects of a 900 x 1600 synthetic
+     scene, then six composed frames), with the launch counts, finite
+     curves and frames, and input.png and the frames decoded by read_png.
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -55,6 +61,7 @@ WGRAD_RTOL = 1e-4
 # A resumed run repeats a step's loss: the same weights, batch and kernels
 RESUME_RTOL = 1e-5
 TRAIN_OBJECTS, TRAIN_BATCH = 16, 8
+DEMO_OBJECTS, DEMO_ITERS = 3, 100
 
 def decoder_macs(W, n_shape, n_tex, d_xyz=63):
     """Multiply-adds per point of the decoder (csrc/render_fwd.cu's count)."""
@@ -97,6 +104,54 @@ def compare(names, got, ref, tol_of):
         print(f"   {name:22s} max_abs_err {err:.3e}  tol {tol:.3e}  (max |plain| {scale:.3e})  "
               f"{'ok' if good else 'FAIL'}")
     return worst, ok
+
+
+def compare_at_kinks(names, got, ref, ref64, rtol):
+    """compare() for gradients of a ReLU network, with a float64 evaluation
+    of the plain version as a second reference: an element passes if it is
+    within rtol * max |plain| of the float32 plain version or of the float64
+    one. Where a pre-activation sits within float32 rounding of zero, the
+    gate, and with it a gradient row, is decided by the summation order, and
+    the float32 plain version can be the one on the wrong side of the kink.
+    Prints, per output, both float32 versions' distance from float64 and, at
+    the element where kernel and float32 plain version differ most, all
+    three values. Returns (worst error against the nearer reference, worst
+    error against the float32 plain version, all within tolerance and
+    finite)."""
+    import torch
+
+    worst, worst32, ok = 0.0, 0.0, True
+    for name, a, b, b64 in zip(names, got, ref, ref64):
+        scale = float(b.abs().max())
+        tol = rtol * scale
+        e32 = (a - b).abs()
+        e64 = (a.double() - b64).abs()
+        near = torch.minimum(e32.double(), e64)
+        err, err32 = float(near.max()), float(e32.max())
+        i = int(e32.flatten().argmax())
+        good = err <= tol and bool(torch.isfinite(a).all())
+        ok &= good
+        worst, worst32 = max(worst, err), max(worst32, err32)
+        print(f"   {name:22s} max_abs_err {err:.3e}  tol {tol:.3e}  (max |plain| {scale:.3e})  "
+              f"{'ok' if good else 'FAIL'}\n"
+              f"   {'':22s} float32 plain {err32:.3e} ({int((e32 > tol).sum())} elements "
+              f"outside tol); from float64: kernel {float(e64.max()):.3e}, float32 plain "
+              f"{float((b.double() - b64).abs().max()):.3e}; at the worst element kernel "
+              f"{float(a.flatten()[i]):+.6e}, float32 plain {float(b.flatten()[i]):+.6e}, "
+              f"float64 {float(b64.flatten()[i]):+.6e}")
+    return worst, worst32, ok
+
+
+def as_float64(wts):
+    """A DecoderWeights with every tensor in float64 (the plain versions
+    then compute in float64)."""
+    import dataclasses
+
+    import torch
+
+    return dataclasses.replace(wts, **{f.name: getattr(wts, f.name).double()
+                                       for f in dataclasses.fields(wts)
+                                       if isinstance(getattr(wts, f.name), torch.Tensor)})
 
 
 def phase(name):
@@ -196,23 +251,36 @@ def check_kernel_branches():
     ok = True
     for W, S, R, white in ((64, 8, 19, True), (128, 33, 7, False), (256, 64, 5, True)):
         g = torch.Generator().manual_seed(W + S)
+        hit = torch.rand((3, R), generator=g) > 0.3
+        hit[:, 0] = False                       # at least one missed ray per object
         dec = CodeNeRFDecoder(3, 1, W, W)
         init_parameters(dec, g)
         wts = render.pack_decoder_params(dec.cuda())
         vd = F.normalize(torch.randn((3, R, 3), generator=g), dim=-1)
         z = torch.sort(torch.rand((3, S), generator=g) * 4 + 2, dim=-1).values
         xyz = vd[:, :, None, :] * z[:, None, :, None] * 0.3
+        z_ray = torch.sort(torch.rand((3, R, S), generator=g) * 4 + 2, dim=-1).values
+        z_ray = torch.where(hit[..., None], z_ray, torch.full_like(z_ray, -1.0))
+        xyz_ray = vd[:, :, None, :] * z_ray[..., None] * 0.3
         codes = torch.randn((2, 3, W), generator=g) * 0.3
         cot = [torch.randn(s, generator=g).cuda() for s in ((3, R, 3), (3, R), (3, R))]
-        xyz, vd, z, codes = (t.cuda().contiguous() for t in (xyz, vd, z, codes))
+        xyz, vd, z, codes, xyz_ray, z_ray, hit = (
+            t.cuda().contiguous() for t in (xyz, vd, z, codes, xyz_ray, z_ray, hit))
         zs, zt = (t.contiguous() for t in render.conditioned_latents(wts, codes[0], codes[1]))
         args = (xyz, vd, z, zs, zt)
+        args_ray = (xyz_ray, vd, z_ray, zs, zt)
         with torch.no_grad():
             fwd = zip(("rgb", "depth", "acc"), render.render_fwd(wts, *args, white),
                       render.render_fwd_plain(wts, *args, white))
+            fwd_ray = zip(("rgb(aabb)", "depth(aabb)", "acc(aabb)"),
+                          render.render_fwd(wts, *args_ray, white, hit),
+                          render.render_fwd_plain(wts, *args_ray, white, hit))
         bwd = zip(("dxyz", "dviewdir", "dz", "dzs", "dzt"),
                   render.render_bwd(wts, *args, white, *cot),
                   render.render_bwd_plain(wts, *args, white, *cot))
+        bwd_ray = zip(("dxyz(aabb)", "dviewdir(aabb)", "dz(aabb)", "dzs(aabb)", "dzt(aabb)"),
+                      render.render_bwd(wts, *args_ray, white, *cot, hit),
+                      render.render_bwd_plain(wts, *args_ray, white, *cot, hit))
         budget = render.STASH_BYTES
         if W == 256:      # one object per chunk: three K3 + K4 rounds, accumulated
             render.STASH_BYTES = R * S * render.stash_layout(wts)["ld_pt"] * 4
@@ -225,9 +293,10 @@ def check_kernel_branches():
                  ("dW(train)", torch.cat([t.flatten() / p_.abs().max().clamp_min(1e-30) for t, p_ in zip(k[2], p[2])]),
                   torch.cat([t.flatten() / t.abs().max().clamp_min(1e-30) for t in p[2]]))]
         errs = []
-        for name, a, b in list(fwd) + list(bwd) + train:
+        for name, a, b in list(fwd) + list(bwd) + train + list(fwd_ray) + list(bwd_ray):
             err = float((a - b).abs().max())
-            tol = VALUE_ATOL[name] if name in VALUE_ATOL else GRAD_RTOL * float(b.abs().max())
+            base = name.split("(")[0]
+            tol = VALUE_ATOL[base] if base in VALUE_ATOL else GRAD_RTOL * float(b.abs().max())
             good = err <= tol and bool(torch.isfinite(a).all())
             ok &= good
             errs.append(f"{name} {err:.1e}{'' if good else ' FAIL'}")
@@ -381,6 +450,90 @@ def check_train_kernels():
     return records
 
 
+def aabb_inputs(seed=2, B=DEMO_OBJECTS, R=1024, S=64):
+    """kernel_inputs' decoder, directions and codes with per-ray z rows, each
+    its own stratified draw between its own bounds, and about a third of the
+    rays missing their box: constant z at -diag/2 and hit False, as
+    render_rays_aabb makes them (bounds (-1, -1) in units of diag/2)."""
+    import torch
+
+    wts, (_, vd, _, zs, zt), cot = kernel_inputs(seed=seed, B=B, R=R, S=S)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    diag = 5.3
+    hit = torch.rand((B, R), generator=g, device="cuda") >= 1 / 3
+    near = 20.0 - diag / 2 + torch.rand((B, R, 1), generator=g, device="cuda")
+    far = near + 1.5 + 2.0 * torch.rand((B, R, 1), generator=g, device="cuda")
+    frac = (torch.arange(S, device="cuda") + torch.rand((B, R, S), generator=g, device="cuda")) / S
+    z = torch.where(hit[..., None], near + (far - near) * frac,
+                    torch.full((B, R, S), -diag / 2, device="cuda"))
+    origin = torch.tensor([0.0, -20.0, 1.0], device="cuda")
+    xyz = ((origin + vd[:, :, None, :] * z[..., None]) / diag).contiguous()
+    return wts, (xyz, vd, z.contiguous(), zs, zt), hit, cot
+
+
+def check_aabb_kernels():
+    """K1 and K2 in their AABB mode (A3, A4) against their plain versions at
+    the demo path's shape; missed rays must get exactly the constant outputs
+    and zero gradients. Returns the records of both modes."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    wts, args, hit, cot = aabb_inputs()
+    xyz = args[0]
+    B, R, S = xyz.shape[:3]
+    W, ns, nt = wts.W, wts.n_shape, wts.n_tex
+    miss = ~hit
+    print(f"   AABB mode at the demo path's shape, {B} objects x {R} rays x {S} samples, "
+          f"{int(miss.sum())} of {B * R} rays missing their box:")
+    with torch.no_grad():
+        fwd_k = render.render_fwd(wts, *args, False, hit)
+        torch.cuda.synchronize()
+        fwd_p = render.render_fwd_plain(wts, *args, False, hit)
+    err_fwd, ok_fwd = compare(("rgb", "depth", "acc"), fwd_k, fwd_p, lambda n, s: VALUE_ATOL[n])
+    bwd_k = render.render_bwd(wts, *args, False, *cot, hit)
+    torch.cuda.synchronize()
+    bwd_p = render.render_bwd_plain(wts, *args, False, *cot, hit)
+    bwd_64 = render.render_bwd_plain(as_float64(wts), *(t.double() for t in args), False,
+                                     *(t.double() for t in cot), hit)
+    err_bwd, err_bwd32, ok_bwd = compare_at_kinks(("dxyz", "dviewdir", "dz", "dzs", "dzt"), bwd_k,
+                                                  bwd_p, bwd_64, GRAD_RTOL)
+    del bwd_64
+    exact = (bool((fwd_k[0][miss] == 0).all()) and bool((fwd_k[1][miss] == 0).all())
+             and bool((fwd_k[2][miss] == 1).all())
+             and all(bool((t[miss] == 0).all()) for t in bwd_k[:3]))
+    print(f"   missed rays: rgb 0, depth 0, acc 1, zero dxyz / dviewdir / dz: "
+          f"{'ok' if exact else 'FAIL'}")
+
+    t_fwd = _timed(lambda: render.render_fwd(wts, *args, False, hit), 10)
+    with torch.no_grad():
+        t_fwd_p = _timed(lambda: render.render_fwd_plain(wts, *args, False, hit), 5)
+    t_bwd = _timed(lambda: render.render_bwd(wts, *args, False, *cot, hit), 5)
+    t_bwd_p = _timed(lambda: render.render_bwd_plain(wts, *args, False, *cot, hit), 3)
+
+    # operations: the decoder on the rays that hit (a missed ray's outputs
+    # are constants); bytes: each input read once, each output written once
+    hit_pts = int(hit.sum()) * S
+    w_fwd = sum(getattr(wts, f).numel() for f in render._PTR_FIELDS if not f.startswith("wt_"))
+    w_all = sum(getattr(wts, f).numel() for f in render._PTR_FIELDS)
+    act_bytes = sum(t.numel() for t in args) * 4 + B * R * 4
+    fwd_flops = 2 * hit_pts * decoder_macs(W, ns, nt)
+    fwd_bytes = act_bytes + w_fwd * 4 + B * R * 5 * 4
+    bwd_flops = fwd_flops + 2 * hit_pts * transposed_macs(W, ns, nt)
+    bwd_bytes = (act_bytes + w_all * 4 + B * R * 5 * 4
+                 + (B * R * S * 3 + B * R * 3 + B * R * S + B * (ns + nt) * W) * 4)
+    records = [record("render_fwd_aabb", ["A3"], "supnerf_tpu/ops/pallas_render.py:127",
+                      "supnerf_tpu_torch/csrc/render_fwd.cu", t_fwd, t_fwd_p, err_fwd,
+                      bound(fwd_flops, fwd_bytes)),
+               record("render_bwd_aabb", ["A4"], "supnerf_tpu/ops/pallas_render.py:478",
+                      "supnerf_tpu_torch/csrc/render_bwd.cu", t_bwd, t_bwd_p, err_bwd,
+                      bound(bwd_flops, bwd_bytes))]
+    records[1]["max_abs_err_float32_plain"] = err_bwd32
+    if not (ok_fwd and ok_bwd and exact):
+        raise RuntimeError("an AABB-mode kernel disagrees with its plain version")
+    return records
+
+
 def _linear_param_names(wts):
     from supnerf_tpu_torch.ops import render
 
@@ -398,6 +551,10 @@ def _stash_width(L, wts):
 
 TTO_KERNELS = ("render_fwd", "render_bwd")
 TRAIN_KERNELS = ("render_fwd", "render_train_bwd", "wgrad")
+DEMO_KERNELS = ("render_fwd", "render_fwd_aabb", "render_bwd_aabb")
+# the hand-written kernel behind each counter
+KERNEL_OF = {"render_fwd": "K1", "render_fwd_aabb": "K1", "render_bwd": "K2",
+             "render_bwd_aabb": "K2", "render_train_bwd": "K3", "wgrad": "K4"}
 
 
 def _in_temp_dir(fn):
@@ -521,22 +678,133 @@ def train_path(out_dir):
     return counts
 
 
-def kernel_records(tto_records, train_records, tto_counts, train_counts):
-    """One record per kernel, launches from the path that runs it (K1 from
-    the training path, this slice's; launches_by_path has both); K1's
-    numbers are the training shape's, with the TTO shape's beside them."""
-    by_name = {r["name"]: r for r in train_records}
+def read_png(path):
+    """Decode an 8-bit RGB PNG (colour type 2, no interlace, scanline
+    filters None and Up) with numpy and zlib; (H, W, 3) uint8. Independent
+    of the port's writer (supnerf_tpu_torch/utils/image_io.py, filter None
+    only), so a round trip checks it."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError(f"{path}: not a PNG")
+    pos, idat, hdr = 8, b"", None
+    while pos < len(data):
+        n, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        if struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0] != zlib.crc32(kind + body):
+            raise ValueError(f"{path}: bad CRC in {kind!r}")
+        if kind == b"IHDR":
+            hdr = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h, depth, ctype, _, _, interlace = hdr
+    if (depth, ctype, interlace) != (8, 2, 0):
+        raise ValueError(f"{path}: only 8-bit RGB without interlace is read")
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
+    if not np.isin(raw[:, 0], (0, 2)).all():
+        raise ValueError(f"{path}: only the scanline filters None and Up are read")
+    out = np.zeros((h, 3 * w), np.uint8)
+    for y in range(h):
+        up = out[y - 1] if y > 0 and raw[y, 0] == 2 else 0
+        out[y] = raw[y, 1:] + up                # uint8 arithmetic wraps mod 256
+    return out.reshape(h, w, 3)
+
+
+def demo_path(out_dir):
+    """The port's demo CLI at hpam_demo.json: AABB-bounded TTO of the three
+    cars of a 900 x 1600 synthetic scene, then the six composed frames.
+    Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.cli import demo
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.utils.image_io import image_float_to_uint8
+
+    render.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = demo.main([
+        "--config_file", os.path.join(HERE, "jsonfiles", "hpam_demo.json"),
+        "--dataset", "synthetic", "--n_objects", str(DEMO_OBJECTS),
+        "--num_opts", str(DEMO_ITERS), "--device", "cuda", "--seed", "0", "--save_dir", out_dir])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _path_counts("demo", DEMO_KERNELS)
+    if (counts["render_fwd_aabb"] != DEMO_ITERS
+            or counts["render_bwd_aabb"] != DEMO_ITERS - 4):
+        raise RuntimeError(f"expected {DEMO_ITERS} AABB forwards and {DEMO_ITERS - 4} "
+                           f"backwards (reg_iters 3 replays make no update): {counts}")
+    res = summary["results"]
+    curves = [np.asarray(v, np.float64) for key in ("psnr_eval", "R_eval", "T_eval",
+                                                     "depth_err_mean")
+              for v in res[key].values()]
+    if len(res["psnr_eval"]) != DEMO_OBJECTS or not all(
+            np.isfinite(c).all() and len(c) == DEMO_ITERS for c in curves):
+        raise RuntimeError("the demo's TTO curves are missing or not finite")
+    if not all(np.isfinite(img).all() for img in summary["images"]):
+        raise RuntimeError("a composed frame is not finite")
+    inp = read_png(os.path.join(out_dir, "input.png"))
+    if inp.shape != (900, 1600, 3):
+        raise RuntimeError(f"input.png decodes to {inp.shape}")
+    for path, img in zip(summary["frames"], summary["images"]):
+        if not np.array_equal(read_png(path), image_float_to_uint8(img)):
+            raise RuntimeError(f"{path} does not decode to its frame")
+    win_w, win_h = summary["win_hw"]
+    fs = summary["frame_seconds"]
+    print(f"   demo CLI: {seconds:.2f} s end to end; TTO {summary['tto_seconds']:.2f} s for "
+          f"{DEMO_OBJECTS} objects ({DEMO_OBJECTS * 60 / summary['tto_seconds']:.1f} objects/min, "
+          "host prep and result files included); phases: " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in summary["phase_seconds"].items()))
+    print(f"   {len(fs)} scene frames of {win_w} x {win_h} = {win_w * win_h} rays x "
+          f"{DEMO_OBJECTS} objects x 64 samples: " + ", ".join(f"{t:.3f}" for t in fs)
+          + " s (the first includes the allocator's warm-up)")
+    print("   wlh_used (the untrained wlh head's output at random weights): " + "; ".join(
+        f"{k} {np.round(v, 4).tolist()}" for k, v in summary["wlh_used"].items()))
+    # the AABB kernels run the decoder only on rays that hit the box, so the
+    # hit share says how much decoder work the demo path's launches did
+    share = np.asarray(list(summary["hit_share"].values()), np.float64)   # (objects, iters)
+    if share.shape != (DEMO_OBJECTS, DEMO_ITERS) or not np.isfinite(share).all():
+        raise RuntimeError(f"the demo's hit-share curves are missing: {share.shape}")
+    print("   loss rays in the box per object, mean (min .. max) over the iterations: "
+          + "; ".join(f"{k} {s.mean():.4f} ({s.min():.4f} .. {s.max():.4f})"
+                      for k, s in zip(summary["hit_share"], share))
+          + f"; all objects and iterations {share.mean():.4f}")
+    for k in res["psnr_eval"]:
+        print(f"   {k}: psnr {res['psnr_eval'][k][0]:.3f} -> {res['psnr_eval'][k][-1]:.3f}, "
+              f"rot err {res['R_eval'][k][0]:.3f} -> {res['R_eval'][k][-1]:.3f}, "
+              f"trans err {res['T_eval'][k][0]:.4f} -> {res['T_eval'][k][-1]:.4f}, "
+              f"depth err {res['depth_err_mean'][k][-1]:.4f}")
+    print(f"   input.png {inp.shape} and {len(fs)} frames decode with read_png")
+    return counts
+
+
+def kernel_records(tto_records, train_records, aabb_records, counts_by_path):
+    """One record per launch counter, launches from the path that runs it
+    (K1's shared-z mode from the training path; launches_by_path has every
+    path); K1's numbers are the training shape's, with the TTO shape's
+    beside them."""
+    by_name = {r["name"]: r for r in train_records + aabb_records}
     for r in tto_records:
         if r["name"] in by_name:
             by_name[r["name"]]["tto_shape"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                                                   "bound_by", "max_abs_err")}
         else:
             by_name[r["name"]] = r
-    records = [by_name[n] for n in ("render_fwd", "render_bwd", "render_train_bwd", "wgrad")]
+    by_name["render_fwd"]["ports"] = ["A1", "A3", "A5"]
+    by_name["render_bwd"]["ports"] = ["A2", "A4"]
+    main_path = {"render_fwd": "train", "render_bwd": "tto", "render_train_bwd": "train",
+                 "wgrad": "train", "render_fwd_aabb": "demo", "render_bwd_aabb": "demo"}
+    records = [by_name[n] for n in main_path]
     for r in records:
-        paths = {"tto": tto_counts.get(r["name"], 0), "train": train_counts.get(r["name"], 0)}
-        r["launches_by_path"] = paths
-        r["launches"] = paths["train"] if r["name"] in TRAIN_KERNELS else paths["tto"]
+        r["kernel"] = KERNEL_OF[r["name"]]
+        r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in counts_by_path.items()}
+        r["launches"] = r["launches_by_path"][main_path[r["name"]]]
     return records
 
 
@@ -563,6 +831,7 @@ def main():
     t0 = phase("kernels vs plain versions")
     tto_records = check_kernels()
     train_records = check_train_kernels()
+    aabb_records = check_aabb_kernels()
     check_kernel_branches()
     done(t0, "kernels")
     t0 = phase("TTO path through the CLI")
@@ -571,9 +840,14 @@ def main():
     t0 = phase("training path through the CLI")
     train_counts = _in_temp_dir(train_path)
     done(t0, "training path")
-    records = kernel_records(tto_records, train_records, tto_counts, train_counts)
+    t0 = phase("demo path through the CLI")
+    demo_counts = _in_temp_dir(demo_path)
+    done(t0, "demo path")
+    records = kernel_records(tto_records, train_records, aabb_records,
+                             {"tto": tto_counts, "train": train_counts, "demo": demo_counts})
     print(f"total {time.perf_counter() - t_all:.1f} s")
-    print("kernels: " + " ".join(f"{r['name']}({','.join(r['ports'])})" for r in records))
+    print("kernels: " + " ".join(f"{r['kernel']}:{r['name']}({','.join(r['ports'])})"
+                                 for r in records))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,7 +2,15 @@
 //
 // Replaces the TPU kernel supnerf_tpu/ops/pallas_render.py:_render_bwd_kernel
 // in its shared-z mode (pallas_call in _render_bwd_call, wrapped by
-// _make_render_core for field_composite_apply). Per ray it recomputes the
+// _make_render_core for field_composite_apply) and in its per-ray-z mode
+// (_make_render_aabb_core, field_composite_aabb_apply). In the per-ray mode
+// each ray reads its own z row in both compositing passes, and the hit
+// column masks the density after the softplus as in K1. The masked density
+// enters both the density and the delta terms of the VJP, so a missed ray
+// sends zero into the transposed chain: zero dxyz, dviewdir and dz, and no
+// share of dz_shape or dz_tex. Its block writes those zeros and returns.
+// The dz rows are per ray already, and the wrapper returns them as they
+// are. Per ray it recomputes the
 // field and the compositing, applies the manual compositing VJP in stable
 // product form (the algebra of the _render_bwd_kernel docstring; no
 // reverse differentiation through log/exp, the only division is by a
@@ -47,7 +55,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
                   const float* __restrict__ z, const float* __restrict__ zs,
                   const float* __restrict__ zt, DecoderWeights w, Dims d,
-                  int white_bkgd, const float* __restrict__ g_rgb,
+                  int white_bkgd, int z_per_ray, const float* __restrict__ hit,
+                  const float* __restrict__ g_rgb,
                   const float* __restrict__ g_depth, const float* __restrict__ g_acc,
                   float* __restrict__ dxyz, float* __restrict__ dvd,
                   float* __restrict__ dzs_part, float* __restrict__ dzt_part,
@@ -57,6 +66,20 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   const int nj = W / 32;
   const size_t ray_idx = (size_t)obj * d.R + ray;
   const int n_masks = d.n_shape + d.n_tex + 3;
+
+  // A ray that misses its box has zero density and zero weights, so every
+  // cotangent it sends back is zero (see render_fwd.cu); its block writes the
+  // zeros and returns without the recompute or the transposed chain.
+  if (hit != nullptr && hit[ray_idx] == 0.f) {
+    for (int i = threadIdx.x; i < S * 3; i += kThreads) dxyz[ray_idx * S * 3 + i] = 0.f;
+    for (int i = threadIdx.x; i < S; i += kThreads) dz_part[ray_idx * S + i] = 0.f;
+    for (int i = threadIdx.x; i < d.n_shape * W; i += kThreads)
+      dzs_part[ray_idx * d.n_shape * W + i] = 0.f;
+    for (int i = threadIdx.x; i < d.n_tex * W; i += kThreads)
+      dzt_part[ray_idx * d.n_tex * W + i] = 0.f;
+    if (threadIdx.x < 3) dvd[ray_idx * 3 + threadIdx.x] = 0.f;
+    return;
+  }
 
   extern __shared__ float smem[];
   float* buf_a = smem;                         // kRows x W
@@ -105,7 +128,7 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   // ---- compositing forward replay + manual VJP (one thread per ray) -------
   // Reuses buf_a as per-sample scratch: alpha, T (exclusive), w, gw.
   if (threadIdx.x == 0) {
-    const float* zr = z + (size_t)obj * S;
+    const float* zr = z + (z_per_ray ? ray_idx : (size_t)obj) * S;
     float* alpha = buf_a;
     float* T = alpha + kRows;
     float* wt = T + kRows;
@@ -241,7 +264,8 @@ extern "C" int supnerf_render_bwd(const float* xyz, const float* vd, const float
                                   const float* zs, const float* zt,
                                   const supnerf::DecoderWeights* w, int B, int R, int S,
                                   int W, int n_shape, int n_tex, int l_xyz, int l_dir,
-                                  int white_bkgd, const float* g_rgb, const float* g_depth,
+                                  int white_bkgd, int z_per_ray, const float* hit,
+                                  const float* g_rgb, const float* g_depth,
                                   const float* g_acc, float* dxyz, float* dvd,
                                   float* dzs_part, float* dzt_part, float* dz_part,
                                   void* stream) {
@@ -252,7 +276,7 @@ extern "C" int supnerf_render_bwd(const float* xyz, const float* vd, const float
       render_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   render_bwd_kernel<<<dim3(R, B), kThreads, smem, (cudaStream_t)stream>>>(
-      xyz, vd, z, zs, zt, *w, d, white_bkgd, g_rgb, g_depth, g_acc, dxyz, dvd, dzs_part,
-      dzt_part, dz_part);
+      xyz, vd, z, zs, zt, *w, d, white_bkgd, z_per_ray, hit, g_rgb, g_depth, g_acc, dxyz,
+      dvd, dzs_part, dzt_part, dz_part);
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,15 @@
 // Replaces the TPU kernel supnerf_tpu/ops/pallas_render.py:_render_kernel in
 // its shared-z mode with XLA-side positional encoding (pallas_call in
 // _render_fwd_call; entry points field_composite_pallas and the forward of
-// field_composite_apply). Same function: for every ray, the CodeNeRF decoder
+// field_composite_apply) and in its per-ray-z + hit mode (the AABB contract:
+// field_composite_aabb_pallas and the forward of field_composite_aabb_apply).
+// The two modes differ only in the compositing: with z_per_ray each ray reads
+// its own z row (B, R, S) instead of its object's (B, S), and a hit column
+// (B, R) zeroes the density of rays that miss the box after the softplus
+// (the Pallas kernel's sig_m * hit, the unfused path's where(hit, sigma, 0)).
+// A missed ray's outputs are then constants, so its block writes them and
+// returns without running the decoder.
+// Same function: for every ray, the CodeNeRF decoder
 // on each sample's 63-wide point encoding (encoding_xyz, shape blocks each
 // adding z_shape[j], encoding_shape, softplus sigma head, viewdir layer with
 // the per-ray 27-wide direction encoding, texture blocks adding z_tex[j],
@@ -37,11 +45,24 @@ __global__ void __launch_bounds__(kThreads, 1)
 render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
                   const float* __restrict__ z, const float* __restrict__ zs,
                   const float* __restrict__ zt, DecoderWeights w, Dims d,
-                  int white_bkgd, float* __restrict__ out_rgb,
+                  int white_bkgd, int z_per_ray, const float* __restrict__ hit,
+                  float* __restrict__ out_rgb,
                   float* __restrict__ out_depth, float* __restrict__ out_acc) {
   const int ray = blockIdx.x, obj = blockIdx.y;
   const int W = d.W, W2 = d.W / 2, S = d.S;
   const size_t ray_idx = (size_t)obj * d.R + ray;
+
+  // A ray that misses its box has zero density on every sample, so its
+  // weights are 0 and its transmittance stays 1: rgb 0 (1 on a white
+  // background), depth 0, acc 1 exactly, with no decoder work.
+  if (hit != nullptr && hit[ray_idx] == 0.f) {
+    if (threadIdx.x < 3) out_rgb[ray_idx * 3 + threadIdx.x] = white_bkgd ? 1.f : 0.f;
+    if (threadIdx.x == 0) {
+      out_depth[ray_idx] = 0.f;
+      out_acc[ray_idx] = 1.f;
+    }
+    return;
+  }
 
   extern __shared__ float smem[];
   float* buf_a = smem;                       // kRows x W
@@ -77,7 +98,7 @@ render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   head(nxt, W2, W2, w.w_r2, 3, w.b_r2, rgb);
 
   if (threadIdx.x == 0) {
-    const float* zr = z + (size_t)obj * S;
+    const float* zr = z + (z_per_ray ? ray_idx : (size_t)obj) * S;
     float T = 1.f, acc = 1.f, wsum = 0.f, depth = 0.f;
     float c0 = 0.f, c1 = 0.f, c2 = 0.f;
     for (int s = 0; s < S; ++s) {
@@ -117,8 +138,9 @@ extern "C" int supnerf_render_fwd(const float* xyz, const float* vd, const float
                                   const float* zs, const float* zt,
                                   const supnerf::DecoderWeights* w, int B, int R, int S,
                                   int W, int n_shape, int n_tex, int l_xyz, int l_dir,
-                                  int white_bkgd, float* out_rgb, float* out_depth,
-                                  float* out_acc, void* stream) {
+                                  int white_bkgd, int z_per_ray, const float* hit,
+                                  float* out_rgb, float* out_depth, float* out_acc,
+                                  void* stream) {
   using namespace supnerf;
   const Dims d{B, R, S, W, n_shape, n_tex, l_xyz, l_dir};
   const size_t smem = render_fwd_smem_bytes(W);
@@ -126,6 +148,6 @@ extern "C" int supnerf_render_fwd(const float* xyz, const float* vd, const float
       render_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   render_fwd_kernel<<<dim3(R, B), kThreads, smem, (cudaStream_t)stream>>>(
-      xyz, vd, z, zs, zt, *w, d, white_bkgd, out_rgb, out_depth, out_acc);
+      xyz, vd, z, zs, zt, *w, d, white_bkgd, z_per_ray, hit, out_rgb, out_depth, out_acc);
   return (int)cudaGetLastError();
 }

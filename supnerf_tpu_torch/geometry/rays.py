@@ -1,5 +1,7 @@
-"""Ray generation and stratified sampling on torch tensors; the port of
-supnerf_tpu/geometry/rays.py (get_rays, get_rays_specified, sample_from_rays).
+"""Ray generation, stratified sampling and ray-box intersection on torch
+tensors; the port of supnerf_tpu/geometry/rays.py (get_rays,
+get_rays_specified, sample_from_rays, sample_z_stratified,
+ray_box_intersection, aabb_ray_bounds).
 
 Everything is batched over a leading object axis B. Camera convention
 (nuScenes): the ray through pixel (u, v) has camera-frame direction
@@ -62,3 +64,46 @@ def sample_from_rays(rays_o, viewdir, near, far, n_samples: int, jitter=None,
     z_vals = base + jitter * (far - near) / (2 * n_samples)
     xyz = rays_o[:, :, None, :] + viewdir[:, :, None, :] * z_vals[:, None, :, None]
     return xyz, z_vals
+
+
+def sample_z_stratified(near, far, n_samples: int, jitter=None, generator=None):
+    """Per-ray stratified depths between per-ray bounds (reference
+    NeRFRenderer.sample_from_ray, renderer.py:27-41). near/far (..., R);
+    jitter: (..., R, S) uniform draws in [0, 1), or None to draw them from
+    `generator`. Returns z (..., R, S)."""
+    if jitter is None:
+        jitter = torch.rand(near.shape + (n_samples,), generator=generator, device=near.device)
+    step = 1.0 / n_samples
+    z_steps = torch.arange(n_samples, dtype=torch.float32, device=near.device) * step
+    z_steps = z_steps + jitter * step
+    return near[..., None] * (1 - z_steps) + far[..., None] * z_steps
+
+
+def ray_box_intersection(rays_o, viewdir, aabb_min, aabb_max):
+    """Slab-method ray/box intersection. rays_o, viewdir (..., 3) in the box
+    frame; aabb_min/max broadcastable to them. Returns (t_near, t_far, hit),
+    each (...,); hit needs t_far > t_near and t_far > 0. The slab test relies
+    on inf for axis-parallel rays (1/0), as the JAX package's does, so its
+    bounds must not be differentiated: the reverse mode of 1/viewdir gives
+    0 * inf = NaN for grazing rays (callers detach them)."""
+    inv_d = 1.0 / viewdir
+    t_min = (aabb_min - rays_o) * inv_d
+    t_max = (aabb_max - rays_o) * inv_d
+    t_near = torch.minimum(t_min, t_max).amax(-1)
+    t_far = torch.maximum(t_min, t_max).amin(-1)
+    return t_near, t_far, (t_far > t_near) & (t_far > 0)
+
+
+def aabb_ray_bounds(rays_o, viewdir, obj_sz):
+    """Per-ray (near, far) from the object's wlh box, in units of obj_diag/2
+    (reference NeRFRenderer.prepare_sampled_rays, renderer.py:91-117); rays
+    that miss get (-1, -1). rays_o/viewdir (B, R, 3) in the metric object
+    frame, obj_sz (B, 3) = (w, l, h). Returns (bounds (B, R, 2), hit (B, R),
+    rays_o_n (B, R, 3), the origins divided by obj_diag/2)."""
+    obj_diag = torch.linalg.norm(obj_sz, dim=-1)[:, None, None]
+    half = torch.stack([obj_sz[:, 1], obj_sz[:, 0], obj_sz[:, 2]], -1)[:, None] / obj_diag
+    rays_o_n = rays_o / (obj_diag / 2)
+    t_near, t_far, hit = ray_box_intersection(rays_o_n, viewdir, -half, half)
+    miss = torch.full_like(t_near, -1.0)
+    bounds = torch.stack([torch.where(hit, t_near, miss), torch.where(hit, t_far, miss)], -1)
+    return bounds, hit, rays_o_n

@@ -1,16 +1,18 @@
 """Fused conditioned-field + compositing render on hand-written CUDA
 kernels, their plain PyTorch versions, and the autograd.Functions that join
-them; the port of supnerf_tpu/ops/pallas_render.py (A1, A2, A5, A6) and of
-the parts of supnerf_tpu/ops/pallas_field.py it uses (pack_decoder_params,
+them; the port of supnerf_tpu/ops/pallas_render.py (A1-A6) and of the
+parts of supnerf_tpu/ops/pallas_field.py it uses (pack_decoder_params,
 conditioned_latents, flatten_weights).
 
   render_fwd        (K1, csrc/render_fwd.cu): per ray, the decoder on every
                     sample and the compositing -> rgb (B,R,3), depth (B,R),
-                    acc (B,R). Serves test-time optimization (A1) and, with
-                    per-object latents, the training forward (A5).
+                    acc (B,R). Serves test-time optimization (A1), the
+                    training forward with per-object latents (A5) and, with
+                    per-ray z and a hit mask, the AABB render (A3).
   render_bwd        (K2, csrc/render_bwd.cu): frozen-decoder backward,
                     recompute + manual compositing VJP + transposed decoder
-                    chain -> dxyz, dviewdir, dz, dz_shape, dz_tex (A2).
+                    chain -> dxyz, dviewdir, dz, dz_shape, dz_tex (A2; A4
+                    with per-ray z and a hit mask).
   render_train_bwd  (K3, csrc/render_train_bwd.cu + K4, csrc/wgrad.cu): the
                     training backward (A6 with data_grads=False): dz_shape,
                     dz_tex and every decoder weight and bias gradient. K3
@@ -20,7 +22,9 @@ conditioned_latents, flatten_weights).
 
 Shapes: objects B along axis 0, R rays, S <= 64 samples per ray shared by all
 rays of an object (xyz (B,R,S,3), per-ray viewdir (B,R,3), z (B,S)), latent
-projections zs (B,n_shape,W), zt (B,n_tex,W). Everything is float32.
+projections zs (B,n_shape,W), zt (B,n_tex,W). Everything is float32. The
+AABB mode (reference render_rays_v3) takes per-ray z (B,R,S) and hit (B,R):
+the density of a ray that misses its box is zero, and dz is per ray.
 
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 For CUDA tensors it launches its kernel or raises; there is no fallback.
@@ -59,7 +63,9 @@ MAX_SAMPLES = 64          # kRows in csrc/render_common.cuh
 
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one where it launches its kernel and nowhere else.
-LAUNCHES = {"render_fwd": 0, "render_bwd": 0, "render_train_bwd": 0, "wgrad": 0}
+# K1 and K2 count their AABB-mode launches (render_*_aabb) apart.
+LAUNCHES = {"render_fwd": 0, "render_bwd": 0, "render_fwd_aabb": 0, "render_bwd_aabb": 0,
+            "render_train_bwd": 0, "wgrad": 0}
 
 
 def reset_launch_counts():
@@ -233,19 +239,26 @@ def decoder_plain(wts: DecoderWeights, xyz, viewdir, zs, zt):
     return sigma, rgb
 
 
-def render_fwd_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False):
-    """K1's plain version: decoder_plain + ops.volume_render (differentiable)."""
+def render_fwd_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False,
+                     hit=None):
+    """K1's plain version: decoder_plain + ops.volume_render (differentiable).
+    With hit (B,R) (the AABB mode) z is per ray (B,R,S) and the density of
+    missed rays is zero, the unfused where(hit, sigma, 0) of render_rays_aabb."""
     sigma, rgb = decoder_plain(wts, xyz, viewdir, zs, zt)
-    return volume_render(sigma, rgb, z[:, None, :], white_bkgd=white_bkgd)
+    if hit is None:
+        z = z[:, None, :]
+    else:
+        sigma = torch.where(hit[..., None] != 0, sigma, torch.zeros_like(sigma))
+    return volume_render(sigma, rgb, z, white_bkgd=white_bkgd)
 
 
 def render_bwd_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
-                     g_rgb, g_depth, g_acc):
+                     g_rgb, g_depth, g_acc, hit=None):
     """K2's plain version: autograd through render_fwd_plain.
-    Returns (dxyz, dviewdir, dz, dzs, dzt)."""
+    Returns (dxyz, dviewdir, dz, dzs, dzt); dz is per ray with hit."""
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_(True) for t in (xyz, viewdir, z, zs, zt)]
-        outs = render_fwd_plain(wts, *inputs, white_bkgd=white_bkgd)
+        outs = render_fwd_plain(wts, *inputs, white_bkgd=white_bkgd, hit=hit)
         return torch.autograd.grad(outs, inputs, (g_rgb, g_depth, g_acc),
                                    allow_unused=True, materialize_grads=True)
 
@@ -318,9 +331,9 @@ def _library():
     lib = ctypes.CDLL(str(build_kernels()["path"]))
     p, i = ctypes.c_void_p, ctypes.c_int
     head = [p] * 5 + [ctypes.POINTER(_DecoderPtrs)] + [i] * 9
-    lib.supnerf_render_fwd.argtypes = head + [p] * 3 + [p]
+    lib.supnerf_render_fwd.argtypes = head + [i, p] + [p] * 3 + [p]
     lib.supnerf_render_fwd.restype = i
-    lib.supnerf_render_bwd.argtypes = head + [p] * 3 + [p] * 5 + [p]
+    lib.supnerf_render_bwd.argtypes = head + [i, p] + [p] * 3 + [p] * 5 + [p]
     lib.supnerf_render_bwd.restype = i
     lib.supnerf_render_train_bwd.argtypes = head + [p] * 3 + [ctypes.POINTER(_StashLayout)] + [p] * 3
     lib.supnerf_render_train_bwd.restype = i
@@ -333,11 +346,14 @@ def _ptrs(wts: DecoderWeights) -> _DecoderPtrs:
     return _DecoderPtrs(*[getattr(wts, name).data_ptr() for name in _PTR_FIELDS])
 
 
-def _check_inputs(wts: DecoderWeights, xyz, viewdir, z, zs, zt, *extra):
+def _check_inputs(wts: DecoderWeights, xyz, viewdir, z, zs, zt, *extra, hit=None):
     B, R, S = xyz.shape[:3]
     W = wts.W
-    expect = {"xyz": (xyz, (B, R, S, 3)), "viewdir": (viewdir, (B, R, 3)), "z": (z, (B, S)),
+    expect = {"xyz": (xyz, (B, R, S, 3)), "viewdir": (viewdir, (B, R, 3)),
+              "z": (z, (B, S) if hit is None else (B, R, S)),
               "zs": (zs, (B, wts.n_shape, W)), "zt": (zt, (B, wts.n_tex, W))}
+    if hit is not None:
+        expect["hit"] = (hit, (B, R))
     for i, t in enumerate(extra):
         expect[f"grad{i}"] = (t, t.shape)
     for name, (t, shape) in expect.items():
@@ -370,11 +386,23 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def render_fwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False):
-    """K1 wrapper. Returns (rgb (B,R,3), depth (B,R), acc_trans (B,R))."""
+def _hit_operand(hit):
+    """The hit mask as the kernels read it: float32 (B,R), 0 for a miss."""
+    return None if hit is None else hit.to(torch.float32).contiguous()
+
+
+def _mode_args(hit):
+    return [int(hit is not None), hit.data_ptr() if hit is not None else None]
+
+
+def render_fwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False, hit=None):
+    """K1 wrapper. Returns (rgb (B,R,3), depth (B,R), acc_trans (B,R)).
+    With hit (B,R) (bool or float, nonzero for a hit) it runs the AABB mode:
+    z is per ray (B,R,S) and missed rays have zero density."""
     if xyz.device.type == "cpu":
-        return render_fwd_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd)
-    _check_inputs(wts, xyz, viewdir, z, zs, zt)
+        return render_fwd_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd, hit)
+    hit = _hit_operand(hit)
+    _check_inputs(wts, xyz, viewdir, z, zs, zt, hit=hit)
     B, R = xyz.shape[:2]
     rgb = torch.empty((B, R, 3), device=xyz.device)
     depth = torch.empty((B, R), device=xyz.device)
@@ -383,23 +411,26 @@ def render_fwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False):
     with torch.cuda.device(xyz.device):     # the runtime launches on its current device
         err = _library().supnerf_render_fwd(
             xyz.data_ptr(), viewdir.data_ptr(), z.data_ptr(), zs.data_ptr(), zt.data_ptr(),
-            ctypes.byref(ptrs), *_dims(wts, xyz, white_bkgd),
+            ctypes.byref(ptrs), *_dims(wts, xyz, white_bkgd), *_mode_args(hit),
             rgb.data_ptr(), depth.data_ptr(), acc.data_ptr(),
             torch.cuda.current_stream(xyz.device).cuda_stream)
     _raise_on(err, "render_fwd")
-    LAUNCHES["render_fwd"] += 1
+    LAUNCHES["render_fwd" if hit is None else "render_fwd_aabb"] += 1
     return rgb, depth, acc
 
 
 def render_bwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
-               g_rgb, g_depth, g_acc):
+               g_rgb, g_depth, g_acc, hit=None):
     """K2 wrapper. Returns (dxyz (B,R,S,3), dviewdir (B,R,3), dz (B,S),
     dzs (B,n_shape,W), dzt (B,n_tex,W)). The kernel writes per-ray partial
     sums of dz, dzs and dzt; summing them over rays here is the second,
-    deterministic pass of the cross-block reduction."""
+    deterministic pass of the cross-block reduction. With hit (the AABB
+    mode) z and dz are per ray, (B,R,S), and dz is returned unsummed."""
     if xyz.device.type == "cpu":
-        return render_bwd_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd, g_rgb, g_depth, g_acc)
-    _check_inputs(wts, xyz, viewdir, z, zs, zt, g_rgb, g_depth, g_acc)
+        return render_bwd_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd, g_rgb, g_depth, g_acc,
+                                hit)
+    hit = _hit_operand(hit)
+    _check_inputs(wts, xyz, viewdir, z, zs, zt, g_rgb, g_depth, g_acc, hit=hit)
     B, R, S = xyz.shape[:3]
     dev = xyz.device
     if g_rgb.shape != (B, R, 3) or g_depth.shape != (B, R) or g_acc.shape != (B, R):
@@ -413,31 +444,33 @@ def render_bwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
     with torch.cuda.device(dev):
         err = _library().supnerf_render_bwd(
             xyz.data_ptr(), viewdir.data_ptr(), z.data_ptr(), zs.data_ptr(), zt.data_ptr(),
-            ctypes.byref(ptrs), *_dims(wts, xyz, white_bkgd),
+            ctypes.byref(ptrs), *_dims(wts, xyz, white_bkgd), *_mode_args(hit),
             g_rgb.data_ptr(), g_depth.data_ptr(), g_acc.data_ptr(),
             dxyz.data_ptr(), dvd.data_ptr(), dzs_part.data_ptr(), dzt_part.data_ptr(),
             dz_part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "render_bwd")
-    LAUNCHES["render_bwd"] += 1
-    return dxyz, dvd, dz_part.sum(1), dzs_part.sum(1), dzt_part.sum(1)
+    LAUNCHES["render_bwd" if hit is None else "render_bwd_aabb"] += 1
+    dz = dz_part.sum(1) if hit is None else dz_part
+    return dxyz, dvd, dz, dzs_part.sum(1), dzt_part.sum(1)
 
 
 class FieldComposite(torch.autograd.Function):
-    """(xyz, viewdir, z, zs, zt) -> (rgb, depth, acc) with K1 as the forward
-    and K2 as the backward; the decoder weights are constants."""
+    """(xyz, viewdir, z, zs, zt[, hit]) -> (rgb, depth, acc) with K1 as the
+    forward and K2 as the backward; the decoder weights are constants, and
+    hit (the AABB mode: z per ray) gets no gradient."""
 
     @staticmethod
-    def forward(ctx, xyz, viewdir, z, zs, zt, wts, white_bkgd):
-        ctx.save_for_backward(xyz, viewdir, z, zs, zt)
+    def forward(ctx, xyz, viewdir, z, zs, zt, wts, white_bkgd, hit=None):
+        ctx.save_for_backward(xyz, viewdir, z, zs, zt, hit)
         ctx.wts, ctx.white_bkgd = wts, white_bkgd
-        return render_fwd(wts, xyz, viewdir, z, zs, zt, white_bkgd)
+        return render_fwd(wts, xyz, viewdir, z, zs, zt, white_bkgd, hit)
 
     @staticmethod
     def backward(ctx, g_rgb, g_depth, g_acc):
-        xyz, viewdir, z, zs, zt = ctx.saved_tensors
+        xyz, viewdir, z, zs, zt, hit = ctx.saved_tensors
         grads = render_bwd(ctx.wts, xyz, viewdir, z, zs, zt, ctx.white_bkgd,
-                           g_rgb.contiguous(), g_depth.contiguous(), g_acc.contiguous())
-        return (*grads, None, None)
+                           g_rgb.contiguous(), g_depth.contiguous(), g_acc.contiguous(), hit)
+        return (*grads, None, None, None)
 
 
 def field_composite(wts: DecoderWeights, xyz, viewdir, z, shapecode, texturecode,
@@ -460,6 +493,21 @@ def field_composite(wts: DecoderWeights, xyz, viewdir, z, shapecode, texturecode
         raise ValueError(f"unknown field_impl {impl!r}")
     return FieldComposite.apply(xyz.contiguous(), viewdir.contiguous(), z.contiguous(),
                                 zs.contiguous(), zt.contiguous(), wts, white_bkgd)
+
+
+def field_composite_aabb(wts: DecoderWeights, xyz, viewdir, z, hit, shapecode, texturecode,
+                         white_bkgd: bool = False):
+    """Differentiable fused AABB render of B objects (counterpart of
+    pallas_render.field_composite_aabb_apply): xyz (B,R,S,3), viewdir
+    (B,R,3), per-ray z (B,R,S), hit (B,R) bool, codes (B, latent) ->
+    (rgb, depth, acc_trans), through FieldComposite in its AABB mode (the
+    kernels for CUDA tensors, the plain versions inside the same wrappers
+    for CPU tensors). Gradients reach the points, view directions, per-ray z
+    and, through the latent projections, the codes; hit and the decoder get
+    none."""
+    zs, zt = conditioned_latents(wts, shapecode, texturecode)
+    return FieldComposite.apply(xyz.contiguous(), viewdir.contiguous(), z.contiguous(),
+                                zs.contiguous(), zt.contiguous(), wts, white_bkgd, hit)
 
 
 # --------------------------------------------------------------------------

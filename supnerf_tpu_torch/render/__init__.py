@@ -1,1 +1,1 @@
-"""Ray-level renderers over a fused field+compositing callable."""
+"""Ray-level renderers over a fused field+compositing callable, and the scene compositor."""

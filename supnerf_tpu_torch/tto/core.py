@@ -6,8 +6,9 @@ fw_pose_update :451, set_optimizers_w_poses :1762, update_learning_rate
 For a batch of objects (axis 0): the encoder with per-object batch
 statistics, the feed-forward pose refiner, then num_opts AdamW iterations on
 (shape code, texture code, rotation, translation). Every iteration renders
-the loss rays with the differentiable fused render and the lidar pixels with
-its forward only. Loop semantics kept from the reference:
+the loss rays with the differentiable fused render (in the frustum shell, or
+with use_aabb_render inside the box, as the demo does) and the lidar pixels
+with its forward only. Loop semantics kept from the reference:
   - iterations 0..reg_iters render the refiner's poses and make no update;
   - AdamW per parameter group (shape, texture, pose) with decoupled weight
     decay scaled by the learning rate; every lr_half_interval iterations the
@@ -26,9 +27,13 @@ from supnerf_tpu_torch.geometry.boxes import invert_pose
 from supnerf_tpu_torch.geometry.poses import calc_pose_err
 from supnerf_tpu_torch.geometry.rotations import axis_angle_to_matrix, matrix_to_axis_angle
 from supnerf_tpu_torch.optim import AdamW
-from supnerf_tpu_torch.ops.render import field_composite
+from supnerf_tpu_torch.ops.render import field_composite, field_composite_aabb
 from supnerf_tpu_torch.ops.volume_render import masked_psnr, occupancy_loss, rgb_loss_masked
-from supnerf_tpu_torch.render.renderer import render_rays_at_pixels, render_rays_frustum
+from supnerf_tpu_torch.render.renderer import (
+    render_rays_aabb,
+    render_rays_at_pixels,
+    render_rays_frustum,
+)
 from supnerf_tpu_torch.tto.refiner import fw_pose_refine
 
 # snapshot iterations of the saved codes and poses (reference CODE_SAVE_ITERS_,
@@ -51,6 +56,8 @@ class TTOConfig:
     loss_occ_coef: float = 0.1
     shapenet_obj_cood: bool = True
     field_impl: str = "auto"     # "auto" | "cuda" | "plain" (ops.render.field_composite)
+    pred_wlh_mode: int = 0       # 0: annotated wlh; 1: the encoder's wlh (refiner, obj_diag, box)
+    use_aabb_render: bool = False   # loss render inside the box (reference render_rays_v3)
 
 
 @dataclasses.dataclass
@@ -94,25 +101,57 @@ def pose_param_fns(cfg: TTOConfig):
     return params_from_obj_pose, obj_pose_from_params
 
 
+def effective_wlh(wlh_gt, wlh_pred, mode: int):
+    """The box size TTO works with (reference optimizer_nuscenes.py:602-615):
+    mode 0 the annotation, mode 1 the encoder's prediction. Mode 2 (the
+    prediction's volume at the dataset's mean w and h) is queued in
+    ROADMAP.md §A.7."""
+    if mode == 0:
+        return wlh_gt
+    if mode == 1:
+        return wlh_pred
+    raise NotImplementedError(f"pred_wlh {mode} is queued in ROADMAP.md §A.7; this slice "
+                              "runs pred_wlh 0 and 1")
+
+
 def make_composite(wts, shapecode, texturecode, impl: str):
     """The renderers' composite_fn over the fused render for these codes."""
     return lambda xyz, vd, z: field_composite(wts, xyz, vd, z, shapecode, texturecode,
                                               impl=impl)
 
 
+def make_composite_aabb(wts, shapecode, texturecode):
+    """render_rays_aabb's composite_fn over the fused AABB render."""
+    return lambda xyz, vd, z, hit: field_composite_aabb(wts, xyz, vd, z, hit, shapecode,
+                                                        texturecode)
+
+
 def tto_loss(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_diag,
-             cfg: TTOConfig, jitter=None, generator=None):
+             cfg: TTOConfig, jitter=None, generator=None, wlh=None):
     """Per-object loss of one iteration's loss render and its PSNR:
     rgb_loss_masked + loss_occ_coef * occupancy_loss (reference :729-744).
-    Returns (loss (B,), psnr (B,)); differentiable in codes and pose_obj."""
-    out = render_rays_frustum(
-        make_composite(wts, shapecode, texturecode, cfg.field_impl), invert_pose(pose_obj),
-        batch.K, batch.roi_nerf, obj_diag, n_samples=cfg.n_samples, im_sz=cfg.render_im_sz,
-        shapenet_obj_cood=cfg.shapenet_obj_cood, jitter=jitter, generator=generator)
+    jitter: (B, S) draws for the frustum render, (B, R, S) for the AABB
+    render, whose box is wlh (B, 3) (the effective wlh). Returns
+    (loss (B,), psnr (B,), hit_share): the loss and psnr differentiable in
+    codes and pose_obj; hit_share (B,) the share of the AABB render's rays
+    that hit the box, None for the frustum render."""
+    hit_share = None
+    if cfg.use_aabb_render:
+        out = render_rays_aabb(
+            make_composite_aabb(wts, shapecode, texturecode), invert_pose(pose_obj), batch.K,
+            batch.roi_nerf, wlh, n_samples=cfg.n_samples, im_sz=cfg.render_im_sz,
+            shapenet_obj_cood=cfg.shapenet_obj_cood, jitter=jitter, generator=generator)
+        hit_share = out["hit"].float().mean(1)
+    else:
+        out = render_rays_frustum(
+            make_composite(wts, shapecode, texturecode, cfg.field_impl), invert_pose(pose_obj),
+            batch.K, batch.roi_nerf, obj_diag, n_samples=cfg.n_samples,
+            im_sz=cfg.render_im_sz, shapenet_obj_cood=cfg.shapenet_obj_cood, jitter=jitter,
+            generator=generator)
     loss = (rgb_loss_masked(out["rgb"], batch.rgb_tgt, batch.occ_tgt, dim=(1, 2))
             + cfg.loss_occ_coef * occupancy_loss(out["acc_trans"], batch.occ_tgt, dim=(1, 2)))
     psnr = masked_psnr(out["rgb"], batch.rgb_tgt, batch.occ_tgt, dim=(1, 2))
-    return loss, psnr
+    return loss, psnr, hit_share
 
 
 @torch.no_grad()
@@ -131,16 +170,20 @@ def depth_error(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_d
 @torch.no_grad()
 def encode_and_refine(model, batch: ObjectBatch, mean_shape, mean_texture, cfg: TTOConfig):
     """Encoder (one object per BatchNorm batch, as the reference encodes one
-    image at a time) and the feed-forward refiner on the annotated box size
-    (reference pred_wlh 0). Returns (shapecode0, texturecode0, pose_traj
-    (B, reg_iters + 1, 3, 4), uv_direct, wlh_pred, wlh_used)."""
+    image at a time) and the feed-forward refiner on the effective box size
+    (effective_wlh; the annotation for a model without a wlh head). Returns
+    (shapecode0, texturecode0, pose_traj (B, reg_iters + 1, 3, 4),
+    uv_direct, wlh_pred, wlh_used)."""
     enc = [model.encode_img(batch.img_in[b:b + 1]) for b in range(len(batch.img_in))]
     sc, tc, pc, uv = (torch.cat([e[i] for e in enc]) for i in range(4))
-    wlh_pred = (torch.cat([e[4] for e in enc]) if model.pred_wlh
-                else torch.zeros_like(batch.wlh))
-    traj = fw_pose_refine(model.pose_update, pc, batch.pose_init, batch.wlh, batch.roi_refine,
+    if model.pred_wlh:
+        wlh_pred = torch.cat([e[4] for e in enc])
+        wlh_use = effective_wlh(batch.wlh, wlh_pred, cfg.pred_wlh_mode)
+    else:
+        wlh_pred, wlh_use = torch.zeros_like(batch.wlh), batch.wlh
+    traj = fw_pose_refine(model.pose_update, pc, batch.pose_init, wlh_use, batch.roi_refine,
                           batch.K, batch.K_inv, iters=cfg.reg_iters)
-    return ((sc + mean_shape) / 2, (tc + mean_texture) / 2, traj, uv, wlh_pred, batch.wlh)
+    return ((sc + mean_shape) / 2, (tc + mean_texture) / 2, traj, uv, wlh_pred, wlh_use)
 
 
 def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg: TTOConfig,
@@ -148,12 +191,15 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
     """The full TTO pipeline for a batch of objects.
 
     wts: ops.render.pack_decoder_params(model). jitter: optional pair
-    (loss_jitter, depth_jitter) of (num_opts, B, S) uniform draws for the
-    stratified sampling of each iteration's two renders; otherwise they are
+    (loss_jitter, depth_jitter) of uniform draws for the stratified sampling
+    of each iteration's two renders, (num_opts, B, S) each, the loss
+    render's (num_opts, B, R, S) with use_aabb_render; otherwise they are
     drawn from `generator`. timer: optional timing.PhaseTimer.
     Returns a dict of per-object results (leading dim B): codes and poses at
     CODE_SAVE_ITERS, the final codes and pose, and the per-iteration psnr,
-    rot_err, trans_err, depth_err and loss curves (B, num_opts)."""
+    rot_err, trans_err, depth_err and loss curves (B, num_opts), and with
+    use_aabb_render the hit_share curve (B, num_opts): the share of the loss
+    render's rays that hit the box."""
     phase = timer.phase if timer is not None else (lambda name: contextlib.nullcontext())
     with phase("encode_refine"):
         sc0, tc0, traj, uv_direct, wlh_pred, wlh_use = encode_and_refine(
@@ -166,7 +212,8 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
     opt = AdamW(params, (cfg.lr_shape, cfg.lr_texture, cfg.lr_pose, cfg.lr_pose),
                 cfg.weight_decay)
 
-    curves = {k: [] for k in ("psnr", "rot_err", "trans_err", "depth_err", "loss")}
+    curves = {k: [] for k in ("psnr", "rot_err", "trans_err", "depth_err", "loss")
+              + (("hit_share",) if cfg.use_aabb_render else ())}
     snaps = {"shapecode": {}, "texturecode": {}, "pose": {}}
     pose_obj = traj[:, 0]
     with phase("tto_loop"):
@@ -177,19 +224,20 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
             if replay:
                 pose_obj = traj[:, t]
                 with torch.no_grad():
-                    loss, psnr = tto_loss(wts, sc, tc, pose_obj, batch, obj_diag, cfg,
-                                          j_loss, generator)
+                    loss, psnr, hit_share = tto_loss(wts, sc, tc, pose_obj, batch, obj_diag,
+                                                     cfg, j_loss, generator, wlh_use)
             else:
                 pose_obj = obj_pose_from_params(rot, trans)
-                loss, psnr = tto_loss(wts, sc, tc, pose_obj, batch, obj_diag, cfg,
-                                      j_loss, generator)
+                loss, psnr, hit_share = tto_loss(wts, sc, tc, pose_obj, batch, obj_diag, cfg,
+                                                 j_loss, generator, wlh_use)
                 grads = torch.autograd.grad(loss.sum(), params)
                 pose_obj = pose_obj.detach()
             err_R, err_T = calc_pose_err(pose_obj, batch.obj_pose_gt)
             d_err = depth_error(wts, sc, tc, pose_obj, batch, obj_diag, cfg, j_depth, generator)
             for k, v in (("psnr", psnr), ("rot_err", err_R), ("trans_err", err_T),
-                         ("depth_err", d_err), ("loss", loss)):
-                curves[k].append(v.detach())
+                         ("depth_err", d_err), ("loss", loss), ("hit_share", hit_share)):
+                if k in curves:
+                    curves[k].append(v.detach())
             if t in CODE_SAVE_ITERS:
                 snaps["shapecode"][t] = sc.detach().clone()
                 snaps["texturecode"][t] = tc.detach().clone()

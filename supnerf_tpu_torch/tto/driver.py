@@ -5,10 +5,12 @@ annotation and camera, snapshots at CODE_SAVE_ITERS, the codes+poses result
 files, and the cross-view evaluation (eval_cross_view :1279).
 
 This slice covers the nuScenes-frame protocol on synthetic objects: opt_pose
-1 (codes and object pose, axis-angle, annotated box size), add_pose_err 0
-and 2, codes stored per (annotation, camera) (code_level 2), no
-visualisation. The other options raise NotImplementedError and are queued in
-ROADMAP.md (PnP bootstrapping, opt_pose 2, needs a solver without OpenCV).
+1 (codes and object pose, axis-angle), the annotated or the predicted box
+size (pred_wlh 0 and 1), the frustum or the AABB loss render,
+add_pose_err 0 and 2, codes stored per (annotation, camera) (code_level 2),
+no visualisation. The other options raise NotImplementedError and are queued
+in ROADMAP.md (PnP bootstrapping, opt_pose 2, needs a solver without
+OpenCV).
 """
 from __future__ import annotations
 
@@ -32,13 +34,21 @@ from supnerf_tpu_torch.tto.core import CODE_SAVE_ITERS, ObjectBatch, TTOConfig, 
 _CROSS_VIEW_CHUNK = 64
 
 
-def tto_config_from_hpams(hpams: dict, *, reg_iters: int = 3, n_lidar: int = 256) -> TTOConfig:
+def tto_config_from_hpams(hpams: dict, *, reg_iters: int = 3, n_lidar: int = 256,
+                          pred_wlh: int = 0) -> TTOConfig:
     opt = hpams.get("optimize", {})
     for key, value in (("euler_rot", hpams.get("euler_rot", 0)),
                        ("optimize.opt_cam_pose", opt.get("opt_cam_pose", 0))):
         if value:
             raise NotImplementedError(f"{key} {value} is queued in ROADMAP.md; this slice "
                                       "optimizes the object pose as an axis-angle vector")
+    for key in ("sym_aug", "obj_sz_reg"):
+        if hpams.get(key, 0):
+            raise NotImplementedError(f"{key} {hpams[key]} is queued in ROADMAP.md §A.11 (the "
+                                      "TTO regularisers); this slice optimizes without it")
+    if pred_wlh not in (0, 1):
+        raise NotImplementedError(f"pred_wlh {pred_wlh} is queued in ROADMAP.md §A.7; this "
+                                  "slice runs pred_wlh 0 and 1")
     return TTOConfig(
         num_opts=opt.get("num_opts", 100), reg_iters=reg_iters,
         n_samples=hpams.get("n_samples", 64), render_im_sz=hpams.get("render_im_sz", 32),
@@ -46,17 +56,20 @@ def tto_config_from_hpams(hpams: dict, *, reg_iters: int = 3, n_lidar: int = 256
         lr_shape=opt.get("lr_shape", 0.02), lr_texture=opt.get("lr_texture", 0.02),
         lr_pose=opt.get("lr_pose", 0.01), lr_half_interval=opt.get("lr_half_interval", 1000),
         loss_occ_coef=hpams.get("loss_occ_coef", 0.1),
-        shapenet_obj_cood=bool(hpams.get("shapenet_obj_cood", 1)),
+        shapenet_obj_cood=bool(hpams.get("shapenet_obj_cood", 1)), pred_wlh_mode=pred_wlh,
     )
 
 
 class TTODriver:
     """Batched TTO over `dataset` (indexable, returning the sample dicts of
     data.synthetic, with 'instoken', 'anntoken' and 'cam_ids' for the
-    bookkeeping). model: a SUPNeRF on `device` with its weights loaded."""
+    bookkeeping). model: a SUPNeRF on `device` with its weights loaded.
+    cfg: a TTOConfig that replaces the one read from hpams (the demo's AABB
+    loss render)."""
 
     def __init__(self, model, mean_shape, mean_texture, hpams: dict, dataset, save_dir: str,
-                 *, device, opt_pose: int = 1, reg_iters: int = 3, add_pose_err: int = 2,
+                 *, device, cfg: TTOConfig | None = None, opt_pose: int = 1,
+                 reg_iters: int = 3, add_pose_err: int = 2,
                  batch_size: int = 16, save_freq: int = 100, seed: int = 0,
                  rand_angle_lim: float = 0.0):
         if opt_pose != 1:
@@ -80,12 +93,14 @@ class TTODriver:
         self.prep_gen = torch.Generator().manual_seed(2 * seed + 1)
         self.render_gen = torch.Generator(device=self.device).manual_seed(2 * seed + 2)
         self.timer = PhaseTimer(self.device)
-        self.cfg = tto_config_from_hpams(hpams, reg_iters=reg_iters)
+        self.cfg = cfg if cfg is not None else tto_config_from_hpams(hpams, reg_iters=reg_iters)
         os.makedirs(save_dir, exist_ok=True)
         self.optimized_shapecodes, self.optimized_texturecodes = {}, {}
         self.optimized_poses = {}
         self.psnr_eval, self.ssim_eval, self.R_eval, self.T_eval = {}, {}, {}, {}
         self.depth_err_mean, self.lidar_pts_cnt, self.ood_flags = {}, {}, {}
+        self.wlh_used = {}      # the box size each object was optimized with
+        self.hit_share = {}     # AABB loss render: per iteration, the share of rays in the box
 
     # ------------------------------------------------------------------ prep
     def _initial_poses(self, samples):
@@ -152,6 +167,9 @@ class TTODriver:
             self.depth_err_mean[log_idx] = res["depth_err"][i].tolist()
             self.lidar_pts_cnt[log_idx] = int(prepped[i]["lidar_valid"].sum())
             self.ood_flags[log_idx] = bool(ood[i])
+            self.wlh_used[log_idx] = res["wlh_used"][i].tolist()
+            if "hit_share" in res:
+                self.hit_share[log_idx] = res["hit_share"][i].tolist()
             if ood[i]:
                 print("Found out-of-distribution pose")
             print(f"  {log_idx}: psnr {res['psnr'][i, 0]:.2f} -> {res['psnr'][i, -1]:.2f}, "

@@ -66,16 +66,18 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("option", ["opt_pose 0", "opt_pose 2", "euler_rot", "opt_cam_pose"])
+@pytest.mark.parametrize("option", ["opt_pose 0", "opt_pose 2", "euler_rot", "opt_cam_pose",
+                                    "sym_aug", "obj_sz_reg"])
 def test_unported_options_raise(tmp_path, option):
     """Options outside this slice refuse to run instead of taking an
-    unverified path."""
+    unverified path (sym_aug and obj_sz_reg, the TTO regularisers, were
+    once ignored silently)."""
     config = dict(TINY_CONFIG, model_dir=str(tmp_path / "no_checkpoint"))
     argv = []
     if option.startswith("opt_pose"):
         argv = ["--opt_pose", option.split()[1]]
-    elif option == "euler_rot":
-        config["euler_rot"] = 1
+    elif option in ("euler_rot", "sym_aug", "obj_sz_reg"):
+        config[option] = 1
     else:
         config["optimize"] = dict(config["optimize"], opt_cam_pose=1)
     cfg = tmp_path / "tiny.json"
@@ -85,7 +87,8 @@ def test_unported_options_raise(tmp_path, option):
                        "1", "--device", "cpu", "--save_dir", str(tmp_path / "run"), *argv])
 
 
-_BLOCKED = ("jax", "jaxlib", "flax", "optax", "supnerf_tpu", "cv2", "PIL", "matplotlib")
+_BLOCKED = ("jax", "jaxlib", "flax", "optax", "supnerf_tpu", "cv2", "PIL", "matplotlib",
+            "imageio")
 _ISOLATION = r"""
 import importlib, pkgutil, sys
 blocked = %r
@@ -104,18 +107,21 @@ for name in names + ["chip_smoke"]:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if hit(m))
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
 def test_port_imports_nothing_of_the_jax_world():
     """Every module of supnerf_tpu_torch and chip_smoke.py imports in a fresh
-    interpreter where jax, flax, optax, supnerf_tpu, cv2, PIL and
-    matplotlib raise on import."""
+    interpreter where jax, flax, optax, supnerf_tpu, cv2, PIL, matplotlib
+    and imageio raise on import."""
     proc = subprocess.run([sys.executable, "-c", _ISOLATION % (_BLOCKED,)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[-1]) >= 20
+    imported = proc.stdout.split()
+    assert len(imported) >= 20
+    for name in ("cli.demo", "render.compositor", "utils.image_io"):
+        assert f"supnerf_tpu_torch.{name}" in imported
 
 
 # --------------------------------------------------------------------------

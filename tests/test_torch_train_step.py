@@ -36,6 +36,7 @@ from supnerf_tpu_torch.models.convert import (_adam_moments, convert_supnerf_var
 from supnerf_tpu_torch.optim import AdamW
 from supnerf_tpu_torch.training import train_step as port
 from supnerf_tpu_torch.training.ray_prep import prepare_train_sample
+from torch_memory import release_memory_after_module  # noqa: F401
 
 TINY_HP = {"shape_blocks": 1, "texture_blocks": 1, "latent_dim": 32,
            "pose_shortcut": 1, "pred_wlh": 0}

@@ -28,6 +28,7 @@ from supnerf_tpu_torch.models.convert import convert_supnerf_variables
 from supnerf_tpu_torch.models.factory import build_model
 from supnerf_tpu_torch.ops.render import pack_decoder_params
 from supnerf_tpu_torch.tto import core
+from torch_memory import release_memory_after_module  # noqa: F401
 
 TINY_HP = {"shape_blocks": 1, "texture_blocks": 1, "latent_dim": 32,
            "pose_shortcut": 1, "pred_wlh": 0}
@@ -147,7 +148,7 @@ def test_first_update_gradients_match(tiny, both_runs):
     params = [torch.tensor(np.asarray(a)).requires_grad_(True) for a in (sc0, tc0, rot0, trans0)]
     diag = torch.linalg.norm(batch.wlh, dim=-1)
     pose = core.pose_param_fns(PORT_CFG)[1](params[2], params[3])
-    loss, _ = core.tto_loss(wts, params[0], params[1], pose, batch, diag, PORT_CFG,
+    loss, _, _ = core.tto_loss(wts, params[0], params[1], pose, batch, diag, PORT_CFG,
                             jitter=torch.from_numpy(jit_loss[t]))
     grads = torch.autograd.grad(loss.sum(), params)
     for b in range(B):
