@@ -14,8 +14,13 @@ Phases, each timed; any failure exits non-zero before the result line:
      third of the rays missing their box) at the demo path's (3 objects),
      each against its plain PyTorch version on the same inputs, each error
      beside its tolerance, kernel / plain times beside the card's bound;
+     K5 (field_fwd) and K6 (field_bwd), the per-point field, at the
+     regulariser paths' shapes (2 objects x 65,536 points with per-ray
+     directions, 2 x 1,200 box-plane samples with directions of ones);
      then the branches no path takes (white background, S < 64, odd R,
-     W 64/128, several stash chunks), in both modes of K1 and K2;
+     W 64/128, several stash chunks), in both modes of K1 and K2, and for
+     K5/K6 W 64/128, M not a multiple of 64 and directions that differ
+     within a block;
   4. TTO path: the port's CLI test-time optimization at the published
      config (full width, 100 iterations) on 2 synthetic objects, with the
      launch counts, the final metrics and the result file;
@@ -26,7 +31,13 @@ Phases, each timed; any failure exits non-zero before the result line:
   6. demo path: the port's demo CLI at hpam_demo.json (full width, 100
      iterations of AABB-bounded TTO on 3 objects of a 900 x 1600 synthetic
      scene, then six composed frames), with the launch counts, finite
-     curves and frames, and input.png and the frames decoded by read_png.
+     curves and frames, and input.png and the frames decoded by read_png;
+  7. regulariser paths at the published config on 2 synthetic objects, 100
+     iterations: (a) the CLI with "obj_sz_reg": 1 and "sym_aug": 1 in a copy
+     of the config (the object-size loss on K5/K6, the loss render on
+     K1/K2), (b) run_tto_batch with sym_loss_coef 1.0 as well (the loss
+     render and its mirror on K5/K6 at 65,536 points per object), each with
+     its launch counts, finite curves and final metrics.
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -53,7 +64,7 @@ PEAK_BYTES_PER_S = 3.35e12
 # 256-term dot product in another order than torch's matmul): values as in
 # tests/test_pallas_render.py; gradients relative to the largest magnitude,
 # since dz_shape / dz_tex / dz are sums over 1024 x 64 points per object.
-VALUE_ATOL = {"rgb": 3e-4, "depth": 3e-3, "acc": 3e-4}
+VALUE_ATOL = {"rgb": 3e-4, "depth": 3e-3, "acc": 3e-4, "sigma": 3e-4}
 GRAD_RTOL = 1e-3
 # K4 against its plain version (cuBLAS SGEMM, TF32 off) on the same stash:
 # float32 sums of up to 262,144 products in another order
@@ -62,6 +73,7 @@ WGRAD_RTOL = 1e-4
 RESUME_RTOL = 1e-5
 TRAIN_OBJECTS, TRAIN_BATCH = 16, 8
 DEMO_OBJECTS, DEMO_ITERS = 3, 100
+REG_OBJECTS, REG_ITERS = 2, 100
 
 def decoder_macs(W, n_shape, n_tex, d_xyz=63):
     """Multiply-adds per point of the decoder (csrc/render_fwd.cu's count)."""
@@ -534,6 +546,145 @@ def check_aabb_kernels():
     return records
 
 
+def field_inputs(seed=3, B=REG_OBJECTS):
+    """The regulariser paths' two shapes on kernel_inputs' decoder: the
+    loss render's 1024 x 64 points per object with their rays' directions
+    (the symmetry loss), and the object-size loss's 2 x 600 box-plane
+    samples per object with directions of ones. Returns (wts, [(label,
+    (xyz, viewdir, zs, zt), cotangents)])."""
+    import torch
+
+    from supnerf_tpu_torch.tto.regularizers import SAMPLES_PER_PLANE, obj_sz_reg_samples
+
+    wts, (xyz, vd, _, zs, zt), _ = kernel_inputs(seed=seed, B=B)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pts = xyz.reshape(B, -1, 3).contiguous()
+    vds = vd[:, :, None, :].expand_as(xyz).reshape(B, -1, 3).contiguous()
+    wlh = torch.tensor([[1.9, 4.6, 1.7]], device="cuda").repeat(B, 1)
+    draws = torch.rand((B, 3, SAMPLES_PER_PLANE), generator=g, device="cuda")
+    s_out, s_in = obj_sz_reg_samples(draws, wlh, torch.linalg.norm(wlh, dim=-1))
+    box = torch.cat([s_out, s_in], 1).reshape(B, -1, 3).contiguous()
+    out = []
+    for label, p, v in (("sym", pts, vds), ("objsz", box, torch.ones_like(box))):
+        cot = (torch.randn(p.shape[:2] + (1,), generator=g, device="cuda"),
+               torch.randn(p.shape, generator=g, device="cuda"))
+        out.append((label, (p, v, zs, zt), cot))
+    return wts, out
+
+
+def check_field_kernels():
+    """K5 and K6 against their plain versions at both shapes of the
+    regulariser paths (K6 also against a float64 plain version: near a
+    ReLU kink the float32 one is not the truth, see compare_at_kinks).
+    Returns the records of K5 and K6, the loss render's shape as the main
+    numbers and the object-size shape beside them."""
+    import torch
+
+    from supnerf_tpu_torch.ops import field, render
+
+    wts, cases = field_inputs()
+    W, ns, nt = wts.W, wts.n_shape, wts.n_tex
+    dir_macs = 3 * (2 * wts.num_dir_freq + 1) * W     # K5's per-point direction term
+    w_fwd = sum(getattr(wts, f).numel() for f in render._PTR_FIELDS if not f.startswith("wt_"))
+    w_all = sum(getattr(wts, f).numel() for f in render._PTR_FIELDS)
+    by_shape = {}
+    ok = True
+    for label, args, cot in cases:
+        B, M = args[0].shape[:2]
+        print(f"   K5/K6 at the {label} shape, {B} objects x {M} points:")
+        with torch.no_grad():
+            fwd_k = field.field_fwd(wts, *args)
+            torch.cuda.synchronize()
+            fwd_p = field.field_fwd_plain(wts, *args)
+        err_fwd, ok_fwd = compare(("sigma", "rgb"), fwd_k, fwd_p, lambda n, s: VALUE_ATOL[n])
+        bwd_k = field.field_bwd(wts, *args, *cot)
+        torch.cuda.synchronize()
+        bwd_p = field.field_bwd_plain(wts, *args, *cot)
+        bwd_64 = field.field_bwd_plain(as_float64(wts), *(t.double() for t in args),
+                                       *(t.double() for t in cot))
+        err_bwd, err_bwd32, ok_bwd = compare_at_kinks(("dxyz", "dviewdir", "dzs", "dzt"), bwd_k,
+                                                      bwd_p, bwd_64, GRAD_RTOL)
+        del bwd_64
+        ok &= ok_fwd and ok_bwd
+        n = 10 if M > 10000 else 50
+        t_fwd = _timed(lambda: field.field_fwd(wts, *args), n)
+        with torch.no_grad():
+            t_fwd_p = _timed(lambda: field.field_fwd_plain(wts, *args), max(n // 2, 3))
+        t_bwd = _timed(lambda: field.field_bwd(wts, *args, *cot), max(n // 2, 3))
+        t_bwd_p = _timed(lambda: field.field_bwd_plain(wts, *args, *cot), max(n // 4, 3))
+        # bytes: each input read once, each output written once
+        pts = B * M
+        act_bytes = sum(t.numel() for t in args) * 4
+        fwd_flops = 2 * pts * (decoder_macs(W, ns, nt) + dir_macs)
+        fwd_bytes = act_bytes + w_fwd * 4 + pts * 4 * 4
+        bwd_flops = fwd_flops + 2 * pts * (transposed_macs(W, ns, nt) + dir_macs)
+        bwd_bytes = act_bytes + w_all * 4 + pts * 4 * 4 + (pts * 6 + B * (ns + nt) * W) * 4
+        by_shape[label] = [
+            record("field_fwd", ["A7", "A11b"], "supnerf_tpu/ops/pallas_field.py:183",
+                   "supnerf_tpu_torch/csrc/field_fwd.cu", t_fwd, t_fwd_p, err_fwd,
+                   bound(fwd_flops, fwd_bytes)),
+            record("field_bwd", ["A8"], "supnerf_tpu/ops/pallas_field.py:384",
+                   "supnerf_tpu_torch/csrc/field_bwd.cu", t_bwd, t_bwd_p, err_bwd,
+                   bound(bwd_flops, bwd_bytes))]
+        by_shape[label][1]["max_abs_err_float32_plain"] = err_bwd32
+    if not ok:
+        raise RuntimeError("a field kernel disagrees with its plain version")
+    records = by_shape["sym"]
+    for r, small in zip(records, by_shape["objsz"]):
+        r["objsz_shape"] = {k: small[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                                   "max_abs_err")}
+    return records
+
+
+def check_field_branches():
+    """K5 and K6 against their plain versions off the main paths: W 64 and
+    128 (and 256 with 2 shape blocks), M not a multiple of 64 (one block of
+    a few rows, 600 and 1,000 points), a different direction per point.
+    Same tolerances, K6 with the float64 arbitration; not timed."""
+    import torch
+    import torch.nn.functional as F
+
+    from supnerf_tpu_torch.models.layers import init_parameters
+    from supnerf_tpu_torch.models.nerf_mlp import CodeNeRFDecoder
+    from supnerf_tpu_torch.ops import field, render
+
+    ok = True
+    for W, ns, M in ((64, 3, 19), (128, 3, 1000), (256, 2, 600)):
+        g = torch.Generator().manual_seed(W + M)
+        dec = CodeNeRFDecoder(ns, 1, W, W)
+        init_parameters(dec, g)
+        wts = render.pack_decoder_params(dec.cuda())
+        xyz = torch.randn((2, M, 3), generator=g) * 0.4
+        vd = F.normalize(torch.randn((2, M, 3), generator=g), dim=-1)
+        codes = torch.randn((2, 2, W), generator=g) * 0.3
+        cot = (torch.randn((2, M, 1), generator=g), torch.randn((2, M, 3), generator=g))
+        xyz, vd, codes, *cot = (t.cuda().contiguous() for t in (xyz, vd, codes, *cot))
+        zs, zt = (t.contiguous() for t in render.conditioned_latents(wts, codes[0], codes[1]))
+        args = (xyz, vd, zs, zt)
+        with torch.no_grad():
+            fwd = list(zip(("sigma", "rgb"), field.field_fwd(wts, *args),
+                           field.field_fwd_plain(wts, *args)))
+        bwd_k = field.field_bwd(wts, *args, *cot)
+        bwd_p = field.field_bwd_plain(wts, *args, *cot)
+        bwd_64 = field.field_bwd_plain(as_float64(wts), *(t.double() for t in args),
+                                       *(t.double() for t in cot))
+        errs = []
+        for name, a, b in fwd:
+            err = float((a - b).abs().max())
+            good = err <= VALUE_ATOL[name] and bool(torch.isfinite(a).all())
+            ok &= good
+            errs.append(f"{name} {err:.1e}{'' if good else ' FAIL'}")
+        for name, a, b, b64 in zip(("dxyz", "dviewdir", "dzs", "dzt"), bwd_k, bwd_p, bwd_64):
+            tol = GRAD_RTOL * float(b.abs().max())
+            err = float(torch.minimum((a - b).abs().double(), (a.double() - b64).abs()).max())
+            good = err <= tol and bool(torch.isfinite(a).all())
+            ok &= good
+            errs.append(f"{name} {err:.1e}{'' if good else ' FAIL'}")
+        print(f"   field W {W} shape blocks {ns} M {M}: " + ", ".join(errs))
+    if not ok:
+        raise RuntimeError("a field kernel disagrees with its plain version off the main path")
+
+
 def _linear_param_names(wts):
     from supnerf_tpu_torch.ops import render
 
@@ -552,9 +703,12 @@ def _stash_width(L, wts):
 TTO_KERNELS = ("render_fwd", "render_bwd")
 TRAIN_KERNELS = ("render_fwd", "render_train_bwd", "wgrad")
 DEMO_KERNELS = ("render_fwd", "render_fwd_aabb", "render_bwd_aabb")
+REG_CLI_KERNELS = ("render_fwd", "render_bwd", "field_fwd", "field_bwd")
+REG_LIB_KERNELS = ("render_fwd", "field_fwd", "field_bwd")
 # the hand-written kernel behind each counter
 KERNEL_OF = {"render_fwd": "K1", "render_fwd_aabb": "K1", "render_bwd": "K2",
-             "render_bwd_aabb": "K2", "render_train_bwd": "K3", "wgrad": "K4"}
+             "render_bwd_aabb": "K2", "render_train_bwd": "K3", "wgrad": "K4",
+             "field_fwd": "K5", "field_bwd": "K6"}
 
 
 def _in_temp_dir(fn):
@@ -784,12 +938,117 @@ def demo_path(out_dir):
     return counts
 
 
-def kernel_records(tto_records, train_records, aabb_records, counts_by_path):
+def _reg_config(out_dir):
+    """A copy of the published config with the two regulariser keys on."""
+    with open(os.path.join(HERE, "jsonfiles", "supnerf.nusc.vehicle.car.json")) as f:
+        config = json.load(f)
+    config.update(obj_sz_reg=1, sym_aug=1)
+    path = os.path.join(out_dir, "supnerf.nusc.vehicle.car.reg.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    return path
+
+
+def _check_curves(name, curves, n_objects, n_iters):
+    import numpy as np
+
+    curves = [np.asarray(c, np.float64) for c in curves]
+    if len(curves) % n_objects or not all(c.shape == (n_iters,) and np.isfinite(c).all()
+                                          for c in curves):
+        raise RuntimeError(f"the {name} path's curves are missing or not finite")
+
+
+def reg_cli_path(out_dir):
+    """(a) The port's CLI TTO with "obj_sz_reg": 1 and "sym_aug": 1 in a
+    copy of the published config, 2 synthetic objects, 100 iterations:
+    the loss render on K1/K2, the object-size loss on K5/K6. Returns the
+    launch counts."""
+    import torch
+
+    from supnerf_tpu_torch.cli import optimize
+    from supnerf_tpu_torch.ops import render
+
+    config = _reg_config(out_dir)
+    render.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = optimize.main([
+        "--config_file", config, "--dataset", "synthetic", "--num_objects", str(REG_OBJECTS),
+        "--batch_size", str(REG_OBJECTS), "--device", "cuda", "--seed", "0",
+        "--save_dir", os.path.join(out_dir, "run")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _path_counts("regulariser CLI", REG_CLI_KERNELS)
+    with open(os.path.join(out_dir, "run", "codes+poses.pkl"), "rb") as f:
+        res = pickle.load(f)
+    _check_curves("regulariser CLI", [v for key in ("psnr_eval", "R_eval", "T_eval",
+                                                     "depth_err_mean")
+                                      for v in res[key].values()]
+                  + list(summary["loss"].values()), REG_OBJECTS, REG_ITERS)
+    agg = summary["aggregate"]
+    print(f"   regulariser CLI (obj_sz_reg 1, sym_aug 1): {seconds:.2f} s for {REG_OBJECTS} "
+          f"objects end to end; phases: " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in summary["phase_seconds"].items()))
+    print(f"   final: psnr {agg['psnr'][-1]:.3f} dB, rot err {agg['rot_err_deg'][-1]:.3f} deg, "
+          f"trans err {agg['trans_err'][-1]:.4f} m (iteration 0: psnr {agg['psnr'][0]:.3f}, "
+          f"rot {agg['rot_err_deg'][0]:.3f}, trans {agg['trans_err'][0]:.4f}); loss first -> "
+          "last: " + "; ".join(f"{k} {v[0]:.5f} -> {v[-1]:.5f}"
+                               for k, v in summary["loss"].items()))
+    return counts
+
+
+def reg_lib_path(out_dir):
+    """(b) run_tto_batch with sym_aug, obj_sz_reg and sym_loss_coef 1.0 at
+    the published config on 2 synthetic objects, 100 iterations: the loss
+    render goes through the per-point field (K5/K6 at 65,536 points per
+    object) and volume_render, its mirror for the symmetry loss too, and the
+    object-size loss. Returns the launch counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.cli.common import SyntheticDataset, load_model_and_codes
+    from supnerf_tpu_torch.config import load_hpams
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.tto.core import run_tto_batch
+    from supnerf_tpu_torch.tto.driver import TTODriver, tto_config_from_hpams
+
+    hpams = load_hpams(_reg_config(out_dir))
+    cfg = dataclasses.replace(tto_config_from_hpams(hpams), sym_loss_coef=1.0)
+    if not (cfg.sym_aug and cfg.obj_sz_reg and cfg.num_opts == REG_ITERS):
+        raise RuntimeError(f"the regulariser config did not reach TTOConfig: {cfg}")
+    model, mean_shape, mean_texture = load_model_and_codes(hpams, "cuda", seed=0)
+    driver = TTODriver(model, mean_shape, mean_texture, hpams, SyntheticDataset(REG_OBJECTS),
+                       out_dir, device="cuda", cfg=cfg, batch_size=REG_OBJECTS)
+    _, _, batch = driver._prep(list(range(REG_OBJECTS)))
+    render.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_tto_batch(model, driver.wts, batch, driver.mean_shape, driver.mean_texture, cfg,
+                        generator=driver.render_gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _path_counts("regulariser library", REG_LIB_KERNELS)
+    res = {k: v.detach().cpu().numpy() for k, v in res.items()}
+    _check_curves("regulariser library", [c for k in ("psnr", "rot_err", "trans_err",
+                                                       "depth_err", "loss") for c in res[k]],
+                  REG_OBJECTS, REG_ITERS)
+    print(f"   run_tto_batch (sym_aug, obj_sz_reg, sym_loss_coef 1.0): {seconds:.2f} s for "
+          f"{REG_OBJECTS} objects x {REG_ITERS} iterations ({seconds / REG_ITERS * 1e3:.1f} ms "
+          "per iteration)")
+    for b in range(REG_OBJECTS):
+        print(f"   object {b}: psnr {res['psnr'][b, 0]:.3f} -> {res['psnr'][b, -1]:.3f}, rot err "
+              f"{np.degrees(res['rot_err'][b, 0]):.3f} -> {np.degrees(res['rot_err'][b, -1]):.3f} "
+              f"deg, trans err {res['trans_err'][b, 0]:.4f} -> {res['trans_err'][b, -1]:.4f} m, "
+              f"loss {res['loss'][b, 0]:.5f} -> {res['loss'][b, -1]:.5f}")
+    return counts
+
+
+def kernel_records(tto_records, train_records, aabb_records, field_records, counts_by_path):
     """One record per launch counter, launches from the path that runs it
     (K1's shared-z mode from the training path; launches_by_path has every
     path); K1's numbers are the training shape's, with the TTO shape's
     beside them."""
-    by_name = {r["name"]: r for r in train_records + aabb_records}
+    by_name = {r["name"]: r for r in train_records + aabb_records + field_records}
     for r in tto_records:
         if r["name"] in by_name:
             by_name[r["name"]]["tto_shape"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
@@ -799,7 +1058,8 @@ def kernel_records(tto_records, train_records, aabb_records, counts_by_path):
     by_name["render_fwd"]["ports"] = ["A1", "A3", "A5"]
     by_name["render_bwd"]["ports"] = ["A2", "A4"]
     main_path = {"render_fwd": "train", "render_bwd": "tto", "render_train_bwd": "train",
-                 "wgrad": "train", "render_fwd_aabb": "demo", "render_bwd_aabb": "demo"}
+                 "wgrad": "train", "render_fwd_aabb": "demo", "render_bwd_aabb": "demo",
+                 "field_fwd": "reg_lib", "field_bwd": "reg_lib"}
     records = [by_name[n] for n in main_path]
     for r in records:
         r["kernel"] = KERNEL_OF[r["name"]]
@@ -832,7 +1092,9 @@ def main():
     tto_records = check_kernels()
     train_records = check_train_kernels()
     aabb_records = check_aabb_kernels()
+    field_records = check_field_kernels()
     check_kernel_branches()
+    check_field_branches()
     done(t0, "kernels")
     t0 = phase("TTO path through the CLI")
     tto_counts = _in_temp_dir(tto_path)
@@ -843,8 +1105,13 @@ def main():
     t0 = phase("demo path through the CLI")
     demo_counts = _in_temp_dir(demo_path)
     done(t0, "demo path")
-    records = kernel_records(tto_records, train_records, aabb_records,
-                             {"tto": tto_counts, "train": train_counts, "demo": demo_counts})
+    t0 = phase("regulariser paths: (a) the CLI, (b) run_tto_batch with sym_loss_coef 1.0")
+    reg_cli_counts = _in_temp_dir(reg_cli_path)
+    reg_lib_counts = _in_temp_dir(reg_lib_path)
+    done(t0, "regulariser paths")
+    records = kernel_records(tto_records, train_records, aabb_records, field_records,
+                             {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
+                              "reg_cli": reg_cli_counts, "reg_lib": reg_lib_counts})
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("kernels: " + " ".join(f"{r['kernel']}:{r['name']}({','.join(r['ports'])})"
                                  for r in records))

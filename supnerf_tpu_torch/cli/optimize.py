@@ -6,6 +6,8 @@
 
 Optimizes every object, writes codes+poses.pkl (+ .pth) and cross_eval.pkl,
 and prints the aggregated metric table (the eval.pdf plot is not ported yet).
+The TTO regularisers come from the config, as in the JAX CLI: "sym_aug": 1
+and "obj_sz_reg": 1 (with "loss_obj_sz_coef").
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ def _save_postfix(args) -> str:
 
 
 def main(argv=None):
-    """Returns {'save_dir', 'aggregate', 'cross', 'phase_seconds'}."""
+    """Returns {'save_dir', 'aggregate', 'cross', 'phase_seconds', 'loss'}
+    ('loss': per object, the per-iteration TTO loss)."""
     p = argparse.ArgumentParser("supnerf_tpu_torch optimize")
     args = add_optimize_args(p).parse_args(argv)
     device = resolve_device(args.device)
@@ -55,7 +58,7 @@ def main(argv=None):
     print_eval_results(agg, cross)
     print("phase seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in driver.timer.seconds.items()))
     return {"save_dir": save_dir, "aggregate": agg, "cross": cross,
-            "phase_seconds": dict(driver.timer.seconds)}
+            "phase_seconds": dict(driver.timer.seconds), "loss": driver.loss_curve}
 
 
 if __name__ == "__main__":

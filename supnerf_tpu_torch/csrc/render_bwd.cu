@@ -38,19 +38,6 @@
 
 namespace supnerf {
 
-static __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
-// Column sums over the S real rows: the cotangent of a latent that was added
-// to every row of a block's input.
-static __device__ void column_sums(const float* buf, int stride, int N, int S, float* out) {
-  for (int c = threadIdx.x; c < N; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < S; ++r) s += buf[r * stride + c];
-    out[c] = s;
-  }
-  __syncthreads();
-}
-
 __global__ void __launch_bounds__(kThreads, 1)
 render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
                   const float* __restrict__ z, const float* __restrict__ zs,

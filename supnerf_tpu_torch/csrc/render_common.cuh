@@ -1,9 +1,11 @@
-// Shared device code of the two fused render kernels (render_fwd.cu,
-// render_bwd.cu): the decoder weight table, the block-wide dense layer, the
-// positional encoding and its chain rule.
+// Shared device code of the decoder kernels (render_fwd.cu, render_bwd.cu,
+// render_train_bwd.cu, field_fwd.cu, field_bwd.cu): the decoder weight table,
+// the block-wide dense layer, the positional encoding and its chain rule.
 //
-// Block shape, common to both kernels: one block renders ONE ray of one
-// object. Its S <= kRows samples are the rows of every activation matrix,
+// Block shape, common to all of them: one block holds kRows points of one
+// object, the samples of ONE ray in the render kernels, 64 consecutive
+// points in the per-point field kernels. They are the rows of every
+// activation matrix,
 // which lives in shared memory (kRows x W floats, 64 KB at W = 256). 256
 // threads = 8 warps; warp w owns rows 8w..8w+7 and lane l owns the columns
 // l, l+32, l+64, ... of each layer's output, so every warp reads one
@@ -65,13 +67,17 @@ static __device__ __forceinline__ int pe_width(int degree) { return 3 * (2 * deg
 // decoder is 1.8 MB). NJ = ceil(N / 32) columns per lane. If mask is given,
 // bit l of mask[r * NJ + j] records out[r][l + 32 j] > 0 — the ReLU pattern
 // the backward needs, 2 KB per W = 256 layer instead of a 64 KB stash.
+// With accumulate, out's old values are added before the activation
+// (out = act(in @ M + bias + out); `in` must not alias `out`): each thread
+// reads only the elements it writes.
 // Ends with __syncthreads(); the caller has synchronised `in`. Not inlined:
 // each kernel calls it a dozen times, and inlining every call site of every
 // width variant multiplies the compile time.
 template <int NJ>
 static __device__ __noinline__ void dense_t(const float* in, int in_stride, int K,
                         const float* __restrict__ M, int N, const float* bias,
-                        float* out, int out_stride, bool relu, uint32_t* mask) {
+                        float* out, int out_stride, bool relu, uint32_t* mask,
+                        bool accumulate) {
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * 8;
   float acc[8][NJ];
@@ -104,6 +110,7 @@ static __device__ __noinline__ void dense_t(const float* in, int in_stride, int 
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       float v = acc[i][j] + b;
+      if (accumulate && ok) v += out[(r0 + i) * out_stride + c];
       if (relu) v = fmaxf(v, 0.f);
       if (ok) out[(r0 + i) * out_stride + c] = v;
       if (mask != nullptr) {
@@ -119,12 +126,12 @@ static __device__ __noinline__ void dense_t(const float* in, int in_stride, int 
 // 256}, or the 63-wide point encoding (ops/render.py checks W).
 static __device__ void dense(const float* in, int in_stride, int K, const float* M,
                              int N, const float* bias, float* out, int out_stride,
-                             bool relu, uint32_t* mask) {
+                             bool relu, uint32_t* mask, bool accumulate = false) {
   const int nj = (N + 31) / 32;
-  if (nj <= 1) dense_t<1>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask);
-  else if (nj == 2) dense_t<2>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask);
-  else if (nj <= 4) dense_t<4>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask);
-  else dense_t<8>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask);
+  if (nj <= 1) dense_t<1>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate);
+  else if (nj == 2) dense_t<2>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate);
+  else if (nj <= 4) dense_t<4>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate);
+  else dense_t<8>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate);
 }
 
 // buf[r][c] += vec[c] over all rows (the per-object latent of a shape or
@@ -166,8 +173,10 @@ static __device__ __forceinline__ void encode_one(const float x[3], int degree, 
   }
 }
 
-// Encodes the S points of one ray into pe (kRows x kPeStride); rows >= S are
-// zero so that the padded rows of every layer stay finite.
+// Encodes S <= kRows consecutive points (the samples of one ray, or a
+// field kernel's block of points or directions) into pe (kRows x
+// kPeStride); rows >= S are zero so that the padded rows of every layer stay
+// finite. The caller synchronises before reading pe.
 static __device__ void encode_points(const float* xyz, int S, int degree, float* pe) {
   for (int r = threadIdx.x; r < kRows; r += kThreads) {
     float* row = pe + r * kPeStride;
@@ -193,6 +202,19 @@ static __device__ __forceinline__ void encode_backward_one(const float* pe, cons
     }
     dx[c] = d;
   }
+}
+
+static __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
+
+// Column sums over the S real rows: the cotangent of a latent that was added
+// to every row of a block's input.
+static __device__ void column_sums(const float* buf, int stride, int N, int S, float* out) {
+  for (int c = threadIdx.x; c < N; c += kThreads) {
+    float s = 0.f;
+    for (int r = 0; r < S; ++r) s += buf[r * stride + c];
+    out[c] = s;
+  }
+  __syncthreads();
 }
 
 static __device__ __forceinline__ float softplus(float x) {

@@ -48,23 +48,12 @@ struct StashLayout {
   int r_dpe, r_gv;
 };
 
-static __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
-
 // dst[r][c] = buf[r][c] for the S real rows and c < N (dst row stride ld).
 static __device__ void store_rows(const float* buf, int stride, int N, int S, float* dst,
                                   int ld) {
   for (int e = threadIdx.x; e < S * N; e += kThreads) {
     const int r = e / N, c = e - r * N;
     dst[(size_t)r * ld + c] = buf[r * stride + c];
-  }
-  __syncthreads();
-}
-
-static __device__ void column_sums(const float* buf, int stride, int N, int S, float* out) {
-  for (int c = threadIdx.x; c < N; c += kThreads) {
-    float s = 0.f;
-    for (int r = 0; r < S; ++r) s += buf[r * stride + c];
-    out[c] = s;
   }
   __syncthreads();
 }

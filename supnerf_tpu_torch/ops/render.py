@@ -20,6 +20,9 @@ conditioned_latents, flatten_weights).
                     and pre-activation-gradient rows; K4 (wgrad) reduces
                     them into the weight gradients.
 
+The per-point field kernels K5 and K6 (A7, A8) are in ops/field.py; they
+share this module's weights, build, library and launch counts.
+
 Shapes: objects B along axis 0, R rays, S <= 64 samples per ray shared by all
 rays of an object (xyz (B,R,S,3), per-ray viewdir (B,R,3), z (B,S)), latent
 projections zs (B,n_shape,W), zt (B,n_tex,W). Everything is float32. The
@@ -64,8 +67,9 @@ MAX_SAMPLES = 64          # kRows in csrc/render_common.cuh
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one where it launches its kernel and nowhere else.
 # K1 and K2 count their AABB-mode launches (render_*_aabb) apart.
+# K5 and K6 (ops/field.py) count here too.
 LAUNCHES = {"render_fwd": 0, "render_bwd": 0, "render_fwd_aabb": 0, "render_bwd_aabb": 0,
-            "render_train_bwd": 0, "wgrad": 0}
+            "render_train_bwd": 0, "wgrad": 0, "field_fwd": 0, "field_bwd": 0}
 
 
 def reset_launch_counts():
@@ -223,20 +227,29 @@ def conditioned_latents(wts: DecoderWeights, shapecode, texturecode):
 # plain versions
 # --------------------------------------------------------------------------
 
+def decoder_chain(wts: DecoderWeights, xyz, hdir, zs, zt):
+    """The decoder as matmuls on points xyz (B,...,3), with the viewdir
+    layer's direction term hdir = encoding(viewdir) @ w_vd_b broadcastable to
+    (B,...,W) and the latents zs, zt (B,n,W) broadcast over the middle axes
+    -> (sigma (B,...), rgb (B,...,3))."""
+    mid = (slice(None),) + (None,) * (xyz.dim() - 2)
+    y = F.relu(positional_encoding(xyz, wts.num_xyz_freq) @ wts.w_xyz + wts.b_xyz)
+    for j in range(wts.n_shape):
+        y = F.relu((y + zs[mid + (j,)]) @ wts.w_sh[j] + wts.b_sh[j])
+    e = y @ wts.w_es + wts.b_es
+    sigma = F.softplus(e @ wts.w_sg + wts.b_sg)
+    h = F.relu(e @ wts.w_vd_a + hdir + wts.b_vd)
+    for j in range(wts.n_tex):
+        h = F.relu((h + zt[mid + (j,)]) @ wts.w_tx[j] + wts.b_tx[j])
+    rgb = F.relu(h @ wts.w_r1 + wts.b_r1) @ wts.w_r2 + wts.b_r2
+    return sigma, rgb
+
+
 def decoder_plain(wts: DecoderWeights, xyz, viewdir, zs, zt):
     """The decoder as matmuls. xyz (B,R,S,3), viewdir (B,R,3) per ray ->
     (sigma (B,R,S), rgb (B,R,S,3))."""
-    y = F.relu(positional_encoding(xyz, wts.num_xyz_freq) @ wts.w_xyz + wts.b_xyz)
-    for j in range(wts.n_shape):
-        y = F.relu((y + zs[:, None, None, j]) @ wts.w_sh[j] + wts.b_sh[j])
-    e = y @ wts.w_es + wts.b_es
-    sigma = F.softplus(e @ wts.w_sg + wts.b_sg)
     hdir = positional_encoding(viewdir, wts.num_dir_freq) @ wts.w_vd_b      # (B,R,W)
-    h = F.relu(e @ wts.w_vd_a + hdir[:, :, None] + wts.b_vd)
-    for j in range(wts.n_tex):
-        h = F.relu((h + zt[:, None, None, j]) @ wts.w_tx[j] + wts.b_tx[j])
-    rgb = F.relu(h @ wts.w_r1 + wts.b_r1) @ wts.w_r2 + wts.b_r2
-    return sigma, rgb
+    return decoder_chain(wts, xyz, hdir[:, :, None], zs, zt)
 
 
 def render_fwd_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False,
@@ -339,11 +352,38 @@ def _library():
     lib.supnerf_render_train_bwd.restype = i
     lib.supnerf_wgrad.argtypes = [ctypes.POINTER(_WgradProblem), i, i, p]
     lib.supnerf_wgrad.restype = i
+    field = [p] * 4 + [ctypes.POINTER(_DecoderPtrs)] + [i] * 7
+    lib.supnerf_field_fwd.argtypes = field + [p] * 3
+    lib.supnerf_field_fwd.restype = i
+    lib.supnerf_field_bwd.argtypes = field + [p] * 7
+    lib.supnerf_field_bwd.restype = i
     return lib
 
 
 def _ptrs(wts: DecoderWeights) -> _DecoderPtrs:
     return _DecoderPtrs(*[getattr(wts, name).data_ptr() for name in _PTR_FIELDS])
+
+
+def check_operands(wts: DecoderWeights, expect: dict, device):
+    """What every decoder kernel takes: each tensor of expect (name ->
+    (tensor, shape)) float32, contiguous, of its shape, on `device`; the
+    decoder weights the same; W in {64, 128, 256}; at most 10 encoding
+    frequencies. Raises ValueError otherwise."""
+    for name, (t, shape) in expect.items():
+        if t.device != device or t.dtype != torch.float32:
+            raise ValueError(f"{name}: expected float32 on {device}, got {t.dtype} on {t.device}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name in _PTR_FIELDS:
+        t = getattr(wts, name)
+        if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"decoder weight {name}: expected contiguous float32 on {device}")
+    if wts.W not in (64, 128, 256):
+        raise ValueError(f"the decoder kernels take W in {{64, 128, 256}}, got {wts.W}")
+    if wts.num_xyz_freq > 10 or wts.num_dir_freq > 10:
+        raise ValueError("the decoder kernels take at most 10 encoding frequencies")
 
 
 def _check_inputs(wts: DecoderWeights, xyz, viewdir, z, zs, zt, *extra, hit=None):
@@ -356,23 +396,9 @@ def _check_inputs(wts: DecoderWeights, xyz, viewdir, z, zs, zt, *extra, hit=None
         expect["hit"] = (hit, (B, R))
     for i, t in enumerate(extra):
         expect[f"grad{i}"] = (t, t.shape)
-    for name, (t, shape) in expect.items():
-        if t.device != xyz.device or t.dtype != torch.float32:
-            raise ValueError(f"{name}: expected float32 on {xyz.device}, got {t.dtype} on {t.device}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    for name in _PTR_FIELDS:
-        t = getattr(wts, name)
-        if t.device != xyz.device or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"decoder weight {name}: expected contiguous float32 on {xyz.device}")
+    check_operands(wts, expect, xyz.device)
     if not 1 <= S <= MAX_SAMPLES:
         raise ValueError(f"the render kernels take 1..{MAX_SAMPLES} samples per ray, got {S}")
-    if W not in (64, 128, 256):
-        raise ValueError(f"the render kernels take W in {{64, 128, 256}}, got {W}")
-    if wts.num_xyz_freq > 10 or wts.num_dir_freq > 10:
-        raise ValueError("the render kernels take at most 10 encoding frequencies")
 
 
 def _dims(wts, xyz, white_bkgd):

@@ -9,7 +9,10 @@ package's renderers take: (xyz (B,R,S,3), viewdir (B,R,3), z_vals (B,S)) ->
 (rgb (B,R,3), depth (B,R), acc_trans (B,R)), in practice
 ops.render.field_composite bound to a decoder and codes; the AABB renderer's
 hook also takes per-ray z_vals (B,R,S) and hit (B,R)
-(ops.render.field_composite_aabb).
+(ops.render.field_composite_aabb). The frustum loss render of the symmetry
+loss needs the samples' densities, so it takes a per-point field_fn
+(xyz, viewdir (B,R,S,3)) -> (sigma (B,R,S,1), rgb (B,R,S,3)) instead
+(ops.field.field_apply) and composites with ops.volume_render.
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ from supnerf_tpu_torch.geometry.rays import (
     sample_from_rays,
     sample_z_stratified,
 )
+from supnerf_tpu_torch.ops.volume_render import volume_render
 
 # The AABB renders (the demo's loss render and scene compositor) sample in
 # units of obj_diag/2 while the field was trained on points in units of
@@ -30,9 +34,21 @@ from supnerf_tpu_torch.geometry.rays import (
 AABB_FIELD_SCALE = 0.5
 
 
-def apply_obj_coord_transform(xyz, viewdir, shapenet_obj_cood: bool):
-    """nuScenes object frame -> ShapeNet frame (new_x = -old_y, new_y = old_x;
-    reference utils.py:421-426) on points (..., 3) and directions (..., 3)."""
+def apply_obj_coord_transform(xyz, viewdir, shapenet_obj_cood: bool, sym_flip=None):
+    """Frame fix-ups of the sampled points (B,...,3) and directions (B,...,3)
+    before the field query, in the reference's order: the symmetry flip
+    (sym_flip (B,) bool: negate component 1 of that object's points and
+    directions, reference render_rays_v2 sym_aug, utils.py:474-477), then
+    the nuScenes object frame -> ShapeNet frame (new_x = -old_y, new_y =
+    old_x; utils.py:421-426)."""
+    if sym_flip is not None:
+        sign = 1.0 - 2.0 * sym_flip.to(xyz.dtype)                    # -1 where flipped
+
+        def flip(v):
+            s = sign.reshape(sign.shape + (1,) * (v.dim() - 2))
+            return torch.stack([v[..., 0], v[..., 1] * s, v[..., 2]], -1)
+
+        xyz, viewdir = flip(xyz), flip(viewdir)
     if not shapenet_obj_cood:
         return xyz, viewdir
 
@@ -52,25 +68,38 @@ def frustum_near_far(cam_pose, obj_diag):
 
 
 def _render(composite_fn, rays_o, viewdir, cam_pose, obj_diag, n_samples,
-            shapenet_obj_cood, jitter, generator):
+            shapenet_obj_cood, jitter, generator, sym_flip=None, field_fn=None):
     near, far = frustum_near_far(cam_pose, obj_diag)
     xyz, z_vals = sample_from_rays(rays_o, viewdir, near, far, n_samples, jitter, generator)
     xyz = xyz / obj_diag[:, None, None, None]
-    xyz, vd = apply_obj_coord_transform(xyz, viewdir, shapenet_obj_cood)
-    rgb, depth, acc = composite_fn(xyz, vd, z_vals)
-    return {"rgb": rgb, "depth": depth, "acc_trans": acc}
+    xyz, vd = apply_obj_coord_transform(xyz, viewdir, shapenet_obj_cood, sym_flip)
+    if field_fn is None:
+        rgb, depth, acc = composite_fn(xyz, vd, z_vals)
+        return {"rgb": rgb, "depth": depth, "acc_trans": acc}
+    vds = vd[:, :, None, :].expand_as(xyz)
+    sigmas, rgbs = field_fn(xyz, vds)
+    rgb, depth, acc = volume_render(sigmas, rgbs, z_vals[:, None, :])
+    return {"rgb": rgb, "depth": depth, "acc_trans": acc, "xyz": xyz, "viewdir": vds,
+            "sigmas": sigmas}
 
 
 def render_rays_frustum(composite_fn, cam_pose, K, roi, obj_diag, *, n_samples: int,
-                        im_sz: int, shapenet_obj_cood: bool, jitter=None, generator=None):
+                        im_sz: int, shapenet_obj_cood: bool, sym_flip=None, field_fn=None,
+                        jitter=None, generator=None):
     """The TTO loss render: an im_sz x im_sz ray grid over each ROI, stratified
     samples in the frustum shell around the object distance, points divided
     by the object diagonal. cam_pose (B,3,4) camera-to-object, K (B,3,3),
-    roi (B,4), obj_diag (B,); jitter (B, S) draws or None (then `generator`).
-    Returns dict(rgb (B,R,3), depth (B,R), acc_trans (B,R)), R = im_sz^2."""
+    roi (B,4), obj_diag (B,); sym_flip (B,) bool or None
+    (apply_obj_coord_transform); jitter (B, S) draws or None (then
+    `generator`). Returns dict(rgb (B,R,3), depth (B,R), acc_trans (B,R)),
+    R = im_sz^2. Given a per-point field_fn (the JAX renderer's
+    return_samples), the samples go through it and ops.volume_render
+    instead of composite_fn, and the dict also holds the field's inputs xyz
+    and viewdir (B,R,S,3) and its sigmas (B,R,S,1), which the symmetry loss
+    reuses."""
     rays_o, viewdir = get_rays(K, cam_pose, roi, (im_sz, im_sz))
     return _render(composite_fn, rays_o, viewdir, cam_pose, obj_diag, n_samples,
-                   shapenet_obj_cood, jitter, generator)
+                   shapenet_obj_cood, jitter, generator, sym_flip, field_fn)
 
 
 def render_rays_at_pixels(composite_fn, cam_pose, K, u, v, obj_diag, *, n_samples: int,
@@ -97,11 +126,11 @@ def render_rays_aabb(composite_fn, cam_pose, K, roi, obj_sz, *, n_samples: int, 
     intersects on detached rays (renderer.py:426): the slab test's
     1/viewdir would give 0 * inf = NaN in the backward for grazing rays.
     Pose gradients reach the samples through the ray origins and directions.
-    The KITTI frame and the symmetry flip are not ported (ROADMAP.md §A.8,
-    §A.11) and raise."""
-    if kitti2nusc or sym_flip is not None:
-        raise NotImplementedError("kitti2nusc and sym_flip are queued in ROADMAP.md (§A.8, "
-                                  "§A.11); render_rays_aabb runs the nuScenes frame unflipped")
+    sym_flip (B,) bool or None: apply_obj_coord_transform. The KITTI frame
+    is not ported (ROADMAP.md §A.8) and raises."""
+    if kitti2nusc:
+        raise NotImplementedError("kitti2nusc is queued in ROADMAP.md §A.8; render_rays_aabb "
+                                  "runs the nuScenes frame")
     obj_diag = torch.linalg.norm(obj_sz, dim=-1)
     rays_o, viewdir = get_rays(K, cam_pose, roi, (im_sz, im_sz))
     bounds, hit, rays_o_n = aabb_ray_bounds(rays_o, viewdir, obj_sz)
@@ -109,6 +138,7 @@ def render_rays_aabb(composite_fn, cam_pose, K, roi, obj_sz, *, n_samples: int, 
     z_coarse = sample_z_stratified(bounds[..., 0], bounds[..., 1], n_samples, jitter, generator)
     xyz = rays_o_n[:, :, None, :] + z_coarse[..., None] * viewdir[:, :, None, :]
     z_vals = z_coarse * (obj_diag[:, None, None] / 2)      # metric distance from the camera
-    xyz, vd = apply_obj_coord_transform(xyz * AABB_FIELD_SCALE, viewdir, shapenet_obj_cood)
+    xyz, vd = apply_obj_coord_transform(xyz * AABB_FIELD_SCALE, viewdir, shapenet_obj_cood,
+                                        sym_flip)
     rgb, depth, acc = composite_fn(xyz, vd, z_vals, hit)
     return {"rgb": rgb, "depth": depth, "acc_trans": acc, "hit": hit}

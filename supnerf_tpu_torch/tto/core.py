@@ -8,7 +8,12 @@ statistics, the feed-forward pose refiner, then num_opts AdamW iterations on
 (shape code, texture code, rotation, translation). Every iteration renders
 the loss rays with the differentiable fused render (in the frustum shell, or
 with use_aabb_render inside the box, as the demo does) and the lidar pixels
-with its forward only. Loop semantics kept from the reference:
+with its forward only. The optional regularisers (tto/regularizers.py)
+evaluate the per-point field (ops.field.field_apply): obj_sz_reg on box-plane
+samples, sym_loss_coef > 0 on the loss render's samples and their mirror
+images, which then go through the per-point field and volume_render instead
+of the fused render; sym_aug flips the loss render's samples laterally at
+random. Loop semantics kept from the reference:
   - iterations 0..reg_iters render the refiner's poses and make no update;
   - AdamW per parameter group (shape, texture, pose) with decoupled weight
     decay scaled by the learning rate; every lr_half_interval iterations the
@@ -27,6 +32,7 @@ from supnerf_tpu_torch.geometry.boxes import invert_pose
 from supnerf_tpu_torch.geometry.poses import calc_pose_err
 from supnerf_tpu_torch.geometry.rotations import axis_angle_to_matrix, matrix_to_axis_angle
 from supnerf_tpu_torch.optim import AdamW
+from supnerf_tpu_torch.ops.field import field_apply
 from supnerf_tpu_torch.ops.render import field_composite, field_composite_aabb
 from supnerf_tpu_torch.ops.volume_render import masked_psnr, occupancy_loss, rgb_loss_masked
 from supnerf_tpu_torch.render.renderer import (
@@ -35,6 +41,7 @@ from supnerf_tpu_torch.render.renderer import (
     render_rays_frustum,
 )
 from supnerf_tpu_torch.tto.refiner import fw_pose_refine
+from supnerf_tpu_torch.tto.regularizers import SAMPLES_PER_PLANE, obj_sz_loss, sym_loss
 
 # snapshot iterations of the saved codes and poses (reference CODE_SAVE_ITERS_,
 # optimizer_nuscenes.py:24); the last equals num_opts and is taken after the loop
@@ -58,6 +65,10 @@ class TTOConfig:
     field_impl: str = "auto"     # "auto" | "cuda" | "plain" (ops.render.field_composite)
     pred_wlh_mode: int = 0       # 0: annotated wlh; 1: the encoder's wlh (refiner, obj_diag, box)
     use_aabb_render: bool = False   # loss render inside the box (reference render_rays_v3)
+    sym_aug: bool = False        # random lateral flip of the loss render's samples
+    obj_sz_reg: bool = False     # box-limit density regulariser (reference :1412)
+    loss_obj_sz_coef: float = 1.0
+    sym_loss_coef: float = 0.0   # > 0: the density-symmetry loss (reference :1435)
 
 
 @dataclasses.dataclass
@@ -127,29 +138,55 @@ def make_composite_aabb(wts, shapecode, texturecode):
 
 
 def tto_loss(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_diag,
-             cfg: TTOConfig, jitter=None, generator=None, wlh=None):
+             cfg: TTOConfig, jitter=None, generator=None, wlh=None, sym_flip=None,
+             obj_sz_draws=None):
     """Per-object loss of one iteration's loss render and its PSNR:
-    rgb_loss_masked + loss_occ_coef * occupancy_loss (reference :729-744).
-    jitter: (B, S) draws for the frustum render, (B, R, S) for the AABB
-    render, whose box is wlh (B, 3) (the effective wlh). Returns
-    (loss (B,), psnr (B,), hit_share): the loss and psnr differentiable in
-    codes and pose_obj; hit_share (B,) the share of the AABB render's rays
-    that hit the box, None for the frustum render."""
+    rgb_loss_masked + loss_occ_coef * occupancy_loss (reference :729-744),
+    plus loss_obj_sz_coef * obj_sz_loss with obj_sz_reg and sym_loss_coef *
+    sym_loss when that is > 0 (reference :1412, :1435). jitter: (B, S) draws
+    for the frustum render, (B, R, S) for the AABB render, whose box is wlh
+    (B, 3) (the effective wlh; the object-size loss's box too). sym_flip (B,)
+    bool: the lateral flips of the loss render with sym_aug; obj_sz_draws
+    (B, 3, SAMPLES_PER_PLANE): the uniform draws of the object-size loss's
+    samples. Draws left None come from `generator`. Returns (loss (B,),
+    psnr (B,), hit_share): the loss and psnr differentiable in codes and
+    pose_obj; hit_share (B,) the share of the AABB render's rays that hit the
+    box, None for the frustum render."""
+    B, dev = pose_obj.shape[0], pose_obj.device
+    if not cfg.sym_aug:
+        sym_flip = None
+    elif sym_flip is None:
+        sym_flip = torch.rand(B, generator=generator, device=dev) < 0.5
+
+    def field_fn(xyz, vd):
+        return field_apply(wts, xyz, vd, shapecode, texturecode)
+
     hit_share = None
+    need_samples = cfg.sym_loss_coef > 0
     if cfg.use_aabb_render:
         out = render_rays_aabb(
             make_composite_aabb(wts, shapecode, texturecode), invert_pose(pose_obj), batch.K,
             batch.roi_nerf, wlh, n_samples=cfg.n_samples, im_sz=cfg.render_im_sz,
-            shapenet_obj_cood=cfg.shapenet_obj_cood, jitter=jitter, generator=generator)
+            shapenet_obj_cood=cfg.shapenet_obj_cood, sym_flip=sym_flip, jitter=jitter,
+            generator=generator)
         hit_share = out["hit"].float().mean(1)
     else:
         out = render_rays_frustum(
             make_composite(wts, shapecode, texturecode, cfg.field_impl), invert_pose(pose_obj),
             batch.K, batch.roi_nerf, obj_diag, n_samples=cfg.n_samples,
-            im_sz=cfg.render_im_sz, shapenet_obj_cood=cfg.shapenet_obj_cood, jitter=jitter,
-            generator=generator)
+            im_sz=cfg.render_im_sz, shapenet_obj_cood=cfg.shapenet_obj_cood, sym_flip=sym_flip,
+            field_fn=field_fn if need_samples else None, jitter=jitter, generator=generator)
     loss = (rgb_loss_masked(out["rgb"], batch.rgb_tgt, batch.occ_tgt, dim=(1, 2))
             + cfg.loss_occ_coef * occupancy_loss(out["acc_trans"], batch.occ_tgt, dim=(1, 2)))
+    if cfg.obj_sz_reg:
+        if obj_sz_draws is None:
+            obj_sz_draws = torch.rand((B, 3, SAMPLES_PER_PLANE), generator=generator,
+                                      device=dev)
+        loss = loss + cfg.loss_obj_sz_coef * obj_sz_loss(field_fn, obj_sz_draws, wlh, obj_diag,
+                                                         cfg.shapenet_obj_cood)
+    if need_samples:
+        loss = loss + cfg.sym_loss_coef * sym_loss(field_fn, out["xyz"], out["viewdir"],
+                                                   out["sigmas"], cfg.shapenet_obj_cood)
     psnr = masked_psnr(out["rgb"], batch.rgb_tgt, batch.occ_tgt, dim=(1, 2))
     return loss, psnr, hit_share
 
@@ -187,19 +224,23 @@ def encode_and_refine(model, batch: ObjectBatch, mean_shape, mean_texture, cfg: 
 
 
 def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg: TTOConfig,
-                  generator=None, jitter=None, timer=None):
+                  generator=None, jitter=None, sym_flips=None, obj_sz_draws=None, timer=None):
     """The full TTO pipeline for a batch of objects.
 
     wts: ops.render.pack_decoder_params(model). jitter: optional pair
     (loss_jitter, depth_jitter) of uniform draws for the stratified sampling
     of each iteration's two renders, (num_opts, B, S) each, the loss
-    render's (num_opts, B, R, S) with use_aabb_render; otherwise they are
-    drawn from `generator`. timer: optional timing.PhaseTimer.
+    render's (num_opts, B, R, S) with use_aabb_render. sym_flips (num_opts,
+    B) bool and obj_sz_draws (num_opts, B, 3, SAMPLES_PER_PLANE): the
+    regularisers' draws (tto_loss). Draws not given come from `generator`.
+    timer: optional timing.PhaseTimer.
     Returns a dict of per-object results (leading dim B): codes and poses at
     CODE_SAVE_ITERS, the final codes and pose, and the per-iteration psnr,
     rot_err, trans_err, depth_err and loss curves (B, num_opts), and with
     use_aabb_render the hit_share curve (B, num_opts): the share of the loss
     render's rays that hit the box."""
+    if cfg.use_aabb_render and cfg.sym_loss_coef > 0:
+        raise ValueError("sym_loss requires the frustum renderer (sample reuse)")
     phase = timer.phase if timer is not None else (lambda name: contextlib.nullcontext())
     with phase("encode_refine"):
         sc0, tc0, traj, uv_direct, wlh_pred, wlh_use = encode_and_refine(
@@ -221,15 +262,17 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
             replay = t <= cfg.reg_iters
             j_loss = None if jitter is None else jitter[0][t]
             j_depth = None if jitter is None else jitter[1][t]
+            reg = {"sym_flip": None if sym_flips is None else sym_flips[t],
+                   "obj_sz_draws": None if obj_sz_draws is None else obj_sz_draws[t]}
             if replay:
                 pose_obj = traj[:, t]
                 with torch.no_grad():
                     loss, psnr, hit_share = tto_loss(wts, sc, tc, pose_obj, batch, obj_diag,
-                                                     cfg, j_loss, generator, wlh_use)
+                                                     cfg, j_loss, generator, wlh_use, **reg)
             else:
                 pose_obj = obj_pose_from_params(rot, trans)
                 loss, psnr, hit_share = tto_loss(wts, sc, tc, pose_obj, batch, obj_diag, cfg,
-                                                 j_loss, generator, wlh_use)
+                                                 j_loss, generator, wlh_use, **reg)
                 grads = torch.autograd.grad(loss.sum(), params)
                 pose_obj = pose_obj.detach()
             err_R, err_T = calc_pose_err(pose_obj, batch.obj_pose_gt)

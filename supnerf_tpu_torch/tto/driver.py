@@ -6,7 +6,8 @@ files, and the cross-view evaluation (eval_cross_view :1279).
 
 This slice covers the nuScenes-frame protocol on synthetic objects: opt_pose
 1 (codes and object pose, axis-angle), the annotated or the predicted box
-size (pred_wlh 0 and 1), the frustum or the AABB loss render,
+size (pred_wlh 0 and 1), the frustum or the AABB loss render, the
+regularisers sym_aug and obj_sz_reg (hpams keys, as in the JAX driver),
 add_pose_err 0 and 2, codes stored per (annotation, camera) (code_level 2),
 no visualisation. The other options raise NotImplementedError and are queued
 in ROADMAP.md (PnP bootstrapping, opt_pose 2, needs a solver without
@@ -42,10 +43,6 @@ def tto_config_from_hpams(hpams: dict, *, reg_iters: int = 3, n_lidar: int = 256
         if value:
             raise NotImplementedError(f"{key} {value} is queued in ROADMAP.md; this slice "
                                       "optimizes the object pose as an axis-angle vector")
-    for key in ("sym_aug", "obj_sz_reg"):
-        if hpams.get(key, 0):
-            raise NotImplementedError(f"{key} {hpams[key]} is queued in ROADMAP.md §A.11 (the "
-                                      "TTO regularisers); this slice optimizes without it")
     if pred_wlh not in (0, 1):
         raise NotImplementedError(f"pred_wlh {pred_wlh} is queued in ROADMAP.md §A.7; this "
                                   "slice runs pred_wlh 0 and 1")
@@ -57,6 +54,8 @@ def tto_config_from_hpams(hpams: dict, *, reg_iters: int = 3, n_lidar: int = 256
         lr_pose=opt.get("lr_pose", 0.01), lr_half_interval=opt.get("lr_half_interval", 1000),
         loss_occ_coef=hpams.get("loss_occ_coef", 0.1),
         shapenet_obj_cood=bool(hpams.get("shapenet_obj_cood", 1)), pred_wlh_mode=pred_wlh,
+        sym_aug=bool(hpams.get("sym_aug", 0)), obj_sz_reg=bool(hpams.get("obj_sz_reg", 0)),
+        loss_obj_sz_coef=float(hpams.get("loss_obj_sz_coef", 1.0)),
     )
 
 
@@ -101,6 +100,7 @@ class TTODriver:
         self.depth_err_mean, self.lidar_pts_cnt, self.ood_flags = {}, {}, {}
         self.wlh_used = {}      # the box size each object was optimized with
         self.hit_share = {}     # AABB loss render: per iteration, the share of rays in the box
+        self.loss_curve = {}    # per iteration, the loss the update descended
 
     # ------------------------------------------------------------------ prep
     def _initial_poses(self, samples):
@@ -168,6 +168,7 @@ class TTODriver:
             self.lidar_pts_cnt[log_idx] = int(prepped[i]["lidar_valid"].sum())
             self.ood_flags[log_idx] = bool(ood[i])
             self.wlh_used[log_idx] = res["wlh_used"][i].tolist()
+            self.loss_curve[log_idx] = res["loss"][i].tolist()
             if "hit_share" in res:
                 self.hit_share[log_idx] = res["hit_share"][i].tolist()
             if ood[i]:

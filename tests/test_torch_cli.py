@@ -16,6 +16,8 @@ import torch
 from supnerf_tpu.tto.driver import TTODriver as JaxTTODriver
 from supnerf_tpu_torch.cli import optimize
 from supnerf_tpu_torch.device import resolve_device
+from supnerf_tpu_torch.render.renderer import render_rays_aabb
+from supnerf_tpu_torch.training.trainer import UnifiedTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_CONFIG = {
@@ -67,24 +69,47 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 
 
 @pytest.mark.parametrize("option", ["opt_pose 0", "opt_pose 2", "euler_rot", "opt_cam_pose",
-                                    "sym_aug", "obj_sz_reg"])
+                                    "kitti2nusc", "training sym_aug"])
 def test_unported_options_raise(tmp_path, option):
-    """Options outside this slice refuse to run instead of taking an
-    unverified path (sym_aug and obj_sz_reg, the TTO regularisers, were
-    once ignored silently)."""
+    """Options outside the ported slices refuse to run instead of taking an
+    unverified path: through the optimize CLI, the KITTI frame of the AABB
+    renderer, and the trainer's sym_aug (a ray-prep augmentation, not the
+    TTO regulariser, which is ported)."""
     config = dict(TINY_CONFIG, model_dir=str(tmp_path / "no_checkpoint"))
-    argv = []
-    if option.startswith("opt_pose"):
-        argv = ["--opt_pose", option.split()[1]]
-    elif option in ("euler_rot", "sym_aug", "obj_sz_reg"):
-        config[option] = 1
-    else:
-        config["optimize"] = dict(config["optimize"], opt_cam_pose=1)
-    cfg = tmp_path / "tiny.json"
-    cfg.write_text(json.dumps(config))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        optimize.main(["--config_file", str(cfg), "--dataset", "synthetic", "--num_objects",
-                       "1", "--device", "cpu", "--save_dir", str(tmp_path / "run"), *argv])
+        if option == "kitti2nusc":
+            render_rays_aabb(None, None, None, None, None, n_samples=8, im_sz=2,
+                             shapenet_obj_cood=False, kitti2nusc=True)
+        elif option == "training sym_aug":
+            UnifiedTrainer(None, dict(TRAIN_CONFIG, sym_aug=1), None, str(tmp_path / "run"),
+                           device="cpu")
+        else:
+            argv = []
+            if option.startswith("opt_pose"):
+                argv = ["--opt_pose", option.split()[1]]
+            elif option == "euler_rot":
+                config[option] = 1
+            else:
+                config["optimize"] = dict(config["optimize"], opt_cam_pose=1)
+            cfg = tmp_path / "tiny.json"
+            cfg.write_text(json.dumps(config))
+            optimize.main(["--config_file", str(cfg), "--dataset", "synthetic", "--num_objects",
+                           "1", "--device", "cpu", "--save_dir", str(tmp_path / "run"), *argv])
+
+
+def test_regularisers_run_through_the_cli(tmp_path):
+    """The TTO regularisers arrive through --config_file, as in the JAX CLI:
+    "sym_aug": 1 and "obj_sz_reg": 1 run to finite curves on the CPU, and
+    the CLI returns the per-iteration loss of each object."""
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(dict(TINY_CONFIG, model_dir=str(tmp_path / "no_checkpoint"),
+                                   sym_aug=1, obj_sz_reg=1)))
+    summary = optimize.main(["--config_file", str(cfg), "--dataset", "synthetic",
+                             "--num_objects", "2", "--batch_size", "2", "--device", "cpu",
+                             "--save_dir", str(tmp_path / "run")])
+    assert len(summary["loss"]) == 2
+    assert all(len(v) == 6 and all(math.isfinite(x) for x in v) for v in summary["loss"].values())
+    assert all(math.isfinite(x) for x in summary["aggregate"]["psnr"])
 
 
 _BLOCKED = ("jax", "jaxlib", "flax", "optax", "supnerf_tpu", "cv2", "PIL", "matplotlib",
@@ -120,7 +145,8 @@ def test_port_imports_nothing_of_the_jax_world():
     assert proc.returncode == 0, proc.stderr
     imported = proc.stdout.split()
     assert len(imported) >= 20
-    for name in ("cli.demo", "render.compositor", "utils.image_io"):
+    for name in ("cli.demo", "render.compositor", "utils.image_io", "ops.field",
+                 "tto.regularizers"):
         assert f"supnerf_tpu_torch.{name}" in imported
 
 

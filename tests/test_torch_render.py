@@ -55,10 +55,23 @@ def _cotangents(R, n):
 @pytest.mark.parametrize("white,R", [(False, 24), (True, 19)])
 def test_render_fwd_plain_matches_pallas(white, R):
     """R = 19 is not a multiple of the JAX kernel's 4-ray tile."""
+    _compare_fwd_plain_with_pallas(white, R, pe_in_kernel=False)
+
+
+@pytest.mark.parametrize("white,R", [(False, 24), (True, 19)])
+def test_render_fwd_plain_matches_pallas_pe_in_kernel(white, R):
+    """A11a: the JAX render kernel with the positional encodings computed in
+    the kernel (pe_in_kernel=True) computes the function K1 computes, which
+    always encodes in the kernel; its plain version matches it too."""
+    _compare_fwd_plain_with_pallas(white, R, pe_in_kernel=True)
+
+
+def _compare_fwd_plain_with_pallas(white, R, pe_in_kernel):
     packed, wts, xyz, vd, z, codes = _setup(R)
     ref = field_composite_pallas(packed, jnp.asarray(xyz), jnp.asarray(vd), jnp.asarray(z),
                                  jnp.asarray(codes[0, 0]), jnp.asarray(codes[1, 0]),
-                                 dtype=jnp.float32, tile_m=32, interpret=True, white_bkgd=white)
+                                 dtype=jnp.float32, tile_m=32, interpret=True, white_bkgd=white,
+                                 pe_in_kernel=pe_in_kernel)
     x, v, zz, sc, tc = _port_inputs(xyz, vd, z, codes)
     zs, zt = render.conditioned_latents(wts, sc, tc)
     out = render.render_fwd_plain(wts, x, v, zz, zs, zt, white_bkgd=white)
@@ -126,7 +139,10 @@ def test_cuda_impl_refuses_cpu_tensors():
 def test_kernel_sources_name_what_they_replace():
     """Each CUDA source names the TPU kernel it replaces and what bounds it."""
     for src, tpu in (("render_fwd.cu", "pallas_render.py:_render_kernel"),
-                     ("render_bwd.cu", "pallas_render.py:_render_bwd_kernel")):
+                     ("render_bwd.cu", "pallas_render.py:_render_bwd_kernel"),
+                     ("field_fwd.cu", "pallas_field.py:_field_kernel"),
+                     ("field_fwd.cu", "pallas_field.py:_field_kernel_raw"),
+                     ("field_bwd.cu", "pallas_field.py:_field_bwd_kernel")):
         text = (render.CSRC_DIR / src).read_text()
         assert tpu in text and "What bounds it on the H100" in text
     assert render.library_path().parent == render.BUILD_DIR
