@@ -17,10 +17,16 @@ Phases, each timed; any failure exits non-zero before the result line:
      K5 (field_fwd) and K6 (field_bwd), the per-point field, at the
      regulariser paths' shapes (2 objects x 65,536 points with per-ray
      directions, 2 x 1,200 box-plane samples with directions of ones);
+     K3's data mode (A6 with data_grads=True) at the training path's shape,
+     its data cotangents also against a float64 plain version and its
+     stash, dz_shape, dz_tex and weight gradients bit for bit against K3's
+     other mode; at the training field's shape (8 objects x 65,536 points,
+     a direction per point) K5 on per-object latents (A9), K7
+     (field_train_bwd, A10) and K4 on K7's stash;
      then the branches no path takes (white background, S < 64, odd R,
-     W 64/128, several stash chunks), in both modes of K1 and K2, and for
-     K5/K6 W 64/128, M not a multiple of 64 and directions that differ
-     within a block;
+     W 64/128, several stash chunks), in both modes of K1 and K2 and of K3,
+     and for K5/K6/K7 W 64/128, M not a multiple of 64, directions that
+     differ within a block and several stash chunks;
   4. TTO path: the port's CLI test-time optimization at the published
      config (full width, 100 iterations) on 2 synthetic objects, with the
      launch counts, the final metrics and the result file;
@@ -37,7 +43,15 @@ Phases, each timed; any failure exits non-zero before the result line:
      of the config (the object-size loss on K5/K6, the loss render on
      K1/K2), (b) run_tto_batch with sym_loss_coef 1.0 as well (the loss
      render and its mirror on K5/K6 at 65,536 points per object), each with
-     its launch counts, finite curves and final metrics.
+     its launch counts, finite curves and final metrics;
+  8. training-kernel paths at the published config's width and the batch of
+     scripts/sweep_train_render_tiles.py and sweep_train_tiles.py (48 objects
+     x 1024 rays x 64 samples): field_composite_train at its default
+     data_grads=True (K1, K3's data mode, K4) and field_train (K5, K7, K4),
+     each with a loss head whose gradient reaches the decoder, the codes and
+     the data, its launch counts, its forward's outputs against the forward
+     kernel's plain version on the same batch-48 inputs, finite gradients
+     and one timed forward + backward.
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -71,7 +85,18 @@ GRAD_RTOL = 1e-3
 WGRAD_RTOL = 1e-4
 # A resumed run repeats a step's loss: the same weights, batch and kernels
 RESUME_RTOL = 1e-5
+# A ReLU pre-activation of a point within this fraction of the largest
+# pre-activation of its layer (float64), about float32's rounding of a
+# 256-term sum, sits at a kink: float32 sums of its terms in two orders (the
+# kernel's, cuBLAS's) can put it on either side, and its gate decides a
+# whole gradient row of that point.
+KINK_RTOL = 1e-6
+# The most points the training field's check may take out as at a kink
+KINK_MAX_POINTS = 4
 TRAIN_OBJECTS, TRAIN_BATCH = 16, 8
+# the batch at which scripts/sweep_train_render_tiles.py and
+# scripts/sweep_train_tiles.py time the isolated training render and field
+SWEEP_BATCH = 48
 DEMO_OBJECTS, DEMO_ITERS = 3, 100
 REG_OBJECTS, REG_ITERS = 2, 100
 
@@ -154,6 +179,64 @@ def compare_at_kinks(names, got, ref, ref64, rtol):
     return worst, worst32, ok
 
 
+def points_outside_both(got, ref, ref64, rtol):
+    """(object, point) pairs at which a per-point output (B, M, 3) is
+    outside rtol * max |float32 plain| of both the float32 and the float64
+    plain version."""
+    import torch
+
+    out = set()
+    for a, b, b64 in zip(got, ref, ref64):
+        err = torch.minimum((a - b).abs().double(), (a.double() - b64).abs())
+        out |= {tuple(i[:2].tolist()) for i in (err > rtol * float(b.abs().max())).nonzero()}
+    return sorted(out)
+
+
+def kink_units(wts, args, cot, obj, pt):
+    """The ReLU units of one point of a per-point field input (xyz, viewdir,
+    zs, zt; cotangents cot) whose float64 pre-activation lies within
+    KINK_RTOL of its layer's largest magnitude, each as (layer, unit,
+    margin, gate in the kernel, in float32 plain, in float64). The kernel's
+    gate is read from K7's stash row of the point (the row depends on no
+    other point): its pre-activation gradient is zero where the gate is
+    shut."""
+    import torch
+
+    from supnerf_tpu_torch.models.nerf_mlp import positional_encoding
+    from supnerf_tpu_torch.ops import field, render
+
+    one = ([t[obj:obj + 1, pt:pt + 1].contiguous() for t in args[:2]]
+           + [t[obj:obj + 1].contiguous() for t in args[2:]])
+    L = render.stash_layout(wts, per_point=True)
+    row = torch.empty((1, L["ld_pt"]), device="cuda")
+    field.field_train_bwd_stash(wts, *one, *(c[obj:obj + 1, pt:pt + 1].contiguous() for c in cot),
+                                row)
+    pres = []
+    for w in (wts, as_float64(wts)):
+        x = [t.to(w.w_xyz.dtype) for t in one]
+        with torch.no_grad():
+            _, pre, _, _ = render.stashed_chain(
+                w, x[0], positional_encoding(x[1], w.num_dir_freq) @ w.w_vd_b, *x[2:])
+        pres.append({k: t.detach().flatten() for k, t in pre.items() if k != "e"})
+    W = wts.W
+    col = {"xyz": L["g_xyz"], "v": L["g_v"], "hh": L["g_hh"],
+           **{f"sh{j}": L["g_sh"] + j * W for j in range(wts.n_shape)},
+           **{f"tx{j}": L["g_tx"] + j * W for j in range(wts.n_tex)}}
+    units = []
+    for k, p64 in pres[1].items():
+        margin = p64.abs() / p64.abs().max()
+        for u in (margin <= KINK_RTOL).nonzero().flatten().tolist():
+            units.append((k, u, float(margin[u]), bool(row[0, col[k] + u] != 0),
+                          bool(pres[0][k][u] > 0), bool(p64[u] > 0)))
+    return units
+
+
+def gate_flips(units):
+    """Whether the kernel's or float32 plain's gate differs from float64's
+    at one of kink_units' units."""
+    return any(g_k != g64 or g32 != g64 for _, _, _, g_k, g32, g64 in units)
+
+
 def as_float64(wts):
     """A DecoderWeights with every tensor in float64 (the plain versions
     then compute in float64)."""
@@ -217,18 +300,24 @@ def _timed(fn, n):
     return t0.elapsed_time(t1) / n
 
 
-def kernel_inputs(seed=0, B=2, R=1024, S=64):
-    """Decoder of the published config (random weights from `seed`) and
-    points on rays through an object at ~20 m, as the loss render makes them."""
+def published_model(seed):
+    """The published config's SUPNeRF (random weights from `seed`) on the card."""
+    from supnerf_tpu_torch.models.factory import build_model, init_model
+
+    hp = {"shape_blocks": 3, "texture_blocks": 1, "latent_dim": 256, "pose_shortcut": 1}
+    return init_model(build_model("supnerf", hp), seed).cuda()
+
+
+def kernel_inputs(seed=0, B=2, R=1024, S=64, model=None):
+    """Decoder of the published config (random weights from `seed`, or
+    `model`'s) and points on rays through an object at ~20 m, as the loss
+    render makes them."""
     import torch
     import torch.nn.functional as F
 
-    from supnerf_tpu_torch.models.factory import build_model, init_model
     from supnerf_tpu_torch.ops import render
 
-    hp = {"shape_blocks": 3, "texture_blocks": 1, "latent_dim": 256, "pose_shortcut": 1}
-    model = init_model(build_model("supnerf", hp), seed).cuda()
-    wts = render.pack_decoder_params(model)
+    wts = render.pack_decoder_params(model if model is not None else published_model(seed))
     g = torch.Generator(device="cuda").manual_seed(seed)
     diag = 5.3
     origin = torch.tensor([0.0, -20.0, 1.0], device="cuda")
@@ -249,10 +338,12 @@ def kernel_inputs(seed=0, B=2, R=1024, S=64):
 
 
 def check_kernel_branches():
-    """K1, K2 and K3 + K4 against their plain versions on the branches the
-    main paths do not take: white background, fewer than 64 samples per ray,
-    odd ray counts, W 64 and 128, a stash budget of one object (three
-    chunks). Same tolerances; not timed."""
+    """K1, K2 and K3 + K4 (K3 in both modes) against their plain versions on
+    the branches the main paths do not take: white background, fewer than
+    64 samples per ray, odd ray counts, W 64 and 128, a stash budget of one
+    object (three chunks). Same tolerances, the data cotangents of K3's data
+    mode with the float64 arbitration; its weight and latent gradients the
+    same bits as the other mode's; not timed."""
     import torch
     import torch.nn.functional as F
 
@@ -299,8 +390,13 @@ def check_kernel_branches():
         try:
             k, p = (fn(wts, *args, white, *cot) for fn in (render.render_train_bwd,
                                                           render.render_train_bwd_plain))
+            kd, pd = (fn(wts, *args, white, *cot, data_grads=True)
+                      for fn in (render.render_train_bwd, render.render_train_bwd_plain))
         finally:
             render.STASH_BYTES = budget
+        pd64 = render.render_train_bwd_plain(as_float64(wts), *(t.double() for t in args), white,
+                                             *(t.double() for t in cot), data_grads=True)
+        same = all(torch.equal(a, b) for a, b in zip(kd[:2] + tuple(kd[2]), k[:2] + tuple(k[2])))
         train = [("dzs(train)", k[0], p[0]), ("dzt(train)", k[1], p[1]),
                  ("dW(train)", torch.cat([t.flatten() / p_.abs().max().clamp_min(1e-30) for t, p_ in zip(k[2], p[2])]),
                   torch.cat([t.flatten() / t.abs().max().clamp_min(1e-30) for t in p[2]]))]
@@ -312,6 +408,15 @@ def check_kernel_branches():
             good = err <= tol and bool(torch.isfinite(a).all())
             ok &= good
             errs.append(f"{name} {err:.1e}{'' if good else ' FAIL'}")
+        for name, a, b, b64 in zip(("dxyz(data)", "dviewdir(data)", "dz(data)"), kd[3:], pd[3:],
+                                   pd64[3:]):
+            tol = GRAD_RTOL * float(b.abs().max())
+            err = float(torch.minimum((a - b).abs().double(), (a.double() - b64).abs()).max())
+            good = err <= tol and bool(torch.isfinite(a).all())
+            ok &= good
+            errs.append(f"{name} {err:.1e}{'' if good else ' FAIL'}")
+        ok &= same
+        errs.append(f"data mode's dW, dzs, dzt the same bits: {'ok' if same else 'FAIL'}")
         print(f"   W {W} S {S} R {R} white {white}: " + ", ".join(errs))
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version off the main path")
@@ -369,6 +474,33 @@ def check_kernels():
     return records
 
 
+def check_wgrad(wts, views, stash_bytes, names, ports, tpu):
+    """K4 on a stash written chunk by chunk (views: each chunk's (pt, ray),
+    ray None for K7's per-point stash) against wgrad_plain on the last
+    chunk's problems; K4, its plain version and one torch.mm per problem
+    (the library call) timed over every chunk. Returns (record, ok)."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    gk, gp = (render._linear_grad_buffers(wts, "cuda") for _ in range(2))
+    probs = [render.wgrad_problems(wts, pt, ray, gk) for pt, ray in views]
+    probs_p = [render.wgrad_problems(wts, pt, ray, gp) for pt, ray in views]
+    render.wgrad(probs[-1])
+    torch.cuda.synchronize()
+    render.wgrad_plain(probs_p[-1])
+    err, ok = compare(names, gk, gp, lambda n, s: WGRAD_RTOL * s)
+    t_k4 = _timed(lambda: [render.wgrad(p) for p in probs], 5)
+    t_k4_p = _timed(lambda: [render.wgrad_plain(p) for p in probs_p], 5)
+    t_lib = _timed(lambda: [torch.mm(p.G.t(), p.A) for ps in probs_p for p in ps], 5)
+    flops = sum(2 * p.A.shape[0] * p.A.shape[1] * p.G.shape[1]
+                + (p.A.shape[0] * p.G.shape[1] if p.b_out is not None else 0)
+                for ps in probs for p in ps)
+    nbytes = stash_bytes + sum(t.numel() for t in gk) * 4
+    return record("wgrad", ports, tpu, "supnerf_tpu_torch/csrc/wgrad.cu", t_k4, t_k4_p, err,
+                  bound(flops, nbytes), library_ms=t_lib), ok
+
+
 def check_train_kernels():
     """K1 at the training path's shape (8 objects, per-object latents) and
     K3 + K4 against render_train_bwd_plain on the same inputs; K4 alone
@@ -411,42 +543,30 @@ def check_train_kernels():
         for sl in chunks:
             fn(wts, *(t[sl] for t in args), False, *(c[sl] for c in cot), *view(sl))
 
+    pts, rays = B * R * S, B * R
+    # the stash K3 writes and K4 reads: its used columns once
+    stash_bytes = (pts * L["width"] + rays * (L["r_gv"] + W)) * 4
     k3(render.render_train_bwd_stash)
-    gk, gp = (render._linear_grad_buffers(wts, "cuda") for _ in range(2))
-    probs = {sl: render.wgrad_problems(wts, *view(sl), gk) for sl in chunks}
-    probs_p = {sl: render.wgrad_problems(wts, *view(sl), gp) for sl in chunks}
-    render.wgrad(probs[chunks[-1]])
-    torch.cuda.synchronize()
-    render.wgrad_plain(probs_p[chunks[-1]])
-    err_k4, ok_k4 = compare(names, gk, gp, lambda n, s: WGRAD_RTOL * s)
+    k4_rec, ok_k4 = check_wgrad(wts, [view(sl) for sl in chunks], stash_bytes, names,
+                                ["A6"], "supnerf_tpu/ops/pallas_render.py:991")
 
     t_fwd = _timed(lambda: render.render_fwd(wts, *args), 5)
     with torch.no_grad():
         t_fwd_p = _timed(lambda: render.render_fwd_plain(wts, *args), 3)
     t_k3 = _timed(lambda: k3(render.render_train_bwd_stash), 3)
     t_k3_p = _timed(lambda: k3(render.render_train_bwd_stash_plain), 2)
-    t_k4 = _timed(lambda: [render.wgrad(probs[sl]) for sl in chunks], 5)
-    t_k4_p = _timed(lambda: [render.wgrad_plain(probs_p[sl]) for sl in chunks], 5)
-    t_k4_lib = _timed(lambda: [torch.mm(p.G.t(), p.A) for sl in chunks for p in probs_p[sl]], 5)
     t_all = _timed(lambda: render.render_train_bwd(wts, *args, False, *cot), 3)
     t_all_p = _timed(lambda: render.render_train_bwd_plain(wts, *args, False, *cot), 2)
     print(f"   training backward K3 + K4 through render_train_bwd: {t_all:.3f} ms "
           f"(render_train_bwd_plain {t_all_p:.3f} ms; {len(chunks)} chunks of {chunk} objects)")
 
-    pts, rays = B * R * S, B * R
     w_fwd = sum(getattr(wts, f).numel() for f in render._PTR_FIELDS if not f.startswith("wt_"))
     w_all = sum(getattr(wts, f).numel() for f in render._PTR_FIELDS)
     act_bytes = sum(t.numel() for t in args) * 4
-    # the stash K3 writes and K4 reads: its used columns once
-    stash_bytes = (pts * _stash_width(L, wts) + rays * (L["r_gv"] + W)) * 4
     fwd_flops = 2 * pts * decoder_macs(W, ns, nt)
     fwd_bytes = act_bytes + w_fwd * 4 + rays * 5 * 4
     k3_flops = fwd_flops + 2 * pts * (transposed_macs(W, ns, nt) - W * 63)
     k3_bytes = act_bytes + w_all * 4 + rays * 5 * 4 + stash_bytes + rays * (ns + nt) * W * 4
-    k4_flops = sum(2 * p.A.shape[0] * p.A.shape[1] * p.G.shape[1]
-                   + (p.A.shape[0] * p.G.shape[1] if p.b_out is not None else 0)
-                   for sl in chunks for p in probs[sl])
-    k4_bytes = stash_bytes + sum(t.numel() for t in gk) * 4
     records = [
         record("render_fwd", ["A1", "A5"], "supnerf_tpu/ops/pallas_render.py:127",
                "supnerf_tpu_torch/csrc/render_fwd.cu", t_fwd, t_fwd_p, err_fwd,
@@ -454,12 +574,219 @@ def check_train_kernels():
         record("render_train_bwd", ["A6"], "supnerf_tpu/ops/pallas_render.py:991",
                "supnerf_tpu_torch/csrc/render_train_bwd.cu", t_k3, t_k3_p, err_k3,
                bound(k3_flops, k3_bytes)),
-        record("wgrad", ["A6"], "supnerf_tpu/ops/pallas_render.py:991",
-               "supnerf_tpu_torch/csrc/wgrad.cu", t_k4, t_k4_p, err_k4,
-               bound(k4_flops, k4_bytes), library_ms=t_k4_lib)]
+        k4_rec]
     if not (ok and ok_k3 and ok_w and ok_k4):
         raise RuntimeError("a training kernel disagrees with its plain version")
     return records
+
+
+def check_train_data_kernels():
+    """K3's data mode (A6 with data_grads=True) at the training path's shape
+    against render_train_bwd_plain(data_grads=True), the data cotangents
+    also against a float64 plain version (compare_at_kinks); the stash and
+    dzs / dzt the same bits as K3's other mode on the same inputs, and so
+    the weight gradients. Returns the record of K3's data mode."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    wts, args, cot = kernel_inputs(seed=1, B=TRAIN_BATCH)
+    B, R, S = args[0].shape[:3]
+    W, ns, nt = wts.W, wts.n_shape, wts.n_tex
+    print(f"   K3's data mode at the training path's shape, {B} objects x {R} rays x {S} "
+          "samples:")
+    got = render.render_train_bwd(wts, *args, False, *cot, data_grads=True)
+    torch.cuda.synchronize()
+    ref = render.render_train_bwd_plain(wts, *args, False, *cot, data_grads=True)
+    ref64 = render.render_train_bwd_plain(as_float64(wts), *(t.double() for t in args), False,
+                                          *(t.double() for t in cot), data_grads=True)
+    err_d, err_d32, ok_d = compare_at_kinks(("dxyz", "dviewdir", "dz"), got[3:], ref[3:],
+                                            ref64[3:], GRAD_RTOL)
+    err_z, ok_z = compare(("dzs", "dzt"), got[:2], ref[:2], lambda n, s: GRAD_RTOL * s)
+    err_w, ok_w = compare(["d" + n for n in _linear_param_names(wts)], got[2], ref[2],
+                          lambda n, s: GRAD_RTOL * s)
+    off = render.render_train_bwd(wts, *args, False, *cot)
+    same = all(torch.equal(a, b) for a, b in zip(got[:2] + tuple(got[2]), off[:2] + tuple(off[2])))
+    print(f"   dzs, dzt and every weight gradient bit-identical to K3's other mode: "
+          f"{'ok' if same else 'FAIL'}")
+    del got, ref, ref64, off
+
+    L = render.stash_layout(wts)
+    chunk = max(1, min(B, render.STASH_BYTES // (R * S * L["ld_pt"] * 4)))
+    chunks = [slice(o, min(B, o + chunk)) for o in range(0, B, chunk)]
+    # zero-filled: neither mode writes the rows' padding columns
+    bufs = [torch.zeros((2, chunk * R * S, L["ld_pt"]), device="cuda"),
+            torch.zeros((2, chunk * R, L["ld_ray"]), device="cuda")]
+
+    def k3(fn, i=0, **kw):
+        for sl in chunks:
+            n = sl.stop - sl.start
+            fn(wts, *(t[sl] for t in args), False, *(c[sl] for c in cot),
+               bufs[0][i, :n * R * S], bufs[1][i, :n * R], **kw)
+
+    k3(render.render_train_bwd_stash, 0)
+    k3(render.render_train_bwd_stash, 1, data_grads=True)
+    torch.cuda.synchronize()
+    stash_same = all(torch.equal(b[0], b[1]) for b in bufs)
+    print(f"   K3's stash the same bits in both modes: {'ok' if stash_same else 'FAIL'}")
+    t_k3 = _timed(lambda: k3(render.render_train_bwd_stash, data_grads=True), 3)
+    t_k3_p = _timed(lambda: k3(render.render_train_bwd_stash_plain, data_grads=True), 2)
+    t_off = _timed(lambda: k3(render.render_train_bwd_stash), 3)
+    print(f"   K3 in its other mode on the same inputs: {t_off:.3f} ms")
+    del bufs
+
+    pts, rays = B * R * S, B * R
+    w_all = sum(getattr(wts, f).numel() for f in render._PTR_FIELDS)
+    act_bytes = sum(t.numel() for t in args) * 4
+    stash_bytes = (pts * L["width"] + rays * (L["r_gv"] + W)) * 4
+    flops = 2 * pts * (decoder_macs(W, ns, nt) + transposed_macs(W, ns, nt))
+    nbytes = (act_bytes + w_all * 4 + rays * 5 * 4 + stash_bytes + rays * (ns + nt) * W * 4
+              + (pts * 3 + rays * 3 + B * S) * 4)
+    rec = record("render_train_bwd_data", ["A6"], "supnerf_tpu/ops/pallas_render.py:991",
+                 "supnerf_tpu_torch/csrc/render_train_bwd.cu", t_k3, t_k3_p, max(err_d, err_z),
+                 bound(flops, nbytes))
+    rec["max_abs_err_float32_plain"] = err_d32
+    rec["other_mode_ms"] = t_off
+    if not (ok_d and ok_z and ok_w and same and stash_same):
+        raise RuntimeError("K3's data mode disagrees with its plain version or its other mode")
+    return [rec]
+
+
+def field_train_inputs(seed=4, B=TRAIN_BATCH, model=None):
+    """The per-point training field's inputs at full width: kernel_inputs'
+    1024 x 64 points per object as 65,536 points, each with its own
+    direction (its ray's, turned by a small random offset, so directions
+    differ within every block), and cotangents of sigma and rgb."""
+    import torch
+    import torch.nn.functional as F
+
+    wts, (xyz, vd, _, zs, zt), _ = kernel_inputs(seed=seed, B=B, model=model)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    pts = xyz.reshape(B, -1, 3).contiguous()
+    dirs = F.normalize(vd[:, :, None, :].expand_as(xyz).reshape(B, -1, 3)
+                       + 0.1 * torch.randn(pts.shape, generator=g, device="cuda"), dim=-1)
+    cot = (torch.randn((B, pts.shape[1], 1), generator=g, device="cuda"),
+           torch.randn(pts.shape, generator=g, device="cuda"))
+    return wts, (pts, dirs.contiguous(), zs, zt), cot
+
+
+def check_field_train_kernels():
+    """The per-point training field at full width, 8 objects x 65,536
+    points with per-point directions: K5 on per-object latents (A9) against
+    field_fwd_plain; K7 + K4 through field_train_bwd (A10) against
+    field_train_bwd_plain, K7's data and latent cotangents also against a
+    float64 plain version (compare_at_kinks); K4 alone against wgrad_plain
+    on K7's stash. Returns the records of K7, K5 at this shape and K4 on
+    K7's stash."""
+    import torch
+
+    from supnerf_tpu_torch.ops import field, render
+
+    wts, args, cot = field_train_inputs()
+    B, M = args[0].shape[:2]
+    W, ns, nt = wts.W, wts.n_shape, wts.n_tex
+    dir_macs = 3 * (2 * wts.num_dir_freq + 1) * W
+    names = ["d" + n for n in _linear_param_names(wts)]
+    print(f"   the training field's shape, {B} objects x {M} points, a direction per point:")
+    with torch.no_grad():
+        fwd_k = field.field_fwd(wts, *args)
+        torch.cuda.synchronize()
+        fwd_p = field.field_fwd_plain(wts, *args)
+    err_fwd, ok_fwd = compare(("sigma", "rgb"), fwd_k, fwd_p, lambda n, s: VALUE_ATOL[n])
+    del fwd_k, fwd_p
+
+    def evaluate(cot):
+        got = field.field_train_bwd(wts, *args, *cot)
+        torch.cuda.synchronize()
+        ref = field.field_train_bwd_plain(wts, *args, *cot)
+        ref64 = field.field_bwd_plain(as_float64(wts), *(t.double() for t in args),
+                                      *(t.double() for t in cot))
+        return got, ref, ref64
+
+    got, ref, ref64 = evaluate(cot)
+    k6 = field.field_bwd(wts, *args, *cot)
+    same_k6 = all(torch.equal(a, b) for a, b in zip(got[:2], k6[:2]))
+    print(f"   K7's dxyz and dviewdir the same bits as K6's: {'ok' if same_k6 else 'FAIL'}")
+    # A point whose float32 gate sits across a kink from both references
+    # fails however right the kernel is. Such a point is taken out only if
+    # a unit of it lies within KINK_RTOL of zero in float64 and the
+    # kernel's or float32 plain's gate there differs from float64's, and
+    # only up to KINK_MAX_POINTS of them; the comparison is then made with
+    # their cotangents zero, which takes them out of every output: all
+    # other points are held to the unchanged tolerances, through the weight
+    # gradients too.
+    kinks = points_outside_both(got[:2], ref[:2], ref64[:2], GRAD_RTOL)
+    units = [kink_units(wts, args, cot, o, p) for o, p in kinks]
+    at_kinks = all(gate_flips(u) for u in units) and len(kinks) <= KINK_MAX_POINTS
+    print(f"   points outside both references: {len(kinks)} (at most {KINK_MAX_POINTS} "
+          f"may be taken out)" + "".join(
+              f"; object {o} point {p}: "
+              + (", ".join(f"{k}[{i}] |pre| / max {m:.2e}, gate kernel {int(gk)} float32 "
+                           f"{int(g32)} float64 {int(g64)}" for k, i, m, gk, g32, g64 in u)
+                 or "no unit within KINK_RTOL")
+              + f" ({'at a kink' if gate_flips(u) else 'NOT at a kink: FAIL'})"
+              for (o, p), u in zip(kinks, units)))
+    if kinks:
+        cot = tuple(c.clone() for c in cot)
+        for o, p in kinks:
+            cot[0][o, p], cot[1][o, p] = 0.0, 0.0
+        del got, ref, ref64
+        print("   again with those points' cotangents zero:")
+        got, ref, ref64 = evaluate(cot)
+    err_k7, err_k7_32, ok_k7 = compare_at_kinks(("dxyz", "dviewdir", "dzs", "dzt"), got[:4],
+                                                ref[:4], ref64, GRAD_RTOL)
+    err_w, ok_w = compare(names, got[4], ref[4], lambda n, s: GRAD_RTOL * s)
+    ok_k7 &= same_k6 and at_kinks
+    del got, ref, ref64, k6
+
+    L = render.stash_layout(wts, per_point=True)
+    chunk = max(1, min(B, render.STASH_BYTES // (M * L["ld_pt"] * 4)))
+    chunks = [slice(o, min(B, o + chunk)) for o in range(0, B, chunk)]
+    pt = torch.empty((chunk * M, L["ld_pt"]), device="cuda")
+
+    def view(sl):
+        return pt[:(sl.stop - sl.start) * M]
+
+    def k7(fn):
+        for sl in chunks:
+            fn(wts, *(t[sl] for t in args), *(c[sl] for c in cot), view(sl))
+
+    pts = B * M
+    stash_bytes = pts * L["width"] * 4
+    k7(field.field_train_bwd_stash)
+    k4_rec, ok_k4 = check_wgrad(wts, [(view(sl), None) for sl in chunks], stash_bytes, names,
+                                ["A10"], "supnerf_tpu/ops/pallas_field.py:723")
+
+    t_fwd = _timed(lambda: field.field_fwd(wts, *args), 5)
+    with torch.no_grad():
+        t_fwd_p = _timed(lambda: field.field_fwd_plain(wts, *args), 3)
+    t_k7 = _timed(lambda: k7(field.field_train_bwd_stash), 3)
+    t_k7_p = _timed(lambda: k7(field.field_train_bwd_stash_plain), 2)
+    t_all = _timed(lambda: field.field_train_bwd(wts, *args, *cot), 3)
+    t_all_p = _timed(lambda: field.field_train_bwd_plain(wts, *args, *cot), 2)
+    print(f"   training field backward K7 + K4 through field_train_bwd: {t_all:.3f} ms "
+          f"(field_train_bwd_plain {t_all_p:.3f} ms; {len(chunks)} chunks of {chunk} objects)")
+
+    w_fwd = sum(getattr(wts, f).numel() for f in render._PTR_FIELDS if not f.startswith("wt_"))
+    w_all = sum(getattr(wts, f).numel() for f in render._PTR_FIELDS)
+    act_bytes = sum(t.numel() for t in args) * 4
+    fwd_flops = 2 * pts * (decoder_macs(W, ns, nt) + dir_macs)
+    fwd_bytes = act_bytes + w_fwd * 4 + pts * 4 * 4
+    k7_flops = fwd_flops + 2 * pts * (transposed_macs(W, ns, nt) + dir_macs)
+    k7_bytes = (act_bytes + w_all * 4 + pts * 4 * 4 + (pts * 6 + B * (ns + nt) * W) * 4
+                + stash_bytes)
+    k7_rec = record("field_train_bwd", ["A10"], "supnerf_tpu/ops/pallas_field.py:723",
+                    "supnerf_tpu_torch/csrc/field_train_bwd.cu", t_k7, t_k7_p, err_k7,
+                    bound(k7_flops, k7_bytes))
+    k7_rec["max_abs_err_float32_plain"] = err_k7_32
+    k7_rec["kink_points"] = [[o, p, [list(x) for x in u]] for (o, p), u in zip(kinks, units)]
+    k7_rec["with_k4_ms"], k7_rec["with_k4_plain_ms"] = t_all, t_all_p
+    k5_rec = record("field_fwd", ["A9"], "supnerf_tpu/ops/pallas_field.py:704",
+                    "supnerf_tpu_torch/csrc/field_fwd.cu", t_fwd, t_fwd_p, err_fwd,
+                    bound(fwd_flops, fwd_bytes))
+    if not (ok_fwd and ok_k7 and ok_w and ok_k4):
+        raise RuntimeError("a training-field kernel disagrees with its plain version")
+    return [k7_rec], {"field_fwd": k5_rec, "wgrad": k4_rec}
 
 
 def aabb_inputs(seed=2, B=DEMO_OBJECTS, R=1024, S=64):
@@ -637,10 +964,12 @@ def check_field_kernels():
 
 
 def check_field_branches():
-    """K5 and K6 against their plain versions off the main paths: W 64 and
-    128 (and 256 with 2 shape blocks), M not a multiple of 64 (one block of
-    a few rows, 600 and 1,000 points), a different direction per point.
-    Same tolerances, K6 with the float64 arbitration; not timed."""
+    """K5, K6 and K7 + K4 against their plain versions off the main paths:
+    W 64 and 128 (and 256 with 2 shape blocks), M not a multiple of 64 (one
+    block of a few rows, 600 and 1,000 points), a different direction per
+    point, and at W 256 a stash budget of one object (two K7 + K4 chunks).
+    Same tolerances, K6's and K7's data and latent cotangents with the
+    float64 arbitration; not timed."""
     import torch
     import torch.nn.functional as F
 
@@ -668,18 +997,34 @@ def check_field_branches():
         bwd_p = field.field_bwd_plain(wts, *args, *cot)
         bwd_64 = field.field_bwd_plain(as_float64(wts), *(t.double() for t in args),
                                        *(t.double() for t in cot))
+        budget = render.STASH_BYTES
+        if W == 256:      # one object per chunk: two K7 + K4 rounds, accumulated
+            render.STASH_BYTES = M * render.stash_layout(wts, per_point=True)["ld_pt"] * 4
+        try:
+            tr_k = field.field_train_bwd(wts, *args, *cot)
+        finally:
+            render.STASH_BYTES = budget
+        tr_p = field.field_train_bwd_plain(wts, *args, *cot)
         errs = []
         for name, a, b in fwd:
             err = float((a - b).abs().max())
             good = err <= VALUE_ATOL[name] and bool(torch.isfinite(a).all())
             ok &= good
             errs.append(f"{name} {err:.1e}{'' if good else ' FAIL'}")
-        for name, a, b, b64 in zip(("dxyz", "dviewdir", "dzs", "dzt"), bwd_k, bwd_p, bwd_64):
+        train = list(zip(("dxyz(train)", "dviewdir(train)", "dzs(train)", "dzt(train)"),
+                         tr_k[:4], tr_p[:4], bwd_64))
+        for name, a, b, b64 in list(zip(("dxyz", "dviewdir", "dzs", "dzt"), bwd_k, bwd_p,
+                                         bwd_64)) + train:
             tol = GRAD_RTOL * float(b.abs().max())
             err = float(torch.minimum((a - b).abs().double(), (a.double() - b64).abs()).max())
             good = err <= tol and bool(torch.isfinite(a).all())
             ok &= good
             errs.append(f"{name} {err:.1e}{'' if good else ' FAIL'}")
+        err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                  for a, b in zip(tr_k[4], tr_p[4]))
+        good = err <= GRAD_RTOL and all(bool(torch.isfinite(a).all()) for a in tr_k[4])
+        ok &= good
+        errs.append(f"dW(train) {err:.1e} of max{'' if good else ' FAIL'}")
         print(f"   field W {W} shape blocks {ns} M {M}: " + ", ".join(errs))
     if not ok:
         raise RuntimeError("a field kernel disagrees with its plain version off the main path")
@@ -692,23 +1037,17 @@ def _linear_param_names(wts):
             for k in ("weight", "bias")]
 
 
-def _stash_width(L, wts):
-    """Columns of a stash row that K3 writes (ld_pt less its padding)."""
-    from supnerf_tpu_torch.ops import render
-
-    last = max(render._STASH_POINT_COLS, key=lambda n: L[n])
-    return L[last] + 3          # g_rgb, the last block, is 3 wide
-
-
 TTO_KERNELS = ("render_fwd", "render_bwd")
 TRAIN_KERNELS = ("render_fwd", "render_train_bwd", "wgrad")
+TRAIN_RENDER_DATA_KERNELS = ("render_fwd", "render_train_bwd_data", "wgrad")
+TRAIN_FIELD_KERNELS = ("field_fwd", "field_train_bwd", "wgrad")
 DEMO_KERNELS = ("render_fwd", "render_fwd_aabb", "render_bwd_aabb")
 REG_CLI_KERNELS = ("render_fwd", "render_bwd", "field_fwd", "field_bwd")
 REG_LIB_KERNELS = ("render_fwd", "field_fwd", "field_bwd")
 # the hand-written kernel behind each counter
 KERNEL_OF = {"render_fwd": "K1", "render_fwd_aabb": "K1", "render_bwd": "K2",
-             "render_bwd_aabb": "K2", "render_train_bwd": "K3", "wgrad": "K4",
-             "field_fwd": "K5", "field_bwd": "K6"}
+             "render_bwd_aabb": "K2", "render_train_bwd": "K3", "render_train_bwd_data": "K3",
+             "wgrad": "K4", "field_fwd": "K5", "field_bwd": "K6", "field_train_bwd": "K7"}
 
 
 def _in_temp_dir(fn):
@@ -792,6 +1131,8 @@ def train_path(out_dir):
     summary = train.main(argv + ["--save_dir", run_dir])
     torch.cuda.synchronize()
     counts = _path_counts("training", TRAIN_KERNELS)
+    if render.LAUNCHES["render_train_bwd_data"] != 0:
+        raise RuntimeError("the training step ran K3's data mode: its batches are data")
     steps = summary["metrics"]
     if len(steps) != 2 * TRAIN_OBJECTS // TRAIN_BATCH:
         raise RuntimeError(f"{len(steps)} training steps instead of 4")
@@ -1043,23 +1384,156 @@ def reg_lib_path(out_dir):
     return counts
 
 
-def kernel_records(tto_records, train_records, aabb_records, field_records, counts_by_path):
+def _decoder_params(model):
+    """The decoder's layers and its latent projections, weight and bias each."""
+    from supnerf_tpu_torch.ops import render
+
+    ns, nt = model.shape_blocks, model.texture_blocks
+    names = (render.linear_names(ns, nt) + [f"shape_latent_layer_{j}.0" for j in range(1, ns + 1)]
+             + [f"texture_latent_layer_{j}.0" for j in range(1, nt + 1)])
+    return [getattr(model.get_submodule(n), k) for n in names for k in ("weight", "bias")]
+
+
+def _training_kernel_path(name, kernels, step, out_names, plain):
+    """Drives `step` (forward, loss, backward; returns the loss, the
+    gradients, the data's gradients and the forward's outputs) once with
+    the launch counts set to 0 just before and read just after, holds the
+    forward's outputs against `plain()` (the forward kernel's plain version
+    on the same inputs) within VALUE_ATOL, checks that every gradient is
+    finite and that the data's are not all zero, then times one more call
+    with CUDA events. Returns the launch counts, the timed call's ms and the
+    forward's max abs error."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    render.reset_launch_counts()
+    loss, grads, data, outs = step()
+    torch.cuda.synchronize()
+    counts = _path_counts(name, kernels)
+    with torch.no_grad():
+        ref = plain()
+    err_fwd, ok_fwd = compare(out_names, [o.detach() for o in outs], ref,
+                              lambda n, s: VALUE_ATOL[n])
+    del outs, ref
+    if not ok_fwd:
+        raise RuntimeError(f"the {name} path's forward kernel disagrees with its plain version")
+    if not (torch.isfinite(loss) and all(bool(torch.isfinite(g).all()) for g in grads)):
+        raise RuntimeError(f"the {name} path's loss or a gradient is not finite")
+    if not all(float(g.abs().max()) > 0 for g in data):
+        raise RuntimeError(f"a data gradient of the {name} path is zero")
+    print(f"   loss {float(loss.detach()):.6f}; {len(grads)} gradients finite, of them "
+          + ", ".join(f"{k} max |.| {float(g.abs().max()):.3e}" for k, g in zip(
+              ("dxyz", "dviewdir", "dz"), data)))
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    step()
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1)
+    print(f"   one forward + backward at batch {SWEEP_BATCH}: {ms:.1f} ms")
+    return counts, ms, err_fwd
+
+
+def train_render_data_path():
+    """field_composite_train at its default data_grads=True at the published
+    config's width and the sweep scripts' batch 48 x 1024 rays x 64
+    samples, with a loss head on rgb, depth and acc whose gradient reaches
+    every decoder weight, the latent projections, the codes, and xyz,
+    viewdir and z: K1, then K3's data mode and K4 per stash chunk. Returns
+    the launch counts and the timed call's ms."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    model = published_model(5)
+    _, (xyz, vd, z, _, _), _ = kernel_inputs(seed=5, B=SWEEP_BATCH, model=model)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    codes = torch.randn((2, SWEEP_BATCH, 256), generator=g, device="cuda") * 0.3
+    target = torch.rand((SWEEP_BATCH, xyz.shape[1], 3), generator=g, device="cuda")
+    params = _decoder_params(model)
+
+    def step():
+        data = [t.detach().requires_grad_(True) for t in (xyz, vd, z)]
+        sc, tc = (c.detach().requires_grad_(True) for c in codes)
+        rgb, depth, acc = render.field_composite_train(model, *data, sc, tc)
+        loss = ((rgb - target) ** 2).mean() + (acc ** 2).mean() + 1e-3 * depth.mean()
+        grads = torch.autograd.grad(loss, params + [sc, tc] + data)
+        return loss, grads, grads[-3:], (rgb, depth, acc)
+
+    def plain():
+        return render.render_fwd_plain(render.pack_decoder_params(model), xyz, vd, z,
+                                       *render.conditioned_latents_of(model, *codes))
+
+    print(f"   field_composite_train(data_grads=True), {SWEEP_BATCH} objects x {xyz.shape[1]} "
+          f"rays x {xyz.shape[2]} samples:")
+    out = _training_kernel_path("training render with data gradients",
+                                TRAIN_RENDER_DATA_KERNELS, step, ("rgb", "depth", "acc"), plain)
+    if render.LAUNCHES["render_train_bwd"] != 0:
+        raise RuntimeError("the data-gradient path ran K3's other mode")
+    return out
+
+
+def train_field_path():
+    """field_train at the published config's width and the sweep scripts'
+    batch 48 x 65,536 points (1024 rays x 64 samples each, a direction per
+    point), with test_pallas_field.py's loss head on sigma and rgb, whose
+    gradient reaches every decoder weight, the latent projections, the
+    codes, and xyz and viewdir: K5, then K7 and K4 per stash chunk. Returns
+    the launch counts and the timed call's ms."""
+    import torch
+
+    from supnerf_tpu_torch.ops import field, render
+
+    model = published_model(6)
+    _, (pts, dirs, _, _), _ = field_train_inputs(seed=6, B=SWEEP_BATCH, model=model)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    codes = torch.randn((2, SWEEP_BATCH, 256), generator=g, device="cuda") * 0.3
+    params = _decoder_params(model)
+
+    def step():
+        data = [t.detach().requires_grad_(True) for t in (pts, dirs)]
+        sc, tc = (c.detach().requires_grad_(True) for c in codes)
+        sigma, rgb = field.field_train(model, *data, sc, tc)
+        loss = (sigma * 0.7).mean() + ((rgb - 0.2) ** 2).mean()
+        grads = torch.autograd.grad(loss, params + [sc, tc] + data)
+        return loss, grads, grads[-2:], (sigma, rgb)
+
+    def plain():
+        return field.field_fwd_plain(render.pack_decoder_params(model), pts, dirs,
+                                     *render.conditioned_latents_of(model, *codes))
+
+    print(f"   field_train, {SWEEP_BATCH} objects x {pts.shape[1]} points:")
+    return _training_kernel_path("training field", TRAIN_FIELD_KERNELS, step,
+                                 ("sigma", "rgb"), plain)
+
+
+def kernel_records(tto_records, train_records, aabb_records, field_records,
+                   train_kernel_records, train_field_extra, counts_by_path):
     """One record per launch counter, launches from the path that runs it
     (K1's shared-z mode from the training path; launches_by_path has every
     path); K1's numbers are the training shape's, with the TTO shape's
-    beside them."""
-    by_name = {r["name"]: r for r in train_records + aabb_records + field_records}
+    beside them; K5's the symmetry loss's shape, with the training field's
+    beside them; K4's K3's stash, with K7's beside them."""
+    by_name = {r["name"]: r for r in (train_records + aabb_records + field_records
+                                      + train_kernel_records)}
     for r in tto_records:
         if r["name"] in by_name:
             by_name[r["name"]]["tto_shape"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
                                                                   "bound_by", "max_abs_err")}
         else:
             by_name[r["name"]] = r
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
+    by_name["field_fwd"]["train_shape"] = {k: train_field_extra["field_fwd"][k] for k in keep}
+    by_name["wgrad"]["field_stash"] = {k: train_field_extra["wgrad"][k] for k in keep}
     by_name["render_fwd"]["ports"] = ["A1", "A3", "A5"]
     by_name["render_bwd"]["ports"] = ["A2", "A4"]
+    by_name["field_fwd"]["ports"] = ["A7", "A11b", "A9"]
+    by_name["wgrad"]["ports"] = ["A6", "A10"]
     main_path = {"render_fwd": "train", "render_bwd": "tto", "render_train_bwd": "train",
-                 "wgrad": "train", "render_fwd_aabb": "demo", "render_bwd_aabb": "demo",
-                 "field_fwd": "reg_lib", "field_bwd": "reg_lib"}
+                 "render_train_bwd_data": "train_render_data", "wgrad": "train",
+                 "render_fwd_aabb": "demo", "render_bwd_aabb": "demo", "field_fwd": "reg_lib",
+                 "field_bwd": "reg_lib", "field_train_bwd": "train_field"}
     records = [by_name[n] for n in main_path]
     for r in records:
         r["kernel"] = KERNEL_OF[r["name"]]
@@ -1093,6 +1567,9 @@ def main():
     train_records = check_train_kernels()
     aabb_records = check_aabb_kernels()
     field_records = check_field_kernels()
+    train_kernel_records = check_train_data_kernels()
+    k7_records, train_field_extra = check_field_train_kernels()
+    train_kernel_records += k7_records
     check_kernel_branches()
     check_field_branches()
     done(t0, "kernels")
@@ -1109,9 +1586,21 @@ def main():
     reg_cli_counts = _in_temp_dir(reg_cli_path)
     reg_lib_counts = _in_temp_dir(reg_lib_path)
     done(t0, "regulariser paths")
+    t0 = phase("training-kernel paths: field_composite_train(data_grads=True), field_train")
+    render_data_counts, render_data_ms, render_data_err = train_render_data_path()
+    field_train_counts, field_train_ms, field_train_err = train_field_path()
+    done(t0, "training-kernel paths")
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
+                             train_kernel_records, train_field_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
-                              "reg_cli": reg_cli_counts, "reg_lib": reg_lib_counts})
+                              "reg_cli": reg_cli_counts, "reg_lib": reg_lib_counts,
+                              "train_render_data": render_data_counts,
+                              "train_field": field_train_counts})
+    records_by_name = {r["name"]: r for r in records}
+    records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms
+    records_by_name["field_train_bwd"]["batch48_fwd_bwd_ms"] = field_train_ms
+    records_by_name["render_fwd"]["batch48_max_abs_err"] = render_data_err
+    records_by_name["field_fwd"]["batch48_max_abs_err"] = field_train_err
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("kernels: " + " ".join(f"{r['kernel']}:{r['name']}({','.join(r['ports'])})"
                                  for r in records))

@@ -114,54 +114,10 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
 
   // ---- compositing forward replay + manual VJP (one thread per ray) -------
   // Reuses buf_a as per-sample scratch: alpha, T (exclusive), w, gw.
-  if (threadIdx.x == 0) {
-    const float* zr = z + (z_per_ray ? ray_idx : (size_t)obj) * S;
-    float* alpha = buf_a;
-    float* T = alpha + kRows;
-    float* wt = T + kRows;
-    float* gw = wt + kRows;
-    const float gr0 = g_rgb[ray_idx * 3], gr1 = g_rgb[ray_idx * 3 + 1],
-                gr2 = g_rgb[ray_idx * 3 + 2];
-    const float gd = g_depth[ray_idx], ga = g_acc[ray_idx];
-    const float gwhite = white_bkgd ? (gr0 + gr1 + gr2) : 0.f;
-    float Tc = 1.f;
-    for (int s = 0; s < S; ++s) {
-      const float delta = (s < S - 1) ? zr[s + 1] - zr[s] : kLastDelta;
-      const float a = 1.f - expf(-fmaxf(softplus(logit[s]), 0.f) * delta);
-      alpha[s] = a;
-      T[s] = Tc;
-      wt[s] = a * Tc;
-      gw[s] = gr0 * rgb[3 * s] + gr1 * rgb[3 * s + 1] + gr2 * rgb[3 * s + 2]
-              + gd * zr[s] - gwhite;
-      Tc *= fmaxf(1.f - a, 0.f) + kEpsTrans;
-    }
-    const float acc = T[S - 1];
-    float suffix = 0.f;          // sum_{i > s} gw_i w_i
-    float* dzr = dz_part + ray_idx * S;
-    for (int s = S - 1; s >= 0; --s) {
-      const float sg = softplus(logit[s]);
-      const float delta = (s < S - 1) ? zr[s + 1] - zr[s] : kLastDelta;
-      const float tt = fmaxf(1.f - alpha[s], 0.f) + kEpsTrans;
-      const float not_last = (s < S - 1) ? 1.f : 0.f;
-      const float g_t = (suffix + ga * acc * not_last) / tt;
-      const float de = g_t - gw[s] * T[s];
-      const float e_val = 1.f - alpha[s];
-      dsig[s] = (sg > 0.f) ? de * (-delta) * e_val : 0.f;
-      const float dd = de * (-fmaxf(sg, 0.f)) * e_val * not_last;
-      // dz_s = g_depth w_s + ddelta_{s-1} - ddelta_s (delta_s = z_{s+1} - z_s);
-      // sample s + 1, written one step earlier, receives its ddelta_s here
-      dzr[s] = gd * wt[s] - dd;
-      if (s + 1 < S) dzr[s + 1] += dd;
-      suffix += gw[s] * wt[s];
-      drgb[3 * s] = wt[s] * gr0;
-      drgb[3 * s + 1] = wt[s] * gr1;
-      drgb[3 * s + 2] = wt[s] * gr2;
-    }
-    for (int s = S; s < kRows; ++s) {
-      dsig[s] = 0.f;
-      drgb[3 * s] = drgb[3 * s + 1] = drgb[3 * s + 2] = 0.f;
-    }
-  }
+  if (threadIdx.x == 0)
+    composite_vjp(logit, rgb, z + (z_per_ray ? ray_idx : (size_t)obj) * S, S, white_bkgd,
+                  g_rgb + ray_idx * 3, g_depth[ray_idx], g_acc[ray_idx], buf_a, dsig, drgb,
+                  dz_part + ray_idx * S);
   __syncthreads();
 
   // ---- transposed decoder chain ------------------------------------------
@@ -188,24 +144,7 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   // viewdir: the direction encoding is per ray, so its cotangent is
   // (sum over the ray's rows of g_v) @ Wvd_b^T
   column_sums(cur, W, W, S, colsum);
-  {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int d_dir = pe_width(d.l_dir);
-    for (int k = warp; k < d_dir; k += kThreads / 32) {
-      float s = 0.f;
-      for (int n = lane; n < W; n += 32) s = fmaf(colsum[n], __ldg(w.w_vd_b + k * W + n), s);
-      s = warp_sum(s);
-      if (lane == 0) ddpe[k] = s;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float dv[3];
-    encode_backward_one(dpe, ddpe, d.l_dir, dv);
-    dvd[ray_idx * 3] = dv[0];
-    dvd[ray_idx * 3 + 1] = dv[1];
-    dvd[ray_idx * 3 + 2] = dv[2];
-  }
+  ray_direction_cotangent(colsum, dpe, w, W, d.l_dir, ddpe, dvd + ray_idx * 3);
   // encoding_shape output e feeds both the viewdir layer and the sigma head
   dense(cur, W, W, w.wt_vd_a, W, nullptr, nxt, W, false, nullptr);
   for (int e = threadIdx.x; e < kRows * W; e += kThreads) {
@@ -226,14 +165,7 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
       dzs_part[(ray_idx * d.n_shape + j) * W + c] = colsum[c];
   }
   apply_mask(cur, W, W, mask_of(0));
-  const int d_xyz = pe_width(d.l_xyz);
-  dense(cur, W, W, w.wt_xyz, d_xyz, nullptr, nxt, kPeStride, false, nullptr);
-  for (int r = threadIdx.x; r < S; r += kThreads) {
-    float dx[3];
-    encode_backward_one(pe + r * kPeStride, nxt + r * kPeStride, d.l_xyz, dx);
-    float* o = dxyz + (ray_idx * S + r) * 3;
-    o[0] = dx[0]; o[1] = dx[1]; o[2] = dx[2];
-  }
+  point_cotangent(cur, pe, w, W, d.l_xyz, S, nxt, dxyz + ray_idx * S * 3);
 }
 
 size_t render_bwd_smem_bytes(int W, int n_shape, int n_tex) {

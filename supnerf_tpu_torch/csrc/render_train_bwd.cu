@@ -2,16 +2,21 @@
 // cross-ray reduction of the decoder weight gradients.
 //
 // Replaces, together with K4 (wgrad.cu), the TPU kernel
-// supnerf_tpu/ops/pallas_render.py:_render_train_bwd_kernel in its
-// data_grads=False mode (pallas_call in _render_train_bwd_call, wrapped by
-// _make_render_train_core for field_composite_train_pallas, the NeRF branch
-// of every training step). Per ray it does K2's work (render_bwd.cu): the
-// forward recompute with the ReLU sign patterns stashed as bits, the manual
-// compositing VJP, the transposed decoder chain and the per-ray partial sums
-// of dz_shape / dz_tex, which the wrapper sums over rays. The data
-// cotangents (points, view directions, z) are not computed: training
-// batches are data, and the chain stops at the first layer's
-// pre-activation gradient.
+// supnerf_tpu/ops/pallas_render.py:_render_train_bwd_kernel in both its
+// modes (pallas_call in _render_train_bwd_call, wrapped by
+// _make_render_train_core for field_composite_train_pallas). Per ray it does
+// K2's work (render_bwd.cu): the forward recompute with the ReLU sign
+// patterns stashed as bits, the manual compositing VJP, the transposed
+// decoder chain and the per-ray partial sums of dz_shape / dz_tex, which the
+// wrapper sums over rays. In the data_grads=False mode (the NeRF branch of
+// every training step: training batches are data) the chain stops at the
+// first layer's pre-activation gradient. With data pointers given (the
+// data_grads=True mode, field_composite_train_pallas's default) it runs
+// K2's remaining chain on the same values: the first layer's transpose and
+// the positional-encoding chain rule per point (dxyz), the viewdir layer's
+// direction cotangent summed per ray (dviewdir), and the ray's dz row,
+// which the wrapper sums over rays. The mode only adds these outputs, so
+// the stash and dz_shape / dz_tex are the same bits in both.
 //
 // What is new against K2 is the decoder's weight gradients, dW_l = A_l^T G_l
 // and db_l = sum G_l over every sample of the batch, with A_l the layer's
@@ -27,36 +32,15 @@
 //
 // What bounds it on the H100: arithmetic, as K2 (0.89 MFLOP per point of
 // forward recompute, 0.87 of transposed chain: the first layer's transpose is
-// skipped), plus 15.6 KB per point of stash written to device memory, which
-// at 3.35 TB/s costs ~5 us per 1000 points against ~26 us of float32 FMAs at
-// the 67 TFLOP/s peak. Same design as K1/K2: a block per ray, the ray's
-// 64 x W activations in shared memory across all layers.
+// skipped; the data mode adds it back, W x 63 multiply-adds per point, and
+// writes 12 B of dxyz per point), plus 15.6 KB per point of stash written to
+// device memory, which at 3.35 TB/s costs ~5 us per 1000 points against
+// ~26 us of float32 FMAs at the 67 TFLOP/s peak. Same design as K1/K2: a
+// block per ray, the ray's 64 x W activations in shared memory across all
+// layers.
 #include "render_common.cuh"
 
 namespace supnerf {
-
-// Float offsets of the stash columns; field order must match
-// supnerf_tpu_torch/ops/render.py:_StashLayout. Per point (row
-// (obj * R + ray) * S + s of `pt`): layer inputs a_* and pre-activation
-// gradients g_*; a_sh, g_sh hold n_shape blocks of W, a_tx, g_tx n_tex.
-struct StashLayout {
-  float* pt;
-  float* ray;
-  int ld_pt, ld_ray;
-  int a_xyz, a_sh, a_es, a_e, a_tx, a_r1, a_hh;
-  int g_xyz, g_sh, g_e, g_sig, g_v, g_tx, g_hh, g_rgb;
-  int r_dpe, r_gv;
-};
-
-// dst[r][c] = buf[r][c] for the S real rows and c < N (dst row stride ld).
-static __device__ void store_rows(const float* buf, int stride, int N, int S, float* dst,
-                                  int ld) {
-  for (int e = threadIdx.x; e < S * N; e += kThreads) {
-    const int r = e / N, c = e - r * N;
-    dst[(size_t)r * ld + c] = buf[r * stride + c];
-  }
-  __syncthreads();
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
 render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
@@ -65,7 +49,8 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
                         int white_bkgd, const float* __restrict__ g_rgb,
                         const float* __restrict__ g_depth, const float* __restrict__ g_acc,
                         StashLayout st, float* __restrict__ dzs_part,
-                        float* __restrict__ dzt_part) {
+                        float* __restrict__ dzt_part, float* __restrict__ dxyz,
+                        float* __restrict__ dvd, float* __restrict__ dz_part) {
   const int ray = blockIdx.x, obj = blockIdx.y;
   const int W = d.W, W2 = d.W / 2, S = d.S;
   const int nj = W / 32;
@@ -80,7 +65,8 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
   float* pe = buf_b + kRows * W;               // kRows x kPeStride
   float* hdir = pe + kRows * kPeStride;        // W (later: column sums)
   float* dpe = hdir + W;                       // kMaxDirPe
-  float* logit = dpe + kMaxDirPe;              // kRows
+  float* ddpe = dpe + kMaxDirPe;               // kMaxDirPe
+  float* logit = ddpe + kMaxDirPe;             // kRows
   float* rgb = logit + kRows;                  // kRows x 3
   float* dsig = rgb + kRows * 3;               // kRows
   float* drgb = dsig + kRows;                  // kRows x 3
@@ -126,48 +112,12 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
   head(nxt, W2, W2, w.w_r2, 3, w.b_r2, rgb);
 
   // ---- compositing forward replay + manual VJP (one thread per ray; the
-  // algebra of render_bwd.cu without the dz terms) -------------------------
-  if (threadIdx.x == 0) {
-    const float* zr = z + (size_t)obj * S;
-    float* alpha = buf_a;
-    float* T = alpha + kRows;
-    float* wt = T + kRows;
-    float* gw = wt + kRows;
-    const float gr0 = g_rgb[ray_idx * 3], gr1 = g_rgb[ray_idx * 3 + 1],
-                gr2 = g_rgb[ray_idx * 3 + 2];
-    const float gd = g_depth[ray_idx], ga = g_acc[ray_idx];
-    const float gwhite = white_bkgd ? (gr0 + gr1 + gr2) : 0.f;
-    float Tc = 1.f;
-    for (int s = 0; s < S; ++s) {
-      const float delta = (s < S - 1) ? zr[s + 1] - zr[s] : kLastDelta;
-      const float a = 1.f - expf(-fmaxf(softplus(logit[s]), 0.f) * delta);
-      alpha[s] = a;
-      T[s] = Tc;
-      wt[s] = a * Tc;
-      gw[s] = gr0 * rgb[3 * s] + gr1 * rgb[3 * s + 1] + gr2 * rgb[3 * s + 2]
-              + gd * zr[s] - gwhite;
-      Tc *= fmaxf(1.f - a, 0.f) + kEpsTrans;
-    }
-    const float acc = T[S - 1];
-    float suffix = 0.f;          // sum_{i > s} gw_i w_i
-    for (int s = S - 1; s >= 0; --s) {
-      const float sg = softplus(logit[s]);
-      const float delta = (s < S - 1) ? zr[s + 1] - zr[s] : kLastDelta;
-      const float tt = fmaxf(1.f - alpha[s], 0.f) + kEpsTrans;
-      const float not_last = (s < S - 1) ? 1.f : 0.f;
-      const float g_t = (suffix + ga * acc * not_last) / tt;
-      const float de = g_t - gw[s] * T[s];
-      dsig[s] = (sg > 0.f) ? de * (-delta) * (1.f - alpha[s]) : 0.f;
-      suffix += gw[s] * wt[s];
-      drgb[3 * s] = wt[s] * gr0;
-      drgb[3 * s + 1] = wt[s] * gr1;
-      drgb[3 * s + 2] = wt[s] * gr2;
-    }
-    for (int s = S; s < kRows; ++s) {
-      dsig[s] = 0.f;
-      drgb[3 * s] = drgb[3 * s + 1] = drgb[3 * s + 2] = 0.f;
-    }
-  }
+  // ray's dz row only in the data mode) ------------------------------------
+  const bool data = dxyz != nullptr;
+  if (threadIdx.x == 0)
+    composite_vjp(logit, rgb, z + (size_t)obj * S, S, white_bkgd, g_rgb + ray_idx * 3,
+                  g_depth[ray_idx], g_acc[ray_idx], buf_a, dsig, drgb,
+                  data ? dz_part + ray_idx * S : nullptr);
   __syncthreads();
   store_rows(drgb, 3, 3, S, pt + st.g_rgb, st.ld_pt);
   for (int r = threadIdx.x; r < S; r += kThreads)
@@ -200,6 +150,7 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
   // get dpe^T (sum over the ray's samples of g_v), formed by K4 over rays
   column_sums(cur, W, W, S, colsum);
   for (int c = threadIdx.x; c < W; c += kThreads) rrow[st.r_gv + c] = colsum[c];
+  if (data) ray_direction_cotangent(colsum, dpe, w, W, d.l_dir, ddpe, dvd + ray_idx * 3);
   // encoding_shape output e feeds both the viewdir layer and the sigma head
   dense(cur, W, W, w.wt_vd_a, W, nullptr, nxt, W, false, nullptr);
   for (int e = threadIdx.x; e < kRows * W; e += kThreads) {
@@ -223,10 +174,11 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
   }
   apply_mask(cur, W, W, mask_of(0));
   store_rows(cur, W, W, S, pt + st.g_xyz, st.ld_pt);
+  if (data) point_cotangent(cur, pe, w, W, d.l_xyz, S, nxt, dxyz + ray_idx * S * 3);
 }
 
 size_t render_train_bwd_smem_bytes(int W, int n_shape, int n_tex) {
-  const size_t floats = (size_t)2 * kRows * W + kRows * kPeStride + W + kMaxDirPe
+  const size_t floats = (size_t)2 * kRows * W + kRows * kPeStride + W + 2 * kMaxDirPe
                         + kRows * 8;
   const size_t words = (size_t)(n_shape + n_tex + 3) * kRows * (W / 32);
   return sizeof(float) * floats + sizeof(uint32_t) * words;
@@ -234,7 +186,8 @@ size_t render_train_bwd_smem_bytes(int W, int n_shape, int n_tex) {
 
 }  // namespace supnerf
 
-// Plain C entry, bound with ctypes. Launches on `stream` and returns
+// Plain C entry, bound with ctypes. dxyz, dvd and dz_part are all null (the
+// data_grads=False mode) or all given. Launches on `stream` and returns
 // cudaGetLastError() (0 on success); never synchronises or allocates.
 extern "C" int supnerf_render_train_bwd(const float* xyz, const float* vd, const float* z,
                                         const float* zs, const float* zt,
@@ -243,7 +196,8 @@ extern "C" int supnerf_render_train_bwd(const float* xyz, const float* vd, const
                                         int l_dir, int white_bkgd, const float* g_rgb,
                                         const float* g_depth, const float* g_acc,
                                         const supnerf::StashLayout* stash, float* dzs_part,
-                                        float* dzt_part, void* stream) {
+                                        float* dzt_part, float* dxyz, float* dvd,
+                                        float* dz_part, void* stream) {
   using namespace supnerf;
   const Dims d{B, R, S, W, n_shape, n_tex, l_xyz, l_dir};
   const size_t smem = render_train_bwd_smem_bytes(W, n_shape, n_tex);
@@ -252,6 +206,6 @@ extern "C" int supnerf_render_train_bwd(const float* xyz, const float* vd, const
   if (err != cudaSuccess) return (int)err;
   render_train_bwd_kernel<<<dim3(R, B), kThreads, smem, (cudaStream_t)stream>>>(
       xyz, vd, z, zs, zt, *w, d, white_bkgd, g_rgb, g_depth, g_acc, *stash, dzs_part,
-      dzt_part);
+      dzt_part, dxyz, dvd, dz_part);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,13 @@
-// K4: the decoder weight gradients of the training backward, from K3's stash.
+// K4: the decoder weight gradients of the training backward, from K3's or
+// K7's stash.
 //
 // Replaces, together with K3 (render_train_bwd.cu), the TPU kernel
-// supnerf_tpu/ops/pallas_render.py:_render_train_bwd_kernel: there the 17
-// weight/bias gradients are summed in VMEM-resident accumulators across a
-// sequential grid (acc(..., first)); here they are a grouped, deterministic
-// weight-gradient GEMM over the rows K3 stashed:
+// supnerf_tpu/ops/pallas_render.py:_render_train_bwd_kernel, and together
+// with K7 (field_train_bwd.cu) supnerf_tpu/ops/pallas_field.py:
+// _field_train_bwd_kernel: there the 17 weight/bias gradients are summed in
+// VMEM-resident accumulators across a sequential grid (acc(..., first));
+// here they are a grouped, deterministic weight-gradient GEMM over the rows
+// K3 or K7 stashed:
 //   dW[n][col0 + k] (+)= sum_r A[r][k] G[r][n],   db[n] (+)= sum_r G[r][n]
 // for every decoder layer at once (one "problem" per layer, at most
 // kMaxProblems), written straight into torch.nn.Linear's (out, in) layout.

@@ -14,14 +14,16 @@ conditioned_latents, flatten_weights).
                     chain -> dxyz, dviewdir, dz, dz_shape, dz_tex (A2; A4
                     with per-ray z and a hit mask).
   render_train_bwd  (K3, csrc/render_train_bwd.cu + K4, csrc/wgrad.cu): the
-                    training backward (A6 with data_grads=False): dz_shape,
-                    dz_tex and every decoder weight and bias gradient. K3
-                    runs K2's per-ray work and stashes each layer's input
-                    and pre-activation-gradient rows; K4 (wgrad) reduces
-                    them into the weight gradients.
+                    training backward (A6): dz_shape, dz_tex and every
+                    decoder weight and bias gradient, and in the
+                    data_grads mode also dxyz, dviewdir and dz. K3 runs
+                    K2's per-ray work and stashes each layer's input and
+                    pre-activation-gradient rows; K4 (wgrad) reduces them
+                    into the weight gradients.
 
-The per-point field kernels K5 and K6 (A7, A8) are in ops/field.py; they
-share this module's weights, build, library and launch counts.
+The per-point field kernels K5, K6 and K7 (A7, A8, A9, A10) are in
+ops/field.py; they share this module's weights, build, library, stash
+layout, K4 and launch counts.
 
 Shapes: objects B along axis 0, R rays, S <= 64 samples per ray shared by all
 rays of an object (xyz (B,R,S,3), per-ray viewdir (B,R,3), z (B,S)), latent
@@ -66,10 +68,12 @@ MAX_SAMPLES = 64          # kRows in csrc/render_common.cuh
 
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one where it launches its kernel and nowhere else.
-# K1 and K2 count their AABB-mode launches (render_*_aabb) apart.
-# K5 and K6 (ops/field.py) count here too.
+# K1 and K2 count their AABB-mode launches (render_*_aabb) apart, K3 its
+# data-mode launches (render_train_bwd_data). K5, K6 and K7 (ops/field.py)
+# count here too.
 LAUNCHES = {"render_fwd": 0, "render_bwd": 0, "render_fwd_aabb": 0, "render_bwd_aabb": 0,
-            "render_train_bwd": 0, "wgrad": 0, "field_fwd": 0, "field_bwd": 0}
+            "render_train_bwd": 0, "render_train_bwd_data": 0, "wgrad": 0, "field_fwd": 0,
+            "field_bwd": 0, "field_train_bwd": 0}
 
 
 def reset_launch_counts():
@@ -348,7 +352,8 @@ def _library():
     lib.supnerf_render_fwd.restype = i
     lib.supnerf_render_bwd.argtypes = head + [i, p] + [p] * 3 + [p] * 5 + [p]
     lib.supnerf_render_bwd.restype = i
-    lib.supnerf_render_train_bwd.argtypes = head + [p] * 3 + [ctypes.POINTER(_StashLayout)] + [p] * 3
+    lib.supnerf_render_train_bwd.argtypes = (head + [p] * 3 + [ctypes.POINTER(_StashLayout)]
+                                             + [p] * 6)
     lib.supnerf_render_train_bwd.restype = i
     lib.supnerf_wgrad.argtypes = [ctypes.POINTER(_WgradProblem), i, i, p]
     lib.supnerf_wgrad.restype = i
@@ -357,6 +362,8 @@ def _library():
     lib.supnerf_field_fwd.restype = i
     lib.supnerf_field_bwd.argtypes = field + [p] * 7
     lib.supnerf_field_bwd.restype = i
+    lib.supnerf_field_train_bwd.argtypes = field + [p] * 2 + [ctypes.POINTER(_StashLayout)] + [p] * 5
+    lib.supnerf_field_train_bwd.restype = i
     return lib
 
 
@@ -540,19 +547,28 @@ def field_composite_aabb(wts: DecoderWeights, xyz, viewdir, z, hit, shapecode, t
 # training render: A5 forward on K1, A6 backward on K3 + K4
 # --------------------------------------------------------------------------
 
-# Budget of K3's stash per launch (about 1 GB per object at the published
-# 1024 x 64 rays and W 256); the batch is cut into chunks of objects to fit.
+# Budget of K3's and K7's stash per launch (about 1 GB per object at the
+# published 1024 x 64 points and W 256); the batch is cut into chunks of
+# objects to fit.
 STASH_BYTES = 4 << 30
+# the stash columns of csrc/render_common.cuh:StashLayout, in its order
 _STASH_POINT_COLS = ("a_xyz", "a_sh", "a_es", "a_e", "a_tx", "a_r1", "a_hh",
                      "g_xyz", "g_sh", "g_e", "g_sig", "g_v", "g_tx", "g_hh", "g_rgb")
 
 
 class _StashLayout(ctypes.Structure):
-    """csrc/render_train_bwd.cu:StashLayout."""
+    """csrc/render_common.cuh:StashLayout."""
     _fields_ = ([("pt", ctypes.c_void_p), ("ray", ctypes.c_void_p),
                  ("ld_pt", ctypes.c_int), ("ld_ray", ctypes.c_int)]
                 + [(name, ctypes.c_int) for name in _STASH_POINT_COLS]
-                + [("r_dpe", ctypes.c_int), ("r_gv", ctypes.c_int)])
+                + [("r_dpe", ctypes.c_int), ("r_gv", ctypes.c_int), ("a_dpe", ctypes.c_int)])
+
+
+def stash_struct(L: dict, pt, ray=None) -> _StashLayout:
+    """The kernels' StashLayout over the buffers pt (and ray) in layout L."""
+    return _StashLayout(pt.data_ptr(), ray.data_ptr() if ray is not None else None, L["ld_pt"],
+                        L["ld_ray"], *[L[name] for name in _STASH_POINT_COLS], L["r_dpe"],
+                        L["r_gv"], L["a_dpe"])
 
 
 class _WgradProblem(ctypes.Structure):
@@ -563,21 +579,27 @@ class _WgradProblem(ctypes.Structure):
                                                      "rblock0")])
 
 
-def stash_layout(wts: DecoderWeights) -> dict:
-    """Float column offsets of K3's stash: per point, every layer's input
-    rows (a_*) and pre-activation gradient rows (g_*), ld_pt floats a row;
-    per ray, the direction encoding (r_dpe) and the viewdir layer's
-    gradient summed over the ray's samples (r_gv), ld_ray floats a row."""
+def stash_layout(wts: DecoderWeights, per_point: bool = False) -> dict:
+    """Float column offsets of the training stash: per point, every layer's
+    input rows (a_*) and pre-activation gradient rows (g_*), ld_pt floats a
+    row, of which the first `width` are used. The viewdir layer's direction
+    input is per ray in K3: per ray, the direction encoding (r_dpe) and the
+    viewdir layer's gradient summed over the ray's samples (r_gv), ld_ray
+    floats a row. With per_point (K7: every point has its own direction)
+    the direction encoding is a column block of the point row (a_dpe) and
+    there are no ray rows (ld_ray 0)."""
     W, ns, nt = wts.W, wts.n_shape, wts.n_tex
+    d_dir = 3 * (2 * wts.num_dir_freq + 1)
     widths = {"a_xyz": 3 * (2 * wts.num_xyz_freq + 1), "a_sh": ns * W, "a_es": W, "a_e": W,
               "a_tx": nt * W, "a_r1": W, "a_hh": W // 2, "g_xyz": W, "g_sh": ns * W,
-              "g_e": W, "g_sig": 1, "g_v": W, "g_tx": nt * W, "g_hh": W // 2, "g_rgb": 3}
+              "g_e": W, "g_sig": 1, "g_v": W, "g_tx": nt * W, "g_hh": W // 2, "g_rgb": 3,
+              "a_dpe": d_dir if per_point else 0}
     out, off = {}, 0
-    for name in _STASH_POINT_COLS:
+    for name in _STASH_POINT_COLS + ("a_dpe",):
         out[name] = off
         off += widths[name]
-    d_dir = 3 * (2 * wts.num_dir_freq + 1)
-    out.update(ld_pt=-(-off // 4) * 4, r_dpe=0, r_gv=d_dir, ld_ray=-(-(d_dir + W) // 4) * 4)
+    out.update(width=off, ld_pt=-(-off // 4) * 4, r_dpe=0, r_gv=d_dir,
+               ld_ray=0 if per_point else -(-(d_dir + W) // 4) * 4)
     return out
 
 
@@ -607,9 +629,10 @@ class WgradProblem:
 
 def wgrad_problems(wts: DecoderWeights, pt, ray, grads) -> list:
     """The decoder's weight-gradient problems over a stash (pt rows per
-    point, ray rows per ray; stash_layout) into `grads`, the flat
-    Linear-layout list of linear_params_of."""
-    L, W, ns, nt = stash_layout(wts), wts.W, wts.n_shape, wts.n_tex
+    point, ray rows per ray; stash_layout; ray None for K7's per-point
+    layout) into `grads`, the flat Linear-layout list of linear_params_of."""
+    per_point = ray is None
+    L, W, ns, nt = stash_layout(wts, per_point), wts.W, wts.n_shape, wts.n_tex
     d_xyz, d_dir = 3 * (2 * wts.num_xyz_freq + 1), 3 * (2 * wts.num_dir_freq + 1)
 
     def col(name, j=0, width=W):
@@ -621,10 +644,12 @@ def wgrad_problems(wts: DecoderWeights, pt, ray, grads) -> list:
     probs = [prob(col("a_xyz", width=d_xyz), col("g_xyz"), 0)]
     probs += [prob(col("a_sh", j), col("g_sh", j), 1 + j) for j in range(ns)]
     i = 1 + ns                   # encoding_shape, sigma, encoding_viewdir
+    # the viewdir layer's direction rows: its input per point, or per ray
+    # with the ray's sum of g_v
+    dir_rows = ((col("a_dpe", width=d_dir), col("g_v")) if per_point else
+                (ray[:, L["r_dpe"]:L["r_dpe"] + d_dir], ray[:, L["r_gv"]:L["r_gv"] + W]))
     probs += [prob(col("a_es"), col("g_e"), i), prob(col("a_e"), col("g_sig", width=1), i + 1),
-              prob(col("a_e"), col("g_v"), i + 2),
-              prob(ray[:, L["r_dpe"]:L["r_dpe"] + d_dir], ray[:, L["r_gv"]:L["r_gv"] + W], i + 2,
-                   col0=W, bias=False)]
+              prob(col("a_e"), col("g_v"), i + 2), prob(*dir_rows, i + 2, col0=W, bias=False)]
     probs += [prob(col("a_tx", j), col("g_tx", j), i + 3 + j) for j in range(nt)]
     i += 3 + nt                  # rgb.0, rgb.2
     probs += [prob(col("a_r1"), col("g_hh", width=W // 2), i),
@@ -690,45 +715,54 @@ def _linear_grad_buffers(wts: DecoderWeights, device) -> list:
     return [torch.empty(t.shape, device=device) for t in linear_params_of(wts)]
 
 
-def render_train_bwd_stash_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
-                                 g_rgb, g_depth, g_acc, pt, ray):
-    """K3's plain version: the decoder chain written out with every layer
-    input kept, autograd for the pre-activation gradients, the rows written
-    into pt and ray as stash_layout places them. Returns (dzs, dzt)."""
-    L, nx, nd = stash_layout(wts), wts.num_xyz_freq, wts.num_dir_freq
-    rows = {}
-    with torch.enable_grad():
-        lat = [t.detach().requires_grad_(True) for t in (zs, zt)]
-        pre = {}
+def stashed_chain(wts: DecoderWeights, xyz, hdir, zs, zt):
+    """decoder_chain written out for the stash's plain versions, on points
+    xyz (B,...,3) with the viewdir layer's direction term hdir broadcastable
+    to (B,...,W). Returns (rows, pre, logit, rgb): rows the layer inputs a_*
+    named as stash_layout names them; pre the pre-activations, keyed xyz,
+    sh{j}, e, v, tx{j}, hh, each requiring a gradient (their gradients are
+    the g_* rows); logit the sigma head's pre-activation (B,...,1)."""
+    mid = (slice(None),) + (None,) * (xyz.dim() - 2)
+    rows, pre = {}, {}
 
-        def layer(key, x, w, b):
-            rows["a_" + key] = x
-            pre[key] = x @ w + b
-            if not pre[key].requires_grad:      # the first layer: inputs and weights are data
-                pre[key].requires_grad_(True)
-            return pre[key]
+    def layer(key, x, w, b):
+        rows["a_" + key] = x
+        pre[key] = x @ w + b
+        if not pre[key].requires_grad:      # the first layer: inputs and weights are data
+            pre[key].requires_grad_(True)
+        return pre[key]
 
-        y = F.relu(layer("xyz", positional_encoding(xyz, nx), wts.w_xyz, wts.b_xyz))
-        for j in range(wts.n_shape):
-            y = F.relu(layer(f"sh{j}", y + lat[0][:, None, None, j], wts.w_sh[j], wts.b_sh[j]))
-        e = layer("e", y, wts.w_es, wts.b_es)
-        rows["a_es"], rows["a_e"] = rows.pop("a_e"), e
-        logit = e @ wts.w_sg[:, None] + wts.b_sg
-        dpe = positional_encoding(viewdir, nd)
-        h = F.relu(layer("v", e, wts.w_vd_a, (dpe @ wts.w_vd_b)[:, :, None] + wts.b_vd))
-        del rows["a_v"]                                  # = a_e
-        for j in range(wts.n_tex):
-            h = F.relu(layer(f"tx{j}", h + lat[1][:, None, None, j], wts.w_tx[j], wts.b_tx[j]))
-        hh = F.relu(layer("hh", h, wts.w_r1, wts.b_r1))
-        rows["a_r1"], rows["a_hh"] = rows.pop("a_hh"), hh
-        rgb = hh @ wts.w_r2 + wts.b_r2
-        outs = volume_render(F.softplus(logit), rgb, z[:, None, :], white_bkgd=white_bkgd)
-        keys = list(pre)
-        g = torch.autograd.grad(outs, [pre[k] for k in keys] + [logit, rgb] + lat,
-                                (g_rgb, g_depth, g_acc), allow_unused=True,
-                                materialize_grads=True)
-    g = dict(zip(keys + ["sig", "rgb", "zs", "zt"], g))
-    rows.update(g_xyz=g["xyz"], g_e=g["e"], g_sig=g["sig"], g_v=g["v"], g_hh=g["hh"],
+    y = F.relu(layer("xyz", positional_encoding(xyz, wts.num_xyz_freq), wts.w_xyz, wts.b_xyz))
+    for j in range(wts.n_shape):
+        y = F.relu(layer(f"sh{j}", y + zs[mid + (j,)], wts.w_sh[j], wts.b_sh[j]))
+    e = layer("e", y, wts.w_es, wts.b_es)
+    rows["a_es"], rows["a_e"] = rows.pop("a_e"), e
+    logit = e @ wts.w_sg[:, None] + wts.b_sg
+    h = F.relu(layer("v", e, wts.w_vd_a, hdir + wts.b_vd))
+    del rows["a_v"]                                  # = a_e
+    for j in range(wts.n_tex):
+        h = F.relu(layer(f"tx{j}", h + zt[mid + (j,)], wts.w_tx[j], wts.b_tx[j]))
+    hh = F.relu(layer("hh", h, wts.w_r1, wts.b_r1))
+    rows["a_r1"], rows["a_hh"] = rows.pop("a_hh"), hh
+    return rows, pre, logit, hh @ wts.w_r2 + wts.b_r2
+
+
+def stash_grads(outs, cotangents, pre, logit, rgb, inputs):
+    """Autograd of a stashed_chain's outputs: (g, input gradients), g the
+    gradients of every pre-activation (keyed as pre), of the sigma head's
+    logit ("sig") and of rgb ("rgb")."""
+    keys = list(pre)
+    g = torch.autograd.grad(outs, [pre[k] for k in keys] + [logit, rgb] + inputs, cotangents,
+                            allow_unused=True, materialize_grads=True)
+    return dict(zip(keys + ["sig", "rgb"], g)), list(g[len(keys) + 2:])
+
+
+def write_stash(wts: DecoderWeights, rows: dict, g: dict, pt, per_point: bool = False):
+    """The point rows of a stash plain version: stashed_chain's layer inputs
+    and stash_grads' gradients, written into pt (one row per point) at
+    stash_layout's columns."""
+    L = stash_layout(wts, per_point)
+    rows = dict(rows, g_xyz=g["xyz"], g_e=g["e"], g_sig=g["sig"], g_v=g["v"], g_hh=g["hh"],
                 g_rgb=g["rgb"])
     for kind, n in (("sh", wts.n_shape), ("tx", wts.n_tex)):
         rows["a_" + kind] = torch.cat([rows.pop(f"a_{kind}{j}") for j in range(n)], -1)
@@ -736,20 +770,47 @@ def render_train_bwd_stash_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, w
     with torch.no_grad():
         for name, t in rows.items():
             pt[:, L[name]:L[name] + t.shape[-1]] = t.reshape(-1, t.shape[-1])
+
+
+def _leaves(tensors, grad: bool = True):
+    return [t.detach().requires_grad_(grad) for t in tensors]
+
+
+def render_train_bwd_stash_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
+                                 g_rgb, g_depth, g_acc, pt, ray, data_grads: bool = False):
+    """K3's plain version: the decoder chain written out with every layer
+    input kept (stashed_chain), autograd for the pre-activation gradients,
+    the rows written into pt and ray as stash_layout places them. Returns
+    (dzs, dzt), and with data_grads (dxyz, dviewdir, dz) after them."""
+    L, nd = stash_layout(wts), wts.num_dir_freq
+    with torch.enable_grad():
+        lat = _leaves((zs, zt))
+        xyz, viewdir, z = _leaves((xyz, viewdir, z), data_grads)
+        dpe = positional_encoding(viewdir, nd)
+        rows, pre, logit, rgb = stashed_chain(wts, xyz, (dpe @ wts.w_vd_b)[:, :, None], *lat)
+        outs = volume_render(F.softplus(logit), rgb, z[:, None, :],
+                             white_bkgd=white_bkgd)
+        g, dlat = stash_grads(outs, (g_rgb, g_depth, g_acc), pre, logit, rgb,
+                              lat + ([xyz, viewdir, z] if data_grads else []))
+    write_stash(wts, rows, g, pt)
+    with torch.no_grad():
         ray[:, L["r_dpe"]:L["r_gv"]] = dpe.reshape(-1, dpe.shape[-1])
         ray[:, L["r_gv"]:L["r_gv"] + wts.W] = g["v"].sum(2).reshape(-1, wts.W)
-    return g["zs"], g["zt"]
+    return tuple(dlat)
 
 
 def render_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
-                           g_rgb, g_depth, g_acc, pt, ray):
+                           g_rgb, g_depth, g_acc, pt, ray, data_grads: bool = False):
     """K3 wrapper: writes the stash rows of these B objects into pt
     (B*R*S, ld_pt) and ray (B*R, ld_ray) and returns (dzs (B,n_shape,W),
     dzt (B,n_tex,W)), summed over rays here (the second, deterministic pass
-    of that reduction)."""
+    of that reduction). With data_grads it runs K3's data mode
+    (LAUNCHES["render_train_bwd_data"]) and also returns (dxyz (B,R,S,3),
+    dviewdir (B,R,3), dz (B,S)), dz summed over rays here too; the stash,
+    dzs and dzt are the same bits in both modes."""
     if xyz.device.type == "cpu":
         return render_train_bwd_stash_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd,
-                                            g_rgb, g_depth, g_acc, pt, ray)
+                                            g_rgb, g_depth, g_acc, pt, ray, data_grads)
     _check_inputs(wts, xyz, viewdir, z, zs, zt, g_rgb, g_depth, g_acc)
     B, R, S = xyz.shape[:3]
     dev = xyz.device
@@ -761,45 +822,54 @@ def render_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_b
         raise ValueError("stash buffers do not match stash_layout")
     dzs_part = torch.empty((B, R, wts.n_shape, wts.W), device=dev)
     dzt_part = torch.empty((B, R, wts.n_tex, wts.W), device=dev)
-    layout = _StashLayout(pt.data_ptr(), ray.data_ptr(), L["ld_pt"], L["ld_ray"],
-                          *[L[name] for name in _STASH_POINT_COLS], L["r_dpe"], L["r_gv"])
+    data = ((torch.empty_like(xyz), torch.empty_like(viewdir), torch.empty((B, R, S), device=dev))
+            if data_grads else (None, None, None))
+    layout = stash_struct(L, pt, ray)
     ptrs = _ptrs(wts)
     with torch.cuda.device(dev):
         err = _library().supnerf_render_train_bwd(
             xyz.data_ptr(), viewdir.data_ptr(), z.data_ptr(), zs.data_ptr(), zt.data_ptr(),
             ctypes.byref(ptrs), *_dims(wts, xyz, white_bkgd),
             g_rgb.data_ptr(), g_depth.data_ptr(), g_acc.data_ptr(), ctypes.byref(layout),
-            dzs_part.data_ptr(), dzt_part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            dzs_part.data_ptr(), dzt_part.data_ptr(),
+            *[t.data_ptr() if t is not None else None for t in data],
+            torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "render_train_bwd")
-    LAUNCHES["render_train_bwd"] += 1
-    return dzs_part.sum(1), dzt_part.sum(1)
+    LAUNCHES["render_train_bwd_data" if data_grads else "render_train_bwd"] += 1
+    out = (dzs_part.sum(1), dzt_part.sum(1))
+    return out + (data[0], data[1], data[2].sum(1)) if data_grads else out
 
 
 def render_train_bwd_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
-                           g_rgb, g_depth, g_acc):
+                           g_rgb, g_depth, g_acc, data_grads: bool = False):
     """K3 + K4's plain version: autograd through render_fwd_plain with the
     layer weights as inputs. Returns (dzs, dzt, grads), grads in the order
-    and Linear layout of linear_params_of."""
+    and Linear layout of linear_params_of, and with data_grads (dxyz,
+    dviewdir, dz) after them."""
     with torch.enable_grad():
-        params = [t.detach().requires_grad_(True) for t in linear_params_of(wts)]
-        lat = [t.detach().requires_grad_(True) for t in (zs, zt)]
+        params = _leaves(linear_params_of(wts))
+        lat = _leaves((zs, zt))
+        data = _leaves((xyz, viewdir, z), data_grads)
         live = pack_linear_params(params, wts.n_shape, wts.n_tex, wts.num_xyz_freq,
                                   wts.num_dir_freq)
-        outs = render_fwd_plain(live, xyz, viewdir, z, *lat, white_bkgd=white_bkgd)
-        g = torch.autograd.grad(outs, lat + params, (g_rgb, g_depth, g_acc),
-                                allow_unused=True, materialize_grads=True)
-    return g[0], g[1], list(g[2:])
+        outs = render_fwd_plain(live, *data, *lat, white_bkgd=white_bkgd)
+        g = torch.autograd.grad(outs, lat + params + (data if data_grads else []),
+                                (g_rgb, g_depth, g_acc), allow_unused=True,
+                                materialize_grads=True)
+    n = 2 + len(params)
+    return (g[0], g[1], list(g[2:n])) + tuple(g[n:])
 
 
 def render_train_bwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
-                     g_rgb, g_depth, g_acc):
-    """The training backward (A6, data_grads=False): K3 then K4 on each chunk
-    of objects that fits STASH_BYTES, the weight gradients accumulated over
-    chunks in order. Returns (dzs (B,n_shape,W), dzt (B,n_tex,W), grads) with
-    grads in the order and Linear layout of linear_params_of."""
+                     g_rgb, g_depth, g_acc, data_grads: bool = False):
+    """The training backward (A6): K3 then K4 on each chunk of objects that
+    fits STASH_BYTES, the weight gradients accumulated over chunks in order.
+    Returns (dzs (B,n_shape,W), dzt (B,n_tex,W), grads) with grads in the
+    order and Linear layout of linear_params_of, and with data_grads (K3's
+    data mode) (dxyz (B,R,S,3), dviewdir (B,R,3), dz (B,S)) after them."""
     if xyz.device.type == "cpu":
         return render_train_bwd_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd,
-                                      g_rgb, g_depth, g_acc)
+                                      g_rgb, g_depth, g_acc, data_grads)
     B, R, S = xyz.shape[:3]
     dev = xyz.device
     L = stash_layout(wts)
@@ -807,29 +877,31 @@ def render_train_bwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
     pt = torch.empty((chunk * R * S, L["ld_pt"]), device=dev)
     ray = torch.empty((chunk * R, L["ld_ray"]), device=dev)
     grads = _linear_grad_buffers(wts, dev)
-    dzs, dzt = [], []
+    outs = []
     for o0 in range(0, B, chunk):
         sl = slice(o0, min(B, o0 + chunk))
         nb = sl.stop - o0
         pt_c, ray_c = pt[:nb * R * S], ray[:nb * R]
-        a, b = render_train_bwd_stash(wts, xyz[sl], viewdir[sl], z[sl], zs[sl], zt[sl],
-                                      white_bkgd, g_rgb[sl], g_depth[sl], g_acc[sl], pt_c, ray_c)
-        dzs.append(a)
-        dzt.append(b)
+        outs.append(render_train_bwd_stash(wts, xyz[sl], viewdir[sl], z[sl], zs[sl], zt[sl],
+                                           white_bkgd, g_rgb[sl], g_depth[sl], g_acc[sl],
+                                           pt_c, ray_c, data_grads))
         wgrad(wgrad_problems(wts, pt_c, ray_c, grads), accumulate=o0 > 0)
-    return torch.cat(dzs), torch.cat(dzt), grads
+    cat = [torch.cat(parts) for parts in zip(*outs)]
+    return (cat[0], cat[1], grads) + tuple(cat[2:])
 
 
 class FieldCompositeTrain(torch.autograd.Function):
     """(xyz, viewdir, z, zs, zt, decoder layer weights) -> (rgb, depth, acc)
     with K1 as the forward and K3 + K4 as the backward. The weights enter in
     torch.nn.Linear's layout (decoder_linear_params) and get their gradients
-    in it; xyz, viewdir and z are data and get none (data_grads=False)."""
+    in it. xyz, viewdir and z get theirs from K3's data mode where autograd
+    asks for them; with data_grads False they are data and must not ask."""
 
     @staticmethod
-    def forward(ctx, xyz, viewdir, z, zs, zt, meta, white_bkgd, *params):
-        if any(ctx.needs_input_grad[:3]):
-            raise ValueError("the training render gives no gradient for xyz, viewdir or z")
+    def forward(ctx, xyz, viewdir, z, zs, zt, meta, white_bkgd, data_grads, *params):
+        if not data_grads and any(ctx.needs_input_grad[:3]):
+            raise ValueError("the training render with data_grads=False gives no gradient "
+                             "for xyz, viewdir or z")
         wts = pack_linear_params(params, *meta)
         ctx.save_for_backward(xyz, viewdir, z, zs, zt)
         ctx.wts, ctx.white_bkgd = wts, white_bkgd
@@ -838,10 +910,11 @@ class FieldCompositeTrain(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_rgb, g_depth, g_acc):
         xyz, viewdir, z, zs, zt = ctx.saved_tensors
-        dzs, dzt, grads = render_train_bwd(ctx.wts, xyz, viewdir, z, zs, zt, ctx.white_bkgd,
-                                           g_rgb.contiguous(), g_depth.contiguous(),
-                                           g_acc.contiguous())
-        return (None, None, None, dzs, dzt, None, None, *grads)
+        data = any(ctx.needs_input_grad[:3])
+        dzs, dzt, grads, *dx = render_train_bwd(ctx.wts, xyz, viewdir, z, zs, zt, ctx.white_bkgd,
+                                                g_rgb.contiguous(), g_depth.contiguous(),
+                                                g_acc.contiguous(), data)
+        return (*(dx or (None,) * 3), dzs, dzt, None, None, None, *grads)
 
 
 def conditioned_latents_of(decoder, shapecode, texturecode):
@@ -855,20 +928,23 @@ def conditioned_latents_of(decoder, shapecode, texturecode):
 
 
 def field_composite_train(decoder, xyz, viewdir, z, shapecode, texturecode,
-                          white_bkgd: bool = False):
-    """The training render of B objects (the NeRF branch of a training step;
-    counterpart of pallas_render.field_composite_train_pallas with
-    data_grads=False): xyz (B,R,S,3), viewdir (B,R,3), z (B,S), codes
-    (B, latent) -> (rgb, depth, acc_trans). Gradients reach every weight and
-    bias of the decoder and, through the latent projections, the codes; xyz,
-    viewdir and z are data and must not require a gradient. Runs
+                          white_bkgd: bool = False, data_grads: bool = True):
+    """The training render of B objects (counterpart of
+    pallas_render.field_composite_train_pallas): xyz (B,R,S,3), viewdir
+    (B,R,3), or (B,R,S,3) constant along the samples, of which sample 0 is
+    read, z (B,S), codes (B, latent) -> (rgb, depth, acc_trans). Gradients
+    reach every weight and bias of the decoder and, through the latent
+    projections, the codes; with data_grads (the default, as in JAX) also
+    xyz, viewdir and z where they require one. With data_grads False they
+    are data (the NeRF branch of a training step) and must not require a
+    gradient: this raises where JAX returns zeros. Runs
     FieldCompositeTrain: K1 and K3 + K4 for CUDA tensors, their plain
     versions inside the same wrappers for CPU tensors."""
-    if any(t.requires_grad for t in (xyz, viewdir, z)):
-        raise ValueError("the training render gives no gradient for xyz, viewdir or z")
+    if viewdir.dim() == 4:
+        viewdir = viewdir[:, :, 0]
     zs, zt = conditioned_latents_of(decoder, shapecode, texturecode)
     meta = (decoder.shape_blocks, decoder.texture_blocks, decoder.num_xyz_freq,
             decoder.num_dir_freq)
     return FieldCompositeTrain.apply(xyz.contiguous(), viewdir.contiguous(), z.contiguous(),
                                      zs.contiguous(), zt.contiguous(), meta, white_bkgd,
-                                     *decoder_linear_params(decoder))
+                                     data_grads, *decoder_linear_params(decoder))

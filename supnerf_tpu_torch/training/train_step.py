@@ -202,7 +202,7 @@ def unified_loss(model, batch: TrainBatch, code_rows, cfg: TrainConfig, phase=No
 
     with phase("render"):
         rgb, _, acc = field_composite_train(model, batch.xyz, batch.viewdir, batch.z_vals,
-                                            shapecode, texturecode)
+                                            shapecode, texturecode, data_grads=False)
     loss_rgb = rgb_loss_masked(rgb, batch.rgb_tgt, batch.occ_pixels, dim=(-2, -1))
     losses["loss_rgb"] = loss_rgb.mean()
     losses["psnr"] = -10.0 * torch.log10(loss_rgb.mean())

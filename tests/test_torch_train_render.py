@@ -1,12 +1,15 @@
 """The port's training render (supnerf_tpu_torch/ops/render.py:
 field_composite_train, the NeRF branch of a training step) on the CPU
 against the JAX package's field_composite_train_pallas in interpret mode
-(float32, data_grads=False) on the same decoder and inputs, at the shapes of
-tests/test_pallas_render.py:test_fused_train_render_full_grads_match_flax
-(2 shape blocks, 1 texture block, W 128; 2 objects x 16 rays x 8 samples).
-Tolerances are that test's: the scalar loss rtol 1e-5; every decoder weight
-and bias gradient and both code gradients rtol 2e-4, atol 2e-5. The stash
-and weight-gradient layout of K3/K4 is checked through their plain versions."""
+(float32) on the same decoder and inputs, with data_grads=False (the train
+step's mode) and data_grads=True (the default, K3's data mode), at the
+shapes of tests/test_pallas_render.py:
+test_fused_train_render_full_grads_match_flax (2 shape blocks, 1 texture
+block, W 128; 2 objects x 16 rays x 8 samples). Tolerances are that test's:
+the scalar loss rtol 1e-5; every decoder weight and bias gradient, both code
+gradients and the xyz, viewdir and z gradients rtol 2e-4, atol 2e-5. The
+stash and weight-gradient layout of K3/K4 is checked through their plain
+versions."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -19,6 +22,7 @@ from supnerf_tpu.ops.pallas_render import field_composite_train_pallas
 from supnerf_tpu_torch.models.convert import convert_decoder
 from supnerf_tpu_torch.models.nerf_mlp import CodeNeRFDecoder
 from supnerf_tpu_torch.ops import render
+from torch_memory import release_memory_after_module  # noqa: F401
 
 B, R, S, W = 2, 16, 8, 128
 
@@ -34,16 +38,20 @@ def _inputs():
     return xyz, vd, z, codes, heads
 
 
+def _jax_params(xyz, vd, codes):
+    jdec = JaxDecoder(shape_blocks=2, texture_blocks=1, W=W, latent_dim=W)
+    return jdec.init(jax.random.PRNGKey(0), jnp.asarray(xyz),
+                     jnp.asarray(np.broadcast_to(vd[:, :, None], xyz.shape)),
+                     jnp.asarray(codes[0][:, None, None]),
+                     jnp.asarray(codes[1][:, None, None]))["params"]
+
+
 @pytest.fixture(scope="module", params=[False, True], ids=["black", "white"])
 def reference(request):
     """(white, inputs, JAX params, loss and gradients of the JAX kernel pair)."""
     white = request.param
     xyz, vd, z, codes, heads = _inputs()
-    jdec = JaxDecoder(shape_blocks=2, texture_blocks=1, W=W, latent_dim=W)
-    params = jdec.init(jax.random.PRNGKey(0), jnp.asarray(xyz),
-                       jnp.asarray(np.broadcast_to(vd[:, :, None], xyz.shape)),
-                       jnp.asarray(codes[0][:, None, None]),
-                       jnp.asarray(codes[1][:, None, None]))["params"]
+    params = _jax_params(xyz, vd, codes)
 
     def loss(p, sc, tc):
         out = field_composite_train_pallas(
@@ -56,6 +64,26 @@ def reference(request):
         params, jnp.asarray(codes[0]), jnp.asarray(codes[1]))
     return white, (xyz, vd, z, codes, heads), jax.tree.map(np.asarray, (params, value, outs,
                                                                         grads))
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["black", "white"])
+def reference_data(request):
+    """As `reference`, with data_grads=True: (white, inputs, JAX params, loss
+    and gradients for the params, xyz, viewdir, z and both codes)."""
+    white = request.param
+    xyz, vd, z, codes, heads = _inputs()
+    params = _jax_params(xyz, vd, codes)
+
+    def loss(p, x, v, zv, sc, tc):
+        out = field_composite_train_pallas(
+            jax_pack(p, 2, 1), x, v, zv, sc, tc, shape_blocks=2, texture_blocks=1,
+            dtype=jnp.float32, tile_fwd=64, tile_bwd=64, interpret=True, white_bkgd=white,
+            data_grads=True)
+        return sum(jnp.sum(o * h) for o, h in zip(out, heads))
+
+    value, grads = jax.value_and_grad(loss, argnums=(0, 1, 2, 3, 4, 5))(
+        params, *(jnp.asarray(a) for a in (xyz, vd, z, codes[0], codes[1])))
+    return white, (xyz, vd, z, codes, heads), jax.tree.map(np.asarray, (params, value, grads))
 
 
 def _port_model(params):
@@ -101,6 +129,92 @@ def test_train_render_matches_pallas(reference, impl):
         np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5, err_msg=name)
 
 
+def test_train_render_data_grads_match_pallas(reference_data):
+    """data_grads=True (K3's data mode; its plain version inside the wrappers
+    on CPU tensors): the loss and the gradients of every weight and bias,
+    both codes, xyz, viewdir and z against the JAX kernel pair's."""
+    white, (xyz, vd, z, codes, heads), (params, value, grads) = reference_data
+    dec = _port_model(params)
+    data = [torch.tensor(a, requires_grad=True) for a in (xyz, vd, z)]
+    sc, tc = (torch.tensor(c, requires_grad=True) for c in codes)
+    render.reset_launch_counts()
+    out = render.field_composite_train(dec, *data, sc, tc, white_bkgd=white)
+    loss = sum((o * torch.from_numpy(h)).sum() for o, h in zip(out, heads))
+    names = [n for n, _ in dec.named_parameters()]
+    g = torch.autograd.grad(loss, list(dec.parameters()) + data + [sc, tc])
+    assert all(v == 0 for v in render.LAUNCHES.values())
+    np.testing.assert_allclose(float(loss.detach()), float(value), rtol=1e-5)
+    ref = convert_decoder(grads[0], 2, 1)
+    for name, got in zip(names, g):
+        np.testing.assert_allclose(got.numpy(), ref[name].numpy(), rtol=2e-4, atol=2e-5,
+                                   err_msg=name)
+    for name, got, want in zip(("xyz", "viewdir", "z", "shapecode", "texturecode"),
+                               g[len(names):], grads[1:]):
+        assert float(np.abs(want).max()) > 0, name
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5, err_msg=name)
+
+
+def _grads_in_mode(dec, xyz, vd, z, codes, heads, data_grads, white):
+    """Weight and code gradients (and, with data_grads, xyz, viewdir and z
+    gradients) of field_composite_train on CPU tensors."""
+    data = [torch.tensor(a, requires_grad=data_grads) for a in (xyz, vd, z)]
+    sc, tc = (torch.tensor(c, requires_grad=True) for c in codes)
+    out = render.field_composite_train(dec, *data, sc, tc, white_bkgd=white,
+                                       data_grads=data_grads)
+    loss = sum((o * torch.from_numpy(h)).sum() for o, h in zip(out, heads))
+    return torch.autograd.grad(loss, list(dec.parameters()) + [sc, tc]
+                               + (data if data_grads else []))
+
+
+@pytest.mark.parametrize("white", [False, True])
+def test_data_mode_leaves_weight_and_code_gradients_bit_identical(white):
+    """The data mode only adds outputs: the weight and code gradients of
+    field_composite_train, K3's stash rows and dzs/dzt are the same bits with
+    data_grads True and False (JAX's test_fused_train_render_data_grads_off
+    asserts the same of its kernel); the data outputs of K3's plain version
+    are render_train_bwd_plain's; and a viewdir given per sample, constant
+    along the samples, gives the per-ray viewdir's values."""
+    xyz, vd, z, codes, heads = _inputs()
+    dec = CodeNeRFDecoder(2, 1, W, W)
+    on = _grads_in_mode(dec, xyz, vd, z, codes, heads, True, white)
+    off = _grads_in_mode(dec, xyz, vd, z, codes, heads, False, white)
+    n = len(off)
+    for a, b in zip(on[:n], off):
+        assert torch.equal(a, b)
+    assert all(float(t.abs().max()) > 0 for t in on[n:])
+
+    wts = render.pack_decoder_params(dec)
+    t = torch.from_numpy
+    zs, zt = render.conditioned_latents(wts, t(codes[0]), t(codes[1]))
+    cot = [t(h) for h in heads]
+    L = render.stash_layout(wts)
+    stashes = []
+    for data_grads in (False, True):
+        pt = torch.full((B * R * S, L["ld_pt"]), float("nan"))
+        ray = torch.full((B * R, L["ld_ray"]), float("nan"))
+        outs = render.render_train_bwd_stash(wts, t(xyz), t(vd), t(z), zs, zt, white, *cot,
+                                             pt, ray, data_grads=data_grads)
+        stashes.append((pt, ray, outs))
+    (pt0, ray0, o0), (pt1, ray1, o1) = stashes
+    assert len(o0) == 2 and len(o1) == 5
+    for a, b in zip((pt0, ray0) + o0, (pt1, ray1) + o1[:2]):
+        assert torch.equal(a.nan_to_num(), b.nan_to_num())
+    ref = render.render_train_bwd_plain(wts, t(xyz), t(vd), t(z), zs, zt, white, *cot,
+                                        data_grads=True)
+    assert len(ref) == 6
+    for got, want in zip(o1[2:], ref[3:]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6)
+
+    with torch.no_grad():
+        per_ray = render.field_composite_train(dec, t(xyz), t(vd), t(z), t(codes[0]),
+                                               t(codes[1]), white_bkgd=white)
+        per_sample = render.field_composite_train(
+            dec, t(xyz), t(vd)[:, :, None].expand(xyz.shape), t(z), t(codes[0]), t(codes[1]),
+            white_bkgd=white)
+    for a, b in zip(per_ray, per_sample):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("which", ["xyz", "viewdir", "z"])
 def test_train_render_refuses_data_gradients(which):
     """Training batches are data (data_grads=False): asking for a gradient
@@ -112,7 +226,8 @@ def test_train_render_refuses_data_gradients(which):
     args[which].requires_grad_(True)
     with pytest.raises(ValueError, match="no gradient for xyz, viewdir or z"):
         render.field_composite_train(dec, args["xyz"], args["viewdir"], args["z"],
-                                     torch.from_numpy(codes[0]), torch.from_numpy(codes[1]))
+                                     torch.from_numpy(codes[0]), torch.from_numpy(codes[1]),
+                                     data_grads=False)
 
 
 @pytest.mark.parametrize("white", [False, True])
