@@ -6,14 +6,20 @@
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and nvcc.
 Phases, each timed; any failure exits non-zero before the result line:
   1. environment: card name and power limit (nvidia-smi), torch and CUDA;
-  2. build: supnerf_tpu_torch/csrc/*.cu, one nvcc per source in parallel;
+  2. build: supnerf_tpu_torch/csrc/*.cu, one nvcc per source in parallel,
+     with each kernel's registers, shared memory and spills (-Xptxas -v);
   3. kernels: K1 (render_fwd) and K2 (render_bwd) at the TTO path's shapes
      (2 objects, W 256, 1024 rays, 64 samples), K1 again and K3 + K4 (the
      training backward: render_train_bwd_stash, wgrad) at the training
      path's (8 objects), K1 and K2 in their AABB mode (per-ray z, about a
      third of the rays missing their box) at the demo path's (3 objects),
      each against its plain PyTorch version on the same inputs, each error
-     beside its tolerance, kernel / plain times beside the card's bound;
+     beside its tolerance, kernel / plain times beside the card's bound (the
+     least time over float32 on the CUDA cores and 3xTF32 on the tensor
+     cores, or the bytes' time) and the FMA-only bound; K2 (both modes, here
+     and in the branches) also against a float64 plain version, a ray at a
+     ReLU kink taken out (render_bwd_at_kinks); K4 twice on one stash, the
+     same bits;
      K5 (field_fwd) and K6 (field_bwd), the per-point field, at the
      regulariser paths' shapes (2 objects x 65,536 points with per-ray
      directions, 2 x 1,200 box-plane samples with directions of ones);
@@ -25,8 +31,8 @@ Phases, each timed; any failure exits non-zero before the result line:
      (field_train_bwd, A10) and K4 on K7's stash;
      then the branches no path takes (white background, S < 64, odd R,
      W 64/128, several stash chunks), in both modes of K1 and K2 and of K3,
-     and for K5/K6/K7 W 64/128, M not a multiple of 64, directions that
-     differ within a block and several stash chunks;
+     K4 on each branch's stash, and for K5/K6/K7 W 64/128, M not a multiple
+     of 64, directions that differ within a block and several stash chunks;
   4. TTO path: the port's CLI test-time optimization at the published
      config (full width, 100 iterations) on 2 synthetic objects, with the
      launch counts, the final metrics and the result file;
@@ -60,6 +66,7 @@ from __future__ import annotations
 import json
 import os
 import pickle
+import re
 import shutil
 import subprocess
 import sys
@@ -69,9 +76,14 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Published dense peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# float32 on the CUDA cores and HBM3 bandwidth. The kernels compute in float32
-# without tensor cores, so their bound is taken against the float32 rate.
+# float32 on the CUDA cores, TF32 on the tensor cores, HBM3 bandwidth. A
+# float32-accurate product on the tensor cores costs three TF32 products
+# (3xTF32, csrc/tf32.cuh), so the least time of the kernels' float32 work is
+# the faster of the two routes, and a kernel's bound is that or its bytes'
+# time, whichever is longer.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3
 PEAK_BYTES_PER_S = 3.35e12
 
 # Tolerances of kernel vs plain version (float32 both; the kernels sum each
@@ -91,7 +103,8 @@ RESUME_RTOL = 1e-5
 # kernel's, cuBLAS's) can put it on either side, and its gate decides a
 # whole gradient row of that point.
 KINK_RTOL = 1e-6
-# The most points the training field's check may take out as at a kink
+# The most points the training field's check, or rays a check of K2, may take
+# out as at a kink
 KINK_MAX_POINTS = 4
 TRAIN_OBJECTS, TRAIN_BATCH = 16, 8
 # the batch at which scripts/sweep_train_render_tiles.py and
@@ -112,17 +125,22 @@ def transposed_macs(W, n_shape, n_tex, d_xyz=63):
 
 
 def bound(flops, nbytes):
-    """The least time (ms) of `flops` float32 operations moving `nbytes`."""
-    t_ops, t_mem = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_mem else (t_mem, "bytes")
+    """The least time (ms) of `flops` float32-accurate operations moving
+    `nbytes`: (ms, "operations" or "bytes", the same on the float32 FMA
+    route alone)."""
+    t_fma = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = min(t_fma, TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3)
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes", max(t_fma, t_mem))
 
 
 def record(name, ports, tpu, src, t_k, t_p, err, b, library_ms=None):
-    print(f"   {name}: {t_k:.3f} ms (plain {t_p:.3f} ms, bound {b[0]:.3f} ms by {b[1]}"
+    print(f"   {name}: {t_k:.3f} ms (plain {t_p:.3f} ms, bound {b[0]:.3f} ms by {b[1]}, "
+          f"FMA-route bound {b[2]:.3f} ms"
           + (f", library {library_ms:.3f} ms" if library_ms is not None else "") + ")")
     return {"name": name, "route": "cuda", "source": src, "replaces": tpu, "ports": ports,
             "launches": 0, "max_abs_err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b[0],
-            "bound_by": b[1], "library_ms": library_ms}
+            "bound_by": b[1], "bound_fma_ms": b[2], "library_ms": library_ms}
 
 
 def compare(names, got, ref, tol_of):
@@ -143,7 +161,7 @@ def compare(names, got, ref, tol_of):
     return worst, ok
 
 
-def compare_at_kinks(names, got, ref, ref64, rtol):
+def compare_at_kinks(names, got, ref, ref64, rtol, verbose=True):
     """compare() for gradients of a ReLU network, with a float64 evaluation
     of the plain version as a second reference: an element passes if it is
     within rtol * max |plain| of the float32 plain version or of the float64
@@ -154,7 +172,7 @@ def compare_at_kinks(names, got, ref, ref64, rtol):
     the element where kernel and float32 plain version differ most, all
     three values. Returns (worst error against the nearer reference, worst
     error against the float32 plain version, all within tolerance and
-    finite)."""
+    finite). verbose False prints nothing."""
     import torch
 
     worst, worst32, ok = 0.0, 0.0, True
@@ -169,6 +187,8 @@ def compare_at_kinks(names, got, ref, ref64, rtol):
         good = err <= tol and bool(torch.isfinite(a).all())
         ok &= good
         worst, worst32 = max(worst, err), max(worst32, err32)
+        if not verbose:
+            continue
         print(f"   {name:22s} max_abs_err {err:.3e}  tol {tol:.3e}  (max |plain| {scale:.3e})  "
               f"{'ok' if good else 'FAIL'}\n"
               f"   {'':22s} float32 plain {err32:.3e} ({int((e32 > tol).sum())} elements "
@@ -237,6 +257,100 @@ def gate_flips(units):
     return any(g_k != g64 or g32 != g64 for _, _, _, g_k, g32, g64 in units)
 
 
+def ray_kink_units(wts, args, obj, ray):
+    """The ReLU units of the samples of one ray of K1/K2's inputs (xyz,
+    viewdir, z, zs, zt) whose float64 pre-activation lies within KINK_RTOL
+    of the largest magnitude of its layer at that sample, each as (sample,
+    layer, unit, margin, gate in float32 plain, gate in float64)."""
+    import torch
+
+    from supnerf_tpu_torch.models.nerf_mlp import positional_encoding
+    from supnerf_tpu_torch.ops import render
+
+    xyz, vd, _, zs, zt = args
+    pres = []
+    for w in (wts, as_float64(wts)):
+        dt = w.w_xyz.dtype
+        x = xyz[obj:obj + 1, ray].to(dt)                                    # (1, S, 3)
+        hdir = positional_encoding(vd[obj:obj + 1, ray:ray + 1].to(dt), w.num_dir_freq) @ w.w_vd_b
+        with torch.no_grad():
+            _, pre, _, _ = render.stashed_chain(w, x, hdir, zs[obj:obj + 1].to(dt),
+                                                zt[obj:obj + 1].to(dt))
+        pres.append({k: t.detach().reshape(x.shape[1], -1) for k, t in pre.items() if k != "e"})
+    units = []
+    for k, p64 in pres[1].items():
+        margin = p64.abs() / p64.abs().max(dim=1, keepdim=True).values
+        for smp, u in (margin <= KINK_RTOL).nonzero().tolist():
+            units.append((smp, k, u, float(margin[smp, u]), bool(pres[0][k][smp, u] > 0),
+                          bool(p64[smp, u] > 0)))
+    return units
+
+
+def render_bwd_at_kinks(wts, args, white, cot, hit=None, verbose=True):
+    """K2 against its float32 and float64 plain versions (compare_at_kinks).
+    K2 sums every dense layer in another order than cuBLAS (3xTF32 products
+    on the tensor cores), so a sample whose ReLU pre-activation sits within
+    float32 rounding of zero can get the other gate than both references,
+    and with it another gradient row. A ray with a dxyz element (or its
+    dviewdir) outside both references is taken out, its cotangents zeroed
+    and every output compared again at the unchanged tolerance, only if
+    that sample (for dviewdir: a sample of the ray) has a unit within
+    KINK_RTOL of zero in float64, and only up to KINK_MAX_POINTS rays.
+    Returns (outputs, worst error against the nearer reference, worst
+    against the float32 plain version, ok, [(object, ray, samples, units,
+    at a kink)])."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    def evaluate(cot):
+        got = render.render_bwd(wts, *args, white, *cot, hit)
+        torch.cuda.synchronize()
+        ref = render.render_bwd_plain(wts, *args, white, *cot, hit)
+        ref64 = render.render_bwd_plain(as_float64(wts), *(t.double() for t in args), white,
+                                        *(t.double() for t in cot), hit)
+        return got, ref, ref64
+
+    got, ref, ref64 = evaluate(cot)
+    outside = {}
+    for k, (a, b, b64) in enumerate(zip(got[:2], ref[:2], ref64[:2])):
+        err = torch.minimum((a - b).abs().double(), (a.double() - b64).abs())
+        bad = (err > GRAD_RTOL * float(b.abs().max())).any(-1)   # (B, R, S) or (B, R)
+        for idx in bad.nonzero().tolist():
+            outside.setdefault(tuple(idx[:2]), set()).add(idx[2] if k == 0 else None)
+    kinks = []
+    for (o, r), samples in sorted(outside.items()):
+        units = ray_kink_units(wts, args, o, r)
+        found = all(any(u[0] == smp for u in units) if smp is not None else bool(units)
+                    for smp in samples)
+        kinks.append((o, r, sorted(x for x in samples if x is not None), units, found))
+    at_kinks = all(k[-1] for k in kinks) and len(kinks) <= KINK_MAX_POINTS
+    def describe(smps, units):
+        shown = [u for u in units if u[0] in smps or not smps][:4]
+        return ", ".join(f"{k}[{u}] at sample {smp} |pre| / max {m:.2e}, gate float32 "
+                         f"{int(g32)} float64 {int(g64)}"
+                         for smp, k, u, m, g32, g64 in shown) or "no unit within KINK_RTOL"
+
+    if verbose or kinks:
+        print(f"   K2: rays outside both references: {len(kinks)} (at most {KINK_MAX_POINTS} "
+              "may be taken out)" + "".join(
+                  f"; object {o} ray {r} samples {smps}: {describe(smps, units)} "
+                  f"({'at a kink' if found else 'NOT at a kink: FAIL'})"
+                  for o, r, smps, units, found in kinks))
+    if kinks:
+        cot = tuple(c.clone() for c in cot)
+        for o, r, *_ in kinks:
+            for c in cot:
+                c[o, r] = 0.0
+        del got, ref, ref64
+        if verbose:
+            print("   again with those rays' cotangents zero:")
+        got, ref, ref64 = evaluate(cot)
+    err, err32, ok = compare_at_kinks(("dxyz", "dviewdir", "dz", "dzs", "dzt"), got, ref, ref64,
+                                      GRAD_RTOL, verbose)
+    return got, err, err32, ok and at_kinks, kinks
+
+
 def as_float64(wts):
     """A DecoderWeights with every tensor in float64 (the plain versions
     then compute in float64)."""
@@ -274,13 +388,60 @@ def environment():
     return card
 
 
+def _kernel_name(mangled):
+    """supnerf::name<template args> of a mangled device symbol, roughly."""
+    m = re.search(r"7supnerfL?(\d+)", mangled)
+    if not m:
+        return mangled
+    name = mangled[m.end():m.end() + int(m.group(1))]
+    rest = mangled[m.end() + int(m.group(1)):]
+    return name + (f"<{rest[1:rest.index('E')]}>" if rest.startswith("I") else "")
+
+
+def ptxas_summary(log):
+    """One line per function of nvcc's -Xptxas -v log: each kernel with its
+    registers, shared memory and spills, and each non-inlined device
+    function that spills or is a tensor-core dense layer."""
+    out, props = [], {}
+    current = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and current:
+            props[current] = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            smem = re.search(r"(\d+) bytes smem", line)
+            st, ss, sl = props.pop(current, (0, 0, 0))
+            out.append(f"kernel {_kernel_name(current)}: {m.group(1)} registers, "
+                       f"{smem.group(1) if smem else 0} bytes static smem, stack {st}, "
+                       f"spill stores {ss}, spill loads {sl}")
+            current = None
+    for fn, (st, ss, sl) in props.items():
+        if ss or sl or "dense_mma" in fn:
+            out.append(f"function {_kernel_name(fn)}: stack {st}, spill stores {ss}, "
+                       f"spill loads {sl}")
+    return out
+
+
 def build():
     from supnerf_tpu_torch.ops import render
 
     info = render.build_kernels()
     print(f"   built {info['path'].name} in {info['seconds']:.1f} s")
+    for line in ptxas_summary(info["log"]):
+        print("   " + line)
     for line in info["log"].splitlines():
-        if "registers" in line or "spill" in line or "error" in line.lower():
+        if "error" in line.lower():
             print("   " + line.strip())
     return info
 
@@ -341,9 +502,11 @@ def check_kernel_branches():
     """K1, K2 and K3 + K4 (K3 in both modes) against their plain versions on
     the branches the main paths do not take: white background, fewer than
     64 samples per ray, odd ray counts, W 64 and 128, a stash budget of one
-    object (three chunks). Same tolerances, the data cotangents of K3's data
-    mode with the float64 arbitration; its weight and latent gradients the
-    same bits as the other mode's; not timed."""
+    object (three chunks). Same tolerances: K2 in both modes with the
+    float64 arbitration and its kink carve-out (render_bwd_at_kinks), the
+    data cotangents of K3's data mode with the float64 arbitration, its
+    weight and latent gradients the same bits as the other mode's, K4 on
+    K3's stash against wgrad_plain at WGRAD_RTOL; not timed."""
     import torch
     import torch.nn.functional as F
 
@@ -378,12 +541,8 @@ def check_kernel_branches():
             fwd_ray = zip(("rgb(aabb)", "depth(aabb)", "acc(aabb)"),
                           render.render_fwd(wts, *args_ray, white, hit),
                           render.render_fwd_plain(wts, *args_ray, white, hit))
-        bwd = zip(("dxyz", "dviewdir", "dz", "dzs", "dzt"),
-                  render.render_bwd(wts, *args, white, *cot),
-                  render.render_bwd_plain(wts, *args, white, *cot))
-        bwd_ray = zip(("dxyz(aabb)", "dviewdir(aabb)", "dz(aabb)", "dzs(aabb)", "dzt(aabb)"),
-                      render.render_bwd(wts, *args_ray, white, *cot, hit),
-                      render.render_bwd_plain(wts, *args_ray, white, *cot, hit))
+        k2 = [(label, render_bwd_at_kinks(wts, a, white, cot, h, verbose=False))
+              for label, a, h in (("K2", args, None), ("K2(aabb)", args_ray, hit))]
         budget = render.STASH_BYTES
         if W == 256:      # one object per chunk: three K3 + K4 rounds, accumulated
             render.STASH_BYTES = R * S * render.stash_layout(wts)["ld_pt"] * 4
@@ -401,7 +560,11 @@ def check_kernel_branches():
                  ("dW(train)", torch.cat([t.flatten() / p_.abs().max().clamp_min(1e-30) for t, p_ in zip(k[2], p[2])]),
                   torch.cat([t.flatten() / t.abs().max().clamp_min(1e-30) for t in p[2]]))]
         errs = []
-        for name, a, b in list(fwd) + list(bwd) + train + list(fwd_ray) + list(bwd_ray):
+        for label, (_, err, err32, good, kinks) in k2:
+            ok &= good
+            errs.append(f"{label} {err:.1e} (float32 plain {err32:.1e}, rays out {len(kinks)})"
+                        + ("" if good else " FAIL"))
+        for name, a, b in list(fwd) + train + list(fwd_ray):
             err = float((a - b).abs().max())
             base = name.split("(")[0]
             tol = VALUE_ATOL[base] if base in VALUE_ATOL else GRAD_RTOL * float(b.abs().max())
@@ -417,6 +580,13 @@ def check_kernel_branches():
             errs.append(f"{name} {err:.1e}{'' if good else ' FAIL'}")
         ok &= same
         errs.append(f"data mode's dW, dzs, dzt the same bits: {'ok' if same else 'FAIL'}")
+        L = render.stash_layout(wts)
+        pt = torch.empty((3 * R * S, L["ld_pt"]), device="cuda")
+        ray = torch.empty((3 * R, L["ld_ray"]), device="cuda")
+        render.render_train_bwd_stash(wts, *args, white, *cot, pt, ray)
+        err, good = wgrad_on_stash(wts, pt, ray)
+        ok &= good
+        errs.append(f"K4 on K3's stash {err:.1e} of max{'' if good else ' FAIL'}")
         print(f"   W {W} S {S} R {R} white {white}: " + ", ".join(errs))
     if not ok:
         raise RuntimeError("a kernel disagrees with its plain version off the main path")
@@ -439,11 +609,10 @@ def check_kernels():
         fwd_p = render.render_fwd_plain(wts, *args)
     err_fwd, ok_fwd = compare(("rgb", "depth", "acc"), fwd_k, fwd_p, lambda n, s: VALUE_ATOL[n])
 
-    bwd_k = render.render_bwd(wts, *args, False, *cot)
-    torch.cuda.synchronize()
-    bwd_p = render.render_bwd_plain(wts, *args, False, *cot)
-    err_bwd, ok_bwd = compare(("dxyz", "dviewdir", "dz", "dzs", "dzt"), bwd_k, bwd_p,
-                              lambda n, s: GRAD_RTOL * s)
+    # K2's recompute rounds its pre-activations otherwise than the float32
+    # plain version (3xTF32 products, another summation order): at a ReLU
+    # kink either can be on the wrong side, so float64 arbitrates
+    _, err_bwd, err_bwd32, ok_bwd, kinks = render_bwd_at_kinks(wts, args, False, cot)
 
     t_fwd = _timed(lambda: render.render_fwd(wts, *args), 10)
     with torch.no_grad():
@@ -469,6 +638,9 @@ def check_kernels():
                record("render_bwd", ["A2"], "supnerf_tpu/ops/pallas_render.py:478",
                       "supnerf_tpu_torch/csrc/render_bwd.cu", t_bwd, t_bwd_p, err_bwd,
                       bound(bwd_flops, bwd_bytes))]
+    records[1]["max_abs_err_float32_plain"] = err_bwd32
+    records[1]["kink_rays"] = [[o, r, smps, [list(u) for u in units]]
+                               for o, r, smps, units, _ in kinks]
     if not (ok_fwd and ok_bwd):
         raise RuntimeError("a kernel disagrees with its plain version")
     return records
@@ -490,6 +662,13 @@ def check_wgrad(wts, views, stash_bytes, names, ports, tpu):
     torch.cuda.synchronize()
     render.wgrad_plain(probs_p[-1])
     err, ok = compare(names, gk, gp, lambda n, s: WGRAD_RTOL * s)
+    # deterministic: a second call on the same stash gives the same bits
+    again = render._linear_grad_buffers(wts, "cuda")
+    render.wgrad(render.wgrad_problems(wts, *views[-1], again))
+    same = all(torch.equal(a, b) for a, b in zip(gk, again))
+    print(f"   K4 twice on the same stash, the same bits: {'ok' if same else 'FAIL'}")
+    ok &= same
+    del again
     t_k4 = _timed(lambda: [render.wgrad(p) for p in probs], 5)
     t_k4_p = _timed(lambda: [render.wgrad_plain(p) for p in probs_p], 5)
     t_lib = _timed(lambda: [torch.mm(p.G.t(), p.A) for ps in probs_p for p in ps], 5)
@@ -499,6 +678,22 @@ def check_wgrad(wts, views, stash_bytes, names, ports, tpu):
     nbytes = stash_bytes + sum(t.numel() for t in gk) * 4
     return record("wgrad", ports, tpu, "supnerf_tpu_torch/csrc/wgrad.cu", t_k4, t_k4_p, err,
                   bound(flops, nbytes), library_ms=t_lib), ok
+
+
+def wgrad_on_stash(wts, pt, ray):
+    """K4 against wgrad_plain on one stash (pads left as torch.empty left
+    them): the largest error of each gradient over its largest magnitude,
+    and whether all are within WGRAD_RTOL and finite."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    gk, gp = (render._linear_grad_buffers(wts, "cuda") for _ in range(2))
+    render.wgrad(render.wgrad_problems(wts, pt, ray, gk))
+    render.wgrad_plain(render.wgrad_problems(wts, pt, ray, gp))
+    err = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+              for a, b in zip(gk, gp))
+    return err, err <= WGRAD_RTOL and all(bool(torch.isfinite(a).all()) for a in gk)
 
 
 def check_train_kernels():
@@ -830,14 +1025,7 @@ def check_aabb_kernels():
         torch.cuda.synchronize()
         fwd_p = render.render_fwd_plain(wts, *args, False, hit)
     err_fwd, ok_fwd = compare(("rgb", "depth", "acc"), fwd_k, fwd_p, lambda n, s: VALUE_ATOL[n])
-    bwd_k = render.render_bwd(wts, *args, False, *cot, hit)
-    torch.cuda.synchronize()
-    bwd_p = render.render_bwd_plain(wts, *args, False, *cot, hit)
-    bwd_64 = render.render_bwd_plain(as_float64(wts), *(t.double() for t in args), False,
-                                     *(t.double() for t in cot), hit)
-    err_bwd, err_bwd32, ok_bwd = compare_at_kinks(("dxyz", "dviewdir", "dz", "dzs", "dzt"), bwd_k,
-                                                  bwd_p, bwd_64, GRAD_RTOL)
-    del bwd_64
+    bwd_k, err_bwd, err_bwd32, ok_bwd, kinks = render_bwd_at_kinks(wts, args, False, cot, hit)
     exact = (bool((fwd_k[0][miss] == 0).all()) and bool((fwd_k[1][miss] == 0).all())
              and bool((fwd_k[2][miss] == 1).all())
              and all(bool((t[miss] == 0).all()) for t in bwd_k[:3]))
@@ -868,6 +1056,8 @@ def check_aabb_kernels():
                       "supnerf_tpu_torch/csrc/render_bwd.cu", t_bwd, t_bwd_p, err_bwd,
                       bound(bwd_flops, bwd_bytes))]
     records[1]["max_abs_err_float32_plain"] = err_bwd32
+    records[1]["kink_rays"] = [[o, r, smps, [list(u) for u in units]]
+                               for o, r, smps, units, _ in kinks]
     if not (ok_fwd and ok_bwd and exact):
         raise RuntimeError("an AABB-mode kernel disagrees with its plain version")
     return records
@@ -1025,6 +1215,11 @@ def check_field_branches():
         good = err <= GRAD_RTOL and all(bool(torch.isfinite(a).all()) for a in tr_k[4])
         ok &= good
         errs.append(f"dW(train) {err:.1e} of max{'' if good else ' FAIL'}")
+        pt = torch.empty((2 * M, render.stash_layout(wts, per_point=True)["ld_pt"]), device="cuda")
+        field.field_train_bwd_stash(wts, *args, *cot, pt)
+        err, good = wgrad_on_stash(wts, pt, None)
+        ok &= good
+        errs.append(f"K4 on K7's stash {err:.1e} of max{'' if good else ' FAIL'}")
         print(f"   field W {W} shape blocks {ns} M {M}: " + ", ".join(errs))
     if not ok:
         raise RuntimeError("a field kernel disagrees with its plain version off the main path")
@@ -1520,10 +1715,12 @@ def kernel_records(tto_records, train_records, aabb_records, field_records,
     for r in tto_records:
         if r["name"] in by_name:
             by_name[r["name"]]["tto_shape"] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                                                  "bound_by", "max_abs_err")}
+                                                                  "bound_by", "bound_fma_ms",
+                                                                  "max_abs_err")}
         else:
             by_name[r["name"]] = r
-    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err", "library_ms")
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_fma_ms", "max_abs_err",
+            "library_ms")
     by_name["field_fwd"]["train_shape"] = {k: train_field_extra["field_fwd"][k] for k in keep}
     by_name["wgrad"]["field_stash"] = {k: train_field_extra["wgrad"][k] for k in keep}
     by_name["render_fwd"]["ports"] = ["A1", "A3", "A5"]

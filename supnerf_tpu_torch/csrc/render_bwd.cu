@@ -28,12 +28,25 @@
 // (__ballot_sync, 2 KB per layer), so the whole stash stays on chip and
 // nothing is recomputed twice or spilled to a scratch tensor.
 //
-// What bounds it on the H100: arithmetic, as K1. The forward recompute is
-// 0.89 MFLOP per point and the transposed chain another 0.89 (it skips
-// only the tiny sigma and rgb heads), about 1.8 MFLOP per point or 116 GFLOP
-// for one object's 1024 x 64 loss render, against 7 MB of points in and
-// 7 MB of dxyz out. The design is K1's: float32 CUDA-core FMAs with the
-// ray's activations in shared memory; tensor cores are later work.
+// What bounds it on the H100: arithmetic. The forward recompute is 0.89
+// MFLOP per point and the transposed chain another 0.89 (it skips only the
+// tiny sigma and rgb heads), about 1.8 MFLOP per point or 116 GFLOP for one
+// object's 1024 x 64 loss render, against 7 MB of points in and 7 MB of
+// dxyz out: for the TTO path's 2 objects 1.4 ms on the tensor cores at
+// float32 accuracy (3xTF32, three TF32 products per product), 3.5 ms at
+// the float32 FMA peak. So every dense layer runs on dense_mma
+// (render_common.cuh): 3xTF32 mma.sync with the output columns split
+// across the warps, each warp's slice of the weights streamed through its
+// own cp.async ring in shared memory (each weight element enters the SM
+// once per block, not once per warp), the ray's activations in shared
+// memory at a row stride of W + kMmaPad floats (fragment loads free of
+// bank conflicts), and the ReLU bit masks built from the accumulators in
+// registers. The block stays one ray (its activations on chip, the ReLU
+// patterns as bits); its shared memory (~224 KB at W 256, the weight rings
+// included) allows one block of 8 warps per SM, and mma.sync runs below the
+// tensor cores' wgmma rate, so the layers stay short of the bound; the
+// compositing VJP's single thread and the other non-matrix steps leave the
+// tensor cores idle for their span.
 #include "render_common.cuh"
 
 namespace supnerf {
@@ -69,9 +82,11 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   }
 
   extern __shared__ float smem[];
-  float* buf_a = smem;                         // kRows x W
-  float* buf_b = buf_a + kRows * W;            // kRows x W
-  float* pe = buf_b + kRows * W;               // kRows x kPeStride
+  const int Ws = W + kMmaPad;                  // activation row stride
+  float* stage = smem;                         // kMmaStageFloats, dense_mma's weight slices
+  float* buf_a = stage + kMmaStageFloats;      // kRows x Ws
+  float* buf_b = buf_a + kRows * Ws;           // kRows x Ws
+  float* pe = buf_b + kRows * Ws;              // kRows x kPeStride
   float* hdir = pe + kRows * kPeStride;        // W (later: column sums)
   float* dpe = hdir + W;                       // kMaxDirPe
   float* ddpe = dpe + kMaxDirPe;               // kMaxDirPe
@@ -89,28 +104,29 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   encode_points(xyz + ray_idx * S * 3, S, d.l_xyz, pe);
   direction_term(vd + ray_idx * 3, d.l_dir, w, W, dpe, hdir);
 
-  dense(pe, kPeStride, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, W, true, mask_of(0));
+  dense_mma(pe, kPeStride, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, Ws, true, mask_of(0),
+            stage);
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
-    add_row_vector(cur, W, W, zs + ((size_t)obj * d.n_shape + j) * W);
-    dense(cur, W, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, W, true,
-          mask_of(1 + j));
+    add_row_vector<true>(cur, Ws, W, zs + ((size_t)obj * d.n_shape + j) * W);
+    dense_mma(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
+              mask_of(1 + j), stage);
     float* t = cur; cur = nxt; nxt = t;
   }
-  dense(cur, W, W, w.w_es, W, w.b_es, nxt, W, false, nullptr);
+  dense_mma(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
-  head(cur, W, W, w.w_sg, 1, w.b_sg, logit);
-  dense(cur, W, W, w.w_vd_a, W, hdir, nxt, W, true, mask_of(m_vd));
+  head(cur, Ws, W, w.w_sg, 1, w.b_sg, logit);
+  dense_mma(cur, Ws, W, w.w_vd_a, W, hdir, nxt, Ws, true, mask_of(m_vd), stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
-    add_row_vector(cur, W, W, zt + ((size_t)obj * d.n_tex + j) * W);
-    dense(cur, W, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, W, true,
-          mask_of(m_tx0 + j));
+    add_row_vector<true>(cur, Ws, W, zt + ((size_t)obj * d.n_tex + j) * W);
+    dense_mma(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
+              mask_of(m_tx0 + j), stage);
     float* t = cur; cur = nxt; nxt = t;
   }
-  dense(cur, W, W, w.w_r1, W2, w.b_r1, nxt, W2, true, mask_of(m_r1));
-  head(nxt, W2, W2, w.w_r2, 3, w.b_r2, rgb);
+  dense_mma(cur, Ws, W, w.w_r1, W2, w.b_r1, nxt, Ws, true, mask_of(m_r1), stage);
+  head(nxt, Ws, W2, w.w_r2, 3, w.b_r2, rgb);
 
   // ---- compositing forward replay + manual VJP (one thread per ray) -------
   // Reuses buf_a as per-sample scratch: alpha, T (exclusive), w, gw.
@@ -124,53 +140,59 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   // rgb_out: g_hh[r][c] = relu'(hh) * sum_k drgb[r][k] w_r2[c][k]
   for (int e = threadIdx.x; e < kRows * W2; e += kThreads) {
     const int r = e / W2, c = e - r * W2;
-    buf_a[r * W2 + c] = drgb[3 * r] * w.w_r2[3 * c] + drgb[3 * r + 1] * w.w_r2[3 * c + 1]
+    buf_a[r * Ws + c] = drgb[3 * r] * w.w_r2[3 * c] + drgb[3 * r + 1] * w.w_r2[3 * c + 1]
                         + drgb[3 * r + 2] * w.w_r2[3 * c + 2];
   }
   __syncthreads();
-  apply_mask(buf_a, W2, W2, mask_of(m_r1));
-  dense(buf_a, W2, W2, w.wt_r1, W, nullptr, buf_b, W, false, nullptr);
+  apply_mask<true>(buf_a, Ws, W2, mask_of(m_r1));
+  dense_mma(buf_a, Ws, W2, w.wt_r1, W, nullptr, buf_b, Ws, false, nullptr, stage);
   cur = buf_b; nxt = buf_a;
   float* colsum = hdir;   // the direction term is no longer needed
   for (int j = d.n_tex - 1; j >= 0; --j) {
-    apply_mask(cur, W, W, mask_of(m_tx0 + j));
-    dense(cur, W, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, W, false, nullptr);
+    apply_mask<true>(cur, Ws, W, mask_of(m_tx0 + j));
+    dense_mma(cur, Ws, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
+              stage);
     { float* t = cur; cur = nxt; nxt = t; }
-    column_sums(cur, W, W, S, colsum);
+    column_sums(cur, Ws, W, S, colsum);
     for (int c = threadIdx.x; c < W; c += kThreads)
       dzt_part[(ray_idx * d.n_tex + j) * W + c] = colsum[c];
   }
-  apply_mask(cur, W, W, mask_of(m_vd));            // cur = g_v
+  apply_mask<true>(cur, Ws, W, mask_of(m_vd));           // cur = g_v
   // viewdir: the direction encoding is per ray, so its cotangent is
   // (sum over the ray's rows of g_v) @ Wvd_b^T
-  column_sums(cur, W, W, S, colsum);
+  column_sums(cur, Ws, W, S, colsum);
   ray_direction_cotangent(colsum, dpe, w, W, d.l_dir, ddpe, dvd + ray_idx * 3);
   // encoding_shape output e feeds both the viewdir layer and the sigma head
-  dense(cur, W, W, w.wt_vd_a, W, nullptr, nxt, W, false, nullptr);
+  dense_mma(cur, Ws, W, w.wt_vd_a, W, nullptr, nxt, Ws, false, nullptr, stage);
   for (int e = threadIdx.x; e < kRows * W; e += kThreads) {
     const int r = e / W, c = e - r * W;
     const float g_sig = (r < S) ? dsig[r] * sigmoid(logit[r]) : 0.f;
-    nxt[r * W + c] = fmaf(g_sig, w.w_sg[c], nxt[r * W + c]);
+    nxt[r * Ws + c] = fmaf(g_sig, w.w_sg[c], nxt[r * Ws + c]);
   }
   __syncthreads();
   { float* t = cur; cur = nxt; nxt = t; }
-  dense(cur, W, W, w.wt_es, W, nullptr, nxt, W, false, nullptr);
+  dense_mma(cur, Ws, W, w.wt_es, W, nullptr, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = d.n_shape - 1; j >= 0; --j) {
-    apply_mask(cur, W, W, mask_of(1 + j));
-    dense(cur, W, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, W, false, nullptr);
+    apply_mask<true>(cur, Ws, W, mask_of(1 + j));
+    dense_mma(cur, Ws, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
+              stage);
     { float* t = cur; cur = nxt; nxt = t; }
-    column_sums(cur, W, W, S, colsum);
+    column_sums(cur, Ws, W, S, colsum);
     for (int c = threadIdx.x; c < W; c += kThreads)
       dzs_part[(ray_idx * d.n_shape + j) * W + c] = colsum[c];
   }
-  apply_mask(cur, W, W, mask_of(0));
-  point_cotangent(cur, pe, w, W, d.l_xyz, S, nxt, dxyz + ray_idx * S * 3);
+  apply_mask<true>(cur, Ws, W, mask_of(0));
+  // the points' cotangents: g @ Wxyz^T (into nxt, kPeStride a row), then the
+  // encoding's chain rule
+  dense_mma(cur, Ws, W, w.wt_xyz, pe_width(d.l_xyz), nullptr, nxt, kPeStride, false, nullptr,
+            stage);
+  encode_backward_rows(pe, nxt, d.l_xyz, S, dxyz + ray_idx * S * 3);
 }
 
 size_t render_bwd_smem_bytes(int W, int n_shape, int n_tex) {
-  const size_t floats = (size_t)2 * kRows * W + kRows * kPeStride + W + 2 * kMaxDirPe
-                        + kRows * 8;
+  const size_t floats = (size_t)kMmaStageFloats + 2 * kRows * (W + kMmaPad)
+                        + kRows * kPeStride + W + 2 * kMaxDirPe + kRows * 8;
   const size_t words = (size_t)(n_shape + n_tex + 3) * kRows * (W / 32);
   return sizeof(float) * floats + sizeof(uint32_t) * words;
 }

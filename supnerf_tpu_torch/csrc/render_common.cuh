@@ -10,14 +10,19 @@
 // points in the per-point field kernels. They are the rows of every
 // activation matrix,
 // which lives in shared memory (kRows x W floats, 64 KB at W = 256). 256
-// threads = 8 warps; warp w owns rows 8w..8w+7 and lane l owns the columns
-// l, l+32, l+64, ... of each layer's output, so every warp reads one
-// activation value per row as a broadcast and 32 consecutive weights per
-// column group as one coalesced 128-byte load.
+// threads = 8 warps. In `dense` (float32 FMAs on the CUDA cores) warp w owns
+// rows 8w..8w+7 and lane l owns the columns l, l+32, l+64, ... of each
+// layer's output, so every warp reads one activation value per row as a
+// broadcast and 32 consecutive weights per column group as one coalesced
+// 128-byte load. `dense_mma` (K2's layers: 3xTF32 on the tensor cores) splits
+// the output columns across the warps instead.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "cp_async.cuh"
+#include "tf32.cuh"
 
 namespace supnerf {
 
@@ -137,23 +142,211 @@ static __device__ void dense(const float* in, int in_stride, int K, const float*
   else dense_t<8>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate);
 }
 
+// Row stride padding of activation buffers read by dense_mma: a stride of 4
+// mod 32 floats puts the 32 A-fragment loads of a warp on 32 distinct banks.
+constexpr int kMmaPad = 4;
+// dense_mma's weight staging: per warp a ring of kBStages k-steps (8 rows
+// of the warp's columns, kBLd floats a row: 8 mod 32, so the B-fragment
+// loads hit 32 distinct banks); kMmaStageFloats for the whole block.
+constexpr int kBStages = 6;
+constexpr int kBLd = 40;
+constexpr int kMmaStageFloats = kThreads / 32 * kBStages * 8 * kBLd;
+
+// dense_t's contract (out = act(in @ M + bias [+ out]) on all kRows rows,
+// the ReLU bit masks, ends with __syncthreads()) on the tensor cores at
+// float32 accuracy (3xTF32, tf32.cuh). The output columns are split across
+// the warps: warp w owns the NT 8-column tiles w*NT .. w*NT+NT-1 for all
+// 64 rows (4 x NT m16n8k8 tiles), so each weight element enters the SM once
+// per block. A fragments are read from `in` in shared memory (a row stride
+// of 4 mod 32 avoids bank conflicts; kMmaPad). The warp's slice of the
+// weights streams through its own ring of kBStages k-steps in shared
+// memory (`stage`, kMmaStageFloats for the block, 16-byte aligned), filled
+// by cp.async (16-byte copies where N is a multiple of 4, else 4-byte
+// ones) kBStages - 1 k-steps ahead, zero past K and N. Each k-step's
+// products are summed on the tensor cores from zero and added to the output
+// sums with float32 adds (tf32.cuh: the tensor core's
+// accumulation truncates). Reduction indices past K (the 63-wide point
+// encoding, whose stride-64 column 63 is never written) are masked on the A
+// side too. The ReLU masks, in dense_t's layout, come from the registers
+// where a warp owns whole 32-column words (NT 4), else from the stored
+// outputs after a sync.
+template <int NT>
+static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, int K,
+                                                const float* __restrict__ M, int N,
+                                                const float* bias, float* out, int out_stride,
+                                                bool relu, uint32_t* mask, bool accumulate,
+                                                float* stage) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n_tiles = (N + 7) >> 3;
+  const int t0 = warp * NT;
+  // A warp either owns NT whole tiles or none: n_tiles is 4, 8, 16 or 32
+  // (N = 32, 63 or 64, 128, 256) and NT = ceil(n_tiles / 8).
+  if (t0 < n_tiles) {                                // warp-uniform
+    float* ring = stage + warp * kBStages * 8 * kBLd;
+    const int c0 = t0 * 8, n_steps = (K + 7) >> 3;
+    const bool vec = (N & 3) == 0;                   // M's rows start on 16 bytes
+    // rows 8 step .. 8 step + 7 of M's columns c0 .. c0 + 8 NT - 1 into a slot
+    auto fetch = [&](int step) {
+      float* dst = ring + (step % kBStages) * 8 * kBLd;
+      const int k0 = step * 8;
+      if (vec) {
+        for (int q = lane; q < 16 * NT; q += 32) {
+          const int row = q / (2 * NT), col = (q % (2 * NT)) * 4;
+          const bool ok = k0 + row < K && c0 + col < N;
+          cp_async<16>(dst + row * kBLd + col, ok ? M + (size_t)(k0 + row) * N + c0 + col : M,
+                       ok ? 16 : 0);
+        }
+      } else {
+        for (int q = lane; q < 64 * NT; q += 32) {
+          const int row = q / (8 * NT), col = q % (8 * NT);
+          const bool ok = k0 + row < K && c0 + col < N;
+          cp_async<4>(dst + row * kBLd + col, ok ? M + (size_t)(k0 + row) * N + c0 + col : M,
+                      ok ? 4 : 0);
+        }
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < kBStages - 1; ++s) {
+      if (s < n_steps) fetch(s);
+      cp_async_commit();
+    }
+    float acc[4][NT][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][t][e] = 0.f;
+    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+    for (int step = 0; step < n_steps; ++step) {
+      __syncwarp();                                  // the slot refilled here was read last step
+      if (step + kBStages - 1 < n_steps) fetch(step + kBStages - 1);
+      cp_async_commit();
+      cp_async_wait<kBStages - 1>();
+      __syncwarp();
+      const float* b = ring + (step % kBStages) * 8 * kBLd + tig * kBLd + gid;
+      uint32_t bb[NT][2], bs[NT][2];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        tf32_split(b[8 * t], bb[t][0], bs[t][0]);
+        tf32_split(b[4 * kBLd + 8 * t], bb[t][1], bs[t][1]);
+      }
+      const int k0 = step * 8;
+      const bool lo = k0 + tig < K, hi = k0 + tig + 4 < K;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* r_lo = in + (16 * i + gid) * in_stride + k0 + tig;
+        const float* r_hi = r_lo + 8 * in_stride;
+        uint32_t ab[4], as[4];
+        tf32_split(lo ? r_lo[0] : 0.f, ab[0], as[0]);
+        tf32_split(lo ? r_hi[0] : 0.f, ab[1], as[1]);
+        tf32_split(hi ? r_lo[4] : 0.f, ab[2], as[2]);
+        tf32_split(hi ? r_hi[4] : 0.f, ab[3], as[3]);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {     // this k-step's 8 products, then a float32 add
+          float p[4];
+          mma_3xtf32(p, ab, as, bb[t], bs[t], zero);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][t][e] += p[e];
+        }
+      }
+    }
+    cp_async_wait<0>();
+    // with NT 4 the warp's 32 columns are mask word `warp` of every row: bit
+    // 8 t + 2 tig + (e & 1) of bits[i][e >> 1] for this thread's values
+    uint32_t bits[4][2] = {};
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int c = (t0 + t) * 8 + 2 * tig;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * i + gid + (e >> 1) * 8, cc = c + (e & 1);
+          if (cc >= N) continue;
+          float v = acc[i][t][e] + (bias != nullptr ? bias[cc] : 0.f);
+          if (accumulate) v += out[r * out_stride + cc];
+          if (relu) v = fmaxf(v, 0.f);
+          out[r * out_stride + cc] = v;
+          if (NT == 4 && v > 0.f) bits[i][e >> 1] |= 1u << (8 * t + 2 * tig + (e & 1));
+        }
+    }
+    if (NT == 4 && mask != nullptr) {   // OR the words over the 4 lanes of a row
+      const int nj = (N + 31) / 32;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t w = bits[i][h];
+          w |= __shfl_xor_sync(0xffffffffu, w, 1);
+          w |= __shfl_xor_sync(0xffffffffu, w, 2);
+          if (tig == 0) mask[(16 * i + gid + 8 * h) * nj + warp] = w;
+        }
+    }
+  }
+  __syncthreads();
+  if (NT != 4 && mask != nullptr) {     // narrower layers: from the stored outputs
+    const int nj = (N + 31) / 32;
+    for (int q = warp; q < kRows * nj; q += kThreads / 32) {
+      const int r = q / nj, c = 32 * (q - r * nj) + lane;
+      const uint32_t bits = __ballot_sync(0xffffffffu, c < N && out[r * out_stride + c] > 0.f);
+      if (lane == 0) mask[q] = bits;
+    }
+    __syncthreads();
+  }
+}
+
+// Runtime dispatch on the column count: N up to 256, 8-column tiles spread
+// over the 8 warps. `stage`: kMmaStageFloats of shared memory, 16-byte
+// aligned.
+static __device__ void dense_mma(const float* in, int in_stride, int K, const float* M, int N,
+                                 const float* bias, float* out, int out_stride, bool relu,
+                                 uint32_t* mask, float* stage, bool accumulate = false) {
+  const int nt = ((N + 7) / 8 + 7) / 8;
+  if (nt <= 1)
+    dense_mma_t<1>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate, stage);
+  else if (nt == 2)
+    dense_mma_t<2>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate, stage);
+  else
+    dense_mma_t<4>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate, stage);
+}
+
 // buf[r][c] += vec[c] over all rows (the per-object latent of a shape or
-// texture block, added before the block's matmul).
+// texture block, added before the block's matmul). kRowwise (K2): a warp
+// per row and no integer division; the other kernels keep the flat loop.
+template <bool kRowwise = false>
 static __device__ void add_row_vector(float* buf, int stride, int N, const float* vec) {
-  for (int e = threadIdx.x; e < kRows * N; e += kThreads) {
-    const int r = e / N, c = e - r * N;
-    buf[r * stride + c] += vec[c];
+  if constexpr (kRowwise) {
+    for (int r = threadIdx.x >> 5; r < kRows; r += kThreads / 32)
+      for (int c = threadIdx.x & 31; c < N; c += 32) buf[r * stride + c] += vec[c];
+  } else {
+    for (int e = threadIdx.x; e < kRows * N; e += kThreads) {
+      const int r = e / N, c = e - r * N;
+      buf[r * stride + c] += vec[c];
+    }
   }
   __syncthreads();
 }
 
 // buf[r][c] = 0 where the stashed ReLU output was not positive (the ReLU
-// derivative applied to a cotangent in place).
+// derivative applied to a cotangent in place). kRowwise as add_row_vector.
+template <bool kRowwise = false>
 static __device__ void apply_mask(float* buf, int stride, int N, const uint32_t* mask) {
   const int nj = (N + 31) / 32;
-  for (int e = threadIdx.x; e < kRows * N; e += kThreads) {
-    const int r = e / N, c = e - r * N;
-    if (!((mask[r * nj + (c >> 5)] >> (c & 31)) & 1u)) buf[r * stride + c] = 0.f;
+  if constexpr (kRowwise) {
+    const int lane = threadIdx.x & 31;
+    for (int r = threadIdx.x >> 5; r < kRows; r += kThreads / 32)
+      for (int j = 0; j < nj; ++j) {
+        const int c = 32 * j + lane;
+        if (c < N && !((mask[r * nj + j] >> lane) & 1u)) buf[r * stride + c] = 0.f;
+      }
+  } else {
+    for (int e = threadIdx.x; e < kRows * N; e += kThreads) {
+      const int r = e / N, c = e - r * N;
+      if (!((mask[r * nj + (c >> 5)] >> (c & 31)) & 1u)) buf[r * stride + c] = 0.f;
+    }
   }
   __syncthreads();
 }
@@ -387,6 +580,19 @@ static __device__ void point_direction_cotangent(const float* g_v, const float* 
   __syncthreads();
 }
 
+// The encoding's chain rule on the point encodings pe for the n real rows,
+// from the encodings' cotangents dpe (both kRows x kPeStride); dxyz gets 3
+// floats per row.
+static __device__ void encode_backward_rows(const float* pe, const float* dpe, int l_xyz, int n,
+                                            float* dxyz) {
+  for (int r = threadIdx.x; r < n; r += kThreads) {
+    float dx[3];
+    encode_backward_one(pe + r * kPeStride, dpe + r * kPeStride, l_xyz, dx);
+    float* o = dxyz + r * 3;
+    o[0] = dx[0]; o[1] = dx[1]; o[2] = dx[2];
+  }
+}
+
 // The points' cotangents from the first layer's pre-activation gradient g
 // (kRows x W, ReLU already applied): g @ Wxyz^T into scratch (kRows x
 // kPeStride floats), then the encoding's chain rule on the point encodings
@@ -394,12 +600,7 @@ static __device__ void point_direction_cotangent(const float* g_v, const float* 
 static __device__ void point_cotangent(const float* g, const float* pe, const DecoderWeights& w,
                                        int W, int l_xyz, int n, float* scratch, float* dxyz) {
   dense(g, W, W, w.wt_xyz, pe_width(l_xyz), nullptr, scratch, kPeStride, false, nullptr);
-  for (int r = threadIdx.x; r < n; r += kThreads) {
-    float dx[3];
-    encode_backward_one(pe + r * kPeStride, scratch + r * kPeStride, l_xyz, dx);
-    float* o = dxyz + r * 3;
-    o[0] = dx[0]; o[1] = dx[1]; o[2] = dx[2];
-  }
+  encode_backward_rows(pe, scratch, l_xyz, n, dxyz);
 }
 
 // ---- the training stash (render_train_bwd.cu K3, field_train_bwd.cu K7) ----

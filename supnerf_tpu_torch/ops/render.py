@@ -587,20 +587,28 @@ def stash_layout(wts: DecoderWeights, per_point: bool = False) -> dict:
     viewdir layer's gradient summed over the ray's samples (r_gv), ld_ray
     floats a row. With per_point (K7: every point has its own direction)
     the direction encoding is a column block of the point row (a_dpe) and
-    there are no ray rows (ld_ray 0)."""
+    there are no ray rows (ld_ray 0). Every column block, and every row,
+    starts on 16 bytes (a multiple of 4 floats), as K4's 16-byte copies
+    need; the pad columns between blocks are written by nobody and read
+    into no output."""
     W, ns, nt = wts.W, wts.n_shape, wts.n_tex
     d_dir = 3 * (2 * wts.num_dir_freq + 1)
     widths = {"a_xyz": 3 * (2 * wts.num_xyz_freq + 1), "a_sh": ns * W, "a_es": W, "a_e": W,
               "a_tx": nt * W, "a_r1": W, "a_hh": W // 2, "g_xyz": W, "g_sh": ns * W,
               "g_e": W, "g_sig": 1, "g_v": W, "g_tx": nt * W, "g_hh": W // 2, "g_rgb": 3,
               "a_dpe": d_dir if per_point else 0}
-    out, off = {}, 0
+    out, end = {}, 0
     for name in _STASH_POINT_COLS + ("a_dpe",):
-        out[name] = off
-        off += widths[name]
-    out.update(width=off, ld_pt=-(-off // 4) * 4, r_dpe=0, r_gv=d_dir,
-               ld_ray=0 if per_point else -(-(d_dir + W) // 4) * 4)
+        out[name] = _round_up(end)
+        end = out[name] + widths[name] if widths[name] else end
+    r_gv = _round_up(d_dir)
+    out.update(width=end, ld_pt=_round_up(end), r_dpe=0, r_gv=r_gv,
+               ld_ray=0 if per_point else _round_up(r_gv + W))
     return out
+
+
+def _round_up(n: int, k: int = 4) -> int:
+    return -(-n // k) * k
 
 
 def linear_params_of(wts: DecoderWeights) -> list:
@@ -671,10 +679,43 @@ def wgrad_plain(problems, accumulate: bool = False):
                 out.copy_(val)
 
 
-def _split_rows(M: int) -> int:
-    """Rows per split of K4's first pass: about 64 splits of a large problem,
-    at least 256 rows each, a multiple of its 16-row stage."""
-    return -(-max(256, -(-M // 64)) // 16) * 16
+# csrc/wgrad.cu: rows per shared-memory stage of K4's first pass, and the
+# number of row slices ("splits") a large problem is cut into
+WGRAD_STAGE_ROWS = 64
+WGRAD_SPLITS = 32
+
+
+def wgrad_splits(M: int) -> tuple:
+    """(rows per split, number of splits) of K4's first pass over M rows:
+    about WGRAD_SPLITS splits of a large problem, at least 256 rows each, a
+    multiple of the 64-row stage; split s takes rows s * rows .. min(M,
+    (s + 1) * rows) - 1, so every row lies in exactly one split, in order."""
+    rows = _round_up(max(256, -(-M // WGRAD_SPLITS)), WGRAD_STAGE_ROWS)
+    return rows, -(-M // rows)
+
+
+def check_wgrad_problems(problems):
+    """What K4 takes (raises ValueError otherwise): at most 24 problems,
+    float32 operands with unit column stride on one device, consistent
+    shapes, and A's and G's rows starting on 16 bytes (a 16-byte-aligned
+    first element and a row stride that is a multiple of 4 floats, as
+    stash_layout's column blocks are), since the kernel copies them 16 bytes
+    at a time."""
+    dev = problems[0].A.device
+    if len(problems) > 24:
+        raise ValueError(f"wgrad takes at most 24 problems, got {len(problems)}")
+    for p in problems:
+        (M, K), N = p.A.shape, p.G.shape[1]
+        for name, t in (("A", p.A), ("G", p.G), ("w_out", p.w_out), ("b_out", p.b_out)):
+            if t is not None and (t.device != dev or t.dtype != torch.float32 or t.stride(-1) != 1):
+                raise ValueError(f"wgrad {name}: expected float32 rows with unit stride on {dev}")
+        if (p.G.shape[0] != M or not p.w_out.is_contiguous() or p.w_out.shape[0] != N
+                or p.w_out.shape[1] < p.col0 + K or (p.b_out is not None and p.b_out.shape != (N,))):
+            raise ValueError("wgrad: inconsistent problem shapes")
+        for name, t in (("A", p.A), ("G", p.G)):
+            if t.data_ptr() % 16 or (t.shape[0] > 1 and t.stride(0) % 4):
+                raise ValueError(f"wgrad {name}: rows must start on 16 bytes (stash_layout's "
+                                 "column blocks do)")
 
 
 def wgrad(problems, accumulate: bool = False):
@@ -684,26 +725,19 @@ def wgrad(problems, accumulate: bool = False):
     dev = problems[0].A.device
     if dev.type == "cpu":
         return wgrad_plain(problems, accumulate)
-    if len(problems) > 24:
-        raise ValueError(f"wgrad takes at most 24 problems, got {len(problems)}")
+    check_wgrad_problems(problems)
     table = (_WgradProblem * len(problems))()
     partials = []
     for s, p in zip(table, problems):
         (M, K), N = p.A.shape, p.G.shape[1]
-        for name, t in (("A", p.A), ("G", p.G), ("w_out", p.w_out), ("b_out", p.b_out)):
-            if t is not None and (t.device != dev or t.dtype != torch.float32 or t.stride(-1) != 1):
-                raise ValueError(f"wgrad {name}: expected float32 rows with unit stride on {dev}")
-        if (p.G.shape[0] != M or not p.w_out.is_contiguous() or p.w_out.shape[0] != N
-                or p.w_out.shape[1] < p.col0 + K or (p.b_out is not None and p.b_out.shape != (N,))):
-            raise ValueError("wgrad: inconsistent problem shapes")
-        rows = _split_rows(M)
-        part = torch.empty((-(-M // rows), K + 1, N), device=dev)
+        rows, n_split = wgrad_splits(M)
+        part = torch.empty((n_split, N, K + 1), device=dev)
         partials.append(part)
         s.A, s.G, s.partial, s.w_out = (p.A.data_ptr(), p.G.data_ptr(), part.data_ptr(),
                                         p.w_out.data_ptr())
         s.b_out = p.b_out.data_ptr() if p.b_out is not None else None
         s.lda, s.ldg, s.M, s.K, s.N = p.A.stride(0), p.G.stride(0), M, K, N
-        s.ldw, s.col0, s.n_split, s.rows_per_split = p.w_out.shape[1], p.col0, part.shape[0], rows
+        s.ldw, s.col0, s.n_split, s.rows_per_split = p.w_out.shape[1], p.col0, n_split, rows
     with torch.cuda.device(dev):
         err = _library().supnerf_wgrad(table, len(problems), int(bool(accumulate)),
                                        torch.cuda.current_stream(dev).cuda_stream)
@@ -794,7 +828,7 @@ def render_train_bwd_stash_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, w
                               lat + ([xyz, viewdir, z] if data_grads else []))
     write_stash(wts, rows, g, pt)
     with torch.no_grad():
-        ray[:, L["r_dpe"]:L["r_gv"]] = dpe.reshape(-1, dpe.shape[-1])
+        ray[:, L["r_dpe"]:L["r_dpe"] + dpe.shape[-1]] = dpe.reshape(-1, dpe.shape[-1])
         ray[:, L["r_gv"]:L["r_gv"] + wts.W] = g["v"].sum(2).reshape(-1, wts.W)
     return tuple(dlat)
 

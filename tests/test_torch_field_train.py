@@ -140,13 +140,20 @@ def test_stash_and_wgrad_plain_give_the_backward(W, ns, nt, M):
                                                for p in render.decoder_linear_params(dec)]
     fwd_bwd = field.field_bwd_plain(wts, xyz, vd, zs, zt, *cot)
     L = render.stash_layout(wts, per_point=True)
-    assert L["ld_ray"] == 0 and L["width"] == render.stash_layout(wts)["width"] + 27
+    # the direction encoding follows K3's columns on the next 16 bytes
+    a_dpe = -(-render.stash_layout(wts)["width"] // 4) * 4
+    assert L["ld_ray"] == 0 and L["a_dpe"] == a_dpe and L["width"] == a_dpe + 27
     pt = torch.full((3 * M, L["ld_pt"]), float("nan"))
     got = field.field_train_bwd_stash(wts, xyz, vd, zs, zt, *cot, pt)
     for a, b, c in zip(got, data, fwd_bwd):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
         torch.testing.assert_close(a, c, rtol=1e-5, atol=1e-6)
-    assert not pt[:, :L["width"]].isnan().any()
+    # every column block is written (the pad columns between blocks are not)
+    d_xyz = 3 * (2 * wts.num_xyz_freq + 1)
+    widths = {"a_xyz": d_xyz, "a_sh": ns * W, "a_hh": W // 2, "g_sh": ns * W, "a_tx": nt * W,
+              "g_tx": nt * W, "g_sig": 1, "g_hh": W // 2, "g_rgb": 3, "a_dpe": 27}
+    for name in render._STASH_POINT_COLS + ("a_dpe",):
+        assert not pt[:, L[name]:L[name] + widths.get(name, W)].isnan().any(), name
     out = [torch.full_like(t, float("nan")) for t in grads]
     problems = render.wgrad_problems(wts, pt, None, out)
     assert len(problems) == 7 + ns + nt

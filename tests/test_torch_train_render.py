@@ -273,3 +273,69 @@ def test_kernel_sources_name_what_they_replace():
         text = (render.CSRC_DIR / src).read_text()
         assert "pallas_render.py:_render_train_bwd_kernel" in text
         assert "What bounds it on the H100" in text
+
+
+@pytest.mark.parametrize("M", [1, 63, 64, 65, 524_288])
+def test_wgrad_splits_cover_every_row_once_in_order(M):
+    """K4's first pass cuts M rows into splits of `rows` rows (split s takes
+    rows s * rows .. min(M, (s + 1) * rows) - 1, as csrc/wgrad.cu reads
+    them): every row in exactly one split, in order, no split empty, each a
+    whole number of the kernel's 64-row stages."""
+    rows, n_split = render.wgrad_splits(M)
+    assert rows % render.WGRAD_STAGE_ROWS == 0 and n_split >= 1
+    slices = [range(s * rows, min(M, (s + 1) * rows)) for s in range(n_split)]
+    assert all(len(r) > 0 for r in slices)
+    assert [i for r in slices for i in r] == list(range(M))
+    assert n_split <= render.WGRAD_SPLITS
+
+
+@pytest.mark.parametrize("per_point", [False, True], ids=["per_ray", "per_point"])
+@pytest.mark.parametrize("shape", [(256, 3, 1), (128, 2, 1), (64, 3, 1), (32, 2, 2)])
+def test_stash_column_blocks_start_on_16_bytes(per_point, shape):
+    """Every column block of the stash rows, and the rows themselves, start
+    on a multiple of 4 floats (K4 copies them 16 bytes at a time), the
+    blocks keep their order and widths without overlapping, and the row
+    holds them all."""
+    W_, ns, nt = shape
+    wts = render.pack_decoder_params(CodeNeRFDecoder(ns, nt, W_, W_))
+    L = render.stash_layout(wts, per_point)
+    names = render._STASH_POINT_COLS + (("a_dpe",) if per_point else ())
+    assert all(L[n] % 4 == 0 for n in names + ("ld_pt", "r_dpe", "r_gv", "ld_ray"))
+    d_xyz, d_dir = 3 * (2 * wts.num_xyz_freq + 1), 3 * (2 * wts.num_dir_freq + 1)
+    widths = {"a_xyz": d_xyz, "a_sh": ns * W_, "a_hh": W_ // 2, "g_sh": ns * W_,
+              "a_tx": nt * W_, "g_tx": nt * W_, "g_sig": 1, "g_hh": W_ // 2, "g_rgb": 3,
+              "a_dpe": d_dir}
+    ends = [L[n] + widths.get(n, W_) for n in names]
+    assert all(e <= L[n] and L[n] - e < 4 for e, n in zip(ends, names[1:]))
+    assert L["width"] == ends[-1] <= L["ld_pt"]
+    if not per_point:
+        assert L["r_gv"] >= d_dir and L["ld_ray"] >= L["r_gv"] + W_
+
+
+@pytest.mark.parametrize("case", ["ok", "column", "stride", "dtype", "shape", "count"])
+def test_wgrad_wrapper_validates_inputs(case):
+    """What K4's wrapper checks before a launch (they need no card): the
+    problems of a stash pass; a column block that does not start on 16
+    bytes, a row stride that is not a multiple of 4 floats, a wrong dtype,
+    inconsistent shapes or too many problems raise."""
+    wts = render.pack_decoder_params(CodeNeRFDecoder(2, 1, 32, 32))
+    L = render.stash_layout(wts)
+    pt, ray = torch.zeros((70, L["ld_pt"])), torch.zeros((10, L["ld_ray"]))
+    grads = render._linear_grad_buffers(wts, "cpu")
+    problems = render.wgrad_problems(wts, pt, ray, grads)
+    p = problems[1]
+    if case == "column":
+        p.A = pt[:, L["a_sh"] + 1:L["a_sh"] + 33]
+    elif case == "stride":
+        p.G = torch.zeros((70, 35))[:, :32]
+    elif case == "dtype":
+        p.A = p.A.double()
+    elif case == "shape":
+        p.G = p.G[:-1]
+    elif case == "count":
+        problems = problems * 3
+    if case == "ok":
+        render.check_wgrad_problems(problems)
+    else:
+        with pytest.raises(ValueError):
+            render.check_wgrad_problems(problems)
