@@ -16,17 +16,17 @@ Phases, each timed; any failure exits non-zero before the result line:
      each against its plain PyTorch version on the same inputs, each error
      beside its tolerance, kernel / plain times beside the card's bound (the
      least time over float32 on the CUDA cores and 3xTF32 on the tensor
-     cores, or the bytes' time) and the FMA-only bound; K2 (both modes, here
-     and in the branches) also against a float64 plain version, a ray at a
-     ReLU kink taken out (render_bwd_at_kinks); K4 twice on one stash, the
-     same bits;
+     cores, or the bytes' time) and the FMA-only bound; K2 (both modes) and
+     K3 + K4 (both modes), here and in the branches, also against a float64
+     plain version, a ray at a ReLU kink taken out (take_out_kink_rays; for
+     K3 only where its stash shows a gate other than float64's); K4 twice on
+     one stash, the same bits;
      K5 (field_fwd) and K6 (field_bwd), the per-point field, at the
      regulariser paths' shapes (2 objects x 65,536 points with per-ray
      directions, 2 x 1,200 box-plane samples with directions of ones);
      K3's data mode (A6 with data_grads=True) at the training path's shape,
-     its data cotangents also against a float64 plain version and its
-     stash, dz_shape, dz_tex and weight gradients bit for bit against K3's
-     other mode; at the training field's shape (8 objects x 65,536 points,
+     its stash, dz_shape, dz_tex and weight gradients bit for bit against
+     K3's other mode; at the training field's shape (8 objects x 65,536 points,
      a direction per point) K5 on per-object latents (A9), K7
      (field_train_bwd, A10) and K4 on K7's stash;
      then the branches no path takes (white background, S < 64, odd R,
@@ -257,11 +257,13 @@ def gate_flips(units):
     return any(g_k != g64 or g32 != g64 for _, _, _, g_k, g32, g64 in units)
 
 
-def ray_kink_units(wts, args, obj, ray):
-    """The ReLU units of the samples of one ray of K1/K2's inputs (xyz,
+def ray_kink_units(wts, args, obj, ray, gate=None):
+    """The ReLU units of the samples of one ray of K1/K2/K3's inputs (xyz,
     viewdir, z, zs, zt) whose float64 pre-activation lies within KINK_RTOL
     of the largest magnitude of its layer at that sample, each as (sample,
-    layer, unit, margin, gate in float32 plain, gate in float64)."""
+    layer, unit, margin, gate in the kernel, gate in float32 plain, gate in
+    float64). The kernel's gate is gate(sample, layer, unit) where the
+    kernel shows it (K3's stash), else None."""
     import torch
 
     from supnerf_tpu_torch.models.nerf_mlp import positional_encoding
@@ -281,35 +283,55 @@ def ray_kink_units(wts, args, obj, ray):
     for k, p64 in pres[1].items():
         margin = p64.abs() / p64.abs().max(dim=1, keepdim=True).values
         for smp, u in (margin <= KINK_RTOL).nonzero().tolist():
-            units.append((smp, k, u, float(margin[smp, u]), bool(pres[0][k][smp, u] > 0),
-                          bool(p64[smp, u] > 0)))
+            units.append((smp, k, u, float(margin[smp, u]),
+                          gate(smp, k, u) if gate is not None else None,
+                          bool(pres[0][k][smp, u] > 0), bool(p64[smp, u] > 0)))
     return units
 
 
-def render_bwd_at_kinks(wts, args, white, cot, hit=None, verbose=True):
-    """K2 against its float32 and float64 plain versions (compare_at_kinks).
-    K2 sums every dense layer in another order than cuBLAS (3xTF32 products
-    on the tensor cores), so a sample whose ReLU pre-activation sits within
-    float32 rounding of zero can get the other gate than both references,
-    and with it another gradient row. A ray with a dxyz element (or its
-    dviewdir) outside both references is taken out, its cotangents zeroed
-    and every output compared again at the unchanged tolerance, only if
-    that sample (for dviewdir: a sample of the ray) has a unit within
-    KINK_RTOL of zero in float64, and only up to KINK_MAX_POINTS rays.
-    Returns (outputs, worst error against the nearer reference, worst
-    against the float32 plain version, ok, [(object, ray, samples, units,
-    at a kink)])."""
+def stash_gate(wts, args, white, cot, obj, ray):
+    """K3's gates at one ray, read from the stash rows it writes for that ray
+    alone (a block per ray: the same bits as in a launch over all rays):
+    gate(sample, layer, unit) is whether the unit's pre-activation gradient
+    is nonzero, i.e. its ReLU open."""
     import torch
 
     from supnerf_tpu_torch.ops import render
 
-    def evaluate(cot):
-        got = render.render_bwd(wts, *args, white, *cot, hit)
-        torch.cuda.synchronize()
-        ref = render.render_bwd_plain(wts, *args, white, *cot, hit)
-        ref64 = render.render_bwd_plain(as_float64(wts), *(t.double() for t in args), white,
-                                        *(t.double() for t in cot), hit)
-        return got, ref, ref64
+    L = render.stash_layout(wts)
+    S = args[0].shape[2]
+    one = [t[obj:obj + 1, ray:ray + 1].contiguous() for t in (args[0], args[1])]
+    pt = torch.empty((S, L["ld_pt"]), device=args[0].device)
+    rrow = torch.empty((1, L["ld_ray"]), device=args[0].device)
+    render.render_train_bwd_stash(wts, *one, *(t[obj:obj + 1].contiguous() for t in args[2:]),
+                                  white, *(c[obj:obj + 1, ray:ray + 1].contiguous() for c in cot),
+                                  pt, rrow)
+    W = wts.W
+    col = {"xyz": L["g_xyz"], "v": L["g_v"], "hh": L["g_hh"],
+           **{f"sh{j}": L["g_sh"] + j * W for j in range(wts.n_shape)},
+           **{f"tx{j}": L["g_tx"] + j * W for j in range(wts.n_tex)}}
+    rows = pt.cpu()
+    return lambda smp, k, u: bool(rows[smp, col[k] + u] != 0)
+
+
+def take_out_kink_rays(label, wts, args, evaluate, cot, names, gate_of=None, verbose=True):
+    """A render backward kernel (K2, K3) against its float32 and float64
+    plain versions (compare_at_kinks). The kernels sum every dense layer in
+    another order than cuBLAS (3xTF32 products on the tensor cores), so a
+    sample whose ReLU pre-activation sits within float32 rounding of zero
+    can get the other gate than both references, and with it another
+    gradient row. evaluate(cot) gives (kernel, float32 plain, float64 plain)
+    outputs in `names` order, dxyz (B,R,S,3) and dviewdir (B,R,3) first. A
+    ray with a dxyz element (or its dviewdir) outside both references is
+    taken out, its cotangents zeroed and every output compared again at the
+    unchanged tolerance, only if that sample (for dviewdir: a sample of the
+    ray) has a unit within KINK_RTOL of zero in float64, where the kernel
+    shows its gates (gate_of(object, ray), K3) only a unit at which the
+    kernel's or float32 plain's gate differs from float64's, and only up to
+    KINK_MAX_POINTS rays. Returns (outputs, worst error against the nearer
+    reference, worst against the float32 plain version, ok, [(object, ray,
+    samples, units, at a kink)], the cotangents compared)."""
+    import torch
 
     got, ref, ref64 = evaluate(cot)
     outside = {}
@@ -318,22 +340,29 @@ def render_bwd_at_kinks(wts, args, white, cot, hit=None, verbose=True):
         bad = (err > GRAD_RTOL * float(b.abs().max())).any(-1)   # (B, R, S) or (B, R)
         for idx in bad.nonzero().tolist():
             outside.setdefault(tuple(idx[:2]), set()).add(idx[2] if k == 0 else None)
+
+    def counts(u):
+        g_k, g32, g64 = u[4:]
+        return g_k is None or g_k != g64 or g32 != g64
+
     kinks = []
     for (o, r), samples in sorted(outside.items()):
-        units = ray_kink_units(wts, args, o, r)
-        found = all(any(u[0] == smp for u in units) if smp is not None else bool(units)
+        units = ray_kink_units(wts, args, o, r, gate_of(o, r) if gate_of else None)
+        found = all(any(counts(u) for u in units if smp is None or u[0] == smp)
                     for smp in samples)
         kinks.append((o, r, sorted(x for x in samples if x is not None), units, found))
     at_kinks = all(k[-1] for k in kinks) and len(kinks) <= KINK_MAX_POINTS
+
     def describe(smps, units):
         shown = [u for u in units if u[0] in smps or not smps][:4]
-        return ", ".join(f"{k}[{u}] at sample {smp} |pre| / max {m:.2e}, gate float32 "
-                         f"{int(g32)} float64 {int(g64)}"
-                         for smp, k, u, m, g32, g64 in shown) or "no unit within KINK_RTOL"
+        return ", ".join(f"{k}[{u}] at sample {smp} |pre| / max {m:.2e}, gate "
+                         + (f"kernel {int(gk)} " if gk is not None else "")
+                         + f"float32 {int(g32)} float64 {int(g64)}"
+                         for smp, k, u, m, gk, g32, g64 in shown) or "no unit within KINK_RTOL"
 
     if verbose or kinks:
-        print(f"   K2: rays outside both references: {len(kinks)} (at most {KINK_MAX_POINTS} "
-              "may be taken out)" + "".join(
+        print(f"   {label}: rays outside both references: {len(kinks)} (at most "
+              f"{KINK_MAX_POINTS} may be taken out)" + "".join(
                   f"; object {o} ray {r} samples {smps}: {describe(smps, units)} "
                   f"({'at a kink' if found else 'NOT at a kink: FAIL'})"
                   for o, r, smps, units, found in kinks))
@@ -346,9 +375,85 @@ def render_bwd_at_kinks(wts, args, white, cot, hit=None, verbose=True):
         if verbose:
             print("   again with those rays' cotangents zero:")
         got, ref, ref64 = evaluate(cot)
-    err, err32, ok = compare_at_kinks(("dxyz", "dviewdir", "dz", "dzs", "dzt"), got, ref, ref64,
-                                      GRAD_RTOL, verbose)
-    return got, err, err32, ok and at_kinks, kinks
+    err, err32, ok = compare_at_kinks(names, got, ref, ref64, GRAD_RTOL, verbose)
+    return got, err, err32, ok and at_kinks, kinks, cot
+
+
+def render_bwd_at_kinks(wts, args, white, cot, hit=None, verbose=True):
+    """K2 against its float32 and float64 plain versions, a ray at a ReLU
+    kink taken out (take_out_kink_rays). Returns (outputs, worst error
+    against the nearer reference, worst against the float32 plain version,
+    ok, kink rays)."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    def evaluate(cot):
+        got = render.render_bwd(wts, *args, white, *cot, hit)
+        torch.cuda.synchronize()
+        ref = render.render_bwd_plain(wts, *args, white, *cot, hit)
+        ref64 = render.render_bwd_plain(as_float64(wts), *(t.double() for t in args), white,
+                                        *(t.double() for t in cot), hit)
+        return got, ref, ref64
+
+    return take_out_kink_rays("K2", wts, args, evaluate, cot,
+                              ("dxyz", "dviewdir", "dz", "dzs", "dzt"), verbose=verbose)[:5]
+
+
+def train_bwd_at_kinks(wts, args, white, cot, verbose=True):
+    """K3 + K4 (render_train_bwd) in both modes against
+    render_train_bwd_plain in float32 and float64, with K2's ray carve-out
+    (take_out_kink_rays): the rays outside both references are found from
+    the data mode's dxyz and dviewdir, the kernel's gates read from K3's
+    stash (stash_gate); with them taken out, every output of the data mode
+    (dxyz, dviewdir, dz, dzs, dzt and every weight gradient) and of the
+    other mode (dzs, dzt, weight gradients) is compared with
+    compare_at_kinks at the unchanged GRAD_RTOL. Also whether the two modes
+    give the same dzs, dzt and weight-gradient bits on the given
+    cotangents. Returns a dict: data (the data mode's outputs), err, err32,
+    ok (data mode), off_err, off_err32, off_ok (the other mode), same,
+    kinks."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    names = ["dxyz", "dviewdir", "dz", "dzs", "dzt"] + ["d" + n for n in _linear_param_names(wts)]
+
+    def flat(o, data):
+        return ([o[3], o[4], o[5]] if data else []) + [o[0], o[1], *o[2]]
+
+    def evaluate(cot, data=True):
+        got = render.render_train_bwd(wts, *args, white, *cot, data_grads=data)
+        torch.cuda.synchronize()
+        ref = render.render_train_bwd_plain(wts, *args, white, *cot, data_grads=data)
+        ref64 = render.render_train_bwd_plain(as_float64(wts), *(t.double() for t in args), white,
+                                              *(t.double() for t in cot), data_grads=data)
+        return flat(got, data), flat(ref, data), flat(ref64, data)
+
+    shared = [flat(render.render_train_bwd(wts, *args, white, *cot, data_grads=d), False)
+              for d in (True, False)]
+    same = all(torch.equal(a, b) for a, b in zip(*shared))
+    del shared
+    got, err, err32, ok, kinks, cot = take_out_kink_rays(
+        "K3", wts, args, evaluate, cot, names,
+        lambda o, r, c=cot: stash_gate(wts, args, white, c, o, r), verbose)
+    off, off_ref, off_ref64 = evaluate(cot, False)
+    off_err, off_err32, off_ok = compare_at_kinks(names[3:], off, off_ref, off_ref64, GRAD_RTOL,
+                                                  verbose=False)
+    del off, off_ref, off_ref64
+    if verbose:
+        print(f"   K3's other mode on the same cotangents: max_abs_err {off_err:.3e} (float32 "
+              f"plain {off_err32:.3e}) over dzs, dzt and every weight gradient, within "
+              f"GRAD_RTOL: {'ok' if off_ok else 'FAIL'}; dzs, dzt and every weight gradient "
+              f"the same bits in both modes: {'ok' if same else 'FAIL'}")
+    return {"data": got, "err": err, "err32": err32, "ok": ok, "off_err": off_err,
+            "off_err32": off_err32, "off_ok": off_ok, "same": same, "kinks": kinks}
+
+
+def kink_rays_record(kinks):
+    """take_out_kink_rays' rays as the kernels line lists them: [object, ray,
+    samples, units]."""
+    return [[o, r, smps, [list(u) for u in units]] for o, r, smps, units, _ in kinks]
 
 
 def as_float64(wts):
@@ -395,7 +500,12 @@ def _kernel_name(mangled):
         return mangled
     name = mangled[m.end():m.end() + int(m.group(1))]
     rest = mangled[m.end() + int(m.group(1)):]
-    return name + (f"<{rest[1:rest.index('E')]}>" if rest.startswith("I") else "")
+    args = re.match(r"I((?:L[a-z]+\d+E)+)E", rest)
+    if not args:
+        return name
+    lits = re.findall(r"L([a-z]+)(\d+)E", args.group(1))
+    return name + "<" + ", ".join(("true" if v == "1" else "false") if t == "b" else v
+                                  for t, v in lits) + ">"
 
 
 def ptxas_summary(log):
@@ -427,7 +537,7 @@ def ptxas_summary(log):
                        f"spill stores {ss}, spill loads {sl}")
             current = None
     for fn, (st, ss, sl) in props.items():
-        if ss or sl or "dense_mma" in fn:
+        if ss or sl or "dense_mma" in fn or "dense_refine" in fn:
             out.append(f"function {_kernel_name(fn)}: stack {st}, spill stores {ss}, "
                        f"spill loads {sl}")
     return out
@@ -503,10 +613,11 @@ def check_kernel_branches():
     the branches the main paths do not take: white background, fewer than
     64 samples per ray, odd ray counts, W 64 and 128, a stash budget of one
     object (three chunks). Same tolerances: K2 in both modes with the
-    float64 arbitration and its kink carve-out (render_bwd_at_kinks), the
-    data cotangents of K3's data mode with the float64 arbitration, its
-    weight and latent gradients the same bits as the other mode's, K4 on
-    K3's stash against wgrad_plain at WGRAD_RTOL; not timed."""
+    float64 arbitration and its kink carve-out (render_bwd_at_kinks), K3 +
+    K4 in both modes the same way (train_bwd_at_kinks: every output, the
+    weight gradients too; the data mode's weight and latent gradients the
+    same bits as the other mode's), K4 on K3's stash against wgrad_plain at
+    WGRAD_RTOL; not timed."""
     import torch
     import torch.nn.functional as F
 
@@ -547,39 +658,29 @@ def check_kernel_branches():
         if W == 256:      # one object per chunk: three K3 + K4 rounds, accumulated
             render.STASH_BYTES = R * S * render.stash_layout(wts)["ld_pt"] * 4
         try:
-            k, p = (fn(wts, *args, white, *cot) for fn in (render.render_train_bwd,
-                                                          render.render_train_bwd_plain))
-            kd, pd = (fn(wts, *args, white, *cot, data_grads=True)
-                      for fn in (render.render_train_bwd, render.render_train_bwd_plain))
+            k3 = train_bwd_at_kinks(wts, args, white, cot, verbose=False)
         finally:
             render.STASH_BYTES = budget
-        pd64 = render.render_train_bwd_plain(as_float64(wts), *(t.double() for t in args), white,
-                                             *(t.double() for t in cot), data_grads=True)
-        same = all(torch.equal(a, b) for a, b in zip(kd[:2] + tuple(kd[2]), k[:2] + tuple(k[2])))
-        train = [("dzs(train)", k[0], p[0]), ("dzt(train)", k[1], p[1]),
-                 ("dW(train)", torch.cat([t.flatten() / p_.abs().max().clamp_min(1e-30) for t, p_ in zip(k[2], p[2])]),
-                  torch.cat([t.flatten() / t.abs().max().clamp_min(1e-30) for t in p[2]]))]
         errs = []
         for label, (_, err, err32, good, kinks) in k2:
             ok &= good
             errs.append(f"{label} {err:.1e} (float32 plain {err32:.1e}, rays out {len(kinks)})"
                         + ("" if good else " FAIL"))
-        for name, a, b in list(fwd) + train + list(fwd_ray):
+        good = k3["ok"] and k3["off_ok"]
+        ok &= good
+        errs.append(f"K3(data) {k3['err']:.1e} (float32 plain {k3['err32']:.1e}, rays out "
+                    f"{len(k3['kinks'])}), K3 {k3['off_err']:.1e} (float32 plain "
+                    f"{k3['off_err32']:.1e})" + ("" if good else " FAIL"))
+        for name, a, b in list(fwd) + list(fwd_ray):
             err = float((a - b).abs().max())
             base = name.split("(")[0]
             tol = VALUE_ATOL[base] if base in VALUE_ATOL else GRAD_RTOL * float(b.abs().max())
             good = err <= tol and bool(torch.isfinite(a).all())
             ok &= good
             errs.append(f"{name} {err:.1e}{'' if good else ' FAIL'}")
-        for name, a, b, b64 in zip(("dxyz(data)", "dviewdir(data)", "dz(data)"), kd[3:], pd[3:],
-                                   pd64[3:]):
-            tol = GRAD_RTOL * float(b.abs().max())
-            err = float(torch.minimum((a - b).abs().double(), (a.double() - b64).abs()).max())
-            good = err <= tol and bool(torch.isfinite(a).all())
-            ok &= good
-            errs.append(f"{name} {err:.1e}{'' if good else ' FAIL'}")
-        ok &= same
-        errs.append(f"data mode's dW, dzs, dzt the same bits: {'ok' if same else 'FAIL'}")
+        ok &= k3["same"]
+        errs.append(f"data mode's dW, dzs, dzt the same bits: {'ok' if k3['same'] else 'FAIL'}")
+        del k3
         L = render.stash_layout(wts)
         pt = torch.empty((3 * R * S, L["ld_pt"]), device="cuda")
         ray = torch.empty((3 * R, L["ld_ray"]), device="cuda")
@@ -639,8 +740,7 @@ def check_kernels():
                       "supnerf_tpu_torch/csrc/render_bwd.cu", t_bwd, t_bwd_p, err_bwd,
                       bound(bwd_flops, bwd_bytes))]
     records[1]["max_abs_err_float32_plain"] = err_bwd32
-    records[1]["kink_rays"] = [[o, r, smps, [list(u) for u in units]]
-                               for o, r, smps, units, _ in kinks]
+    records[1]["kink_rays"] = kink_rays_record(kinks)
     if not (ok_fwd and ok_bwd):
         raise RuntimeError("a kernel disagrees with its plain version")
     return records
@@ -698,9 +798,11 @@ def wgrad_on_stash(wts, pt, ray):
 
 def check_train_kernels():
     """K1 at the training path's shape (8 objects, per-object latents) and
-    K3 + K4 against render_train_bwd_plain on the same inputs; K4 alone
-    against its plain version on the stash K3 wrote. Returns the records of
-    K1 (at this shape), K3 and K4."""
+    K3 + K4 in both modes against render_train_bwd_plain in float32 and
+    float64 on the same inputs, kink rays taken out (train_bwd_at_kinks);
+    K4 alone against its plain version on the stash K3 wrote. Returns the
+    records of K1 (at this shape), K3 and K4, and train_bwd_at_kinks'
+    result for check_train_data_kernels."""
     import torch
 
     from supnerf_tpu_torch.ops import render
@@ -716,12 +818,12 @@ def check_train_kernels():
         fwd_p = render.render_fwd_plain(wts, *args)
     err_fwd, ok = compare(("rgb", "depth", "acc"), fwd_k, fwd_p, lambda n, s: VALUE_ATOL[n])
 
-    got = render.render_train_bwd(wts, *args, False, *cot)
-    torch.cuda.synchronize()
-    ref = render.render_train_bwd_plain(wts, *args, False, *cot)
-    err_k3, ok_k3 = compare(("dzs", "dzt"), got[:2], ref[:2], lambda n, s: GRAD_RTOL * s)
-    err_w, ok_w = compare(names, got[2], ref[2], lambda n, s: GRAD_RTOL * s)
-    del got, ref
+    # K3's recompute rounds its pre-activations otherwise than the float32
+    # plain version (3xTF32 products, another summation order), as K2's
+    print("   K3 + K4 (render_train_bwd) in its data mode against float32 and float64 plain "
+          "versions:")
+    arb = train_bwd_at_kinks(wts, args, False, cot)
+    err_k3, ok_k3 = arb["off_err"], arb["off_ok"] and arb["same"]
 
     # one stash buffer of a chunk, reused chunk by chunk as render_train_bwd does
     L = render.stash_layout(wts)
@@ -770,17 +872,20 @@ def check_train_kernels():
                "supnerf_tpu_torch/csrc/render_train_bwd.cu", t_k3, t_k3_p, err_k3,
                bound(k3_flops, k3_bytes)),
         k4_rec]
-    if not (ok and ok_k3 and ok_w and ok_k4):
+    records[1]["max_abs_err_float32_plain"] = arb["off_err32"]
+    records[1]["kink_rays"] = kink_rays_record(arb["kinks"])
+    if not (ok and ok_k3 and ok_k4):
         raise RuntimeError("a training kernel disagrees with its plain version")
-    return records
+    return records, arb
 
 
-def check_train_data_kernels():
-    """K3's data mode (A6 with data_grads=True) at the training path's shape
-    against render_train_bwd_plain(data_grads=True), the data cotangents
-    also against a float64 plain version (compare_at_kinks); the stash and
-    dzs / dzt the same bits as K3's other mode on the same inputs, and so
-    the weight gradients. Returns the record of K3's data mode."""
+def check_train_data_kernels(arb):
+    """K3's data mode (A6 with data_grads=True) at the training path's shape:
+    arb is train_bwd_at_kinks' result on these inputs (every output against
+    render_train_bwd_plain(data_grads=True) in float32 and float64, kink
+    rays taken out; dzs, dzt and the weight gradients the same bits as K3's
+    other mode); here the stash the same bits in both modes, and the
+    times. Returns the record of K3's data mode."""
     import torch
 
     from supnerf_tpu_torch.ops import render
@@ -790,21 +895,10 @@ def check_train_data_kernels():
     W, ns, nt = wts.W, wts.n_shape, wts.n_tex
     print(f"   K3's data mode at the training path's shape, {B} objects x {R} rays x {S} "
           "samples:")
-    got = render.render_train_bwd(wts, *args, False, *cot, data_grads=True)
-    torch.cuda.synchronize()
-    ref = render.render_train_bwd_plain(wts, *args, False, *cot, data_grads=True)
-    ref64 = render.render_train_bwd_plain(as_float64(wts), *(t.double() for t in args), False,
-                                          *(t.double() for t in cot), data_grads=True)
-    err_d, err_d32, ok_d = compare_at_kinks(("dxyz", "dviewdir", "dz"), got[3:], ref[3:],
-                                            ref64[3:], GRAD_RTOL)
-    err_z, ok_z = compare(("dzs", "dzt"), got[:2], ref[:2], lambda n, s: GRAD_RTOL * s)
-    err_w, ok_w = compare(["d" + n for n in _linear_param_names(wts)], got[2], ref[2],
-                          lambda n, s: GRAD_RTOL * s)
-    off = render.render_train_bwd(wts, *args, False, *cot)
-    same = all(torch.equal(a, b) for a, b in zip(got[:2] + tuple(got[2]), off[:2] + tuple(off[2])))
-    print(f"   dzs, dzt and every weight gradient bit-identical to K3's other mode: "
-          f"{'ok' if same else 'FAIL'}")
-    del got, ref, ref64, off
+    print(f"   every output against float32 and float64 plain versions (above): max_abs_err "
+          f"{arb['err']:.3e} (float32 plain {arb['err32']:.3e}) "
+          f"{'ok' if arb['ok'] else 'FAIL'}; dzs, dzt and every weight gradient bit-identical to "
+          f"K3's other mode: {'ok' if arb['same'] else 'FAIL'}")
 
     L = render.stash_layout(wts)
     chunk = max(1, min(B, render.STASH_BYTES // (R * S * L["ld_pt"] * 4)))
@@ -838,11 +932,12 @@ def check_train_data_kernels():
     nbytes = (act_bytes + w_all * 4 + rays * 5 * 4 + stash_bytes + rays * (ns + nt) * W * 4
               + (pts * 3 + rays * 3 + B * S) * 4)
     rec = record("render_train_bwd_data", ["A6"], "supnerf_tpu/ops/pallas_render.py:991",
-                 "supnerf_tpu_torch/csrc/render_train_bwd.cu", t_k3, t_k3_p, max(err_d, err_z),
+                 "supnerf_tpu_torch/csrc/render_train_bwd.cu", t_k3, t_k3_p, arb["err"],
                  bound(flops, nbytes))
-    rec["max_abs_err_float32_plain"] = err_d32
+    rec["max_abs_err_float32_plain"] = arb["err32"]
+    rec["kink_rays"] = kink_rays_record(arb["kinks"])
     rec["other_mode_ms"] = t_off
-    if not (ok_d and ok_z and ok_w and same and stash_same):
+    if not (arb["ok"] and arb["same"] and stash_same):
         raise RuntimeError("K3's data mode disagrees with its plain version or its other mode")
     return [rec]
 
@@ -1056,8 +1151,7 @@ def check_aabb_kernels():
                       "supnerf_tpu_torch/csrc/render_bwd.cu", t_bwd, t_bwd_p, err_bwd,
                       bound(bwd_flops, bwd_bytes))]
     records[1]["max_abs_err_float32_plain"] = err_bwd32
-    records[1]["kink_rays"] = [[o, r, smps, [list(u) for u in units]]
-                               for o, r, smps, units, _ in kinks]
+    records[1]["kink_rays"] = kink_rays_record(kinks)
     if not (ok_fwd and ok_bwd and exact):
         raise RuntimeError("an AABB-mode kernel disagrees with its plain version")
     return records
@@ -1761,10 +1855,11 @@ def main():
     done(t0, "build")
     t0 = phase("kernels vs plain versions")
     tto_records = check_kernels()
-    train_records = check_train_kernels()
+    train_records, arb = check_train_kernels()
     aabb_records = check_aabb_kernels()
     field_records = check_field_kernels()
-    train_kernel_records = check_train_data_kernels()
+    train_kernel_records = check_train_data_kernels(arb)
+    del arb
     k7_records, train_field_extra = check_field_train_kernels()
     train_kernel_records += k7_records
     check_kernel_branches()

@@ -1,5 +1,6 @@
-// Asynchronous global-to-shared copies (cp.async, sm_80+), shared by K2's
-// dense layer (render_common.cuh:dense_mma) and K4 (wgrad.cu).
+// Asynchronous global-to-shared copies (cp.async, sm_80+), shared by the
+// dense layer of K1, K2 and K3 (render_common.cuh:dense_mma) and K4
+// (wgrad.cu).
 #pragma once
 
 #include <stdint.h>

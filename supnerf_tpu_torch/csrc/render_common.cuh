@@ -14,8 +14,9 @@
 // rows 8w..8w+7 and lane l owns the columns l, l+32, l+64, ... of each
 // layer's output, so every warp reads one activation value per row as a
 // broadcast and 32 consecutive weights per column group as one coalesced
-// 128-byte load. `dense_mma` (K2's layers: 3xTF32 on the tensor cores) splits
-// the output columns across the warps instead.
+// 128-byte load; K5-K7 run their layers so. `dense_mma` (3xTF32 on the
+// tensor cores: every layer of K1, K2 and K3) splits the output columns
+// across the warps instead.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -170,7 +171,62 @@ constexpr int kMmaStageFloats = kThreads / 32 * kBStages * 8 * kBLd;
 // side too. The ReLU masks, in dense_t's layout, come from the registers
 // where a warp owns whole 32-column words (NT 4), else from the stored
 // outputs after a sync.
+// kRefine (K1, K3; ReLU layers, no accumulate): a pre-activation within
+// kRefineRtol of zero, relative to the largest |pre-activation| among the
+// thread's 8 values of its row, is recomputed in float64 from the same
+// float32 operands (dense_refine) before the ReLU and the mask bit. Its
+// gate then is the exact one for the layer's inputs: a float32-accurate sum
+// in any order leaves ~1e-7 of the row's scale in doubt (at most 5e-7 in
+// bench/dense_accuracy_bench.cu), and a gate on the other side from
+// float64's turns a whole gradient row of the point (chip_smoke.py's
+// KINK_RTOL). The step is rarely taken: its test is a compare per value.
+constexpr float kRefineRtol = 1.0f / 1048576.0f;   // 2^-20
+
+// dense_mma_t's kRefine step for one warp: each value a thread flagged (bit
+// 16 t + 4 i + e of `flagged`: row 16 i + gid + 8 (e >> 1), column (t0 + t)
+// * 8 + 2 tig + (e & 1), as the accumulators) is recomputed by the whole
+// warp, lane l summing k = l, l + 32, ... (K <= 256) in float64, and stored
+// as relu(value); then, with NT 4 and a mask, the warp's mask words are
+// rebuilt from the stored outputs.
 template <int NT>
+static __device__ __noinline__ void dense_refine(const float* in, int in_stride, int K,
+                                                 const float* __restrict__ M, int N,
+                                                 const float* bias, float* out, int out_stride,
+                                                 uint32_t* mask, int t0, uint64_t flagged) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t pending;
+  while ((pending = __ballot_sync(0xffffffffu, flagged != 0)) != 0) {
+    const int src = __ffs(pending) - 1;
+    const int j = __shfl_sync(0xffffffffu, flagged ? __ffsll((long long)flagged) - 1 : 0, src);
+    if (lane == src) flagged &= flagged - 1;
+    const int t = j >> 4, i = (j >> 2) & 3, e = j & 3;
+    const int r = 16 * i + (src >> 2) + 8 * (e >> 1);
+    const int c = (t0 + t) * 8 + 2 * (src & 3) + (e & 1);
+    double acc = 0.0;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int k = lane + 32 * q;
+      if (k < K)
+        acc = fma((double)in[r * in_stride + k], (double)__ldg(M + (size_t)k * N + c), acc);
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0)
+      out[r * out_stride + c] =
+          fmaxf((float)(acc + (bias != nullptr ? (double)bias[c] : 0.0)), 0.f);
+  }
+  __syncwarp();
+  if (NT == 4 && mask != nullptr) {
+    const int nj = (N + 31) / 32;
+    for (int r = 0; r < kRows; ++r) {
+      const uint32_t bits =
+          __ballot_sync(0xffffffffu, out[r * out_stride + 32 * warp + lane] > 0.f);
+      if (lane == 0) mask[r * nj + warp] = bits;
+    }
+  }
+}
+
+template <int NT, bool kRefine>
 static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, int K,
                                                 const float* __restrict__ M, int N,
                                                 const float* bias, float* out, int out_stride,
@@ -254,6 +310,43 @@ static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, 
       }
     }
     cp_async_wait<0>();
+    uint64_t flagged = 0;       // kRefine: the values to recompute
+    if constexpr (kRefine) {
+      // the pre-activations in place (the bias read once per column), then
+      // those in doubt flagged against the largest of the thread's values of
+      // their row (columns past N hold zeros)
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int cc = (t0 + t) * 8 + 2 * tig + h;
+          const float b = (bias != nullptr && cc < N) ? bias[cc] : 0.f;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            acc[i][t][h] += b;
+            acc[i][t][2 + h] += b;
+          }
+        }
+      if (relu) {
+        float scale[4][2] = {};
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              scale[i][e >> 1] = fmaxf(scale[i][e >> 1], fabsf(acc[i][t][e]));
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              if ((t0 + t) * 8 + 2 * tig + (e & 1) < N &&
+                  fabsf(acc[i][t][e]) <= kRefineRtol * scale[i][e >> 1])
+                flagged |= 1ull << (16 * t + 4 * i + e);
+      }
+    }
     // with NT 4 the warp's 32 columns are mask word `warp` of every row: bit
     // 8 t + 2 tig + (e & 1) of bits[i][e >> 1] for this thread's values
     uint32_t bits[4][2] = {};
@@ -266,7 +359,9 @@ static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, 
         for (int e = 0; e < 4; ++e) {
           const int r = 16 * i + gid + (e >> 1) * 8, cc = c + (e & 1);
           if (cc >= N) continue;
-          float v = acc[i][t][e] + (bias != nullptr ? bias[cc] : 0.f);
+          float v;
+          if constexpr (kRefine) v = acc[i][t][e];
+          else v = acc[i][t][e] + (bias != nullptr ? bias[cc] : 0.f);
           if (accumulate) v += out[r * out_stride + cc];
           if (relu) v = fmaxf(v, 0.f);
           out[r * out_stride + cc] = v;
@@ -285,6 +380,10 @@ static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, 
           if (tig == 0) mask[(16 * i + gid + 8 * h) * nj + warp] = w;
         }
     }
+    if constexpr (kRefine) {
+      if (__any_sync(0xffffffffu, flagged != 0))        // warp-uniform
+        dense_refine<NT>(in, in_stride, K, M, N, bias, out, out_stride, mask, t0, flagged);
+    }
   }
   __syncthreads();
   if (NT != 4 && mask != nullptr) {     // narrower layers: from the stored outputs
@@ -300,22 +399,27 @@ static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, 
 
 // Runtime dispatch on the column count: N up to 256, 8-column tiles spread
 // over the 8 warps. `stage`: kMmaStageFloats of shared memory, 16-byte
-// aligned.
+// aligned. kRefine: dense_mma_t's (K1, K3).
+template <bool kRefine = false>
 static __device__ void dense_mma(const float* in, int in_stride, int K, const float* M, int N,
                                  const float* bias, float* out, int out_stride, bool relu,
                                  uint32_t* mask, float* stage, bool accumulate = false) {
   const int nt = ((N + 7) / 8 + 7) / 8;
   if (nt <= 1)
-    dense_mma_t<1>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate, stage);
+    dense_mma_t<1, kRefine>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
+                            accumulate, stage);
   else if (nt == 2)
-    dense_mma_t<2>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate, stage);
+    dense_mma_t<2, kRefine>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
+                            accumulate, stage);
   else
-    dense_mma_t<4>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate, stage);
+    dense_mma_t<4, kRefine>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
+                            accumulate, stage);
 }
 
 // buf[r][c] += vec[c] over all rows (the per-object latent of a shape or
-// texture block, added before the block's matmul). kRowwise (K2): a warp
-// per row and no integer division; the other kernels keep the flat loop.
+// texture block, added before the block's matmul). kRowwise (K1-K3): a warp
+// per row and no integer division; K5-K7 keep the flat loop (changing it
+// moves their register allocation and time).
 template <bool kRowwise = false>
 static __device__ void add_row_vector(float* buf, int stride, int N, const float* vec) {
   if constexpr (kRowwise) {
@@ -370,17 +474,18 @@ static __device__ __forceinline__ void encode_one(const float x[3], int degree, 
 }
 
 // Encodes S <= kRows consecutive points (the samples of one ray, or a
-// field kernel's block of points or directions) into pe (kRows x
-// kPeStride); rows >= S are zero so that the padded rows of every layer stay
-// finite. The caller synchronises before reading pe.
+// field kernel's block of points or directions) into pe (kRows x kStride,
+// kStride >= kPeStride); rows >= S are zero so that the padded rows of every
+// layer stay finite. The caller synchronises before reading pe.
+template <int kStride = kPeStride>
 static __device__ void encode_points(const float* xyz, int S, int degree, float* pe) {
   for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    float* row = pe + r * kPeStride;
+    float* row = pe + r * kStride;
     if (r < S) {
       const float x[3] = {xyz[3 * r], xyz[3 * r + 1], xyz[3 * r + 2]};
       encode_one(x, degree, row);
     } else {
-      for (int k = 0; k < kPeStride; ++k) row[k] = 0.f;
+      for (int k = 0; k < kStride; ++k) row[k] = 0.f;
     }
   }
 }

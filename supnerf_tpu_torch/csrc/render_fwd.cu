@@ -31,15 +31,36 @@
 // = 442,752 multiply-adds = 0.89 MFLOP (W = 256, 3 shape blocks, 1 texture
 // block), so 58 GFLOP for one object's 1024 x 64 loss render, against
 // 7 MB of point input: about 8,000 FLOP per byte, far above the card's
-// balance point. This first kernel runs the layers as float32 FMAs on the
-// CUDA cores (67 TFLOP/s peak), not on the tensor cores: each block keeps its
-// ray's 64 x W activations in shared memory across all nine layers, so no
-// per-point activation ever reaches device memory, and reads the 1.8 MB of
-// weights through L1/L2 with coalesced loads that all 8 warps of the block
-// share. Moving the matmuls to wgmma with bf16 operands is later work.
+// balance point. For the TTO path's 2 objects that is 0.70 ms on the tensor
+// cores at float32 accuracy (3xTF32: three TF32 products per product, 495
+// TFLOP/s) and 1.73 ms at the float32 FMA peak (67 TFLOP/s). So the nine
+// dense layers run on dense_mma (render_common.cuh), as K2's do: 3xTF32
+// mma.sync with the output columns split across the warps, each warp's
+// slice of the weights streamed through its own cp.async ring in shared
+// memory (each weight element enters the SM once per block), every k-step's
+// tensor-core sum added in float32. The block keeps its ray's 64 x W
+// activations in shared memory across all layers at a row stride of W +
+// kMmaPad floats, and the point encoding at kPeLd = kPeStride + kMmaPad
+// (both 4 mod 32: the A-fragment loads hit 32 distinct banks), so no
+// per-point activation reaches device memory. A forward keeps no ReLU
+// patterns (mask nullptr). Its ReLU layers take dense_mma's kRefine step: a
+// pre-activation within 2^-20 of its row's scale from zero is recomputed in
+// float64, so its gate is the exact one for the layer's float32 inputs.
+// The layers, their order and their arithmetic are those of K3's forward
+// recompute, so the forward that K3 differentiates is the one K1 returns;
+// K2's recompute (no such step) differs only where K1 recomputes a unit. Shared memory (~209 KB at
+// W 256, the weight rings included) allows one block of 8 warps per SM; the
+// sigma and rgb heads, the direction term and the one-thread compositing
+// stay on the CUDA cores and leave the tensor cores idle for their span,
+// and mma.sync runs below wgmma's rate, so the kernel stays short of the
+// bound.
 #include "render_common.cuh"
 
 namespace supnerf {
+
+// row stride of K1's point-encoding buffer: 4 mod 32, as dense_mma's
+// activations (kMmaPad)
+constexpr int kPeLd = kPeStride + kMmaPad;
 
 __global__ void __launch_bounds__(kThreads, 1)
 render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
@@ -65,37 +86,42 @@ render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   }
 
   extern __shared__ float smem[];
-  float* buf_a = smem;                       // kRows x W
-  float* buf_b = buf_a + kRows * W;          // kRows x W
-  float* pe = buf_b + kRows * W;             // kRows x kPeStride
-  float* hdir = pe + kRows * kPeStride;      // W
+  const int Ws = W + kMmaPad;                // activation row stride
+  float* stage = smem;                       // kMmaStageFloats, dense_mma's weight slices
+  float* buf_a = stage + kMmaStageFloats;    // kRows x Ws
+  float* buf_b = buf_a + kRows * Ws;         // kRows x Ws
+  float* pe = buf_b + kRows * Ws;            // kRows x kPeLd
+  float* hdir = pe + kRows * kPeLd;          // W
   float* dpe = hdir + W;                     // kMaxDirPe
   float* sig = dpe + kMaxDirPe;              // kRows
   float* rgb = sig + kRows;                  // kRows x 3
 
-  encode_points(xyz + ray_idx * S * 3, S, d.l_xyz, pe);
+  encode_points<kPeLd>(xyz + ray_idx * S * 3, S, d.l_xyz, pe);
   direction_term(vd + ray_idx * 3, d.l_dir, w, W, dpe, hdir);  // syncs
 
-  dense(pe, kPeStride, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, W, true, nullptr);
+  dense_mma<true>(pe, kPeLd, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, Ws, true, nullptr,
+                  stage);
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
-    add_row_vector(cur, W, W, zs + ((size_t)obj * d.n_shape + j) * W);
-    dense(cur, W, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, W, true, nullptr);
+    add_row_vector<true>(cur, Ws, W, zs + ((size_t)obj * d.n_shape + j) * W);
+    dense_mma<true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
+                    nullptr, stage);
     float* t = cur; cur = nxt; nxt = t;
   }
-  dense(cur, W, W, w.w_es, W, w.b_es, nxt, W, false, nullptr);
+  dense_mma(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
-  head(cur, W, W, w.w_sg, 1, w.b_sg, sig);
-  dense(cur, W, W, w.w_vd_a, W, hdir, nxt, W, true, nullptr);
+  head(cur, Ws, W, w.w_sg, 1, w.b_sg, sig);
+  dense_mma<true>(cur, Ws, W, w.w_vd_a, W, hdir, nxt, Ws, true, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
-    add_row_vector(cur, W, W, zt + ((size_t)obj * d.n_tex + j) * W);
-    dense(cur, W, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, W, true, nullptr);
+    add_row_vector<true>(cur, Ws, W, zt + ((size_t)obj * d.n_tex + j) * W);
+    dense_mma<true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
+                    nullptr, stage);
     float* t = cur; cur = nxt; nxt = t;
   }
-  dense(cur, W, W, w.w_r1, W2, w.b_r1, nxt, W2, true, nullptr);
-  head(nxt, W2, W2, w.w_r2, 3, w.b_r2, rgb);
+  dense_mma<true>(cur, Ws, W, w.w_r1, W2, w.b_r1, nxt, Ws, true, nullptr, stage);
+  head(nxt, Ws, W2, w.w_r2, 3, w.b_r2, rgb);
 
   if (threadIdx.x == 0) {
     const float* zr = z + (z_per_ray ? ray_idx : (size_t)obj) * S;
@@ -126,8 +152,8 @@ render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
 }
 
 size_t render_fwd_smem_bytes(int W) {
-  return sizeof(float) * ((size_t)2 * kRows * W + kRows * kPeStride + W + kMaxDirPe
-                          + kRows + kRows * 3);
+  return sizeof(float) * ((size_t)kMmaStageFloats + 2 * kRows * (W + kMmaPad) + kRows * kPeLd
+                          + W + kMaxDirPe + kRows + kRows * 3);
 }
 
 }  // namespace supnerf

@@ -30,17 +30,52 @@
 // with a deterministic split-and-sum over rows. The wrapper launches both per
 // chunk of objects so that the stash stays within a fixed budget.
 //
-// What bounds it on the H100: arithmetic, as K2 (0.89 MFLOP per point of
-// forward recompute, 0.87 of transposed chain: the first layer's transpose is
-// skipped; the data mode adds it back, W x 63 multiply-adds per point, and
-// writes 12 B of dxyz per point), plus 15.6 KB per point of stash written to
-// device memory, which at 3.35 TB/s costs ~5 us per 1000 points against
-// ~26 us of float32 FMAs at the 67 TFLOP/s peak. Same design as K1/K2: a
-// block per ray, the ray's 64 x W activations in shared memory across all
-// layers.
+// What bounds it on the H100: arithmetic. K2's chain is 0.89 MFLOP per point
+// of forward recompute and 0.87 of transposed chain (the first layer's
+// transpose is skipped; the data mode adds it back, W x 63 multiply-adds per
+// point, and writes 12 B of dxyz per point): 5.5 ms for the training path's
+// 8 x 1024 x 64 points on the tensor cores at float32 accuracy (3xTF32),
+// 13.6 ms at the float32 FMA peak. The stash is 15.6 KB per point, 8.2 GB
+// for those points, 2.4 ms at 3.35 TB/s. So the kernel is K2's
+// (render_bwd.cu) with the stash writes added: every dense layer of the
+// forward recompute and of the transposed chain on dense_mma
+// (render_common.cuh: 3xTF32 mma.sync, the output columns split across the
+// warps, each warp's slice of the weights streamed through its own cp.async
+// ring, every k-step's tensor-core sum added in float32), the ray's
+// activations in shared memory at a row stride of W + kMmaPad, the layers in
+// K2's order, the elementwise steps in K2's division-free per-row form. The
+// ReLU layers take dense_mma's kRefine step as in K1: a pre-activation
+// within 2^-20 of its row's scale from zero is recomputed in float64 before
+// the ReLU and its bit mask, since a gate on the other side from float64's
+// turns a whole gradient row of the point. The stash rows are copied out of the
+// W + kMmaPad-strided buffers by stash_rows below: a warp per row, 16-byte
+// streaming stores (every stash column block and every activation row
+// starts on 16 bytes), and no barrier of its own, since the buffer a copy
+// reads is rewritten only after the next barrier of the chain. Shared memory
+// is K2's (~224 KB at W 256, 3 shape and 1 texture block, the weight rings
+// included): one block of 8 warps per SM.
 #include "render_common.cuh"
 
 namespace supnerf {
+
+// dst[r][c] = buf[r][c] for the n real rows and c < N (buf rows `stride`
+// floats apart, dst rows `ld` apart; both, buf and dst start on 16 bytes
+// where N >= 4): a warp per row, the row's whole quads as 16-byte streaming
+// stores (the stash is read once, by K4, and is far larger than L2), the
+// last N mod 4 columns one float at a time. No barrier: the caller's next
+// __syncthreads() comes before anything rewrites buf.
+static __device__ __forceinline__ void stash_rows(const float* buf, int stride, int N, int n,
+                                                  float* dst, int ld) {
+  const int lane = threadIdx.x & 31;
+  const int nq = N >> 2;
+  for (int r = threadIdx.x >> 5; r < n; r += kThreads / 32) {
+    const float* src = buf + r * stride;
+    float* out = dst + (size_t)r * ld;
+    for (int q = lane; q < nq; q += 32)
+      __stcs(reinterpret_cast<float4*>(out) + q, reinterpret_cast<const float4*>(src)[q]);
+    for (int c = 4 * nq + lane; c < N; c += 32) __stcs(out + c, src[c]);
+  }
+}
 
 __global__ void __launch_bounds__(kThreads, 1)
 render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
@@ -54,15 +89,18 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
   const int ray = blockIdx.x, obj = blockIdx.y;
   const int W = d.W, W2 = d.W / 2, S = d.S;
   const int nj = W / 32;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const size_t ray_idx = (size_t)obj * d.R + ray;
   const int n_masks = d.n_shape + d.n_tex + 3;
   float* pt = st.pt + ray_idx * S * st.ld_pt;      // this ray's first stash row
   float* rrow = st.ray + ray_idx * st.ld_ray;
 
   extern __shared__ float smem[];
-  float* buf_a = smem;                         // kRows x W
-  float* buf_b = buf_a + kRows * W;            // kRows x W
-  float* pe = buf_b + kRows * W;               // kRows x kPeStride
+  const int Ws = W + kMmaPad;                  // activation row stride
+  float* stage = smem;                         // kMmaStageFloats, dense_mma's weight slices
+  float* buf_a = stage + kMmaStageFloats;      // kRows x Ws
+  float* buf_b = buf_a + kRows * Ws;           // kRows x Ws
+  float* pe = buf_b + kRows * Ws;              // kRows x kPeStride
   float* hdir = pe + kRows * kPeStride;        // W (later: column sums)
   float* dpe = hdir + W;                       // kMaxDirPe
   float* ddpe = dpe + kMaxDirPe;               // kMaxDirPe
@@ -71,6 +109,8 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
   float* dsig = rgb + kRows * 3;               // kRows
   float* drgb = dsig + kRows;                  // kRows x 3
   uint32_t* masks = reinterpret_cast<uint32_t*>(drgb + kRows * 3);  // n_masks x kRows x nj
+  // mask slots: 0 = encoding_xyz, 1..n_shape = shape blocks, then viewdir,
+  // texture blocks, rgb_hidden
   auto mask_of = [&](int layer) { return masks + (size_t)layer * kRows * nj; };
   const int m_vd = d.n_shape + 1, m_tx0 = d.n_shape + 2, m_r1 = n_masks - 1;
 
@@ -79,107 +119,115 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
   encode_points(xyz + ray_idx * S * 3, S, d.l_xyz, pe);
   direction_term(vd + ray_idx * 3, d.l_dir, w, W, dpe, hdir);    // syncs
   const int d_xyz = pe_width(d.l_xyz), d_dir = pe_width(d.l_dir);
-  store_rows(pe, kPeStride, d_xyz, S, pt + st.a_xyz, st.ld_pt);
+  stash_rows(pe, kPeStride, d_xyz, S, pt + st.a_xyz, st.ld_pt);
   for (int k = threadIdx.x; k < d_dir; k += kThreads) rrow[st.r_dpe + k] = dpe[k];
 
-  dense(pe, kPeStride, d_xyz, w.w_xyz, W, w.b_xyz, buf_a, W, true, mask_of(0));
+  dense_mma<true>(pe, kPeStride, d_xyz, w.w_xyz, W, w.b_xyz, buf_a, Ws, true, mask_of(0),
+                  stage);
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
-    add_row_vector(cur, W, W, zs + ((size_t)obj * d.n_shape + j) * W);
-    store_rows(cur, W, W, S, pt + st.a_sh + j * W, st.ld_pt);
-    dense(cur, W, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, W, true,
-          mask_of(1 + j));
+    add_row_vector<true>(cur, Ws, W, zs + ((size_t)obj * d.n_shape + j) * W);
+    stash_rows(cur, Ws, W, S, pt + st.a_sh + j * W, st.ld_pt);
+    dense_mma<true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
+                    mask_of(1 + j), stage);
     float* t = cur; cur = nxt; nxt = t;
   }
-  store_rows(cur, W, W, S, pt + st.a_es, st.ld_pt);
-  dense(cur, W, W, w.w_es, W, w.b_es, nxt, W, false, nullptr);
+  stash_rows(cur, Ws, W, S, pt + st.a_es, st.ld_pt);
+  dense_mma(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }                       // cur = e
-  store_rows(cur, W, W, S, pt + st.a_e, st.ld_pt);
-  head(cur, W, W, w.w_sg, 1, w.b_sg, logit);
-  dense(cur, W, W, w.w_vd_a, W, hdir, nxt, W, true, mask_of(m_vd));
+  stash_rows(cur, Ws, W, S, pt + st.a_e, st.ld_pt);
+  head(cur, Ws, W, w.w_sg, 1, w.b_sg, logit);
+  dense_mma<true>(cur, Ws, W, w.w_vd_a, W, hdir, nxt, Ws, true, mask_of(m_vd), stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
-    add_row_vector(cur, W, W, zt + ((size_t)obj * d.n_tex + j) * W);
-    store_rows(cur, W, W, S, pt + st.a_tx + j * W, st.ld_pt);
-    dense(cur, W, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, W, true,
-          mask_of(m_tx0 + j));
+    add_row_vector<true>(cur, Ws, W, zt + ((size_t)obj * d.n_tex + j) * W);
+    stash_rows(cur, Ws, W, S, pt + st.a_tx + j * W, st.ld_pt);
+    dense_mma<true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
+                    mask_of(m_tx0 + j), stage);
     float* t = cur; cur = nxt; nxt = t;
   }
-  store_rows(cur, W, W, S, pt + st.a_r1, st.ld_pt);
-  dense(cur, W, W, w.w_r1, W2, w.b_r1, nxt, W2, true, mask_of(m_r1));
-  store_rows(nxt, W2, W2, S, pt + st.a_hh, st.ld_pt);
-  head(nxt, W2, W2, w.w_r2, 3, w.b_r2, rgb);
+  stash_rows(cur, Ws, W, S, pt + st.a_r1, st.ld_pt);
+  dense_mma<true>(cur, Ws, W, w.w_r1, W2, w.b_r1, nxt, Ws, true, mask_of(m_r1), stage);
+  stash_rows(nxt, Ws, W2, S, pt + st.a_hh, st.ld_pt);
+  head(nxt, Ws, W2, w.w_r2, 3, w.b_r2, rgb);
 
   // ---- compositing forward replay + manual VJP (one thread per ray; the
   // ray's dz row only in the data mode) ------------------------------------
+  // Reuses buf_a as per-sample scratch: alpha, T (exclusive), w, gw.
   const bool data = dxyz != nullptr;
   if (threadIdx.x == 0)
     composite_vjp(logit, rgb, z + (size_t)obj * S, S, white_bkgd, g_rgb + ray_idx * 3,
                   g_depth[ray_idx], g_acc[ray_idx], buf_a, dsig, drgb,
                   data ? dz_part + ray_idx * S : nullptr);
   __syncthreads();
-  store_rows(drgb, 3, 3, S, pt + st.g_rgb, st.ld_pt);
+  stash_rows(drgb, 3, 3, S, pt + st.g_rgb, st.ld_pt);
   for (int r = threadIdx.x; r < S; r += kThreads)
     pt[(size_t)r * st.ld_pt + st.g_sig] = dsig[r] * sigmoid(logit[r]);
 
   // ---- transposed decoder chain, pre-activation gradients to the stash ----
-  for (int e = threadIdx.x; e < kRows * W2; e += kThreads) {
-    const int r = e / W2, c = e - r * W2;
-    buf_a[r * W2 + c] = drgb[3 * r] * w.w_r2[3 * c] + drgb[3 * r + 1] * w.w_r2[3 * c + 1]
-                        + drgb[3 * r + 2] * w.w_r2[3 * c + 2];
-  }
+  // rgb_out: g_hh[r][c] = relu'(hh) * sum_k drgb[r][k] w_r2[c][k]
+  for (int r = warp; r < kRows; r += kThreads / 32)
+    for (int c = lane; c < W2; c += 32)
+      buf_a[r * Ws + c] = drgb[3 * r] * w.w_r2[3 * c] + drgb[3 * r + 1] * w.w_r2[3 * c + 1]
+                          + drgb[3 * r + 2] * w.w_r2[3 * c + 2];
   __syncthreads();
-  apply_mask(buf_a, W2, W2, mask_of(m_r1));
-  store_rows(buf_a, W2, W2, S, pt + st.g_hh, st.ld_pt);
-  dense(buf_a, W2, W2, w.wt_r1, W, nullptr, buf_b, W, false, nullptr);
+  apply_mask<true>(buf_a, Ws, W2, mask_of(m_r1));
+  stash_rows(buf_a, Ws, W2, S, pt + st.g_hh, st.ld_pt);
+  dense_mma(buf_a, Ws, W2, w.wt_r1, W, nullptr, buf_b, Ws, false, nullptr, stage);
   cur = buf_b; nxt = buf_a;
   float* colsum = hdir;   // the direction term is no longer needed
   for (int j = d.n_tex - 1; j >= 0; --j) {
-    apply_mask(cur, W, W, mask_of(m_tx0 + j));
-    store_rows(cur, W, W, S, pt + st.g_tx + j * W, st.ld_pt);
-    dense(cur, W, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, W, false, nullptr);
+    apply_mask<true>(cur, Ws, W, mask_of(m_tx0 + j));
+    stash_rows(cur, Ws, W, S, pt + st.g_tx + j * W, st.ld_pt);
+    dense_mma(cur, Ws, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
+              stage);
     { float* t = cur; cur = nxt; nxt = t; }
-    column_sums(cur, W, W, S, colsum);
+    column_sums(cur, Ws, W, S, colsum);
     for (int c = threadIdx.x; c < W; c += kThreads)
       dzt_part[(ray_idx * d.n_tex + j) * W + c] = colsum[c];
   }
-  apply_mask(cur, W, W, mask_of(m_vd));            // cur = g_v
-  store_rows(cur, W, W, S, pt + st.g_v, st.ld_pt);
+  apply_mask<true>(cur, Ws, W, mask_of(m_vd));           // cur = g_v
+  stash_rows(cur, Ws, W, S, pt + st.g_v, st.ld_pt);
   // the direction encoding is per ray: the viewdir layer's direction rows
   // get dpe^T (sum over the ray's samples of g_v), formed by K4 over rays
-  column_sums(cur, W, W, S, colsum);
+  column_sums(cur, Ws, W, S, colsum);
   for (int c = threadIdx.x; c < W; c += kThreads) rrow[st.r_gv + c] = colsum[c];
   if (data) ray_direction_cotangent(colsum, dpe, w, W, d.l_dir, ddpe, dvd + ray_idx * 3);
   // encoding_shape output e feeds both the viewdir layer and the sigma head
-  dense(cur, W, W, w.wt_vd_a, W, nullptr, nxt, W, false, nullptr);
-  for (int e = threadIdx.x; e < kRows * W; e += kThreads) {
-    const int r = e / W, c = e - r * W;
+  dense_mma(cur, Ws, W, w.wt_vd_a, W, nullptr, nxt, Ws, false, nullptr, stage);
+  for (int r = warp; r < kRows; r += kThreads / 32) {
     const float g_sig = (r < S) ? dsig[r] * sigmoid(logit[r]) : 0.f;
-    nxt[r * W + c] = fmaf(g_sig, w.w_sg[c], nxt[r * W + c]);
+    for (int c = lane; c < W; c += 32) nxt[r * Ws + c] = fmaf(g_sig, w.w_sg[c], nxt[r * Ws + c]);
   }
   __syncthreads();
-  { float* t = cur; cur = nxt; nxt = t; }          // cur = g_e
-  store_rows(cur, W, W, S, pt + st.g_e, st.ld_pt);
-  dense(cur, W, W, w.wt_es, W, nullptr, nxt, W, false, nullptr);
+  { float* t = cur; cur = nxt; nxt = t; }                 // cur = g_e
+  stash_rows(cur, Ws, W, S, pt + st.g_e, st.ld_pt);
+  dense_mma(cur, Ws, W, w.wt_es, W, nullptr, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = d.n_shape - 1; j >= 0; --j) {
-    apply_mask(cur, W, W, mask_of(1 + j));
-    store_rows(cur, W, W, S, pt + st.g_sh + j * W, st.ld_pt);
-    dense(cur, W, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, W, false, nullptr);
+    apply_mask<true>(cur, Ws, W, mask_of(1 + j));
+    stash_rows(cur, Ws, W, S, pt + st.g_sh + j * W, st.ld_pt);
+    dense_mma(cur, Ws, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
+              stage);
     { float* t = cur; cur = nxt; nxt = t; }
-    column_sums(cur, W, W, S, colsum);
+    column_sums(cur, Ws, W, S, colsum);
     for (int c = threadIdx.x; c < W; c += kThreads)
       dzs_part[(ray_idx * d.n_shape + j) * W + c] = colsum[c];
   }
-  apply_mask(cur, W, W, mask_of(0));
-  store_rows(cur, W, W, S, pt + st.g_xyz, st.ld_pt);
-  if (data) point_cotangent(cur, pe, w, W, d.l_xyz, S, nxt, dxyz + ray_idx * S * 3);
+  apply_mask<true>(cur, Ws, W, mask_of(0));
+  stash_rows(cur, Ws, W, S, pt + st.g_xyz, st.ld_pt);
+  if (data) {
+    // the points' cotangents: g @ Wxyz^T (into nxt, kPeStride a row), then
+    // the encoding's chain rule
+    dense_mma(cur, Ws, W, w.wt_xyz, d_xyz, nullptr, nxt, kPeStride, false, nullptr, stage);
+    encode_backward_rows(pe, nxt, d.l_xyz, S, dxyz + ray_idx * S * 3);
+  }
 }
 
 size_t render_train_bwd_smem_bytes(int W, int n_shape, int n_tex) {
-  const size_t floats = (size_t)2 * kRows * W + kRows * kPeStride + W + 2 * kMaxDirPe
-                        + kRows * 8;
+  const size_t floats = (size_t)kMmaStageFloats + 2 * kRows * (W + kMmaPad)
+                        + kRows * kPeStride + W + 2 * kMaxDirPe + kRows * 8;
   const size_t words = (size_t)(n_shape + n_tex + 3) * kRows * (W / 32);
   return sizeof(float) * floats + sizeof(uint32_t) * words;
 }

@@ -1,5 +1,6 @@
-// Float32-accurate products on the tensor cores (3xTF32), shared by K2's
-// dense layer (render_common.cuh:dense_mma) and K4 (wgrad.cu).
+// Float32-accurate products on the tensor cores (3xTF32), shared by the
+// dense layer of K1, K2 and K3 (render_common.cuh:dense_mma) and K4
+// (wgrad.cu).
 //
 // A TF32 operand keeps 10 of float32's 23 mantissa bits. Each float32
 // operand x is split in registers into big = x rounded to TF32 and small =
@@ -10,7 +11,7 @@
 // tensor core's float32 accumulation truncates instead of rounding to
 // nearest; over a 256-term chain of three passes it flips ReLU gates at
 // kinks many times more often than float32 sums do, so the kernels sum
-// short chains (one k-step of 8 in K2, one 64-row stage in K4) and add
+// short chains (one k-step of 8 in K1-K3, one 64-row stage in K4) and add
 // those into their sums with float32 adds. tests/test_torch_tf32_split.py
 // emulates this arithmetic on the CPU against float64.
 #pragma once

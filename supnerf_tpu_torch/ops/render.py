@@ -854,6 +854,8 @@ def render_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_b
     if (pt.shape != (B * R * S, L["ld_pt"]) or ray.shape != (B * R, L["ld_ray"])
             or not (pt.is_contiguous() and ray.is_contiguous()) or pt.device != dev):
         raise ValueError("stash buffers do not match stash_layout")
+    if pt.data_ptr() % 16 or ray.data_ptr() % 16:
+        raise ValueError("stash buffers must start on 16 bytes (K3 stores 16 bytes at a time)")
     dzs_part = torch.empty((B, R, wts.n_shape, wts.W), device=dev)
     dzt_part = torch.empty((B, R, wts.n_tex, wts.W), device=dev)
     data = ((torch.empty_like(xyz), torch.empty_like(viewdir), torch.empty((B, R, S), device=dev))

@@ -1,0 +1,108 @@
+"""chip_smoke.py's float64 arbitration of the render backward kernels on the
+CPU, where each wrapper runs its plain version: take_out_kink_rays (through
+train_bwd_at_kinks for K3 + K4 and render_bwd_at_kinks for K2) must pass
+outputs that agree with the plain versions, take a ray out only where the
+kernel's gate at a unit within KINK_RTOL differs from float64's, and fail a
+ray that lies outside both references with no such unit. stash_gate must
+read each ReLU's gate from K3's stash as the float32 pre-activation's sign.
+A small decoder (W 64); the card runs the same code at full width."""
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+import chip_smoke as cs
+from supnerf_tpu_torch.models.nerf_mlp import CodeNeRFDecoder, positional_encoding
+from supnerf_tpu_torch.ops import render
+
+W, S, R = 64, 8, 5
+
+
+@pytest.fixture
+def case(monkeypatch):
+    """_inputs() with the card's synchronisation a no-op, and torch on one
+    thread (many small operations: intra-op threads of several test
+    workers sharing the cores stall each other at every one)."""
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield _inputs()
+    torch.set_num_threads(n)
+
+
+def _inputs():
+    """Decoder, inputs and cotangents of 2 objects from a numpy seed."""
+    rng = np.random.default_rng(3)
+    dec = CodeNeRFDecoder(3, 1, W, W)
+    with torch.no_grad():
+        for m in dec.modules():
+            if isinstance(m, torch.nn.Linear):
+                b = 1.0 / np.sqrt(m.in_features)
+                for t in (m.weight, m.bias):
+                    t.copy_(torch.from_numpy(rng.uniform(-b, b, t.shape).astype(np.float32)))
+    wts = render.pack_decoder_params(dec)
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    vd = F.normalize(f32(rng.normal(size=(2, R, 3))), dim=-1)
+    z = torch.sort(f32(rng.uniform(size=(2, S)) * 4 + 2), dim=-1).values
+    xyz = (vd[:, :, None, :] * z[:, None, :, None] * 0.3).contiguous()
+    codes = f32(rng.normal(size=(2, 2, W)) * 0.3)
+    zs, zt = (t.contiguous() for t in render.conditioned_latents(wts, codes[0], codes[1]))
+    cot = tuple(f32(rng.normal(size=s)) for s in ((2, R, 3), (2, R), (2, R)))
+    return wts, (xyz, vd.contiguous(), z.contiguous(), zs, zt), cot
+
+
+def test_train_bwd_at_kinks_passes_the_plain_version(case):
+    wts, args, cot = case
+    arb = cs.train_bwd_at_kinks(wts, args, False, cot, verbose=False)
+    assert arb["ok"] and arb["off_ok"] and arb["same"] and arb["kinks"] == []
+    assert arb["err"] == 0.0 and arb["off_err"] == 0.0
+
+
+def test_render_bwd_at_kinks_passes_the_plain_version(case):
+    wts, args, cot = case
+    _, err, _, ok, kinks = cs.render_bwd_at_kinks(wts, args, False, cot, verbose=False)
+    assert ok and kinks == [] and err == 0.0
+
+
+@pytest.mark.parametrize("unit_gate", [None, False, True],
+                         ids=["no_unit", "unit_gate_as_float64", "unit_gate_flipped"])
+def test_a_ray_outside_both_references(case, monkeypatch, unit_gate):
+    """One ray's dxyz moved outside both references. The ray is taken out,
+    its cotangents zeroed and the rest compared again; the check passes only
+    if the sample has a unit within KINK_RTOL at which the kernel's gate (a
+    stand-in stash reader) differs from float64's (here float32 plain's
+    agrees with float64's): not without such a unit, nor where the kernel's
+    gate agrees."""
+    wts, args, cot = case
+    plain = render.render_train_bwd
+
+    def shifted(*a, **kw):
+        out = plain(*a, **kw)
+        if kw.get("data_grads") and float(a[7][0, 1].abs().sum()) > 0:
+            out[3][0, 1, 2, 0] += 1.0
+        return out
+
+    monkeypatch.setattr(render, "render_train_bwd", shifted)
+    if unit_gate is not None:
+        monkeypatch.setattr(cs, "ray_kink_units", lambda wts, args, o, r, gate=None:
+                            [(2, "sh0", 7, 3e-9, gate(2, "sh0", 7), False, False)])
+        monkeypatch.setattr(cs, "stash_gate", lambda *a: lambda smp, k, u: unit_gate)
+    arb = cs.train_bwd_at_kinks(wts, args, False, cot, verbose=False)
+    assert [k[:3] for k in arb["kinks"]] == [(0, 1, [2])]
+    assert arb["kinks"][0][-1] is bool(unit_gate)
+    assert arb["ok"] is bool(unit_gate) and arb["off_ok"] and arb["same"]
+
+
+def test_stash_gate_reads_the_relu_gates(case):
+    wts, args, cot = case
+    xyz, vd, _, zs, zt = args
+    gate = cs.stash_gate(wts, args, False, cot, 1, 3)
+    hdir = positional_encoding(vd[1:2, 3:4], wts.num_dir_freq) @ wts.w_vd_b
+    with torch.no_grad():
+        _, pre, _, _ = render.stashed_chain(wts, xyz[1:2, 3], hdir, zs[1:2], zt[1:2])
+    for k, p in pre.items():
+        if k == "e":
+            continue
+        p = p.reshape(S, -1)
+        got = torch.tensor([[gate(s, k, u) for u in range(p.shape[1])] for s in range(S)])
+        assert torch.equal(got, p > 0), k

@@ -16,13 +16,38 @@ The error must stay at least 10x inside the chip's tolerances
 GRAD_RTOL 1e-3 for K2's gradients, both relative to the output's largest
 magnitude) and below a single TF32 pass's. This guards the choice of route;
 the chip comparison of each kernel with its plain version stays the test of
-the kernels themselves."""
+the kernels themselves.
+
+The last cases carry the same arithmetic through whole kernels at the
+published width (W 256, 3 shape blocks, 1 texture block) on a few rays of
+chip_smoke.py:kernel_inputs-like data: K1's decoder chain and compositing
+(csrc/render_fwd.cu: every dense layer on dense_mma, the heads, direction
+term and compositing in float32) against the float64 plain version within
+a tenth of VALUE_ATOL, and K3's stash rows (csrc/render_train_bwd.cu: each
+layer's input rows A_l and pre-activation gradient rows G_l, the transposed
+chain on dense_mma) and the weight gradients K4 forms from them against
+float64 within a tenth of GRAD_RTOL and WGRAD_RTOL, on rays with no ReLU
+unit within KINK_RTOL of zero (there the gate, and so a whole gradient row,
+is decided by the summation order, which chip_smoke.py arbitrates). The
+kernels' kRefine step (render_common.cuh: a ReLU pre-activation within
+2^-20 of its row's scale from zero recomputed in float64) is left out: it
+only moves such values onto float64's."""
+import functools
+import math
+
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
+
+from supnerf_tpu_torch.models.nerf_mlp import CodeNeRFDecoder, positional_encoding
+from supnerf_tpu_torch.ops import render
+from supnerf_tpu_torch.ops.volume_render import volume_render
 
 WGRAD_RTOL = 1e-4
 GRAD_RTOL = 1e-3
+VALUE_ATOL = {"rgb": 3e-4, "depth": 3e-3, "acc": 3e-4}
+KINK_RTOL = 1e-6
 STAGE_ROWS = 64
 
 
@@ -74,6 +99,42 @@ def dense_emulated(x, M, passes=3):
             for p in products(x[:, k:k + 1], M[k][None, :], passes):
                 step = step + p
         acc = acc + step
+    return acc
+
+
+def dense_steps(x, M):
+    """dense_emulated's three-pass arithmetic vectorised over the k-steps:
+    the same float32 adds in the same order for every output (a K that is
+    not a multiple of 8 is padded with zero products, which leave each sum
+    as it is)."""
+    pad = -x.shape[1] % 8
+    (ab, as_), (bb, bs) = split(F.pad(x, (0, pad))), split(F.pad(M, (0, 0, 0, pad)))
+    steps = torch.zeros((x.shape[0], ab.shape[1] // 8, M.shape[1]), dtype=torch.float32)
+    for j in range(8):
+        a_b, a_s = ab[:, j::8, None], as_[:, j::8, None]
+        b_b, b_s = bb[None, j::8], bs[None, j::8]
+        for p in (a_s * b_b, a_b * b_s, a_b * b_b):
+            steps = steps + p
+    acc = torch.zeros((x.shape[0], M.shape[1]), dtype=torch.float32)
+    for step in steps.unbind(1):
+        acc = acc + step
+    return acc
+
+
+def wgrad_steps(A, G):
+    """wgrad_emulated's three-pass arithmetic vectorised over the stages, as
+    dense_steps is dense_emulated's."""
+    pad = -A.shape[0] % STAGE_ROWS
+    (Ab, As), (Gb, Gs) = split(F.pad(A, (0, 0, 0, pad))), split(F.pad(G, (0, 0, 0, pad)))
+    seg = torch.zeros((Ab.shape[0] // STAGE_ROWS, G.shape[1], A.shape[1]), dtype=torch.float32)
+    for r in range(STAGE_ROWS):
+        g_b, g_s = Gb[r::STAGE_ROWS, :, None], Gs[r::STAGE_ROWS, :, None]
+        a_b, a_s = Ab[r::STAGE_ROWS, None], As[r::STAGE_ROWS, None]
+        for p in (g_s * a_b, g_b * a_s, g_b * a_b):
+            seg = seg + p
+    acc = torch.zeros((G.shape[1], A.shape[1]), dtype=torch.float32)
+    for stage in seg.unbind(0):
+        acc = acc + stage
     return acc
 
 
@@ -133,3 +194,208 @@ def test_dense_split_product_is_float32_accurate(K, N):
     err3, err1 = rel_err(dense_emulated(x, M), want), rel_err(dense_emulated(x, M, 1), want)
     assert err3 <= GRAD_RTOL / 10, err3
     assert err3 < err1
+
+
+# ---- whole kernels at the published width -----------------------------------
+
+@pytest.fixture
+def one_thread():
+    """The emulations below are a few thousand tensor operations of ~1M
+    elements: on one thread each, since intra-op threads of several test
+    workers sharing the cores stall each other at every operation."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("K,N,rows", [(63, 256, 64), (256, 128, 100)],
+                         ids=["encoding_xyz", "rgb_hidden"])
+def test_vectorised_emulations_give_the_same_bits(K, N, rows, one_thread):
+    """dense_steps and wgrad_steps, which the whole-kernel cases below use
+    to run in seconds, are dense_emulated and wgrad_emulated bit for bit,
+    ragged K and row counts included."""
+    rng = np.random.default_rng(K + rows)
+    x = torch.from_numpy(np.maximum(rng.normal(size=(rows, K)), 0).astype(np.float32))
+    M = torch.from_numpy(rng.uniform(-0.1, 0.1, size=(K, N)).astype(np.float32))
+    assert torch.equal(dense_steps(x, M), dense_emulated(x, M))
+    G = torch.from_numpy(rng.normal(size=(rows, N)).astype(np.float32))
+    assert torch.equal(wgrad_steps(x, G), wgrad_emulated(x, G))
+
+
+def _f64(wts):
+    return render.DecoderWeights(**{
+        k: (v.double() if isinstance(v, torch.Tensor) else v)
+        for k, v in vars(wts).items()})
+
+
+def _published_decoder(seed):
+    """A CodeNeRF decoder at the published width, Linear weights and biases
+    U(+-1/sqrt(fan_in)) from a numpy seed, as kernel operands."""
+    rng = np.random.default_rng(seed)
+    dec = CodeNeRFDecoder(3, 1, 256, 256)
+    with torch.no_grad():
+        for m in dec.modules():
+            if isinstance(m, torch.nn.Linear):
+                b = 1.0 / math.sqrt(m.in_features)
+                for t in (m.weight, m.bias):
+                    t.copy_(torch.from_numpy(rng.uniform(-b, b, t.shape).astype(np.float32)))
+    return render.pack_decoder_params(dec)
+
+
+def _rays(wts, seed, R, S=64):
+    """kernel_inputs' rays for one object: points on R rays from an origin
+    20 m away through a car-sized box, S stratified depths, in units of the
+    box diagonal; codes N(0, 0.3^2); cotangents N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    diag = 5.3
+    origin = np.array([0.0, -20.0, 1.0])
+    target = (rng.uniform(size=(1, R, 3)) - 0.5) * np.array([4.6, 1.9, 1.7])
+    vd = target - origin
+    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
+    near, far = 20.0 - diag / 2, 20.0 + diag / 2
+    z = near + (far - near) * np.linspace(0, 1, S) + rng.uniform(size=(1, S)) * (far - near) / S
+    xyz = (origin + vd[:, :, None, :] * z[:, None, :, None]) / diag
+    codes = rng.normal(size=(2, 1, 256)) * 0.3
+    cot = [rng.normal(size=s) for s in ((1, R, 3), (1, R), (1, R))]
+    f32 = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+           for a in (xyz, vd, z, codes, *cot)]
+    zs, zt = render.conditioned_latents(wts, f32[3][0], f32[3][1])
+    return (f32[0], f32[1], f32[2], zs.contiguous(), zt.contiguous()), tuple(f32[4:])
+
+
+def _mma_layer(x, M, bias, relu):
+    """dense_mma: x @ M on the tensor cores (dense_emulated), then the bias
+    (a (N,) vector or (rows, N) rows) and the ReLU in float32."""
+    y = dense_steps(x, M) + bias
+    return torch.relu(y) if relu else y
+
+
+def _k1_chain(wts, xyz, vd, zs, zt):
+    """K1's decoder on the rows of all samples (rows (R*S, .)): the layers on
+    dense_mma, the heads and the direction term in float32. Returns (logit,
+    rgb, rows, pre): the stash's layer-input rows a_* and every ReLU layer's
+    pre-activation, keyed as render.stashed_chain keys them."""
+    R, S = xyz.shape[1:3]
+    pe = positional_encoding(xyz[0].reshape(-1, 3), wts.num_xyz_freq)
+    hdir = (positional_encoding(vd[0], wts.num_dir_freq) @ wts.w_vd_b + wts.b_vd)
+    hdir = hdir[:, None, :].expand(R, S, -1).reshape(R * S, -1)
+    rows, pre = {"a_xyz": pe}, {}
+    pre["xyz"] = dense_steps(pe, wts.w_xyz) + wts.b_xyz
+    y = torch.relu(pre["xyz"])
+    for j in range(wts.n_shape):
+        rows[f"a_sh{j}"] = y = y + zs[0, j]
+        pre[f"sh{j}"] = dense_steps(y, wts.w_sh[j]) + wts.b_sh[j]
+        y = torch.relu(pre[f"sh{j}"])
+    rows["a_es"] = y
+    rows["a_e"] = e = _mma_layer(y, wts.w_es, wts.b_es, False)
+    logit = e @ wts.w_sg[:, None] + wts.b_sg
+    pre["v"] = dense_steps(e, wts.w_vd_a) + hdir
+    h = torch.relu(pre["v"])
+    for j in range(wts.n_tex):
+        rows[f"a_tx{j}"] = h = h + zt[0, j]
+        pre[f"tx{j}"] = dense_steps(h, wts.w_tx[j]) + wts.b_tx[j]
+        h = torch.relu(pre[f"tx{j}"])
+    rows["a_r1"] = h
+    pre["hh"] = dense_steps(h, wts.w_r1) + wts.b_r1
+    rows["a_hh"] = hh = torch.relu(pre["hh"])
+    return logit, hh @ wts.w_r2 + wts.b_r2, rows, pre
+
+
+@functools.cache
+def _published_case(seed, R=6, keep=3):
+    """The decoder and `keep` of R rays of one object at which no ReLU unit
+    of any sample lies within KINK_RTOL of zero in float64 (margins relative
+    to the layer's largest |pre-activation| at that sample)."""
+    wts = _published_decoder(seed)
+    args, cot = _rays(wts, seed, R)
+    w64 = _f64(wts)
+    xyz, vd, _, zs, zt = (t.double() for t in args)
+    hdir = positional_encoding(vd, wts.num_dir_freq) @ w64.w_vd_b
+    with torch.no_grad():
+        _, pre, _, _ = render.stashed_chain(w64, xyz, hdir[:, :, None], zs, zt)
+    clear = torch.ones(R, dtype=torch.bool)
+    for k, p in pre.items():
+        if k != "e":
+            margin = p.abs() / p.abs().amax(-1, keepdim=True)          # (1, R, S, N)
+            clear &= (margin > KINK_RTOL).flatten(2).all(-1)[0]
+    idx = clear.nonzero().flatten()[:keep]
+    assert len(idx) == keep, "too few rays clear of kinks"
+    xyz, vd, z, zs, zt = args
+    return (wts, (xyz[:, idx].contiguous(), vd[:, idx].contiguous(), z, zs, zt),
+            tuple(c[:, idx].contiguous() for c in cot))
+
+
+@pytest.mark.parametrize("white", [False, True], ids=["black_bkgd", "white_bkgd"])
+def test_k1_chain_split_product_is_float32_accurate(white, one_thread):
+    """K1's forward at the published width, its nine dense layers as
+    dense_mma sums them: rgb, depth and acc within a tenth of VALUE_ATOL of
+    the float64 plain version."""
+    wts, (xyz, vd, z, zs, zt), _ = _published_case(0)
+    R, S = xyz.shape[1:3]
+    logit, rgb, _, _ = _k1_chain(wts, xyz, vd, zs, zt)
+    got = volume_render(torch.nn.functional.softplus(logit.reshape(1, R, S)),
+                        rgb.reshape(1, R, S, 3), z[:, None, :], white_bkgd=white)
+    want = render.render_fwd_plain(_f64(wts), *(t.double() for t in (xyz, vd, z, zs, zt)), white)
+    for name, a, b in zip(("rgb", "depth", "acc"), got, want):
+        err = float((a.double() - b).abs().max())
+        assert err <= VALUE_ATOL[name] / 10, (name, err)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k3_stash_split_product_is_float32_accurate(seed, one_thread):
+    """K3's stash at the published width: the layer-input rows A_l of K1's
+    chain and the pre-activation gradient rows G_l of the transposed chain,
+    every dense layer as dense_mma sums it (the compositing's VJP by float32
+    autograd, the ReLU gates from the recomputed pre-activations), each
+    column block within a tenth of GRAD_RTOL of its float64 plain version's
+    largest magnitude; the weight gradients K4 forms from them (as
+    wgrad_emulated sums them) within a tenth of WGRAD_RTOL of float64's."""
+    wts, args, cot = _published_case(seed)
+    xyz, vd, z, zs, zt = args
+    R, S = xyz.shape[1:3]
+    W = wts.W
+    L = render.stash_layout(wts)
+    logit, rgb, rows, pre = _k1_chain(wts, xyz, vd, zs, zt)
+    lg, col = (t.detach().requires_grad_(True) for t in (logit, rgb))
+    with torch.enable_grad():
+        outs = volume_render(torch.nn.functional.softplus(lg.reshape(1, R, S)),
+                             col.reshape(1, R, S, 3), z[:, None, :])
+        g_sig, g_rgb = torch.autograd.grad(outs, (lg, col), cot)
+    gate = {k: (p > 0).float() for k, p in pre.items()}
+    g = {"sig": g_sig, "rgb": g_rgb}
+    g["hh"] = gate["hh"] * (g_rgb @ wts.w_r2.t())
+    cur = dense_steps(g["hh"], wts.wt_r1)
+    for j in reversed(range(wts.n_tex)):
+        g[f"tx{j}"] = gate[f"tx{j}"] * cur
+        cur = dense_steps(g[f"tx{j}"], wts.wt_tx[j])
+    g["v"] = gate["v"] * cur
+    g["e"] = dense_steps(g["v"], wts.wt_vd_a) + g_sig * wts.w_sg
+    cur = dense_steps(g["e"], wts.wt_es)
+    for j in reversed(range(wts.n_shape)):
+        g[f"sh{j}"] = gate[f"sh{j}"] * cur
+        cur = dense_steps(g[f"sh{j}"], wts.wt_sh[j])
+    g["xyz"] = gate["xyz"] * cur
+    pt = torch.zeros((R * S, L["ld_pt"]))
+    render.write_stash(wts, dict(rows), g, pt)
+    ray = torch.zeros((R, L["ld_ray"]))
+    d_dir = 3 * (2 * wts.num_dir_freq + 1)
+    ray[:, :d_dir] = positional_encoding(vd[0], wts.num_dir_freq)
+    ray[:, L["r_gv"]:L["r_gv"] + W] = g["v"].reshape(R, S, W).sum(1)
+
+    pt64 = torch.zeros((R * S, L["ld_pt"]), dtype=torch.float64)
+    ray64 = torch.zeros((R, L["ld_ray"]), dtype=torch.float64)
+    render.render_train_bwd_stash_plain(_f64(wts), *(t.double() for t in args), False,
+                                        *(c.double() for c in cot), pt64, ray64)
+    widths = {"a_xyz": 63, "a_sh": wts.n_shape * W, "a_es": W, "a_e": W, "a_tx": wts.n_tex * W,
+              "a_r1": W, "a_hh": W // 2, "g_xyz": W, "g_sh": wts.n_shape * W, "g_e": W,
+              "g_sig": 1, "g_v": W, "g_tx": wts.n_tex * W, "g_hh": W // 2, "g_rgb": 3}
+    for name, n in widths.items():
+        a, b = pt[:, L[name]:L[name] + n].double(), pt64[:, L[name]:L[name] + n]
+        assert rel_err(a, b) <= GRAD_RTOL / 10, (name, rel_err(a, b))
+
+    grads = render._linear_grad_buffers(wts, "cpu")
+    for p, p64 in zip(render.wgrad_problems(wts, pt, ray, grads),
+                      render.wgrad_problems(_f64(wts), pt64, ray64, grads)):
+        err = rel_err(wgrad_steps(p.A, p.G), p64.G.t() @ p64.A)
+        assert err <= WGRAD_RTOL / 10, (p.A.shape, p.G.shape, err)
