@@ -19,16 +19,20 @@ Phases, each timed; any failure exits non-zero before the result line:
      cores, or the bytes' time) and the FMA-only bound; K2 (both modes) and
      K3 + K4 (both modes), here and in the branches, also against a float64
      plain version, a ray at a ReLU kink taken out (take_out_kink_rays; for
-     K3 only where its stash shows a gate other than float64's); K4 twice on
-     one stash, the same bits;
+     K3 only where its stash shows a gate other than float64's); K2 against
+     K3's data mode at the TTO shape with no ray taken out (K2's recompute
+     takes K1's gates); K4 twice on one stash, the same bits;
      K5 (field_fwd) and K6 (field_bwd), the per-point field, at the
      regulariser paths' shapes (2 objects x 65,536 points with per-ray
-     directions, 2 x 1,200 box-plane samples with directions of ones);
+     directions, 2 x 1,200 box-plane samples with directions of ones), K6
+     also against a float64 plain version, a point at a ReLU kink taken
+     out (take_out_kink_points);
      K3's data mode (A6 with data_grads=True) at the training path's shape,
      its stash, dz_shape, dz_tex and weight gradients bit for bit against
      K3's other mode; at the training field's shape (8 objects x 65,536 points,
      a direction per point) K5 on per-object latents (A9), K7
-     (field_train_bwd, A10) and K4 on K7's stash;
+     (field_train_bwd, A10; against K6 too, apart only at kinks) and K4 on
+     K7's stash;
      then the branches no path takes (white background, S < 64, odd R,
      W 64/128, several stash chunks), in both modes of K1 and K2 and of K3,
      K4 on each branch's stash, and for K5/K6/K7 W 64/128, M not a multiple
@@ -212,14 +216,15 @@ def points_outside_both(got, ref, ref64, rtol):
     return sorted(out)
 
 
-def kink_units(wts, args, cot, obj, pt):
+def kink_units(wts, args, cot, obj, pt, stash_gates=True):
     """The ReLU units of one point of a per-point field input (xyz, viewdir,
     zs, zt; cotangents cot) whose float64 pre-activation lies within
     KINK_RTOL of its layer's largest magnitude, each as (layer, unit,
-    margin, gate in the kernel, in float32 plain, in float64). The kernel's
-    gate is read from K7's stash row of the point (the row depends on no
-    other point): its pre-activation gradient is zero where the gate is
-    shut."""
+    margin, gate in the kernel, in float32 plain, in float64). With
+    stash_gates (K7) the kernel's gate is read from K7's stash row of the
+    point (the row depends on no other point): its pre-activation gradient
+    is zero where the gate is shut; else (K6, which shows no gates) it is
+    None."""
     import torch
 
     from supnerf_tpu_torch.models.nerf_mlp import positional_encoding
@@ -228,9 +233,11 @@ def kink_units(wts, args, cot, obj, pt):
     one = ([t[obj:obj + 1, pt:pt + 1].contiguous() for t in args[:2]]
            + [t[obj:obj + 1].contiguous() for t in args[2:]])
     L = render.stash_layout(wts, per_point=True)
-    row = torch.empty((1, L["ld_pt"]), device="cuda")
-    field.field_train_bwd_stash(wts, *one, *(c[obj:obj + 1, pt:pt + 1].contiguous() for c in cot),
-                                row)
+    row = None
+    if stash_gates:
+        row = torch.empty((1, L["ld_pt"]), device="cuda")
+        field.field_train_bwd_stash(wts, *one,
+                                    *(c[obj:obj + 1, pt:pt + 1].contiguous() for c in cot), row)
     pres = []
     for w in (wts, as_float64(wts)):
         x = [t.to(w.w_xyz.dtype) for t in one]
@@ -246,15 +253,57 @@ def kink_units(wts, args, cot, obj, pt):
     for k, p64 in pres[1].items():
         margin = p64.abs() / p64.abs().max()
         for u in (margin <= KINK_RTOL).nonzero().flatten().tolist():
-            units.append((k, u, float(margin[u]), bool(row[0, col[k] + u] != 0),
+            units.append((k, u, float(margin[u]),
+                          bool(row[0, col[k] + u] != 0) if row is not None else None,
                           bool(pres[0][k][u] > 0), bool(p64[u] > 0)))
     return units
 
 
 def gate_flips(units):
-    """Whether the kernel's or float32 plain's gate differs from float64's
-    at one of kink_units' units."""
-    return any(g_k != g64 or g32 != g64 for _, _, _, g_k, g32, g64 in units)
+    """Whether, at one of kink_units' units, the kernel's gate (where it
+    shows it; else any such unit counts) or float32 plain's differs from
+    float64's."""
+    return any(g_k is None or g_k != g64 or g32 != g64 for _, _, _, g_k, g32, g64 in units)
+
+
+def take_out_kink_points(label, wts, args, evaluate, cot, stash_gates):
+    """A per-point field backward (K6, K7) against its float32 and float64
+    plain versions. Its sums run in another order than cuBLAS's, so a point
+    whose ReLU pre-activation sits within float32 rounding of zero can get
+    the other gate than both references. evaluate(cot) gives (kernel,
+    float32 plain, float64 plain) outputs, dxyz and dviewdir (B, M, 3)
+    first. A point with a dxyz or dviewdir element outside both references
+    is taken out (its cotangents zeroed, every output evaluated again, to be
+    compared at the unchanged tolerance) only if a unit of it lies within
+    KINK_RTOL of zero in float64 where, with stash_gates (K7's stash shows
+    its gates), the kernel's or float32 plain's gate differs from
+    float64's, and only up to KINK_MAX_POINTS points. Returns (outputs,
+    float32 plain's, float64 plain's, the cotangents compared, [(object,
+    point)], their kink_units, whether every point taken out is at a
+    kink)."""
+    got, ref, ref64 = evaluate(cot)
+    kinks = points_outside_both(got[:2], ref[:2], ref64[:2], GRAD_RTOL)
+    units = [kink_units(wts, args, cot, o, p, stash_gates) for o, p in kinks]
+    at_kinks = all(gate_flips(u) for u in units) and len(kinks) <= KINK_MAX_POINTS
+    print(f"   {label}: points outside both references: {len(kinks)} (at most "
+          f"{KINK_MAX_POINTS} may be taken out)" + "".join(
+              f"; object {o} point {p}: "
+              + (", ".join(f"{k}[{i}] |pre| / max {m:.2e}, gate "
+                           + (f"kernel {int(gk)} " if gk is not None else "")
+                           + f"float32 {int(g32)} float64 {int(g64)}"
+                           for k, i, m, gk, g32, g64 in u)
+                 or "no unit within KINK_RTOL")
+              + f" ({'at a kink' if gate_flips(u) else 'NOT at a kink: FAIL'})"
+              for (o, p), u in zip(kinks, units)))
+    if kinks:
+        cot = tuple(c.clone() for c in cot)
+        for o, p in kinks:
+            for c in cot:
+                c[o, p] = 0.0
+        del got, ref, ref64
+        print("   again with those points' cotangents zero:")
+        got, ref, ref64 = evaluate(cot)
+    return got, ref, ref64, cot, kinks, units, at_kinks
 
 
 def ray_kink_units(wts, args, obj, ray, gate=None):
@@ -714,6 +763,9 @@ def check_kernels():
     # plain version (3xTF32 products, another summation order): at a ReLU
     # kink either can be on the wrong side, so float64 arbitrates
     _, err_bwd, err_bwd32, ok_bwd, kinks = render_bwd_at_kinks(wts, args, False, cot)
+    # K2's recompute takes K1's gates (ROADMAP C.9): against K3's data mode,
+    # which runs K1's refined forward, with no carve-out
+    err_c9, same_c9, ok_c9 = k2_against_k3_data(wts, args, cot)
 
     t_fwd = _timed(lambda: render.render_fwd(wts, *args), 10)
     with torch.no_grad():
@@ -741,9 +793,45 @@ def check_kernels():
                       bound(bwd_flops, bwd_bytes))]
     records[1]["max_abs_err_float32_plain"] = err_bwd32
     records[1]["kink_rays"] = kink_rays_record(kinks)
+    records[1]["against_k3_data"] = {"max_abs_err": err_c9, "same_bits": same_c9}
     if not (ok_fwd and ok_bwd):
         raise RuntimeError("a kernel disagrees with its plain version")
+    if not ok_c9:
+        raise RuntimeError("K2 disagrees with K3's data mode: its gates are not K1's")
     return records
+
+
+def k2_against_k3_data(wts, args, cot):
+    """K2 against K3's data mode (render_train_bwd_stash with data_grads) on
+    the same shared-z inputs and cotangents, with no ray taken out: dxyz,
+    dviewdir, dz, dzs and dzt within GRAD_RTOL of K3's largest magnitude.
+    K3's recompute is K1's refined forward (kRefine on every ReLU layer),
+    and the transposed chains are the same, so this holds at a ReLU kink
+    only if K2's recompute takes K1's gates: a gate on the other side turns
+    a whole gradient row of a sample. Returns (worst error, the number of
+    outputs that are the same bits, ok)."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    B, R, S = args[0].shape[:3]
+    L = render.stash_layout(wts)
+    pt = torch.empty((B * R * S, L["ld_pt"]), device="cuda")
+    ray = torch.empty((B * R, L["ld_ray"]), device="cuda")
+    dzs, dzt, dxyz, dvd, dz = render.render_train_bwd_stash(wts, *args, False, *cot, pt, ray,
+                                                            data_grads=True)
+    del pt, ray
+    k2 = render.render_bwd(wts, *args, False, *cot)
+    torch.cuda.synchronize()
+    k3 = (dxyz, dvd, dz, dzs, dzt)
+    gb = B * R * S * L["ld_pt"] * 4 / 1e9
+    print(f"   K2 against K3's data mode ({B * R} rays, their {gb:.2f} GB stash), no ray taken "
+          "out:")
+    err, ok = compare(("dxyz", "dviewdir", "dz", "dzs", "dzt"), k2, k3,
+                      lambda n, s: GRAD_RTOL * s)
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(k2, k3))
+    print(f"   outputs the same bits as K3's: {same} of 5")
+    return err, same, ok
 
 
 def check_wgrad(wts, views, stash_bytes, names, ports, tpu):
@@ -993,41 +1081,36 @@ def check_field_train_kernels():
                                       *(t.double() for t in cot))
         return got, ref, ref64
 
-    got, ref, ref64 = evaluate(cot)
-    k6 = field.field_bwd(wts, *args, *cot)
-    same_k6 = all(torch.equal(a, b) for a, b in zip(got[:2], k6[:2]))
-    print(f"   K7's dxyz and dviewdir the same bits as K6's: {'ok' if same_k6 else 'FAIL'}")
     # A point whose float32 gate sits across a kink from both references
-    # fails however right the kernel is. Such a point is taken out only if
-    # a unit of it lies within KINK_RTOL of zero in float64 and the
-    # kernel's or float32 plain's gate there differs from float64's, and
-    # only up to KINK_MAX_POINTS of them; the comparison is then made with
-    # their cotangents zero, which takes them out of every output: all
-    # other points are held to the unchanged tolerances, through the weight
-    # gradients too.
-    kinks = points_outside_both(got[:2], ref[:2], ref64[:2], GRAD_RTOL)
-    units = [kink_units(wts, args, cot, o, p) for o, p in kinks]
-    at_kinks = all(gate_flips(u) for u in units) and len(kinks) <= KINK_MAX_POINTS
-    print(f"   points outside both references: {len(kinks)} (at most {KINK_MAX_POINTS} "
-          f"may be taken out)" + "".join(
-              f"; object {o} point {p}: "
-              + (", ".join(f"{k}[{i}] |pre| / max {m:.2e}, gate kernel {int(gk)} float32 "
-                           f"{int(g32)} float64 {int(g64)}" for k, i, m, gk, g32, g64 in u)
-                 or "no unit within KINK_RTOL")
-              + f" ({'at a kink' if gate_flips(u) else 'NOT at a kink: FAIL'})"
-              for (o, p), u in zip(kinks, units)))
-    if kinks:
-        cot = tuple(c.clone() for c in cot)
-        for o, p in kinks:
-            cot[0][o, p], cot[1][o, p] = 0.0, 0.0
-        del got, ref, ref64
-        print("   again with those points' cotangents zero:")
-        got, ref, ref64 = evaluate(cot)
+    # fails however right the kernel is: take_out_kink_points. With those
+    # points' cotangents zero, all other points are held to the unchanged
+    # tolerances, through the weight gradients too.
+    got, ref, ref64, cot, kinks, units, at_kinks = take_out_kink_points(
+        "K7", wts, args, evaluate, cot, stash_gates=True)
     err_k7, err_k7_32, ok_k7 = compare_at_kinks(("dxyz", "dviewdir", "dzs", "dzt"), got[:4],
                                                 ref[:4], ref64, GRAD_RTOL)
     err_w, ok_w = compare(names, got[4], ref[4], lambda n, s: GRAD_RTOL * s)
-    ok_k7 &= same_k6 and at_kinks
-    del got, ref, ref64, k6
+    del ref, ref64
+    # K7 computes K6's function on the float32 FMA chain without K6's refine
+    # step (ROADMAP C.10), so the two take other gates at some units within
+    # float32 rounding of zero, as many as their summation orders decide: a
+    # point at which they differ beyond GRAD_RTOL must have a unit within
+    # KINK_RTOL, and their number is recorded (C.10's extent)
+    k6 = field.field_bwd(wts, *args, *cot)
+    apart = points_outside_both(got[:2], k6[:2], k6[:2], GRAD_RTOL)
+    apart_units = [kink_units(wts, args, cot, o, p) for o, p in apart]
+    k6_ok = all(apart_units)
+    _, ok_k6_latents = compare(("dzs against K6", "dzt against K6"), got[2:4], k6[2:4],
+                               lambda n, s: GRAD_RTOL * s)
+    print(f"   K7 against K6: points whose dxyz or dviewdir differ beyond GRAD_RTOL: "
+          f"{len(apart)} of {B * M}" + "".join(
+              f"; object {o} point {p}: " + (", ".join(
+                  f"{k}[{i}] |pre| / max {m:.2e}, gate K7 {int(gk)} float64 {int(g64)}"
+                  for k, i, m, gk, _, g64 in u) or "no unit within KINK_RTOL: FAIL")
+              for (o, p), u in zip(apart, apart_units))
+          + f" ({'ok' if k6_ok else 'FAIL'})")
+    ok_k7 &= k6_ok and ok_k6_latents and at_kinks
+    del got, k6
 
     L = render.stash_layout(wts, per_point=True)
     chunk = max(1, min(B, render.STASH_BYTES // (M * L["ld_pt"] * 4)))
@@ -1070,6 +1153,7 @@ def check_field_train_kernels():
                     bound(k7_flops, k7_bytes))
     k7_rec["max_abs_err_float32_plain"] = err_k7_32
     k7_rec["kink_points"] = [[o, p, [list(x) for x in u]] for (o, p), u in zip(kinks, units)]
+    k7_rec["points_apart_from_k6"] = len(apart)
     k7_rec["with_k4_ms"], k7_rec["with_k4_plain_ms"] = t_all, t_all_p
     k5_rec = record("field_fwd", ["A9"], "supnerf_tpu/ops/pallas_field.py:704",
                     "supnerf_tpu_torch/csrc/field_fwd.cu", t_fwd, t_fwd_p, err_fwd,
@@ -1186,7 +1270,8 @@ def field_inputs(seed=3, B=REG_OBJECTS):
 def check_field_kernels():
     """K5 and K6 against their plain versions at both shapes of the
     regulariser paths (K6 also against a float64 plain version: near a
-    ReLU kink the float32 one is not the truth, see compare_at_kinks).
+    ReLU kink the float32 one is not the truth, see compare_at_kinks; a
+    point at a kink taken out as take_out_kink_points allows).
     Returns the records of K5 and K6, the loss render's shape as the main
     numbers and the object-size shape beside them."""
     import torch
@@ -1208,15 +1293,20 @@ def check_field_kernels():
             torch.cuda.synchronize()
             fwd_p = field.field_fwd_plain(wts, *args)
         err_fwd, ok_fwd = compare(("sigma", "rgb"), fwd_k, fwd_p, lambda n, s: VALUE_ATOL[n])
-        bwd_k = field.field_bwd(wts, *args, *cot)
-        torch.cuda.synchronize()
-        bwd_p = field.field_bwd_plain(wts, *args, *cot)
-        bwd_64 = field.field_bwd_plain(as_float64(wts), *(t.double() for t in args),
-                                       *(t.double() for t in cot))
+
+        def evaluate(c, args=args):
+            got = field.field_bwd(wts, *args, *c)
+            torch.cuda.synchronize()
+            return (got, field.field_bwd_plain(wts, *args, *c),
+                    field.field_bwd_plain(as_float64(wts), *(t.double() for t in args),
+                                          *(t.double() for t in c)))
+
+        bwd_k, bwd_p, bwd_64, _, kinks, units, at_kinks = take_out_kink_points(
+            "K6", wts, args, evaluate, cot, stash_gates=False)
         err_bwd, err_bwd32, ok_bwd = compare_at_kinks(("dxyz", "dviewdir", "dzs", "dzt"), bwd_k,
                                                       bwd_p, bwd_64, GRAD_RTOL)
-        del bwd_64
-        ok &= ok_fwd and ok_bwd
+        del bwd_k, bwd_p, bwd_64
+        ok &= ok_fwd and ok_bwd and at_kinks
         n = 10 if M > 10000 else 50
         t_fwd = _timed(lambda: field.field_fwd(wts, *args), n)
         with torch.no_grad():
@@ -1238,12 +1328,14 @@ def check_field_kernels():
                    "supnerf_tpu_torch/csrc/field_bwd.cu", t_bwd, t_bwd_p, err_bwd,
                    bound(bwd_flops, bwd_bytes))]
         by_shape[label][1]["max_abs_err_float32_plain"] = err_bwd32
+        by_shape[label][1]["kink_points"] = [[o, p, [list(x) for x in u]]
+                                             for (o, p), u in zip(kinks, units)]
     if not ok:
         raise RuntimeError("a field kernel disagrees with its plain version")
     records = by_shape["sym"]
     for r, small in zip(records, by_shape["objsz"]):
         r["objsz_shape"] = {k: small[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                   "max_abs_err")}
+                                                   "max_abs_err", "kink_points") if k in small}
     return records
 
 

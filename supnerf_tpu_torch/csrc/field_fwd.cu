@@ -17,20 +17,31 @@
 // its mirror, the object-size loss's box-plane samples), so each point has
 // its own direction, and M need not be a multiple of a block.
 //
-// Design: K1's, one block per kRows = 64 consecutive points of one object
-// (grid (ceil(M / 64), B)), their activations in shared memory across all
-// nine layers, the last block's missing rows zero-encoded and never
-// written. Unlike K1, the direction term of the viewdir layer is per point:
-// a (64 x 27) @ (27 x W) dense layer on the direction encodings, into which
-// the trunk's (64 x W) @ (W x W) product is accumulated before the ReLU.
+// Design: K1's (render_fwd.cu), one block per kRows = 64 consecutive
+// points of one object (grid (ceil(M / 64), B)), their activations in
+// shared memory across all nine layers at a row stride of W + kMmaPad, the
+// last block's missing rows zero-encoded and never written. The chain is
+// render_common.cuh:field_chain, which K6 (field_bwd.cu) runs too, so K6
+// differentiates at the gates this kernel took.
 //
 // What bounds it on the H100: arithmetic. Per point the decoder takes
 // 442,752 multiply-adds (render_fwd.cu's count at W 256, 3 shape blocks, 1
 // texture block) plus 27 x 256 = 6,912 for the per-point direction term,
 // about 0.90 MFLOP, against 24 bytes of point and direction read and 16
-// bytes written: tens of thousands of FLOP per byte. As in K1 the layers
-// run as float32 FMAs on the CUDA cores (67 TFLOP/s peak) with the weights
-// read through L1/L2; tensor cores are later work.
+// bytes written: tens of thousands of FLOP per byte. So, as in K1, every
+// dense layer runs on dense_mma (3xTF32 mma.sync, the output columns split
+// across the warps, each warp's slice of the weights streamed through its
+// own cp.async ring, every k-step's tensor-core sum added in float32), and
+// every ReLU layer takes its kRefine step (a pre-activation within 2^-20 of
+// its row's scale from zero recomputed in float64). Unlike K1 the
+// direction term of the viewdir layer is per point: the layer takes the
+// points' direction encodings as dense_mma's second operand pair (kDir),
+// whose k-steps run after the trunk's into the same sums, so the whole
+// pre-activation, direction term included, is in registers when the gate is
+// taken and inside the float64 recompute. The point encodings, then the
+// direction encodings, sit in one buffer at kPeLd floats a row. Shared
+// memory (~208 KB at W 256, the weight rings included) allows one block of
+// 8 warps per SM; the sigma and rgb heads stay on the CUDA cores.
 #include "render_common.cuh"
 
 namespace supnerf {
@@ -41,44 +52,23 @@ field_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
                  DecoderWeights w, Dims d, float* __restrict__ out_sigma,
                  float* __restrict__ out_rgb) {
   const int blk = blockIdx.x, obj = blockIdx.y;
-  const int W = d.W, W2 = d.W / 2, M = d.R;          // d.R: points per object
+  const int W = d.W, M = d.R;                        // d.R: points per object
   const size_t p0 = (size_t)obj * M + (size_t)blk * kRows;
   const int n = min(kRows, M - blk * kRows);          // this block's real rows
 
   extern __shared__ float smem[];
-  float* buf_a = smem;                       // kRows x W
-  float* buf_b = buf_a + kRows * W;          // kRows x W
-  float* pe = buf_b + kRows * W;             // kRows x kPeStride, point encodings
-  float* dpe = pe + kRows * kPeStride;       // kRows x kPeStride, direction encodings
-  float* sig = dpe + kRows * kPeStride;      // kRows
+  const int Ws = W + kMmaPad;                // activation row stride
+  float* stage = smem;                       // kMmaStageFloats, dense_mma's weight slices
+  float* buf_a = stage + kMmaStageFloats;    // kRows x Ws
+  float* buf_b = buf_a + kRows * Ws;         // kRows x Ws
+  float* enc = buf_b + kRows * Ws;           // kRows x kPeLd, point then direction encodings
+  float* sig = enc + kRows * kPeLd;          // kRows
   float* rgb = sig + kRows;                  // kRows x 3
 
-  encode_points(xyz + p0 * 3, n, d.l_xyz, pe);
-  encode_points(vd + p0 * 3, n, d.l_dir, dpe);
-  __syncthreads();
-
-  dense(pe, kPeStride, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, W, true, nullptr);
-  float* cur = buf_a;
-  float* nxt = buf_b;
-  for (int j = 0; j < d.n_shape; ++j) {
-    add_row_vector(cur, W, W, zs + ((size_t)obj * d.n_shape + j) * W);
-    dense(cur, W, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, W, true, nullptr);
-    float* t = cur; cur = nxt; nxt = t;
-  }
-  dense(cur, W, W, w.w_es, W, w.b_es, nxt, W, false, nullptr);
-  { float* t = cur; cur = nxt; nxt = t; }
-  head(cur, W, W, w.w_sg, 1, w.b_sg, sig);
-  // viewdir layer: relu(e @ Wvd_a + dpe @ Wvd_b + b_vd), the direction term first
-  dense(dpe, kPeStride, pe_width(d.l_dir), w.w_vd_b, W, w.b_vd, nxt, W, false, nullptr);
-  dense(cur, W, W, w.w_vd_a, W, nullptr, nxt, W, true, nullptr, true);
-  { float* t = cur; cur = nxt; nxt = t; }
-  for (int j = 0; j < d.n_tex; ++j) {
-    add_row_vector(cur, W, W, zt + ((size_t)obj * d.n_tex + j) * W);
-    dense(cur, W, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, W, true, nullptr);
-    float* t = cur; cur = nxt; nxt = t;
-  }
-  dense(cur, W, W, w.w_r1, W2, w.b_r1, nxt, W2, true, nullptr);
-  head(nxt, W2, W2, w.w_r2, 3, w.b_r2, rgb);
+  const float* hh = field_chain(xyz + p0 * 3, vd + p0 * 3, n, zs + (size_t)obj * d.n_shape * W,
+                                zt + (size_t)obj * d.n_tex * W, w, d, stage, buf_a, buf_b, enc,
+                                sig, nullptr);
+  head(hh, Ws, W / 2, w.w_r2, 3, w.b_r2, rgb);
 
   for (int r = threadIdx.x; r < n; r += kThreads) {
     out_sigma[p0 + r] = softplus(sig[r]);
@@ -89,7 +79,8 @@ field_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
 }
 
 size_t field_fwd_smem_bytes(int W) {
-  return sizeof(float) * ((size_t)2 * kRows * W + 2 * kRows * kPeStride + kRows * 4);
+  return sizeof(float) * ((size_t)kMmaStageFloats + 2 * kRows * (W + kMmaPad) + kRows * kPeLd
+                          + kRows * 4);
 }
 
 }  // namespace supnerf

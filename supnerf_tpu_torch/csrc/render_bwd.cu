@@ -41,7 +41,12 @@
 // once per block, not once per warp), the ray's activations in shared
 // memory at a row stride of W + kMmaPad floats (fragment loads free of
 // bank conflicts), and the ReLU bit masks built from the accumulators in
-// registers. The block stays one ray (its activations on chip, the ReLU
+// registers. The forward recompute is K1's (render_fwd.cu): the same layers
+// in the same order, its ReLU layers with dense_mma's kRefine step (a
+// pre-activation within 2^-20 of its row's scale from zero recomputed in
+// float64), so every gate K2 differentiates at is the one K1's forward took
+// and the gradient is the VJP of the forward the caller evaluated. The
+// block stays one ray (its activations on chip, the ReLU
 // patterns as bits); its shared memory (~224 KB at W 256, the weight rings
 // included) allows one block of 8 warps per SM, and mma.sync runs below the
 // tensor cores' wgmma rate, so the layers stay short of the bound; the
@@ -104,28 +109,28 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   encode_points(xyz + ray_idx * S * 3, S, d.l_xyz, pe);
   direction_term(vd + ray_idx * 3, d.l_dir, w, W, dpe, hdir);
 
-  dense_mma(pe, kPeStride, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, Ws, true, mask_of(0),
-            stage);
+  dense_mma<true>(pe, kPeStride, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, Ws, true,
+                  mask_of(0), stage);
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
     add_row_vector<true>(cur, Ws, W, zs + ((size_t)obj * d.n_shape + j) * W);
-    dense_mma(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
-              mask_of(1 + j), stage);
+    dense_mma<true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
+                    mask_of(1 + j), stage);
     float* t = cur; cur = nxt; nxt = t;
   }
   dense_mma(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
   head(cur, Ws, W, w.w_sg, 1, w.b_sg, logit);
-  dense_mma(cur, Ws, W, w.w_vd_a, W, hdir, nxt, Ws, true, mask_of(m_vd), stage);
+  dense_mma<true>(cur, Ws, W, w.w_vd_a, W, hdir, nxt, Ws, true, mask_of(m_vd), stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
     add_row_vector<true>(cur, Ws, W, zt + ((size_t)obj * d.n_tex + j) * W);
-    dense_mma(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
-              mask_of(m_tx0 + j), stage);
+    dense_mma<true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
+                    mask_of(m_tx0 + j), stage);
     float* t = cur; cur = nxt; nxt = t;
   }
-  dense_mma(cur, Ws, W, w.w_r1, W2, w.b_r1, nxt, Ws, true, mask_of(m_r1), stage);
+  dense_mma<true>(cur, Ws, W, w.w_r1, W2, w.b_r1, nxt, Ws, true, mask_of(m_r1), stage);
   head(nxt, Ws, W2, w.w_r2, 3, w.b_r2, rgb);
 
   // ---- compositing forward replay + manual VJP (one thread per ray) -------

@@ -2,8 +2,8 @@
 // render_train_bwd.cu, field_fwd.cu, field_bwd.cu, field_train_bwd.cu): the
 // decoder weight table, the block-wide dense layer, the positional encoding
 // and its chain rule, the compositing VJP, the data cotangents of the
-// backward kernels, the training stash's layout and the per-point field
-// backward kernel that K6 and K7 share.
+// backward kernels, the training stash's layout and the per-point field's
+// forward chain that K5 and K6 share.
 //
 // Block shape, common to all of them: one block holds kRows points of one
 // object, the samples of ONE ray in the render kernels, 64 consecutive
@@ -14,9 +14,9 @@
 // rows 8w..8w+7 and lane l owns the columns l, l+32, l+64, ... of each
 // layer's output, so every warp reads one activation value per row as a
 // broadcast and 32 consecutive weights per column group as one coalesced
-// 128-byte load; K5-K7 run their layers so. `dense_mma` (3xTF32 on the
-// tensor cores: every layer of K1, K2 and K3) splits the output columns
-// across the warps instead.
+// 128-byte load; K7 runs its layers so. `dense_mma` (3xTF32 on the
+// tensor cores: every layer of K1, K2, K3, K5 and K6) splits the output
+// columns across the warps instead.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -63,6 +63,7 @@ struct DecoderWeights {
   const float* wt_vd_a;  // (W, W)
   const float* wt_tx;    // (n_tex, W, W)
   const float* wt_r1;    // (W/2, W)
+  const float* wt_vd_b;  // (W, d_dir)   viewdir layer, direction-encoding rows
 };
 
 struct Dims {
@@ -146,6 +147,9 @@ static __device__ void dense(const float* in, int in_stride, int K, const float*
 // Row stride padding of activation buffers read by dense_mma: a stride of 4
 // mod 32 floats puts the 32 A-fragment loads of a warp on 32 distinct banks.
 constexpr int kMmaPad = 4;
+// row stride of an encoding buffer that dense_mma reads (K1's point
+// encodings; K5's and K6's point, then direction, encodings)
+constexpr int kPeLd = kPeStride + kMmaPad;
 // dense_mma's weight staging: per warp a ring of kBStages k-steps (8 rows
 // of the warp's columns, kBLd floats a row: 8 mod 32, so the B-fragment
 // loads hit 32 distinct banks); kMmaStageFloats for the whole block.
@@ -153,9 +157,9 @@ constexpr int kBStages = 6;
 constexpr int kBLd = 40;
 constexpr int kMmaStageFloats = kThreads / 32 * kBStages * 8 * kBLd;
 
-// dense_t's contract (out = act(in @ M + bias [+ out]) on all kRows rows,
-// the ReLU bit masks, ends with __syncthreads()) on the tensor cores at
-// float32 accuracy (3xTF32, tf32.cuh). The output columns are split across
+// dense_t's contract without accumulate (out = act(in @ M + bias) on all
+// kRows rows, the ReLU bit masks, ends with __syncthreads()) on the tensor
+// cores at float32 accuracy (3xTF32, tf32.cuh). The output columns are split across
 // the warps: warp w owns the NT 8-column tiles w*NT .. w*NT+NT-1 for all
 // 64 rows (4 x NT m16n8k8 tiles), so each weight element enters the SM once
 // per block. A fragments are read from `in` in shared memory (a row stride
@@ -171,7 +175,12 @@ constexpr int kMmaStageFloats = kThreads / 32 * kBStages * 8 * kBLd;
 // side too. The ReLU masks, in dense_t's layout, come from the registers
 // where a warp owns whole 32-column words (NT 4), else from the stored
 // outputs after a sync.
-// kRefine (K1, K3; ReLU layers, no accumulate): a pre-activation within
+// kDir (K5, K6: the viewdir layer with a direction encoding per point): a
+// second operand pair, in2 (kRows x K2, row stride in2_stride) times M2
+// (K2 x N, row-major), whose k-steps run after the first pair's through the
+// same ring into the same sums, so out = act(in @ M + in2 @ M2 + bias) is
+// one layer with its whole pre-activation in registers.
+// kRefine (K1-K3, K5, K6; ReLU layers): a pre-activation within
 // kRefineRtol of zero, relative to the largest |pre-activation| among the
 // thread's 8 values of its row, is recomputed in float64 from the same
 // float32 operands (dense_refine) before the ReLU and the mask bit. Its
@@ -185,14 +194,16 @@ constexpr float kRefineRtol = 1.0f / 1048576.0f;   // 2^-20
 // dense_mma_t's kRefine step for one warp: each value a thread flagged (bit
 // 16 t + 4 i + e of `flagged`: row 16 i + gid + 8 (e >> 1), column (t0 + t)
 // * 8 + 2 tig + (e & 1), as the accumulators) is recomputed by the whole
-// warp, lane l summing k = l, l + 32, ... (K <= 256) in float64, and stored
-// as relu(value); then, with NT 4 and a mask, the warp's mask words are
-// rebuilt from the stored outputs.
-template <int NT>
+// warp, lane l summing k = l, l + 32, ... (K <= 256; with kDir the second
+// pair's K2 terms too) in float64, and stored as relu(value); then, with NT
+// 4 and a mask, the warp's mask words are rebuilt from the stored outputs.
+template <int NT, bool kDir>
 static __device__ __noinline__ void dense_refine(const float* in, int in_stride, int K,
                                                  const float* __restrict__ M, int N,
                                                  const float* bias, float* out, int out_stride,
-                                                 uint32_t* mask, int t0, uint64_t flagged) {
+                                                 uint32_t* mask, int t0, uint64_t flagged,
+                                                 const float* in2, int in2_stride, int K2,
+                                                 const float* __restrict__ M2) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   uint32_t pending;
   while ((pending = __ballot_sync(0xffffffffu, flagged != 0)) != 0) {
@@ -209,6 +220,9 @@ static __device__ __noinline__ void dense_refine(const float* in, int in_stride,
       if (k < K)
         acc = fma((double)in[r * in_stride + k], (double)__ldg(M + (size_t)k * N + c), acc);
     }
+    if constexpr (kDir)
+      for (int k = lane; k < K2; k += 32)
+        acc = fma((double)in2[r * in2_stride + k], (double)__ldg(M2 + (size_t)k * N + c), acc);
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
     if (lane == 0)
@@ -226,12 +240,13 @@ static __device__ __noinline__ void dense_refine(const float* in, int in_stride,
   }
 }
 
-template <int NT, bool kRefine>
+template <int NT, bool kRefine, bool kDir>
 static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, int K,
                                                 const float* __restrict__ M, int N,
                                                 const float* bias, float* out, int out_stride,
-                                                bool relu, uint32_t* mask, bool accumulate,
-                                                float* stage) {
+                                                bool relu, uint32_t* mask, float* stage,
+                                                const float* in2, int in2_stride,
+                                                int K2, const float* __restrict__ M2) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int n_tiles = (N + 7) >> 3;
@@ -240,24 +255,32 @@ static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, 
   // (N = 32, 63 or 64, 128, 256) and NT = ceil(n_tiles / 8).
   if (t0 < n_tiles) {                                // warp-uniform
     float* ring = stage + warp * kBStages * 8 * kBLd;
-    const int c0 = t0 * 8, n_steps = (K + 7) >> 3;
+    const int c0 = t0 * 8, n_first = (K + 7) >> 3;
+    const int n_steps = n_first + (kDir ? (K2 + 7) >> 3 : 0);
     const bool vec = (N & 3) == 0;                   // M's rows start on 16 bytes
-    // rows 8 step .. 8 step + 7 of M's columns c0 .. c0 + 8 NT - 1 into a slot
+    // rows 8 step .. 8 step + 7 of M's (with kDir past the first pair's
+    // steps: M2's) columns c0 .. c0 + 8 NT - 1 into a slot
     auto fetch = [&](int step) {
       float* dst = ring + (step % kBStages) * 8 * kBLd;
-      const int k0 = step * 8;
+      const float* Ms = M;
+      int Ks = K, k0 = step * 8;
+      if (kDir && step >= n_first) {
+        Ms = M2;
+        Ks = K2;
+        k0 = (step - n_first) * 8;
+      }
       if (vec) {
         for (int q = lane; q < 16 * NT; q += 32) {
           const int row = q / (2 * NT), col = (q % (2 * NT)) * 4;
-          const bool ok = k0 + row < K && c0 + col < N;
-          cp_async<16>(dst + row * kBLd + col, ok ? M + (size_t)(k0 + row) * N + c0 + col : M,
+          const bool ok = k0 + row < Ks && c0 + col < N;
+          cp_async<16>(dst + row * kBLd + col, ok ? Ms + (size_t)(k0 + row) * N + c0 + col : Ms,
                        ok ? 16 : 0);
         }
       } else {
         for (int q = lane; q < 64 * NT; q += 32) {
           const int row = q / (8 * NT), col = q % (8 * NT);
-          const bool ok = k0 + row < K && c0 + col < N;
-          cp_async<4>(dst + row * kBLd + col, ok ? M + (size_t)(k0 + row) * N + c0 + col : M,
+          const bool ok = k0 + row < Ks && c0 + col < N;
+          cp_async<4>(dst + row * kBLd + col, ok ? Ms + (size_t)(k0 + row) * N + c0 + col : Ms,
                       ok ? 4 : 0);
         }
       }
@@ -289,12 +312,19 @@ static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, 
         tf32_split(b[8 * t], bb[t][0], bs[t][0]);
         tf32_split(b[4 * kBLd + 8 * t], bb[t][1], bs[t][1]);
       }
-      const int k0 = step * 8;
-      const bool lo = k0 + tig < K, hi = k0 + tig + 4 < K;
+      const float* a_in = in;
+      int a_ld = in_stride, Ka = K, k0 = step * 8;
+      if (kDir && step >= n_first) {
+        a_in = in2;
+        a_ld = in2_stride;
+        Ka = K2;
+        k0 = (step - n_first) * 8;
+      }
+      const bool lo = k0 + tig < Ka, hi = k0 + tig + 4 < Ka;
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float* r_lo = in + (16 * i + gid) * in_stride + k0 + tig;
-        const float* r_hi = r_lo + 8 * in_stride;
+        const float* r_lo = a_in + (16 * i + gid) * a_ld + k0 + tig;
+        const float* r_hi = r_lo + 8 * a_ld;
         uint32_t ab[4], as[4];
         tf32_split(lo ? r_lo[0] : 0.f, ab[0], as[0]);
         tf32_split(lo ? r_hi[0] : 0.f, ab[1], as[1]);
@@ -362,7 +392,6 @@ static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, 
           float v;
           if constexpr (kRefine) v = acc[i][t][e];
           else v = acc[i][t][e] + (bias != nullptr ? bias[cc] : 0.f);
-          if (accumulate) v += out[r * out_stride + cc];
           if (relu) v = fmaxf(v, 0.f);
           out[r * out_stride + cc] = v;
           if (NT == 4 && v > 0.f) bits[i][e >> 1] |= 1u << (8 * t + 2 * tig + (e & 1));
@@ -382,7 +411,8 @@ static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, 
     }
     if constexpr (kRefine) {
       if (__any_sync(0xffffffffu, flagged != 0))        // warp-uniform
-        dense_refine<NT>(in, in_stride, K, M, N, bias, out, out_stride, mask, t0, flagged);
+        dense_refine<NT, kDir>(in, in_stride, K, M, N, bias, out, out_stride, mask, t0, flagged,
+                               in2, in2_stride, K2, M2);
     }
   }
   __syncthreads();
@@ -399,27 +429,29 @@ static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, 
 
 // Runtime dispatch on the column count: N up to 256, 8-column tiles spread
 // over the 8 warps. `stage`: kMmaStageFloats of shared memory, 16-byte
-// aligned. kRefine: dense_mma_t's (K1, K3).
-template <bool kRefine = false>
+// aligned. kRefine and kDir (with in2, in2_stride, K2, M2): dense_mma_t's.
+template <bool kRefine = false, bool kDir = false>
 static __device__ void dense_mma(const float* in, int in_stride, int K, const float* M, int N,
                                  const float* bias, float* out, int out_stride, bool relu,
-                                 uint32_t* mask, float* stage, bool accumulate = false) {
+                                 uint32_t* mask, float* stage, const float* in2 = nullptr,
+                                 int in2_stride = 0, int K2 = 0,
+                                 const float* M2 = nullptr) {
   const int nt = ((N + 7) / 8 + 7) / 8;
   if (nt <= 1)
-    dense_mma_t<1, kRefine>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
-                            accumulate, stage);
+    dense_mma_t<1, kRefine, kDir>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
+                                  stage, in2, in2_stride, K2, M2);
   else if (nt == 2)
-    dense_mma_t<2, kRefine>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
-                            accumulate, stage);
+    dense_mma_t<2, kRefine, kDir>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
+                                  stage, in2, in2_stride, K2, M2);
   else
-    dense_mma_t<4, kRefine>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
-                            accumulate, stage);
+    dense_mma_t<4, kRefine, kDir>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
+                                  stage, in2, in2_stride, K2, M2);
 }
 
 // buf[r][c] += vec[c] over all rows (the per-object latent of a shape or
-// texture block, added before the block's matmul). kRowwise (K1-K3): a warp
-// per row and no integer division; K5-K7 keep the flat loop (changing it
-// moves their register allocation and time).
+// texture block, added before the block's matmul). kRowwise (K1-K3, K5,
+// K6): a warp per row and no integer division; K7 keeps the flat loop
+// (changing it moves its register allocation and time).
 template <bool kRowwise = false>
 static __device__ void add_row_vector(float* buf, int stride, int N, const float* vec) {
   if constexpr (kRowwise) {
@@ -652,39 +684,6 @@ static __device__ void ray_direction_cotangent(const float* gv_sum, const float*
   __syncthreads();
 }
 
-// out[r][k] = sum_c g[r][c] * M[k][c] for the n real rows and k < K, with M
-// (K, N) row-major: a product with M's transpose, one warp per (row, k)
-// pair, lanes striding c. out has row stride kPeStride.
-static __device__ void rows_times_transpose(const float* g, int N, int n,
-                                            const float* __restrict__ M, int K, float* out) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int t = warp; t < n * K; t += kThreads / 32) {
-    const int r = t / K, k = t - r * K;
-    float s = 0.f;
-    for (int c = lane; c < N; c += 32) s = fmaf(g[r * N + c], __ldg(M + (size_t)k * N + c), s);
-    s = warp_sum(s);
-    if (lane == 0) out[r * kPeStride + k] = s;
-  }
-  __syncthreads();
-}
-
-// The view directions' cotangents of n points that each have their own
-// direction encoding (rows of dpe, stride kPeStride): g_v @ Wvd_b^T per
-// point into scratch (kRows x kPeStride floats), then the encoding's chain
-// rule; dvd gets 3 floats per point. Ends with __syncthreads().
-static __device__ void point_direction_cotangent(const float* g_v, const float* dpe,
-                                                 const DecoderWeights& w, int W, int l_dir,
-                                                 int n, float* scratch, float* dvd) {
-  rows_times_transpose(g_v, W, n, w.w_vd_b, pe_width(l_dir), scratch);
-  for (int r = threadIdx.x; r < n; r += kThreads) {
-    float dv[3];
-    encode_backward_one(dpe + r * kPeStride, scratch + r * kPeStride, l_dir, dv);
-    float* o = dvd + r * 3;
-    o[0] = dv[0]; o[1] = dv[1]; o[2] = dv[2];
-  }
-  __syncthreads();
-}
-
 // The encoding's chain rule on the point encodings pe for the n real rows,
 // from the encodings' cotangents dpe (both kRows x kPeStride); dxyz gets 3
 // floats per row.
@@ -696,16 +695,6 @@ static __device__ void encode_backward_rows(const float* pe, const float* dpe, i
     float* o = dxyz + r * 3;
     o[0] = dx[0]; o[1] = dx[1]; o[2] = dx[2];
   }
-}
-
-// The points' cotangents from the first layer's pre-activation gradient g
-// (kRows x W, ReLU already applied): g @ Wxyz^T into scratch (kRows x
-// kPeStride floats), then the encoding's chain rule on the point encodings
-// pe; dxyz gets 3 floats for each of the n real rows.
-static __device__ void point_cotangent(const float* g, const float* pe, const DecoderWeights& w,
-                                       int W, int l_xyz, int n, float* scratch, float* dxyz) {
-  dense(g, W, W, w.wt_xyz, pe_width(l_xyz), nullptr, scratch, kPeStride, false, nullptr);
-  encode_backward_rows(pe, scratch, l_xyz, n, dxyz);
 }
 
 // ---- the training stash (render_train_bwd.cu K3, field_train_bwd.cu K7) ----
@@ -726,175 +715,82 @@ struct StashLayout {
   int r_dpe, r_gv, a_dpe;
 };
 
-// dst[r][c] = buf[r][c] for the n real rows and c < N (dst row stride ld).
-static __device__ void store_rows(const float* buf, int stride, int N, int n, float* dst,
-                                  int ld) {
-  for (int e = threadIdx.x; e < n * N; e += kThreads) {
-    const int r = e / N, c = e - r * N;
-    dst[(size_t)r * ld + c] = buf[r * stride + c];
-  }
-  __syncthreads();
-}
+// ---- the per-point field on the tensor cores (field_fwd.cu K5, field_bwd.cu K6) ----
 
-// ---- the per-point field backward (field_bwd.cu K6, field_train_bwd.cu K7) ----
-
-// The backward of the per-point field, one block per kRows = 64 points of
-// object blockIdx.y (grid (ceil(M / 64), B)). It recomputes the forward
-// chain with every ReLU's sign pattern kept as bits (__ballot_sync, 2 KB
-// per layer, on chip), then runs the transposed chain
-// with the cotangents entering directly (dsigma through the softplus gate
-// sigmoid(pre-activation), drgb through rgb_out). The direction encoding is
-// per point, so the viewdir layer's direction cotangent is a (64 x W) @
-// (W x 27) product, one warp reduction per row and encoding column,
-// followed by the encoding's chain rule per point. Writes dxyz and dvd (3
-// floats per point) and this block's partial column sums of dz_shape and
-// dz_tex. With kStash (K7) it also writes each point's layer inputs a_*
-// and pre-activation gradients g_* into its stash row; K6 instantiates it
-// without, and ignores st. The last block's missing rows are zero-encoded
-// and have zero cotangents; they are left out of the stash, the outputs
-// and the column sums.
-template <bool kStash>
-__global__ void __launch_bounds__(kThreads, 1) field_point_bwd_kernel(
-    const float* __restrict__ xyz, const float* __restrict__ vd, const float* __restrict__ zs,
-    const float* __restrict__ zt, DecoderWeights w, Dims d,
-    const float* __restrict__ g_sigma, const float* __restrict__ g_rgb, StashLayout st,
-    float* __restrict__ dxyz, float* __restrict__ dvd, float* __restrict__ dzs_part,
-    float* __restrict__ dzt_part) {
-  const int blk = blockIdx.x, obj = blockIdx.y, nblk = gridDim.x;
-  const int W = d.W, W2 = d.W / 2, M = d.R;          // d.R: points per object
-  const int nj = W / 32;
-  const size_t p0 = (size_t)obj * M + (size_t)blk * kRows;
-  const int n = min(kRows, M - blk * kRows);          // this block's real rows
-  const size_t part = (size_t)obj * nblk + blk;       // this block's partial-sum row
-  const int n_masks = d.n_shape + d.n_tex + 3;
-  float* pt = kStash ? st.pt + p0 * st.ld_pt : nullptr;  // this block's first stash row
-  auto stash = [&](const float* buf, int stride, int N, int col) {
-    if (kStash) store_rows(buf, stride, N, n, pt + col, st.ld_pt);
+// The per-point field's forward chain for one block of kRows points of one
+// object, n of them real (xyz, vd: their raw coordinates; the other rows
+// are zero-encoded): K1's nine dense layers on dense_mma, every ReLU layer
+// with its kRefine step, and the viewdir layer with the points' own
+// direction encodings as its second operand pair (kDir), so that the
+// refined pre-activation relu(e @ Wvd_a + dpe @ Wvd_b + b_vd) covers the
+// direction term too. K5 runs it for sigma and rgb (masks nullptr), K6 to
+// keep every ReLU's pattern as bits for its transposed chain: one code
+// path, so K6 differentiates at the gates K5 took. masks: n_shape + n_tex
+// + 3 slots of kRows x W/32 words (0 = encoding_xyz, 1..n_shape = shape
+// blocks, then viewdir, texture blocks, rgb_hidden). enc (kRows x kPeLd) holds the point
+// encodings for the first layer, then the direction encodings; zs, zt are
+// the object's latents. Writes the sigma head's pre-activation into logit
+// (kRows) and returns the buffer (buf_a or buf_b, row stride W + kMmaPad)
+// that holds rgb_hidden's output. Ends with __syncthreads().
+static __device__ float* field_chain(const float* xyz, const float* vd, int n, const float* zs,
+                                     const float* zt, const DecoderWeights& w, const Dims& d,
+                                     float* stage, float* buf_a, float* buf_b, float* enc,
+                                     float* logit, uint32_t* masks) {
+  const int W = d.W, Ws = W + kMmaPad;
+  auto mask_of = [&](int layer) {
+    return masks != nullptr ? masks + (size_t)layer * kRows * (W / 32) : nullptr;
   };
-
-  extern __shared__ float smem[];
-  float* buf_a = smem;                         // kRows x W
-  float* buf_b = buf_a + kRows * W;            // kRows x W
-  float* pe = buf_b + kRows * W;               // kRows x kPeStride, point encodings
-  float* dpe = pe + kRows * kPeStride;         // kRows x kPeStride, direction encodings
-  float* colsum = dpe + kRows * kPeStride;     // W
-  float* logit = colsum + W;                   // kRows
-  float* dsig = logit + kRows;                 // kRows
-  float* drgb = dsig + kRows;                  // kRows x 3
-  uint32_t* masks = reinterpret_cast<uint32_t*>(drgb + kRows * 3);  // n_masks x kRows x nj
-  // mask slots: 0 = encoding_xyz, 1..n_shape = shape blocks, then viewdir,
-  // texture blocks, rgb_hidden
-  auto mask_of = [&](int layer) { return masks + (size_t)layer * kRows * nj; };
-  const int m_vd = d.n_shape + 1, m_tx0 = d.n_shape + 2, m_r1 = n_masks - 1;
-
-  encode_points(xyz + p0 * 3, n, d.l_xyz, pe);
-  encode_points(vd + p0 * 3, n, d.l_dir, dpe);
-  for (int r = threadIdx.x; r < kRows; r += kThreads) {
-    const bool real = r < n;
-    dsig[r] = real ? g_sigma[p0 + r] : 0.f;
-    drgb[3 * r] = real ? g_rgb[(p0 + r) * 3] : 0.f;
-    drgb[3 * r + 1] = real ? g_rgb[(p0 + r) * 3 + 1] : 0.f;
-    drgb[3 * r + 2] = real ? g_rgb[(p0 + r) * 3 + 2] : 0.f;
-  }
+  encode_points<kPeLd>(xyz, n, d.l_xyz, enc);
   __syncthreads();
-  stash(pe, kPeStride, pe_width(d.l_xyz), st.a_xyz);
-  stash(dpe, kPeStride, pe_width(d.l_dir), st.a_dpe);
-  stash(drgb, 3, 3, st.g_rgb);
-
-  // ---- forward recompute: ReLU patterns to shared memory, layer inputs to
-  // the stash --------------------------------------------------------------
-  dense(pe, kPeStride, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, W, true, mask_of(0));
+  dense_mma<true>(enc, kPeLd, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, Ws, true,
+                  mask_of(0), stage);
+  // the point encodings are read: the direction encodings take their place,
+  // read by the viewdir layer after the barriers of the layers between
+  encode_points<kPeLd>(vd, n, d.l_dir, enc);
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
-    add_row_vector(cur, W, W, zs + ((size_t)obj * d.n_shape + j) * W);
-    stash(cur, W, W, st.a_sh + j * W);
-    dense(cur, W, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, W, true,
-          mask_of(1 + j));
+    add_row_vector<true>(cur, Ws, W, zs + (size_t)j * W);
+    dense_mma<true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
+                    mask_of(1 + j), stage);
     float* t = cur; cur = nxt; nxt = t;
   }
-  stash(cur, W, W, st.a_es);
-  dense(cur, W, W, w.w_es, W, w.b_es, nxt, W, false, nullptr);
+  dense_mma(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }                       // cur = e
-  stash(cur, W, W, st.a_e);
-  head(cur, W, W, w.w_sg, 1, w.b_sg, logit);
-  // viewdir layer: relu(e @ Wvd_a + dpe @ Wvd_b + b_vd), the direction term first
-  dense(dpe, kPeStride, pe_width(d.l_dir), w.w_vd_b, W, w.b_vd, nxt, W, false, nullptr);
-  dense(cur, W, W, w.w_vd_a, W, nullptr, nxt, W, true, mask_of(m_vd), true);
+  head(cur, Ws, W, w.w_sg, 1, w.b_sg, logit);
+  dense_mma<true, true>(cur, Ws, W, w.w_vd_a, W, w.b_vd, nxt, Ws, true, mask_of(d.n_shape + 1),
+                        stage, enc, kPeLd, pe_width(d.l_dir), w.w_vd_b);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
-    add_row_vector(cur, W, W, zt + ((size_t)obj * d.n_tex + j) * W);
-    stash(cur, W, W, st.a_tx + j * W);
-    dense(cur, W, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, W, true,
-          mask_of(m_tx0 + j));
+    add_row_vector<true>(cur, Ws, W, zt + (size_t)j * W);
+    dense_mma<true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
+                    mask_of(d.n_shape + 2 + j), stage);
     float* t = cur; cur = nxt; nxt = t;
   }
-  stash(cur, W, W, st.a_r1);
-  // rgb_hidden: its output is rgb_out's input; rgb_out itself is linear and
-  // its cotangent is given
-  dense(cur, W, W, w.w_r1, W2, w.b_r1, nxt, W2, true, mask_of(m_r1));
-  stash(nxt, W2, W2, st.a_hh);
-  if (kStash)
-    for (int r = threadIdx.x; r < n; r += kThreads)
-      pt[(size_t)r * st.ld_pt + st.g_sig] = dsig[r] * sigmoid(logit[r]);  // softplus' = sigmoid
-
-  // ---- transposed decoder chain, pre-activation gradients to the stash ----
-  // rgb_out: g_hh[r][c] = relu'(hh) * sum_k drgb[r][k] w_r2[c][k]
-  for (int e = threadIdx.x; e < kRows * W2; e += kThreads) {
-    const int r = e / W2, c = e - r * W2;
-    buf_a[r * W2 + c] = drgb[3 * r] * w.w_r2[3 * c] + drgb[3 * r + 1] * w.w_r2[3 * c + 1]
-                        + drgb[3 * r + 2] * w.w_r2[3 * c + 2];
-  }
-  __syncthreads();
-  apply_mask(buf_a, W2, W2, mask_of(m_r1));
-  stash(buf_a, W2, W2, st.g_hh);
-  dense(buf_a, W2, W2, w.wt_r1, W, nullptr, buf_b, W, false, nullptr);
-  cur = buf_b; nxt = buf_a;
-  for (int j = d.n_tex - 1; j >= 0; --j) {
-    apply_mask(cur, W, W, mask_of(m_tx0 + j));
-    stash(cur, W, W, st.g_tx + j * W);
-    dense(cur, W, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, W, false, nullptr);
-    { float* t = cur; cur = nxt; nxt = t; }
-    column_sums(cur, W, W, n, colsum);
-    for (int c = threadIdx.x; c < W; c += kThreads)
-      dzt_part[(part * d.n_tex + j) * W + c] = colsum[c];
-  }
-  apply_mask(cur, W, W, mask_of(m_vd));            // cur = g_v
-  stash(cur, W, W, st.g_v);
-  // viewdir: the direction encoding's cotangent g_v @ Wvd_b^T per point (into
-  // nxt, free until the trunk's transposed product below), then its chain rule
-  point_direction_cotangent(cur, dpe, w, W, d.l_dir, n, nxt, dvd + p0 * 3);
-  // encoding_shape output e feeds both the viewdir layer and the sigma head
-  dense(cur, W, W, w.wt_vd_a, W, nullptr, nxt, W, false, nullptr);
-  for (int e = threadIdx.x; e < kRows * W; e += kThreads) {
-    const int r = e / W, c = e - r * W;
-    const float g_sig = dsig[r] * sigmoid(logit[r]);
-    nxt[r * W + c] = fmaf(g_sig, w.w_sg[c], nxt[r * W + c]);
-  }
-  __syncthreads();
-  { float* t = cur; cur = nxt; nxt = t; }          // cur = g_e
-  stash(cur, W, W, st.g_e);
-  dense(cur, W, W, w.wt_es, W, nullptr, nxt, W, false, nullptr);
-  { float* t = cur; cur = nxt; nxt = t; }
-  for (int j = d.n_shape - 1; j >= 0; --j) {
-    apply_mask(cur, W, W, mask_of(1 + j));
-    stash(cur, W, W, st.g_sh + j * W);
-    dense(cur, W, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, W, false, nullptr);
-    { float* t = cur; cur = nxt; nxt = t; }
-    column_sums(cur, W, W, n, colsum);
-    for (int c = threadIdx.x; c < W; c += kThreads)
-      dzs_part[(part * d.n_shape + j) * W + c] = colsum[c];
-  }
-  apply_mask(cur, W, W, mask_of(0));
-  stash(cur, W, W, st.g_xyz);
-  point_cotangent(cur, pe, w, W, d.l_xyz, n, nxt, dxyz + p0 * 3);
+  dense_mma<true>(cur, Ws, W, w.w_r1, W / 2, w.b_r1, nxt, Ws, true,
+                  mask_of(d.n_shape + d.n_tex + 2), stage);
+  return nxt;
 }
 
-// Dynamic shared memory of field_point_bwd_kernel's block.
-inline size_t field_point_bwd_smem_bytes(int W, int n_shape, int n_tex) {
-  const size_t floats = (size_t)2 * kRows * W + 2 * kRows * kPeStride + W + kRows * 5;
-  const size_t words = (size_t)(n_shape + n_tex + 3) * kRows * (W / 32);
-  return sizeof(float) * floats + sizeof(uint32_t) * words;
+// The encoding's chain rule for n points from their raw coordinates x (3
+// floats a point) and the cotangents g of their encodings at `degree`
+// frequencies (rows ld floats apart): dx_c = g[c] + sum_i 2^i (cos(2^i x_c)
+// g_sin[i][c] - sin(2^i x_c) g_cos[i][c]), the sines and cosines recomputed
+// as encode_one computes them (the same values), a thread per (point,
+// coordinate); dx gets 3 floats per point. No barrier.
+static __device__ void encode_backward_points(const float* x, const float* g, int ld,
+                                              int degree, int n, float* dx) {
+  for (int e = threadIdx.x; e < 3 * n; e += kThreads) {
+    const int r = e / 3, c = e - 3 * r;
+    const float* gr = g + r * ld;
+    float v = gr[c];
+    for (int i = 0; i < degree; ++i) {
+      float s, co;
+      sincosf(x[e] * (float)(1 << i), &s, &co);
+      v += (float)(1 << i) * (co * gr[3 + 3 * i + c] - s * gr[3 + 3 * degree + 3 * i + c]);
+    }
+    dx[e] = v;
+  }
 }
 
 }  // namespace supnerf

@@ -47,8 +47,8 @@
 // pre-activation within 2^-20 of its row's scale from zero is recomputed in
 // float64, so its gate is the exact one for the layer's float32 inputs.
 // The layers, their order and their arithmetic are those of K3's forward
-// recompute, so the forward that K3 differentiates is the one K1 returns;
-// K2's recompute (no such step) differs only where K1 recomputes a unit. Shared memory (~209 KB at
+// recompute and K2's, so the forward that K2 and K3 differentiate is the
+// one K1 returns. Shared memory (~209 KB at
 // W 256, the weight rings included) allows one block of 8 warps per SM; the
 // sigma and rgb heads, the direction term and the one-thread compositing
 // stay on the CUDA cores and leave the tensor cores idle for their span,
@@ -57,10 +57,6 @@
 #include "render_common.cuh"
 
 namespace supnerf {
-
-// row stride of K1's point-encoding buffer: 4 mod 32, as dense_mma's
-// activations (kMmaPad)
-constexpr int kPeLd = kPeStride + kMmaPad;
 
 __global__ void __launch_bounds__(kThreads, 1)
 render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,

@@ -115,6 +115,7 @@ class DecoderWeights:
     wt_vd_a: torch.Tensor
     wt_tx: torch.Tensor
     wt_r1: torch.Tensor
+    wt_vd_b: torch.Tensor
     w_shape_latent: torch.Tensor | None   # (n_shape, latent, W)
     b_shape_latent: torch.Tensor | None   # (n_shape, W)
     w_tex_latent: torch.Tensor | None     # (n_tex, latent, W)
@@ -138,7 +139,7 @@ class DecoderWeights:
 # pointer fields shared with csrc/render_common.cuh:DecoderWeights, in order
 _PTR_FIELDS = ("w_xyz", "b_xyz", "w_sh", "b_sh", "w_es", "b_es", "w_sg", "b_sg",
                "w_vd_a", "w_vd_b", "b_vd", "w_tx", "b_tx", "w_r1", "b_r1", "w_r2",
-               "b_r2", "wt_xyz", "wt_sh", "wt_es", "wt_vd_a", "wt_tx", "wt_r1")
+               "b_r2", "wt_xyz", "wt_sh", "wt_es", "wt_vd_a", "wt_tx", "wt_r1", "wt_vd_b")
 
 
 class _DecoderPtrs(ctypes.Structure):
@@ -197,7 +198,7 @@ def pack_linear_params(params, n_shape: int, n_tex: int, num_xyz_freq: int,
         w_tx=stack(tx, 0, True), b_tx=stack(tx, 1),
         w_r1=c(w_r1.t()), b_r1=c(b_r1), w_r2=c(w_r2.t()), b_r2=c(b_r2),
         wt_xyz=c(w_xyz), wt_sh=stack(sh, 0), wt_es=c(w_es), wt_vd_a=c(w_vd[:, :W]),
-        wt_tx=stack(tx, 0), wt_r1=c(w_r1), **lat,
+        wt_tx=stack(tx, 0), wt_r1=c(w_r1), wt_vd_b=c(w_vd[:, W:]), **lat,
         num_xyz_freq=num_xyz_freq, num_dir_freq=num_dir_freq,
     )
 

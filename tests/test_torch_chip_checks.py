@@ -5,7 +5,10 @@ outputs that agree with the plain versions, take a ray out only where the
 kernel's gate at a unit within KINK_RTOL differs from float64's, and fail a
 ray that lies outside both references with no such unit. stash_gate must
 read each ReLU's gate from K3's stash as the float32 pre-activation's sign.
-A small decoder (W 64); the card runs the same code at full width."""
+take_out_kink_points, the per-point field's carve-out (K6, whose gates are
+not shown), must take out a point outside both references only where it
+has a unit within KINK_RTOL. A small decoder (W 64); the card runs the same
+code at full width."""
 import numpy as np
 import pytest
 import torch
@@ -13,7 +16,7 @@ import torch.nn.functional as F
 
 import chip_smoke as cs
 from supnerf_tpu_torch.models.nerf_mlp import CodeNeRFDecoder, positional_encoding
-from supnerf_tpu_torch.ops import render
+from supnerf_tpu_torch.ops import field, render
 
 W, S, R = 64, 8, 5
 
@@ -106,3 +109,37 @@ def test_stash_gate_reads_the_relu_gates(case):
         p = p.reshape(S, -1)
         got = torch.tensor([[gate(s, k, u) for u in range(p.shape[1])] for s in range(S)])
         assert torch.equal(got, p > 0), k
+
+
+@pytest.mark.parametrize("units", [[], [("sh0", 7, 3e-9, None, False, False)]],
+                         ids=["no_unit", "unit_gate_unknown"])
+def test_a_point_outside_both_references(case, monkeypatch, units):
+    """K6's per-point carve-out: one point's dxyz moved outside both
+    references is taken out (its cotangents zeroed, every output evaluated
+    again) and the check passes only if the point has a unit within
+    KINK_RTOL (a stand-in kink_units); every other point then agrees."""
+    wts, (xyz, vd, _, zs, zt), _ = case
+    rng = np.random.default_rng(5)
+    M = 7
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    args = (f32(rng.normal(size=(2, M, 3)) * 0.4),
+            F.normalize(f32(rng.normal(size=(2, M, 3))), dim=-1).contiguous(), zs, zt)
+    cot = (f32(rng.normal(size=(2, M, 1))), f32(rng.normal(size=(2, M, 3))))
+
+    def evaluate(c):
+        got = list(field.field_bwd(wts, *args, *c))
+        if float(c[1][0, 2].abs().sum()) > 0:
+            got[0] = got[0].clone()
+            got[0][0, 2, 0] += 1.0
+        ref64 = field.field_bwd_plain(cs.as_float64(wts), *(t.double() for t in args),
+                                      *(t.double() for t in c))
+        return got, field.field_bwd_plain(wts, *args, *c), ref64
+
+    monkeypatch.setattr(cs, "kink_units", lambda *a, **kw: list(units))
+    got, ref, ref64, c, kinks, _, at_kinks = cs.take_out_kink_points(
+        "K6", wts, args, evaluate, cot, stash_gates=False)
+    assert kinks == [(0, 2)] and at_kinks is bool(units)
+    assert float(c[0][0, 2].abs().sum()) == 0 and float(c[1][0, 2].abs().sum()) == 0
+    _, _, ok = cs.compare_at_kinks(("dxyz", "dviewdir", "dzs", "dzt"), got, ref, ref64,
+                                   cs.GRAD_RTOL, verbose=False)
+    assert ok

@@ -31,7 +31,18 @@ unit within KINK_RTOL of zero (there the gate, and so a whole gradient row,
 is decided by the summation order, which chip_smoke.py arbitrates). The
 kernels' kRefine step (render_common.cuh: a ReLU pre-activation within
 2^-20 of its row's scale from zero recomputed in float64) is left out: it
-only moves such values onto float64's."""
+only moves such values onto float64's.
+
+The per-point field's kernels get the same cases: K5's chain
+(csrc/render_common.cuh:field_chain, the viewdir layer's trunk and
+per-point direction-encoding operand pairs summed into one accumulator)
+against the float64 plain version within a tenth of VALUE_ATOL, and K6's
+outputs from that chain's gates and its transposed chain within a tenth of
+GRAD_RTOL, on points clear of kinks. One case builds kinks instead: the
+viewdir layer's bias set so that a unit per column sits within float32
+rounding of zero, where kRefine, emulated over both operand pairs, must
+give float64's gate at every unit (a refine of the trunk's product alone,
+the direction term added in float32, does not)."""
 import functools
 import math
 
@@ -102,11 +113,11 @@ def dense_emulated(x, M, passes=3):
     return acc
 
 
-def dense_steps(x, M):
-    """dense_emulated's three-pass arithmetic vectorised over the k-steps:
-    the same float32 adds in the same order for every output (a K that is
-    not a multiple of 8 is padded with zero products, which leave each sum
-    as it is)."""
+def k_steps(x, M):
+    """The k-step sums of x @ M as dense_mma forms them, (rows, steps, N):
+    per k-step of 8 the three-pass products summed in reduction order (a K
+    that is not a multiple of 8 is padded with zero products, which leave
+    each sum as it is)."""
     pad = -x.shape[1] % 8
     (ab, as_), (bb, bs) = split(F.pad(x, (0, pad))), split(F.pad(M, (0, 0, 0, pad)))
     steps = torch.zeros((x.shape[0], ab.shape[1] // 8, M.shape[1]), dtype=torch.float32)
@@ -115,6 +126,17 @@ def dense_steps(x, M):
         b_b, b_s = bb[None, j::8], bs[None, j::8]
         for p in (a_s * b_b, a_b * b_s, a_b * b_b):
             steps = steps + p
+    return steps
+
+
+def dense_steps(x, M, x2=None, M2=None):
+    """dense_emulated's three-pass arithmetic vectorised over the k-steps:
+    the same float32 adds in the same order for every output. With a second
+    operand pair (dense_mma's kDir: the per-point viewdir layer) its k-steps
+    are added after the first pair's into the same sums."""
+    steps = k_steps(x, M)
+    if x2 is not None:
+        steps = torch.cat([steps, k_steps(x2, M2)], 1)
     acc = torch.zeros((x.shape[0], M.shape[1]), dtype=torch.float32)
     for step in steps.unbind(1):
         acc = acc + step
@@ -399,3 +421,170 @@ def test_k3_stash_split_product_is_float32_accurate(seed, one_thread):
                       render.wgrad_problems(_f64(wts), pt64, ray64, grads)):
         err = rel_err(wgrad_steps(p.A, p.G), p64.G.t() @ p64.A)
         assert err <= WGRAD_RTOL / 10, (p.A.shape, p.G.shape, err)
+
+
+# ---- the per-point field (K5, K6) at the published width ---------------------
+
+def _k5_chain(wts, xyz, vd, zs, zt):
+    """K5's decoder on points with a direction each (xyz, vd (1, M, 3)), as
+    csrc/render_common.cuh:field_chain sums it: every dense layer on
+    dense_mma, the viewdir layer's trunk and direction-encoding operand
+    pairs in one accumulator, the heads in float32. Returns (logit, rgb, e,
+    pre), pre keyed as render.stashed_chain keys it."""
+    pe = positional_encoding(xyz[0], wts.num_xyz_freq)
+    dpe = positional_encoding(vd[0], wts.num_dir_freq)
+    pre = {"xyz": dense_steps(pe, wts.w_xyz) + wts.b_xyz}
+    y = torch.relu(pre["xyz"])
+    for j in range(wts.n_shape):
+        pre[f"sh{j}"] = dense_steps(y + zs[0, j], wts.w_sh[j]) + wts.b_sh[j]
+        y = torch.relu(pre[f"sh{j}"])
+    e = _mma_layer(y, wts.w_es, wts.b_es, False)
+    logit = e @ wts.w_sg[:, None] + wts.b_sg
+    pre["v"] = dense_steps(e, wts.w_vd_a, dpe, wts.w_vd_b) + wts.b_vd
+    h = torch.relu(pre["v"])
+    for j in range(wts.n_tex):
+        pre[f"tx{j}"] = dense_steps(h + zt[0, j], wts.w_tx[j]) + wts.b_tx[j]
+        h = torch.relu(pre[f"tx{j}"])
+    pre["hh"] = dense_steps(h, wts.w_r1) + wts.b_r1
+    return logit, torch.relu(pre["hh"]) @ wts.w_r2 + wts.b_r2, e, pre
+
+
+@functools.cache
+def _published_field_case(seed, R=4, keep=128):
+    """The published decoder and `keep` of _rays' R x 64 points of one object,
+    each with its own direction (its ray's turned by a small random offset,
+    as chip_smoke.py:field_train_inputs makes them), chosen where no ReLU
+    unit lies within KINK_RTOL of zero in float64 (margins relative to the
+    layer's largest |pre-activation| at that point); cotangents of sigma and
+    rgb N(0, 1)."""
+    wts = _published_decoder(seed)
+    (xyz, vd, _, zs, zt), _ = _rays(wts, seed, R)
+    rng = np.random.default_rng(seed + 100)
+    pts = xyz.reshape(1, -1, 3)
+    turn = torch.from_numpy(rng.normal(size=pts.shape).astype(np.float32))
+    dirs = F.normalize(vd[:, :, None, :].expand_as(xyz).reshape(1, -1, 3) + 0.1 * turn, dim=-1)
+    w64 = _f64(wts)
+    hdir = positional_encoding(dirs.double(), wts.num_dir_freq) @ w64.w_vd_b
+    with torch.no_grad():
+        _, pre, _, _ = render.stashed_chain(w64, pts.double(), hdir, zs.double(), zt.double())
+    clear = torch.ones(pts.shape[1], dtype=torch.bool)
+    for k, p in pre.items():
+        if k != "e":
+            clear &= (p.abs() / p.abs().amax(-1, keepdim=True) > KINK_RTOL).all(-1)[0]
+    idx = clear.nonzero().flatten()[:keep]
+    assert len(idx) == keep, "too few points clear of kinks"
+    cot = [torch.from_numpy(rng.normal(size=(1, keep, n)).astype(np.float32)) for n in (1, 3)]
+    return wts, (pts[:, idx].contiguous(), dirs[:, idx].contiguous(), zs, zt), tuple(cot)
+
+
+def test_k5_chain_split_product_is_float32_accurate(one_thread):
+    """K5 at the published width, its nine dense layers as dense_mma sums
+    them and the viewdir layer's two operand pairs in one accumulator:
+    sigma and rgb within a tenth of VALUE_ATOL of the float64 plain
+    version (ops/field.py:field_fwd_plain)."""
+    from supnerf_tpu_torch.ops import field
+
+    wts, args, _ = _published_field_case(0)
+    logit, rgb, _, _ = _k5_chain(wts, *args)
+    got = (F.softplus(logit)[None], rgb[None])
+    want = field.field_fwd_plain(_f64(wts), *(t.double() for t in args))
+    for name, a, b in zip(("sigma", "rgb"), got, want):
+        err = float((a.double() - b).abs().max())
+        assert err <= VALUE_ATOL["rgb"] / 10, (name, err)
+
+
+def _encoding_vjp(x, degree, g):
+    """The encoding's chain rule (the kernels' encode_backward_points) on
+    float32 values: the cotangent of x given that of its encoding."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_(True)
+        return torch.autograd.grad(positional_encoding(x, degree), x, g)[0]
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k6_split_product_is_float32_accurate(seed, one_thread):
+    """K6 at the published width: the gates of K5's chain as dense_mma sums
+    it (_k5_chain), the transposed chain on dense_mma as
+    csrc/field_bwd.cu orders it (rgb_hidden, the texture blocks, the
+    viewdir layer's trunk rows, encoding_shape with the sigma head's
+    gradient added in float32, the shape blocks, the first layer's encoding
+    columns), the direction encodings' cotangent g_v @ Wvd_b^T in float32:
+    dxyz, dviewdir, dzs and dzt within a tenth of GRAD_RTOL of the float64
+    plain version (ops/field.py:field_bwd_plain), on points clear of ReLU
+    kinks."""
+    from supnerf_tpu_torch.ops import field
+
+    wts, args, (g_sigma, g_rgb) = _published_field_case(seed)
+    xyz, vd, zs, zt = args
+    logit, _, _, pre = _k5_chain(wts, *args)
+    gate = {k: (p > 0).float() for k, p in pre.items()}
+    cur = dense_steps(gate["hh"] * (g_rgb[0] @ wts.w_r2.t()), wts.wt_r1)
+    dzt = [None] * wts.n_tex
+    for j in reversed(range(wts.n_tex)):
+        cur = dense_steps(gate[f"tx{j}"] * cur, wts.wt_tx[j])
+        dzt[j] = cur.sum(0)
+    g_v = gate["v"] * cur
+    dvd = _encoding_vjp(vd[0], wts.num_dir_freq, g_v @ wts.w_vd_b.t())
+    g_e = dense_steps(g_v, wts.wt_vd_a) + (g_sigma[0] * torch.sigmoid(logit)) * wts.w_sg
+    cur = dense_steps(g_e, wts.wt_es)
+    dzs = [None] * wts.n_shape
+    for j in reversed(range(wts.n_shape)):
+        cur = dense_steps(gate[f"sh{j}"] * cur, wts.wt_sh[j])
+        dzs[j] = cur.sum(0)
+    dxyz = _encoding_vjp(xyz[0], wts.num_xyz_freq, dense_steps(gate["xyz"] * cur, wts.wt_xyz))
+    got = (dxyz[None], dvd[None], torch.stack(dzs)[None], torch.stack(dzt)[None])
+    want = field.field_bwd_plain(_f64(wts), *(t.double() for t in args), g_sigma.double(),
+                                 g_rgb.double())
+    for name, a, b in zip(("dxyz", "dviewdir", "dzs", "dzt"), got, want):
+        assert rel_err(a, b) <= GRAD_RTOL / 10, (name, rel_err(a, b))
+
+
+def refine(acc, exact64):
+    """dense_mma's kRefine step on a W 256 ReLU layer's pre-activations acc
+    (rows, 256; float32 sums, bias added): a value within 2^-20 of the
+    largest |value| among its thread's 8 values of the row (warp c // 32,
+    thread (c % 8) // 2 of it: columns 32 w + 8 t + 2 tig + h) is replaced
+    by exact64 (the float64 sum of the same float32 operands) rounded to
+    float32. Returns (the refined values, the flags)."""
+    rows, N = acc.shape
+    group = (torch.arange(N) // 32) * 4 + (torch.arange(N) % 8) // 2
+    scale = torch.zeros_like(acc)
+    for gi in group.unique():
+        cols = group == gi
+        scale[:, cols] = acc[:, cols].abs().amax(1, keepdim=True)
+    flagged = acc.abs() <= scale * 2.0 ** -20
+    return torch.where(flagged, exact64.float(), acc), flagged
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_refine_settles_the_viewdir_layer_with_its_direction_term(seed, one_thread):
+    """The viewdir layer of K5/K6 at units built to sit at a kink: for every
+    column the bias is minus the float64 pre-activation (trunk and
+    direction term) of one point, rounded to float32, so that point's exact
+    pre-activation is that rounding's residue, below float32's resolution
+    of the sum. Its gate from the float32 sum (dense_mma without kRefine)
+    is then decided by the summation order, and so is a refine that
+    recomputes only the trunk's product in float64 and adds the direction
+    term as a separate float32 layer (as an accumulated direction layer
+    would leave it): both take the other gate than float64 at some of those
+    units. The kRefine step over both operand pairs flags every unit whose
+    float32 gate is wrong and gives float64's gate at every unit of the
+    layer."""
+    wts, args, _ = _published_field_case(seed)
+    _, _, e, _ = _k5_chain(wts, *args)
+    dpe = positional_encoding(args[1][0], wts.num_dir_freq)
+    trunk64 = e.double() @ wts.w_vd_a.double()
+    dir64 = dpe.double() @ wts.w_vd_b.double()
+    rows = torch.arange(wts.W) % e.shape[0]           # one built unit per column
+    cols = torch.arange(wts.W)
+    bias = -(trunk64 + dir64)[rows, cols].float()
+    exact = trunk64 + dir64 + bias.double()
+    acc = dense_steps(e, wts.w_vd_a, dpe, wts.w_vd_b) + bias
+    trunk_only = (trunk64 + ((dpe @ wts.w_vd_b) + bias).double()).float()
+    refined, flagged = refine(acc, exact)
+    gate64 = exact > 0
+    wrong = (acc > 0) != gate64
+    assert bool(wrong[rows, cols].any())
+    assert bool(((trunk_only > 0) != gate64)[rows, cols].any())
+    assert bool(flagged[wrong].all())
+    assert torch.equal(refined > 0, gate64)
