@@ -26,13 +26,15 @@ Phases, each timed; any failure exits non-zero before the result line:
      regulariser paths' shapes (2 objects x 65,536 points with per-ray
      directions, 2 x 1,200 box-plane samples with directions of ones), K6
      also against a float64 plain version, a point at a ReLU kink taken
-     out (take_out_kink_points);
+     out (take_out_kink_points), and K6's ReLU gates against K5's;
      K3's data mode (A6 with data_grads=True) at the training path's shape,
      its stash, dz_shape, dz_tex and weight gradients bit for bit against
      K3's other mode; at the training field's shape (8 objects x 65,536 points,
      a direction per point) K5 on per-object latents (A9), K7
-     (field_train_bwd, A10; against K6 too, apart only at kinks) and K4 on
-     K7's stash;
+     (field_train_bwd, A10; against K6 too, with no point taken out: the
+     same bits, since K7 runs K6's arithmetic; K6's and K7's ReLU gates
+     against K5's, the same words; its weight gradients against the float64
+     plain version) and K4 on K7's stash;
      then the branches no path takes (white background, S < 64, odd R,
      W 64/128, several stash chunks), in both modes of K1 and K2 and of K3,
      K4 on each branch's stash, and for K5/K6/K7 W 64/128, M not a multiple
@@ -834,6 +836,88 @@ def k2_against_k3_data(wts, args, cot):
     return err, same, ok
 
 
+def k7_against_k6(wts, args, cot):
+    """K7 (field_train_bwd_stash) against K6 (field_bwd) on the same inputs
+    and cotangents, with no point taken out: K7 runs K6's kernel body
+    (csrc/render_common.cuh:field_backward, with the stash), so its dxyz,
+    dviewdir, dzs and dzt must be the same bits as K6's. Both run on the
+    chunks of objects field_train_bwd gives K7, so that the wrappers' sums of
+    the per-block partials run on tensors of one shape. Returns (the largest
+    difference, the number of outputs that are the same bits, all four
+    are)."""
+    import torch
+
+    from supnerf_tpu_torch.ops import field, render
+
+    B, M = args[0].shape[:2]
+    L = render.stash_layout(wts, per_point=True)
+    chunk = max(1, min(B, render.STASH_BYTES // (M * L["ld_pt"] * 4)))
+    pt = torch.empty((chunk * M, L["ld_pt"]), device=args[0].device)
+    k7, k6 = [], []
+    for o in range(0, B, chunk):
+        sl = slice(o, min(B, o + chunk))
+        part = [t[sl] for t in args] + [c[sl] for c in cot]
+        k7.append(field.field_train_bwd_stash(wts, *part, pt[:(sl.stop - o) * M]))
+        k6.append(field.field_bwd(wts, *part))
+    torch.cuda.synchronize()
+    del pt
+    k7, k6 = ([torch.cat(parts) for parts in zip(*outs)] for outs in (k7, k6))
+    err = max(float((a - b).abs().max()) for a, b in zip(k7, k6))
+    same = sum(bool(torch.equal(a, b)) for a, b in zip(k7, k6))
+    print(f"   K7 against K6 ({B} objects x {M} points in chunks of {chunk}), no point taken "
+          f"out: max_abs_err {err:.3e}, outputs the same bits: {same} of 4 "
+          f"{'ok' if same == 4 else 'FAIL'}")
+    return err, same, same == 4
+
+
+def gates_against_k5(wts, args, cot, k7=True):
+    """The ReLU gates K6 (field_bwd) and, with k7, K7 (field_train_bwd_stash)
+    differentiate, against those K5 (field_fwd) took on the same inputs,
+    with no point taken out: the three run one forward chain
+    (csrc/render_common.cuh:field_chain, its exact step included), so each
+    kernel's gate words (ops/field.py:gate_buffer) must equal K5's. The
+    wrappers give the gates from builds of the kernels that also write them
+    (csrc/field_gates.cu), so each build's outputs must also be the same
+    bits as its kernel's. K7 runs on the chunks of objects field_train_bwd
+    gives it, as in k7_against_k6. Returns (the number of gate words apart
+    from K5's, none is and every output is its kernel's bits)."""
+    import torch
+
+    from supnerf_tpu_torch.ops import field, render
+
+    B, M = args[0].shape[:2]
+    g5, g6 = field.gate_buffer(wts, args[0]), field.gate_buffer(wts, args[0])
+    with torch.no_grad():
+        same = [torch.equal(a, b) for a, b in zip(field.field_fwd(wts, *args, gates=g5),
+                                                  field.field_fwd(wts, *args))]
+    same += [torch.equal(a, b) for a, b in zip(field.field_bwd(wts, *args, *cot, gates=g6),
+                                               field.field_bwd(wts, *args, *cot))]
+    apart = {"K6": int((g6 != g5).sum())}
+    del g6
+    if k7:
+        L = render.stash_layout(wts, per_point=True)
+        chunk = max(1, min(B, render.STASH_BYTES // (M * L["ld_pt"] * 4)))
+        pt = torch.empty((chunk * M, L["ld_pt"]), device=args[0].device)
+        g7 = field.gate_buffer(wts, args[0])
+        for o in range(0, B, chunk):
+            sl = slice(o, min(B, o + chunk))
+            part = [t[sl] for t in args] + [c[sl] for c in cot]
+            view = pt[:(sl.stop - o) * M]
+            out = field.field_train_bwd_stash(wts, *part, view, gates=g7[sl])
+            same += [torch.equal(a, b)
+                     for a, b in zip(out, field.field_train_bwd_stash(wts, *part, view))]
+        apart["K7"] = int((g7 != g5).sum())
+        del pt, g7
+    words = g5.numel()
+    n = sum(apart.values())
+    ok = n == 0 and all(same)
+    print(f"   gates against K5's ({B} objects x {M} points, {words} words), no point taken "
+          f"out: " + ", ".join(f"{k} {v} words apart" for k, v in apart.items())
+          + f"; the gate builds' outputs the kernels' bits: {sum(same)} of {len(same)} "
+          f"{'ok' if ok else 'FAIL'}")
+    return n, ok
+
+
 def check_wgrad(wts, views, stash_bytes, names, ports, tpu):
     """K4 on a stash written chunk by chunk (views: each chunk's (pt, ray),
     ray None for K7's per-point stash) against wgrad_plain on the last
@@ -1051,11 +1135,13 @@ def field_train_inputs(seed=4, B=TRAIN_BATCH, model=None):
 def check_field_train_kernels():
     """The per-point training field at full width, 8 objects x 65,536
     points with per-point directions: K5 on per-object latents (A9) against
-    field_fwd_plain; K7 + K4 through field_train_bwd (A10) against
-    field_train_bwd_plain, K7's data and latent cotangents also against a
-    float64 plain version (compare_at_kinks); K4 alone against wgrad_plain
-    on K7's stash. Returns the records of K7, K5 at this shape and K4 on
-    K7's stash."""
+    field_fwd_plain; K7 against K6, the same bits (k7_against_k6); K6's and
+    K7's gates against K5's (gates_against_k5); K7 + K4 through
+    field_train_bwd (A10) against field_train_bwd_plain: the data and latent
+    gradients in float32 and float64 (compare_at_kinks), the weight
+    gradients in float64 (the float32 plain version's distance a reading);
+    K4 alone against wgrad_plain on K7's stash. Returns the records of K7,
+    K5 at this shape and K4 on K7's stash."""
     import torch
 
     from supnerf_tpu_torch.ops import field, render
@@ -1072,45 +1158,37 @@ def check_field_train_kernels():
         fwd_p = field.field_fwd_plain(wts, *args)
     err_fwd, ok_fwd = compare(("sigma", "rgb"), fwd_k, fwd_p, lambda n, s: VALUE_ATOL[n])
     del fwd_k, fwd_p
+    err_k6, _, same_k6 = k7_against_k6(wts, args, cot)
+    gates_apart, same_gates = gates_against_k5(wts, args, cot)
 
     def evaluate(cot):
         got = field.field_train_bwd(wts, *args, *cot)
         torch.cuda.synchronize()
         ref = field.field_train_bwd_plain(wts, *args, *cot)
-        ref64 = field.field_bwd_plain(as_float64(wts), *(t.double() for t in args),
-                                      *(t.double() for t in cot))
+        ref64 = field.field_train_bwd_plain(as_float64(wts), *(t.double() for t in args),
+                                            *(t.double() for t in cot))
         return got, ref, ref64
 
     # A point whose float32 gate sits across a kink from both references
     # fails however right the kernel is: take_out_kink_points. With those
     # points' cotangents zero, all other points are held to the unchanged
-    # tolerances, through the weight gradients too.
+    # tolerances, through the weight gradients too. Each weight gradient is
+    # a sum over every point, which the float32 plain version's own gates at
+    # kinks move too, so the weight gradients are held against the float64
+    # plain version, the float32 one's distance from it printed beside them.
     got, ref, ref64, cot, kinks, units, at_kinks = take_out_kink_points(
         "K7", wts, args, evaluate, cot, stash_gates=True)
     err_k7, err_k7_32, ok_k7 = compare_at_kinks(("dxyz", "dviewdir", "dzs", "dzt"), got[:4],
-                                                ref[:4], ref64, GRAD_RTOL)
-    err_w, ok_w = compare(names, got[4], ref[4], lambda n, s: GRAD_RTOL * s)
-    del ref, ref64
-    # K7 computes K6's function on the float32 FMA chain without K6's refine
-    # step (ROADMAP C.10), so the two take other gates at some units within
-    # float32 rounding of zero, as many as their summation orders decide: a
-    # point at which they differ beyond GRAD_RTOL must have a unit within
-    # KINK_RTOL, and their number is recorded (C.10's extent)
-    k6 = field.field_bwd(wts, *args, *cot)
-    apart = points_outside_both(got[:2], k6[:2], k6[:2], GRAD_RTOL)
-    apart_units = [kink_units(wts, args, cot, o, p) for o, p in apart]
-    k6_ok = all(apart_units)
-    _, ok_k6_latents = compare(("dzs against K6", "dzt against K6"), got[2:4], k6[2:4],
-                               lambda n, s: GRAD_RTOL * s)
-    print(f"   K7 against K6: points whose dxyz or dviewdir differ beyond GRAD_RTOL: "
-          f"{len(apart)} of {B * M}" + "".join(
-              f"; object {o} point {p}: " + (", ".join(
-                  f"{k}[{i}] |pre| / max {m:.2e}, gate K7 {int(gk)} float64 {int(g64)}"
-                  for k, i, m, gk, _, g64 in u) or "no unit within KINK_RTOL: FAIL")
-              for (o, p), u in zip(apart, apart_units))
-          + f" ({'ok' if k6_ok else 'FAIL'})")
-    ok_k7 &= k6_ok and ok_k6_latents and at_kinks
-    del got, k6
+                                                ref[:4], ref64[:4], GRAD_RTOL)
+    err_w, ok_w = compare([n + " (float64)" for n in names], got[4], ref64[4],
+                          lambda n, s: GRAD_RTOL * s)
+    err_w32 = max(float((a - b).abs().max()) for a, b in zip(got[4], ref[4]))
+    rel_w32 = max(float((b.double() - b64).abs().max()) / float(b64.abs().max())
+                  for b, b64 in zip(ref[4], ref64[4]))
+    print(f"   weight gradients, a reading: kernel from float32 plain max_abs_err "
+          f"{err_w32:.3e}; float32 plain from float64 at most {rel_w32:.3e} of the largest")
+    ok_k7 &= at_kinks
+    del got, ref, ref64
 
     L = render.stash_layout(wts, per_point=True)
     chunk = max(1, min(B, render.STASH_BYTES // (M * L["ld_pt"] * 4)))
@@ -1152,12 +1230,20 @@ def check_field_train_kernels():
                     "supnerf_tpu_torch/csrc/field_train_bwd.cu", t_k7, t_k7_p, err_k7,
                     bound(k7_flops, k7_bytes))
     k7_rec["max_abs_err_float32_plain"] = err_k7_32
+    k7_rec["weights_max_abs_err"] = err_w
+    k7_rec["weights_max_abs_err_float32_plain"] = err_w32
+    k7_rec["weights_float32_plain_rel_err_from_float64"] = rel_w32
     k7_rec["kink_points"] = [[o, p, [list(x) for x in u]] for (o, p), u in zip(kinks, units)]
-    k7_rec["points_apart_from_k6"] = len(apart)
+    k7_rec["against_k6"] = {"same_bits": same_k6, "max_abs_err": err_k6}
+    k7_rec["gate_words_apart_from_k5"] = gates_apart
     k7_rec["with_k4_ms"], k7_rec["with_k4_plain_ms"] = t_all, t_all_p
     k5_rec = record("field_fwd", ["A9"], "supnerf_tpu/ops/pallas_field.py:704",
                     "supnerf_tpu_torch/csrc/field_fwd.cu", t_fwd, t_fwd_p, err_fwd,
                     bound(fwd_flops, fwd_bytes))
+    if not same_k6:
+        raise RuntimeError("K7 disagrees with K6: its arithmetic is not K6's")
+    if not same_gates:
+        raise RuntimeError("K6 or K7 differentiates at other gates than K5 took")
     if not (ok_fwd and ok_k7 and ok_w and ok_k4):
         raise RuntimeError("a training-field kernel disagrees with its plain version")
     return [k7_rec], {"field_fwd": k5_rec, "wgrad": k4_rec}
@@ -1306,7 +1392,8 @@ def check_field_kernels():
         err_bwd, err_bwd32, ok_bwd = compare_at_kinks(("dxyz", "dviewdir", "dzs", "dzt"), bwd_k,
                                                       bwd_p, bwd_64, GRAD_RTOL)
         del bwd_k, bwd_p, bwd_64
-        ok &= ok_fwd and ok_bwd and at_kinks
+        gates_apart, same_gates = gates_against_k5(wts, args, cot, k7=False)
+        ok &= ok_fwd and ok_bwd and at_kinks and same_gates
         n = 10 if M > 10000 else 50
         t_fwd = _timed(lambda: field.field_fwd(wts, *args), n)
         with torch.no_grad():
@@ -1328,6 +1415,7 @@ def check_field_kernels():
                    "supnerf_tpu_torch/csrc/field_bwd.cu", t_bwd, t_bwd_p, err_bwd,
                    bound(bwd_flops, bwd_bytes))]
         by_shape[label][1]["max_abs_err_float32_plain"] = err_bwd32
+        by_shape[label][1]["gate_words_apart_from_k5"] = gates_apart
         by_shape[label][1]["kink_points"] = [[o, p, [list(x) for x in u]]
                                              for (o, p), u in zip(kinks, units)]
     if not ok:
@@ -1335,7 +1423,8 @@ def check_field_kernels():
     records = by_shape["sym"]
     for r, small in zip(records, by_shape["objsz"]):
         r["objsz_shape"] = {k: small[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                                   "max_abs_err", "kink_points") if k in small}
+                                                   "max_abs_err", "kink_points",
+                                                   "gate_words_apart_from_k5") if k in small}
     return records
 
 
@@ -1345,7 +1434,7 @@ def check_field_branches():
     block of a few rows, 600 and 1,000 points), a different direction per
     point, and at W 256 a stash budget of one object (two K7 + K4 chunks).
     Same tolerances, K6's and K7's data and latent cotangents with the
-    float64 arbitration; not timed."""
+    float64 arbitration, K6's and K7's gates against K5's; not timed."""
     import torch
     import torch.nn.functional as F
 
@@ -1406,7 +1495,9 @@ def check_field_branches():
         err, good = wgrad_on_stash(wts, pt, None)
         ok &= good
         errs.append(f"K4 on K7's stash {err:.1e} of max{'' if good else ' FAIL'}")
+        del pt
         print(f"   field W {W} shape blocks {ns} M {M}: " + ", ".join(errs))
+        ok &= gates_against_k5(wts, args, cot)[1]
     if not ok:
         raise RuntimeError("a field kernel disagrees with its plain version off the main path")
 

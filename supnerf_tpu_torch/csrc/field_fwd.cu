@@ -21,8 +21,9 @@
 // points of one object (grid (ceil(M / 64), B)), their activations in
 // shared memory across all nine layers at a row stride of W + kMmaPad, the
 // last block's missing rows zero-encoded and never written. The chain is
-// render_common.cuh:field_chain, which K6 (field_bwd.cu) runs too, so K6
-// differentiates at the gates this kernel took.
+// render_common.cuh:field_chain, which K6 (field_bwd.cu) and K7
+// (field_train_bwd.cu) run too, so they differentiate at the gates this
+// kernel took, its exact step included.
 //
 // What bounds it on the H100: arithmetic. Per point the decoder takes
 // 442,752 multiply-adds (render_fwd.cu's count at W 256, 3 shape blocks, 1
@@ -33,7 +34,10 @@
 // across the warps, each warp's slice of the weights streamed through its
 // own cp.async ring, every k-step's tensor-core sum added in float32), and
 // every ReLU layer takes its kRefine step (a pre-activation within 2^-20 of
-// its row's scale from zero recomputed in float64). Unlike K1 the
+// its row's scale from zero recomputed in float64, and a row with such a
+// value nearer zero than kExactRtol of its terms' magnitude through
+// field_chain's exact step: that layer's row from the float64 chain, so the
+// gates are the exact function's). Unlike K1 the
 // direction term of the viewdir layer is per point: the layer takes the
 // points' direction encodings as dense_mma's second operand pair (kDir),
 // whose k-steps run after the trunk's into the same sums, so the whole
@@ -41,7 +45,9 @@
 // taken and inside the float64 recompute. The point encodings, then the
 // direction encodings, sit in one buffer at kPeLd floats a row. Shared
 // memory (~208 KB at W 256, the weight rings included) allows one block of
-// 8 warps per SM; the sigma and rgb heads stay on the CUDA cores.
+// 8 warps per SM; the sigma and rgb heads stay on the CUDA cores. The body
+// is render_common.cuh:field_forward, which field_gates.cu also builds with
+// the ReLU gates written out, for a check.
 #include "render_common.cuh"
 
 namespace supnerf {
@@ -49,38 +55,16 @@ namespace supnerf {
 __global__ void __launch_bounds__(kThreads, 1)
 field_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
                  const float* __restrict__ zs, const float* __restrict__ zt,
-                 DecoderWeights w, Dims d, float* __restrict__ out_sigma,
-                 float* __restrict__ out_rgb) {
+                 const __grid_constant__ DecoderWeights w, const __grid_constant__ Dims d,
+                 float* __restrict__ out_sigma, float* __restrict__ out_rgb) {
   const int blk = blockIdx.x, obj = blockIdx.y;
   const int W = d.W, M = d.R;                        // d.R: points per object
   const size_t p0 = (size_t)obj * M + (size_t)blk * kRows;
   const int n = min(kRows, M - blk * kRows);          // this block's real rows
-
   extern __shared__ float smem[];
-  const int Ws = W + kMmaPad;                // activation row stride
-  float* stage = smem;                       // kMmaStageFloats, dense_mma's weight slices
-  float* buf_a = stage + kMmaStageFloats;    // kRows x Ws
-  float* buf_b = buf_a + kRows * Ws;         // kRows x Ws
-  float* enc = buf_b + kRows * Ws;           // kRows x kPeLd, point then direction encodings
-  float* sig = enc + kRows * kPeLd;          // kRows
-  float* rgb = sig + kRows;                  // kRows x 3
-
-  const float* hh = field_chain(xyz + p0 * 3, vd + p0 * 3, n, zs + (size_t)obj * d.n_shape * W,
-                                zt + (size_t)obj * d.n_tex * W, w, d, stage, buf_a, buf_b, enc,
-                                sig, nullptr);
-  head(hh, Ws, W / 2, w.w_r2, 3, w.b_r2, rgb);
-
-  for (int r = threadIdx.x; r < n; r += kThreads) {
-    out_sigma[p0 + r] = softplus(sig[r]);
-    out_rgb[(p0 + r) * 3] = rgb[3 * r];
-    out_rgb[(p0 + r) * 3 + 1] = rgb[3 * r + 1];
-    out_rgb[(p0 + r) * 3 + 2] = rgb[3 * r + 2];
-  }
-}
-
-size_t field_fwd_smem_bytes(int W) {
-  return sizeof(float) * ((size_t)kMmaStageFloats + 2 * kRows * (W + kMmaPad) + kRows * kPeLd
-                          + kRows * 4);
+  field_forward<false>(xyz + p0 * 3, vd + p0 * 3, n, zs + (size_t)obj * d.n_shape * W,
+                       zt + (size_t)obj * d.n_tex * W, w, d, smem, out_sigma + p0,
+                       out_rgb + p0 * 3, nullptr);
 }
 
 }  // namespace supnerf
@@ -93,7 +77,7 @@ extern "C" int supnerf_field_fwd(const float* xyz, const float* vd, const float*
                                  float* out_sigma, float* out_rgb, void* stream) {
   using namespace supnerf;
   const Dims d{B, M, kRows, W, n_shape, n_tex, l_xyz, l_dir};
-  const size_t smem = field_fwd_smem_bytes(W);
+  const size_t smem = field_forward_smem_bytes(W, n_shape, n_tex, false);
   cudaError_t err = cudaFuncSetAttribute(
       field_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

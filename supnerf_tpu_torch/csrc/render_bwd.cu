@@ -114,7 +114,7 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
-    add_row_vector<true>(cur, Ws, W, zs + ((size_t)obj * d.n_shape + j) * W);
+    add_row_vector(cur, Ws, W, zs + ((size_t)obj * d.n_shape + j) * W);
     dense_mma<true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
                     mask_of(1 + j), stage);
     float* t = cur; cur = nxt; nxt = t;
@@ -125,7 +125,7 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   dense_mma<true>(cur, Ws, W, w.w_vd_a, W, hdir, nxt, Ws, true, mask_of(m_vd), stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
-    add_row_vector<true>(cur, Ws, W, zt + ((size_t)obj * d.n_tex + j) * W);
+    add_row_vector(cur, Ws, W, zt + ((size_t)obj * d.n_tex + j) * W);
     dense_mma<true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
                     mask_of(m_tx0 + j), stage);
     float* t = cur; cur = nxt; nxt = t;
@@ -149,12 +149,12 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
                         + drgb[3 * r + 2] * w.w_r2[3 * c + 2];
   }
   __syncthreads();
-  apply_mask<true>(buf_a, Ws, W2, mask_of(m_r1));
+  apply_mask(buf_a, Ws, W2, mask_of(m_r1));
   dense_mma(buf_a, Ws, W2, w.wt_r1, W, nullptr, buf_b, Ws, false, nullptr, stage);
   cur = buf_b; nxt = buf_a;
   float* colsum = hdir;   // the direction term is no longer needed
   for (int j = d.n_tex - 1; j >= 0; --j) {
-    apply_mask<true>(cur, Ws, W, mask_of(m_tx0 + j));
+    apply_mask(cur, Ws, W, mask_of(m_tx0 + j));
     dense_mma(cur, Ws, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
               stage);
     { float* t = cur; cur = nxt; nxt = t; }
@@ -162,7 +162,7 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
     for (int c = threadIdx.x; c < W; c += kThreads)
       dzt_part[(ray_idx * d.n_tex + j) * W + c] = colsum[c];
   }
-  apply_mask<true>(cur, Ws, W, mask_of(m_vd));           // cur = g_v
+  apply_mask(cur, Ws, W, mask_of(m_vd));           // cur = g_v
   // viewdir: the direction encoding is per ray, so its cotangent is
   // (sum over the ray's rows of g_v) @ Wvd_b^T
   column_sums(cur, Ws, W, S, colsum);
@@ -179,7 +179,7 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   dense_mma(cur, Ws, W, w.wt_es, W, nullptr, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = d.n_shape - 1; j >= 0; --j) {
-    apply_mask<true>(cur, Ws, W, mask_of(1 + j));
+    apply_mask(cur, Ws, W, mask_of(1 + j));
     dense_mma(cur, Ws, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
               stage);
     { float* t = cur; cur = nxt; nxt = t; }
@@ -187,7 +187,7 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
     for (int c = threadIdx.x; c < W; c += kThreads)
       dzs_part[(ray_idx * d.n_shape + j) * W + c] = colsum[c];
   }
-  apply_mask<true>(cur, Ws, W, mask_of(0));
+  apply_mask(cur, Ws, W, mask_of(0));
   // the points' cotangents: g @ Wxyz^T (into nxt, kPeStride a row), then the
   // encoding's chain rule
   dense_mma(cur, Ws, W, w.wt_xyz, pe_width(d.l_xyz), nullptr, nxt, kPeStride, false, nullptr,

@@ -1,22 +1,19 @@
 // Shared device code of the decoder kernels (render_fwd.cu, render_bwd.cu,
-// render_train_bwd.cu, field_fwd.cu, field_bwd.cu, field_train_bwd.cu): the
-// decoder weight table, the block-wide dense layer, the positional encoding
-// and its chain rule, the compositing VJP, the data cotangents of the
-// backward kernels, the training stash's layout and the per-point field's
-// forward chain that K5 and K6 share.
+// render_train_bwd.cu, field_fwd.cu, field_bwd.cu, field_train_bwd.cu,
+// field_gates.cu): the decoder weight table, the block-wide dense layer, the
+// positional encoding and its chain rule, the compositing VJP, the data
+// cotangents of the backward kernels, the training stash's layout and its
+// copy, the per-point field's forward chain that K5, K6 and K7 share (with
+// its float64 exact step), K5's body and the backward that K6 and K7
+// share.
 //
 // Block shape, common to all of them: one block holds kRows points of one
 // object, the samples of ONE ray in the render kernels, 64 consecutive
 // points in the per-point field kernels. They are the rows of every
-// activation matrix,
-// which lives in shared memory (kRows x W floats, 64 KB at W = 256). 256
-// threads = 8 warps. In `dense` (float32 FMAs on the CUDA cores) warp w owns
-// rows 8w..8w+7 and lane l owns the columns l, l+32, l+64, ... of each
-// layer's output, so every warp reads one activation value per row as a
-// broadcast and 32 consecutive weights per column group as one coalesced
-// 128-byte load; K7 runs its layers so. `dense_mma` (3xTF32 on the
-// tensor cores: every layer of K1, K2, K3, K5 and K6) splits the output
-// columns across the warps instead.
+// activation matrix, which lives in shared memory (kRows x (W + kMmaPad)
+// floats, 65 KB at W = 256). 256 threads = 8 warps. `dense_mma` (3xTF32
+// on the tensor cores: every dense layer of every kernel) splits each
+// layer's output columns across the warps.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -72,83 +69,11 @@ struct Dims {
 
 static __device__ __forceinline__ int pe_width(int degree) { return 3 * (2 * degree + 1); }
 
-// out[r][c] = act(sum_k in[r][k] * M[k][c] + bias[c]) for all kRows rows and
-// c < N, with M row-major (K, N) in global memory (L2-resident: the whole
-// decoder is 1.8 MB). NJ = ceil(N / 32) columns per lane. If mask is given,
-// bit l of mask[r * NJ + j] records out[r][l + 32 j] > 0 — the ReLU pattern
-// the backward needs, 2 KB per W = 256 layer instead of a 64 KB stash.
-// With accumulate, out's old values are added before the activation
-// (out = act(in @ M + bias + out); `in` must not alias `out`): each thread
-// reads only the elements it writes.
-// Ends with __syncthreads(); the caller has synchronised `in`. Not inlined:
-// each kernel calls it a dozen times, and inlining every call site of every
-// width variant multiplies the compile time.
-template <int NJ>
-static __device__ __noinline__ void dense_t(const float* in, int in_stride, int K,
-                        const float* __restrict__ M, int N, const float* bias,
-                        float* out, int out_stride, bool relu, uint32_t* mask,
-                        bool accumulate) {
-  const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 8;
-  float acc[8][NJ];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  const bool full = (N == 32 * NJ);
-#pragma unroll 2
-  for (int k = 0; k < K; ++k) {
-    float a[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) a[i] = in[(r0 + i) * in_stride + k];
-    float w[NJ];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      const int c = lane + 32 * j;
-      w[j] = (full || c < N) ? __ldg(M + (size_t)k * N + c) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], w[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) {
-    const int c = lane + 32 * j;
-    const bool ok = full || c < N;
-    const float b = (bias != nullptr && ok) ? bias[c] : 0.f;
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      float v = acc[i][j] + b;
-      if (accumulate && ok) v += out[(r0 + i) * out_stride + c];
-      if (relu) v = fmaxf(v, 0.f);
-      if (ok) out[(r0 + i) * out_stride + c] = v;
-      if (mask != nullptr) {
-        const uint32_t bits = __ballot_sync(0xffffffffu, ok && v > 0.f);
-        if (lane == 0) mask[(r0 + i) * NJ + j] = bits;
-      }
-    }
-  }
-  __syncthreads();
-}
-
-// Runtime dispatch on the column count: N = W or W/2 with W in {64, 128,
-// 256}, or the 63-wide point encoding (ops/render.py checks W).
-static __device__ void dense(const float* in, int in_stride, int K, const float* M,
-                             int N, const float* bias, float* out, int out_stride,
-                             bool relu, uint32_t* mask, bool accumulate = false) {
-  const int nj = (N + 31) / 32;
-  if (nj <= 1) dense_t<1>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate);
-  else if (nj == 2) dense_t<2>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate);
-  else if (nj <= 4) dense_t<4>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate);
-  else dense_t<8>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, accumulate);
-}
-
 // Row stride padding of activation buffers read by dense_mma: a stride of 4
 // mod 32 floats puts the 32 A-fragment loads of a warp on 32 distinct banks.
 constexpr int kMmaPad = 4;
 // row stride of an encoding buffer that dense_mma reads (K1's point
-// encodings; K5's and K6's point, then direction, encodings)
+// encodings; K5-K7's point, then direction, encodings)
 constexpr int kPeLd = kPeStride + kMmaPad;
 // dense_mma's weight staging: per warp a ring of kBStages k-steps (8 rows
 // of the warp's columns, kBLd floats a row: 8 mod 32, so the B-fragment
@@ -157,9 +82,13 @@ constexpr int kBStages = 6;
 constexpr int kBLd = 40;
 constexpr int kMmaStageFloats = kThreads / 32 * kBStages * 8 * kBLd;
 
-// dense_t's contract without accumulate (out = act(in @ M + bias) on all
-// kRows rows, the ReLU bit masks, ends with __syncthreads()) on the tensor
-// cores at float32 accuracy (3xTF32, tf32.cuh). The output columns are split across
+// out[r][c] = act(sum_k in[r][k] * M[k][c] + bias[c]) for all kRows rows and
+// c < N, with M row-major (K, N) in global memory (L2-resident: the whole
+// decoder is 1.8 MB), on the tensor cores at float32 accuracy (3xTF32,
+// tf32.cuh). If mask is given, bit l of mask[r * nj + j] (nj = ceil(N /
+// 32)) records out[r][l + 32 j] > 0: the ReLU pattern the backward needs, 2
+// KB per W = 256 layer instead of a 64 KB stash. Ends with __syncthreads();
+// the caller has synchronised `in`. The output columns are split across
 // the warps: warp w owns the NT 8-column tiles w*NT .. w*NT+NT-1 for all
 // 64 rows (4 x NT m16n8k8 tiles), so each weight element enters the SM once
 // per block. A fragments are read from `in` in shared memory (a row stride
@@ -172,15 +101,16 @@ constexpr int kMmaStageFloats = kThreads / 32 * kBStages * 8 * kBLd;
 // sums with float32 adds (tf32.cuh: the tensor core's
 // accumulation truncates). Reduction indices past K (the 63-wide point
 // encoding, whose stride-64 column 63 is never written) are masked on the A
-// side too. The ReLU masks, in dense_t's layout, come from the registers
-// where a warp owns whole 32-column words (NT 4), else from the stored
-// outputs after a sync.
-// kDir (K5, K6: the viewdir layer with a direction encoding per point): a
+// side too. The ReLU masks come from the registers where a warp owns whole
+// 32-column words (NT 4), else from the stored outputs after a sync. Not
+// inlined: each kernel calls it a dozen times, and inlining every call site
+// of every width variant multiplies the compile time.
+// kDir (K5-K7: the viewdir layer with a direction encoding per point): a
 // second operand pair, in2 (kRows x K2, row stride in2_stride) times M2
 // (K2 x N, row-major), whose k-steps run after the first pair's through the
 // same ring into the same sums, so out = act(in @ M + in2 @ M2 + bias) is
 // one layer with its whole pre-activation in registers.
-// kRefine (K1-K3, K5, K6; ReLU layers): a pre-activation within
+// kRefine (K1-K3, K5-K7; ReLU layers): a pre-activation within
 // kRefineRtol of zero, relative to the largest |pre-activation| among the
 // thread's 8 values of its row, is recomputed in float64 from the same
 // float32 operands (dense_refine) before the ReLU and the mask bit. Its
@@ -190,6 +120,16 @@ constexpr int kMmaStageFloats = kThreads / 32 * kBStages * 8 * kBLd;
 // float64's turns a whole gradient row of the point (chip_smoke.py's
 // KINK_RTOL). The step is rarely taken: its test is a compare per value.
 constexpr float kRefineRtol = 1.0f / 1048576.0f;   // 2^-20
+// The rows that field_chain's exact step (K5-K7) recomputes in float64:
+// those with a refined value within kExactRtol of the magnitude of its
+// terms, |bias| + sum_k |in[k] M[k][c]|. A refined gate is exact for the
+// layer's float32 inputs, which carry the rounding of every layer before:
+// the refined gates that differed from the exact function's lay within
+// 2.3e-8 of the row's largest |value| (7 points of 8 x 65,536 at W 256,
+// chip_smoke.py), and the terms' magnitude is 2-3.6 times that largest
+// value at a median unit (W 256, tests/test_torch_tf32_split.py), so the
+// window is ~1.2e-7 of it or more.
+constexpr double kExactRtol = 1.0 / 16777216.0;    // 2^-24
 
 // dense_mma_t's kRefine step for one warp: each value a thread flagged (bit
 // 16 t + 4 i + e of `flagged`: row 16 i + gid + 8 (e >> 1), column (t0 + t)
@@ -197,14 +137,19 @@ constexpr float kRefineRtol = 1.0f / 1048576.0f;   // 2^-20
 // warp, lane l summing k = l, l + 32, ... (K <= 256; with kDir the second
 // pair's K2 terms too) in float64, and stored as relu(value); then, with NT
 // 4 and a mask, the warp's mask words are rebuilt from the stored outputs.
+// With `rows`, the rows in which a recomputed value lies within kExactRtol
+// of its terms' magnitude are ORed into *rows (bit r: row r; a word in
+// shared memory).
 template <int NT, bool kDir>
 static __device__ __noinline__ void dense_refine(const float* in, int in_stride, int K,
                                                  const float* __restrict__ M, int N,
                                                  const float* bias, float* out, int out_stride,
                                                  uint32_t* mask, int t0, uint64_t flagged,
                                                  const float* in2, int in2_stride, int K2,
-                                                 const float* __restrict__ M2) {
+                                                 const float* __restrict__ M2,
+                                                 unsigned long long* rows) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  unsigned long long exact = 0;
   uint32_t pending;
   while ((pending = __ballot_sync(0xffffffffu, flagged != 0)) != 0) {
     const int src = __ffs(pending) - 1;
@@ -213,22 +158,33 @@ static __device__ __noinline__ void dense_refine(const float* in, int in_stride,
     const int t = j >> 4, i = (j >> 2) & 3, e = j & 3;
     const int r = 16 * i + (src >> 2) + 8 * (e >> 1);
     const int c = (t0 + t) * 8 + 2 * (src & 3) + (e & 1);
-    double acc = 0.0;
+    double acc = 0.0, mag = 0.0;    // the sum and its terms' magnitude
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int k = lane + 32 * q;
-      if (k < K)
-        acc = fma((double)in[r * in_stride + k], (double)__ldg(M + (size_t)k * N + c), acc);
+      if (k < K) {
+        const double a = in[r * in_stride + k], m = __ldg(M + (size_t)k * N + c);
+        acc = fma(a, m, acc);
+        mag = fma(fabs(a), fabs(m), mag);
+      }
     }
-    if constexpr (kDir)
-      for (int k = lane; k < K2; k += 32)
-        acc = fma((double)in2[r * in2_stride + k], (double)__ldg(M2 + (size_t)k * N + c), acc);
+    if constexpr (kDir) {
+      for (int k = lane; k < K2; k += 32) {
+        const double a = in2[r * in2_stride + k], m = __ldg(M2 + (size_t)k * N + c);
+        acc = fma(a, m, acc);
+        mag = fma(fabs(a), fabs(m), mag);
+      }
+    }
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-    if (lane == 0)
-      out[r * out_stride + c] =
-          fmaxf((float)(acc + (bias != nullptr ? (double)bias[c] : 0.0)), 0.f);
+    for (int o = 16; o > 0; o >>= 1) {
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+      mag += __shfl_xor_sync(0xffffffffu, mag, o);
+    }
+    const double bc = bias != nullptr ? (double)bias[c] : 0.0;
+    if (fabs(acc + bc) <= kExactRtol * (mag + fabs(bc))) exact |= 1ull << r;
+    if (lane == 0) out[r * out_stride + c] = fmaxf((float)(acc + bc), 0.f);
   }
+  if (rows != nullptr && lane == 0) atomicOr(rows, exact);
   __syncwarp();
   if (NT == 4 && mask != nullptr) {
     const int nj = (N + 31) / 32;
@@ -246,7 +202,8 @@ static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, 
                                                 const float* bias, float* out, int out_stride,
                                                 bool relu, uint32_t* mask, float* stage,
                                                 const float* in2, int in2_stride,
-                                                int K2, const float* __restrict__ M2) {
+                                                int K2, const float* __restrict__ M2,
+                                                unsigned long long* rows) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int gid = lane >> 2, tig = lane & 3;
   const int n_tiles = (N + 7) >> 3;
@@ -412,7 +369,7 @@ static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, 
     if constexpr (kRefine) {
       if (__any_sync(0xffffffffu, flagged != 0))        // warp-uniform
         dense_refine<NT, kDir>(in, in_stride, K, M, N, bias, out, out_stride, mask, t0, flagged,
-                               in2, in2_stride, K2, M2);
+                               in2, in2_stride, K2, M2, rows);
     }
   }
   __syncthreads();
@@ -429,61 +386,45 @@ static __device__ __noinline__ void dense_mma_t(const float* in, int in_stride, 
 
 // Runtime dispatch on the column count: N up to 256, 8-column tiles spread
 // over the 8 warps. `stage`: kMmaStageFloats of shared memory, 16-byte
-// aligned. kRefine and kDir (with in2, in2_stride, K2, M2): dense_mma_t's.
+// aligned. kRefine and kDir (with in2, in2_stride, K2, M2), and rows:
+// dense_mma_t's; *rows is complete when dense_mma returns.
 template <bool kRefine = false, bool kDir = false>
 static __device__ void dense_mma(const float* in, int in_stride, int K, const float* M, int N,
                                  const float* bias, float* out, int out_stride, bool relu,
                                  uint32_t* mask, float* stage, const float* in2 = nullptr,
-                                 int in2_stride = 0, int K2 = 0,
-                                 const float* M2 = nullptr) {
+                                 int in2_stride = 0, int K2 = 0, const float* M2 = nullptr,
+                                 unsigned long long* rows = nullptr) {
   const int nt = ((N + 7) / 8 + 7) / 8;
   if (nt <= 1)
     dense_mma_t<1, kRefine, kDir>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
-                                  stage, in2, in2_stride, K2, M2);
+                                  stage, in2, in2_stride, K2, M2, rows);
   else if (nt == 2)
     dense_mma_t<2, kRefine, kDir>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
-                                  stage, in2, in2_stride, K2, M2);
+                                  stage, in2, in2_stride, K2, M2, rows);
   else
     dense_mma_t<4, kRefine, kDir>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
-                                  stage, in2, in2_stride, K2, M2);
+                                  stage, in2, in2_stride, K2, M2, rows);
 }
 
 // buf[r][c] += vec[c] over all rows (the per-object latent of a shape or
-// texture block, added before the block's matmul). kRowwise (K1-K3, K5,
-// K6): a warp per row and no integer division; K7 keeps the flat loop
-// (changing it moves its register allocation and time).
-template <bool kRowwise = false>
+// texture block, added before the block's matmul): a warp per row, no
+// integer division.
 static __device__ void add_row_vector(float* buf, int stride, int N, const float* vec) {
-  if constexpr (kRowwise) {
-    for (int r = threadIdx.x >> 5; r < kRows; r += kThreads / 32)
-      for (int c = threadIdx.x & 31; c < N; c += 32) buf[r * stride + c] += vec[c];
-  } else {
-    for (int e = threadIdx.x; e < kRows * N; e += kThreads) {
-      const int r = e / N, c = e - r * N;
-      buf[r * stride + c] += vec[c];
-    }
-  }
+  for (int r = threadIdx.x >> 5; r < kRows; r += kThreads / 32)
+    for (int c = threadIdx.x & 31; c < N; c += 32) buf[r * stride + c] += vec[c];
   __syncthreads();
 }
 
 // buf[r][c] = 0 where the stashed ReLU output was not positive (the ReLU
-// derivative applied to a cotangent in place). kRowwise as add_row_vector.
-template <bool kRowwise = false>
+// derivative applied to a cotangent in place), a warp per row.
 static __device__ void apply_mask(float* buf, int stride, int N, const uint32_t* mask) {
   const int nj = (N + 31) / 32;
-  if constexpr (kRowwise) {
-    const int lane = threadIdx.x & 31;
-    for (int r = threadIdx.x >> 5; r < kRows; r += kThreads / 32)
-      for (int j = 0; j < nj; ++j) {
-        const int c = 32 * j + lane;
-        if (c < N && !((mask[r * nj + j] >> lane) & 1u)) buf[r * stride + c] = 0.f;
-      }
-  } else {
-    for (int e = threadIdx.x; e < kRows * N; e += kThreads) {
-      const int r = e / N, c = e - r * N;
-      if (!((mask[r * nj + (c >> 5)] >> (c & 31)) & 1u)) buf[r * stride + c] = 0.f;
+  const int lane = threadIdx.x & 31;
+  for (int r = threadIdx.x >> 5; r < kRows; r += kThreads / 32)
+    for (int j = 0; j < nj; ++j) {
+      const int c = 32 * j + lane;
+      if (c < N && !((mask[r * nj + j] >> lane) & 1u)) buf[r * stride + c] = 0.f;
     }
-  }
   __syncthreads();
 }
 
@@ -715,7 +656,158 @@ struct StashLayout {
   int r_dpe, r_gv, a_dpe;
 };
 
-// ---- the per-point field on the tensor cores (field_fwd.cu K5, field_bwd.cu K6) ----
+// dst[r][c] = buf[r][c] for the n real rows and c < N (buf rows `stride`
+// floats apart, dst rows `ld` apart; both, buf and dst start on 16 bytes
+// where N >= 4): a warp per row, the row's whole quads as 16-byte streaming
+// stores (the stash is read once, by K4, and is far larger than L2), the
+// last N mod 4 columns one float at a time. No barrier: the caller's next
+// __syncthreads() comes before anything rewrites buf.
+static __device__ __forceinline__ void stash_rows(const float* buf, int stride, int N, int n,
+                                                  float* dst, int ld) {
+  const int lane = threadIdx.x & 31;
+  const int nq = N >> 2;
+  for (int r = threadIdx.x >> 5; r < n; r += kThreads / 32) {
+    const float* src = buf + r * stride;
+    float* out = dst + (size_t)r * ld;
+    for (int q = lane; q < nq; q += 32)
+      __stcs(reinterpret_cast<float4*>(out) + q, reinterpret_cast<const float4*>(src)[q]);
+    for (int c = 4 * nq + lane; c < N; c += 32) __stcs(out + c, src[c]);
+  }
+}
+
+// ---- the per-point field on the tensor cores (field_fwd.cu K5, field_bwd.cu
+// K6, field_train_bwd.cu K7) ----
+
+// Mask slots of the per-point field's ReLU layers: 0 = encoding_xyz,
+// 1..n_shape = shape blocks, then viewdir, texture blocks, rgb_hidden.
+static __device__ __forceinline__ int field_slots(const Dims& d) { return d.n_shape + d.n_tex + 3; }
+
+// One point's input x of `degree` frequencies, entry k of its encoding in
+// float64 (positional_encoding's layout, sines and cosines of the exact
+// 2^i x).
+static __device__ __forceinline__ double encode64(const float* x, int degree, int k) {
+  if (k < 3) return (double)x[k];
+  const int m = (k - 3) % (3 * degree), i = m / 3;
+  const double y = (double)x[m - 3 * i] * (double)(1 << i);
+  return k < 3 + 3 * degree ? sin(y) : cos(y);
+}
+
+// One float64 layer of one point by the whole block (a barrier before and
+// after): out[c] = act(bias[c] + sum_{k < K} in[k] M[k][c] (+ sum_{k < K2}
+// in2[k] M2[k][c] where in2 is given)) (+ add[c] where add is given: the
+// next block's latent) for the N units c (a multiple of 32, at most 256),
+// act relu or none. in, in2, out: the point's float64 rows in shared
+// memory; part: 4 x 256 doubles of scratch; M, M2 row-major with rows on 16
+// bytes. Thread t sums columns 4 (t % 64) .. + 3 over k = t / 64 + 4 i,
+// reading M a float4 at a time in batches of 16 loads (the weights come
+// from L2, so the loads' latency is the cost), and the four partial sums
+// of a column are added in shared memory.
+static __device__ void dense64(const double* in, int K, const float* __restrict__ M,
+                               const double* in2, int K2, const float* __restrict__ M2, int N,
+                               const float* bias, bool relu, const float* add, double* out,
+                               double* part) {
+  constexpr int kBatch = 16;
+  const int g = threadIdx.x & 63, sl = threadIdx.x >> 6;
+  __syncthreads();                                            // in, in2 written
+  if (4 * g < N) {
+    double p[4] = {0.0, 0.0, 0.0, 0.0};
+    auto sum = [&](const double* x, int Kx, const float* __restrict__ Mx) {
+      for (int k0 = sl; k0 < Kx; k0 += 4 * kBatch) {
+        float4 m[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int k = k0 + 4 * u;
+          m[u] = k < Kx ? __ldg(reinterpret_cast<const float4*>(Mx + (size_t)k * N) + g)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int k = k0 + 4 * u;
+          const double a = k < Kx ? x[k] : 0.0;
+          p[0] = fma(a, (double)m[u].x, p[0]);
+          p[1] = fma(a, (double)m[u].y, p[1]);
+          p[2] = fma(a, (double)m[u].z, p[2]);
+          p[3] = fma(a, (double)m[u].w, p[3]);
+        }
+      }
+    };
+    sum(in, K, M);
+    if (in2 != nullptr) sum(in2, K2, M2);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) part[sl * 256 + 4 * g + i] = p[i];
+  }
+  __syncthreads();
+  const int c = threadIdx.x;
+  if (c < N) {
+    double v = (double)bias[c] + part[c] + part[256 + c] + part[512 + c] + part[768 + c];
+    if (relu) v = fmax(v, 0.0);
+    out[c] = v + (add != nullptr ? (double)add[c] : 0.0);
+  }
+  __syncthreads();
+}
+
+// field_chain's exact step for mask slot `slot`, by the whole block: for
+// each row r of `rows` (bit r; real rows), the chain recomputed in float64
+// from the row's raw point and direction (xyz, vd: the block's first; zs,
+// zt the object's latents) up to that slot's layer, the encodings from
+// float64 sines and cosines, and the layer's output row in `out` (stride
+// `ld`) replaced by relu of the float64 pre-activations rounded to float32,
+// its mask words (mask, if given) by their signs. scratch: 1056 + 2 W
+// doubles of shared memory. Not inlined: it runs in few blocks, and its
+// registers stay out of the kernels' (their w and d are __grid_constant__,
+// so the references need no copy).
+static __device__ __noinline__ void field_exact64(int slot, unsigned long long rows,
+                                                  const float* xyz, const float* vd,
+                                                  const float* zs, const float* zt,
+                                                  const DecoderWeights& w, const Dims& d,
+                                                  float* out, int ld, uint32_t* mask,
+                                                  double* scratch) {
+  const int W = d.W, d_xyz = pe_width(d.l_xyz), d_dir = pe_width(d.l_dir);
+  const int s_vd = d.n_shape + 1, s_r1 = d.n_shape + d.n_tex + 2;
+  const int N = slot == s_r1 ? W / 2 : W;
+  double* part = scratch;                                     // 4 x 256
+  double* a = part + 4 * 256;                                 // W
+  double* b = a + W;                                          // W
+  double* dpe = b + W;                                        // 32 (d_dir <= 27)
+  for (; rows != 0; rows &= rows - 1) {
+    const int r = __ffsll((long long)rows) - 1;               // block-uniform
+    const int t = threadIdx.x;
+    if (t < d_xyz) a[t] = encode64(xyz + 3 * r, d.l_xyz, t);
+    if (t >= 128 && t - 128 < d_dir) dpe[t - 128] = encode64(vd + 3 * r, d.l_dir, t - 128);
+    double* x = a;
+    double* y = b;
+    // one layer x -> y; each ReLU layer's output but the last gets the next
+    // block's latent, that block's input
+    auto layer = [&](int K, const float* Mw, const double* x2, int K2, const float* M2w, int Nl,
+                     const float* bias, bool relu, const float* add, bool last) {
+      dense64(x, K, Mw, x2, K2, M2w, Nl, bias, relu, last ? nullptr : add, y, part);
+      double* tmp = x; x = y; y = tmp;
+    };
+    layer(d_xyz, w.w_xyz, nullptr, 0, nullptr, W, w.b_xyz, true, d.n_shape > 0 ? zs : nullptr,
+          slot == 0);
+    for (int j = 0; j < d.n_shape && 1 + j <= slot; ++j)
+      layer(W, w.w_sh + (size_t)j * W * W, nullptr, 0, nullptr, W, w.b_sh + j * W, true,
+            j + 1 < d.n_shape ? zs + (j + 1) * W : nullptr, slot == 1 + j);
+    if (slot >= s_vd) {
+      layer(W, w.w_es, nullptr, 0, nullptr, W, w.b_es, false, nullptr, false);    // e
+      layer(W, w.w_vd_a, dpe, d_dir, w.w_vd_b, W, w.b_vd, true, d.n_tex > 0 ? zt : nullptr,
+            slot == s_vd);
+      for (int j = 0; j < d.n_tex && s_vd + 1 + j <= slot; ++j)
+        layer(W, w.w_tx + (size_t)j * W * W, nullptr, 0, nullptr, W, w.b_tx + j * W, true,
+              j + 1 < d.n_tex ? zt + (j + 1) * W : nullptr, slot == s_vd + 1 + j);
+      if (slot == s_r1)
+        layer(W, w.w_r1, nullptr, 0, nullptr, W / 2, w.b_r1, true, nullptr, true);
+    }
+    const int c = threadIdx.x;
+    if (c < N) {                                              // whole warps: N % 32 == 0
+      const float v = (float)x[c];
+      out[r * ld + c] = v;
+      const uint32_t bits = __ballot_sync(0xffffffffu, v > 0.f);
+      if (mask != nullptr && (c & 31) == 0) mask[r * (N / 32) + (c >> 5)] = bits;
+    }
+    __syncthreads();                                          // x read before the next row
+  }
+}
 
 // The per-point field's forward chain for one block of kRows points of one
 // object, n of them real (xyz, vd: their raw coordinates; the other rows
@@ -723,53 +815,115 @@ struct StashLayout {
 // with its kRefine step, and the viewdir layer with the points' own
 // direction encodings as its second operand pair (kDir), so that the
 // refined pre-activation relu(e @ Wvd_a + dpe @ Wvd_b + b_vd) covers the
-// direction term too. K5 runs it for sigma and rgb (masks nullptr), K6 to
-// keep every ReLU's pattern as bits for its transposed chain: one code
-// path, so K6 differentiates at the gates K5 took. masks: n_shape + n_tex
-// + 3 slots of kRows x W/32 words (0 = encoding_xyz, 1..n_shape = shape
-// blocks, then viewdir, texture blocks, rgb_hidden). enc (kRows x kPeLd) holds the point
-// encodings for the first layer, then the direction encodings; zs, zt are
-// the object's latents. Writes the sigma head's pre-activation into logit
-// (kRows) and returns the buffer (buf_a or buf_b, row stride W + kMmaPad)
-// that holds rgb_hidden's output. Ends with __syncthreads().
-static __device__ float* field_chain(const float* xyz, const float* vd, int n, const float* zs,
+// direction term too. K5 runs it for sigma and rgb, K6 and K7
+// (field_backward) to keep every ReLU's pattern as bits for their
+// transposed chain: one code path, so they differentiate at the gates K5
+// took.
+// The exact step: a refined gate is exact for its layer's float32 inputs,
+// but those carry the float32 rounding of every layer before (~1e-8 of the
+// row's scale), so at a unit nearer zero than that it can be the other side
+// from the exact function's (the float64 plain version's). So after each
+// ReLU layer, each real row with a refined value nearer zero than
+// kExactRtol of its terms' magnitude (dense_mma's rows word, exact[slot])
+// has that layer's output row replaced by the float64 chain's
+// (field_exact64), before any later layer reads it: the values K5 goes on
+// with and the masks K6 and K7 differentiate are those of the exact
+// function's gates. Few rows take it.
+// masks: field_slots(d) slots of kRows x W/32 words (K5: nullptr, or where
+// the caller asks for its gates), exact: field_slots(d) words, both shared
+// memory; enc (kRows x kPeLd) holds the point encodings for the first
+// layer, then the direction encodings; zs, zt are the object's latents.
+// Writes the sigma head's pre-activation into logit (kRows) and returns the
+// buffer (buf_a or buf_b, row stride W + kMmaPad) that holds rgb_hidden's
+// output. Ends with __syncthreads().
+// kStash (K7): each layer input's real rows also go into the stash rows
+// from pt on (st's a_* columns and a_dpe; stash_rows), each copy where the
+// chain's next barrier comes before its buffer is rewritten: the point
+// encodings before the first layer, the direction encodings once the
+// encoding_shape layer's barrier has passed. The last copy, of the returned
+// buffer, has no barrier after it: the caller must not rewrite that buffer
+// before its next __syncthreads().
+template <bool kStash = false>
+static __device__ __forceinline__ float* field_chain(const float* xyz, const float* vd, int n, const float* zs,
                                      const float* zt, const DecoderWeights& w, const Dims& d,
                                      float* stage, float* buf_a, float* buf_b, float* enc,
-                                     float* logit, uint32_t* masks) {
+                                     float* logit, uint32_t* masks, unsigned long long* exact,
+                                     const StashLayout& st = {}, float* pt = nullptr) {
   const int W = d.W, Ws = W + kMmaPad;
-  auto mask_of = [&](int layer) {
-    return masks != nullptr ? masks + (size_t)layer * kRows * (W / 32) : nullptr;
+  const unsigned long long real = n < 64 ? (1ull << n) - 1 : ~0ull;
+  auto mask_of = [&](int slot) {
+    return masks != nullptr ? masks + (size_t)slot * kRows * (W / 32) : nullptr;
   };
+  auto stash = [&](const float* buf, int stride, int N, int col) {
+    if constexpr (kStash) stash_rows(buf, stride, N, n, pt + col, st.ld_pt);
+  };
+  // after a ReLU layer (its output in out; free: the buffer its input was
+  // in), the exact step for the real rows its refine step noted
+  auto settle = [&](int slot, float* out, float* free) {
+    const unsigned long long rows = exact[slot] & real;      // block-uniform
+    if (rows != 0)
+      field_exact64(slot, rows, xyz, vd, zs, zt, w, d, out, Ws, mask_of(slot),
+                    reinterpret_cast<double*>(free));
+  };
+  if ((int)threadIdx.x < field_slots(d)) exact[threadIdx.x] = 0;
   encode_points<kPeLd>(xyz, n, d.l_xyz, enc);
   __syncthreads();
+  stash(enc, kPeLd, pe_width(d.l_xyz), st.a_xyz);
   dense_mma<true>(enc, kPeLd, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, Ws, true,
-                  mask_of(0), stage);
+                  mask_of(0), stage, nullptr, 0, 0, nullptr, exact);
+  settle(0, buf_a, buf_b);
   // the point encodings are read: the direction encodings take their place,
   // read by the viewdir layer after the barriers of the layers between
   encode_points<kPeLd>(vd, n, d.l_dir, enc);
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
-    add_row_vector<true>(cur, Ws, W, zs + (size_t)j * W);
+    add_row_vector(cur, Ws, W, zs + (size_t)j * W);
+    stash(cur, Ws, W, st.a_sh + j * W);
     dense_mma<true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
-                    mask_of(1 + j), stage);
+                    mask_of(1 + j), stage, nullptr, 0, 0, nullptr, exact + 1 + j);
+    settle(1 + j, nxt, cur);
     float* t = cur; cur = nxt; nxt = t;
   }
+  stash(cur, Ws, W, st.a_es);
   dense_mma(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }                       // cur = e
+  stash(cur, Ws, W, st.a_e);
+  stash(enc, kPeLd, pe_width(d.l_dir), st.a_dpe);
   head(cur, Ws, W, w.w_sg, 1, w.b_sg, logit);
-  dense_mma<true, true>(cur, Ws, W, w.w_vd_a, W, w.b_vd, nxt, Ws, true, mask_of(d.n_shape + 1),
-                        stage, enc, kPeLd, pe_width(d.l_dir), w.w_vd_b);
+  const int s_vd = d.n_shape + 1;
+  dense_mma<true, true>(cur, Ws, W, w.w_vd_a, W, w.b_vd, nxt, Ws, true, mask_of(s_vd), stage,
+                        enc, kPeLd, pe_width(d.l_dir), w.w_vd_b, exact + s_vd);
+  settle(s_vd, nxt, cur);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
-    add_row_vector<true>(cur, Ws, W, zt + (size_t)j * W);
+    add_row_vector(cur, Ws, W, zt + (size_t)j * W);
+    stash(cur, Ws, W, st.a_tx + j * W);
     dense_mma<true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
-                    mask_of(d.n_shape + 2 + j), stage);
+                    mask_of(s_vd + 1 + j), stage, nullptr, 0, 0, nullptr, exact + s_vd + 1 + j);
+    settle(s_vd + 1 + j, nxt, cur);
     float* t = cur; cur = nxt; nxt = t;
   }
-  dense_mma<true>(cur, Ws, W, w.w_r1, W / 2, w.b_r1, nxt, Ws, true,
-                  mask_of(d.n_shape + d.n_tex + 2), stage);
+  const int s_r1 = field_slots(d) - 1;
+  stash(cur, Ws, W, st.a_r1);
+  dense_mma<true>(cur, Ws, W, w.w_r1, W / 2, w.b_r1, nxt, Ws, true, mask_of(s_r1), stage,
+                  nullptr, 0, 0, nullptr, exact + s_r1);
+  settle(s_r1, nxt, cur);
+  stash(nxt, Ws, W / 2, st.a_hh);
   return nxt;
+}
+
+// The block's ReLU masks (field_chain's slots) into gates, field_slots(d) x
+// W/32 words a point from the block's first point on, for its n real rows:
+// the kernels' gates, asked for by a check (ops/field.py's `gates`). The
+// rgb_hidden slot fills the first W/64 words of its W/32. No barrier.
+static __device__ void store_gates(const uint32_t* masks, int n, const Dims& d, uint32_t* gates) {
+  const int nj = d.W / 32, slots = field_slots(d);
+  for (int e = threadIdx.x; e < n * slots * nj; e += kThreads) {
+    const int q = e % nj, s = (e / nj) % slots, r = e / (nj * slots);
+    const int nw = s == slots - 1 ? nj / 2 : nj;
+    if (q < nw) gates[e] = masks[(size_t)s * kRows * nj + r * nw + q];
+  }
 }
 
 // The encoding's chain rule for n points from their raw coordinates x (3
@@ -791,6 +945,192 @@ static __device__ void encode_backward_points(const float* x, const float* g, in
     }
     dx[e] = v;
   }
+}
+
+// Dynamic shared memory of field_forward's block: the weight rings, two
+// activation buffers, the encodings, the heads' outputs and the exact
+// step's words, then, with the gates (kGates), the ReLU masks (~208 KB at W
+// 256 without them).
+static inline size_t field_forward_smem_bytes(int W, int n_shape, int n_tex, bool gates) {
+  const size_t slots = (size_t)n_shape + n_tex + 3;
+  return sizeof(float) * ((size_t)kMmaStageFloats + 2 * kRows * (W + kMmaPad) + kRows * kPeLd
+                          + kRows * 4)
+         + sizeof(unsigned long long) * slots
+         + (gates ? sizeof(uint32_t) * slots * kRows * (W / 32) : 0);
+}
+
+// The per-point field's forward (K5) for one block of kRows points of one
+// object, n of them real: field_chain, then the rgb head and the softplus
+// of the sigma head. xyz, vd (3 floats a point), out_sigma (1) and out_rgb
+// (3) start at the block's first point; zs, zt are the object's latents.
+// smem: field_forward_smem_bytes. kGates (field_gates.cu): the ReLU masks
+// kept too and written into gates from the block's first point
+// (store_gates).
+template <bool kGates>
+static __device__ __forceinline__ void field_forward(
+    const float* xyz, const float* vd, int n, const float* zs, const float* zt,
+    const DecoderWeights& w, const Dims& d, float* smem, float* out_sigma, float* out_rgb,
+    uint32_t* gates) {
+  const int W = d.W, Ws = W + kMmaPad;       // Ws: activation row stride
+  float* stage = smem;                       // kMmaStageFloats, dense_mma's weight slices
+  float* buf_a = stage + kMmaStageFloats;    // kRows x Ws
+  float* buf_b = buf_a + kRows * Ws;         // kRows x Ws
+  float* enc = buf_b + kRows * Ws;           // kRows x kPeLd, point then direction encodings
+  float* sig = enc + kRows * kPeLd;          // kRows
+  float* rgb = sig + kRows;                  // kRows x 3
+  auto* exact = reinterpret_cast<unsigned long long*>(rgb + kRows * 3);  // field_slots(d)
+  uint32_t* masks = kGates ? reinterpret_cast<uint32_t*>(exact + field_slots(d)) : nullptr;
+
+  const float* hh = field_chain(xyz, vd, n, zs, zt, w, d, stage, buf_a, buf_b, enc, sig, masks,
+                                exact);
+  if constexpr (kGates) store_gates(masks, n, d, gates);
+  head(hh, Ws, W / 2, w.w_r2, 3, w.b_r2, rgb);
+  for (int r = threadIdx.x; r < n; r += kThreads) {
+    out_sigma[r] = softplus(sig[r]);
+    out_rgb[3 * r] = rgb[3 * r];
+    out_rgb[3 * r + 1] = rgb[3 * r + 1];
+    out_rgb[3 * r + 2] = rgb[3 * r + 2];
+  }
+}
+
+// Dynamic shared memory of field_backward's block: the weight rings, two
+// activation buffers, the encodings, the column sums, the sigma head's
+// logits, the cotangents, n_shape + n_tex + 3 ReLU masks and as many exact
+// step words (228,664 B at W 256 with 3 shape blocks and 1 texture block).
+static inline size_t field_backward_smem_bytes(int W, int n_shape, int n_tex) {
+  const size_t slots = (size_t)n_shape + n_tex + 3;
+  const size_t floats = (size_t)kMmaStageFloats + 2 * kRows * (W + kMmaPad) + kRows * kPeLd
+                        + W + kRows * 5;
+  return sizeof(float) * floats + sizeof(uint32_t) * slots * kRows * (W / 32)
+         + sizeof(unsigned long long) * slots;
+}
+
+// The per-point field's backward for one block of kRows points of one
+// object, n of them real, with a frozen decoder (K6) or with the stash from
+// which K4 forms the decoder's weight gradients (kStash, K7). xyz, vd,
+// g_sigma (1 float a point), g_rgb (3) and dxyz, dvd (3) start at the
+// block's first point; zs, zt are the object's latents; dzs_part (n_shape x
+// W) and dzt_part (n_tex x W) are the block's partial-sum rows; with
+// kGates (field_gates.cu), gates gets the block's ReLU masks from its first
+// point (store_gates). smem:
+// field_backward_smem_bytes.
+// field_chain recomputes K5's forward, its exact step included, with every
+// ReLU's pattern kept as bits; then K2's transposed chain runs on dense_mma
+// (rgb_hidden, the texture blocks, the viewdir layer's direction-encoding
+// rows through the transposed copy wt_vd_b and its trunk rows,
+// encoding_shape with the sigma head's gradient added, the shape blocks,
+// the first layer's 63 encoding columns), the cotangents entering directly
+// (dsigma through the softplus gate sigmoid(logit), drgb through rgb_out),
+// the ReLU masks applied and the latents' column sums taken over the n
+// real rows. The direction encodings' cotangent goes into enc, free once
+// the forward is done, and both encodings' chain rules recompute their
+// sines from the raw points (encode_backward_points). kStash only adds
+// copies: field_chain's layer inputs, g_sig and g_rgb, and each
+// pre-activation gradient g_* where the transposed chain forms it, into the
+// n real rows from pt on (st's columns), each copy of a buffer that nothing
+// rewrites before the chain's next __syncthreads(); so K6 and K7 give the
+// same bits.
+template <bool kStash, bool kGates>
+static __device__ __forceinline__ void field_backward(
+    const float* xyz, const float* vd, int n, const float* zs, const float* zt,
+    const DecoderWeights& w, const Dims& d, const float* g_sigma, const float* g_rgb,
+    float* smem, float* dxyz, float* dvd, float* dzs_part, float* dzt_part,
+    const StashLayout& st, float* pt, uint32_t* gates) {
+  const int W = d.W, W2 = d.W / 2, Ws = W + kMmaPad;   // Ws: activation row stride
+  const int nj = W / 32;
+  const int n_masks = field_slots(d);
+  float* stage = smem;                         // kMmaStageFloats, dense_mma's weight slices
+  float* buf_a = stage + kMmaStageFloats;      // kRows x Ws
+  float* buf_b = buf_a + kRows * Ws;           // kRows x Ws
+  float* enc = buf_b + kRows * Ws;             // kRows x kPeLd (later: scratch)
+  float* colsum = enc + kRows * kPeLd;         // W
+  float* logit = colsum + W;                   // kRows
+  float* dsig = logit + kRows;                 // kRows
+  float* drgb = dsig + kRows;                  // kRows x 3
+  uint32_t* masks = reinterpret_cast<uint32_t*>(drgb + kRows * 3);  // n_masks x kRows x nj
+  auto* exact = reinterpret_cast<unsigned long long*>(masks + (size_t)n_masks * kRows * nj);
+  // mask slots as field_chain fills them: 0 = encoding_xyz, 1..n_shape =
+  // shape blocks, then viewdir, texture blocks, rgb_hidden
+  auto mask_of = [&](int layer) { return masks + (size_t)layer * kRows * nj; };
+  const int m_vd = d.n_shape + 1, m_tx0 = d.n_shape + 2, m_r1 = n_masks - 1;
+  auto stash = [&](const float* buf, int N, int col) {
+    if constexpr (kStash) stash_rows(buf, Ws, N, n, pt + col, st.ld_pt);
+  };
+
+  for (int r = threadIdx.x; r < kRows; r += kThreads) {
+    const bool real = r < n;
+    dsig[r] = real ? g_sigma[r] : 0.f;
+    drgb[3 * r] = real ? g_rgb[3 * r] : 0.f;
+    drgb[3 * r + 1] = real ? g_rgb[3 * r + 1] : 0.f;
+    drgb[3 * r + 2] = real ? g_rgb[3 * r + 2] : 0.f;
+  }
+  // ---- forward recompute, ReLU patterns to shared memory (syncs) ---------
+  // nxt: rgb_hidden's output, read by the a_hh copy until the next barrier
+  float* nxt = field_chain<kStash>(xyz, vd, n, zs, zt, w, d, stage, buf_a, buf_b, enc, logit,
+                                   masks, exact, st, pt);
+  float* cur = nxt == buf_a ? buf_b : buf_a;
+  if constexpr (kGates) store_gates(masks, n, d, gates);
+  if constexpr (kStash) {
+    stash_rows(drgb, 3, 3, n, pt + st.g_rgb, st.ld_pt);
+    for (int r = threadIdx.x; r < n; r += kThreads)
+      pt[(size_t)r * st.ld_pt + st.g_sig] = dsig[r] * sigmoid(logit[r]);  // softplus' = sigmoid
+  }
+
+  // ---- transposed decoder chain ------------------------------------------
+  // rgb_out: g_hh[r][c] = relu'(hh) * sum_k drgb[r][k] w_r2[c][k]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r = warp; r < kRows; r += kThreads / 32)
+    for (int c = lane; c < W2; c += 32)
+      cur[r * Ws + c] = drgb[3 * r] * w.w_r2[3 * c] + drgb[3 * r + 1] * w.w_r2[3 * c + 1]
+                        + drgb[3 * r + 2] * w.w_r2[3 * c + 2];
+  __syncthreads();
+  apply_mask(cur, Ws, W2, mask_of(m_r1));
+  stash(cur, W2, st.g_hh);
+  dense_mma(cur, Ws, W2, w.wt_r1, W, nullptr, nxt, Ws, false, nullptr, stage);
+  { float* t = cur; cur = nxt; nxt = t; }
+  for (int j = d.n_tex - 1; j >= 0; --j) {
+    apply_mask(cur, Ws, W, mask_of(m_tx0 + j));
+    stash(cur, W, st.g_tx + j * W);
+    dense_mma(cur, Ws, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
+              stage);
+    { float* t = cur; cur = nxt; nxt = t; }
+    column_sums(cur, Ws, W, n, colsum);
+    for (int c = threadIdx.x; c < W; c += kThreads) dzt_part[j * W + c] = colsum[c];
+  }
+  apply_mask(cur, Ws, W, mask_of(m_vd));           // cur = g_v
+  stash(cur, W, st.g_v);
+  // viewdir: the direction encodings' cotangent g_v @ Wvd_b^T per point
+  // (into enc, free since the forward, kPeStride a row), then its chain rule
+  dense_mma(cur, Ws, W, w.wt_vd_b, pe_width(d.l_dir), nullptr, enc, kPeStride, false, nullptr,
+            stage);
+  encode_backward_points(vd, enc, kPeStride, d.l_dir, n, dvd);
+  // encoding_shape output e feeds both the viewdir layer and the sigma head
+  dense_mma(cur, Ws, W, w.wt_vd_a, W, nullptr, nxt, Ws, false, nullptr, stage);
+  for (int r = warp; r < kRows; r += kThreads / 32) {
+    const float g_sig = dsig[r] * sigmoid(logit[r]);     // softplus' = sigmoid
+    for (int c = lane; c < W; c += 32) nxt[r * Ws + c] = fmaf(g_sig, w.w_sg[c], nxt[r * Ws + c]);
+  }
+  __syncthreads();
+  { float* t = cur; cur = nxt; nxt = t; }         // cur = g_e
+  stash(cur, W, st.g_e);
+  dense_mma(cur, Ws, W, w.wt_es, W, nullptr, nxt, Ws, false, nullptr, stage);
+  { float* t = cur; cur = nxt; nxt = t; }
+  for (int j = d.n_shape - 1; j >= 0; --j) {
+    apply_mask(cur, Ws, W, mask_of(1 + j));
+    stash(cur, W, st.g_sh + j * W);
+    dense_mma(cur, Ws, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
+              stage);
+    { float* t = cur; cur = nxt; nxt = t; }
+    column_sums(cur, Ws, W, n, colsum);
+    for (int c = threadIdx.x; c < W; c += kThreads) dzs_part[j * W + c] = colsum[c];
+  }
+  apply_mask(cur, Ws, W, mask_of(0));
+  stash(cur, W, st.g_xyz);
+  // the points' cotangents: g @ Wxyz^T (into nxt, kPeStride a row), then the
+  // encoding's chain rule
+  dense_mma(cur, Ws, W, w.wt_xyz, pe_width(d.l_xyz), nullptr, nxt, kPeStride, false, nullptr,
+            stage);
+  encode_backward_points(xyz, nxt, kPeStride, d.l_xyz, n, dxyz);
 }
 
 }  // namespace supnerf

@@ -100,7 +100,7 @@ render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
-    add_row_vector<true>(cur, Ws, W, zs + ((size_t)obj * d.n_shape + j) * W);
+    add_row_vector(cur, Ws, W, zs + ((size_t)obj * d.n_shape + j) * W);
     dense_mma<true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
                     nullptr, stage);
     float* t = cur; cur = nxt; nxt = t;
@@ -111,7 +111,7 @@ render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   dense_mma<true>(cur, Ws, W, w.w_vd_a, W, hdir, nxt, Ws, true, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
-    add_row_vector<true>(cur, Ws, W, zt + ((size_t)obj * d.n_tex + j) * W);
+    add_row_vector(cur, Ws, W, zt + ((size_t)obj * d.n_tex + j) * W);
     dense_mma<true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
                     nullptr, stage);
     float* t = cur; cur = nxt; nxt = t;

@@ -47,35 +47,17 @@
 // ReLU layers take dense_mma's kRefine step as in K1: a pre-activation
 // within 2^-20 of its row's scale from zero is recomputed in float64 before
 // the ReLU and its bit mask, since a gate on the other side from float64's
-// turns a whole gradient row of the point. The stash rows are copied out of the
-// W + kMmaPad-strided buffers by stash_rows below: a warp per row, 16-byte
-// streaming stores (every stash column block and every activation row
-// starts on 16 bytes), and no barrier of its own, since the buffer a copy
-// reads is rewritten only after the next barrier of the chain. Shared memory
+// turns a whole gradient row of the point. The stash rows are copied out of
+// the W + kMmaPad-strided buffers by render_common.cuh:stash_rows (K7's
+// copy too): a warp per row, 16-byte streaming stores (every stash column
+// block and every activation row starts on 16 bytes), and no barrier of its
+// own, since the buffer a copy reads is rewritten only after the next
+// barrier of the chain. Shared memory
 // is K2's (~224 KB at W 256, 3 shape and 1 texture block, the weight rings
 // included): one block of 8 warps per SM.
 #include "render_common.cuh"
 
 namespace supnerf {
-
-// dst[r][c] = buf[r][c] for the n real rows and c < N (buf rows `stride`
-// floats apart, dst rows `ld` apart; both, buf and dst start on 16 bytes
-// where N >= 4): a warp per row, the row's whole quads as 16-byte streaming
-// stores (the stash is read once, by K4, and is far larger than L2), the
-// last N mod 4 columns one float at a time. No barrier: the caller's next
-// __syncthreads() comes before anything rewrites buf.
-static __device__ __forceinline__ void stash_rows(const float* buf, int stride, int N, int n,
-                                                  float* dst, int ld) {
-  const int lane = threadIdx.x & 31;
-  const int nq = N >> 2;
-  for (int r = threadIdx.x >> 5; r < n; r += kThreads / 32) {
-    const float* src = buf + r * stride;
-    float* out = dst + (size_t)r * ld;
-    for (int q = lane; q < nq; q += 32)
-      __stcs(reinterpret_cast<float4*>(out) + q, reinterpret_cast<const float4*>(src)[q]);
-    for (int c = 4 * nq + lane; c < N; c += 32) __stcs(out + c, src[c]);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads, 1)
 render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
@@ -127,7 +109,7 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
-    add_row_vector<true>(cur, Ws, W, zs + ((size_t)obj * d.n_shape + j) * W);
+    add_row_vector(cur, Ws, W, zs + ((size_t)obj * d.n_shape + j) * W);
     stash_rows(cur, Ws, W, S, pt + st.a_sh + j * W, st.ld_pt);
     dense_mma<true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
                     mask_of(1 + j), stage);
@@ -141,7 +123,7 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
   dense_mma<true>(cur, Ws, W, w.w_vd_a, W, hdir, nxt, Ws, true, mask_of(m_vd), stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
-    add_row_vector<true>(cur, Ws, W, zt + ((size_t)obj * d.n_tex + j) * W);
+    add_row_vector(cur, Ws, W, zt + ((size_t)obj * d.n_tex + j) * W);
     stash_rows(cur, Ws, W, S, pt + st.a_tx + j * W, st.ld_pt);
     dense_mma<true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
                     mask_of(m_tx0 + j), stage);
@@ -172,13 +154,13 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
       buf_a[r * Ws + c] = drgb[3 * r] * w.w_r2[3 * c] + drgb[3 * r + 1] * w.w_r2[3 * c + 1]
                           + drgb[3 * r + 2] * w.w_r2[3 * c + 2];
   __syncthreads();
-  apply_mask<true>(buf_a, Ws, W2, mask_of(m_r1));
+  apply_mask(buf_a, Ws, W2, mask_of(m_r1));
   stash_rows(buf_a, Ws, W2, S, pt + st.g_hh, st.ld_pt);
   dense_mma(buf_a, Ws, W2, w.wt_r1, W, nullptr, buf_b, Ws, false, nullptr, stage);
   cur = buf_b; nxt = buf_a;
   float* colsum = hdir;   // the direction term is no longer needed
   for (int j = d.n_tex - 1; j >= 0; --j) {
-    apply_mask<true>(cur, Ws, W, mask_of(m_tx0 + j));
+    apply_mask(cur, Ws, W, mask_of(m_tx0 + j));
     stash_rows(cur, Ws, W, S, pt + st.g_tx + j * W, st.ld_pt);
     dense_mma(cur, Ws, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
               stage);
@@ -187,7 +169,7 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
     for (int c = threadIdx.x; c < W; c += kThreads)
       dzt_part[(ray_idx * d.n_tex + j) * W + c] = colsum[c];
   }
-  apply_mask<true>(cur, Ws, W, mask_of(m_vd));           // cur = g_v
+  apply_mask(cur, Ws, W, mask_of(m_vd));           // cur = g_v
   stash_rows(cur, Ws, W, S, pt + st.g_v, st.ld_pt);
   // the direction encoding is per ray: the viewdir layer's direction rows
   // get dpe^T (sum over the ray's samples of g_v), formed by K4 over rays
@@ -206,7 +188,7 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
   dense_mma(cur, Ws, W, w.wt_es, W, nullptr, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = d.n_shape - 1; j >= 0; --j) {
-    apply_mask<true>(cur, Ws, W, mask_of(1 + j));
+    apply_mask(cur, Ws, W, mask_of(1 + j));
     stash_rows(cur, Ws, W, S, pt + st.g_sh + j * W, st.ld_pt);
     dense_mma(cur, Ws, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
               stage);
@@ -215,7 +197,7 @@ render_train_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__
     for (int c = threadIdx.x; c < W; c += kThreads)
       dzs_part[(ray_idx * d.n_shape + j) * W + c] = colsum[c];
   }
-  apply_mask<true>(cur, Ws, W, mask_of(0));
+  apply_mask(cur, Ws, W, mask_of(0));
   stash_rows(cur, Ws, W, S, pt + st.g_xyz, st.ld_pt);
   if (data) {
     // the points' cotangents: g @ Wxyz^T (into nxt, kPeStride a row), then

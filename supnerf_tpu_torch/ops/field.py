@@ -17,9 +17,15 @@ per-point training field).
   field_train_bwd  (K7, csrc/field_train_bwd.cu + K4, csrc/wgrad.cu): the
                    training backward of K5 (A10, _field_train_bwd_kernel):
                    K6's outputs and every decoder weight and bias gradient.
-                   K7 runs K6's per-point work and stashes each layer's
-                   input and pre-activation-gradient rows (ops/render.py's
-                   stash_layout, per-point mode); K4 reduces them.
+                   K7 is K6's kernel body (render_common.cuh
+                   field_backward) with a stash: each layer's input and
+                   pre-activation-gradient rows (ops/render.py's
+                   stash_layout, per-point mode), which K4 reduces.
+
+K5, K6 and K7 run one forward chain (render_common.cuh field_chain), so
+they take the same ReLU gates; asked with `gates` (gate_buffer), each
+wrapper launches its kernel's build that also writes the gates it took
+(csrc/field_gates.cu), for a check.
 
 Shapes: objects B along axis 0, M points per object, each with its own view
 direction (xyz, viewdir (B,M,3)), latent projections zs (B,n_shape,W), zt
@@ -101,8 +107,38 @@ def _dims(wts: DecoderWeights, xyz):
     return [B, M, wts.W, wts.n_shape, wts.n_tex, wts.num_xyz_freq, wts.num_dir_freq]
 
 
-def field_fwd(wts: DecoderWeights, xyz, viewdir, zs, zt):
-    """K5 wrapper. Returns (sigma (B,M,1), rgb (B,M,3))."""
+def gate_buffer(wts: DecoderWeights, xyz):
+    """A zeroed buffer for a field kernel's ReLU gates (the `gates` argument
+    of field_fwd, field_bwd and field_train_bwd_stash): per point, the bit
+    masks of its n_shape + n_tex + 3 ReLU layers (encoding_xyz, the shape
+    blocks, viewdir, the texture blocks, rgb_hidden) as W/32 int32 words
+    each, bit l of word j for unit 32 j + l (rgb_hidden's W/2 units in the
+    first W/64 words). (B, M, n_shape + n_tex + 3, W/32) on xyz's device."""
+    B, M = xyz.shape[:2]
+    return torch.zeros((B, M, wts.n_shape + wts.n_tex + 3, wts.W // 32), dtype=torch.int32,
+                       device=xyz.device)
+
+
+def _gates_args(wts: DecoderWeights, xyz, gates):
+    """The C entry's name suffix and extra arguments for gates: ("", []) for
+    none, else ("_gates", [its pointer]) (csrc/field_gates.cu) once gates is
+    checked against gate_buffer's shape on xyz's device. The plain versions
+    keep no gates, so CPU tensors with gates raise."""
+    if gates is None:
+        return "", []
+    if xyz.device.type == "cpu":
+        raise ValueError("only the kernels report their gates")
+    shape = (*xyz.shape[:2], wts.n_shape + wts.n_tex + 3, wts.W // 32)
+    if (gates.shape != shape or gates.dtype != torch.int32 or not gates.is_contiguous()
+            or gates.device != xyz.device):
+        raise ValueError("the gates buffer does not match gate_buffer")
+    return "_gates", [gates.data_ptr()]
+
+
+def field_fwd(wts: DecoderWeights, xyz, viewdir, zs, zt, gates=None):
+    """K5 wrapper. Returns (sigma (B,M,1), rgb (B,M,3)); with gates
+    (gate_buffer), the kernel's ReLU gates are written into it too."""
+    entry, extra = _gates_args(wts, xyz, gates)
     if xyz.device.type == "cpu":
         return field_fwd_plain(wts, xyz, viewdir, zs, zt)
     _check_field_inputs(wts, xyz, viewdir, zs, zt)
@@ -111,20 +147,22 @@ def field_fwd(wts: DecoderWeights, xyz, viewdir, zs, zt):
     rgb = torch.empty((B, M, 3), device=xyz.device)
     ptrs = _ptrs(wts)
     with torch.cuda.device(xyz.device):     # the runtime launches on its current device
-        err = _library().supnerf_field_fwd(
+        err = getattr(_library(), "supnerf_field_fwd" + entry)(
             xyz.data_ptr(), viewdir.data_ptr(), zs.data_ptr(), zt.data_ptr(),
-            ctypes.byref(ptrs), *_dims(wts, xyz), sigma.data_ptr(), rgb.data_ptr(),
+            ctypes.byref(ptrs), *_dims(wts, xyz), sigma.data_ptr(), rgb.data_ptr(), *extra,
             torch.cuda.current_stream(xyz.device).cuda_stream)
     _raise_on(err, "field_fwd")
     LAUNCHES["field_fwd"] += 1
     return sigma, rgb
 
 
-def field_bwd(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb):
+def field_bwd(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb, gates=None):
     """K6 wrapper. Returns (dxyz (B,M,3), dviewdir (B,M,3), dzs
     (B,n_shape,W), dzt (B,n_tex,W)). The kernel writes per-block partial
     sums of dzs and dzt; summing them over blocks here is the second,
-    deterministic pass of the cross-block reduction."""
+    deterministic pass of the cross-block reduction. gates: as field_fwd's,
+    the gates this backward differentiates."""
+    entry, extra = _gates_args(wts, xyz, gates)
     if xyz.device.type == "cpu":
         return field_bwd_plain(wts, xyz, viewdir, zs, zt, g_sigma, g_rgb)
     _check_field_inputs(wts, xyz, viewdir, zs, zt, g_sigma, g_rgb)
@@ -137,10 +175,10 @@ def field_bwd(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb):
     dzt_part = torch.empty((B, nblk, wts.n_tex, wts.W), device=dev)
     ptrs = _ptrs(wts)
     with torch.cuda.device(dev):
-        err = _library().supnerf_field_bwd(
+        err = getattr(_library(), "supnerf_field_bwd" + entry)(
             xyz.data_ptr(), viewdir.data_ptr(), zs.data_ptr(), zt.data_ptr(),
             ctypes.byref(ptrs), *_dims(wts, xyz), g_sigma.data_ptr(), g_rgb.data_ptr(),
-            dxyz.data_ptr(), dvd.data_ptr(), dzs_part.data_ptr(), dzt_part.data_ptr(),
+            dxyz.data_ptr(), dvd.data_ptr(), dzs_part.data_ptr(), dzt_part.data_ptr(), *extra,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "field_bwd")
     LAUNCHES["field_bwd"] += 1
@@ -215,12 +253,15 @@ def field_train_bwd_stash_plain(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sig
     return tuple(grads)
 
 
-def field_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb, pt):
+def field_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb, pt,
+                          gates=None):
     """K7 wrapper: writes the stash rows of these B objects' points into pt
     (B*M, ld_pt of stash_layout(per_point=True)) and returns (dxyz (B,M,3),
     dviewdir (B,M,3), dzs (B,n_shape,W), dzt (B,n_tex,W)); the kernel
     writes per-block partial sums of dzs and dzt, summed over blocks here
-    (the second, deterministic pass of that reduction)."""
+    (the second, deterministic pass of that reduction). gates: as
+    field_bwd's."""
+    entry, extra = _gates_args(wts, xyz, gates)
     if xyz.device.type == "cpu":
         return field_train_bwd_stash_plain(wts, xyz, viewdir, zs, zt, g_sigma, g_rgb, pt)
     _check_field_inputs(wts, xyz, viewdir, zs, zt, g_sigma, g_rgb)
@@ -237,11 +278,11 @@ def field_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_
     layout = stash_struct(L, pt)
     ptrs = _ptrs(wts)
     with torch.cuda.device(dev):
-        err = _library().supnerf_field_train_bwd(
+        err = getattr(_library(), "supnerf_field_train_bwd" + entry)(
             xyz.data_ptr(), viewdir.data_ptr(), zs.data_ptr(), zt.data_ptr(),
             ctypes.byref(ptrs), *_dims(wts, xyz), g_sigma.data_ptr(), g_rgb.data_ptr(),
             ctypes.byref(layout), dxyz.data_ptr(), dvd.data_ptr(), dzs_part.data_ptr(),
-            dzt_part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            dzt_part.data_ptr(), *extra, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "field_train_bwd")
     LAUNCHES["field_train_bwd"] += 1
     return dxyz, dvd, dzs_part.sum(1), dzt_part.sum(1)

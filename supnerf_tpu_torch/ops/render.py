@@ -365,6 +365,13 @@ def _library():
     lib.supnerf_field_bwd.restype = i
     lib.supnerf_field_train_bwd.argtypes = field + [p] * 2 + [ctypes.POINTER(_StashLayout)] + [p] * 5
     lib.supnerf_field_train_bwd.restype = i
+    # the same kernels with their ReLU gates written out (csrc/field_gates.cu)
+    lib.supnerf_field_fwd_gates.argtypes = field + [p] * 4
+    lib.supnerf_field_bwd_gates.argtypes = field + [p] * 8
+    lib.supnerf_field_train_bwd_gates.argtypes = (field + [p] * 2 + [ctypes.POINTER(_StashLayout)]
+                                                  + [p] * 6)
+    for fn in ("fwd", "bwd", "train_bwd"):
+        getattr(lib, f"supnerf_field_{fn}_gates").restype = i
     return lib
 
 

@@ -7,8 +7,10 @@ ray that lies outside both references with no such unit. stash_gate must
 read each ReLU's gate from K3's stash as the float32 pre-activation's sign.
 take_out_kink_points, the per-point field's carve-out (K6, whose gates are
 not shown), must take out a point outside both references only where it
-has a unit within KINK_RTOL. A small decoder (W 64); the card runs the same
-code at full width."""
+has a unit within KINK_RTOL. k7_against_k6 must pass K7's outputs only
+where K6's are the same bits, and gates_against_k5 K6's and K7's gates
+only where they are K5's, word for word. A small decoder (W 64); the card
+runs the same code at full width."""
 import numpy as np
 import pytest
 import torch
@@ -143,3 +145,68 @@ def test_a_point_outside_both_references(case, monkeypatch, units):
     _, _, ok = cs.compare_at_kinks(("dxyz", "dviewdir", "dzs", "dzt"), got, ref, ref64,
                                    cs.GRAD_RTOL, verbose=False)
     assert ok
+
+
+@pytest.mark.parametrize("ulp", [0, 1], ids=["same_bits", "one_ulp_apart"])
+def test_k7_against_k6_asks_for_the_same_bits(case, monkeypatch, ulp):
+    """k7_against_k6 with a stand-in K6 that returns K7's outputs (here
+    field_train_bwd_stash's plain version's) passes with every output the
+    same bits and no difference; with one point's dxyz moved by one ulp it
+    fails, however small the difference."""
+    wts, (_, _, _, zs, zt), _ = case
+    rng = np.random.default_rng(7)
+    M = 7
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    args = (f32(rng.normal(size=(2, M, 3)) * 0.4),
+            F.normalize(f32(rng.normal(size=(2, M, 3))), dim=-1).contiguous(), zs, zt)
+    cot = (f32(rng.normal(size=(2, M, 1))), f32(rng.normal(size=(2, M, 3))))
+    ld = render.stash_layout(wts, per_point=True)["ld_pt"]
+
+    def k6(w, *a):
+        out = list(field.field_train_bwd_stash_plain(w, *a, torch.empty((2 * M, ld))))
+        if ulp:
+            out[0] = out[0].clone()
+            out[0][1, 3, 2] = torch.nextafter(out[0][1, 3, 2], torch.tensor(float("inf")))
+        return out
+
+    monkeypatch.setattr(field, "field_bwd", k6)
+    err, same, ok = cs.k7_against_k6(wts, args, cot)
+    assert ok is (ulp == 0) and same == 4 - ulp
+    assert err == 0.0 if ulp == 0 else 0.0 < err < 1e-5
+
+
+@pytest.mark.parametrize("apart", [None, "K6", "K7", "K5 outputs"],
+                         ids=["same_gates", "k6_one_bit_apart", "k7_one_bit_apart",
+                              "k5_gate_build_apart"])
+def test_gates_against_k5_asks_for_every_word(case, monkeypatch, apart):
+    """gates_against_k5 with stand-ins for K5, K6 and K7 that write gate
+    words made from the points (and give the same outputs with and without
+    gates): it passes when all three write the same words, and counts a
+    word apart wherever K6, or K7 in each of its chunks of one object (a
+    stash budget of one object), flips one bit; it fails, with no word
+    apart, where K5's gate build gives outputs one ulp from K5's."""
+    wts, (_, _, _, zs, zt), _ = case
+    rng = np.random.default_rng(11)
+    M = 7
+    f32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
+    args = (f32(rng.normal(size=(2, M, 3))), f32(rng.normal(size=(2, M, 3))), zs, zt)
+    cot = (f32(rng.normal(size=(2, M, 1))), f32(rng.normal(size=(2, M, 3))))
+
+    def stand_in(name):
+        def run(w, xyz, *rest, gates=None):
+            out = xyz * 2.0
+            if gates is not None:
+                gates.copy_((xyz[..., 0, None, None] * 1e4).int().expand_as(gates))
+                if name == apart:
+                    gates[-1, 3, 2, 1] ^= 1
+                if f"{name} outputs" == apart:
+                    out = torch.nextafter(out, torch.tensor(float("inf")))
+            return (out,)
+        return run
+
+    for name, fn in (("K5", "field_fwd"), ("K6", "field_bwd"), ("K7", "field_train_bwd_stash")):
+        monkeypatch.setattr(field, fn, stand_in(name))
+    monkeypatch.setattr(render, "STASH_BYTES",
+                        M * render.stash_layout(wts, per_point=True)["ld_pt"] * 4)
+    n, ok = cs.gates_against_k5(wts, args, cot)
+    assert n == {"K6": 1, "K7": 2}.get(apart, 0) and ok is (apart is None)

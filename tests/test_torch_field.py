@@ -148,3 +148,27 @@ def test_field_wrappers_validate_inputs(case):
         x, v, cots = x[:, :0], v[:, :0], [c[:, :0] for c in cots]
     with pytest.raises(ValueError):
         field._check_field_inputs(wts, x, v, zs, zt, *cots)
+
+
+@pytest.mark.parametrize("wrapper", ["field_fwd", "field_bwd", "field_train_bwd_stash"])
+def test_only_the_kernels_report_gates(wrapper):
+    """gate_buffer holds a point's n_shape + n_tex + 3 ReLU masks of W/32
+    words; the plain versions keep no gates, so each wrapper raises when
+    asked for them with CPU tensors, and without them runs as before."""
+    _, wts, xyz, vd, codes = _setup(64, 3, 1)
+    t = torch.from_numpy
+    x, v = t(xyz), t(vd)
+    zs, zt = (z.contiguous() for z in render.conditioned_latents(wts, t(codes[0]), t(codes[1])))
+    gates = field.gate_buffer(wts, x)
+    assert gates.shape == (*x.shape[:2], 3 + 1 + 3, 2) and gates.dtype == torch.int32
+    assert not bool(gates.any())
+    args = [wts, x, v, zs, zt]
+    if wrapper != "field_fwd":
+        args += [t(c) for c in _cotangents()]
+    if wrapper == "field_train_bwd_stash":
+        args.append(torch.empty((x.shape[0] * x.shape[1],
+                                 render.stash_layout(wts, per_point=True)["ld_pt"])))
+    fn = getattr(field, wrapper)
+    with pytest.raises(ValueError):
+        fn(*args, gates=gates)
+    fn(*args)

@@ -10,7 +10,8 @@ are that test's: the scalar loss rtol 1e-5; every decoder weight and bias
 gradient, both code gradients and the xyz and viewdir gradients rtol 2e-4,
 atol 1e-5; K5's plain version against field_train_pallas's forward atol
 2e-5 (tests/test_pallas_field.py's value tolerance). The stash layout that
-K7 and K4 share is checked through their plain versions."""
+K7 and K4 share is checked through their plain versions, and K7's source
+for K6's backward on K5's chain (field_chain)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -170,3 +171,26 @@ def test_field_train_bwd_source_names_what_it_replaces():
     text = (render.CSRC_DIR / "field_train_bwd.cu").read_text()
     assert "pallas_field.py:_field_train_bwd_kernel" in text
     assert "What bounds it on the H100" in text
+
+
+def test_field_train_bwd_runs_k6s_backward_on_field_chain():
+    """K7 is K6's kernel body with the stash: both kernels run
+    render_common.cuh:field_backward, whose forward recompute is
+    field_chain, the chain K5 runs, its exact step (field_exact64) inside
+    it, so K7 differentiates at K6's gates and both at K5's; the float32
+    FMA layer K7 had before is gone."""
+    k7 = (render.CSRC_DIR / "field_train_bwd.cu").read_text()
+    k6 = (render.CSRC_DIR / "field_bwd.cu").read_text()
+    k5 = (render.CSRC_DIR / "field_fwd.cu").read_text()
+    common = (render.CSRC_DIR / "render_common.cuh").read_text()
+    assert "field_backward<true, false>(" in k7 and "field_backward<false, false>(" in k6
+    assert "field_forward<false>(" in k5
+
+    def body(name):
+        start = common.index(name)
+        return common[start:common.index("\n}\n", start)]
+
+    assert "field_chain(" in body("static __device__ __forceinline__ void field_forward(")
+    assert "field_chain<kStash>(" in body("static __device__ __forceinline__ void field_backward(")
+    assert "field_exact64(" in body("static __device__ __forceinline__ float* field_chain(")
+    assert "dense_t" not in common and "dense(" not in k7

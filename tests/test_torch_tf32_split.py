@@ -36,13 +36,22 @@ only moves such values onto float64's.
 The per-point field's kernels get the same cases: K5's chain
 (csrc/render_common.cuh:field_chain, the viewdir layer's trunk and
 per-point direction-encoding operand pairs summed into one accumulator)
-against the float64 plain version within a tenth of VALUE_ATOL, and K6's
+against the float64 plain version within a tenth of VALUE_ATOL, K6's
 outputs from that chain's gates and its transposed chain within a tenth of
-GRAD_RTOL, on points clear of kinks. One case builds kinks instead: the
+GRAD_RTOL, and K7's per-point stash rows (the same chains,
+render_common.cuh:field_backward) and the weight gradients K4 forms from
+them within a tenth of GRAD_RTOL and WGRAD_RTOL, on points clear of kinks.
+One case builds kinks instead: the
 viewdir layer's bias set so that a unit per column sits within float32
 rounding of zero, where kRefine, emulated over both operand pairs, must
 give float64's gate at every unit (a refine of the trunk's product alone,
-the direction term added in float32, does not)."""
+the direction term added in float32, does not). Another holds the same
+built units against the exact function (float64 all the way): there the
+refined gate, exact only for the layer's float32 inputs, is sometimes the
+other side, and every such unit lies in a row the refine step flags, whose
+layer output field_chain's exact step (K5, K6 and K7) takes from the
+float64 chain, so that the layer's gates become the exact function's."""
+import dataclasses
 import functools
 import math
 
@@ -429,24 +438,32 @@ def _k5_chain(wts, xyz, vd, zs, zt):
     """K5's decoder on points with a direction each (xyz, vd (1, M, 3)), as
     csrc/render_common.cuh:field_chain sums it: every dense layer on
     dense_mma, the viewdir layer's trunk and direction-encoding operand
-    pairs in one accumulator, the heads in float32. Returns (logit, rgb, e,
-    pre), pre keyed as render.stashed_chain keys it."""
+    pairs in one accumulator, the heads in float32. Returns (logit, rgb,
+    rows, pre): the stash's layer-input rows a_* (K7's, a_dpe included) and
+    every ReLU layer's pre-activation, keyed as render.stashed_chain keys
+    them."""
     pe = positional_encoding(xyz[0], wts.num_xyz_freq)
     dpe = positional_encoding(vd[0], wts.num_dir_freq)
-    pre = {"xyz": dense_steps(pe, wts.w_xyz) + wts.b_xyz}
+    rows, pre = {"a_xyz": pe, "a_dpe": dpe}, {}
+    pre["xyz"] = dense_steps(pe, wts.w_xyz) + wts.b_xyz
     y = torch.relu(pre["xyz"])
     for j in range(wts.n_shape):
-        pre[f"sh{j}"] = dense_steps(y + zs[0, j], wts.w_sh[j]) + wts.b_sh[j]
+        rows[f"a_sh{j}"] = y = y + zs[0, j]
+        pre[f"sh{j}"] = dense_steps(y, wts.w_sh[j]) + wts.b_sh[j]
         y = torch.relu(pre[f"sh{j}"])
-    e = _mma_layer(y, wts.w_es, wts.b_es, False)
+    rows["a_es"] = y
+    rows["a_e"] = e = _mma_layer(y, wts.w_es, wts.b_es, False)
     logit = e @ wts.w_sg[:, None] + wts.b_sg
     pre["v"] = dense_steps(e, wts.w_vd_a, dpe, wts.w_vd_b) + wts.b_vd
     h = torch.relu(pre["v"])
     for j in range(wts.n_tex):
-        pre[f"tx{j}"] = dense_steps(h + zt[0, j], wts.w_tx[j]) + wts.b_tx[j]
+        rows[f"a_tx{j}"] = h = h + zt[0, j]
+        pre[f"tx{j}"] = dense_steps(h, wts.w_tx[j]) + wts.b_tx[j]
         h = torch.relu(pre[f"tx{j}"])
+    rows["a_r1"] = h
     pre["hh"] = dense_steps(h, wts.w_r1) + wts.b_r1
-    return logit, torch.relu(pre["hh"]) @ wts.w_r2 + wts.b_r2, e, pre
+    rows["a_hh"] = hh = torch.relu(pre["hh"])
+    return logit, hh @ wts.w_r2 + wts.b_r2, rows, pre
 
 
 @functools.cache
@@ -539,20 +556,78 @@ def test_k6_split_product_is_float32_accurate(seed, one_thread):
         assert rel_err(a, b) <= GRAD_RTOL / 10, (name, rel_err(a, b))
 
 
-def refine(acc, exact64):
-    """dense_mma's kRefine step on a W 256 ReLU layer's pre-activations acc
-    (rows, 256; float32 sums, bias added): a value within 2^-20 of the
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k7_stash_split_product_is_float32_accurate(seed, one_thread):
+    """K7's per-point stash at the published width: the layer-input rows A_l
+    of K5's chain (_k5_chain, a_dpe included) and the pre-activation
+    gradient rows G_l of K6's transposed chain on dense_mma, in
+    csrc/render_common.cuh:field_backward's order (rgb_out's gradient and
+    the sigma head's softplus gate in float32, the gates from the
+    recomputed pre-activations), written by render.write_stash in its
+    per-point layout: each column block within a tenth of GRAD_RTOL of
+    ops/field.py:field_train_bwd_stash_plain's in float64; the weight
+    gradients K4 forms from them (as wgrad_emulated sums them) within a
+    tenth of WGRAD_RTOL of float64's, on points clear of ReLU kinks."""
+    from supnerf_tpu_torch.ops import field
+
+    wts, args, (g_sigma, g_rgb) = _published_field_case(seed)
+    M, W, ns, nt = args[0].shape[1], wts.W, wts.n_shape, wts.n_tex
+    L = render.stash_layout(wts, per_point=True)
+    logit, _, rows, pre = _k5_chain(wts, *args)
+    gate = {k: (p > 0).float() for k, p in pre.items()}
+    g = {"sig": g_sigma[0] * torch.sigmoid(logit), "rgb": g_rgb[0]}
+    g["hh"] = gate["hh"] * (g_rgb[0] @ wts.w_r2.t())
+    cur = dense_steps(g["hh"], wts.wt_r1)
+    for j in reversed(range(nt)):
+        g[f"tx{j}"] = gate[f"tx{j}"] * cur
+        cur = dense_steps(g[f"tx{j}"], wts.wt_tx[j])
+    g["v"] = gate["v"] * cur
+    g["e"] = dense_steps(g["v"], wts.wt_vd_a) + g["sig"] * wts.w_sg
+    cur = dense_steps(g["e"], wts.wt_es)
+    for j in reversed(range(ns)):
+        g[f"sh{j}"] = gate[f"sh{j}"] * cur
+        cur = dense_steps(g[f"sh{j}"], wts.wt_sh[j])
+    g["xyz"] = gate["xyz"] * cur
+    pt = torch.zeros((M, L["ld_pt"]))
+    render.write_stash(wts, dict(rows), g, pt, per_point=True)
+
+    pt64 = torch.zeros((M, L["ld_pt"]), dtype=torch.float64)
+    field.field_train_bwd_stash_plain(_f64(wts), *(t.double() for t in args), g_sigma.double(),
+                                      g_rgb.double(), pt64)
+    widths = {"a_xyz": 63, "a_sh": ns * W, "a_es": W, "a_e": W, "a_tx": nt * W, "a_r1": W,
+              "a_hh": W // 2, "g_xyz": W, "g_sh": ns * W, "g_e": W, "g_sig": 1, "g_v": W,
+              "g_tx": nt * W, "g_hh": W // 2, "g_rgb": 3, "a_dpe": 27}
+    for name, n in widths.items():
+        a, b = pt[:, L[name]:L[name] + n].double(), pt64[:, L[name]:L[name] + n]
+        assert rel_err(a, b) <= GRAD_RTOL / 10, (name, rel_err(a, b))
+
+    grads = render._linear_grad_buffers(wts, "cpu")
+    for p, p64 in zip(render.wgrad_problems(wts, pt, None, grads),
+                      render.wgrad_problems(_f64(wts), pt64, None, grads)):
+        err = rel_err(wgrad_steps(p.A, p.G), p64.G.t() @ p64.A)
+        assert err <= WGRAD_RTOL / 10, (p.A.shape, p.G.shape, err)
+
+
+def thread_flags(acc, rtol):
+    """dense_mma_t's flag test on a W 256 ReLU layer's pre-activations acc
+    (rows, 256; float32 sums, bias added): a value within rtol of the
     largest |value| among its thread's 8 values of the row (warp c // 32,
-    thread (c % 8) // 2 of it: columns 32 w + 8 t + 2 tig + h) is replaced
-    by exact64 (the float64 sum of the same float32 operands) rounded to
-    float32. Returns (the refined values, the flags)."""
+    thread (c % 8) // 2 of it: columns 32 w + 8 t + 2 tig + h)."""
     rows, N = acc.shape
     group = (torch.arange(N) // 32) * 4 + (torch.arange(N) % 8) // 2
     scale = torch.zeros_like(acc)
     for gi in group.unique():
         cols = group == gi
         scale[:, cols] = acc[:, cols].abs().amax(1, keepdim=True)
-    flagged = acc.abs() <= scale * 2.0 ** -20
+    return acc.abs() <= scale * rtol
+
+
+def refine(acc, exact64):
+    """dense_mma's kRefine step on a W 256 ReLU layer's pre-activations acc:
+    a value flagged at 2^-20 (thread_flags) is replaced by exact64 (the
+    float64 sum of the same float32 operands) rounded to float32. Returns
+    (the refined values, the flags)."""
+    flagged = thread_flags(acc, 2.0 ** -20)
     return torch.where(flagged, exact64.float(), acc), flagged
 
 
@@ -571,8 +646,8 @@ def test_refine_settles_the_viewdir_layer_with_its_direction_term(seed, one_thre
     float32 gate is wrong and gives float64's gate at every unit of the
     layer."""
     wts, args, _ = _published_field_case(seed)
-    _, _, e, _ = _k5_chain(wts, *args)
-    dpe = positional_encoding(args[1][0], wts.num_dir_freq)
+    _, _, rows, _ = _k5_chain(wts, *args)
+    e, dpe = rows["a_e"], rows["a_dpe"]
     trunk64 = e.double() @ wts.w_vd_a.double()
     dir64 = dpe.double() @ wts.w_vd_b.double()
     rows = torch.arange(wts.W) % e.shape[0]           # one built unit per column
@@ -588,3 +663,66 @@ def test_refine_settles_the_viewdir_layer_with_its_direction_term(seed, one_thre
     assert bool(((trunk_only > 0) != gate64)[rows, cols].any())
     assert bool(flagged[wrong].all())
     assert torch.equal(refined > 0, gate64)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gate_step_reaches_every_gate_refine_leaves_wrong(seed, one_thread):
+    """The viewdir layer's kinks built as in the case above, now against the
+    exact function: the float64 plain version's pre-activation
+    (render.stashed_chain on float64 operands, float64 inputs all the way).
+    kRefine's gate is exact for the kernel's float32 inputs, and at some of
+    the built units that is the other side from the exact function's: the
+    float32 rounding of the layers before (~1e-8 of the row's scale)
+    outweighs the built residue. Every such unit lies in a row the refine
+    step flags, so field_chain's exact step (render_common.cuh:
+    field_exact64: the row's chain in float64, the layer's output row
+    replaced by its rounding) reaches it: with the flagged rows so
+    replaced, every gate of the layer is the exact function's."""
+    wts, args, _ = _published_field_case(seed)
+    _, _, rows, _ = _k5_chain(wts, *args)
+    e, dpe = rows["a_e"], rows["a_dpe"]
+    trunk64 = e.double() @ wts.w_vd_a.double()
+    dir64 = dpe.double() @ wts.w_vd_b.double()
+    built = torch.arange(wts.W) % e.shape[0], torch.arange(wts.W)   # one unit per column
+    bias = -(trunk64 + dir64)[built].float()
+    acc = dense_steps(e, wts.w_vd_a, dpe, wts.w_vd_b) + bias
+    refined, flagged = refine(acc, trunk64 + dir64 + bias.double())
+    w64 = dataclasses.replace(_f64(wts), b_vd=bias.double())
+    xyz, vd, zs, zt = (t.double() for t in args)
+    with torch.no_grad():
+        _, pre, _, _ = render.stashed_chain(
+            w64, xyz, positional_encoding(vd, wts.num_dir_freq) @ w64.w_vd_b, zs, zt)
+    wrong = (refined > 0) != (pre["v"][0] > 0)
+    assert bool(wrong[built].any())
+    assert bool(flagged.any(1)[wrong.any(1)].all())
+    settled = torch.where(flagged.any(1, keepdim=True), torch.relu(pre["v"][0]).float(),
+                          torch.relu(refined))
+    assert torch.equal(settled > 0, pre["v"][0] > 0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_exact_window_is_wider_than_the_inputs_rounding(seed, one_thread):
+    """field_chain's exact step takes a row whose refined value lies within
+    2^-24 (render_common.cuh:kExactRtol) of its terms' magnitude |b| +
+    sum_k |a_k w_k|. At the published width that magnitude is, at the
+    median unit of every ReLU layer, over 1.5 times the row's largest
+    |pre-activation|, so the window reaches ~9e-8 of that largest value: more
+    than three times the widest margin at which a refined gate differed
+    from the exact function's on the card (2.3e-8, chip_smoke.py at 8 x
+    65,536 points)."""
+    wts, args, _ = _published_field_case(seed)
+    _, _, rows, pre = _k5_chain(wts, *args)
+    layers = {"xyz": ([rows["a_xyz"]], [wts.w_xyz], wts.b_xyz),
+              "v": ([rows["a_e"], rows["a_dpe"]], [wts.w_vd_a, wts.w_vd_b], wts.b_vd),
+              "hh": ([rows["a_r1"]], [wts.w_r1], wts.b_r1)}
+    layers.update({f"sh{j}": ([rows[f"a_sh{j}"]], [wts.w_sh[j]], wts.b_sh[j])
+                   for j in range(wts.n_shape)})
+    layers.update({f"tx{j}": ([rows[f"a_tx{j}"]], [wts.w_tx[j]], wts.b_tx[j])
+                   for j in range(wts.n_tex)})
+    assert set(layers) == set(pre)
+    for key, (ins, ws, b) in layers.items():
+        mag = sum(a.double().abs() @ w.double().abs() for a, w in zip(ins, ws)) + b.double().abs()
+        largest = pre[key].double().abs().amax(1, keepdim=True)
+        ratio = float((mag / largest).median())
+        assert ratio > 1.5, (key, ratio)
+        assert 2.0 ** -24 * ratio > 3 * 2.3e-8, (key, ratio)
