@@ -63,7 +63,18 @@ Phases, each timed; any failure exits non-zero before the result line:
      each with a loss head whose gradient reaches the decoder, the codes and
      the data, its launch counts, its forward's outputs against the forward
      kernel's plain version on the same batch-48 inputs, finite gradients
-     and one timed forward + backward.
+     and one timed forward + backward;
+  9. dataset paths at the published configs (full width, 100 iterations) on
+     fixtures written here with numpy: (a) the optimize CLI on a nuScenes
+     v1.0-mini dataroot in nuScenes' own schema (4 cars of a day log pass
+     curation, a night log's car must not; camera images are the committed
+     1600 x 900 JPEG), twice, the second run reading the first run's index;
+     (b) cli.optimize_kitti on 1242 x 375 KITTI frames with add_pose_err 1
+     and 3; (c) cli.optimize_waymo on the Waymo layout; (d) the demo on one
+     nuScenes image; each with its curated count, launch counts, host_prep
+     share and final metrics, and the host decoders' seconds
+     (supnerf_tpu_torch/bench/decode_seconds.py) and the fixture JPEG's
+     pinned sha256.
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -1980,6 +1991,419 @@ def train_field_path():
                                  ("sigma", "rgb"), plain)
 
 
+# --------------------------------------------------------------------------
+# phase 9: the dataset paths (nuScenes, KITTI, Waymo readers; the demo's
+# nuScenes input), on fixtures written here with numpy
+# --------------------------------------------------------------------------
+
+NUSC_FIXTURE_JPEG = os.path.join(HERE, "tests", "fixtures", "nusc_cam_1600x900.jpg")
+# sha256 of the port JPEG decoder's output on NUSC_FIXTURE_JPEG (pinned in
+# tests/test_torch_image_io.py too)
+NUSC_FIXTURE_SHA256 = "f6fb7108f44ca32a052627fc004188009e20f3de1b5a4cc5d1940f0942d3f078"
+NUSC_K = [[1266.417203046554, 0.0, 816.2670197447984], [0.0, 1266.417203046554, 491.50706579294757],
+          [0.0, 0.0, 1.0]]
+NUSC_WLH = [1.95, 4.6, 1.72]
+# KITTI's published calibration of training frame 000000 (P2, R0_rect, Tr_velo_to_cam)
+KITTI_P2 = [[721.5377, 0.0, 609.5593, 44.85728], [0.0, 721.5377, 172.854, 0.2163791],
+            [0.0, 0.0, 1.0, 0.002745884]]
+KITTI_R0 = [[0.9999239, 0.00983776, -0.007445048], [-0.009869795, 0.9999421, -0.004278459],
+            [0.007402527, 0.004351614, 0.9999631]]
+KITTI_V2C = [[7.533745e-03, -9.999714e-01, -6.166020e-04, -4.069766e-03],
+             [1.480249e-02, 7.280733e-04, -9.998902e-01, -7.631618e-02],
+             [9.998621e-01, 7.523790e-03, 1.480755e-02, -2.717806e-01]]
+DATASET_ITERS = 100
+
+
+def _rot_z(a):
+    import numpy as np
+
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+
+
+def _quat(R):
+    """[w, x, y, z] of a rotation matrix."""
+    import numpy as np
+
+    m = np.asarray(R, np.float64)
+    t = np.trace(m)
+    if t > 0:
+        s = np.sqrt(t + 1.0) * 2
+        q = [s / 4, (m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s, (m[1, 0] - m[0, 1]) / s]
+    else:
+        i = int(np.argmax(np.diag(m)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = np.sqrt(1.0 + m[i, i] - m[j, j] - m[k, k]) * 2
+        q = [0.0] * 4
+        q[0] = (m[k, j] - m[j, k]) / s
+        q[1 + i] = s / 4
+        q[1 + j] = (m[j, i] + m[i, j]) / s
+        q[1 + k] = (m[k, i] + m[i, k]) / s
+    return [float(v) for v in q]
+
+
+def _hull_mask(shape, uv):
+    """uint8 mask (255 inside) of the convex hull of the pixels uv (2, N)."""
+    import numpy as np
+
+    from supnerf_tpu_torch.data.synthetic import _convex_hull, _fill_convex
+
+    return np.where(_fill_convex(shape, np.round(_convex_hull(uv.T))), 255, 0).astype(np.uint8)
+
+
+def write_nusc_fixture(root):
+    """A v1.0-mini nuScenes dataroot in nuScenes' own schema: scene-0103 (a
+    day log, val) with 2 key frames of 2 cars each, and scene-0916 (a night
+    log, val) with 1 car that curation must drop. Ego poses at the camera's
+    and the lidar's times differ, and sensor calibrations are not the
+    identity; camera images are copies of the committed 1600 x 900 JPEG;
+    each image has the segmentation's car masks (convex hulls of the
+    projected boxes), a pedestrian mask and its prediction JSON; each sweep a
+    .pcd.bin with points on the cars and on the ground. Returns the camera
+    file names."""
+    import numpy as np
+
+    from supnerf_tpu_torch.utils.image_io import write_png
+
+    rng = np.random.default_rng(0)
+    K = np.asarray(NUSC_K)
+    r_base = np.array([[0.0, 0.0, 1.0], [-1.0, 0.0, 0.0], [0.0, -1.0, 0.0]])   # camera -> ego
+    pitch = np.array([[1.0, 0, 0], [0, np.cos(0.01), -np.sin(0.01)], [0, np.sin(0.01),
+                                                                        np.cos(0.01)]])
+    cam_cs = (r_base @ pitch, np.array([1.70079, 0.0159, 1.51095]))
+    lidar_cs = (_rot_z(-np.pi / 2 + 0.003), np.array([0.943713, 0.0, 1.84023]))
+    upright = np.array([[1.0, 0, 0], [0, 0, -1.0], [0, 1.0, 0]])              # object -> camera
+    t = {k: [] for k in ("category", "sensor", "calibrated_sensor", "ego_pose", "log", "scene",
+                         "sample", "sample_data", "sample_annotation", "instance")}
+    t["category"] = [{"token": "cat_car", "name": "vehicle.car", "description": ""}]
+    t["sensor"] = [{"token": "s_cam", "channel": "CAM_FRONT", "modality": "camera"},
+                   {"token": "s_lidar", "channel": "LIDAR_TOP", "modality": "lidar"}]
+    t["calibrated_sensor"] = [
+        {"token": "cs_cam", "sensor_token": "s_cam", "rotation": _quat(cam_cs[0]),
+         "translation": cam_cs[1].tolist(), "camera_intrinsic": NUSC_K},
+        {"token": "cs_lidar", "sensor_token": "s_lidar", "rotation": _quat(lidar_cs[0]),
+         "translation": lidar_cs[1].tolist(), "camera_intrinsic": []}]
+    scenes = [("scene-0103", 11, [[(-2.8, 0.9, 13.0, 0.4), (3.0, 0.85, 17.0, -0.6)],
+                                  [(-2.6, 0.9, 14.0, 0.45), (2.8, 0.85, 18.5, -0.55)]]),
+              ("scene-0916", 19, [[(0.5, 0.9, 15.0, 1.1)]])]
+    jpeg = open(NUSC_FIXTURE_JPEG, "rb").read()
+    for d in ("samples/CAM_FRONT", "samples/LIDAR_TOP", "pred_instance/CAM_FRONT", "v1.0-mini"):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    names = []
+    for si, (scene, hour, samples) in enumerate(scenes):
+        log = f"n015-2018-07-24-{hour:02d}-22-45+0800"
+        t["log"].append({"token": f"log{si}", "logfile": log, "vehicle": "n015",
+                         "date_captured": "2018-07-24", "location": "singapore-onenorth"})
+        t["scene"].append({"token": f"sc{si}", "name": scene, "log_token": f"log{si}",
+                           "description": "", "nbr_samples": len(samples)})
+        for k in range(len(samples[0])):
+            t["instance"].append({"token": f"ins{si}_{k}", "category_token": "cat_car"})
+        for j, cars in enumerate(samples):
+            smp, stamp = f"smp{si}_{j}", 1532402927612460 + 500000 * (2 * si + j)
+            t["sample"].append({"token": smp, "scene_token": f"sc{si}", "timestamp": stamp})
+            ego = {"cam": (_rot_z(0.7 + 0.02 * j), np.array([411.3 + 3 * j, 1180.9, 0.0])),
+                   "lidar": (_rot_z(0.69 + 0.02 * j), np.array([411.0 + 3 * j, 1180.7, 0.0]))}
+            stem = f"{log}__CAM_FRONT__{stamp}"
+            names.append(stem + ".jpg")
+            for ch, cs, fn in (("cam", "cs_cam", f"samples/CAM_FRONT/{stem}.jpg"),
+                               ("lidar", "cs_lidar", f"samples/LIDAR_TOP/{stem}.pcd.bin")):
+                sd = f"sd_{ch}{si}_{j}"
+                t["ego_pose"].append({"token": f"ep_{sd}", "rotation": _quat(ego[ch][0]),
+                                      "translation": ego[ch][1].tolist(), "timestamp": stamp})
+                t["sample_data"].append({
+                    "token": sd, "sample_token": smp, "ego_pose_token": f"ep_{sd}",
+                    "calibrated_sensor_token": cs, "filename": fn, "is_key_frame": True,
+                    "timestamp": stamp, "width": 1600 if ch == "cam" else 0,
+                    "height": 900 if ch == "cam" else 0, "prev": "", "next": "",
+                    "fileformat": "jpg" if ch == "cam" else "pcd"})
+            with open(os.path.join(root, "samples/CAM_FRONT", stem + ".jpg"), "wb") as f:
+                f.write(jpeg)
+
+            def to_global(p):
+                return ego["cam"][0] @ (cam_cs[0] @ p + cam_cs[1][:, None]) + ego["cam"][1][:, None]
+
+            preds, cam_pts = {"labels": [], "boxes": []}, []
+            for k, (x, y, z, yaw) in enumerate(cars):
+                R = upright @ _rot_z(yaw)
+                w, l, h = NUSC_WLH
+                local = np.vstack([l / 2 * np.array([1, 1, 1, 1, -1, -1, -1, -1]),
+                                   w / 2 * np.array([1, -1, -1, 1, 1, -1, -1, 1]),
+                                   h / 2 * np.array([1, 1, -1, -1, 1, 1, -1, -1])])
+                corners = R @ local + np.array([[x], [y], [z]])
+                uv = K @ corners
+                uv = uv[:2] / uv[2:]
+                mask = _hull_mask((900, 1600), uv)
+                write_png(os.path.join(root, "pred_instance/CAM_FRONT",
+                                       f"{stem}_{len(preds['boxes'])}.png"), mask)
+                preds["labels"].append("car")
+                preds["boxes"].append([float(v) for v in (uv[0].min(), uv[1].min(),
+                                                          uv[0].max(), uv[1].max())])
+                c_g = to_global(np.array([[x], [y], [z]]))[:, 0]
+                t["sample_annotation"].append({
+                    "token": f"ann{si}_{j}_{k}", "sample_token": smp,
+                    "instance_token": f"ins{si}_{k}", "size": NUSC_WLH,
+                    "translation": c_g.tolist(),
+                    "rotation": _quat(ego["cam"][0] @ cam_cs[0] @ R), "visibility_token": "4",
+                    "attribute_tokens": [], "num_lidar_pts": 60, "num_radar_pts": 0,
+                    "prev": "", "next": ""})
+                pts = rng.uniform(-0.35, 0.35, (3, 60)) * np.array([[l], [w], [h]])
+                cam_pts.append(R @ pts + np.array([[x], [y], [z]]))
+            person = np.zeros((900, 1600), np.uint8)
+            person[420:600, 1400:1460] = 255
+            write_png(os.path.join(root, "pred_instance/CAM_FRONT",
+                                   f"{stem}_{len(preds['boxes'])}.png"), person)
+            preds["labels"].append("person")
+            preds["boxes"].append([1400.0, 420.0, 1460.0, 600.0])
+            with open(os.path.join(root, "pred_instance/CAM_FRONT", stem + ".json"), "w") as f:
+                json.dump(preds, f)
+            ground = np.vstack([rng.uniform(-12, 12, 400), np.full(400, 1.55),
+                                rng.uniform(4, 45, 400)])
+            p_g = to_global(np.concatenate(cam_pts + [ground], 1))
+            p_l = lidar_cs[0].T @ (ego["lidar"][0].T @ (p_g - ego["lidar"][1][:, None])
+                                   - lidar_cs[1][:, None])
+            sweep = np.zeros((p_l.shape[1], 5), np.float32)
+            sweep[:, :3] = p_l.T
+            sweep[:, 3] = rng.uniform(0, 100, p_l.shape[1])
+            sweep.tofile(os.path.join(root, "samples/LIDAR_TOP", stem + ".pcd.bin"))
+    for name, rows in t.items():
+        with open(os.path.join(root, "v1.0-mini", name + ".json"), "w") as f:
+            json.dump(rows, f)
+    return names
+
+
+def write_kitti_fixture(root, layout, frames):
+    """A KITTI-format training split under root (layout 'kitti': image_2/
+    label_2/, 'waymo': image/ label/) with calib/, velodyne/, pred/ (the
+    third-party detections of mode 3: each car moved 0.3 m and turned 0.08
+    rad), pred_instance/ (the segmentation's masks and JSONs) and
+    ImageSets/val.txt. frames: per frame, the cars as (x, z, ry) on the
+    ground at y 1.65 in the rectified camera frame; each frame also labels
+    an occluded car (occlusion 3) that curation must drop. Images are
+    1242 x 375 crops of the committed street scene."""
+    import numpy as np
+
+    from supnerf_tpu_torch.data.jpeg import read_jpeg
+    from supnerf_tpu_torch.utils.image_io import write_png
+
+    rng = np.random.default_rng(1)
+    P = np.asarray(KITTI_P2)
+    K = P[:, :3]
+    img_d, lbl_d = ("image_2", "label_2") if layout == "kitti" else ("image", "label")
+    tr = os.path.join(root, "training")
+    for d in ("calib", img_d, lbl_d, "velodyne", "pred", "pred_instance"):
+        os.makedirs(os.path.join(tr, d), exist_ok=True)
+    os.makedirs(os.path.join(root, "ImageSets"), exist_ok=True)
+    street = read_jpeg(NUSC_FIXTURE_JPEG)[450:825, 179:1421]
+    velo_to_rect = np.asarray(KITTI_R0) @ np.asarray(KITTI_V2C)
+    ids = []
+    for f, cars in enumerate(frames):
+        idx = "%06d" % f
+        ids.append(idx)
+        with open(os.path.join(tr, "calib", idx + ".txt"), "w") as fh:
+            for key, m in (("P0", P), ("P1", P), ("P2", P), ("P3", P), ("R0_rect", KITTI_R0),
+                           ("Tr_velo_to_cam", KITTI_V2C)):
+                fh.write(f"{key}: " + " ".join(repr(float(v)) for v in np.ravel(m)) + "\n")
+        write_png(os.path.join(tr, img_d, idx + ".png"), np.ascontiguousarray(street))
+        labels, dets, preds, masks, rect_pts = [], [], {"labels": [], "boxes": []}, [], []
+        for x, z, ry in cars:
+            h, w, l = 1.52, 1.68, 4.15
+            c, s = np.cos(ry), np.sin(ry)
+            R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+            T = np.array([x, 1.65, z]) + np.linalg.inv(K) @ P[:, 3]   # the readers' pose
+            local = np.vstack([l / 2 * np.array([1, 1, 1, 1, -1, -1, -1, -1]),
+                               h / 2 * np.array([-2, -2, 0, 0, -2, -2, 0, 0]),
+                               w / 2 * np.array([1, -1, -1, 1, 1, -1, -1, 1])])
+            uv = K @ (R @ local + T[:, None])
+            uv = uv[:2] / uv[2:]
+            box = [uv[0].min(), uv[1].min(), uv[0].max(), uv[1].max()]
+            labels.append(f"Car 0.00 0 {ry - np.arctan2(x, z):.2f} " + " ".join(
+                f"{v:.2f}" for v in box) + f" {h} {w} {l} {x} 1.65 {z} {ry}")
+            dets.append(f"Car -1 -1 {ry:.2f} " + " ".join(f"{v:.2f}" for v in box)
+                        + f" {h} {w} {l} {x + 0.3} 1.65 {z + 0.3} {ry + 0.08} 0.93")
+            masks.append(_hull_mask((375, 1242), uv))
+            preds["labels"].append("car")
+            preds["boxes"].append([float(v) for v in box])
+            pts = np.vstack([rng.uniform(-0.4 * l, 0.4 * l, 80),
+                             rng.uniform(-0.85 * h, -0.2 * h, 80),
+                             rng.uniform(-0.4 * w, 0.4 * w, 80)])
+            rect_pts.append(R @ pts + T[:, None])
+        labels.append("Car 0.00 3 0.00 20.00 150.00 60.00 190.00 1.5 1.6 4.0 -14.0 1.65 45.0 0.0")
+        with open(os.path.join(tr, lbl_d, idx + ".txt"), "w") as fh:
+            fh.write("\n".join(labels) + "\n")
+        with open(os.path.join(tr, "pred", idx + ".txt"), "w") as fh:
+            fh.write("\n".join(dets) + "\n")
+        with open(os.path.join(tr, "pred_instance", idx + ".json"), "w") as fh:
+            json.dump(preds, fh)
+        for i, m in enumerate(masks):
+            write_png(os.path.join(tr, "pred_instance", f"{idx}_{i}.png"), m)
+        ground = np.vstack([rng.uniform(-10, 10, 600), np.full(600, 1.7), rng.uniform(5, 40, 600)])
+        rect = np.concatenate(rect_pts + [ground], 1)
+        velo = np.linalg.solve(velo_to_rect[:, :3], rect - velo_to_rect[:, 3:])
+        scan = np.concatenate([velo.T, rng.uniform(0, 1, (velo.shape[1], 1))], 1)
+        scan.astype(np.float32).tofile(os.path.join(tr, "velodyne", idx + ".bin"))
+    with open(os.path.join(root, "ImageSets", "val.txt"), "w") as fh:
+        fh.write("\n".join(ids) + "\n")
+
+
+def _config_copy(out_dir, name, dataset):
+    """A copy of jsonfiles/<name> with its dataset block updated."""
+    with open(os.path.join(HERE, "jsonfiles", name)) as f:
+        config = json.load(f)
+    config["dataset"].update(dataset)
+    path = os.path.join(out_dir, name)
+    with open(path, "w") as f:
+        json.dump(config, f)
+    return path
+
+
+def _run_dataset_cli(label, main_fn, argv, n_expected):
+    """One optimize CLI run on the card; checks its result file and curves,
+    prints its throughput, host prep share and final metrics. Returns (launch
+    counts, summary)."""
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    render.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = main_fn(argv + ["--device", "cuda", "--seed", "0"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _path_counts(label, TTO_KERNELS)
+    n = summary["n_objects"]
+    if n < n_expected:
+        raise RuntimeError(f"{label}: curation kept {n} objects, expected {n_expected}")
+    with open(os.path.join(summary["save_dir"], "codes+poses.pkl"), "rb") as f:
+        res = pickle.load(f)
+    curves = [np.asarray(v, np.float64) for key in ("psnr_eval", "R_eval", "T_eval",
+                                                     "depth_err_mean")
+              for v in res[key].values()]
+    if len(res["psnr_eval"]) != n or not all(np.isfinite(c).all() and len(c) == DATASET_ITERS
+                                             for c in curves):
+        raise RuntimeError(f"{label}: the result curves are missing or not finite")
+    if any(int(v) == 0 for v in res["lidar_pts_cnt"].values()):
+        raise RuntimeError(f"{label}: an object has no lidar pixels: {res['lidar_pts_cnt']}")
+    ph = summary["phase_seconds"]
+    agg = summary["aggregate"]
+    print(f"   {label}: {n} objects curated; {seconds:.2f} s end to end through the CLI, "
+          f"{n * 60 / seconds:.1f} objects/min; host_prep {ph.get('host_prep', 0.0):.2f} s "
+          f"({ph.get('host_prep', 0.0) / seconds:.3f} of the run); phases: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in ph.items()))
+    print(f"   {label} final: psnr {agg['psnr'][-1]:.3f} dB, rot err {agg['rot_err_deg'][-1]:.3f} "
+          f"deg, trans err {agg['trans_err'][-1]:.4f} m, depth err {agg['depth_err'][-1]:.4f} m "
+          f"(iteration 0: psnr {agg['psnr'][0]:.3f}, rot {agg['rot_err_deg'][0]:.3f}, trans "
+          f"{agg['trans_err'][0]:.4f}); lidar pixels per object "
+          f"{sorted(res['lidar_pts_cnt'].values())}; result file "
+          f"{os.path.join(summary['save_dir'], 'codes+poses.pkl')}")
+    return counts, summary
+
+
+def dataset_paths(out_dir):
+    """Phase 9: (a) the optimize CLI on a nuScenes v1.0-mini fixture at the
+    published config, twice (the second run reads the index the first
+    wrote); (b) cli.optimize_kitti with add_pose_err 1 and 3 on a KITTI
+    fixture; (c) cli.optimize_waymo on the Waymo layout; (d) the demo on
+    one nuScenes fixture image. Full width, 100 iterations, on the card.
+    Returns the launch counts per path."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.bench.decode_seconds import measure
+    from supnerf_tpu_torch.cli import demo, optimize, optimize_kitti, optimize_waymo
+    from supnerf_tpu_torch.data import nuscenes as nusc_data
+    from supnerf_tpu_torch.data.jpeg import read_jpeg
+    from supnerf_tpu_torch.ops import render
+
+    digest = hashlib.sha256(read_jpeg(NUSC_FIXTURE_JPEG).tobytes()).hexdigest()
+    if digest != NUSC_FIXTURE_SHA256:
+        raise RuntimeError(f"the fixture JPEG decodes to sha256 {digest}, pinned "
+                           f"{NUSC_FIXTURE_SHA256}")
+    decode = measure(repeats=3)
+    print(f"   fixture JPEG decodes to the pinned sha256; host decode seconds (median of 3) "
+          f"on this machine: {json.dumps(decode)}")
+    counts = {}
+
+    t0 = time.perf_counter()
+    nusc_root = os.path.join(out_dir, "nuscenes")
+    names = write_nusc_fixture(nusc_root)
+    kitti_root, waymo_root = os.path.join(out_dir, "kitti"), os.path.join(out_dir, "waymo")
+    write_kitti_fixture(kitti_root, "kitti", [[(-3.0, 14.0, 0.3), (3.6, 19.0, -1.2)],
+                                              [(-2.6, 15.5, 0.5), (3.2, 20.0, -1.0)]])
+    write_kitti_fixture(waymo_root, "waymo", [[(-3.0, 14.0, 0.3), (3.6, 19.0, -1.2)]])
+    print(f"   fixtures written in {time.perf_counter() - t0:.2f} s")
+
+    # (a) nuScenes, twice: the second run must read the first run's index
+    nusc = {"test_data_dir": nusc_root, "test_nusc_version": "v1.0-mini"}
+    cfg = _config_copy(out_dir, "supnerf.nusc.vehicle.car.json", nusc)
+    index = os.path.join(nusc_root, "nusc.v1.0-mini.val.vehicle.car.json")
+    curations = []
+    real_curate = nusc_data.NuScenesData.preprocess_dataset
+
+    def curate(self, *a, **k):
+        curations.append(1)
+        return real_curate(self, *a, **k)
+
+    nusc_data.NuScenesData.preprocess_dataset = curate
+    try:
+        for run in (1, 2):
+            counts[f"nusc_run{run}"], summary = _run_dataset_cli(
+                f"nuScenes run {run}", optimize.main,
+                ["--config_file", cfg, "--dataset", "nusc", "--batch_size", "4",
+                 "--save_dir", os.path.join(out_dir, f"nusc_run{run}")], 4)
+            if len(curations) != 1:
+                raise RuntimeError(f"nuScenes run {run}: {len(curations)} curations so far")
+            cross = summary["cross"]
+            if cross is None or not np.isfinite(cross["psnr_cross"]).all():
+                raise RuntimeError("the nuScenes cross-view evaluation is missing or not finite")
+    finally:
+        nusc_data.NuScenesData.preprocess_dataset = real_curate
+    with open(index) as f:
+        kept = json.load(f)["all_valid_samples"]
+    if any(a.startswith("ann1_") for a, _ in kept):
+        raise RuntimeError("the night scene passed curation")
+    print(f"   nuScenes: run 2 read the index run 1 wrote ({len(kept)} samples, none of the "
+          f"night log); cross-view psnr {np.round(cross['psnr_cross'], 3).tolist()}")
+
+    # (b) KITTI, add_pose_err 1 and 3; (c) Waymo
+    kitti_cfg = _config_copy(out_dir, "supnerf.kitti.car.json", {
+        "data_dir": kitti_root, "split_dir": os.path.join(kitti_root, "ImageSets")})
+    for mode in (1, 3):
+        counts[f"kitti_mode{mode}"], summary = _run_dataset_cli(
+            f"KITTI add_pose_err {mode}", optimize_kitti.main,
+            ["--config_file", kitti_cfg, "--add_pose_err", str(mode), "--batch_size", "4",
+             "--save_dir", os.path.join(out_dir, f"kitti_mode{mode}")], 4)
+        if summary["cross"] is not None:
+            raise RuntimeError("KITTI ran a cross-view evaluation")
+    waymo_cfg = _config_copy(out_dir, "supnerf.waymo.car.json", {
+        "data_dir": waymo_root, "split_dir": os.path.join(waymo_root, "ImageSets")})
+    counts["waymo"], _ = _run_dataset_cli(
+        "Waymo add_pose_err 2", optimize_waymo.main,
+        ["--config_file", waymo_cfg, "--add_pose_err", "2", "--batch_size", "2",
+         "--save_dir", os.path.join(out_dir, "waymo")], 2)
+
+    # (d) the demo on one nuScenes image
+    demo_cfg = _config_copy(out_dir, "hpam_demo.json", nusc)
+    render.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = demo.main(["--config_file", demo_cfg, "--dataset", "nusc", "--img_name", names[0],
+                     "--num_opts", str(DATASET_ITERS), "--device", "cuda", "--seed", "0",
+                     "--save_dir", os.path.join(out_dir, "demo_nusc")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts["demo_nusc"] = _path_counts("nuScenes demo", DEMO_KERNELS)
+    n_obj = len(out["results"]["psnr_eval"])
+    if n_obj != 2 or not all(np.isfinite(img).all() for img in out["images"]):
+        raise RuntimeError(f"the nuScenes demo optimized {n_obj} cars or wrote a frame that is "
+                           "not finite")
+    print(f"   nuScenes demo on {names[0]}: {n_obj} cars, {seconds:.2f} s end to end, TTO "
+          f"{out['tto_seconds']:.2f} s; {len(out['frames'])} finite frames of "
+          f"{out['win_hw'][0]} x {out['win_hw'][1]}")
+    return counts
+
+
 def kernel_records(tto_records, train_records, aabb_records, field_records,
                    train_kernel_records, train_field_extra, counts_by_path):
     """One record per launch counter, launches from the path that runs it
@@ -2065,12 +2489,16 @@ def main():
     render_data_counts, render_data_ms, render_data_err = train_render_data_path()
     field_train_counts, field_train_ms, field_train_err = train_field_path()
     done(t0, "training-kernel paths")
+    t0 = phase("dataset paths: nuScenes (twice), KITTI (add_pose_err 1, 3), Waymo, "
+               "the nuScenes demo")
+    dataset_counts = _in_temp_dir(dataset_paths)
+    done(t0, "dataset paths")
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
                              train_kernel_records, train_field_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
                               "reg_cli": reg_cli_counts, "reg_lib": reg_lib_counts,
                               "train_render_data": render_data_counts,
-                              "train_field": field_train_counts})
+                              "train_field": field_train_counts, **dataset_counts})
     records_by_name = {r["name"]: r for r in records}
     records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms
     records_by_name["field_train_bwd"]["batch48_fwd_bwd_ms"] = field_train_ms

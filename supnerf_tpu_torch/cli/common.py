@@ -1,5 +1,6 @@
-"""CLI plumbing: arguments, model loading, the synthetic dataset; the parts
-of supnerf_tpu/cli/common.py the optimize entry point needs."""
+"""CLI plumbing: arguments, model loading and the datasets (synthetic,
+nuScenes, KITTI, Waymo); the parts of supnerf_tpu/cli/common.py the
+optimize and train entry points need."""
 from __future__ import annotations
 
 import argparse
@@ -18,17 +19,35 @@ def add_optimize_args(p: argparse.ArgumentParser):
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; fails without a card) or cpu")
     p.add_argument("--model_epoch", type=int, default=None)
+    p.add_argument("--init_rot_err", type=float, default=None,
+                   help="initial rotation error in radians (add_pose_err 1); default 0.0 "
+                        "(nuScenes) / 0.4 (cli.optimize_kitti, cli.optimize_waymo)")
+    p.add_argument("--init_trans_err", type=float, default=None,
+                   help="initial translation error ratio (add_pose_err 1); default 0.2 "
+                        "(nuScenes) / 0.01 (cli.optimize_kitti, cli.optimize_waymo)")
     p.add_argument("--rand_angle_lim", type=float, default=0.0)
-    p.add_argument("--add_pose_err", type=int, default=2, choices=[0, 2])
+    p.add_argument("--seg_source", type=str, default="instance")
+    p.add_argument("--nusc-version", dest="nusc_version", type=str, default=None)
+    p.add_argument("--add_pose_err", type=int, default=2, choices=[0, 1, 2, 3])
     p.add_argument("--reg_iters", type=int, default=3)
     p.add_argument("--opt_pose", type=int, default=1,
                    help="1: codes and object pose (0 and 2 are queued in ROADMAP.md)")
+    p.add_argument("--pred_wlh", type=int, default=0, choices=[0, 1, 2],
+                   help="0 or 1 (2 is queued in ROADMAP.md)")
+    p.add_argument("--pred_box2d", type=int, default=0)
+    p.add_argument("--num_subset", type=int, default=1,
+                   help="legacy manual sharding: total subsets")
+    p.add_argument("--id_subset", type=int, default=0,
+                   help="legacy manual sharding: this process's subset id")
     p.add_argument("--batch_size", type=int, default=16)
     p.add_argument("--save_postfix", type=str, default="")
     p.add_argument("--save_dir", type=str, default=None,
                    help="results folder (default: under the config's model_dir)")
     p.add_argument("--save_freq", type=int, default=100)
-    p.add_argument("--dataset", type=str, default=None, help="synthetic (this slice)")
+    p.add_argument("--dataset", type=str, default=None,
+                   help="nusc | kitti | waymo | synthetic (default: the config's)")
+    p.add_argument("--num-samples2eval", dest="num_samples2eval", type=int, default=None,
+                   help="evaluate only the first N objects (reference optimize_kitti.py:44)")
     p.add_argument("--num_objects", type=int, default=32, help="synthetic dataset size")
     return p
 
@@ -89,9 +108,53 @@ class SyntheticDataset:
         return self.samples[i]
 
 
-def build_dataset(hpams: dict, args):
-    name = args.dataset or hpams.get("dataset", {}).get("name", "synthetic")
-    if name != "synthetic":
-        raise ValueError(f"dataset {name!r} is not ported yet: this slice runs "
-                         "--dataset synthetic (the data layer is queued in ROADMAP.md)")
-    return SyntheticDataset(args.num_objects)
+class _Subset:
+    """The items idx of a dataset (legacy sharding, --num-samples2eval)."""
+
+    def __init__(self, base, idx):
+        self.base, self.idx = base, list(idx)
+
+    def __len__(self):
+        return len(self.idx)
+
+    def __getitem__(self, i):
+        return self.base[self.idx[i]]
+
+
+def dataset_name(hpams: dict, args) -> str:
+    return args.dataset or hpams.get("dataset", {}).get("name", "synthetic")
+
+
+def build_dataset(hpams: dict, args, split: str = "val"):
+    """The dataset named by --dataset or the config (JAX cli/common.py
+    build_dataset): its reader, then the strided --num_subset / --id_subset
+    shard and, outside training, the first --num-samples2eval objects."""
+    name = dataset_name(hpams, args)
+    if name == "synthetic":
+        ds = SyntheticDataset(getattr(args, "num_objects", 32))
+    elif name == "nusc":
+        from supnerf_tpu_torch.data.nuscenes import NuScenesData
+
+        dir_key = "train_data_dir" if split == "train" else "test_data_dir"
+        data_dir = hpams["dataset"].get(dir_key, "data/NuScenes")
+        ds = NuScenesData(hpams, split=split, add_pose_err=getattr(args, "add_pose_err", 0),
+                          pred_box2d=bool(getattr(args, "pred_box2d", 0)),
+                          nusc_version=getattr(args, "nusc_version", None),
+                          rand_angle_lim=getattr(args, "rand_angle_lim", 0.0),
+                          seg_dir=os.path.join(data_dir,
+                                               f"pred_{getattr(args, 'seg_source', 'instance')}"))
+    elif name in ("kitti", "waymo"):
+        from supnerf_tpu_torch.data.kitti import KittiData
+        from supnerf_tpu_torch.data.waymo import WaymoData
+
+        ds = (KittiData if name == "kitti" else WaymoData)(
+            hpams, split=split, add_pose_err=getattr(args, "add_pose_err", 0))
+    else:
+        raise ValueError(f"Unknown dataset: {name}")
+    num_subset = getattr(args, "num_subset", 1)
+    if num_subset > 1:
+        ds = _Subset(ds, range(getattr(args, "id_subset", 0), len(ds), num_subset))
+    n_eval = getattr(args, "num_samples2eval", None)
+    if n_eval is not None and split != "train":
+        ds = _Subset(ds, range(min(n_eval, len(ds))))
+    return ds

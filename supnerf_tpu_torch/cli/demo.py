@@ -7,8 +7,10 @@ scene from manipulated object poses.
 
 Writes input.png and one PNG per manipulated frame (scene_00.png, ...;
 utils/image_io.py says why not a GIF) into --save_dir, beside the TTO
-driver's codes+poses files. Without nuScenes data, --dataset synthetic
-builds a 900 x 1600 scene of three synthetic cars.
+driver's codes+poses files. --dataset nusc --img_name <file name> takes
+every car the segmentation found in that camera image of the config's
+nuScenes test data (data.nuscenes.get_objects_in_image); --dataset
+synthetic builds a 900 x 1600 scene of three synthetic cars.
 """
 from __future__ import annotations
 
@@ -57,16 +59,20 @@ def main(argv=None):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; fails without a card) or cpu")
-    p.add_argument("--dataset", type=str, default="synthetic")
+    p.add_argument("--dataset", type=str, default="synthetic", help="synthetic or nusc")
+    p.add_argument("--img_name", type=str, default=None,
+                   help="the nuScenes camera image to run on (--dataset nusc)")
     p.add_argument("--save_dir", type=str, default="demo_output")
     p.add_argument("--num_opts", type=int, default=None)
     p.add_argument("--n_objects", type=int, default=3)
     p.add_argument("--render_scale", type=int, default=4,
                    help="downscale factor for the composed scene render")
     args = p.parse_args(argv)
-    if args.dataset != "synthetic":
-        raise ValueError(f"dataset {args.dataset!r} is not ported yet: the demo runs "
-                         "--dataset synthetic (the data layer is queued in ROADMAP.md §A.8)")
+    if args.dataset not in ("synthetic", "nusc"):
+        raise ValueError(f"dataset {args.dataset!r}: the demo runs synthetic or nusc, as the "
+                         "JAX demo")
+    if args.dataset == "nusc" and not args.img_name:
+        raise ValueError("--dataset nusc needs --img_name")
     device = resolve_device(args.device)
     hpams = load_hpams(find_config(args.config_file))
     if args.num_opts:
@@ -74,9 +80,19 @@ def main(argv=None):
     os.makedirs(args.save_dir, exist_ok=True)
     model, mean_shape, mean_texture = load_model_and_codes(hpams, device, seed=args.seed)
 
-    ds_cfg = hpams.get("dataset", {})
-    img, objects = synthetic_scene(args.n_objects, ds_cfg.get("img_h", 900),
-                                   ds_cfg.get("img_w", 1600))
+    if args.dataset == "nusc":
+        from supnerf_tpu_torch.data.nuscenes import NuScenesData
+
+        found = NuScenesData(hpams, split="val", add_pose_err=2).get_objects_in_image(
+            args.img_name)
+        img, objects = found["img"], found["objects"]
+        if not objects:
+            raise ValueError(f"{args.img_name}: the segmentation found no "
+                             f"{hpams['dataset'].get('seg_cat', 'car')}")
+    else:
+        ds_cfg = hpams.get("dataset", {})
+        img, objects = synthetic_scene(args.n_objects, ds_cfg.get("img_h", 900),
+                                       ds_cfg.get("img_w", 1600))
     write_png(os.path.join(args.save_dir, "input.png"), image_float_to_uint8(img))
 
     # the reference demo optimizes with AABB-bounded sampling (rend_aabb=True,

@@ -1,20 +1,30 @@
-"""Test-time optimization CLI of the port (reference optimize_nuscenes.py).
+"""Test-time optimization CLI of the port (reference optimize_nuscenes.py,
+optimize_kitti.py, optimize_waymo.py; JAX supnerf_tpu/cli/optimize.py).
 
     python -m supnerf_tpu_torch.cli.optimize \\
-        --config_file jsonfiles/supnerf.nusc.vehicle.car.json \\
-        --dataset synthetic --num_objects 2 --batch_size 2 [--device cpu]
+        --config_file jsonfiles/supnerf.nusc.vehicle.car.json [--dataset nusc] [--device cpu]
+    python -m supnerf_tpu_torch.cli.optimize --dataset synthetic --num_objects 2
 
-Optimizes every object, writes codes+poses.pkl (+ .pth) and cross_eval.pkl,
-and prints the aggregated metric table (the eval.pdf plot is not ported yet).
-The TTO regularisers come from the config, as in the JAX CLI: "sym_aug": 1
-and "obj_sz_reg": 1 (with "loss_obj_sz_coef").
+The dataset comes from --dataset or the config (nusc, kitti, waymo or
+synthetic); KITTI and Waymo run in the KITTI object frame
+(cli.optimize_kitti and cli.optimize_waymo add their reference defaults).
+Optimizes every object, writes codes+poses.pkl (+ .pth), and for nusc and
+synthetic the cross-view evaluation's cross_eval.pkl, and prints the
+aggregated metric table (the eval.pdf plot is not ported yet). The TTO
+regularisers come from the config, as in the JAX CLI: "sym_aug": 1 and
+"obj_sz_reg": 1 (with "loss_obj_sz_coef").
 """
 from __future__ import annotations
 
 import argparse
 import os
 
-from supnerf_tpu_torch.cli.common import add_optimize_args, build_dataset, load_model_and_codes
+from supnerf_tpu_torch.cli.common import (
+    add_optimize_args,
+    build_dataset,
+    dataset_name,
+    load_model_and_codes,
+)
 from supnerf_tpu_torch.config import find_config, load_hpams
 from supnerf_tpu_torch.device import resolve_device
 from supnerf_tpu_torch.eval.aggregate import (
@@ -25,40 +35,75 @@ from supnerf_tpu_torch.eval.aggregate import (
 from supnerf_tpu_torch.tto.driver import TTODriver
 
 
-def _save_postfix(args) -> str:
-    """The reference's protocol-descriptive folder name (optimize_nuscenes.py:89-119)."""
-    post = f"_synthetic_opt_pose_{args.opt_pose}"
-    if args.add_pose_err == 2:
+def _auto_save_postfix(args, hpams: dict, ds_name: str) -> str:
+    """The reference's protocol-descriptive results-folder postfix
+    (optimize_nuscenes.py:89-119, optimize_kitti.py:71-88), by which the
+    evaluation scripts find a run's folder; the JAX CLI's, without its
+    multiview branch (no --opt_multiview here)."""
+    post = f"_{'nuscenes' if ds_name == 'nusc' else ds_name}"
+    post += f"_opt_pose_{args.opt_pose}"
+    if args.add_pose_err == 1:
+        # the driver's fallback chain: flag, then config, then default
+        rot = (args.init_rot_err if args.init_rot_err is not None
+               else hpams.get("init_rot_err", 0.0))
+        trans = (args.init_trans_err if args.init_trans_err is not None
+                 else hpams.get("init_trans_err", 0.2))
+        post += f"_rot_err_{rot}_trans_err_{trans}"
+    elif args.add_pose_err == 2:
         post += "_poss_err_full"
-    return post + f"_reg_iters_{args.reg_iters}"
+    elif args.add_pose_err == 3:
+        post += "_poss_pred_det3d"
+    if hpams.get("arch") == "supnerf":
+        post += f"_reg_iters_{args.reg_iters}"
+    if hpams.get("net_hyperparams", {}).get("pred_wlh", 0) > 0 and args.pred_wlh:
+        post += f"_pred_wlh{args.pred_wlh}"
+    if args.pred_box2d:
+        post += "_pred_box2d"
+    if ds_name == "nusc":
+        # the version NuScenesData resolves, so default-trainval runs are
+        # named '_full_val' as the reference's
+        ds_cfg = hpams.get("dataset", {})
+        version = args.nusc_version or ds_cfg.get(
+            "test_nusc_version", ds_cfg.get("train_nusc_version", "v1.0-trainval"))
+        if "trainval" in version:
+            post += "_full_val"
+    if args.num_subset != 1:
+        post += f"_subset_{args.id_subset}_of_{args.num_subset}"
+    return post
 
 
 def main(argv=None):
-    """Returns {'save_dir', 'aggregate', 'cross', 'phase_seconds', 'loss'}
-    ('loss': per object, the per-iteration TTO loss)."""
+    """Returns {'save_dir', 'aggregate', 'cross' (None for KITTI and Waymo),
+    'phase_seconds', 'loss' (per object, the per-iteration TTO loss),
+    'n_objects'}."""
     p = argparse.ArgumentParser("supnerf_tpu_torch optimize")
     args = add_optimize_args(p).parse_args(argv)
     device = resolve_device(args.device)
     hpams = load_hpams(find_config(args.config_file))
+    ds_name = dataset_name(hpams, args)
     model, mean_shape, mean_texture = load_model_and_codes(hpams, device, args.model_epoch,
                                                            args.seed)
-    dataset = build_dataset(hpams, args)
+    dataset = build_dataset(hpams, args, split="val")
     save_dir = args.save_dir or os.path.join(
         hpams.get("model_dir", "checkpoints"),
-        f"test{_save_postfix(args)}{args.save_postfix}")
+        f"test{_auto_save_postfix(args, hpams, ds_name)}{args.save_postfix}")
     driver = TTODriver(
         model, mean_shape, mean_texture, hpams, dataset, save_dir, device=device,
-        opt_pose=args.opt_pose, reg_iters=args.reg_iters, add_pose_err=args.add_pose_err,
-        batch_size=args.batch_size, save_freq=args.save_freq, seed=args.seed,
-        rand_angle_lim=args.rand_angle_lim)
+        opt_pose=args.opt_pose, reg_iters=args.reg_iters,
+        dataset_frame=ds_name if ds_name in ("kitti", "waymo") else "nusc",
+        pred_wlh=args.pred_wlh, add_pose_err=args.add_pose_err, batch_size=args.batch_size,
+        save_freq=args.save_freq, seed=args.seed, init_rot_err=args.init_rot_err,
+        init_trans_err=args.init_trans_err, rand_angle_lim=args.rand_angle_lim)
     result = driver.run()
-    cross = aggregate_cross_eval(driver.eval_cross_view())
+    cross = (aggregate_cross_eval(driver.eval_cross_view())
+             if ds_name in ("nusc", "synthetic") else None)
     agg = aggregate_metrics(result, max_iter=hpams["optimize"]["num_opts"])
     print(f"Processing {os.path.join(save_dir, 'codes+poses.pkl')}")
     print_eval_results(agg, cross)
     print("phase seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in driver.timer.seconds.items()))
     return {"save_dir": save_dir, "aggregate": agg, "cross": cross,
-            "phase_seconds": dict(driver.timer.seconds), "loss": driver.loss_curve}
+            "phase_seconds": dict(driver.timer.seconds), "loss": driver.loss_curve,
+            "n_objects": len(dataset)}
 
 
 if __name__ == "__main__":

@@ -32,7 +32,10 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; fails without a card) or cpu")
-    p.add_argument("--dataset", type=str, default=None, help="synthetic (this slice)")
+    p.add_argument("--dataset", type=str, default=None,
+                   help="nusc (split train) or synthetic (default: the config's)")
+    p.add_argument("--nusc-version", dest="nusc_version", type=str, default=None)
+    p.add_argument("--seg_source", type=str, default="instance")
     p.add_argument("--num_objects", type=int, default=32, help="synthetic dataset size")
     p.add_argument("--save_every", type=int, default=1,
                    help="checkpoint every N epochs (the last epoch is always saved)")
@@ -56,7 +59,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     hpams = load_hpams(find_config(args.config_file))
     model = init_model(build_model(hpams["arch"], hpams["net_hyperparams"]), args.seed)
-    dataset = build_dataset(hpams, args)
+    dataset = build_dataset(hpams, args, split="train")
     save_dir = args.save_dir or os.path.join(
         "checkpoints", hpams["arch"], f"train_{date.today().strftime('%Y_%m_%d')}")
     trainer = UnifiedTrainer(model, hpams, dataset, save_dir, device=device,

@@ -1,7 +1,8 @@
-"""ROI and image pre-processing for the host side of the TTO prep (numpy in,
-numpy out); the port of the helpers of supnerf_tpu/geometry/roi.py that the
-prep uses. The bilinear resize runs through torch.nn.functional.interpolate
-on CPU tensors, so no OpenCV is needed."""
+"""ROI and image pre-processing for the host side of the TTO prep and the
+readers (numpy in, numpy out); the port of the helpers of
+supnerf_tpu/geometry/roi.py that they use. The bilinear resize runs
+through torch.nn.functional.interpolate on CPU tensors, so no OpenCV is
+needed."""
 from __future__ import annotations
 
 import numpy as np
@@ -26,6 +27,15 @@ def roi_process(roi, H=None, W=None, roi_margin: int = 0, sq_pad: bool = False):
         roi_new[2] = np.minimum(roi_new[2], W - 1)
         roi_new[3] = np.minimum(roi_new[3], H - 1)
     return roi_new.astype(np.int32)
+
+
+def roi_resize(roi, ratio: float = 1.0):
+    """Scale an [xmin, ymin, xmax, ymax] ROI about its centre by `ratio`
+    (floats out)."""
+    min_x, min_y, max_x, max_y = [float(v) for v in roi]
+    cx, cy = (min_x + max_x) / 2, (min_y + max_y) / 2
+    bw, bh = max_x - min_x, max_y - min_y
+    return [cx - bw / 2 * ratio, cy - bh / 2 * ratio, cx + bw / 2 * ratio, cy + bh / 2 * ratio]
 
 
 def resize_bilinear_np(img: np.ndarray, out_hw) -> np.ndarray:

@@ -34,13 +34,16 @@ from supnerf_tpu_torch.ops.volume_render import volume_render
 AABB_FIELD_SCALE = 0.5
 
 
-def apply_obj_coord_transform(xyz, viewdir, shapenet_obj_cood: bool, sym_flip=None):
+def apply_obj_coord_transform(xyz, viewdir, shapenet_obj_cood: bool, sym_flip=None,
+                              kitti2nusc: bool = False):
     """Frame fix-ups of the sampled points (B,...,3) and directions (B,...,3)
     before the field query, in the reference's order: the symmetry flip
     (sym_flip (B,) bool: negate component 1 of that object's points and
     directions, reference render_rays_v2 sym_aug, utils.py:474-477), then
-    the nuScenes object frame -> ShapeNet frame (new_x = -old_y, new_y =
-    old_x; utils.py:421-426)."""
+    with kitti2nusc the KITTI -> nuScenes object-frame rotation (the KITTI
+    and Waymo protocols, whose field was trained in the nuScenes frame),
+    then the nuScenes object frame -> ShapeNet frame (new_x = -old_y, new_y
+    = old_x; utils.py:421-426)."""
     if sym_flip is not None:
         sign = 1.0 - 2.0 * sym_flip.to(xyz.dtype)                    # -1 where flipped
 
@@ -49,6 +52,12 @@ def apply_obj_coord_transform(xyz, viewdir, shapenet_obj_cood: bool, sym_flip=No
             return torch.stack([v[..., 0], v[..., 1] * s, v[..., 2]], -1)
 
         xyz, viewdir = flip(xyz), flip(viewdir)
+    if kitti2nusc:            # the rotation (x, y, z) -> (x, z, -y)
+
+        def to_nusc(v):
+            return torch.stack([v[..., 0], v[..., 2], -v[..., 1]], -1)
+
+        xyz, viewdir = to_nusc(xyz), to_nusc(viewdir)
     if not shapenet_obj_cood:
         return xyz, viewdir
 
@@ -68,11 +77,12 @@ def frustum_near_far(cam_pose, obj_diag):
 
 
 def _render(composite_fn, rays_o, viewdir, cam_pose, obj_diag, n_samples,
-            shapenet_obj_cood, jitter, generator, sym_flip=None, field_fn=None):
+            shapenet_obj_cood, jitter, generator, sym_flip=None, field_fn=None,
+            kitti2nusc=False):
     near, far = frustum_near_far(cam_pose, obj_diag)
     xyz, z_vals = sample_from_rays(rays_o, viewdir, near, far, n_samples, jitter, generator)
     xyz = xyz / obj_diag[:, None, None, None]
-    xyz, vd = apply_obj_coord_transform(xyz, viewdir, shapenet_obj_cood, sym_flip)
+    xyz, vd = apply_obj_coord_transform(xyz, viewdir, shapenet_obj_cood, sym_flip, kitti2nusc)
     if field_fn is None:
         rgb, depth, acc = composite_fn(xyz, vd, z_vals)
         return {"rgb": rgb, "depth": depth, "acc_trans": acc}
@@ -84,13 +94,13 @@ def _render(composite_fn, rays_o, viewdir, cam_pose, obj_diag, n_samples,
 
 
 def render_rays_frustum(composite_fn, cam_pose, K, roi, obj_diag, *, n_samples: int,
-                        im_sz: int, shapenet_obj_cood: bool, sym_flip=None, field_fn=None,
-                        jitter=None, generator=None):
+                        im_sz: int, shapenet_obj_cood: bool, kitti2nusc: bool = False,
+                        sym_flip=None, field_fn=None, jitter=None, generator=None):
     """The TTO loss render: an im_sz x im_sz ray grid over each ROI, stratified
     samples in the frustum shell around the object distance, points divided
     by the object diagonal. cam_pose (B,3,4) camera-to-object, K (B,3,3),
-    roi (B,4), obj_diag (B,); sym_flip (B,) bool or None
-    (apply_obj_coord_transform); jitter (B, S) draws or None (then
+    roi (B,4), obj_diag (B,); kitti2nusc and sym_flip (B,) bool or None:
+    apply_obj_coord_transform; jitter (B, S) draws or None (then
     `generator`). Returns dict(rgb (B,R,3), depth (B,R), acc_trans (B,R)),
     R = im_sz^2. Given a per-point field_fn (the JAX renderer's
     return_samples), the samples go through it and ops.volume_render
@@ -99,16 +109,17 @@ def render_rays_frustum(composite_fn, cam_pose, K, roi, obj_diag, *, n_samples: 
     reuses."""
     rays_o, viewdir = get_rays(K, cam_pose, roi, (im_sz, im_sz))
     return _render(composite_fn, rays_o, viewdir, cam_pose, obj_diag, n_samples,
-                   shapenet_obj_cood, jitter, generator, sym_flip, field_fn)
+                   shapenet_obj_cood, jitter, generator, sym_flip, field_fn, kitti2nusc)
 
 
 def render_rays_at_pixels(composite_fn, cam_pose, K, u, v, obj_diag, *, n_samples: int,
-                          shapenet_obj_cood: bool, jitter=None, generator=None):
+                          shapenet_obj_cood: bool, kitti2nusc: bool = False, jitter=None,
+                          generator=None):
     """Render only the full-image pixels u, v (B, N) (the lidar-depth metric,
     reference render_rays_specified); padded entries are masked downstream."""
     rays_o, viewdir = get_rays_specified(K, cam_pose, u, v)
     return _render(composite_fn, rays_o, viewdir, cam_pose, obj_diag, n_samples,
-                   shapenet_obj_cood, jitter, generator)
+                   shapenet_obj_cood, jitter, generator, kitti2nusc=kitti2nusc)
 
 
 def render_rays_aabb(composite_fn, cam_pose, K, roi, obj_sz, *, n_samples: int, im_sz: int,
@@ -126,11 +137,7 @@ def render_rays_aabb(composite_fn, cam_pose, K, roi, obj_sz, *, n_samples: int, 
     intersects on detached rays (renderer.py:426): the slab test's
     1/viewdir would give 0 * inf = NaN in the backward for grazing rays.
     Pose gradients reach the samples through the ray origins and directions.
-    sym_flip (B,) bool or None: apply_obj_coord_transform. The KITTI frame
-    is not ported (ROADMAP.md §A.8) and raises."""
-    if kitti2nusc:
-        raise NotImplementedError("kitti2nusc is queued in ROADMAP.md §A.8; render_rays_aabb "
-                                  "runs the nuScenes frame")
+    kitti2nusc and sym_flip (B,) bool or None: apply_obj_coord_transform."""
     obj_diag = torch.linalg.norm(obj_sz, dim=-1)
     rays_o, viewdir = get_rays(K, cam_pose, roi, (im_sz, im_sz))
     bounds, hit, rays_o_n = aabb_ray_bounds(rays_o, viewdir, obj_sz)
@@ -139,6 +146,6 @@ def render_rays_aabb(composite_fn, cam_pose, K, roi, obj_sz, *, n_samples: int, 
     xyz = rays_o_n[:, :, None, :] + z_coarse[..., None] * viewdir[:, :, None, :]
     z_vals = z_coarse * (obj_diag[:, None, None] / 2)      # metric distance from the camera
     xyz, vd = apply_obj_coord_transform(xyz * AABB_FIELD_SCALE, viewdir, shapenet_obj_cood,
-                                        sym_flip)
+                                        sym_flip, kitti2nusc)
     rgb, depth, acc = composite_fn(xyz, vd, z_vals, hit)
     return {"rgb": rgb, "depth": depth, "acc_trans": acc, "hit": hit}

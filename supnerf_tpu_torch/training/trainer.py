@@ -70,9 +70,15 @@ class UnifiedTrainer:
         self.check_iter, self.save_every = check_iter, max(int(save_every), 1)
         self.cfg = train_config_from_hpams(hpams, im_enc_rate)
         self.nepoch = 0
+        # the code table's rows: from the curation index where the reader has
+        # one (NuScenesData, as the JAX trainer and the reference,
+        # trainer_unified_nuscenes.py:239-243), else from the samples
+        if hasattr(dataset, "all_valid_samples") and hasattr(dataset, "instoken_per_ann"):
+            toks = (dataset.instoken_per_ann.get(ann, ann) for ann, _ in dataset.all_valid_samples)
+        else:
+            toks = (self._instoken(i) for i in range(len(dataset)))
         self.instoken2idx = {}
-        for i in range(len(dataset)):
-            tok = self._instoken(i)
+        for tok in toks:
             self.instoken2idx.setdefault(tok, len(self.instoken2idx))
         self.state = init_train_state(model, max(len(self.instoken2idx), 1), self.cfg,
                                       self.device, seed)

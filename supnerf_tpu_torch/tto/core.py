@@ -69,6 +69,8 @@ class TTOConfig:
     obj_sz_reg: bool = False     # box-limit density regulariser (reference :1412)
     loss_obj_sz_coef: float = 1.0
     sym_loss_coef: float = 0.0   # > 0: the density-symmetry loss (reference :1435)
+    kitti2nusc: bool = False     # KITTI/Waymo: field queries rotated into the nuScenes frame
+    box_fac: float = 1.0         # refiner corner scale (KITTI/Waymo BOX_FAC 1.1)
 
 
 @dataclasses.dataclass
@@ -167,14 +169,15 @@ def tto_loss(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_diag
         out = render_rays_aabb(
             make_composite_aabb(wts, shapecode, texturecode), invert_pose(pose_obj), batch.K,
             batch.roi_nerf, wlh, n_samples=cfg.n_samples, im_sz=cfg.render_im_sz,
-            shapenet_obj_cood=cfg.shapenet_obj_cood, sym_flip=sym_flip, jitter=jitter,
-            generator=generator)
+            shapenet_obj_cood=cfg.shapenet_obj_cood, kitti2nusc=cfg.kitti2nusc,
+            sym_flip=sym_flip, jitter=jitter, generator=generator)
         hit_share = out["hit"].float().mean(1)
     else:
         out = render_rays_frustum(
             make_composite(wts, shapecode, texturecode, cfg.field_impl), invert_pose(pose_obj),
             batch.K, batch.roi_nerf, obj_diag, n_samples=cfg.n_samples,
-            im_sz=cfg.render_im_sz, shapenet_obj_cood=cfg.shapenet_obj_cood, sym_flip=sym_flip,
+            im_sz=cfg.render_im_sz, shapenet_obj_cood=cfg.shapenet_obj_cood,
+            kitti2nusc=cfg.kitti2nusc, sym_flip=sym_flip,
             field_fn=field_fn if need_samples else None, jitter=jitter, generator=generator)
     loss = (rgb_loss_masked(out["rgb"], batch.rgb_tgt, batch.occ_tgt, dim=(1, 2))
             + cfg.loss_occ_coef * occupancy_loss(out["acc_trans"], batch.occ_tgt, dim=(1, 2)))
@@ -199,7 +202,8 @@ def depth_error(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_d
     out = render_rays_at_pixels(
         make_composite(wts, shapecode, texturecode, cfg.field_impl), invert_pose(pose_obj),
         batch.K, batch.lidar_u, batch.lidar_v, obj_diag, n_samples=cfg.n_samples,
-        shapenet_obj_cood=cfg.shapenet_obj_cood, jitter=jitter, generator=generator)
+        shapenet_obj_cood=cfg.shapenet_obj_cood, kitti2nusc=cfg.kitti2nusc, jitter=jitter,
+        generator=generator)
     err = torch.abs(out["depth"] - batch.lidar_depth) * batch.lidar_valid
     return err.sum(1) / (batch.lidar_valid.sum(1) + 1e-8)
 
@@ -219,7 +223,7 @@ def encode_and_refine(model, batch: ObjectBatch, mean_shape, mean_texture, cfg: 
     else:
         wlh_pred, wlh_use = torch.zeros_like(batch.wlh), batch.wlh
     traj = fw_pose_refine(model.pose_update, pc, batch.pose_init, wlh_use, batch.roi_refine,
-                          batch.K, batch.K_inv, iters=cfg.reg_iters)
+                          batch.K, batch.K_inv, iters=cfg.reg_iters, box_fac=cfg.box_fac)
     return ((sc + mean_shape) / 2, (tc + mean_texture) / 2, traj, uv, wlh_pred, wlh_use)
 
 

@@ -4,14 +4,19 @@ OptimizerNuScenes :35): initial poses, batching, bookkeeping keyed by
 annotation and camera, snapshots at CODE_SAVE_ITERS, the codes+poses result
 files, and the cross-view evaluation (eval_cross_view :1279).
 
-This slice covers the nuScenes-frame protocol on synthetic objects: opt_pose
-1 (codes and object pose, axis-angle), the annotated or the predicted box
-size (pred_wlh 0 and 1), the frustum or the AABB loss render, the
-regularisers sym_aug and obj_sz_reg (hpams keys, as in the JAX driver),
-add_pose_err 0 and 2, codes stored per (annotation, camera) (code_level 2),
-no visualisation. The other options raise NotImplementedError and are queued
-in ROADMAP.md (PnP bootstrapping, opt_pose 2, needs a solver without
-OpenCV).
+It covers opt_pose 1 (codes and object pose, axis-angle), the annotated or
+the predicted box size (pred_wlh 0 and 1), the frustum or the AABB loss
+render, the regularisers sym_aug and obj_sz_reg (hpams keys, as in the JAX
+driver), add_pose_err 0 (ground truth), 1 (a yaw and a depth-ratio error of
+init_rot_err / init_trans_err), 2 (random) and 3 (the reader's pose from a
+third-party detection), codes stored per (annotation, camera) (code_level
+2), no visualisation, in the nuScenes object frame or the KITTI one
+(dataset_frame "kitti" / "waymo", reference optimizer_kitti.py:24,638-639):
+there the initial and ground-truth poses move to the nuScenes frame in the
+prep, the refiner sees the box corners scaled by KITTI_BOX_FAC unless the
+predicted wlh is used, and the field's samples rotate into the nuScenes
+frame. The other options raise NotImplementedError and are queued in
+ROADMAP.md (PnP bootstrapping, opt_pose 2, needs a solver without OpenCV).
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import torch
 from supnerf_tpu_torch.data.synthetic import prepare_object_inputs
 from supnerf_tpu_torch.device import resolve_device
 from supnerf_tpu_torch.geometry import poses as pose_gen
-from supnerf_tpu_torch.geometry.boxes import invert_pose
+from supnerf_tpu_torch.geometry.boxes import invert_pose, obj_pose_kitti2nusc
 from supnerf_tpu_torch.ops.render import field_composite, pack_decoder_params
 from supnerf_tpu_torch.ops.volume_render import masked_psnr
 from supnerf_tpu_torch.render.renderer import render_rays_at_pixels, render_rays_frustum
@@ -33,10 +38,18 @@ from supnerf_tpu_torch.tto.core import CODE_SAVE_ITERS, ObjectBatch, TTOConfig, 
 
 # cells of the cross-view evaluation rendered per kernel call
 _CROSS_VIEW_CHUNK = 64
+# the refiner's corner scale in the KITTI and Waymo protocols
+KITTI_BOX_FAC = 1.1
+
+
+def is_kitti_frame(dataset_frame: str) -> bool:
+    if dataset_frame not in ("nusc", "kitti", "waymo"):
+        raise ValueError(f"dataset_frame {dataset_frame!r}: nusc, kitti or waymo")
+    return dataset_frame != "nusc"
 
 
 def tto_config_from_hpams(hpams: dict, *, reg_iters: int = 3, n_lidar: int = 256,
-                          pred_wlh: int = 0) -> TTOConfig:
+                          pred_wlh: int = 0, dataset_frame: str = "nusc") -> TTOConfig:
     opt = hpams.get("optimize", {})
     for key, value in (("euler_rot", hpams.get("euler_rot", 0)),
                        ("optimize.opt_cam_pose", opt.get("opt_cam_pose", 0))):
@@ -56,6 +69,8 @@ def tto_config_from_hpams(hpams: dict, *, reg_iters: int = 3, n_lidar: int = 256
         shapenet_obj_cood=bool(hpams.get("shapenet_obj_cood", 1)), pred_wlh_mode=pred_wlh,
         sym_aug=bool(hpams.get("sym_aug", 0)), obj_sz_reg=bool(hpams.get("obj_sz_reg", 0)),
         loss_obj_sz_coef=float(hpams.get("loss_obj_sz_coef", 1.0)),
+        kitti2nusc=is_kitti_frame(dataset_frame),
+        box_fac=KITTI_BOX_FAC if is_kitti_frame(dataset_frame) and not pred_wlh else 1.0,
     )
 
 
@@ -64,20 +79,21 @@ class TTODriver:
     data.synthetic, with 'instoken', 'anntoken' and 'cam_ids' for the
     bookkeeping). model: a SUPNeRF on `device` with its weights loaded.
     cfg: a TTOConfig that replaces the one read from hpams (the demo's AABB
-    loss render)."""
+    loss render). init_rot_err / init_trans_err (add_pose_err 1): None
+    falls back to the config's keys, then to 0.0 / 0.2."""
 
     def __init__(self, model, mean_shape, mean_texture, hpams: dict, dataset, save_dir: str,
                  *, device, cfg: TTOConfig | None = None, opt_pose: int = 1,
-                 reg_iters: int = 3, add_pose_err: int = 2,
-                 batch_size: int = 16, save_freq: int = 100, seed: int = 0,
-                 rand_angle_lim: float = 0.0):
+                 reg_iters: int = 3, dataset_frame: str = "nusc", pred_wlh: int = 0,
+                 add_pose_err: int = 2, batch_size: int = 16, save_freq: int = 100,
+                 seed: int = 0, init_rot_err: float | None = None,
+                 init_trans_err: float | None = None, rand_angle_lim: float = 0.0):
         if opt_pose != 1:
             raise NotImplementedError(
                 f"opt_pose {opt_pose} is queued in ROADMAP.md (opt_pose 2, the PnP bootstrap, "
                 "needs a PnP solver without OpenCV); this slice runs opt_pose 1")
-        if add_pose_err not in (0, 2):
-            raise NotImplementedError(f"add_pose_err {add_pose_err} is queued in ROADMAP.md; "
-                                      "this slice runs 0 (ground truth) and 2 (random)")
+        if add_pose_err not in (0, 1, 2, 3):
+            raise ValueError(f"add_pose_err {add_pose_err}: 0, 1, 2 or 3")
         self.device = resolve_device(str(device))
         self.model = model.to(self.device)
         self.wts = pack_decoder_params(self.model)
@@ -86,13 +102,22 @@ class TTODriver:
                                             device=self.device)
         self.hpams, self.dataset, self.save_dir = hpams, dataset, save_dir
         self.add_pose_err = add_pose_err
+        self.kitti_frame = is_kitti_frame(dataset_frame)
         self.batch_size, self.save_freq = batch_size, save_freq
+        self.init_rot_err = (init_rot_err if init_rot_err is not None
+                             else hpams.get("init_rot_err", 0.0))
+        self.init_trans_err = (init_trans_err if init_trans_err is not None
+                               else hpams.get("init_trans_err", 0.2))
         self.rand_angle_lim = rand_angle_lim
-        # independent streams: host prep (initial poses) and the renders' jitter
+        # independent streams: host prep (random initial poses), the renders'
+        # jitter, and the signs of the add_pose_err 1 errors (the JAX driver's
+        # np.random.default_rng(seed), so those poses are the JAX driver's)
         self.prep_gen = torch.Generator().manual_seed(2 * seed + 1)
         self.render_gen = torch.Generator(device=self.device).manual_seed(2 * seed + 2)
+        self.np_rng = np.random.default_rng(seed)
         self.timer = PhaseTimer(self.device)
-        self.cfg = cfg if cfg is not None else tto_config_from_hpams(hpams, reg_iters=reg_iters)
+        self.cfg = cfg if cfg is not None else tto_config_from_hpams(
+            hpams, reg_iters=reg_iters, pred_wlh=pred_wlh, dataset_frame=dataset_frame)
         os.makedirs(save_dir, exist_ok=True)
         self.optimized_shapecodes, self.optimized_texturecodes = {}, {}
         self.optimized_poses = {}
@@ -103,25 +128,65 @@ class TTODriver:
         self.loss_curve = {}    # per iteration, the loss the update descended
 
     # ------------------------------------------------------------------ prep
+    def _pose_with_error(self, gt):
+        """add_pose_err 1 (the JAX driver's _initial_pose): a yaw of
+        +-init_rot_err about the object's up axis (the camera's y in the
+        KITTI frame) and the translation scaled by 1 +- init_trans_err."""
+        yaw_err = self.np_rng.choice([1.0, -1.0]) * self.init_rot_err
+        c, s = np.cos(yaw_err), np.sin(yaw_err)
+        if self.kitti_frame:
+            rot_err = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+        else:
+            rot_err = np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32)
+        t_ratio = 1.0 + self.np_rng.choice([1.0, -1.0]) * self.init_trans_err
+        out = gt.copy()
+        out[:, :3] = gt[:, :3] @ rot_err
+        out[:, 3] = gt[:, 3] * t_ratio
+        return out
+
     def _initial_poses(self, samples):
-        """Initial poses by error-injection mode (reference
-        data_nuscenes.py:511-574): 0 ground truth, 2 the random test protocol."""
+        """Initial poses in the dataset's frame by error-injection mode
+        (reference data_nuscenes.py:511-574): 0 ground truth, 1 a controlled
+        error, 2 the random test protocol, 3 the reader's obj_poses_w_err
+        (random where a sample has none)."""
+        gt = [np.asarray(s["obj_poses"], np.float32) for s in samples]
         if self.add_pose_err == 0:
-            return [np.asarray(s["obj_poses"], np.float32) for s in samples]
-        K = torch.as_tensor(np.stack([s["cam_intrinsics"] for s in samples]), dtype=torch.float32)
-        roi = torch.as_tensor(np.stack([s["rois"] for s in samples]), dtype=torch.float32)
-        poses = pose_gen.get_random_pose2(K, roi, self.prep_gen, angle_lim=self.rand_angle_lim,
-                                          trans_lim=0.3)
-        return list(poses.numpy())
+            return gt
+        if self.add_pose_err == 1:
+            return [self._pose_with_error(p) for p in gt]
+        poses = [np.asarray(s["obj_poses_w_err"], np.float32)
+                 if self.add_pose_err == 3 and "obj_poses_w_err" in s else None for s in samples]
+        todo = [i for i, p in enumerate(poses) if p is None]
+        if todo:
+            K = torch.as_tensor(np.stack([samples[i]["cam_intrinsics"] for i in todo]),
+                                dtype=torch.float32)
+            roi = torch.as_tensor(np.stack([samples[i]["rois"] for i in todo]),
+                                  dtype=torch.float32)
+            rand = pose_gen.get_random_pose2(K, roi, self.prep_gen, angle_lim=self.rand_angle_lim,
+                                             trans_lim=0.3, is_kitti=self.kitti_frame)
+            for i, p in zip(todo, rand.numpy()):
+                poses[i] = p
+        return poses
+
+    def prep_sample(self, sample, pose_init):
+        """One object's TTO inputs (data.synthetic.prepare_object_inputs);
+        in the KITTI frame pose_init and obj_pose_gt move to the nuScenes
+        frame (the JAX driver's _prep_sample)."""
+        inputs = prepare_object_inputs(
+            sample, in_img_sz=self.cfg.in_img_sz, render_im_sz=self.cfg.render_im_sz,
+            roi_margin=self.hpams.get("roi_margin", 5), n_lidar=self.cfg.n_lidar,
+            pose_init=pose_init)
+        if self.kitti_frame:
+            h = float(sample["wlh"][2])
+            for key in ("pose_init", "obj_pose_gt"):
+                inputs[key] = obj_pose_kitti2nusc(torch.as_tensor(inputs[key]), h).numpy()
+        return inputs
 
     def _prep(self, idxs, poses=None):
         samples = [self.dataset[i] for i in idxs]
         if poses is None:
             poses = self._initial_poses(samples)
-        prepped = [prepare_object_inputs(
-            s, in_img_sz=self.cfg.in_img_sz, render_im_sz=self.cfg.render_im_sz,
-            roi_margin=self.hpams.get("roi_margin", 5), n_lidar=self.cfg.n_lidar,
-            pose_init=p) for s, p in zip(samples, poses)]
+        prepped = [self.prep_sample(s, p) for s, p in zip(samples, poses)]
         stacked = {k: np.stack([p[k] for p in prepped]) for k in prepped[0]}
         return samples, prepped, ObjectBatch.from_numpy(stacked, self.device)
 
@@ -242,11 +307,13 @@ class TTODriver:
 
         out = render_rays_frustum(comp, cam, pick["K"], pick["roi_nerf"], diag,
                                   n_samples=cfg.n_samples, im_sz=cfg.render_im_sz,
-                                  shapenet_obj_cood=cfg.shapenet_obj_cood, jitter=jit)
+                                  shapenet_obj_cood=cfg.shapenet_obj_cood,
+                                  kitti2nusc=cfg.kitti2nusc, jitter=jit)
         psnr = masked_psnr(out["rgb"], pick["rgb_tgt"], pick["occ_tgt"], dim=(1, 2))
         outd = render_rays_at_pixels(comp, cam, pick["K"], pick["lidar_u"], pick["lidar_v"], diag,
                                      n_samples=cfg.n_samples,
-                                     shapenet_obj_cood=cfg.shapenet_obj_cood, jitter=jit)
+                                     shapenet_obj_cood=cfg.shapenet_obj_cood,
+                                     kitti2nusc=cfg.kitti2nusc, jitter=jit)
         m = pick["lidar_valid"]
         derr = (torch.abs(outd["depth"] - pick["lidar_depth"]) * m).sum(1) / (m.sum(1) + 1e-8)
         return psnr, derr

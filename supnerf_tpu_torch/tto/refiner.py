@@ -16,9 +16,11 @@ from supnerf_tpu_torch.geometry.boxes import corners_of_box, normalize_by_roi, v
 from supnerf_tpu_torch.geometry.rotations import axis_angle_to_matrix, matrix_to_axis_angle
 
 
-def project_box_corners_normalized(pose, wlh, roi, K):
-    """pose (B,3,4), wlh (B,3), roi (B,4), K (B,3,3) -> (uv_norm (B,16), dim (B,))."""
-    uv = view_points(corners_of_box(pose, wlh), K)
+def project_box_corners_normalized(pose, wlh, roi, K, box_fac: float = 1.0):
+    """pose (B,3,4), wlh (B,3), roi (B,4), K (B,3,3) -> (uv_norm (B,16), dim (B,));
+    the box scaled by box_fac about its centre (1.1 for KITTI and Waymo,
+    reference optimizer_kitti.py:24)."""
+    uv = view_points(corners_of_box(pose, wlh, scale=box_fac), K)
     uv_norm, dim = normalize_by_roi(uv[:, :2], roi)
     return uv_norm.reshape(len(pose), 16), dim
 
@@ -37,13 +39,13 @@ def compose_pose_delta(src_pose, delta, dim, K, K_inv):
 
 
 def fw_pose_refine(pose_update_fn, posecode, init_pose, wlh, roi, K, K_inv,
-                   iters: int):
+                   iters: int, box_fac: float = 1.0):
     """`iters` refiner steps; pose_update_fn(posecode (B, latent), uv (B,16)) ->
     delta (B,6). Returns (B, iters + 1, 3, 4) poses starting with init_pose
     (the reference's pose_per_iter list)."""
     poses = [init_pose]
     for _ in range(iters):
-        uv_norm, dim = project_box_corners_normalized(poses[-1], wlh, roi, K)
+        uv_norm, dim = project_box_corners_normalized(poses[-1], wlh, roi, K, box_fac)
         poses.append(compose_pose_delta(poses[-1], pose_update_fn(posecode, uv_norm),
                                         dim, K, K_inv))
     return torch.stack(poses, 1)

@@ -16,7 +16,6 @@ import torch
 from supnerf_tpu.tto.driver import TTODriver as JaxTTODriver
 from supnerf_tpu_torch.cli import optimize
 from supnerf_tpu_torch.device import resolve_device
-from supnerf_tpu_torch.render.renderer import render_rays_aabb
 from supnerf_tpu_torch.training.trainer import UnifiedTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -69,24 +68,22 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 
 
 @pytest.mark.parametrize("option", ["opt_pose 0", "opt_pose 2", "euler_rot", "opt_cam_pose",
-                                    "kitti2nusc", "training sym_aug"])
+                                    "pred_wlh 2", "training sym_aug"])
 def test_unported_options_raise(tmp_path, option):
     """Options outside the ported slices refuse to run instead of taking an
-    unverified path: through the optimize CLI, the KITTI frame of the AABB
-    renderer, and the trainer's sym_aug (a ray-prep augmentation, not the
-    TTO regulariser, which is ported)."""
+    unverified path: through the optimize CLI (pred_wlh 2 in the driver's
+    config, tto/driver.py tto_config_from_hpams), and the trainer's sym_aug
+    (a ray-prep augmentation, not the TTO regulariser, which is ported)."""
     config = dict(TINY_CONFIG, model_dir=str(tmp_path / "no_checkpoint"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if option == "kitti2nusc":
-            render_rays_aabb(None, None, None, None, None, n_samples=8, im_sz=2,
-                             shapenet_obj_cood=False, kitti2nusc=True)
-        elif option == "training sym_aug":
+        if option == "training sym_aug":
             UnifiedTrainer(None, dict(TRAIN_CONFIG, sym_aug=1), None, str(tmp_path / "run"),
                            device="cpu")
         else:
             argv = []
-            if option.startswith("opt_pose"):
-                argv = ["--opt_pose", option.split()[1]]
+            if option.startswith(("opt_pose", "pred_wlh")):
+                flag, value = option.split()
+                argv = [f"--{flag}", value]
             elif option == "euler_rot":
                 config[option] = 1
             else:
@@ -263,8 +260,8 @@ def test_train_unported_options_raise(tmp_path, option):
     cfg.write_text(json.dumps(dict(TRAIN_CONFIG, model_dir=str(tmp_path / "no_checkpoint"))))
     argv = _train_argv(cfg, tmp_path / "run")
     if option == "dataset":
-        with pytest.raises(ValueError, match="not ported"):
-            train.main(argv + ["--dataset", "nusc"])
+        with pytest.raises(ValueError, match="Unknown dataset"):
+            train.main(argv + ["--dataset", "nuscenes-lidarseg"])
         return
     value = "0.5" if option == "im_enc_rate" else "1"
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):

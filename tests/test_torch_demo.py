@@ -228,7 +228,9 @@ def test_read_png_refuses_filters_it_does_not_decode(tmp_path):
 
 
 def test_demo_refuses_other_datasets_and_a_missing_card(monkeypatch, tmp_path):
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="synthetic or nusc"):
+        demo.main(["--dataset", "kitti", "--save_dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="needs --img_name"):
         demo.main(["--dataset", "nusc", "--save_dir", str(tmp_path)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
