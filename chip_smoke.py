@@ -35,6 +35,10 @@ Phases, each timed; any failure exits non-zero before the result line:
      same bits, since K7 runs K6's arithmetic; K6's and K7's ReLU gates
      against K5's, the same words; its weight gradients against the float64
      plain version) and K4 on K7's stash;
+     K1 and K2 at the TTO shape, and K1, K3 (both modes) and K4 at the
+     training shape, again on CodeNeRF's decoder (2 shape blocks and 1
+     texture block: another stash row and K4 problem list), with the same
+     tolerances and kink rules;
      then the branches no path takes (white background, S < 64, odd R,
      W 64/128, several stash chunks), in both modes of K1 and K2 and of K3,
      K4 on each branch's stash, and for K5/K6/K7 W 64/128, M not a multiple
@@ -74,7 +78,17 @@ Phases, each timed; any failure exits non-zero before the result line:
      nuScenes image; each with its curated count, launch counts, host_prep
      share and final metrics, and the host decoders' seconds
      (supnerf_tpu_torch/bench/decode_seconds.py) and the fixture JPEG's
-     pinned sha256.
+     pinned sha256;
+ 10. baseline paths through the CLIs, full width, random weights: (a)
+     AutoRFMix TTO at autorfmix.nusc.vehicle.car.json on 2 synthetic
+     objects, its iterations 0..3 rendering the replayed pose_init (no
+     refiner); (b) cli.optimize_kitti at autorfmix.kitti.car.json on a KITTI
+     fixture, add_pose_err 1; (c) AutoRFMix training (16 objects, batch 8, 4
+     steps, a resume); (d) CodeNeRF at the factory's (2, 1) decoder, TTO on
+     2 objects and 4 training steps; (e) the original AutoRF, TTO on 2
+     objects and 2 training steps on its plain decoder (no TPU kernel in
+     the JAX package), where no kernel may launch; each with its launch
+     counts and objects/min or steps/s.
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -755,13 +769,15 @@ def check_kernel_branches():
         raise RuntimeError("a kernel disagrees with its plain version off the main path")
 
 
-def check_kernels():
-    """K1 and K2 against their plain versions; returns the kernel records."""
+def check_kernels(model=None, seed=0):
+    """K1 and K2 against their plain versions at the TTO path's shape, on
+    the published config's decoder (random weights) or `model`'s; returns
+    the kernel records."""
     import torch
 
     from supnerf_tpu_torch.ops import render
 
-    wts, args, cot = kernel_inputs()
+    wts, args, cot = kernel_inputs(seed=seed, model=model)
     xyz = args[0]
     B, R, S = xyz.shape[:3]
     W, ns, nt = wts.W, wts.n_shape, wts.n_tex
@@ -979,18 +995,19 @@ def wgrad_on_stash(wts, pt, ray):
     return err, err <= WGRAD_RTOL and all(bool(torch.isfinite(a).all()) for a in gk)
 
 
-def check_train_kernels():
+def check_train_kernels(model=None, seed=1):
     """K1 at the training path's shape (8 objects, per-object latents) and
     K3 + K4 in both modes against render_train_bwd_plain in float32 and
     float64 on the same inputs, kink rays taken out (train_bwd_at_kinks);
-    K4 alone against its plain version on the stash K3 wrote. Returns the
+    K4 alone against its plain version on the stash K3 wrote; on the
+    published config's decoder (random weights) or `model`'s. Returns the
     records of K1 (at this shape), K3 and K4, and train_bwd_at_kinks'
     result for check_train_data_kernels."""
     import torch
 
     from supnerf_tpu_torch.ops import render
 
-    wts, args, cot = kernel_inputs(seed=1, B=TRAIN_BATCH)
+    wts, args, cot = kernel_inputs(seed=seed, B=TRAIN_BATCH, model=model)
     B, R, S = args[0].shape[:3]
     W, ns, nt = wts.W, wts.n_shape, wts.n_tex
     names = ["d" + n for n in _linear_param_names(wts)]
@@ -1123,6 +1140,35 @@ def check_train_data_kernels(arb):
     if not (arb["ok"] and arb["same"] and stash_same):
         raise RuntimeError("K3's data mode disagrees with its plain version or its other mode")
     return [rec]
+
+
+def codenerf_model(seed):
+    """CodeNeRF at the factory's defaults (2 shape blocks, 1 texture block,
+    W 256; random weights from `seed`) on the card: the decoder shape of the
+    baseline paths' CodeNeRF cells."""
+    from supnerf_tpu_torch.models.factory import build_model, init_model
+
+    return init_model(build_model("codenerf", {"latent_dim": 256}), seed).cuda()
+
+
+def check_codenerf_kernels():
+    """K1 and K2 at the TTO shape, K1, K3 (both modes) and K4 at the training
+    shape, on CodeNeRF's decoder (2 shape blocks, 1 texture block), against
+    their plain versions with the (3, 1) checks' tolerances and kink rules
+    (check_kernels, check_train_kernels): the stash row and K4's problem list
+    change with the block counts. Returns {counter name: its timed numbers
+    at this decoder}."""
+    model = codenerf_model(7)
+    print(f"   CodeNeRF's decoder, {model.shape_blocks} shape blocks and "
+          f"{model.texture_blocks} texture block:")
+    tto = check_kernels(model=model, seed=5)
+    train, arb = check_train_kernels(model=model, seed=6)
+    if not arb["ok"]:
+        raise RuntimeError("K3's data mode disagrees with its plain version at (2, 1)")
+    del arb
+    keep = ("ms", "plain_ms", "bound_ms", "bound_by", "bound_fma_ms", "max_abs_err",
+            "library_ms")
+    return {r["name"]: {k: r[k] for k in keep} for r in train + tto[1:]}
 
 
 def field_train_inputs(seed=4, B=TRAIN_BATCH, model=None):
@@ -1551,25 +1597,41 @@ def _path_counts(name, kernels):
     return counts
 
 
-def tto_path(out_dir):
-    """The port's CLI TTO at the published config on 2 synthetic objects,
-    writing into a temporary directory. Returns the launch counts."""
+def _plain_counts(name):
+    """The launch counts of a path on the plain decoder (the original
+    AutoRF, which has no TPU kernel in the JAX package): every one 0."""
+    from supnerf_tpu_torch.ops import render
+
+    counts = dict(render.LAUNCHES)
+    print(f"   launches on the {name} path: none (route: plain, no TPU kernel in the JAX "
+          "package)")
+    if any(counts.values()):
+        raise RuntimeError(f"the {name} path launched a kernel: {counts}")
+    return counts
+
+
+def tto_path(out_dir, config=None, label="TTO", replay=False, kernels=TTO_KERNELS):
+    """The port's CLI TTO at the published config (or `config`) on 2
+    synthetic objects, writing into out_dir. With replay (an arch without a
+    refiner) the pose errors of iterations 0..3 must be equal: those
+    iterations render the replayed pose_init. Returns the launch counts
+    (kernels None: the plain decoder's route, where no kernel may launch)."""
     import numpy as np
     import torch
 
     from supnerf_tpu_torch.cli import optimize
     from supnerf_tpu_torch.ops import render
 
+    config = config or os.path.join(HERE, "jsonfiles", "supnerf.nusc.vehicle.car.json")
     render.reset_launch_counts()
     t0 = time.perf_counter()
     summary = optimize.main([
-        "--config_file", os.path.join(HERE, "jsonfiles", "supnerf.nusc.vehicle.car.json"),
-        "--dataset", "synthetic", "--num_objects", "2", "--batch_size", "2",
-        "--device", "cuda", "--seed", "0", "--save_dir", out_dir])
+        "--config_file", config, "--dataset", "synthetic", "--num_objects", "2",
+        "--batch_size", "2", "--device", "cuda", "--seed", "0", "--save_dir", out_dir])
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = _path_counts("TTO", TTO_KERNELS)
-    print(f"   TTO path: {seconds:.2f} s for 2 objects, {2 * 60 / seconds:.1f} objects/min "
+    counts = _path_counts(label, kernels) if kernels else _plain_counts(label)
+    print(f"   {label} path: {seconds:.2f} s for 2 objects, {2 * 60 / seconds:.1f} objects/min "
           "end to end through the CLI; phases: " + ", ".join(
         f"{k} {v:.2f} s" for k, v in summary["phase_seconds"].items()))
     result_file = os.path.join(out_dir, "codes+poses.pkl")
@@ -1583,6 +1645,12 @@ def tto_path(out_dir):
     if len(res["psnr_eval"]) != 2 or not all(np.isfinite(c).all() and len(c) == 100
                                                for c in curves):
         raise RuntimeError("the result curves are missing or not finite")
+    if replay:
+        errs = [v[:4] for key in ("R_eval", "T_eval") for v in res[key].values()]
+        if not all(len(set(e)) == 1 for e in errs):
+            raise RuntimeError(f"{label}: iterations 0..3 did not render one pose: {errs}")
+        print(f"   {label}: iterations 0..3 render pose_init (the replayed trajectory: rotation "
+              f"and translation errors constant over them)")
     agg = summary["aggregate"]
     print(f"   final: psnr {agg['psnr'][-1]:.3f} dB, rot err {agg['rot_err_deg'][-1]:.3f} deg, "
           f"trans err {agg['trans_err'][-1]:.4f} m, depth err {agg['depth_err'][-1]:.4f} m "
@@ -1591,10 +1659,12 @@ def tto_path(out_dir):
     return counts
 
 
-def train_path(out_dir):
-    """The port's CLI training at the published config: 16 synthetic objects,
-    batch 8, 2 epochs (4 steps), then a run resumed from epoch_0 and the TTO
-    loader on the checkpoint. Returns the launch counts of the 4 steps."""
+def train_path(out_dir, config=None, label="training", epochs=2, kernels=TRAIN_KERNELS):
+    """The port's CLI training at the published config (or `config`): 16
+    synthetic objects, batch 8, `epochs` epochs (2: 4 steps), then with 2
+    epochs a run resumed from epoch_0, and the TTO loader on the last
+    checkpoint. Returns the launch counts of the run (kernels None: the
+    plain decoder's route, where no kernel may launch)."""
     import math
 
     import numpy as np
@@ -1605,53 +1675,56 @@ def train_path(out_dir):
     from supnerf_tpu_torch.config import load_hpams
     from supnerf_tpu_torch.ops import render
 
-    config = os.path.join(HERE, "jsonfiles", "supnerf.nusc.vehicle.car.json")
+    config = config or os.path.join(HERE, "jsonfiles", "supnerf.nusc.vehicle.car.json")
     run_dir, resume_dir = os.path.join(out_dir, "run"), os.path.join(out_dir, "resumed")
     argv = ["--config_file", config, "--dataset", "synthetic",
             "--num_objects", str(TRAIN_OBJECTS), "--batch_size", str(TRAIN_BATCH),
-            "--epochs", "2", "--device", "cuda", "--seed", "0", "--check_iter", "1"]
+            "--epochs", str(epochs), "--device", "cuda", "--seed", "0", "--check_iter", "1"]
     render.reset_launch_counts()
     summary = train.main(argv + ["--save_dir", run_dir])
     torch.cuda.synchronize()
-    counts = _path_counts("training", TRAIN_KERNELS)
+    counts = _path_counts(label, kernels) if kernels else _plain_counts(label)
     if render.LAUNCHES["render_train_bwd_data"] != 0:
         raise RuntimeError("the training step ran K3's data mode: its batches are data")
     steps = summary["metrics"]
-    if len(steps) != 2 * TRAIN_OBJECTS // TRAIN_BATCH:
-        raise RuntimeError(f"{len(steps)} training steps instead of 4")
+    n_steps = epochs * TRAIN_OBJECTS // TRAIN_BATCH
+    if len(steps) != n_steps:
+        raise RuntimeError(f"{len(steps)} training steps instead of {n_steps}")
     if not all(math.isfinite(m[k]) for m in steps for k in ("loss_total", "loss_rgb",
                                                             "loss_occ", "psnr")):
         raise RuntimeError(f"a training loss is not finite: {steps}")
-    for name in ("epoch_0.pth", "epoch_1.pth", "epoch_1_optim.pth", "models.pth"):
+    last = epochs - 1
+    for name in ("epoch_0.pth", f"epoch_{last}.pth", f"epoch_{last}_optim.pth", "models.pth"):
         if not os.path.exists(os.path.join(run_dir, name)):
             raise RuntimeError(f"{name} was not written")
     ph = summary["phase_seconds"]
     loop = sum(m["seconds"] for m in steps)
-    print(f"   training path: {len(steps)} steps of {TRAIN_BATCH} objects in "
+    print(f"   {label} path: {len(steps)} steps of {TRAIN_BATCH} objects in "
           f"{summary['seconds']:.2f} s end to end through the CLI (checkpoints included): "
           f"{len(steps) / summary['seconds']:.2f} steps/s, "
           f"{len(steps) * TRAIN_BATCH / summary['seconds']:.1f} objects/s; "
           f"the step loop alone {len(steps) / loop:.2f} steps/s")
-    print("   phase split (s, 4 steps; forward includes render): " + ", ".join(
+    print(f"   phase split (s, {len(steps)} steps; forward includes render): " + ", ".join(
         f"{k} {v:.3f}" for k, v in ph.items()))
     print("   per step (s): " + ", ".join(f"{m['seconds']:.3f}" for m in steps))
     print("   last step's split (s; forward includes render): " + ", ".join(
         f"{k} {v:.4f}" for k, v in steps[-1]["phase_seconds"].items()))
     print("   losses: " + ", ".join(f"{m['loss_total']:.4f}" for m in steps))
 
-    resumed = train.main(argv + ["--save_dir", resume_dir, "--resume_dir", run_dir,
-                                 "--resume_from_epoch", "0"])["metrics"]
-    want, got = steps[2]["loss_total"], resumed[0]["loss_total"]
-    print(f"   resumed from epoch_0: step 3 loss {got:.7f} against {want:.7f} "
-          f"(rel diff {abs(got - want) / abs(want):.2e}, tol {RESUME_RTOL:.0e})")
-    if not abs(got - want) <= RESUME_RTOL * abs(want):
-        raise RuntimeError("the resumed run does not repeat step 3's loss")
+    if epochs == 2:
+        resumed = train.main(argv + ["--save_dir", resume_dir, "--resume_dir", run_dir,
+                                     "--resume_from_epoch", "0"])["metrics"]
+        want, got = steps[2]["loss_total"], resumed[0]["loss_total"]
+        print(f"   resumed from epoch_0: step 3 loss {got:.7f} against {want:.7f} "
+              f"(rel diff {abs(got - want) / abs(want):.2e}, tol {RESUME_RTOL:.0e})")
+        if not abs(got - want) <= RESUME_RTOL * abs(want):
+            raise RuntimeError("the resumed run does not repeat step 3's loss")
 
     hpams = dict(load_hpams(config), model_dir=run_dir)
-    model, mean_shape, mean_texture = load_model_and_codes(hpams, "cuda", model_epoch=1)
+    model, mean_shape, mean_texture = load_model_and_codes(hpams, "cuda", model_epoch=last)
     if not (np.isfinite(mean_shape).all() and np.isfinite(mean_texture).all()):
         raise RuntimeError("the checkpoint's mean codes are not finite")
-    print(f"   load_model_and_codes strict-loaded epoch_1.pth "
+    print(f"   load_model_and_codes strict-loaded epoch_{last}.pth "
           f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M parameters)")
     return counts
 
@@ -2245,12 +2318,14 @@ def write_kitti_fixture(root, layout, frames):
         fh.write("\n".join(ids) + "\n")
 
 
-def _config_copy(out_dir, name, dataset):
-    """A copy of jsonfiles/<name> with its dataset block updated."""
+def _config_copy(out_dir, name, dataset=None, **keys):
+    """A copy of jsonfiles/<name> with its dataset block updated and the
+    top-level `keys` set, written into out_dir under its arch's name."""
     with open(os.path.join(HERE, "jsonfiles", name)) as f:
         config = json.load(f)
-    config["dataset"].update(dataset)
-    path = os.path.join(out_dir, name)
+    config["dataset"].update(dataset or {})
+    config.update(keys)
+    path = os.path.join(out_dir, f"{config['arch']}_{name}")
     with open(path, "w") as f:
         json.dump(config, f)
     return path
@@ -2404,13 +2479,77 @@ def dataset_paths(out_dir):
     return counts
 
 
+def baseline_paths(out_dir):
+    """Phase 10, the baselines on the card through the CLIs, full width,
+    random weights: (a) AutoRFMix TTO at autorfmix.nusc.vehicle.car.json
+    (W 256, 3 shape and 1 texture block, the two-head ResNet34) on 2
+    synthetic objects; (b) cli.optimize_kitti at autorfmix.kitti.car.json on
+    a KITTI fixture, add_pose_err 1; (c) AutoRFMix training, 16 objects,
+    batch 8, 4 steps, then a resume; (d) CodeNeRF (the factory's 2 shape and
+    1 texture block, W 256) TTO on 2 objects and 4 training steps; (e) the
+    original AutoRF (the factory's 5 and 5 blocks, W 128) TTO on 2 objects
+    and 2 training steps on its plain decoder, where no kernel may launch.
+    Returns the launch counts per path."""
+    from supnerf_tpu_torch.cli import optimize_kitti
+
+    mix = os.path.join(HERE, "jsonfiles", "autorfmix.nusc.vehicle.car.json")
+    counts = {}
+    t0 = time.perf_counter()
+    counts["autorfmix_tto"] = tto_path(os.path.join(out_dir, "mix_tto"), mix, "AutoRFMix TTO",
+                                       replay=True)
+    print(f"   (a) AutoRFMix TTO: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    kitti_root = os.path.join(out_dir, "kitti")
+    write_kitti_fixture(kitti_root, "kitti", [[(-3.0, 14.0, 0.3), (3.6, 19.0, -1.2)],
+                                              [(-2.6, 15.5, 0.5), (3.2, 20.0, -1.0)]])
+    cfg = _config_copy(out_dir, "autorfmix.kitti.car.json", {
+        "data_dir": kitti_root, "split_dir": os.path.join(kitti_root, "ImageSets")})
+    counts["autorfmix_kitti"], _ = _run_dataset_cli(
+        "AutoRFMix KITTI add_pose_err 1", optimize_kitti.main,
+        ["--config_file", cfg, "--add_pose_err", "1", "--batch_size", "4",
+         "--save_dir", os.path.join(out_dir, "mix_kitti")], 4)
+    print(f"   (b) AutoRFMix KITTI: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    counts["autorfmix_train"] = train_path(os.path.join(out_dir, "mix_train"), mix,
+                                           "AutoRFMix training")
+    print(f"   (c) AutoRFMix training: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    cfg = _config_copy(out_dir, "autorfmix.nusc.vehicle.car.json", arch="codenerf",
+                       net_hyperparams={"latent_dim": 256},
+                       model_dir=os.path.join(out_dir, "no_checkpoint"))
+    counts["codenerf_tto"] = tto_path(os.path.join(out_dir, "codenerf_tto"), cfg,
+                                      "CodeNeRF TTO", replay=True)
+    counts["codenerf_train"] = train_path(os.path.join(out_dir, "codenerf_train"), cfg,
+                                          "CodeNeRF training")
+    print(f"   (d) CodeNeRF TTO and training: {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    # latent_dim is the factory's default, given because the trainer's code
+    # tables read it from the config (default 256, as in the JAX trainer)
+    cfg = _config_copy(out_dir, "autorfmix.nusc.vehicle.car.json", arch="autorf_original",
+                       net_hyperparams={"latent_dim": 128},
+                       model_dir=os.path.join(out_dir, "no_checkpoint"))
+    counts["autorf_original_tto"] = tto_path(os.path.join(out_dir, "orig_tto"), cfg,
+                                             "original AutoRF TTO", replay=True, kernels=None)
+    counts["autorf_original_train"] = train_path(os.path.join(out_dir, "orig_train"), cfg,
+                                                 "original AutoRF training", epochs=1,
+                                                 kernels=None)
+    print(f"   (e) original AutoRF TTO and training (route: plain, no TPU kernel in the JAX "
+          f"package): {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
 def kernel_records(tto_records, train_records, aabb_records, field_records,
-                   train_kernel_records, train_field_extra, counts_by_path):
+                   train_kernel_records, train_field_extra, codenerf_extra, counts_by_path):
     """One record per launch counter, launches from the path that runs it
     (K1's shared-z mode from the training path; launches_by_path has every
-    path); K1's numbers are the training shape's, with the TTO shape's
-    beside them; K5's the symmetry loss's shape, with the training field's
-    beside them; K4's K3's stash, with K7's beside them."""
+    path, the baselines' too); K1's numbers are the training shape's, with
+    the TTO shape's beside them; K5's the symmetry loss's shape, with the
+    training field's beside them; K4's K3's stash, with K7's beside them;
+    K1-K4's at CodeNeRF's (2, 1) decoder beside theirs (decoder_2_1)."""
     by_name = {r["name"]: r for r in (train_records + aabb_records + field_records
                                       + train_kernel_records)}
     for r in tto_records:
@@ -2424,6 +2563,8 @@ def kernel_records(tto_records, train_records, aabb_records, field_records,
             "library_ms")
     by_name["field_fwd"]["train_shape"] = {k: train_field_extra["field_fwd"][k] for k in keep}
     by_name["wgrad"]["field_stash"] = {k: train_field_extra["wgrad"][k] for k in keep}
+    for name, numbers in codenerf_extra.items():
+        by_name[name]["decoder_2_1"] = numbers
     by_name["render_fwd"]["ports"] = ["A1", "A3", "A5"]
     by_name["render_bwd"]["ports"] = ["A2", "A4"]
     by_name["field_fwd"]["ports"] = ["A7", "A11b", "A9"]
@@ -2469,6 +2610,7 @@ def main():
     del arb
     k7_records, train_field_extra = check_field_train_kernels()
     train_kernel_records += k7_records
+    codenerf_extra = check_codenerf_kernels()
     check_kernel_branches()
     check_field_branches()
     done(t0, "kernels")
@@ -2493,12 +2635,17 @@ def main():
                "the nuScenes demo")
     dataset_counts = _in_temp_dir(dataset_paths)
     done(t0, "dataset paths")
+    t0 = phase("baseline paths: AutoRFMix (TTO, KITTI, training), CodeNeRF (TTO, training), "
+               "the original AutoRF (TTO, training; plain decoder)")
+    baseline_counts = _in_temp_dir(baseline_paths)
+    done(t0, "baseline paths")
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
-                             train_kernel_records, train_field_extra,
+                             train_kernel_records, train_field_extra, codenerf_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
                               "reg_cli": reg_cli_counts, "reg_lib": reg_lib_counts,
                               "train_render_data": render_data_counts,
-                              "train_field": field_train_counts, **dataset_counts})
+                              "train_field": field_train_counts, **dataset_counts,
+                              **baseline_counts})
     records_by_name = {r["name"]: r for r in records}
     records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms
     records_by_name["field_train_bwd"]["batch48_fwd_bwd_ms"] = field_train_ms

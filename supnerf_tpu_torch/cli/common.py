@@ -64,10 +64,12 @@ def mean_codes(shape_codes, texture_codes, optimized_idx) -> tuple:
 
 
 def load_model_and_codes(hpams: dict, device, model_epoch=None, seed: int = 0):
-    """Build the model and load a reference-format checkpoint
-    (model_dir/models.pth or epoch_N.pth: {'model_params', 'shape_code_params',
-    'texture_code_params', ...}, reference trainer_unified_nuscenes.py:476-490)
-    strictly; without one, fresh weights from `seed` and zero mean codes."""
+    """Build the model of hpams["arch"] (any arch of models/factory.py) and
+    load a reference-format checkpoint (model_dir/models.pth or epoch_N.pth:
+    {'model_params', 'shape_code_params', 'texture_code_params', ...},
+    reference trainer_unified_nuscenes.py:476-490; CodeNeRF's model_params
+    hold the decoder alone) strictly; without one, fresh weights from `seed`
+    and zero mean codes."""
     model = build_model(hpams["arch"], hpams["net_hyperparams"])
     latent = hpams["net_hyperparams"].get("latent_dim", 256)
     model_dir = hpams.get("model_dir", "")

@@ -4,7 +4,9 @@
         --config_file jsonfiles/supnerf.nusc.vehicle.car.json \\
         --dataset synthetic --num_objects 16 --batch_size 8 --epochs 2 [--device cpu]
 
-Trains the unified SUP-NeRF model from fresh weights (seeded) and writes
+Trains the config's arch from fresh weights (seeded): SUP-NeRF with the
+unified loss, the baselines (autorf, autorfmix, autorf_original, codenerf)
+with the NeRF-only loss, as the JAX CLI chooses. Writes
 epoch_{n}.pth, models.pth, epoch_{n}_optim.pth, instoken2idx.json and
 hpam.json into --save_dir; --resume_from_epoch continues from a checkpoint.
 """
@@ -62,8 +64,10 @@ def main(argv=None):
     dataset = build_dataset(hpams, args, split="train")
     save_dir = args.save_dir or os.path.join(
         "checkpoints", hpams["arch"], f"train_{date.today().strftime('%Y_%m_%d')}")
+    loss_mode = "unified" if hpams["arch"] == "supnerf" else "nerf_only"
     trainer = UnifiedTrainer(model, hpams, dataset, save_dir, device=device,
-                             batch_size=args.batch_size, im_enc_rate=args.im_enc_rate,
+                             batch_size=args.batch_size, loss_mode=loss_mode,
+                             im_enc_rate=args.im_enc_rate,
                              seed=args.seed, check_iter=args.check_iter,
                              save_every=args.save_every)
     if args.resume_from_epoch is not None:

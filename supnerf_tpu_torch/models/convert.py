@@ -4,7 +4,8 @@ state_dict. The port's modules use the reference's torch parameter names, so
 the result loads with load_state_dict(strict=True) — and so does a reference
 models.pth. This is the port's own copy of the mapping in
 supnerf_tpu/models/torch_import.py (export_encoder, export_decoder,
-export_pose_refiner, export_state_dict).
+export_pose_refiner, export_autorf_original_decoder, export_state_dict), for
+every arch of models/factory.py.
 
 Layouts: flax conv kernels (H, W, I, O) -> torch (O, I, H, W); dense kernels
 (I, O) -> (O, I); BatchNorm scale/bias -> weight/bias, batch_stats
@@ -85,6 +86,19 @@ def convert_decoder(params, shape_blocks: int, texture_blocks: int):
     return out
 
 
+def convert_autorf_decoder(params, shape_blocks: int, texture_blocks: int):
+    """flax AutoRFDecoder params -> the reference's original AutoRF decoder
+    names (no latent projections)."""
+    out = {}
+    for name, src in (("encoding_xyz.0", "encoding_xyz"), ("sigma.0", "sigma"), ("rgb.0", "rgb")):
+        _dense(out, name, params[src])
+    for j in range(shape_blocks - 1):
+        _dense(out, f"shape_layer_{j}.0", params[f"shape_layer_{j}"])
+    for j in range(texture_blocks - 1):
+        _dense(out, f"texture_layer_{j}.0", params[f"texture_layer_{j}"])
+    return out
+
+
 def convert_pose_refiner(params, pose_blocks: int, regress_blocks: int):
     out = {}
     _dense(out, "out_delta_layer", params["out_delta_layer"])
@@ -108,6 +122,49 @@ def convert_supnerf_variables(variables, net_hyperparams: dict) -> dict:
     return sd
 
 
+def convert_autorfmix_variables(variables, net_hyperparams: dict) -> dict:
+    """JAX AutoRFMix variables (arch "autorf" or "autorfmix") -> this
+    package's AutoRFMix state_dict."""
+    hp = net_hyperparams
+    params = variables["params"]
+    sd = convert_encoder(params["img_encoder"], variables["batch_stats"]["img_encoder"],
+                         heads=("shape", "texture"))
+    sd.update(convert_decoder(params["decoder"], hp.get("shape_blocks", 5),
+                              hp.get("texture_blocks", 5)))
+    return sd
+
+
+def convert_autorf_variables(variables, net_hyperparams: dict) -> dict:
+    """JAX AutoRF variables (arch "autorf_original") -> this package's AutoRF
+    state_dict."""
+    hp = net_hyperparams
+    params = variables["params"]
+    sd = convert_encoder(params["img_encoder"], variables["batch_stats"]["img_encoder"],
+                         heads=("shape", "texture"))
+    sd.update(convert_autorf_decoder(params["decoder"], hp.get("shape_blocks", 5),
+                                     hp.get("texture_blocks", 5)))
+    return sd
+
+
+def convert_codenerf_variables(variables, net_hyperparams: dict) -> dict:
+    """JAX CodeNeRF variables -> this package's CodeNeRF state_dict (the
+    decoder alone)."""
+    hp = net_hyperparams
+    return convert_decoder(variables["params"]["decoder"], hp.get("shape_blocks", 2),
+                           hp.get("texture_blocks", 1))
+
+
+CONVERTERS = {"supnerf": convert_supnerf_variables, "autorf": convert_autorfmix_variables,
+              "autorfmix": convert_autorfmix_variables,
+              "autorf_original": convert_autorf_variables, "codenerf": convert_codenerf_variables}
+
+
+def convert_variables(arch: str, variables, net_hyperparams: dict) -> dict:
+    """JAX variables of the model build_model(arch, net_hyperparams) makes
+    -> the state_dict of this package's model of that arch."""
+    return CONVERTERS[arch](variables, net_hyperparams)
+
+
 def _adam_moments(opt_state):
     """The (count, mu, nu) of optax's scale_by_adam inside an adamw state
     (a tuple of states, found by its fields)."""
@@ -120,18 +177,19 @@ def _adam_moments(opt_state):
 def convert_train_state(jax_state, hpams: dict, device="cpu", cfg=None):
     """A JAX TrainState (supnerf_tpu/training/train_step.py; its leaves as
     numpy arrays) -> this package's training.train_step.TrainState on
-    `device`: the variables into a SUPNeRF (load_state_dict strict), both
-    code tables, optimized_idx, niter, and both optimizers' counts and
-    moments, so that the two packages continue from the same numbers."""
+    `device`: the variables into the model of hpams["arch"]
+    (load_state_dict strict), both code tables, optimized_idx, niter, and
+    both optimizers' counts and moments, so that the two packages continue
+    from the same numbers."""
     from supnerf_tpu_torch.models.factory import build_model
     from supnerf_tpu_torch.training.train_step import TrainConfig, init_train_state
 
-    hp = hpams["net_hyperparams"]
-    cfg = cfg or TrainConfig(latent_dim=hp.get("latent_dim", 256))
-    model = build_model(hpams["arch"], hp)
+    arch, hp = hpams["arch"], hpams["net_hyperparams"]
+    model = build_model(arch, hp)
+    cfg = cfg or TrainConfig(latent_dim=model.latent_dim)
     stats = jax_state.batch_stats
-    model.load_state_dict(convert_supnerf_variables(
-        {"params": jax_state.params, "batch_stats": stats}, hp), strict=True)
+    model.load_state_dict(convert_variables(
+        arch, {"params": jax_state.params, "batch_stats": stats}, hp), strict=True)
     n = np.asarray(jax_state.shape_codes).shape[0]
     state = init_train_state(model, n, cfg, device)
     with torch.no_grad():
@@ -143,7 +201,7 @@ def convert_train_state(jax_state, hpams: dict, device="cpu", cfg=None):
 
     names = [name for name, _ in state.model.named_parameters()]
     count, mu, nu = _adam_moments(jax_state.opt_state_model)
-    moments = [convert_supnerf_variables({"params": tree, "batch_stats": stats}, hp)
+    moments = [convert_variables(arch, {"params": tree, "batch_stats": stats}, hp)
                for tree in (mu, nu)]
     state.opt_model.load_state_dict({"m": [moments[0][k] for k in names],
                                      "v": [moments[1][k] for k in names], "count": count})

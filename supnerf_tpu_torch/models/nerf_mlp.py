@@ -1,8 +1,8 @@
-"""Latent-conditioned NeRF decoder and pose refiner; the port of
+"""Latent-conditioned NeRF decoders and pose refiner; the port of
 supnerf_tpu/models/nerf_mlp.py (positional encodings, CodeNeRFDecoder,
-PoseRefinerMLP) with the reference's torch parameter names
-(model_codenerf.py:13-63, model_supnerf.py:155-264), so that its
-state_dicts load strictly.
+AutoRFDecoder, PoseRefinerMLP) with the reference's torch parameter names
+(model_codenerf.py:13-63, model_autorf.py:123-186, model_supnerf.py:155-264),
+so that its state_dicts load strictly.
 """
 from __future__ import annotations
 
@@ -83,6 +83,61 @@ def decode(m, xyz, viewdir, shapecode, texturecode):
         y = y + getattr(m, f"texture_latent_layer_{j}")(texturecode)
         y = getattr(m, f"texture_layer_{j}")(y)
     return sigmas, m.rgb(y)
+
+
+class AutoRFDecoder(nn.Module):
+    """The original AutoRF feature-averaging decoder (reference
+    model_autorf.py:123-186): the shape and texture features are averaged
+    with the positional feature between layers, rgb passes a sigmoid. No
+    latent projections: the codes enter as features of width latent_dim.
+
+    forward(xyz (..., 3), viewdir (..., 3), shape_feat, texture_feat) ->
+    (sigmas (..., 1), rgbs (..., 3)); the features broadcast against the
+    leading dims of xyz."""
+
+    def __init__(self, shape_blocks: int = 5, texture_blocks: int = 5, latent_dim: int = 128,
+                 num_xyz_freq: int = 10, num_dir_freq: int = 4):
+        super().__init__()
+        add_autorf_layers(self, shape_blocks, texture_blocks, latent_dim, num_xyz_freq,
+                          num_dir_freq)
+
+    def forward(self, xyz, viewdir, shape_feat, texture_feat):
+        return autorf_decode(self, xyz, viewdir, shape_feat, texture_feat)
+
+
+def add_autorf_layers(m, shape_blocks, texture_blocks, latent_dim, num_xyz_freq, num_dir_freq):
+    """AutoRFDecoder's layers under the reference names, with its index
+    quirks: shape_layer_{0..n-2}; texture_layer_{0..n-3} on the feature and
+    texture_layer_{n-2} on the feature concatenated with the direction
+    encoding, as is rgb."""
+    m.shape_blocks, m.texture_blocks = shape_blocks, texture_blocks
+    m.num_xyz_freq, m.num_dir_freq = num_xyz_freq, num_dir_freq
+    d_xyz, d_dir, W = 3 + 6 * num_xyz_freq, 3 + 6 * num_dir_freq, latent_dim
+    m.encoding_xyz = _lin_relu(d_xyz, W)
+    for j in range(shape_blocks - 1):
+        setattr(m, f"shape_layer_{j}", _lin_relu(W, W))
+    m.sigma = nn.Sequential(nn.Linear(W, 1), nn.Softplus())
+    for j in range(texture_blocks - 2):
+        setattr(m, f"texture_layer_{j}", _lin_relu(W, W))
+    setattr(m, f"texture_layer_{texture_blocks - 2}", _lin_relu(W + d_dir, W))
+    m.rgb = nn.Sequential(nn.Linear(W + d_dir, 3), nn.Sigmoid())
+
+
+def autorf_decode(m, xyz, viewdir, shape_feat, texture_feat):
+    """The AutoRF decoder chain on any module holding add_autorf_layers'
+    layers (AutoRFDecoder, AutoRF)."""
+    pos = m.encoding_xyz(positional_encoding(xyz, m.num_xyz_freq))
+    dir_pe = positional_encoding(viewdir, m.num_dir_freq).expand(*pos.shape[:-1], -1)
+    sf = shape_feat.expand_as(pos)
+    for j in range(m.shape_blocks - 1):
+        sf = getattr(m, f"shape_layer_{j}")((sf + pos) / 2)
+    sigmas = m.sigma((sf + pos) / 2)
+    tf = texture_feat.expand_as(pos)
+    for j in range(m.texture_blocks - 2):
+        tf = getattr(m, f"texture_layer_{j}")((tf + pos) / 2)
+    tf = (tf + sf + pos) / 3
+    tf = getattr(m, f"texture_layer_{m.texture_blocks - 2}")(torch.cat([tf, dir_pe], -1))
+    return sigmas, m.rgb(torch.cat([(tf + pos) / 2, dir_pe], -1))
 
 
 class PoseRefinerMLP(nn.Module):

@@ -354,7 +354,9 @@ def field_train(decoder, xyz, viewdir, shapecode, texturecode):
     kernels for CUDA tensors, the plain versions inside the same wrappers
     for CPU tensors). Gradients reach every weight and bias of the decoder,
     the points, the view directions and, through the live latent layers,
-    the codes."""
+    the codes. Raises ValueError for a decoder that is not kernel-compatible
+    (render.decoder_kernel_compatible)."""
+    render.check_kernel_decoder(decoder)
     lead = xyz.shape[:-1]
     zs, zt = conditioned_latents_of(decoder, shapecode, texturecode)
     meta = (decoder.shape_blocks, decoder.texture_blocks, decoder.num_xyz_freq,

@@ -56,7 +56,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from supnerf_tpu_torch.models.nerf_mlp import positional_encoding
+from supnerf_tpu_torch.models.nerf_mlp import CodeNeRFDecoder, positional_encoding
 from supnerf_tpu_torch.ops.volume_render import volume_render
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -146,6 +146,27 @@ class _DecoderPtrs(ctypes.Structure):
     _fields_ = [(name, ctypes.c_void_p) for name in _PTR_FIELDS]
 
 
+def decoder_kernel_compatible(model) -> bool:
+    """Whether the kernels run this model's decoder (the port of
+    supnerf_tpu/ops/pallas_field.py decoder_kernel_compatible), by its
+    structure alone: a CodeNeRF-style decoder (CodeNeRFDecoder: SUPNeRF,
+    AutoRFMix, CodeNeRF) with at least one shape and one texture block. The
+    original AutoRF's feature-averaging decoder has no kernel here, as it
+    has no Pallas kernel in the JAX package; its callers run it as the
+    plain decoder (decoder_composite)."""
+    return (isinstance(model, CodeNeRFDecoder) and model.shape_blocks >= 1
+            and model.texture_blocks >= 1)
+
+
+def check_kernel_decoder(decoder):
+    """Raise ValueError unless decoder_kernel_compatible(decoder)."""
+    if not decoder_kernel_compatible(decoder):
+        raise ValueError(f"{type(decoder).__name__} has no render kernel: the kernels run a "
+                         "CodeNeRF-style decoder with at least one shape and one texture block "
+                         "(SUPNeRF, AutoRFMix, CodeNeRF); the original AutoRF decoder runs as "
+                         "the plain decoder (ops.render.decoder_composite)")
+
+
 def linear_names(n_shape: int, n_tex: int) -> list:
     """The decoder layers the render kernels run, in kernel order (the
     reference's module names; the latent projections are not among them)."""
@@ -207,7 +228,9 @@ def pack_decoder_params(decoder) -> DecoderWeights:
     """Frozen (detached), contiguous float32 kernel operands of a
     CodeNeRF-style decoder (any module holding the reference layer names:
     CodeNeRFDecoder, SUPNeRF), latent projections included, on the
-    decoder's device."""
+    decoder's device. Raises ValueError for a decoder that is not
+    kernel-compatible (decoder_kernel_compatible)."""
+    check_kernel_decoder(decoder)
     n_sh, n_tx = decoder.shape_blocks, decoder.texture_blocks
 
     def pair(name):
@@ -549,6 +572,36 @@ def field_composite_aabb(wts: DecoderWeights, xyz, viewdir, z, hit, shapecode, t
     zs, zt = conditioned_latents(wts, shapecode, texturecode)
     return FieldComposite.apply(xyz.contiguous(), viewdir.contiguous(), z.contiguous(),
                                 zs.contiguous(), zt.contiguous(), wts, white_bkgd, hit)
+
+
+def decoder_field(model, xyz, viewdir, shapecode, texturecode):
+    """The model's own decoder on the points of B objects, under autograd:
+    xyz, viewdir (B,...,3), codes (B, latent) broadcast over the middle
+    axes -> (sigma (B,...,1), rgb (B,...,3)). The route of a decoder that
+    is not kernel-compatible (the original AutoRF), as the JAX package runs
+    it on flax autodiff."""
+    mid = (slice(None),) + (None,) * (xyz.dim() - 2)
+    return model(xyz, viewdir, shapecode[mid], texturecode[mid])
+
+
+def decoder_composite(model, xyz, viewdir, z, shapecode, texturecode, white_bkgd: bool = False,
+                      hit=None):
+    """field_composite's (and with hit field_composite_aabb's) counterpart
+    for a decoder that is not kernel-compatible: decoder_field composited
+    by ops.volume_render, differentiable in the data, the codes and the
+    decoder's weights. xyz (B,R,S,3), viewdir (B,R,3) per ray or
+    (B,R,S,3), z (B,S), or per ray (B,R,S) with hit (B,R), whose missed
+    rays get zero density (render_fwd_plain's rule) -> (rgb, depth,
+    acc_trans)."""
+    if viewdir.dim() == 3:
+        viewdir = viewdir[:, :, None, :].expand_as(xyz)
+    sigma, rgb = decoder_field(model, xyz, viewdir, shapecode, texturecode)
+    sigma = sigma[..., 0]
+    if hit is None:
+        z = z[:, None, :]
+    else:
+        sigma = torch.where(hit[..., None] != 0, sigma, torch.zeros_like(sigma))
+    return volume_render(sigma, rgb, z, white_bkgd=white_bkgd)
 
 
 # --------------------------------------------------------------------------
@@ -983,7 +1036,9 @@ def field_composite_train(decoder, xyz, viewdir, z, shapecode, texturecode,
     are data (the NeRF branch of a training step) and must not require a
     gradient: this raises where JAX returns zeros. Runs
     FieldCompositeTrain: K1 and K3 + K4 for CUDA tensors, their plain
-    versions inside the same wrappers for CPU tensors."""
+    versions inside the same wrappers for CPU tensors. Raises ValueError for
+    a decoder that is not kernel-compatible (decoder_kernel_compatible)."""
+    check_kernel_decoder(decoder)
     if viewdir.dim() == 4:
         viewdir = viewdir[:, :, 0]
     zs, zt = conditioned_latents_of(decoder, shapecode, texturecode)

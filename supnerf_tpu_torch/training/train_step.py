@@ -1,7 +1,9 @@
-"""The unified SUP-NeRF training step (joint pose + NeRF); the port of
+"""The training step: the unified SUP-NeRF loss (joint pose + NeRF) or the
+NeRF-only loss of the baselines; the port of
 supnerf_tpu/training/train_step.py (reference trainer_unified_nuscenes.py:
 ParallelModel.forward :27-148, pose_regress :150-195, set_optimizers
-:414-421, get_learning_rate :423-429, make_codes :437-447).
+:414-421, get_learning_rate :423-429, make_codes :437-447;
+trainer_nerf_nuscenes.py ParallelModel.forward :18-66).
 
 One step: the encoder (BatchNorm on batch statistics, running buffers moved
 by flax's rule), the direct box-corner loss, three unrolled refiner
@@ -15,6 +17,15 @@ Loss terms (coefficients from the config json):
   + pose_coef * mean(3 unrolled refiner losses)  (the encoder is active)
 loss_code and loss_reg are reported and not added (loss_code enters only
 with im_enc_rate < 1, which this port does not run).
+
+The NeRF-only loss (loss_mode "nerf_only": AutoRF, AutoRFMix, CodeNeRF):
+the encoder's codes replace the table rows (they are not averaged), and
+  loss_rgb + occ_coef * loss_occ + code_coef * loss_code
+with loss_code the encoder's distance from the rows; CodeNeRF, which has no
+encoder, renders the rows and trains them directly (loss_code 0). Its NeRF
+branch runs on the kernels for a kernel-compatible decoder and on the
+original AutoRF's plain decoder under autograd otherwise
+(ops.render.decoder_kernel_compatible).
 
 Numerics kept from the JAX step: the code tables are dense and every row's
 moments and weight decay move on every step; row gradients are scatter-added
@@ -32,15 +43,24 @@ import torch
 
 from supnerf_tpu_torch.geometry.boxes import corners_of_box, normalize_by_roi, view_points
 from supnerf_tpu_torch.models.layers import batch_stat_updates
-from supnerf_tpu_torch.ops.render import field_composite_train
+from supnerf_tpu_torch.ops.render import (
+    decoder_composite,
+    decoder_kernel_compatible,
+    field_composite_train,
+)
 from supnerf_tpu_torch.ops.volume_render import occupancy_loss, rgb_loss_masked
 from supnerf_tpu_torch.optim import AdamW
 from supnerf_tpu_torch.tto.refiner import compose_pose_delta
 
 WEIGHT_DECAY = 0.01
-METRIC_NAMES = ("loss_total", "loss_rgb", "loss_occ", "psnr", "loss_reg", "loss_code",
-                "loss_pose_direct", "loss_pose_iter1", "loss_pose_iter2", "loss_pose_iter3",
-                "enc_active")
+# each loss mode's metrics, in the JAX step's order (sorted names)
+METRIC_NAMES = {
+    "unified": ("enc_active", "loss_code", "loss_occ", "loss_pose_direct", "loss_pose_iter1",
+                "loss_pose_iter2", "loss_pose_iter3", "loss_reg", "loss_rgb", "loss_total",
+                "psnr"),
+    "nerf_only": ("enc_active", "loss_code", "loss_occ", "loss_reg", "loss_rgb", "loss_total",
+                  "psnr"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -50,6 +70,7 @@ class TrainConfig:
     lr_interval_model: int = 40000
     lr_interval_codes: int = 40000
     loss_occ_coef: float = 0.1
+    loss_code_coef: float = 0.1
     loss_pose_coef: float = 0.01
     im_enc_rate: float = 1.0
     finetune_wlh: bool = False
@@ -200,25 +221,66 @@ def unified_loss(model, batch: TrainBatch, code_rows, cfg: TrainConfig, phase=No
         losses[f"loss_pose_iter{k}"] = v
     loss_total = loss_total + cfg.loss_pose_coef * (sum(pose_losses) / 3)
 
-    with phase("render"):
-        rgb, _, acc = field_composite_train(model, batch.xyz, batch.viewdir, batch.z_vals,
-                                            shapecode, texturecode, data_grads=False)
-    loss_rgb = rgb_loss_masked(rgb, batch.rgb_tgt, batch.occ_pixels, dim=(-2, -1))
-    losses["loss_rgb"] = loss_rgb.mean()
-    losses["psnr"] = -10.0 * torch.log10(loss_rgb.mean())
-    losses["loss_occ"] = occupancy_loss(acc, batch.occ_pixels, dim=(-2, -1)).mean()
-    losses["loss_reg"] = torch.mean(torch.linalg.norm(shapecode, dim=-1)
-                                    + torch.linalg.norm(texturecode, dim=-1))
+    losses.update(nerf_losses(model, batch, shapecode, texturecode, phase))
     loss_total = loss_total + losses["loss_rgb"] + cfg.loss_occ_coef * losses["loss_occ"]
     losses["loss_total"] = loss_total
-    losses["enc_active"] = torch.ones((), device=rgb.device)
     return loss_total, losses
 
 
-def train_step(state: TrainState, batch: TrainBatch, cfg: TrainConfig, timer=None) -> dict:
-    """One optimisation step in place on `state`; returns the metrics
-    (METRIC_NAMES) as floats. timer: optional timing.PhaseTimer, charged
-    forward (with the render nested in it as "render"), backward, optimizer."""
+def nerf_losses(model, batch: TrainBatch, shapecode, texturecode, phase):
+    """The NeRF branch of both losses: the training render of the batch's
+    rays (ops.render.field_composite_train, K1 and K3 + K4 on the card, for
+    a kernel-compatible decoder; ops.render.decoder_composite under autograd
+    for the original AutoRF) and its terms loss_rgb, psnr, loss_occ,
+    loss_reg and enc_active (1: im_enc_rate 1)."""
+    with phase("render"):
+        if decoder_kernel_compatible(model):
+            rgb, _, acc = field_composite_train(model, batch.xyz, batch.viewdir, batch.z_vals,
+                                                shapecode, texturecode, data_grads=False)
+        else:
+            rgb, _, acc = decoder_composite(model, batch.xyz, batch.viewdir, batch.z_vals,
+                                            shapecode, texturecode)
+    loss_rgb = rgb_loss_masked(rgb, batch.rgb_tgt, batch.occ_pixels, dim=(-2, -1))
+    return {"loss_rgb": loss_rgb.mean(), "psnr": -10.0 * torch.log10(loss_rgb.mean()),
+            "loss_occ": occupancy_loss(acc, batch.occ_pixels, dim=(-2, -1)).mean(),
+            "loss_reg": torch.mean(torch.linalg.norm(shapecode, dim=-1)
+                                   + torch.linalg.norm(texturecode, dim=-1)),
+            "enc_active": torch.ones((), device=rgb.device)}
+
+
+def nerf_only_loss(model, batch: TrainBatch, code_rows, cfg: TrainConfig, phase=None):
+    """The NeRF-only loss of the baselines (JAX nerf_only_loss) of an
+    expanded batch; code_rows as unified_loss's. With an encoder (AutoRF,
+    AutoRFMix; its BatchNorm buffers move) its codes replace the rows and
+    loss_code, their mean squared distance from the rows, is added times
+    loss_code_coef; without one (CodeNeRF) the rows are rendered and
+    loss_code is 0. Returns (loss_total, losses dict of 0-d tensors)."""
+    phase = phase or (lambda name: contextlib.nullcontext())
+    sc_tbl, tc_tbl = code_rows
+    if hasattr(model, "encode_img"):
+        with batch_stat_updates(model):
+            shapecode, texturecode = model.encode_img(batch.img_in)
+        loss_code = torch.mean((shapecode - sc_tbl) ** 2 + (texturecode - tc_tbl) ** 2)
+    else:
+        shapecode, texturecode = sc_tbl, tc_tbl
+        loss_code = sc_tbl.new_zeros(())
+    losses = nerf_losses(model, batch, shapecode, texturecode, phase)
+    losses["loss_code"] = loss_code
+    losses["loss_total"] = (losses["loss_rgb"] + cfg.loss_occ_coef * losses["loss_occ"]
+                            + cfg.loss_code_coef * loss_code)
+    return losses["loss_total"], losses
+
+
+LOSSES = {"unified": unified_loss, "nerf_only": nerf_only_loss}
+
+
+def train_step(state: TrainState, batch: TrainBatch, cfg: TrainConfig, timer=None,
+               loss_mode: str = "unified") -> dict:
+    """One optimisation step in place on `state` with the loss of loss_mode
+    ("unified" or "nerf_only", LOSSES); returns that mode's metrics
+    (METRIC_NAMES[loss_mode]) as floats. timer: optional
+    timing.PhaseTimer, charged forward (with the render nested in it as
+    "render"), backward, optimizer."""
     phase = timer.phase if timer is not None else (lambda name: contextlib.nullcontext())
     model = state.model
     with phase("forward"):
@@ -226,7 +288,7 @@ def train_step(state: TrainState, batch: TrainBatch, cfg: TrainConfig, timer=Non
         idx = batch.code_idx
         rows = [t[idx].detach().requires_grad_(True)
                 for t in (state.shape_codes, state.texture_codes)]
-        loss, losses = unified_loss(model, batch, rows, cfg, phase)
+        loss, losses = LOSSES[loss_mode](model, batch, rows, cfg, phase)
     with phase("backward"):
         params = list(model.parameters())
         grads = torch.autograd.grad(loss, params + rows, allow_unused=True,
@@ -238,5 +300,6 @@ def train_step(state: TrainState, batch: TrainBatch, cfg: TrainConfig, timer=Non
         state.opt_codes.step(g_tables, step_scale(state.opt_codes.count, cfg.lr_interval_codes))
         state.optimized_idx[idx] = 1.0
         state.niter += 1
-        values = torch.stack([losses[k].detach().float() for k in METRIC_NAMES]).tolist()
-    return dict(zip(METRIC_NAMES, values))
+        names = METRIC_NAMES[loss_mode]
+        values = torch.stack([losses[k].detach().float() for k in names]).tolist()
+    return dict(zip(names, values))

@@ -1,8 +1,10 @@
 """The training loop and its bookkeeping; the port of
 supnerf_tpu/training/trainer.py's UnifiedTrainer in its unified (SUP-NeRF)
-mode (reference trainer_unified_nuscenes.py TrainerUnifiedNuscenes): the
-per-instance code tables, an epoch loop over shuffled batches, per-row host
-prep, metrics, per-epoch checkpoints and resume.
+and NeRF-only (the AutoRF, AutoRFMix and CodeNeRF baselines) modes
+(reference trainer_unified_nuscenes.py TrainerUnifiedNuscenes,
+trainer_nerf_nuscenes.py TrainerNerfNuscenes): the per-instance code
+tables, an epoch loop over shuffled batches, per-row host prep, metrics,
+per-epoch checkpoints in the reference's schema for every arch, and resume.
 
 Per row, all randomness derives from (seed, epoch, dataset index) as in the
 JAX trainer (trainer.py:273): a numpy stream for the refiner's random source
@@ -31,6 +33,7 @@ from supnerf_tpu_torch.timing import PhaseTimer
 from supnerf_tpu_torch.training.checkpoints import restore_checkpoint, save_checkpoint
 from supnerf_tpu_torch.training.ray_prep import prepare_train_sample, project_box_corners
 from supnerf_tpu_torch.training.train_step import (
+    LOSSES,
     TrainBatch,
     TrainConfig,
     init_train_state,
@@ -44,6 +47,7 @@ def train_config_from_hpams(hpams: dict, im_enc_rate: float = 1.0) -> TrainConfi
         lr_model=lr[0]["lr"], lr_codes=lr[1]["lr"],
         lr_interval_model=lr[0]["interval"], lr_interval_codes=lr[1]["interval"],
         loss_occ_coef=hpams.get("loss_occ_coef", 0.1),
+        loss_code_coef=hpams.get("loss_code_coef", 0.1),
         loss_pose_coef=hpams.get("loss_pose_coef", 0.01),
         im_enc_rate=im_enc_rate,
         latent_dim=hpams.get("net_hyperparams", {}).get("latent_dim", 256),
@@ -51,22 +55,26 @@ def train_config_from_hpams(hpams: dict, im_enc_rate: float = 1.0) -> TrainConfi
 
 
 class UnifiedTrainer:
-    """Joint pose + NeRF trainer. model: an initialised SUPNeRF; dataset:
-    indexable, returning the sample dicts of data.synthetic with an
-    'instoken' key for the code-table row."""
+    """Joint pose + NeRF trainer (loss_mode "unified", SUP-NeRF) or NeRF-only
+    trainer (loss_mode "nerf_only", the baselines). model: an initialised
+    model of models/factory.py; dataset: indexable, returning the sample
+    dicts of data.synthetic with an 'instoken' key for the code-table row."""
 
     def __init__(self, model, hpams: dict, dataset, save_dir: str, *, device,
-                 batch_size: int = 8, im_enc_rate: float = 1.0, seed: int = 0,
-                 check_iter: int = 1000, save_every: int = 1):
-        if hpams["arch"] != "supnerf":
-            raise NotImplementedError(f"arch {hpams['arch']!r}: the NeRF-only trainer of the "
-                                      "baselines is queued in ROADMAP.md")
+                 batch_size: int = 8, loss_mode: str = "unified", im_enc_rate: float = 1.0,
+                 seed: int = 0, check_iter: int = 1000, save_every: int = 1):
         if hpams.get("sym_aug", 0) or hpams.get("render_sz") is not None:
             raise NotImplementedError("sym_aug and render_sz are queued in ROADMAP.md; no "
                                       "published config sets them")
+        if loss_mode not in LOSSES:
+            raise ValueError(f"loss_mode {loss_mode!r}: one of {sorted(LOSSES)}")
+        if (loss_mode == "unified") != hasattr(model, "pose_update"):
+            raise ValueError(f"loss_mode {loss_mode!r} cannot train {type(model).__name__}: the "
+                             "unified loss trains SUP-NeRF's refiner, the NeRF-only loss the "
+                             "baselines, which have none")
         self.hpams, self.dataset, self.save_dir = hpams, dataset, save_dir
         self.device = torch.device(device)
-        self.batch_size, self.seed = batch_size, seed
+        self.batch_size, self.seed, self.loss_mode = batch_size, seed, loss_mode
         self.check_iter, self.save_every = check_iter, max(int(save_every), 1)
         self.cfg = train_config_from_hpams(hpams, im_enc_rate)
         self.nepoch = 0
@@ -136,7 +144,7 @@ class UnifiedTrainer:
             t0, before = time.perf_counter(), dict(self.timer.seconds)
             with self.timer.phase("prep"):
                 batch = self.prepare_batch([int(i) for i in order[s * B:(s + 1) * B]], salt)
-            metrics = train_step(self.state, batch, self.cfg, self.timer)
+            metrics = train_step(self.state, batch, self.cfg, self.timer, self.loss_mode)
             metrics.update(epoch=self.nepoch, niter=self.state.niter,
                            seconds=time.perf_counter() - t0,
                            phase_seconds={k: v - before.get(k, 0.0)

@@ -8,12 +8,18 @@ statistics, the feed-forward pose refiner, then num_opts AdamW iterations on
 (shape code, texture code, rotation, translation). Every iteration renders
 the loss rays with the differentiable fused render (in the frustum shell, or
 with use_aabb_render inside the box, as the demo does) and the lidar pixels
-with its forward only. The optional regularisers (tto/regularizers.py)
-evaluate the per-point field (ops.field.field_apply): obj_sz_reg on box-plane
-samples, sym_loss_coef > 0 on the loss render's samples and their mirror
-images, which then go through the per-point field and volume_render instead
-of the fused render; sym_aug flips the loss render's samples laterally at
-random. Loop semantics kept from the reference:
+with its forward only. The baselines (JAX core.py:231-295): AutoRF and
+AutoRFMix encode two codes and have no refiner, CodeNeRF starts from the
+mean codes; without a refiner the trajectory replays pose_init. The renders
+run on the kernels for a kernel-compatible decoder
+(ops.render.decoder_kernel_compatible); the original AutoRF's decoder runs
+as the plain decoder under autograd (render_decoder). The optional
+regularisers (tto/regularizers.py) evaluate the per-point field
+(ops.field.field_apply; the plain decoder's ops.render.decoder_field for
+the original AutoRF): obj_sz_reg on box-plane samples, sym_loss_coef > 0 on
+the loss render's samples and their mirror images, which then go through
+the per-point field and volume_render instead of the fused render; sym_aug
+flips the loss render's samples laterally at random. Loop semantics kept from the reference:
   - iterations 0..reg_iters render the refiner's poses and make no update;
   - AdamW per parameter group (shape, texture, pose) with decoupled weight
     decay scaled by the learning rate; every lr_half_interval iterations the
@@ -33,7 +39,15 @@ from supnerf_tpu_torch.geometry.poses import calc_pose_err
 from supnerf_tpu_torch.geometry.rotations import axis_angle_to_matrix, matrix_to_axis_angle
 from supnerf_tpu_torch.optim import AdamW
 from supnerf_tpu_torch.ops.field import field_apply
-from supnerf_tpu_torch.ops.render import field_composite, field_composite_aabb
+from supnerf_tpu_torch.ops.render import (
+    DecoderWeights,
+    decoder_composite,
+    decoder_field,
+    decoder_kernel_compatible,
+    field_composite,
+    field_composite_aabb,
+    pack_decoder_params,
+)
 from supnerf_tpu_torch.ops.volume_render import masked_psnr, occupancy_loss, rgb_loss_masked
 from supnerf_tpu_torch.render.renderer import (
     render_rays_aabb,
@@ -127,16 +141,41 @@ def effective_wlh(wlh_gt, wlh_pred, mode: int):
                               "runs pred_wlh 0 and 1")
 
 
+def render_decoder(model):
+    """What the renders run (the `wts` of run_tto_batch and tto_loss): the
+    kernel operands (ops.render.pack_decoder_params) of a kernel-compatible
+    decoder, else the model itself, whose decoder then runs as the plain
+    decoder under autograd (the original AutoRF). The decoder's structure
+    decides (ops.render.decoder_kernel_compatible), never a failed build or
+    launch."""
+    return pack_decoder_params(model) if decoder_kernel_compatible(model) else model
+
+
 def make_composite(wts, shapecode, texturecode, impl: str):
-    """The renderers' composite_fn over the fused render for these codes."""
-    return lambda xyz, vd, z: field_composite(wts, xyz, vd, z, shapecode, texturecode,
-                                              impl=impl)
+    """The renderers' composite_fn for these codes: the fused render
+    (field_composite) on kernel operands, ops.render.decoder_composite on a
+    model (render_decoder)."""
+    if isinstance(wts, DecoderWeights):
+        return lambda xyz, vd, z: field_composite(wts, xyz, vd, z, shapecode, texturecode,
+                                                  impl=impl)
+    return lambda xyz, vd, z: decoder_composite(wts, xyz, vd, z, shapecode, texturecode)
 
 
 def make_composite_aabb(wts, shapecode, texturecode):
-    """render_rays_aabb's composite_fn over the fused AABB render."""
-    return lambda xyz, vd, z, hit: field_composite_aabb(wts, xyz, vd, z, hit, shapecode,
-                                                        texturecode)
+    """render_rays_aabb's composite_fn: the fused AABB render on kernel
+    operands, decoder_composite with the hit mask on a model."""
+    if isinstance(wts, DecoderWeights):
+        return lambda xyz, vd, z, hit: field_composite_aabb(wts, xyz, vd, z, hit, shapecode,
+                                                            texturecode)
+    return lambda xyz, vd, z, hit: decoder_composite(wts, xyz, vd, z, shapecode, texturecode,
+                                                     hit=hit)
+
+
+def make_field(wts, shapecode, texturecode):
+    """The regularisers' per-point field_fn: ops.field.field_apply on kernel
+    operands, ops.render.decoder_field on a model."""
+    field = field_apply if isinstance(wts, DecoderWeights) else decoder_field
+    return lambda xyz, vd: field(wts, xyz, vd, shapecode, texturecode)
 
 
 def tto_loss(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_diag,
@@ -159,9 +198,7 @@ def tto_loss(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_diag
         sym_flip = None
     elif sym_flip is None:
         sym_flip = torch.rand(B, generator=generator, device=dev) < 0.5
-
-    def field_fn(xyz, vd):
-        return field_apply(wts, xyz, vd, shapecode, texturecode)
+    field_fn = make_field(wts, shapecode, texturecode)
 
     hit_share = None
     need_samples = cfg.sym_loss_coef > 0
@@ -212,18 +249,30 @@ def depth_error(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_d
 def encode_and_refine(model, batch: ObjectBatch, mean_shape, mean_texture, cfg: TTOConfig):
     """Encoder (one object per BatchNorm batch, as the reference encodes one
     image at a time) and the feed-forward refiner on the effective box size
-    (effective_wlh; the annotation for a model without a wlh head). Returns
-    (shapecode0, texturecode0, pose_traj (B, reg_iters + 1, 3, 4),
-    uv_direct, wlh_pred, wlh_used)."""
-    enc = [model.encode_img(batch.img_in[b:b + 1]) for b in range(len(batch.img_in))]
-    sc, tc, pc, uv = (torch.cat([e[i] for e in enc]) for i in range(4))
-    if model.pred_wlh:
+    (effective_wlh; the annotation for a model without a wlh head). A
+    two-head encoder (AutoRF, AutoRFMix) gives zero pose code and uv; a
+    model without an encoder (CodeNeRF) starts from the mean codes with zero
+    uv; a model without a refiner replays pose_init for reg_iters + 1
+    entries. Returns (shapecode0, texturecode0, pose_traj (B, reg_iters + 1,
+    3, 4), uv_direct, wlh_pred, wlh_used)."""
+    B = len(batch.img_in)
+    uv = batch.wlh.new_zeros((B, 16))
+    if hasattr(model, "encode_img"):
+        enc = [model.encode_img(batch.img_in[b:b + 1]) for b in range(B)]
+        sc, tc = (torch.cat([e[i] for e in enc]) for i in range(2))
+    else:
+        sc, tc = mean_shape.expand(B, -1), mean_texture.expand(B, -1)
+    if getattr(model, "pred_wlh", False):
         wlh_pred = torch.cat([e[4] for e in enc])
         wlh_use = effective_wlh(batch.wlh, wlh_pred, cfg.pred_wlh_mode)
     else:
         wlh_pred, wlh_use = torch.zeros_like(batch.wlh), batch.wlh
-    traj = fw_pose_refine(model.pose_update, pc, batch.pose_init, wlh_use, batch.roi_refine,
-                          batch.K, batch.K_inv, iters=cfg.reg_iters, box_fac=cfg.box_fac)
+    if hasattr(model, "pose_update"):
+        pc, uv = (torch.cat([e[i] for e in enc]) for i in (2, 3))
+        traj = fw_pose_refine(model.pose_update, pc, batch.pose_init, wlh_use, batch.roi_refine,
+                              batch.K, batch.K_inv, iters=cfg.reg_iters, box_fac=cfg.box_fac)
+    else:
+        traj = batch.pose_init[:, None].expand(B, cfg.reg_iters + 1, 3, 4).clone()
     return ((sc + mean_shape) / 2, (tc + mean_texture) / 2, traj, uv, wlh_pred, wlh_use)
 
 
@@ -231,8 +280,9 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
                   generator=None, jitter=None, sym_flips=None, obj_sz_draws=None, timer=None):
     """The full TTO pipeline for a batch of objects.
 
-    wts: ops.render.pack_decoder_params(model). jitter: optional pair
-    (loss_jitter, depth_jitter) of uniform draws for the stratified sampling
+    wts: render_decoder(model), the kernel operands of a kernel-compatible
+    decoder (ops.render.pack_decoder_params), else the model. jitter:
+    optional pair (loss_jitter, depth_jitter) of uniform draws for the stratified sampling
     of each iteration's two renders, (num_opts, B, S) each, the loss
     render's (num_opts, B, R, S) with use_aabb_render. sym_flips (num_opts,
     B) bool and obj_sz_draws (num_opts, B, 3, SAMPLES_PER_PLANE): the

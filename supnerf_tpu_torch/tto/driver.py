@@ -4,6 +4,13 @@ OptimizerNuScenes :35): initial poses, batching, bookkeeping keyed by
 annotation and camera, snapshots at CODE_SAVE_ITERS, the codes+poses result
 files, and the cross-view evaluation (eval_cross_view :1279).
 
+It runs every arch of models/factory.py: SUP-NeRF, the AutoRF baselines
+(AutoRFMix for "autorf" and "autorfmix", the original AutoRF) and CodeNeRF;
+tto/core.py handles their encoders and refiners. The loss, lidar and
+cross-view renders of a kernel-compatible decoder run on K1/K2, those of
+the original AutoRF on its plain decoder (tto/core.render_decoder). As in
+the JAX driver, nothing else depends on the arch.
+
 It covers opt_pose 1 (codes and object pose, axis-angle), the annotated or
 the predicted box size (pred_wlh 0 and 1), the frustum or the AABB loss
 render, the regularisers sym_aug and obj_sz_reg (hpams keys, as in the JAX
@@ -30,11 +37,17 @@ from supnerf_tpu_torch.data.synthetic import prepare_object_inputs
 from supnerf_tpu_torch.device import resolve_device
 from supnerf_tpu_torch.geometry import poses as pose_gen
 from supnerf_tpu_torch.geometry.boxes import invert_pose, obj_pose_kitti2nusc
-from supnerf_tpu_torch.ops.render import field_composite, pack_decoder_params
 from supnerf_tpu_torch.ops.volume_render import masked_psnr
 from supnerf_tpu_torch.render.renderer import render_rays_at_pixels, render_rays_frustum
 from supnerf_tpu_torch.timing import PhaseTimer
-from supnerf_tpu_torch.tto.core import CODE_SAVE_ITERS, ObjectBatch, TTOConfig, run_tto_batch
+from supnerf_tpu_torch.tto.core import (
+    CODE_SAVE_ITERS,
+    ObjectBatch,
+    TTOConfig,
+    make_composite,
+    render_decoder,
+    run_tto_batch,
+)
 
 # cells of the cross-view evaluation rendered per kernel call
 _CROSS_VIEW_CHUNK = 64
@@ -77,7 +90,8 @@ def tto_config_from_hpams(hpams: dict, *, reg_iters: int = 3, n_lidar: int = 256
 class TTODriver:
     """Batched TTO over `dataset` (indexable, returning the sample dicts of
     data.synthetic, with 'instoken', 'anntoken' and 'cam_ids' for the
-    bookkeeping). model: a SUPNeRF on `device` with its weights loaded.
+    bookkeeping). model: a model of models/factory.py on `device` with its
+    weights loaded.
     cfg: a TTOConfig that replaces the one read from hpams (the demo's AABB
     loss render). init_rot_err / init_trans_err (add_pose_err 1): None
     falls back to the config's keys, then to 0.0 / 0.2."""
@@ -96,7 +110,7 @@ class TTODriver:
             raise ValueError(f"add_pose_err {add_pose_err}: 0, 1, 2 or 3")
         self.device = resolve_device(str(device))
         self.model = model.to(self.device)
-        self.wts = pack_decoder_params(self.model)
+        self.wts = render_decoder(self.model)
         self.mean_shape = torch.as_tensor(mean_shape, dtype=torch.float32, device=self.device)
         self.mean_texture = torch.as_tensor(mean_texture, dtype=torch.float32,
                                             device=self.device)
@@ -302,9 +316,7 @@ class TTODriver:
         cam = invert_pose(pick["obj_pose_gt"])
         jit = jitter.to(self.device).expand(n, -1)
 
-        def comp(xyz, vd, z):
-            return field_composite(self.wts, xyz, vd, z, sc, tc, impl=cfg.field_impl)
-
+        comp = make_composite(self.wts, sc, tc, cfg.field_impl)
         out = render_rays_frustum(comp, cam, pick["K"], pick["roi_nerf"], diag,
                                   n_samples=cfg.n_samples, im_sz=cfg.render_im_sz,
                                   shapenet_obj_cood=cfg.shapenet_obj_cood,

@@ -268,14 +268,19 @@ TINY_CONFIG = {
 }
 
 
-@pytest.mark.parametrize("cli,mode", [(optimize_kitti, 1), (optimize_kitti, 3),
-                                      (optimize_waymo, 2)],
-                         ids=["kitti-mode1", "kitti-mode3", "waymo-mode2"])
-def test_kitti_and_waymo_clis_write_the_jax_schema(tmp_path, cli, mode):
+@pytest.mark.parametrize("cli,mode,arch", [(optimize_kitti, 1, "supnerf"),
+                                           (optimize_kitti, 3, "supnerf"),
+                                           (optimize_waymo, 2, "supnerf"),
+                                           (optimize_kitti, 1, "autorfmix"),
+                                           (optimize_waymo, 2, "autorfmix")],
+                         ids=["kitti-mode1", "kitti-mode3", "waymo-mode2",
+                              "kitti-mode1-autorfmix", "waymo-mode2-autorfmix"])
+def test_kitti_and_waymo_clis_write_the_jax_schema(tmp_path, cli, mode, arch):
     """cli.optimize_kitti / cli.optimize_waymo on the CPU at a tiny config on
     the KITTI fixture (the Waymo layout for Waymo): the JAX result schema,
     finite curves, and no cross-view evaluation (cross_eval.pkl not
-    written), as the JAX CLI for these datasets."""
+    written), as the JAX CLI for these datasets; for SUP-NeRF and for the
+    AutoRFMix baseline of autorfmix.{kitti,waymo}.car.json."""
     root = tmp_path / "data"
     make_kitti_fixture(str(root))
     name = "waymo" if cli is optimize_waymo else "kitti"
@@ -285,8 +290,11 @@ def test_kitti_and_waymo_clis_write_the_jax_schema(tmp_path, cli, mode):
         (tr / "label_2").rename(tr / "label")
     ds = dict(_kitti_hpams(str(root))["dataset"], name=name, waymo_cat="Car")
     cfg = tmp_path / "tiny.json"
-    cfg.write_text(json.dumps(dict(TINY_CONFIG, dataset=ds,
-                                   model_dir=str(tmp_path / "no_checkpoint"))))
+    config = dict(TINY_CONFIG, dataset=ds, model_dir=str(tmp_path / "no_checkpoint"))
+    if arch != "supnerf":
+        config.update(arch=arch, net_hyperparams={"shape_blocks": 2, "texture_blocks": 1,
+                                                  "latent_dim": 32})
+    cfg.write_text(json.dumps(config))
     out = tmp_path / "run"
     summary = cli.main(["--config_file", str(cfg), "--add_pose_err", str(mode),
                         "--batch_size", "2", "--device", "cpu", "--save_dir", str(out)])

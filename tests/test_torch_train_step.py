@@ -173,6 +173,7 @@ def test_train_steps_match_jax(runs, n):
     i.e. the gradients (sensitive to what a step differentiates)."""
     for t, r in enumerate(runs[:n]):
         jm, pm = r["jax_metrics"], r["port_metrics"]
+        assert list(pm) == sorted(jm) == list(port.METRIC_NAMES["unified"])
         for k in LOSSES:
             np.testing.assert_allclose(pm[k], float(jm[k]), rtol=1e-4, err_msg=f"step {t}: {k}")
         assert pm["enc_active"] == float(jm["enc_active"]) == 1.0
