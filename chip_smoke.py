@@ -88,12 +88,31 @@ Phases, each timed; any failure exits non-zero before the result line:
      2 objects and 4 training steps; (e) the original AutoRF, TTO on 2
      objects and 2 training steps on its plain decoder (no TPU kernel in
      the JAX package), where no kernel may launch; each with its launch
-     counts and objects/min or steps/s.
+     counts and objects/min or steps/s;
+ 11. the rest of the TTO driver at the published config on synthetic
+     objects, 100 iterations: (a) the optimize CLI on 2 objects once per
+     option, --opt_pose 0 --code_level 1, --opt_pose 2 (the PnP
+     bootstrap, with how many objects took its translation), a config with
+     euler_rot 1 and optimize.opt_cam_pose 1 at --code_level 0, and
+     --pred_wlh 2 on a config
+     whose net predicts wlh, each with exact launch counts (K1 202, K2 96),
+     finite curves and its result file's code_level schema; (b)
+     TTODriver.run_multiview on 2 instances x 2 views and the CLI's
+     --opt_multiview 1 (K1 200, K2 200: one launch pair an iteration over
+     both views); (c) run_multiview_tto with opt_model on 1 instance x 2
+     views (K1, K3's data mode and K4 at every iteration; the model given
+     unchanged), its first K3 + K4 call held against the plain version in
+     float32 and float64 as K3's data-mode check holds it; (d)
+     cli.eval_saved_result on (a)'s files, explicitly and in the folder
+     convention, cli.evaluate_all on (a)'s tree and the optimize CLI's
+     --cross_eval_folder (K1 2), whose printed metric rows must equal the
+     optimize runs'.
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import io
 import json
 import os
 import pickle
@@ -2542,6 +2561,361 @@ def baseline_paths(out_dir):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 11: the rest of the TTO driver: the protocol options, multiview TTO
+# (the library and the CLI, and with opt_model), the re-scoring CLIs
+# --------------------------------------------------------------------------
+
+PUBLISHED = os.path.join(HERE, "jsonfiles", "supnerf.nusc.vehicle.car.json")
+OPTION_ITERS = 100
+# an option cell's launches on 2 objects, 100 iterations: K1 100 loss and 100
+# lidar renders and the cross-view evaluation's 2, K2 at every updating
+# iteration (4..99); the codes are optimized at every opt_pose
+OPTION_COUNTS = {"render_fwd": 202, "render_bwd": 96}
+# multiview on 2 instances x 2 views: one K1/K2 pair an iteration, all views
+MULTIVIEW_COUNTS = {"render_fwd": 200, "render_bwd": 200}
+MULTIVIEW_MODEL_KERNELS = ("render_fwd", "render_train_bwd_data", "wgrad")
+TABLE_ROWS = ("psnr:", "depth err:", "R err:", "T err:")
+
+
+class _Tee(io.TextIOBase):
+    """Standard output, and a copy of what went through it."""
+
+    def __init__(self, out):
+        self.out, self.copy = out, io.StringIO()
+
+    def write(self, text):
+        self.copy.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _printed(fn):
+    """fn()'s result and what it printed (printed through as well)."""
+    tee = _Tee(sys.stdout)
+    sys.stdout = tee
+    try:
+        return fn(), tee.copy.getvalue()
+    finally:
+        sys.stdout = tee.out
+
+
+def _tables(text):
+    """{result file: its metric table rows} from collect_eval_results' prints."""
+    tables, current = {}, None
+    for line in text.splitlines():
+        if line.startswith("Processing "):
+            current = tables.setdefault(line[len("Processing "):].strip(), [])
+        elif current is not None and line.strip().startswith(TABLE_ROWS):
+            current.append(line.strip())
+    return tables
+
+
+def _exact_counts(name, expect):
+    """The launch counts of a path, which must be `expect` exactly (every
+    other counter 0)."""
+    from supnerf_tpu_torch.ops import render
+
+    counts = _path_counts(name, tuple(expect))
+    others = {k: v for k, v in render.LAUNCHES.items() if k not in expect and v}
+    if counts != expect or others:
+        raise RuntimeError(f"{name}: launches {counts}, others {others}; expected {expect}")
+    return counts
+
+
+def _option_config(out_dir, tag, **blocks):
+    """A copy of the published config with `blocks` merged into its keys
+    (dicts key by key), written as out_dir/tag.json."""
+    with open(PUBLISHED) as f:
+        config = json.load(f)
+    for key, value in blocks.items():
+        config[key] = dict(config[key], **value) if isinstance(value, dict) else value
+    path = os.path.join(out_dir, f"{tag}.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    return path
+
+
+def _exact_corner_pnp(pnp_poses):
+    """TTODriver._pnp_poses fed, in place of the encoder's corner
+    prediction, the exact projected box corners of each object's annotated
+    pose, normalised to its roi_refine (the inverse of
+    pnp.denormalize_uv_direct): at random weights no 4 predicted corners
+    agree, so RANSAC fails every object and the branches that take the
+    PnP pose would not run."""
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.tto import pnp
+
+    def exact(self, uv_direct, batch):
+        pose, wlh, K, roi = (t.detach().cpu().double().numpy()
+                             for t in (batch.obj_pose_gt, batch.wlh, batch.K, batch.roi_refine))
+        uv = []
+        for i in range(len(pose)):
+            px = pnp.project(pnp._box_corners_3d(wlh[i]), pose[i, :, :3], pose[i, :, 3], K[i]).T
+            dim = max(roi[i, 2] - roi[i, 0], roi[i, 3] - roi[i, 1])
+            centre = np.array([(roi[i, 0] + roi[i, 2]) / 2, (roi[i, 1] + roi[i, 3]) / 2])
+            uv.append(((px - centre[:, None]) / (dim / 2)).reshape(-1))
+        return pnp_poses(self, torch.as_tensor(np.stack(uv), dtype=uv_direct.dtype,
+                                               device=uv_direct.device), batch)
+    return exact
+
+
+def option_paths(out_dir):
+    """(a) The optimize CLI at the published config on 2 synthetic objects,
+    100 iterations, once per TTO option: --opt_pose 0 --code_level 1 (the
+    pose stays the refined one), --opt_pose 2 (the PnP bootstrap) on exact
+    corners (_exact_corner_pnp: both objects must take the PnP pose, and
+    their iteration-0 pose is the annotated one) and on the encoder's own
+    prediction at random weights (RANSAC's failing case, src_pose back), a
+    config with euler_rot 1 and optimize.opt_cam_pose 1 (with --code_level
+    0), and --pred_wlh 2 on a config whose net predicts wlh. Each with exact
+    launch counts, finite curves and its results file's code_level schema.
+    Returns (launch counts per cell, the metric table each run printed per
+    result file)."""
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.cli import optimize
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.tto.driver import TTODriver
+
+    cells = {
+        "opt_pose0_level1": (PUBLISHED, ["--opt_pose", "0", "--code_level", "1"], 1),
+        "opt_pose2": (PUBLISHED, ["--opt_pose", "2"], 2),
+        "opt_pose2_random": (PUBLISHED, ["--opt_pose", "2"], 2),
+        "euler_cam": (_option_config(out_dir, "euler_cam", euler_rot=1,
+                                     optimize={"opt_cam_pose": 1}), ["--code_level", "0"], 0),
+        "pred_wlh2": (_option_config(out_dir, "pred_wlh", net_hyperparams={"pred_wlh": 1}),
+                      ["--pred_wlh", "2"], 2),
+    }
+    counts, tables = {}, {}
+    for key, (config, argv, level) in cells.items():
+        save = os.path.join(out_dir, key)
+        pnp_poses = TTODriver._pnp_poses
+        if key == "opt_pose2":
+            TTODriver._pnp_poses = _exact_corner_pnp(pnp_poses)
+        render.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            summary, text = _printed(lambda: optimize.main([
+                "--config_file", config, "--dataset", "synthetic", "--num_objects", "2",
+                "--batch_size", "2", "--device", "cuda", "--seed", "0", "--save_dir", save,
+                *argv]))
+            torch.cuda.synchronize()
+        finally:
+            TTODriver._pnp_poses = pnp_poses
+        seconds = time.perf_counter() - t0
+        counts[key] = _exact_counts(f"TTO {key}", OPTION_COUNTS)
+        tables.update(_tables(text))
+        with open(os.path.join(save, "codes+poses.pkl"), "rb") as f:
+            res = pickle.load(f)
+        _check_curves(key, [v for k in ("psnr_eval", "R_eval", "T_eval", "depth_err_mean")
+                            for v in res[k].values()], 2, OPTION_ITERS)
+        codes = res["optimized_shapecodes"]
+        # the 2 objects are 2 annotations of one instance, ins_0
+        flat = set(codes) == ({"ins_0"} if level == 0 else {"ann_0", "ann_1"}) and all(
+            np.shape(c) == (6, 256) for c in codes.values())
+        nested = level == 2 and all(np.shape(c["CAM_FRONT"]) == (6, 256) for c in codes.values())
+        if res["code_level"] != level or not (flat and level < 2 or nested):
+            raise RuntimeError(f"{key}: the results file's codes are not code_level {level}'s")
+        if key == "opt_pose0_level1" and not all(len(set(v[4:])) == 1
+                                                 for v in res["R_eval"].values()):
+            raise RuntimeError("opt_pose 0 moved the pose after the refiner")
+        if key == "opt_pose2":
+            start = [(res["R_eval"][k][0], res["T_eval"][k][0]) for k in res["R_eval"]]
+            if summary["pnp_translations"] != 2 or max(max(e) for e in start) > 1e-2:
+                raise RuntimeError(f"opt_pose 2 on exact corners: PnP translation taken for "
+                                   f"{summary['pnp_translations']} of 2 objects, iteration-0 "
+                                   f"(rotation, translation) errors {start}")
+        agg = summary["aggregate"]
+        pnp = (f"; PnP translation taken for {summary['pnp_translations']} of 2 objects"
+               if summary["pnp_translations"] is not None else "")
+        print(f"   {key}: {seconds:.2f} s for 2 objects ({2 * 60 / seconds:.1f} objects/min), "
+              f"code_level {level}; final psnr {agg['psnr'][-1]:.3f} dB, rot err "
+              f"{agg['rot_err_deg'][-1]:.3f} deg, trans err {agg['trans_err'][-1]:.4f} m{pnp}")
+    return counts, tables
+
+
+def multiview_paths(out_dir):
+    """(b) TTODriver.run_multiview on 2 instances x 2 views (pairs of
+    synthetic objects sharing an instoken), codes only with slack_tex, then
+    the optimize CLI's --opt_multiview 1 (poses too) on the same set: one
+    K1/K2 launch pair an iteration over both views. Returns the launch
+    counts per run."""
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.cli import optimize
+    from supnerf_tpu_torch.cli.common import SyntheticDataset, load_model_and_codes
+    from supnerf_tpu_torch.config import load_hpams
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.tto.driver import TTODriver
+
+    hpams = load_hpams(PUBLISHED)
+    model, mean_shape, mean_texture = load_model_and_codes(hpams, "cuda", seed=0)
+    driver = TTODriver(model, mean_shape, mean_texture, hpams, SyntheticDataset(4),
+                       os.path.join(out_dir, "mv_lib"), device="cuda", batch_size=4)
+    counts = {}
+    render.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = driver.run_multiview()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts["multiview_lib"] = _exact_counts("multiview (run_multiview)", MULTIVIEW_COUNTS)
+    if not (res["code_level"] == 0 and set(res["optimized_shapecodes"]) == {"ins_0", "ins_1"}
+            and all(np.shape(c) == (6, 256) for c in res["optimized_shapecodes"].values())
+            and os.path.exists(os.path.join(out_dir, "mv_lib", "codes_multiview.pkl"))):
+        raise RuntimeError("run_multiview's results are not the per-instance schema")
+    _check_curves("multiview", list(res["psnr_eval"].values()), 2, OPTION_ITERS)
+    print(f"   run_multiview (codes, slack_tex): {seconds:.2f} s for 2 instances x 2 views "
+          f"({seconds / 2 / OPTION_ITERS * 1e3:.2f} ms an iteration); psnr first -> last: "
+          + "; ".join(f"{k} {v[0]:.3f} -> {v[-1]:.3f}" for k, v in res["psnr_eval"].items()))
+
+    render.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = optimize.main(["--config_file", PUBLISHED, "--dataset", "synthetic",
+                             "--num_objects", "4", "--device", "cuda", "--seed", "0",
+                             "--opt_multiview", "1", "--save_dir", os.path.join(out_dir, "mv_cli")])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts["multiview_cli"] = _exact_counts("multiview (--opt_multiview 1)", MULTIVIEW_COUNTS)
+    mv = summary["multiview"]
+    _check_curves("multiview CLI", list(mv["psnr_eval"].values()), 2, OPTION_ITERS)
+    print(f"   cli.optimize --opt_multiview 1 (codes and poses): {seconds:.2f} s end to end; "
+          "psnr first -> last: " + "; ".join(f"{k} {v[0]:.3f} -> {v[-1]:.3f}"
+                                             for k, v in mv["psnr_eval"].items()))
+    return counts
+
+
+def multiview_model_path(out_dir):
+    """(c) run_multiview_tto with opt_model (and opt_pose) on one instance
+    of 2 views, 100 iterations: the decoder copy renders through
+    field_composite_train, K1 then K3's data mode and K4 at every iteration,
+    and the model given stays as it was. The first iteration's K3 + K4 call
+    is taken (its inputs and cotangents) and held against the plain version
+    in float32 and float64 with the K3-data-mode check's tolerances and kink
+    carve-out (train_bwd_at_kinks). Returns the launch counts and the
+    check's record."""
+    import dataclasses
+
+    import torch
+
+    from supnerf_tpu_torch.cli.common import SyntheticDataset, load_model_and_codes
+    from supnerf_tpu_torch.config import load_hpams
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.tto.driver import TTODriver
+    from supnerf_tpu_torch.tto.multiview import MultiviewBatch, run_multiview_tto
+
+    hpams = load_hpams(PUBLISHED)
+    model, mean_shape, mean_texture = load_model_and_codes(hpams, "cuda", seed=0)
+    driver = TTODriver(model, mean_shape, mean_texture, hpams, SyntheticDataset(2), out_dir,
+                       device="cuda", batch_size=2)
+    _, _, batch = driver._prep([0, 1])
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    taken, kernel = {}, render.render_train_bwd
+
+    def take_first(wts, *args):
+        if not taken:
+            taken["wts"] = dataclasses.replace(wts, **{
+                f.name: getattr(wts, f.name).clone() for f in dataclasses.fields(wts)
+                if isinstance(getattr(wts, f.name), torch.Tensor)})
+            taken["args"] = [a.clone() if isinstance(a, torch.Tensor) else a for a in args]
+        return kernel(wts, *args)
+
+    render.render_train_bwd = take_first
+    try:
+        render.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = run_multiview_tto(model, driver.wts, MultiviewBatch.from_object_batch(batch),
+                                driver.mean_shape, driver.mean_texture, driver.cfg,
+                                opt_pose=True, opt_model=True, generator=driver.render_gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        render.render_train_bwd = kernel
+    counts = _path_counts("multiview opt_model", MULTIVIEW_MODEL_KERNELS)
+    if not (counts["render_fwd"] == counts["render_train_bwd_data"] == OPTION_ITERS
+            and counts["wgrad"] >= OPTION_ITERS and render.LAUNCHES["render_train_bwd"] == 0
+            and render.LAUNCHES["render_bwd"] == 0):
+        raise RuntimeError(f"multiview opt_model launched {dict(render.LAUNCHES)}")
+    if not all(torch.equal(v, before[k]) for k, v in model.state_dict().items()):
+        raise RuntimeError("opt_model changed the model given")
+    _check_curves("multiview opt_model", [res["psnr"].cpu(), res["loss"].cpu()], 2, OPTION_ITERS)
+    print(f"   run_multiview_tto(opt_model, opt_pose), 1 instance x 2 views: {seconds:.2f} s "
+          f"({seconds / OPTION_ITERS * 1e3:.2f} ms an iteration); psnr "
+          f"{float(res['psnr'][0]):.3f} -> {float(res['psnr'][-1]):.3f}, loss "
+          f"{float(res['loss'][0]):.5f} -> {float(res['loss'][-1]):.5f}")
+    xyz, vd, z, zs, zt, white, g_rgb, g_depth, g_acc, data = taken["args"]
+    if not data:
+        raise RuntimeError("opt_model's first backward did not run K3's data mode")
+    print(f"   its first iteration's K3 (data mode) + K4 against the plain version, "
+          f"{xyz.shape[0]} views x {xyz.shape[1]} rays x {xyz.shape[2]} samples:")
+    arb = train_bwd_at_kinks(taken["wts"], (xyz, vd, z, zs, zt), white, (g_rgb, g_depth, g_acc))
+    if not (arb["ok"] and arb["off_ok"] and arb["same"]):
+        raise RuntimeError("opt_model's decoder gradient disagrees with the plain version")
+    return counts, {"max_abs_err": arb["err"], "max_abs_err_float32_plain": arb["err32"],
+                    "kink_rays": kink_rays_record(arb["kinks"])}
+
+
+def rescoring_paths(out_dir, tables):
+    """(d) cli.eval_saved_result on (a)'s result files, explicitly (all of
+    them in one call) and in the reference folder convention (one folder with its
+    cross_eval), cli.evaluate_all on (a)'s tree, and the optimize CLI's
+    --cross_eval_folder on the code_level 1 run's folder (the cross-view
+    evaluation again, K1 2 launches, the same matrices): each printed PSNR,
+    depth, rotation and translation row must equal the row the optimize run
+    printed for that file. Returns the resume's launch counts."""
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.cli import eval_saved_result, evaluate_all, optimize
+    from supnerf_tpu_torch.ops import render
+
+    files = sorted(tables)
+    folder = os.path.join(out_dir, "opt_pose0_level1")
+    with open(os.path.join(folder, "cross_eval.pkl"), "rb") as f:
+        cross_before = pickle.load(f)
+    checks = {
+        "explicit files": lambda: eval_saved_result.main(
+            files + ["--out", os.path.join(out_dir, "eval_all.json")]),
+        "folder convention": lambda: eval_saved_result.main(
+            ["--model-folder", out_dir, "--test-folder", "opt_pose0_level1", "--legend-name",
+             "opt_pose0_level1", "--plot-cross-view", "--save-dir",
+             os.path.join(out_dir, "eval_summary")]),
+        "evaluate_all": lambda: evaluate_all.main([out_dir]),
+        "--cross_eval_folder": lambda: optimize.main([
+            "--config_file", PUBLISHED, "--dataset", "synthetic", "--num_objects", "2",
+            "--device", "cuda", "--seed", "0", "--cross_eval_folder", folder]),
+    }
+    counts = None
+    for name, fn in checks.items():
+        render.reset_launch_counts()
+        _, text = _printed(fn)
+        torch.cuda.synchronize()
+        if name == "--cross_eval_folder":
+            counts = _exact_counts("--cross_eval_folder", {"render_fwd": 2})
+        got = _tables(text)
+        if not got or any(got[f] != tables[f] for f in got):
+            raise RuntimeError(f"re-scoring ({name}) printed other rows than the optimize runs: "
+                               f"{got} against {tables}")
+        print(f"   re-scoring, {name}: the rows of {len(got)} result file(s) equal the "
+              "optimize runs'")
+    with open(os.path.join(folder, "cross_eval.pkl"), "rb") as f:
+        cross_after = pickle.load(f)
+    diff = max(float(np.abs(a - b).max()) for key in ("psnr_eval_mat_per_ins",
+                                                        "depth_eval_mat_per_ins")
+               for ins, mats in cross_before[key].items()
+               for a, b in zip(mats, cross_after[key][ins]))
+    if diff > 1e-5:
+        raise RuntimeError(f"--cross_eval_folder's cross-view matrices moved by {diff}")
+    print(f"   --cross_eval_folder: the cross-view matrices again, max abs difference {diff:.3e}")
+    return counts
+
+
 def kernel_records(tto_records, train_records, aabb_records, field_records,
                    train_kernel_records, train_field_extra, codenerf_extra, counts_by_path):
     """One record per launch counter, launches from the path that runs it
@@ -2639,18 +3013,35 @@ def main():
                "the original AutoRF (TTO, training; plain decoder)")
     baseline_counts = _in_temp_dir(baseline_paths)
     done(t0, "baseline paths")
+    t0 = phase("the rest of the TTO driver: (a) the TTO options, (b) multiview, (c) multiview "
+               "with opt_model, (d) re-scoring")
+    driver_counts = {}
+
+    def driver_paths(out_dir):
+        counts, tables = option_paths(out_dir)
+        driver_counts.update(counts)
+        print(f"   (a) the TTO options: {time.perf_counter() - t0:.2f} s")
+        driver_counts.update(_in_temp_dir(multiview_paths))
+        model_counts, model_check = _in_temp_dir(multiview_model_path)
+        driver_counts["multiview_opt_model"] = model_counts
+        driver_counts["cross_eval_folder"] = rescoring_paths(out_dir, tables)
+        return model_check
+
+    opt_model_check = _in_temp_dir(driver_paths)
+    done(t0, "the rest of the TTO driver")
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
                              train_kernel_records, train_field_extra, codenerf_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
                               "reg_cli": reg_cli_counts, "reg_lib": reg_lib_counts,
                               "train_render_data": render_data_counts,
                               "train_field": field_train_counts, **dataset_counts,
-                              **baseline_counts})
+                              **baseline_counts, **driver_counts})
     records_by_name = {r["name"]: r for r in records}
     records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms
     records_by_name["field_train_bwd"]["batch48_fwd_bwd_ms"] = field_train_ms
     records_by_name["render_fwd"]["batch48_max_abs_err"] = render_data_err
     records_by_name["field_fwd"]["batch48_max_abs_err"] = field_train_err
+    records_by_name["render_train_bwd_data"]["multiview_opt_model"] = opt_model_check
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("kernels: " + " ".join(f"{r['kernel']}:{r['name']}({','.join(r['ports'])})"
                                  for r in records))

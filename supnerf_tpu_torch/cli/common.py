@@ -13,6 +13,17 @@ from supnerf_tpu_torch.data.synthetic import make_synthetic_object
 from supnerf_tpu_torch.models.factory import build_model, init_model
 
 
+def str2bool(v) -> bool:
+    """argparse type for yes/no flags (the JAX CLI's str2bool)."""
+    if isinstance(v, bool):
+        return v
+    if v.lower() in ("yes", "true", "t", "y", "1"):
+        return True
+    if v.lower() in ("no", "false", "f", "n", "0"):
+        return False
+    raise argparse.ArgumentTypeError("Boolean value expected.")
+
+
 def add_optimize_args(p: argparse.ArgumentParser):
     p.add_argument("--config_file", type=str, default="supnerf.nusc.vehicle.car.json")
     p.add_argument("--seed", type=int, default=0)
@@ -30,10 +41,20 @@ def add_optimize_args(p: argparse.ArgumentParser):
     p.add_argument("--nusc-version", dest="nusc_version", type=str, default=None)
     p.add_argument("--add_pose_err", type=int, default=2, choices=[0, 1, 2, 3])
     p.add_argument("--reg_iters", type=int, default=3)
-    p.add_argument("--opt_pose", type=int, default=1,
-                   help="1: codes and object pose (0 and 2 are queued in ROADMAP.md)")
+    p.add_argument("--opt_pose", type=int, default=1, choices=[0, 1, 2],
+                   help="0: the codes alone; 1: codes and pose; 2: codes and pose, the "
+                        "initial pose from PnP on the encoder's corner prediction")
     p.add_argument("--pred_wlh", type=int, default=0, choices=[0, 1, 2],
-                   help="0 or 1 (2 is queued in ROADMAP.md)")
+                   help="0: the annotated box size; 1: the encoder's; 2: the encoder's "
+                        "volume at the nuScenes mean width and height")
+    p.add_argument("--opt_multiview", type=str2bool, default=False,
+                   help="optimize each instance's views jointly (shared codes)")
+    p.add_argument("--code_level", type=int, default=None, choices=[0, 1, 2],
+                   help="codes stored per instance (0), annotation (1) or (annotation, "
+                        "camera) (2, the default; --opt_multiview forces 0)")
+    p.add_argument("--cross_eval_folder", type=str, default=None,
+                   help="evaluate only: the cross-view evaluation and the report of this "
+                        "folder's codes+poses.pkl")
     p.add_argument("--pred_box2d", type=int, default=0)
     p.add_argument("--num_subset", type=int, default=1,
                    help="legacy manual sharding: total subsets")

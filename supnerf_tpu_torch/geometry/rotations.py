@@ -77,3 +77,35 @@ def rot_dist(R1, R2):
     """Geodesic distance on SO(3) in radians, trace clamped to [-1, 3]."""
     trace = torch.diagonal(R1 @ R2.transpose(-1, -2), dim1=-2, dim2=-1).sum(-1)
     return torch.acos((torch.clamp(trace, -1.0, 3.0) - 1.0) / 2.0)
+
+
+def _axis_rot(angle, axis: str):
+    """Rotations by (...,) angles about one coordinate axis -> (..., 3, 3)."""
+    c, s = torch.cos(angle), torch.sin(angle)
+    one, zero = torch.ones_like(angle), torch.zeros_like(angle)
+    rows = {"X": ((one, zero, zero), (zero, c, -s), (zero, s, c)),
+            "Y": ((c, zero, s), (zero, one, zero), (-s, zero, c)),
+            "Z": ((c, -s, zero), (s, c, zero), (zero, zero, one))}
+    if axis not in rows:
+        raise ValueError(axis)
+    return torch.stack([torch.stack(r, -1) for r in rows[axis]], -2)
+
+
+def euler_angles_to_matrix(euler, convention: str = "XYZ"):
+    """(..., 3) intrinsic Euler angles -> (..., 3, 3), pytorch3d's rule
+    R = R_axis0(e0) @ R_axis1(e1) @ R_axis2(e2)."""
+    mats = [_axis_rot(euler[..., i], axis) for i, axis in enumerate(convention)]
+    return mats[0] @ mats[1] @ mats[2]
+
+
+def matrix_to_euler_angles(matrix, convention: str = "XYZ"):
+    """(..., 3, 3) -> (..., 3) intrinsic XYZ Euler angles, the only
+    convention the configs can ask for (euler_rot): for R = Rx(a) Ry(b)
+    Rz(c), R[0,2] = sin b, R[1,2] = -sin a cos b, R[2,2] = cos a cos b,
+    R[0,1] = -cos b sin c, R[0,0] = cos b cos c."""
+    if convention != "XYZ":
+        raise NotImplementedError(convention)
+    b = torch.asin(torch.clamp(matrix[..., 0, 2], -1.0, 1.0))
+    a = torch.atan2(-matrix[..., 1, 2], matrix[..., 2, 2])
+    c = torch.atan2(-matrix[..., 0, 1], matrix[..., 0, 0])
+    return torch.stack([a, b, c], -1)

@@ -5,7 +5,12 @@ fw_pose_update :451, set_optimizers_w_poses :1762, update_learning_rate
 
 For a batch of objects (axis 0): the encoder with per-object batch
 statistics, the feed-forward pose refiner, then num_opts AdamW iterations on
-(shape code, texture code, rotation, translation). Every iteration renders
+(shape code, texture code, rotation, translation), or on the codes alone
+with opt_pose False. The pose is an axis-angle or (euler_rot) an XYZ Euler
+rotation and a translation, of the object pose or (opt_cam_pose) of the
+camera pose (pose_param_fns); the box size is the annotation's, the
+encoder's prediction, or that prediction's volume at the nuScenes mean
+width and height (pred_wlh 0, 1, 2: effective_wlh). Every iteration renders
 the loss rays with the differentiable fused render (in the frustum shell, or
 with use_aabb_render inside the box, as the demo does) and the lidar pixels
 with its forward only. The baselines (JAX core.py:231-295): AutoRF and
@@ -34,9 +39,15 @@ import dataclasses
 
 import torch
 
+from supnerf_tpu_torch.data.common import NUSC_CAR_WLH_MEAN
 from supnerf_tpu_torch.geometry.boxes import invert_pose
 from supnerf_tpu_torch.geometry.poses import calc_pose_err
-from supnerf_tpu_torch.geometry.rotations import axis_angle_to_matrix, matrix_to_axis_angle
+from supnerf_tpu_torch.geometry.rotations import (
+    axis_angle_to_matrix,
+    euler_angles_to_matrix,
+    matrix_to_axis_angle,
+    matrix_to_euler_angles,
+)
 from supnerf_tpu_torch.optim import AdamW
 from supnerf_tpu_torch.ops.field import field_apply
 from supnerf_tpu_torch.ops.render import (
@@ -76,8 +87,10 @@ class TTOConfig:
     weight_decay: float = 0.01
     loss_occ_coef: float = 0.1
     shapenet_obj_cood: bool = True
-    field_impl: str = "auto"     # "auto" | "cuda" | "plain" (ops.render.field_composite)
-    pred_wlh_mode: int = 0       # 0: annotated wlh; 1: the encoder's wlh (refiner, obj_diag, box)
+    opt_pose: bool = True        # False: the codes alone; the pose stays the refined one
+    euler_rot: bool = False      # the rotation as intrinsic XYZ Euler angles (not axis-angle)
+    opt_cam_pose: bool = False   # the parameters hold the camera pose (cam2obj)
+    pred_wlh_mode: int = 0       # 0: annotated wlh; 1: the encoder's; 2: its volume at mean w, h
     use_aabb_render: bool = False   # loss render inside the box (reference render_rays_v3)
     sym_aug: bool = False        # random lateral flip of the loss render's samples
     obj_sz_reg: bool = False     # box-limit density regulariser (reference :1412)
@@ -114,31 +127,48 @@ class ObjectBatch:
 
 
 def pose_param_fns(cfg: TTOConfig):
-    """(params_from_obj_pose, obj_pose_from_params): the object pose as an
-    axis-angle rotation vector and a translation (reference
-    optimizer_nuscenes.py:339-366 with euler_rot 0 and opt_cam_pose 0, the
-    published setting; the other parameterisations are queued in ROADMAP.md)."""
+    """(params_from_obj_pose, obj_pose_from_params) of the configured pose
+    parameterisation (JAX tto/core.py pose_param_fns; reference
+    optimizer_nuscenes.py:339-366): an axis-angle or (euler_rot) an
+    intrinsic XYZ Euler rotation vector and a translation, of the object
+    pose or (opt_cam_pose) of its inverse, the camera pose; invert_pose is
+    an involution, so that branch maps through it on both sides."""
+    if cfg.euler_rot:
+        def rot_to_vec(R):
+            return matrix_to_euler_angles(R, "XYZ")
+
+        def vec_to_rot(v):
+            return euler_angles_to_matrix(v, "XYZ")
+    else:
+        rot_to_vec, vec_to_rot = matrix_to_axis_angle, axis_angle_to_matrix
 
     def params_from_obj_pose(pose_obj):
-        return matrix_to_axis_angle(pose_obj[..., :3]), pose_obj[..., 3]
+        p = invert_pose(pose_obj) if cfg.opt_cam_pose else pose_obj
+        return rot_to_vec(p[..., :3]), p[..., 3]
 
     def obj_pose_from_params(rot_vec, trans_vec):
-        return torch.cat([axis_angle_to_matrix(rot_vec), trans_vec[..., None]], -1)
+        pose = torch.cat([vec_to_rot(rot_vec), trans_vec[..., None]], -1)
+        return invert_pose(pose) if cfg.opt_cam_pose else pose
 
     return params_from_obj_pose, obj_pose_from_params
 
 
 def effective_wlh(wlh_gt, wlh_pred, mode: int):
     """The box size TTO works with (reference optimizer_nuscenes.py:602-615):
-    mode 0 the annotation, mode 1 the encoder's prediction. Mode 2 (the
-    prediction's volume at the dataset's mean w and h) is queued in
-    ROADMAP.md §A.7."""
+    mode 0 the annotation, mode 1 the encoder's prediction, mode 2 the
+    prediction's volume with w and h at the nuScenes car means
+    (data.common.NUSC_CAR_WLH_MEAN) and l making up the volume. The order
+    is [w, l, h], and the volume divides by the means' w * h, as in JAX."""
     if mode == 0:
         return wlh_gt
     if mode == 1:
         return wlh_pred
-    raise NotImplementedError(f"pred_wlh {mode} is queued in ROADMAP.md §A.7; this slice "
-                              "runs pred_wlh 0 and 1")
+    if mode != 2:
+        raise ValueError(f"pred_wlh {mode}: 0, 1 or 2")
+    w = torch.full_like(wlh_pred[..., 0], float(NUSC_CAR_WLH_MEAN[0]))
+    h = torch.full_like(wlh_pred[..., 2], float(NUSC_CAR_WLH_MEAN[2]))
+    l = wlh_pred[..., 0] * wlh_pred[..., 1] * wlh_pred[..., 2] / (w * h)
+    return torch.stack([w, l, h], -1)
 
 
 def render_decoder(model):
@@ -151,13 +181,12 @@ def render_decoder(model):
     return pack_decoder_params(model) if decoder_kernel_compatible(model) else model
 
 
-def make_composite(wts, shapecode, texturecode, impl: str):
+def make_composite(wts, shapecode, texturecode):
     """The renderers' composite_fn for these codes: the fused render
-    (field_composite) on kernel operands, ops.render.decoder_composite on a
-    model (render_decoder)."""
+    (field_composite: the kernels for CUDA tensors) on kernel operands,
+    ops.render.decoder_composite on a model (render_decoder)."""
     if isinstance(wts, DecoderWeights):
-        return lambda xyz, vd, z: field_composite(wts, xyz, vd, z, shapecode, texturecode,
-                                                  impl=impl)
+        return lambda xyz, vd, z: field_composite(wts, xyz, vd, z, shapecode, texturecode)
     return lambda xyz, vd, z: decoder_composite(wts, xyz, vd, z, shapecode, texturecode)
 
 
@@ -211,8 +240,8 @@ def tto_loss(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_diag
         hit_share = out["hit"].float().mean(1)
     else:
         out = render_rays_frustum(
-            make_composite(wts, shapecode, texturecode, cfg.field_impl), invert_pose(pose_obj),
-            batch.K, batch.roi_nerf, obj_diag, n_samples=cfg.n_samples,
+            make_composite(wts, shapecode, texturecode), invert_pose(pose_obj), batch.K,
+            batch.roi_nerf, obj_diag, n_samples=cfg.n_samples,
             im_sz=cfg.render_im_sz, shapenet_obj_cood=cfg.shapenet_obj_cood,
             kitti2nusc=cfg.kitti2nusc, sym_flip=sym_flip,
             field_fn=field_fn if need_samples else None, jitter=jitter, generator=generator)
@@ -237,7 +266,7 @@ def depth_error(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_d
     """Mean absolute lidar-depth error per object (reference log_eval_depth_v2
     :1736), from a forward-only render of the lidar pixels."""
     out = render_rays_at_pixels(
-        make_composite(wts, shapecode, texturecode, cfg.field_impl), invert_pose(pose_obj),
+        make_composite(wts, shapecode, texturecode), invert_pose(pose_obj),
         batch.K, batch.lidar_u, batch.lidar_v, obj_diag, n_samples=cfg.n_samples,
         shapenet_obj_cood=cfg.shapenet_obj_cood, kitti2nusc=cfg.kitti2nusc, jitter=jitter,
         generator=generator)
@@ -246,15 +275,20 @@ def depth_error(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_d
 
 
 @torch.no_grad()
-def encode_and_refine(model, batch: ObjectBatch, mean_shape, mean_texture, cfg: TTOConfig):
+def encode_and_refine(model, batch: ObjectBatch, mean_shape, mean_texture, cfg: TTOConfig,
+                      pose_hook=None):
     """Encoder (one object per BatchNorm batch, as the reference encodes one
     image at a time) and the feed-forward refiner on the effective box size
     (effective_wlh; the annotation for a model without a wlh head). A
     two-head encoder (AutoRF, AutoRFMix) gives zero pose code and uv; a
     model without an encoder (CodeNeRF) starts from the mean codes with zero
     uv; a model without a refiner replays pose_init for reg_iters + 1
-    entries. Returns (shapecode0, texturecode0, pose_traj (B, reg_iters + 1,
-    3, 4), uv_direct, wlh_pred, wlh_used)."""
+    entries. pose_hook: optional fn(uv_direct (B, 16)) -> (B, 3, 4), the
+    pose the refiner starts from in place of batch.pose_init (the driver's
+    PnP bootstrap at opt_pose 2 takes the encoder's corners here, between
+    the encoder and the refiner, from the one encoder pass). Returns
+    (shapecode0, texturecode0, pose_traj (B, reg_iters + 1, 3, 4),
+    uv_direct, wlh_pred, wlh_used)."""
     B = len(batch.img_in)
     uv = batch.wlh.new_zeros((B, 16))
     if hasattr(model, "encode_img"):
@@ -267,17 +301,21 @@ def encode_and_refine(model, batch: ObjectBatch, mean_shape, mean_texture, cfg: 
         wlh_use = effective_wlh(batch.wlh, wlh_pred, cfg.pred_wlh_mode)
     else:
         wlh_pred, wlh_use = torch.zeros_like(batch.wlh), batch.wlh
-    if hasattr(model, "pose_update"):
+    refine = hasattr(model, "pose_update")
+    if refine:
         pc, uv = (torch.cat([e[i] for e in enc]) for i in (2, 3))
-        traj = fw_pose_refine(model.pose_update, pc, batch.pose_init, wlh_use, batch.roi_refine,
+    pose_init = batch.pose_init if pose_hook is None else pose_hook(uv)
+    if refine:
+        traj = fw_pose_refine(model.pose_update, pc, pose_init, wlh_use, batch.roi_refine,
                               batch.K, batch.K_inv, iters=cfg.reg_iters, box_fac=cfg.box_fac)
     else:
-        traj = batch.pose_init[:, None].expand(B, cfg.reg_iters + 1, 3, 4).clone()
+        traj = pose_init[:, None].expand(B, cfg.reg_iters + 1, 3, 4).clone()
     return ((sc + mean_shape) / 2, (tc + mean_texture) / 2, traj, uv, wlh_pred, wlh_use)
 
 
 def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg: TTOConfig,
-                  generator=None, jitter=None, sym_flips=None, obj_sz_draws=None, timer=None):
+                  generator=None, jitter=None, sym_flips=None, obj_sz_draws=None, timer=None,
+                  pose_hook=None):
     """The full TTO pipeline for a batch of objects.
 
     wts: render_decoder(model), the kernel operands of a kernel-compatible
@@ -287,7 +325,10 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
     render's (num_opts, B, R, S) with use_aabb_render. sym_flips (num_opts,
     B) bool and obj_sz_draws (num_opts, B, 3, SAMPLES_PER_PLANE): the
     regularisers' draws (tto_loss). Draws not given come from `generator`.
-    timer: optional timing.PhaseTimer.
+    timer: optional timing.PhaseTimer. pose_hook: encode_and_refine's.
+    With cfg.opt_pose False only the codes are parameters (the pose is not
+    in the optimizer, so weight decay does not touch it either) and every
+    iteration after reg_iters renders the refined pose itself.
     Returns a dict of per-object results (leading dim B): codes and poses at
     CODE_SAVE_ITERS, the final codes and pose, and the per-iteration psnr,
     rot_err, trans_err, depth_err and loss curves (B, num_opts), and with
@@ -298,14 +339,16 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
     phase = timer.phase if timer is not None else (lambda name: contextlib.nullcontext())
     with phase("encode_refine"):
         sc0, tc0, traj, uv_direct, wlh_pred, wlh_use = encode_and_refine(
-            model, batch, mean_shape, mean_texture, cfg)
+            model, batch, mean_shape, mean_texture, cfg, pose_hook)
     obj_diag = torch.linalg.norm(wlh_use, dim=-1)
     params_from_obj_pose, obj_pose_from_params = pose_param_fns(cfg)
-    rot0, trans0 = params_from_obj_pose(traj[:, -1])
-    params = [t.clone().requires_grad_(True) for t in (sc0, tc0, rot0, trans0)]
-    sc, tc, rot, trans = params
-    opt = AdamW(params, (cfg.lr_shape, cfg.lr_texture, cfg.lr_pose, cfg.lr_pose),
-                cfg.weight_decay)
+    sc, tc = (t.clone().requires_grad_(True) for t in (sc0, tc0))
+    params, lrs = [sc, tc], [cfg.lr_shape, cfg.lr_texture]
+    if cfg.opt_pose:
+        rot, trans = (t.clone().requires_grad_(True) for t in params_from_obj_pose(traj[:, -1]))
+        params += [rot, trans]
+        lrs += [cfg.lr_pose, cfg.lr_pose]
+    opt = AdamW(params, lrs, cfg.weight_decay)
 
     curves = {k: [] for k in ("psnr", "rot_err", "trans_err", "depth_err", "loss")
               + (("hit_share",) if cfg.use_aabb_render else ())}
@@ -324,7 +367,7 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
                     loss, psnr, hit_share = tto_loss(wts, sc, tc, pose_obj, batch, obj_diag,
                                                      cfg, j_loss, generator, wlh_use, **reg)
             else:
-                pose_obj = obj_pose_from_params(rot, trans)
+                pose_obj = obj_pose_from_params(rot, trans) if cfg.opt_pose else traj[:, -1]
                 loss, psnr, hit_share = tto_loss(wts, sc, tc, pose_obj, batch, obj_diag, cfg,
                                                  j_loss, generator, wlh_use, **reg)
                 grads = torch.autograd.grad(loss.sum(), params)

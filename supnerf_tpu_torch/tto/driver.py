@@ -11,19 +11,24 @@ cross-view renders of a kernel-compatible decoder run on K1/K2, those of
 the original AutoRF on its plain decoder (tto/core.render_decoder). As in
 the JAX driver, nothing else depends on the arch.
 
-It covers opt_pose 1 (codes and object pose, axis-angle), the annotated or
-the predicted box size (pred_wlh 0 and 1), the frustum or the AABB loss
-render, the regularisers sym_aug and obj_sz_reg (hpams keys, as in the JAX
-driver), add_pose_err 0 (ground truth), 1 (a yaw and a depth-ratio error of
-init_rot_err / init_trans_err), 2 (random) and 3 (the reader's pose from a
-third-party detection), codes stored per (annotation, camera) (code_level
-2), no visualisation, in the nuScenes object frame or the KITTI one
-(dataset_frame "kitti" / "waymo", reference optimizer_kitti.py:24,638-639):
-there the initial and ground-truth poses move to the nuScenes frame in the
-prep, the refiner sees the box corners scaled by KITTI_BOX_FAC unless the
-predicted wlh is used, and the field's samples rotate into the nuScenes
-frame. The other options raise NotImplementedError and are queued in
-ROADMAP.md (PnP bootstrapping, opt_pose 2, needs a solver without OpenCV).
+It covers opt_pose 0 (the codes alone), 1 (codes and pose) and 2 (codes and
+pose from a PnP bootstrap: tto/pnp.py solves the encoder's corner
+prediction against the annotated box, between the encoder and the refiner
+of the one encoder pass), the pose as axis-angle or XYZ Euler angles, of
+the object or the camera (hpams euler_rot, optimize.opt_cam_pose), the
+annotated, predicted or mean-snapped box size (pred_wlh 0, 1, 2), the
+frustum or the AABB loss render, the regularisers sym_aug and obj_sz_reg
+(hpams keys, as in the JAX driver), add_pose_err 0 (ground truth), 1 (a yaw
+and a depth-ratio error of init_rot_err / init_trans_err), 2 (random) and 3
+(the reader's pose from a third-party detection), codes stored per
+instance, annotation or (annotation, camera) (code_level 0, 1, 2), the
+multiview TTO of each instance's views with shared codes (run_multiview,
+tto/multiview.py), no visualisation, in the nuScenes object frame or the
+KITTI one (dataset_frame "kitti" / "waymo", reference
+optimizer_kitti.py:24,638-639): there the initial and ground-truth poses
+move to the nuScenes frame in the prep, the refiner sees the box corners
+scaled by KITTI_BOX_FAC unless the predicted wlh is used, and the field's
+samples rotate into the nuScenes frame.
 """
 from __future__ import annotations
 
@@ -48,6 +53,8 @@ from supnerf_tpu_torch.tto.core import (
     render_decoder,
     run_tto_batch,
 )
+from supnerf_tpu_torch.tto.multiview import MultiviewBatch, run_multiview_tto
+from supnerf_tpu_torch.tto.pnp import pnp_bootstrap
 
 # cells of the cross-view evaluation rendered per kernel call
 _CROSS_VIEW_CHUNK = 64
@@ -62,16 +69,15 @@ def is_kitti_frame(dataset_frame: str) -> bool:
 
 
 def tto_config_from_hpams(hpams: dict, *, reg_iters: int = 3, n_lidar: int = 256,
-                          pred_wlh: int = 0, dataset_frame: str = "nusc") -> TTOConfig:
+                          opt_pose: int = 1, pred_wlh: int = 0,
+                          dataset_frame: str = "nusc") -> TTOConfig:
+    """The TTO config of a config file's hpams and the CLI's protocol
+    flags (JAX tto/driver.py tto_config_from_hpams)."""
     opt = hpams.get("optimize", {})
-    for key, value in (("euler_rot", hpams.get("euler_rot", 0)),
-                       ("optimize.opt_cam_pose", opt.get("opt_cam_pose", 0))):
-        if value:
-            raise NotImplementedError(f"{key} {value} is queued in ROADMAP.md; this slice "
-                                      "optimizes the object pose as an axis-angle vector")
-    if pred_wlh not in (0, 1):
-        raise NotImplementedError(f"pred_wlh {pred_wlh} is queued in ROADMAP.md §A.7; this "
-                                  "slice runs pred_wlh 0 and 1")
+    if opt_pose not in (0, 1, 2):
+        raise ValueError(f"opt_pose {opt_pose}: 0, 1 or 2")
+    if pred_wlh not in (0, 1, 2):
+        raise ValueError(f"pred_wlh {pred_wlh}: 0, 1 or 2")
     return TTOConfig(
         num_opts=opt.get("num_opts", 100), reg_iters=reg_iters,
         n_samples=hpams.get("n_samples", 64), render_im_sz=hpams.get("render_im_sz", 32),
@@ -80,6 +86,8 @@ def tto_config_from_hpams(hpams: dict, *, reg_iters: int = 3, n_lidar: int = 256
         lr_pose=opt.get("lr_pose", 0.01), lr_half_interval=opt.get("lr_half_interval", 1000),
         loss_occ_coef=hpams.get("loss_occ_coef", 0.1),
         shapenet_obj_cood=bool(hpams.get("shapenet_obj_cood", 1)), pred_wlh_mode=pred_wlh,
+        opt_pose=opt_pose > 0, euler_rot=bool(hpams.get("euler_rot", 0)),
+        opt_cam_pose=bool(opt.get("opt_cam_pose", 0)),
         sym_aug=bool(hpams.get("sym_aug", 0)), obj_sz_reg=bool(hpams.get("obj_sz_reg", 0)),
         loss_obj_sz_coef=float(hpams.get("loss_obj_sz_coef", 1.0)),
         kitti2nusc=is_kitti_frame(dataset_frame),
@@ -94,20 +102,27 @@ class TTODriver:
     weights loaded.
     cfg: a TTOConfig that replaces the one read from hpams (the demo's AABB
     loss render). init_rot_err / init_trans_err (add_pose_err 1): None
-    falls back to the config's keys, then to 0.0 / 0.2."""
+    falls back to the config's keys, then to 0.0 / 0.2. code_level: how
+    the optimized codes are stored (JAX driver; reference
+    optimizer_nuscenes.py:86-112): 0 flat per instance (the multiview
+    schema; run_multiview always stores so), 1 flat per annotation, 2 per
+    (annotation, camera), the default; the poses stay per (annotation,
+    camera) at every level."""
 
     def __init__(self, model, mean_shape, mean_texture, hpams: dict, dataset, save_dir: str,
                  *, device, cfg: TTOConfig | None = None, opt_pose: int = 1,
                  reg_iters: int = 3, dataset_frame: str = "nusc", pred_wlh: int = 0,
                  add_pose_err: int = 2, batch_size: int = 16, save_freq: int = 100,
                  seed: int = 0, init_rot_err: float | None = None,
-                 init_trans_err: float | None = None, rand_angle_lim: float = 0.0):
-        if opt_pose != 1:
-            raise NotImplementedError(
-                f"opt_pose {opt_pose} is queued in ROADMAP.md (opt_pose 2, the PnP bootstrap, "
-                "needs a PnP solver without OpenCV); this slice runs opt_pose 1")
+                 init_trans_err: float | None = None, rand_angle_lim: float = 0.0,
+                 code_level: int | None = None):
         if add_pose_err not in (0, 1, 2, 3):
             raise ValueError(f"add_pose_err {add_pose_err}: 0, 1, 2 or 3")
+        if code_level not in (None, 0, 1, 2):
+            raise ValueError(f"code_level {code_level}: 0, 1 or 2")
+        if opt_pose == 2 and not hasattr(model, "pose_update"):
+            raise ValueError("opt_pose 2 solves PnP on the encoder's box-corner prediction, "
+                             f"which {type(model).__name__} does not make (SUP-NeRF does)")
         self.device = resolve_device(str(device))
         self.model = model.to(self.device)
         self.wts = render_decoder(self.model)
@@ -115,7 +130,8 @@ class TTODriver:
         self.mean_texture = torch.as_tensor(mean_texture, dtype=torch.float32,
                                             device=self.device)
         self.hpams, self.dataset, self.save_dir = hpams, dataset, save_dir
-        self.add_pose_err = add_pose_err
+        self.add_pose_err, self.opt_pose = add_pose_err, opt_pose
+        self.code_level = 2 if code_level is None else code_level
         self.kitti_frame = is_kitti_frame(dataset_frame)
         self.batch_size, self.save_freq = batch_size, save_freq
         self.init_rot_err = (init_rot_err if init_rot_err is not None
@@ -131,7 +147,8 @@ class TTODriver:
         self.np_rng = np.random.default_rng(seed)
         self.timer = PhaseTimer(self.device)
         self.cfg = cfg if cfg is not None else tto_config_from_hpams(
-            hpams, reg_iters=reg_iters, pred_wlh=pred_wlh, dataset_frame=dataset_frame)
+            hpams, reg_iters=reg_iters, opt_pose=opt_pose, pred_wlh=pred_wlh,
+            dataset_frame=dataset_frame)
         os.makedirs(save_dir, exist_ok=True)
         self.optimized_shapecodes, self.optimized_texturecodes = {}, {}
         self.optimized_poses = {}
@@ -140,6 +157,7 @@ class TTODriver:
         self.wlh_used = {}      # the box size each object was optimized with
         self.hit_share = {}     # AABB loss render: per iteration, the share of rays in the box
         self.loss_curve = {}    # per iteration, the loss the update descended
+        self.pnp_translations = 0   # opt_pose 2: objects whose PnP depth passed the gate
 
     # ------------------------------------------------------------------ prep
     def _pose_with_error(self, gt):
@@ -214,9 +232,10 @@ class TTODriver:
             print(f"num obj: {start}/{n}")
             with self.timer.phase("host_prep"):
                 samples, prepped, batch = self._prep(idxs)
+            hook = (lambda uv: self._pnp_poses(uv, batch)) if self.opt_pose == 2 else None
             res = run_tto_batch(self.model, self.wts, batch, self.mean_shape,
                                 self.mean_texture, self.cfg, generator=self.render_gen,
-                                timer=self.timer)
+                                timer=self.timer, pose_hook=hook)
             with self.timer.phase("bookkeeping"):
                 self._bookkeep(idxs, samples, prepped, res)
             if bi % max(self.save_freq // self.batch_size, 1) == 0:
@@ -224,6 +243,44 @@ class TTODriver:
         self.save_results()
         self.save_results_pth()
         return self.results_dict()
+
+    def _corner_uv(self, uv_direct):
+        """The encoder's 16-wide direct corner prediction on the host, (B, 16)."""
+        return uv_direct.detach().cpu().numpy()
+
+    def _pnp_poses(self, uv_direct, batch: ObjectBatch):
+        """opt_pose 2 (JAX driver _dispatch_batch; reference
+        optimizer_nuscenes.py:464-494): each object's initial pose from
+        P3P-RANSAC on its predicted corners (tto/pnp.pnp_bootstrap, with the
+        annotated wlh, roi_refine and K), the rotation always, the
+        translation where its depth is in (0, 60) m."""
+        uv = self._corner_uv(uv_direct)
+        src = batch.pose_init.detach().cpu().numpy()
+        roi, wlh, K = (t.detach().cpu().numpy() for t in (batch.roi_refine, batch.wlh, batch.K))
+        out = np.stack([pnp_bootstrap(uv[i], roi[i], wlh[i], K[i], src[i])
+                        for i in range(len(src))])
+        taken = int(sum(not np.array_equal(out[i, :, 3], src[i, :, 3]) for i in range(len(src))))
+        self.pnp_translations += taken
+        print(f"PnP bootstrap: {taken} of {len(src)} objects took the PnP translation")
+        return torch.as_tensor(out, device=batch.pose_init.device)
+
+    def _store_codes(self, ins, ann, cam, sc, tc):
+        """One object's code snapshots under the driver's code_level."""
+        for store, codes in ((self.optimized_shapecodes, sc), (self.optimized_texturecodes, tc)):
+            if self.code_level == 0:
+                store[ins] = codes
+            elif self.code_level == 1:
+                store[ann] = codes
+            else:
+                store.setdefault(ann, {})[cam] = codes
+
+    def _saved_codes(self, ins, ann, cam):
+        """(shape, texture) snapshots of one view under code_level, or None."""
+        sc, tc = self.optimized_shapecodes, self.optimized_texturecodes
+        key = {0: ins, 1: ann}.get(self.code_level)
+        if key is None:     # code_level 2: {ann: {cam: codes}}
+            sc, tc, key = sc.get(ann, {}), tc.get(ann, {}), cam
+        return (sc[key], tc[key]) if key in sc else None
 
     def _bookkeep(self, idxs, samples, prepped, res):
         res = {k: v.detach().cpu().numpy() for k, v in res.items()}
@@ -236,9 +293,9 @@ class TTODriver:
             ann = sample.get("anntoken", f"obj{idx}")
             cam = sample.get("cam_ids", "CAM")
             log_idx = f"{ann}_{cam}"
-            self.optimized_shapecodes.setdefault(ann, {})[cam] = res["shapecodes_saved"][i].copy()
-            self.optimized_texturecodes.setdefault(ann, {})[cam] = (
-                res["texturecodes_saved"][i].copy())
+            self._store_codes(sample.get("instoken", ann), ann, cam,
+                              res["shapecodes_saved"][i].copy(),
+                              res["texturecodes_saved"][i].copy())
             self.optimized_poses.setdefault(ann, {})[cam] = res["poses_saved"][i].copy()
             self.psnr_eval[log_idx] = res["psnr"][i].tolist()
             self.R_eval[log_idx] = res["rot_err"][i].tolist()
@@ -264,25 +321,28 @@ class TTODriver:
         instance and score PSNR and lidar-depth error (reference
         eval_cross_view :1279-1410). All cells (code snapshot x source view x
         target view) of an instance render as one object batch, with one
-        fixed jitter vector. Saves and returns the cross_eval dict."""
+        fixed jitter vector. A view's codes are those its code_level stored
+        (at level 0 one code per instance, so an instance's rows agree).
+        Saves and returns the cross_eval dict."""
         cfg = self.cfg
         jitter = torch.rand(cfg.n_samples, generator=torch.Generator().manual_seed(0))
         by_ins = {}
         for idx in range(len(self.dataset)):
             s = self.dataset[idx]
             ann, cam = s.get("anntoken", f"obj{idx}"), s.get("cam_ids", "CAM")
-            if cam in self.optimized_shapecodes.get(ann, {}):
-                by_ins.setdefault(s.get("instoken", str(idx)), []).append((idx, ann, cam))
+            codes = self._saved_codes(s.get("instoken", ann), ann, cam)
+            if codes is not None:
+                by_ins.setdefault(s.get("instoken", str(idx)), []).append((idx, codes))
         psnr_mats, depth_mats = {}, {}
         with self.timer.phase("cross_view"):
             for ins, views in by_ins.items():
                 n_v, n_code = len(views), len(CODE_SAVE_ITERS)
-                gts = [np.asarray(self.dataset[i]["obj_poses"], np.float32) for i, _, _ in views]
-                _, _, tgt = self._prep([i for i, _, _ in views], poses=gts)
-                sc = torch.as_tensor(np.stack([self.optimized_shapecodes[a][c] for _, a, c in views],
-                                              1), device=self.device)   # (n_code, n_v, latent)
-                tc = torch.as_tensor(np.stack([self.optimized_texturecodes[a][c]
-                                               for _, a, c in views], 1), device=self.device)
+                gts = [np.asarray(self.dataset[i]["obj_poses"], np.float32) for i, _ in views]
+                _, _, tgt = self._prep([i for i, _ in views], poses=gts)
+                # (n_code, n_v, latent) each
+                sc, tc = (torch.as_tensor(np.stack([np.asarray(c[k]) for _, c in views], 1),
+                                          dtype=torch.float32, device=self.device)
+                          for k in (0, 1))
                 code_idx = torch.arange(n_code * n_v, device=self.device).repeat_interleave(n_v)
                 view_idx = torch.arange(n_v, device=self.device).repeat(n_code * n_v)
                 psnr, derr = [], []
@@ -316,7 +376,7 @@ class TTODriver:
         cam = invert_pose(pick["obj_pose_gt"])
         jit = jitter.to(self.device).expand(n, -1)
 
-        comp = make_composite(self.wts, sc, tc, cfg.field_impl)
+        comp = make_composite(self.wts, sc, tc)
         out = render_rays_frustum(comp, cam, pick["K"], pick["roi_nerf"], diag,
                                   n_samples=cfg.n_samples, im_sz=cfg.render_im_sz,
                                   shapenet_obj_cood=cfg.shapenet_obj_cood,
@@ -347,7 +407,7 @@ class TTODriver:
             "ood_flags": self.ood_flags,
             "num_ood": int(sum(self.ood_flags.values())),
             "CODE_SAVE_ITERS_": list(CODE_SAVE_ITERS),
-            "code_level": 2,     # codes stored per (annotation, camera)
+            "code_level": self.code_level,   # the optimized_* codes' schema (__init__)
         }
 
     def save_results(self, name: str = "codes+poses.pkl"):
@@ -356,8 +416,9 @@ class TTODriver:
 
     def save_results_pth(self, name: str = "codes+poses.pth"):
         """The results in the reference's torch format (optimizer_nuscenes.py:
-        1464-1477): codes and poses as tensors, curves as float lists, R/T
-        errors as lists of 0-d tensors."""
+        1464-1477): codes and poses as tensors ({cam: codes} per annotation
+        at code_level 2, flat per instance or annotation at 0 and 1), curves
+        as float lists, R/T errors as lists of 0-d tensors."""
         def t(x):
             return torch.from_numpy(np.array(x, np.float32))
 
@@ -377,3 +438,39 @@ class TTODriver:
             "T_eval": {k: [torch.tensor(float(x)) for x in v] for k, v in self.T_eval.items()},
         }
         torch.save(saved, os.path.join(self.save_dir, name))
+
+    # ------------------------------------------------------------- multiview
+    def run_multiview(self, v_max: int = 4, opt_pose: bool = False, opt_model: bool = False,
+                      slack_tex: bool | None = None):
+        """Multiview TTO per instance (JAX driver run_multiview; reference
+        optimize_objs_multi_anns[_w_pose]): the first v_max views of each
+        instance share one shape and one texture code (tto/multiview.py),
+        with per-view poses that opt_pose optimizes. slack_tex defaults to
+        the reference's dispatch, not opt_pose (optimizer_nuscenes.py:135).
+        The codes are stored flat per instance (code_level 0, as the
+        reference forces for opt_multiview), the per-iteration PSNR under
+        the instance, and codes_multiview.pkl is written."""
+        if slack_tex is None:
+            slack_tex = not opt_pose
+        self.code_level = 0
+        by_ins = {}
+        for idx in range(len(self.dataset)):
+            by_ins.setdefault(self.dataset[idx].get("instoken", str(idx)), []).append(idx)
+        for ins, idx_list in by_ins.items():
+            with self.timer.phase("host_prep"):
+                _, _, batch = self._prep(idx_list[:v_max])
+            views = MultiviewBatch.from_object_batch(batch)
+            with self.timer.phase("multiview_tto"):
+                res = run_multiview_tto(self.model, self.wts, views, self.mean_shape,
+                                        self.mean_texture, self.cfg, opt_pose=opt_pose,
+                                        opt_model=opt_model, slack_tex=slack_tex,
+                                        generator=self.render_gen)
+                res = {k: v.detach().cpu().numpy() for k, v in res.items()}
+            self.optimized_shapecodes[ins] = res["shapecodes_saved"]
+            self.optimized_texturecodes[ins] = res["texturecodes_saved"]
+            self.psnr_eval[ins] = res["psnr"].tolist()
+            self.loss_curve[ins] = res["loss"].tolist()
+            print(f"  multiview {ins} ({len(views.img_in)} views): psnr "
+                  f"{res['psnr'][0]:.2f} -> {res['psnr'][-1]:.2f}")
+        self.save_results(name="codes_multiview.pkl")
+        return self.results_dict()

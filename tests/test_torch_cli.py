@@ -67,31 +67,47 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("option", ["opt_pose 0", "opt_pose 2", "euler_rot", "opt_cam_pose",
-                                    "pred_wlh 2", "training sym_aug"])
+@pytest.mark.parametrize("option", ["training sym_aug"])
 def test_unported_options_raise(tmp_path, option):
     """Options outside the ported slices refuse to run instead of taking an
-    unverified path: through the optimize CLI (pred_wlh 2 in the driver's
-    config, tto/driver.py tto_config_from_hpams), and the trainer's sym_aug
-    (a ray-prep augmentation, not the TTO regulariser, which is ported)."""
-    config = dict(TINY_CONFIG, model_dir=str(tmp_path / "no_checkpoint"))
+    unverified path: the trainer's sym_aug (a ray-prep augmentation, not the
+    TTO regulariser, which is ported)."""
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        if option == "training sym_aug":
-            UnifiedTrainer(None, dict(TRAIN_CONFIG, sym_aug=1), None, str(tmp_path / "run"),
-                           device="cpu")
-        else:
-            argv = []
-            if option.startswith(("opt_pose", "pred_wlh")):
-                flag, value = option.split()
-                argv = [f"--{flag}", value]
-            elif option == "euler_rot":
-                config[option] = 1
-            else:
-                config["optimize"] = dict(config["optimize"], opt_cam_pose=1)
-            cfg = tmp_path / "tiny.json"
-            cfg.write_text(json.dumps(config))
-            optimize.main(["--config_file", str(cfg), "--dataset", "synthetic", "--num_objects",
-                           "1", "--device", "cpu", "--save_dir", str(tmp_path / "run"), *argv])
+        UnifiedTrainer(None, dict(TRAIN_CONFIG, sym_aug=1), None, str(tmp_path / "run"),
+                       device="cpu")
+
+
+@pytest.mark.parametrize("option", ["opt_pose 0", "opt_pose 2", "euler_rot", "opt_cam_pose",
+                                    "pred_wlh 2"])
+def test_formerly_queued_options_run(tmp_path, option):
+    """The TTO options that once refused to run go through the optimize CLI
+    on the CPU on 1 synthetic object to the JAX schema's result file and
+    finite curves: --opt_pose 0 and 2, --pred_wlh 2 (on a config whose net
+    predicts wlh), and euler_rot and optimize.opt_cam_pose in the config."""
+    config = dict(TINY_CONFIG, model_dir=str(tmp_path / "no_checkpoint"))
+    argv = []
+    if option.startswith(("opt_pose", "pred_wlh")):
+        flag, value = option.split()
+        argv = [f"--{flag}", value]
+        if flag == "pred_wlh":
+            config["net_hyperparams"] = dict(config["net_hyperparams"], pred_wlh=1)
+    elif option == "euler_rot":
+        config[option] = 1
+    else:
+        config["optimize"] = dict(config["optimize"], opt_cam_pose=1)
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(config))
+    summary = optimize.main(["--config_file", str(cfg), "--dataset", "synthetic",
+                             "--num_objects", "1", "--device", "cpu",
+                             "--save_dir", str(tmp_path / "run"), *argv])
+    with open(tmp_path / "run" / "codes+poses.pkl", "rb") as f:
+        res = pickle.load(f)
+    assert set(res) == _jax_result_keys()
+    assert res["num_obj"] == 1 and res["code_level"] == 2
+    assert res["optimized_shapecodes"]["ann_0"]["CAM_FRONT"].shape == (6, 32)
+    assert all(len(v) == 6 and all(math.isfinite(x) for x in v)
+               for key in ("psnr_eval", "R_eval", "T_eval") for v in res[key].values())
+    assert (summary["pnp_translations"] is not None) == (option == "opt_pose 2")
 
 
 def test_regularisers_run_through_the_cli(tmp_path):
@@ -143,7 +159,8 @@ def test_port_imports_nothing_of_the_jax_world():
     imported = proc.stdout.split()
     assert len(imported) >= 20
     for name in ("cli.demo", "render.compositor", "utils.image_io", "ops.field",
-                 "tto.regularizers"):
+                 "tto.regularizers", "tto.pnp", "tto.multiview", "cli.eval_saved_result",
+                 "cli.evaluate_all"):
         assert f"supnerf_tpu_torch.{name}" in imported
 
 

@@ -238,10 +238,18 @@ def test_demo_refuses_other_datasets_and_a_missing_card(monkeypatch, tmp_path):
 
 
 def test_pred_wlh_2_is_refused():
-    """pred_wlh 2 (the mean-w/h variant) is queued in ROADMAP.md §A.7."""
+    """pred_wlh 2, once refused here, is ported: the config takes it and
+    effective_wlh gives JAX's box (w and h at the nuScenes means, l keeping
+    the predicted volume); a mode outside 0-2 is refused."""
+    from supnerf_tpu.tto.core import effective_wlh as jax_effective_wlh
     from supnerf_tpu_torch.tto.driver import tto_config_from_hpams
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tto_config_from_hpams({}, pred_wlh=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        core.effective_wlh(torch.ones(1, 3), torch.ones(1, 3), 2)
+    assert tto_config_from_hpams({}, pred_wlh=2).pred_wlh_mode == 2
+    pred = np.array([[1.8, 4.2, 1.5], [2.1, 5.0, 1.9]], np.float32)
+    np.testing.assert_allclose(
+        core.effective_wlh(torch.ones(2, 3), torch.from_numpy(pred), 2).numpy(),
+        np.asarray(jax_effective_wlh(jnp.ones((2, 3)), jnp.asarray(pred), 2)), rtol=1e-6)
+    with pytest.raises(ValueError, match="pred_wlh 3"):
+        tto_config_from_hpams({}, pred_wlh=3)
+    with pytest.raises(ValueError, match="pred_wlh 3"):
+        core.effective_wlh(torch.ones(1, 3), torch.ones(1, 3), 3)
