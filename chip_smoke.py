@@ -107,6 +107,17 @@ Phases, each timed; any failure exits non-zero before the result line:
      convention, cli.evaluate_all on (a)'s tree and the optimize CLI's
      --cross_eval_folder (K1 2), whose printed metric rows must equal the
      optimize runs'.
+ 12. the visualisation at the published config: (a) K1 against its plain
+     version at the full-image render's shape (2 objects x 128 x 128 rays)
+     and the virtual views' (8 views x 64 x 64), timed beside its bound;
+     (b) the optimize CLI with --vis 1 on 2 synthetic objects, 100
+     iterations (K1 206: an option cell's 202 and 4 vis launches; K2 96),
+     each object's opt000.png and opt100.png (128 x 384) and virt_final.png
+     (128 x 256) decoded by read_png, a finite SSIM in [-1, 1]; (c) --vis 2
+     on 1 object, opt000..opt099 (K1 304); (d) cli.train at the training
+     cell's shape with --check_iter 2: runs/metrics.jsonl with a finite
+     line per step and the panels of steps 2 and 4 (K1 one launch a step
+     and one a panel).
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2916,6 +2927,162 @@ def rescoring_paths(out_dir, tables):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 12: the visualisation: K1 at the full-image and virtual-view shapes,
+# --vis 1 and 2 through the optimize CLI, the trainer's log sink
+# --------------------------------------------------------------------------
+
+VIS_SZ, VIS_VIEWS = 128, 8
+# K1 launches of the vis cells on top of an option cell's (OPTION_COUNTS):
+# vis 1 renders the first and last snapshot, the final codes (SSIM) and the
+# ring of views, each one launch for the batch; vis 2 every iteration
+VIS1_COUNTS = {"render_fwd": OPTION_COUNTS["render_fwd"] + 4, "render_bwd": 96}
+VIS2_COUNTS = {"render_fwd": OPTION_COUNTS["render_fwd"] + OPTION_ITERS + 2, "render_bwd": 96}
+LOG_CHECK_ITER = 2
+
+
+def k1_at(label, B, R, seed):
+    """K1 against its plain version on B objects x R rays x 64 samples of
+    the published decoder (random weights from seed); the record's numbers:
+    ms, plain_ms, bound, the worst error."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    wts, args, _ = kernel_inputs(seed=seed, B=B, R=R)
+    with torch.no_grad():
+        got = render.render_fwd(wts, *args)
+        torch.cuda.synchronize()
+        ref = render.render_fwd_plain(wts, *args)
+    err, ok = compare(("rgb", "depth", "acc"), got, ref, lambda n, s: VALUE_ATOL[n])
+    del ref
+    t_k = _timed(lambda: render.render_fwd(wts, *args), 10)
+    with torch.no_grad():
+        t_p = _timed(lambda: render.render_fwd_plain(wts, *args), 3)
+    S = args[0].shape[2]
+    w_fwd = sum(getattr(wts, f).numel() for f in render._PTR_FIELDS if not f.startswith("wt_"))
+    flops = 2 * B * R * S * decoder_macs(wts.W, wts.n_shape, wts.n_tex)
+    nbytes = sum(t.numel() for t in args) * 4 + w_fwd * 4 + B * R * 5 * 4
+    b = bound(flops, nbytes)
+    print(f"   K1 at {label}, {B} x {R} rays x {S} samples: {t_k:.3f} ms, {t_k * 1e3 / (B * R):.3f} "
+          f"us a ray (plain {t_p:.3f} ms, bound {b[0]:.3f} ms by {b[1]}, FMA-route bound "
+          f"{b[2]:.3f} ms)")
+    if not ok:
+        raise RuntimeError(f"K1 disagrees with its plain version at {label}")
+    return {"shape": [B, R, S], "ms": t_k, "plain_ms": t_p, "bound_ms": b[0], "bound_by": b[1],
+            "bound_fma_ms": b[2], "max_abs_err": err, "library_ms": None}
+
+
+def check_vis_kernels():
+    """(a) K1 at the visualisation's shapes: one launch of 2 objects'
+    128 x 128 full-image renders, and one of an object's ring of 8 virtual
+    views at 64 x 64."""
+    return {"vis_full_image": k1_at("the full-image render", 2, VIS_SZ * VIS_SZ, 5),
+            "vis_virtual_views": k1_at("the virtual views", VIS_VIEWS, 64 * 64, 6)}
+
+
+def _vis_run(out_dir, vis, n_objects, expect):
+    """The optimize CLI at the published config with --vis on n synthetic
+    objects: exact launch counts, each object's frames decoded by read_png
+    at their shapes, a finite SSIM in [-1, 1] an object. Returns the launch
+    counts."""
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.cli import optimize
+    from supnerf_tpu_torch.ops import render
+
+    render.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = optimize.main(["--config_file", PUBLISHED, "--dataset", "synthetic",
+                             "--num_objects", str(n_objects), "--batch_size", str(n_objects),
+                             "--device", "cuda", "--seed", "0", "--save_dir", out_dir,
+                             "--vis", str(vis)])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _exact_counts(f"--vis {vis}", expect)
+    with open(os.path.join(out_dir, "codes+poses.pkl"), "rb") as f:
+        res = pickle.load(f)
+    frames = [0, 100] if vis == 1 else list(range(OPTION_ITERS))
+    want = sorted([f"opt{t:03d}.png" for t in frames] + ["virt_final.png"])
+    if len(res["ssim_eval"]) != n_objects:
+        raise RuntimeError(f"--vis {vis}: ssim_eval has {len(res['ssim_eval'])} objects")
+    for name, values in res["ssim_eval"].items():
+        got = sorted(os.listdir(os.path.join(out_dir, name)))
+        if got != want:
+            raise RuntimeError(f"--vis {vis}, {name}: wrote {got[:4]}... ({len(got)} files), "
+                               f"expected {len(want)}")
+        for frame in want:
+            img = read_png(os.path.join(out_dir, name, frame))
+            shape = (VIS_SZ, 2 * VIS_SZ, 3) if frame == "virt_final.png" else (
+                VIS_SZ, 3 * VIS_SZ, 3)
+            if img.shape != shape:
+                raise RuntimeError(f"{name}/{frame} decodes to {img.shape}, not {shape}")
+        if len(values) != 1 or not (np.isfinite(values[0]) and -1.0 <= values[0] <= 1.0):
+            raise RuntimeError(f"--vis {vis}, {name}: ssim_eval {values}")
+    vis_s = summary["phase_seconds"].get("vis", 0.0)
+    print(f"   --vis {vis}: {n_objects} objects in {seconds:.2f} s through the CLI, the vis phase "
+          f"{vis_s:.2f} s ({vis_s / n_objects:.2f} s an object; TTO loop "
+          f"{summary['phase_seconds']['tto_loop']:.2f} s); {len(want)} frames an object decode "
+          f"with read_png; ssim_eval " + ", ".join(
+              f"{k} {v[0]:.4f}" for k, v in res["ssim_eval"].items()))
+    return counts
+
+
+def train_log_path(out_dir):
+    """(d) cli.train at the published config, the training cell's shape (16
+    objects, batch 8, 2 epochs: 4 steps), --check_iter 2: runs/metrics.jsonl
+    with one finite line per step and panels at steps 2 and 4; K1 launches
+    one forward a step and one a panel."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.cli import train
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.training.train_step import METRIC_NAMES
+
+    render.reset_launch_counts()
+    summary = train.main(["--config_file", PUBLISHED, "--dataset", "synthetic",
+                          "--num_objects", str(TRAIN_OBJECTS), "--batch_size", str(TRAIN_BATCH),
+                          "--epochs", "2", "--device", "cuda", "--seed", "0",
+                          "--check_iter", str(LOG_CHECK_ITER), "--save_dir", out_dir])
+    torch.cuda.synchronize()
+    counts = _path_counts("training with its log", TRAIN_KERNELS)
+    steps = 2 * TRAIN_OBJECTS // TRAIN_BATCH
+    panels = [n for n in range(1, steps + 1) if n % LOG_CHECK_ITER == 0]
+    if counts["render_fwd"] != steps + len(panels):
+        raise RuntimeError(f"K1 launched {counts['render_fwd']} times, not {steps} steps + "
+                           f"{len(panels)} panels")
+    runs = os.path.join(out_dir, "runs")
+    want = sorted(["metrics.jsonl"] + [f"train_panel_{n:07d}.png" for n in panels])
+    if sorted(os.listdir(runs)) != want:
+        raise RuntimeError(f"runs/ holds {sorted(os.listdir(runs))}, not {want}")
+    with open(os.path.join(runs, "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    names = {"step", "time/train", *METRIC_NAMES["unified"]}
+    if [x["step"] for x in lines] != list(range(1, steps + 1)) or not all(
+            set(x) == names and all(math.isfinite(v) for v in x.values()) for x in lines):
+        raise RuntimeError(f"metrics.jsonl: {lines}")
+    for n in panels:
+        img = read_png(os.path.join(runs, f"train_panel_{n:07d}.png"))
+        if img.shape != (64, 128, 3) or not np.any(img):
+            raise RuntimeError(f"train_panel_{n:07d}.png decodes to {img.shape}")
+    print(f"   training log: {len(lines)} lines in metrics.jsonl (time/train " + ", ".join(
+        f"{x['time/train']:.3f}" for x in lines) + f" s), panels at steps {panels}; "
+          f"{steps} steps in {summary['seconds']:.2f} s through the CLI")
+    return counts
+
+
+def vis_paths(out_dir):
+    """(b) --vis 1 on 2 objects, (c) --vis 2 on 1 object, (d) the
+    trainer's log. Returns the launch counts per cell."""
+    return {"vis1": _vis_run(os.path.join(out_dir, "vis1"), 1, 2, VIS1_COUNTS),
+            "vis2": _vis_run(os.path.join(out_dir, "vis2"), 2, 1, VIS2_COUNTS),
+            "train_log": train_log_path(os.path.join(out_dir, "train_log"))}
+
+
 def kernel_records(tto_records, train_records, aabb_records, field_records,
                    train_kernel_records, train_field_extra, codenerf_extra, counts_by_path):
     """One record per launch counter, launches from the path that runs it
@@ -3029,14 +3196,20 @@ def main():
 
     opt_model_check = _in_temp_dir(driver_paths)
     done(t0, "the rest of the TTO driver")
+    t0 = phase("visualisation: (a) K1 at the vis shapes, (b) --vis 1, (c) --vis 2, "
+               "(d) the trainer's log")
+    vis_kernels = check_vis_kernels()
+    vis_counts = _in_temp_dir(vis_paths)
+    done(t0, "visualisation")
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
                              train_kernel_records, train_field_extra, codenerf_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
                               "reg_cli": reg_cli_counts, "reg_lib": reg_lib_counts,
                               "train_render_data": render_data_counts,
                               "train_field": field_train_counts, **dataset_counts,
-                              **baseline_counts, **driver_counts})
+                              **baseline_counts, **driver_counts, **vis_counts})
     records_by_name = {r["name"]: r for r in records}
+    records_by_name["render_fwd"].update(vis_kernels)
     records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms
     records_by_name["field_train_bwd"]["batch48_fwd_bwd_ms"] = field_train_ms
     records_by_name["render_fwd"]["batch48_max_abs_err"] = render_data_err

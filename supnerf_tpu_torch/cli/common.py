@@ -56,6 +56,10 @@ def add_optimize_args(p: argparse.ArgumentParser):
                    help="evaluate only: the cross-view evaluation and the report of this "
                         "folder's codes+poses.pkl")
     p.add_argument("--pred_box2d", type=int, default=0)
+    p.add_argument("--vis", type=int, default=0, choices=[0, 1, 2],
+                   help="panels per object under the results folder: 1 the first and last "
+                        "snapshot, 2 every iteration; both also the 8 virtual views and the "
+                        "final render's SSIM")
     p.add_argument("--num_subset", type=int, default=1,
                    help="legacy manual sharding: total subsets")
     p.add_argument("--id_subset", type=int, default=0,

@@ -15,7 +15,9 @@ eval.json, the 2x2 figure's curves as data (the JAX CLI's eval.pdf). The
 protocol flags: --opt_pose 0|1|2 (2: the PnP bootstrap), --pred_wlh
 0|1|2, --code_level 0|1|2; --opt_multiview 1 runs the multiview TTO
 (codes_multiview.pkl) and stops; --cross_eval_folder DIR evaluates DIR's
-codes+poses.pkl again without optimizing. From the config, as in the JAX
+codes+poses.pkl again without optimizing; --vis 1|2 writes each object's
+panels (opt{t:03d}.png, virt_final.png) into <save_dir>/<annotation>_<camera>/
+and fills ssim_eval. From the config, as in the JAX
 CLI: the regularisers "sym_aug": 1 and "obj_sz_reg": 1 (with
 "loss_obj_sz_coef"), and the pose parameters "euler_rot": 1 and
 "optimize": {"opt_cam_pose": 1}.
@@ -104,7 +106,7 @@ def main(argv=None):
         pred_wlh=args.pred_wlh, add_pose_err=args.add_pose_err, batch_size=args.batch_size,
         save_freq=args.save_freq, seed=args.seed, init_rot_err=args.init_rot_err,
         init_trans_err=args.init_trans_err, rand_angle_lim=args.rand_angle_lim,
-        code_level=args.code_level)
+        code_level=args.code_level, vis=args.vis)
     summary = {"save_dir": save_dir, "aggregate": None, "cross": None, "n_objects": len(dataset),
                "multiview": None}
     result_file = os.path.join(save_dir, "codes+poses.pkl")

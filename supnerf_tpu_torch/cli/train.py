@@ -8,7 +8,10 @@ Trains the config's arch from fresh weights (seeded): SUP-NeRF with the
 unified loss, the baselines (autorf, autorfmix, autorf_original, codenerf)
 with the NeRF-only loss, as the JAX CLI chooses. Writes
 epoch_{n}.pth, models.pth, epoch_{n}_optim.pth, instoken2idx.json and
-hpam.json into --save_dir; --resume_from_epoch continues from a checkpoint.
+hpam.json into --save_dir, and the training log into --save_dir/runs/:
+metrics.jsonl (one line of losses per step) and train_panel_{step:07d}.png
+(a [render | target] panel every --check_iter steps);
+--resume_from_epoch continues from a checkpoint.
 """
 from __future__ import annotations
 
@@ -41,7 +44,8 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--num_objects", type=int, default=32, help="synthetic dataset size")
     p.add_argument("--save_every", type=int, default=1,
                    help="checkpoint every N epochs (the last epoch is always saved)")
-    p.add_argument("--check_iter", type=int, default=1000, help="print the losses every N steps")
+    p.add_argument("--check_iter", type=int, default=1000,
+                   help="print the losses and write a render panel every N steps")
     p.add_argument("--im_enc_rate", type=float, default=1.0,
                    help="1 (other rates are queued in ROADMAP.md)")
     for flag in ("aug_box2d", "aug_wlh", "finetune_wlh"):

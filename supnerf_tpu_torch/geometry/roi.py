@@ -1,8 +1,9 @@
 """ROI and image pre-processing for the host side of the TTO prep and the
-readers (numpy in, numpy out); the port of the helpers of
-supnerf_tpu/geometry/roi.py that they use. The bilinear resize runs
-through torch.nn.functional.interpolate on CPU tensors, so no OpenCV is
-needed."""
+readers and the visualisation (numpy in, numpy out); the port of the
+helpers of supnerf_tpu/geometry/roi.py that they use. The bilinear resize
+runs through torch.nn.functional.interpolate on CPU tensors, so no OpenCV
+is needed; resize_linear is jax.image.resize(method="linear")'s
+separable triangle filter."""
 from __future__ import annotations
 
 import numpy as np
@@ -36,6 +37,46 @@ def roi_resize(roi, ratio: float = 1.0):
     cx, cy = (min_x + max_x) / 2, (min_y + max_y) / 2
     bw, bh = max_x - min_x, max_y - min_y
     return [cx - bw / 2 * ratio, cy - bh / 2 * ratio, cx + bw / 2 * ratio, cy + bh / 2 * ratio]
+
+
+def roi_coord_trans(x_vec, y_vec, roi_src, im_sz_tgt: int):
+    """Map pixel coordinates in a source ROI crop to the resized
+    im_sz_tgt square (reference utils.py:1384)."""
+    roi_w = roi_src[2] - roi_src[0]
+    roi_h = roi_src[3] - roi_src[1]
+    x_new = (x_vec - roi_w / 2) / roi_w * im_sz_tgt + im_sz_tgt / 2
+    y_new = (y_vec - roi_h / 2) / roi_h * im_sz_tgt + im_sz_tgt / 2
+    return x_new, y_new
+
+
+def _linear_weights(n_in: int, n_out: int, antialias: bool) -> np.ndarray:
+    """(n_out, n_in) weights of jax.image.scale_and_translate's triangle
+    kernel, in its float32 arithmetic: half-pixel centres, the kernel
+    widened by the downscale factor with antialias, each row renormalised
+    to sum 1 (so the image edge reweights rather than pads), rows whose
+    sample lies outside the input zero."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0)) if antialias else f32(1.0)
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    dist = np.abs(sample[:, None] - np.arange(n_in, dtype=f32)[None, :]) / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - dist)
+    total = w.sum(1, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[:, None], w, f32(0.0)).astype(np.float64)
+
+
+def resize_linear(img: np.ndarray, out_hw, antialias: bool = True) -> np.ndarray:
+    """jax.image.resize(img, out_hw + img.shape[2:], method="linear",
+    antialias=antialias) on an (H, W[, C]) image: upsampling is
+    half-pixel-centre bilinear, downsampling with antialias a widened
+    triangle. Returns float32."""
+    img = np.asarray(img, np.float64)
+    wy = _linear_weights(img.shape[0], int(out_hw[0]), antialias)
+    wx = _linear_weights(img.shape[1], int(out_hw[1]), antialias)
+    return np.einsum("ph,hw...,qw->pq...", wy, img, wx).astype(np.float32)
 
 
 def resize_bilinear_np(img: np.ndarray, out_hw) -> np.ndarray:

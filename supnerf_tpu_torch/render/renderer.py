@@ -1,7 +1,9 @@
 """Ray-level rendering over a fused field + compositing callable; the port of
-render_rays_frustum, render_rays_at_pixels, render_rays_aabb and
+render_rays_frustum, render_rays_at_pixels, render_rays_aabb,
+render_full_image, render_virtual_views, prepare_render_target and
 apply_obj_coord_transform of supnerf_tpu/render/renderer.py (reference
-utils.py:435 render_rays_v2, :504 render_rays_specified, renderer.py:382
+utils.py:435 render_rays_v2, :504 render_rays_specified, :554
+render_full_img, :619 render_virtual_imgs, renderer.py:382
 render_rays_v3).
 
 Batched over a leading object axis B. composite_fn is the hook the JAX
@@ -16,6 +18,9 @@ loss needs the samples' densities, so it takes a per-point field_fn
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 from supnerf_tpu_torch.geometry.rays import (
@@ -25,6 +30,7 @@ from supnerf_tpu_torch.geometry.rays import (
     sample_from_rays,
     sample_z_stratified,
 )
+from supnerf_tpu_torch.geometry.roi import resize_linear
 from supnerf_tpu_torch.ops.volume_render import volume_render
 
 # The AABB renders (the demo's loss render and scene compositor) sample in
@@ -149,3 +155,91 @@ def render_rays_aabb(composite_fn, cam_pose, K, roi, obj_sz, *, n_samples: int, 
                                         sym_flip, kitti2nusc)
     rgb, depth, acc = composite_fn(xyz, vd, z_vals, hit)
     return {"rgb": rgb, "depth": depth, "acc_trans": acc, "hit": hit}
+
+
+def full_image_jitter(n_samples: int, device) -> torch.Tensor:
+    """The (S,) stratification jitter of every render_full_image call that
+    is given none: one fixed draw of a CPU torch.Generator seeded 0. The
+    JAX package draws its own fixed vector from PRNGKey(0) (ROADMAP C.15:
+    the two differ; the tests feed JAX's in)."""
+    return torch.rand(n_samples, generator=torch.Generator().manual_seed(0)).to(device)
+
+
+def render_full_image(composite_fn, cam_pose, K, roi, obj_diag, *, n_samples: int, im_hw,
+                      shapenet_obj_cood: bool, kitti2nusc: bool = False, jitter=None):
+    """Render every pixel of an (H, W) grid over each ROI, the frustum
+    sampling of the loss render with one jitter vector shared by all rays
+    of all objects (reference render_full_img). cam_pose (B,3,4)
+    camera-to-object, K (B,3,3), roi (B,4), obj_diag (B,); im_hw (H, W);
+    jitter (S,) or (B, S) draws in [0, 1), None for full_image_jitter.
+    The whole grid is one composite_fn call (the JAX package renders it in
+    chunks of 4,096 rays to bound its memory). Returns (rgb (B,H,W,3),
+    depth (B,H,W), acc_trans (B,H,W))."""
+    H, W = int(im_hw[0]), int(im_hw[1])
+    B = len(cam_pose)
+    if jitter is None:
+        jitter = full_image_jitter(n_samples, cam_pose.device)
+    if jitter.dim() == 1:
+        jitter = jitter.expand(B, -1)
+    rays_o, viewdir = get_rays(K, cam_pose, roi, (W, H))
+    out = _render(composite_fn, rays_o, viewdir, cam_pose, obj_diag, n_samples,
+                  shapenet_obj_cood, jitter, None, kitti2nusc=kitti2nusc)
+    return (out["rgb"].reshape(B, H, W, 3), out["depth"].reshape(B, H, W),
+            out["acc_trans"].reshape(B, H, W))
+
+
+def virtual_view_poses(pan_num: int = 8, radius: float = 40.0, tilt: float = math.pi / 6,
+                       device=None) -> torch.Tensor:
+    """The (pan_num, 3, 4) camera-to-object poses of the ring of virtual
+    views (reference render_virtual_imgs, utils.py:619-672): a camera
+    radius away on the object's -x axis, tilted by `tilt`, panned about z in
+    steps of 2 pi / pan_num."""
+    def mat(rows):
+        return torch.tensor(rows, dtype=torch.float32, device=device)
+
+    cam_init = mat([[0.0, 0.0, 1.0, -radius], [-1.0, 0.0, 0.0, 0.0],
+                    [0.0, -1.0, 0.0, 0.0], [0.0, 0.0, 0.0, 1.0]])
+    ct, st = math.cos(tilt), math.sin(tilt)
+    cam_tilt = mat([[ct, 0.0, st, 0.0], [0.0, 1.0, 0.0, 0.0],
+                    [-st, 0.0, ct, 0.0], [0.0, 0.0, 0.0, 1.0]]) @ cam_init
+    poses = []
+    for i in range(pan_num):
+        pan = 2 * math.pi * i / pan_num
+        cp, sp = math.cos(pan), math.sin(pan)
+        rot = mat([[cp, -sp, 0.0, 0.0], [sp, cp, 0.0, 0.0],
+                   [0.0, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 1.0]])
+        poses.append((rot @ cam_tilt)[:3])
+    return torch.stack(poses)
+
+
+def render_virtual_views(composite_fn, obj_diag, K, *, n_samples: int,
+                         shapenet_obj_cood: bool, radius: float = 40.0,
+                         tilt: float = math.pi / 6, pan_num: int = 8, img_sz: int = 128,
+                         kitti2nusc: bool = False, jitter=None):
+    """Render a ring of pan_num virtual views around each of B objects
+    (reference render_virtual_imgs): an img_sz square ROI centred on each
+    object's principal point, all B * pan_num views in one render_full_image
+    call. composite_fn renders B * pan_num objects, object b's views in rows
+    b * pan_num .. (b + 1) * pan_num - 1 (its codes repeat_interleave'd by
+    pan_num). obj_diag (B,), K (B,3,3); jitter as render_full_image's.
+    Returns (B, pan_num, img_sz, img_sz, 3)."""
+    B = len(K)
+    K = K.to(torch.float32)
+    centre = K[:, :2, 2]
+    roi = torch.cat([centre - img_sz / 2, centre + img_sz / 2], -1)
+    poses = virtual_view_poses(pan_num, radius, tilt, K.device).repeat(B, 1, 1)
+    rgb, _, _ = render_full_image(
+        composite_fn, poses, K.repeat_interleave(pan_num, 0), roi.repeat_interleave(pan_num, 0),
+        obj_diag.repeat_interleave(pan_num, 0), n_samples=n_samples, im_hw=(img_sz, img_sz),
+        shapenet_obj_cood=shapenet_obj_cood, kitti2nusc=kitti2nusc, jitter=jitter)
+    return rgb.reshape(B, pan_num, img_sz, img_sz, 3)
+
+
+def prepare_render_target(img_crop: np.ndarray, mask_crop: np.ndarray, im_sz: int):
+    """An ROI crop (h, w, 3) and its occupancy mask (h, w, 1) resized to the
+    im_sz render grid: bilinear (jax.image.resize's linear, no antialias),
+    the {-1, 0, 1} mask truncated toward zero afterwards. Returns (rgb_tgt
+    (im_sz^2, 3), occ_pixels (im_sz^2, 1)) float32."""
+    img_r = resize_linear(img_crop, (im_sz, im_sz), antialias=False)
+    mask_r = np.trunc(resize_linear(mask_crop, (im_sz, im_sz), antialias=False))
+    return img_r.reshape(-1, 3), mask_r.reshape(-1, 1)

@@ -15,9 +15,14 @@ epoch's order is a permutation drawn from (seed, epoch), so a run resumed
 from a checkpoint sees the batches the uninterrupted run saw (the JAX
 trainer draws it from one stream that a resume restarts).
 
+Each step's scalars and, every check_iter steps, a [render | target] panel
+of the epoch's first sample go to the log sink RunLog, <save_dir>/runs/
+(the JAX trainer writes them to tensorboardX, which the card's machine
+lacks); log_writer=False turns it off. A failed panel raises (the JAX
+trainer prints it and goes on).
+
 A plain per-step loop: the grouped lax.scan dispatch and the threaded
-prefetch of the JAX trainer, tensorboard logging and the render panels are
-queued in ROADMAP.md.
+prefetch of the JAX trainer are queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -29,16 +34,42 @@ import numpy as np
 import torch
 
 from supnerf_tpu_torch.geometry.poses import get_random_pose2
+from supnerf_tpu_torch.geometry.roi import crop_and_whiten, resize_bilinear_np, roi_process
+from supnerf_tpu_torch.render.renderer import render_full_image
 from supnerf_tpu_torch.timing import PhaseTimer
 from supnerf_tpu_torch.training.checkpoints import restore_checkpoint, save_checkpoint
 from supnerf_tpu_torch.training.ray_prep import prepare_train_sample, project_box_corners
 from supnerf_tpu_torch.training.train_step import (
     LOSSES,
+    METRIC_NAMES,
     TrainBatch,
     TrainConfig,
     init_train_state,
     train_step,
 )
+from supnerf_tpu_torch.tto.core import make_composite, render_decoder
+from supnerf_tpu_torch.utils.image_io import write_png
+
+# side of the training panel's render (the JAX trainer's _log_vis)
+PANEL_SZ = 64
+
+
+class RunLog:
+    """The training log under run_dir: metrics.jsonl, one JSON object per
+    step ({"step": n, then the scalars by the JAX trainer's tensorboard
+    names}), and train_panel_{step:07d}.png."""
+
+    def __init__(self, run_dir: str):
+        os.makedirs(run_dir, exist_ok=True)
+        self.run_dir = run_dir
+        self.metrics_path = os.path.join(run_dir, "metrics.jsonl")
+
+    def scalars(self, step: int, scalars: dict):
+        with open(self.metrics_path, "a") as f:
+            f.write(json.dumps({"step": int(step), **scalars}) + "\n")
+
+    def panel(self, step: int, img):
+        write_png(os.path.join(self.run_dir, f"train_panel_{int(step):07d}.png"), img)
 
 
 def train_config_from_hpams(hpams: dict, im_enc_rate: float = 1.0) -> TrainConfig:
@@ -58,11 +89,15 @@ class UnifiedTrainer:
     """Joint pose + NeRF trainer (loss_mode "unified", SUP-NeRF) or NeRF-only
     trainer (loss_mode "nerf_only", the baselines). model: an initialised
     model of models/factory.py; dataset: indexable, returning the sample
-    dicts of data.synthetic with an 'instoken' key for the code-table row."""
+    dicts of data.synthetic with an 'instoken' key for the code-table row.
+    log_writer: None for the RunLog under save_dir/runs, False for none."""
 
     def __init__(self, model, hpams: dict, dataset, save_dir: str, *, device,
                  batch_size: int = 8, loss_mode: str = "unified", im_enc_rate: float = 1.0,
-                 seed: int = 0, check_iter: int = 1000, save_every: int = 1):
+                 seed: int = 0, check_iter: int = 1000, save_every: int = 1,
+                 log_writer: bool | None = None):
+        if log_writer not in (None, False):
+            raise ValueError("log_writer: None (the runs/ directory) or False (no log)")
         if hpams.get("sym_aug", 0) or hpams.get("render_sz") is not None:
             raise NotImplementedError("sym_aug and render_sz are queued in ROADMAP.md; no "
                                       "published config sets them")
@@ -95,6 +130,7 @@ class UnifiedTrainer:
         os.makedirs(save_dir, exist_ok=True)
         with open(os.path.join(save_dir, "hpam.json"), "w") as f:
             json.dump(dict(hpams, model_dir=save_dir), f, indent=2)
+        self.log = None if log_writer is False else RunLog(os.path.join(save_dir, "runs"))
 
     def _instoken(self, i):
         s = self.dataset[i]
@@ -137,7 +173,8 @@ class UnifiedTrainer:
     def training_epoch(self):
         """One pass over the dataset in full batches (the remainder is
         dropped); appends each step's metrics, its wall time and its phase
-        split to metrics_history."""
+        split to metrics_history and logs them (_log), and every check_iter
+        steps the panel of the epoch's first sample (_log_vis)."""
         order, B = self.epoch_order(self.nepoch), self.batch_size
         salt = int(self.nepoch) + 1
         for s in range(len(order) // B):
@@ -145,8 +182,9 @@ class UnifiedTrainer:
             with self.timer.phase("prep"):
                 batch = self.prepare_batch([int(i) for i in order[s * B:(s + 1) * B]], salt)
             metrics = train_step(self.state, batch, self.cfg, self.timer, self.loss_mode)
-            metrics.update(epoch=self.nepoch, niter=self.state.niter,
-                           seconds=time.perf_counter() - t0,
+            seconds = time.perf_counter() - t0
+            self._log(metrics, seconds, self.state.niter)
+            metrics.update(epoch=self.nepoch, niter=self.state.niter, seconds=seconds,
                            phase_seconds={k: v - before.get(k, 0.0)
                                           for k, v in self.timer.seconds.items()})
             self.metrics_history.append(metrics)
@@ -154,6 +192,43 @@ class UnifiedTrainer:
                 print(f"epoch {self.nepoch} step {self.state.niter}: "
                       f"loss {metrics['loss_total']:.5f} rgb {metrics['loss_rgb']:.5f} "
                       f"occ {metrics['loss_occ']:.5f} psnr {metrics['psnr']:.3f}", flush=True)
+                self._log_vis(int(order[0]))
+
+    def _log(self, metrics: dict, seconds: float, niter: int):
+        """One step's scalars as the JAX trainer's _log names them: the loss
+        mode's metrics and time/train, the step's wall time."""
+        if self.log is not None:
+            scalars = {k: float(metrics[k]) for k in METRIC_NAMES[self.loss_mode]}
+            self.log.scalars(niter, dict(scalars, **{"time/train": float(seconds)}))
+
+    @torch.no_grad()
+    def _log_vis(self, idx: int):
+        """The [render | target] panel of dataset[idx] at the current step
+        (JAX trainer _log_vis; reference training_epoch :348-385): the
+        model's render of its instance's codes at the sample's camera pose,
+        a PANEL_SZ square over the square-padded ROI (render_full_image, K1
+        for a kernel-compatible decoder on the card), beside the whitened
+        crop resized bilinearly."""
+        if self.log is None:
+            return
+        s = self.dataset[idx]
+        code = self.instoken2idx[s.get("instoken", str(idx))]
+        sc, tc = (t[code:code + 1] for t in (self.state.shape_codes, self.state.texture_codes))
+        roi = roi_process(s["rois"], s["imgs"].shape[0], s["imgs"].shape[1],
+                          self.hpams.get("roi_margin", 5), sq_pad=True)
+
+        def dev(x):
+            return torch.as_tensor(np.asarray(x, np.float32), device=self.device)[None]
+
+        img, _, _ = render_full_image(
+            make_composite(render_decoder(self.state.model), sc, tc), dev(s["cam_poses"]),
+            dev(s["cam_intrinsics"]), dev(roi), dev(np.linalg.norm(s["wlh"])),
+            n_samples=self.hpams.get("n_samples", 64), im_hw=(PANEL_SZ, PANEL_SZ),
+            shapenet_obj_cood=bool(self.hpams.get("shapenet_obj_cood", 1)))
+        crop, _ = crop_and_whiten(s["imgs"], s["masks_occ"], roi)
+        gt = resize_bilinear_np(crop, (PANEL_SZ, PANEL_SZ))
+        panel = np.concatenate([np.clip(img[0].cpu().numpy(), 0, 1), gt], axis=1)
+        self.log.panel(self.state.niter, (panel * 255).astype(np.uint8))
 
     def train(self, epochs: int):
         while self.nepoch < epochs:

@@ -98,6 +98,7 @@ class TTOConfig:
     sym_loss_coef: float = 0.0   # > 0: the density-symmetry loss (reference :1435)
     kitti2nusc: bool = False     # KITTI/Waymo: field queries rotated into the nuScenes frame
     box_fac: float = 1.0         # refiner corner scale (KITTI/Waymo BOX_FAC 1.1)
+    emit_code_curves: bool = False  # also return every iteration's codes and pose (vis 2)
 
 
 @dataclasses.dataclass
@@ -333,7 +334,10 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
     CODE_SAVE_ITERS, the final codes and pose, and the per-iteration psnr,
     rot_err, trans_err, depth_err and loss curves (B, num_opts), and with
     use_aabb_render the hit_share curve (B, num_opts): the share of the loss
-    render's rays that hit the box."""
+    render's rays that hit the box. With cfg.emit_code_curves also every
+    iteration's codes and pose as shapecode_curve, texturecode_curve
+    (B, num_opts, latent) and pose_curve (B, num_opts, 3, 4), taken before
+    that iteration's update (the vis 2 panels)."""
     if cfg.use_aabb_render and cfg.sym_loss_coef > 0:
         raise ValueError("sym_loss requires the frustum renderer (sample reuse)")
     phase = timer.phase if timer is not None else (lambda name: contextlib.nullcontext())
@@ -378,7 +382,7 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
                          ("depth_err", d_err), ("loss", loss), ("hit_share", hit_share)):
                 if k in curves:
                     curves[k].append(v.detach())
-            if t in CODE_SAVE_ITERS:
+            if t in CODE_SAVE_ITERS or cfg.emit_code_curves:
                 snaps["shapecode"][t] = sc.detach().clone()
                 snaps["texturecode"][t] = tc.detach().clone()
                 snaps["pose"][t] = pose_obj.clone()
@@ -405,5 +409,7 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
         "uv_direct": uv_direct,
         "wlh_pred": wlh_pred,
         "wlh_used": wlh_use,
+        **({f"{k}_curve": torch.stack([snaps[k][t] for t in range(cfg.num_opts)], 1)
+            for k in snaps} if cfg.emit_code_curves else {}),
     }
 

@@ -23,7 +23,10 @@ and a depth-ratio error of init_rot_err / init_trans_err), 2 (random) and 3
 (the reader's pose from a third-party detection), codes stored per
 instance, annotation or (annotation, camera) (code_level 0, 1, 2), the
 multiview TTO of each instance's views with shared codes (run_multiview,
-tto/multiview.py), no visualisation, in the nuScenes object frame or the
+tto/multiview.py; it draws no panels, as in JAX), the visualisation (vis
+1: [render | depth | target + box] panels of the first and last snapshot,
+vis 2: of every iteration, and with either the ring of 8 virtual views and
+the final render's SSIM; _save_vis), in the nuScenes object frame or the
 KITTI one (dataset_frame "kitti" / "waymo", reference
 optimizer_kitti.py:24,638-639): there the initial and ground-truth poses
 move to the nuScenes frame in the prep, the refiner sees the box corners
@@ -32,6 +35,7 @@ samples rotate into the nuScenes frame.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import pickle
 
@@ -40,10 +44,22 @@ import torch
 
 from supnerf_tpu_torch.data.synthetic import prepare_object_inputs
 from supnerf_tpu_torch.device import resolve_device
+from supnerf_tpu_torch.eval.metrics import ssim
 from supnerf_tpu_torch.geometry import poses as pose_gen
-from supnerf_tpu_torch.geometry.boxes import invert_pose, obj_pose_kitti2nusc
+from supnerf_tpu_torch.geometry.boxes import (
+    corners_of_box,
+    invert_pose,
+    obj_pose_kitti2nusc,
+    view_points,
+)
+from supnerf_tpu_torch.geometry.roi import resize_linear, roi_coord_trans
 from supnerf_tpu_torch.ops.volume_render import masked_psnr
-from supnerf_tpu_torch.render.renderer import render_rays_at_pixels, render_rays_frustum
+from supnerf_tpu_torch.render.renderer import (
+    render_full_image,
+    render_rays_at_pixels,
+    render_rays_frustum,
+    render_virtual_views,
+)
 from supnerf_tpu_torch.timing import PhaseTimer
 from supnerf_tpu_torch.tto.core import (
     CODE_SAVE_ITERS,
@@ -55,11 +71,16 @@ from supnerf_tpu_torch.tto.core import (
 )
 from supnerf_tpu_torch.tto.multiview import MultiviewBatch, run_multiview_tto
 from supnerf_tpu_torch.tto.pnp import pnp_bootstrap
+from supnerf_tpu_torch.utils.image_io import write_png
+from supnerf_tpu_torch.utils.vis import panel_rgb_depth_gt, render_box, virtual_view_sheet
 
 # cells of the cross-view evaluation rendered per kernel call
 _CROSS_VIEW_CHUNK = 64
 # the refiner's corner scale in the KITTI and Waymo protocols
 KITTI_BOX_FAC = 1.1
+# the panels' box colour (RGB) and the virtual views' ring
+VIS_BOX_COLOR = (1.0, 144 / 255, 30 / 255)
+VIRTUAL_VIEWS = 8
 
 
 def is_kitti_frame(dataset_frame: str) -> bool:
@@ -107,7 +128,9 @@ class TTODriver:
     optimizer_nuscenes.py:86-112): 0 flat per instance (the multiview
     schema; run_multiview always stores so), 1 flat per annotation, 2 per
     (annotation, camera), the default; the poses stay per (annotation,
-    camera) at every level."""
+    camera) at every level. vis: 0 none, 1 or 2 the panels of _save_vis
+    under save_dir/<annotation>_<camera>/ at vis_im_sz; vis 2 has the TTO
+    return every iteration's codes and pose (TTOConfig.emit_code_curves)."""
 
     def __init__(self, model, mean_shape, mean_texture, hpams: dict, dataset, save_dir: str,
                  *, device, cfg: TTOConfig | None = None, opt_pose: int = 1,
@@ -115,7 +138,9 @@ class TTODriver:
                  add_pose_err: int = 2, batch_size: int = 16, save_freq: int = 100,
                  seed: int = 0, init_rot_err: float | None = None,
                  init_trans_err: float | None = None, rand_angle_lim: float = 0.0,
-                 code_level: int | None = None):
+                 code_level: int | None = None, vis: int = 0, vis_im_sz: int = 128):
+        if vis not in (0, 1, 2):
+            raise ValueError(f"vis {vis}: 0, 1 or 2")
         if add_pose_err not in (0, 1, 2, 3):
             raise ValueError(f"add_pose_err {add_pose_err}: 0, 1, 2 or 3")
         if code_level not in (None, 0, 1, 2):
@@ -149,6 +174,9 @@ class TTODriver:
         self.cfg = cfg if cfg is not None else tto_config_from_hpams(
             hpams, reg_iters=reg_iters, opt_pose=opt_pose, pred_wlh=pred_wlh,
             dataset_frame=dataset_frame)
+        self.vis, self.vis_im_sz = vis, vis_im_sz
+        if vis >= 2 and not self.cfg.emit_code_curves:
+            self.cfg = dataclasses.replace(self.cfg, emit_code_curves=True)
         os.makedirs(save_dir, exist_ok=True)
         self.optimized_shapecodes, self.optimized_texturecodes = {}, {}
         self.optimized_poses = {}
@@ -237,7 +265,11 @@ class TTODriver:
                                 self.mean_texture, self.cfg, generator=self.render_gen,
                                 timer=self.timer, pose_hook=hook)
             with self.timer.phase("bookkeeping"):
-                self._bookkeep(idxs, samples, prepped, res)
+                res = {k: v.detach().cpu().numpy() for k, v in res.items()}
+                log_idxs = self._bookkeep(idxs, samples, prepped, res)
+            if self.vis:
+                with self.timer.phase("vis"):
+                    self._save_vis(log_idxs, prepped, res)
             if bi % max(self.save_freq // self.batch_size, 1) == 0:
                 self.save_results()
         self.save_results()
@@ -283,7 +315,10 @@ class TTODriver:
         return (sc[key], tc[key]) if key in sc else None
 
     def _bookkeep(self, idxs, samples, prepped, res):
-        res = {k: v.detach().cpu().numpy() for k, v in res.items()}
+        """Record one batch's results (tensors or numpy); returns the
+        objects' log indices (<annotation>_<camera>)."""
+        res = {k: v.detach().cpu().numpy() if torch.is_tensor(v) else v for k, v in res.items()}
+        log_idxs = []
         # out-of-distribution check on the refined pose (reference
         # optimizer_nuscenes.py:656-660): its up axis more than 45 degrees
         # from the camera's up [0, -1, 0]
@@ -293,6 +328,7 @@ class TTODriver:
             ann = sample.get("anntoken", f"obj{idx}")
             cam = sample.get("cam_ids", "CAM")
             log_idx = f"{ann}_{cam}"
+            log_idxs.append(log_idx)
             self._store_codes(sample.get("instoken", ann), ann, cam,
                               res["shapecodes_saved"][i].copy(),
                               res["texturecodes_saved"][i].copy())
@@ -313,6 +349,87 @@ class TTODriver:
                   f"RE {res['rot_err'][i, 0]:.3f} -> {res['rot_err'][i, -1]:.3f}, "
                   f"TE {res['trans_err'][i, 0]:.3f} -> {res['trans_err'][i, -1]:.3f}, "
                   f"DE {res['depth_err'][i, 0]:.3f} -> {res['depth_err'][i, -1]:.3f}")
+        return log_idxs
+
+    # --------------------------------------------------------- visualisation
+    @torch.no_grad()
+    def _save_vis(self, log_idxs, prepped, res):
+        """One batch's panels (JAX driver _save_vis; reference
+        output_single_view_vis :1479, save_virtual_img :1643), written as
+        PNGs into save_dir/<log_idx>/:
+          opt{t:03d}.png  [render | depth | target + box] at vis_im_sz, with
+                          the metrics of iteration min(t, num_opts - 1), for
+                          the first and last snapshot (vis 1) or every
+                          iteration t (vis 2);
+          virt_final.png  the final codes' 8 virtual views at min(vis_im_sz,
+                          64), two rows;
+        and the final render's SSIM against the target into ssim_eval.
+        Each render is one render_full_image of the whole batch (K1 for a
+        kernel-compatible decoder on the card); a failure raises."""
+        cfg, sz, dev = self.cfg, self.vis_im_sz, self.device
+        if self.vis >= 2:
+            code_iters = list(range(cfg.num_opts))
+            codes = res["shapecode_curve"], res["texturecode_curve"], res["pose_curve"]
+            sel = range(cfg.num_opts)
+        else:
+            code_iters = list(CODE_SAVE_ITERS)
+            codes = res["shapecodes_saved"], res["texturecodes_saved"], res["poses_saved"]
+            sel = (0, len(code_iters) - 1)
+
+        def stack(key):
+            return torch.as_tensor(np.stack([p[key] for p in prepped]), dtype=torch.float32,
+                                   device=dev)
+
+        K, roi, wlh = stack("K"), stack("roi_nerf"), stack("wlh")
+        diag = torch.linalg.norm(wlh, dim=-1)
+        roi_np = np.stack([np.asarray(p["roi_nerf"], np.float32) for p in prepped])
+        r = cfg.render_im_sz
+        gt_small = [resize_linear(np.asarray(p["rgb_tgt"]).reshape(r, r, 3), (sz, sz))
+                    for p in prepped]
+        dirs = [os.path.join(self.save_dir, name) for name in log_idxs]
+        for d in dirs:
+            os.makedirs(d, exist_ok=True)
+
+        def render(sc, tc, pose_obj):
+            comp = make_composite(self.wts, torch.as_tensor(sc, device=dev),
+                                  torch.as_tensor(tc, device=dev))
+            rgb, depth, _ = render_full_image(
+                comp, invert_pose(pose_obj), K, roi, diag, n_samples=cfg.n_samples,
+                im_hw=(sz, sz), shapenet_obj_cood=cfg.shapenet_obj_cood,
+                kitti2nusc=cfg.kitti2nusc)
+            return rgb.cpu().numpy(), depth.cpu().numpy()
+
+        for ci in sel:
+            pose = torch.as_tensor(codes[2][:, ci], device=dev)
+            rgb, depth = render(codes[0][:, ci], codes[1][:, ci], pose)
+            uv = view_points(corners_of_box(pose, wlh), K, normalize=True)[:, :2].cpu().numpy()
+            t = code_iters[ci]
+            m = min(t, cfg.num_opts - 1)
+            for b, d in enumerate(dirs):
+                x0, y0 = roi_np[b, 0], roi_np[b, 1]
+                u2, v2 = roi_coord_trans(uv[b, 0] - x0, uv[b, 1] - y0,
+                                         roi_np[b] - np.array([x0, y0, x0, y0]), sz)
+                gt_vis = render_box(gt_small[b].copy(), np.stack([u2, v2]),
+                                    colors=(VIS_BOX_COLOR,) * 3, linewidth=1)
+                panel = panel_rgb_depth_gt(
+                    rgb[b], depth[b], gt_vis, psnr=float(res["psnr"][b, m]),
+                    depth_err=float(res["depth_err"][b, m]), rot_err=float(res["rot_err"][b, m]),
+                    trans_err=float(res["trans_err"][b, m]))
+                write_png(os.path.join(d, f"opt{t:03d}.png"), panel)
+
+        sc, tc = res["final_shapecode"], res["final_texturecode"]
+        rgb_f, _ = render(sc, tc, torch.as_tensor(res["final_pose"], device=dev))
+        for b, name in enumerate(log_idxs):
+            self.ssim_eval.setdefault(name, []).append(ssim(rgb_f[b], gt_small[b]))
+        comp = make_composite(
+            self.wts, torch.as_tensor(sc, device=dev).repeat_interleave(VIRTUAL_VIEWS, 0),
+            torch.as_tensor(tc, device=dev).repeat_interleave(VIRTUAL_VIEWS, 0))
+        views = render_virtual_views(comp, diag, K, n_samples=cfg.n_samples,
+                                     shapenet_obj_cood=cfg.shapenet_obj_cood,
+                                     pan_num=VIRTUAL_VIEWS, img_sz=min(sz, 64),
+                                     kitti2nusc=cfg.kitti2nusc).cpu().numpy()
+        for b, d in enumerate(dirs):
+            write_png(os.path.join(d, "virt_final.png"), virtual_view_sheet(views[b]))
 
     # ------------------------------------------------- cross-view evaluation
     @torch.no_grad()

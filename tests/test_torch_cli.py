@@ -160,8 +160,48 @@ def test_port_imports_nothing_of_the_jax_world():
     assert len(imported) >= 20
     for name in ("cli.demo", "render.compositor", "utils.image_io", "ops.field",
                  "tto.regularizers", "tto.pnp", "tto.multiview", "cli.eval_saved_result",
-                 "cli.evaluate_all"):
+                 "cli.evaluate_all", "utils.draw", "utils.glyphs", "utils.vis", "eval.metrics"):
         assert f"supnerf_tpu_torch.{name}" in imported
+
+
+_VIS_ISOLATION = _ISOLATION.split("import supnerf_tpu_torch\n")[0] + r"""
+import json, os, pickle, shutil, sys, tempfile
+from supnerf_tpu_torch.cli import optimize, train
+d = tempfile.mkdtemp()
+cfg = os.path.join(d, "tiny.json")
+with open(cfg, "w") as f:
+    json.dump(dict(config, model_dir=os.path.join(d, "none")), f)
+common = ["--config_file", cfg, "--dataset", "synthetic", "--device", "cpu"]
+optimize.main(common + ["--num_objects", "1", "--batch_size", "1", "--vis", "2",
+                        "--save_dir", os.path.join(d, "tto")])
+with open(os.path.join(d, "tto", "codes+poses.pkl"), "rb") as f:
+    ssim = pickle.load(f)["ssim_eval"]["ann_0_CAM_FRONT"]
+train.main(common + ["--num_objects", "2", "--batch_size", "2", "--epochs", "1",
+                     "--check_iter", "1", "--save_dir", os.path.join(d, "train")])
+leaked = sorted(m for m in sys.modules if hit(m))
+assert not leaked, leaked
+out = {"tto": sorted(os.listdir(os.path.join(d, "tto", "ann_0_CAM_FRONT"))),
+       "runs": sorted(os.listdir(os.path.join(d, "train", "runs"))), "ssim": ssim}
+shutil.rmtree(d)
+print(json.dumps(out))
+"""
+
+
+def test_vis_path_imports_nothing_of_the_jax_world():
+    """The visualisation at run time (the optimize CLI's --vis 2 panels,
+    sheet and SSIM, through tto/driver, utils/vis, utils/draw and
+    eval/metrics; the trainer's log sink) in a fresh interpreter where jax,
+    flax, optax, supnerf_tpu, cv2, PIL, matplotlib and imageio raise on
+    import."""
+    config = dict(TINY_CONFIG, n_rays=32)
+    script = _VIS_ISOLATION.replace("blocked = %r", f"blocked = %r\nconfig = {config!r}")
+    proc = subprocess.run([sys.executable, "-c", script % (_BLOCKED,)], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert out["tto"] == [f"opt{t:03d}.png" for t in range(6)] + ["virt_final.png"]
+    assert out["runs"] == ["metrics.jsonl", "train_panel_0000001.png"]
+    assert len(out["ssim"]) == 1
 
 
 # --------------------------------------------------------------------------
