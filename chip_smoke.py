@@ -47,9 +47,12 @@ Phases, each timed; any failure exits non-zero before the result line:
      config (full width, 100 iterations) on 2 synthetic objects, with the
      launch counts, the final metrics and the result file;
   5. training path: the port's CLI training at the published config on 16
-     synthetic objects, batch 8, 2 epochs (4 steps), with the launch counts,
-     finite losses, the checkpoints, a resume from epoch 0 that repeats
-     step 3's loss, and the TTO loader strict-loading the result;
+     synthetic objects, batch 8, 2 epochs (4 steps), each batch prepared
+     on the main thread before its step (--num_workers 0, the default),
+     with the launch counts, finite losses, the checkpoints, a resume from
+     epoch 0 that repeats step 3's loss, steps/s and the host split
+     (producer_prep, producer_upload, main_wait_batch), and the TTO loader
+     strict-loading the result;
   6. demo path: the port's demo CLI at hpam_demo.json (full width, 100
      iterations of AABB-bounded TTO on 3 objects of a 900 x 1600 synthetic
      scene, then six composed frames), with the launch counts, finite
@@ -118,11 +121,30 @@ Phases, each timed; any failure exits non-zero before the result line:
      cell's shape with --check_iter 2: runs/metrics.jsonl with a finite
      line per step and the panels of steps 2 and 4 (K1 one launch a step
      and one a panel).
+ 13. the rest of training through cli.train, each cell with exact launch
+     counts (K1 one a step, K3 + K4 one pair a stash chunk a step, K3's
+     data mode never), finite losses, steps/s and the host split: (a)
+     hpam_demo.json with --finetune_wlh 1 --aug_wlh 1 --aug_box2d 1
+     --im_enc_rate 0.5 on 16 synthetic objects, batch 8, 2 epochs, with
+     loss_wlh on every metrics.jsonl line and each step's loss_total
+     recomposed from its terms under its enc_active (both states drawn),
+     then a resume from epoch 0 that repeats step 3's loss; (b) AutoRFMix
+     at --im_enc_rate 0.5, the same recomposition (loss_code 0 without the
+     encoder); (c) a copy of the published config with sym_aug 1,
+     render_sz 64, grad_clip 1 and the cosine schedule over 4 steps (the
+     CLI's optimizer line checked), the per-row prep on 2 threads; (d) (a)'s epoch 0 resumed
+     after its epoch_0_optim.pth is deleted (moments start fresh, said in a
+     line); (e) the published config at batch 48 (1024 rays x 64 samples,
+     the paper's training batch) on 144 objects, one epoch of 3 steps, with
+     --num_workers 4 and 0, whose losses must agree. First, the code
+     tables' scatter-add at batch 48 with repeated instances: two calls
+     the same bits, the sums against float64's.
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import functools
 import io
 import json
 import os
@@ -1740,6 +1762,7 @@ def train_path(out_dir, config=None, label="training", epochs=2, kernels=TRAIN_K
     print("   last step's split (s; forward includes render): " + ", ".join(
         f"{k} {v:.4f}" for k, v in steps[-1]["phase_seconds"].items()))
     print("   losses: " + ", ".join(f"{m['loss_total']:.4f}" for m in steps))
+    _host_split(f"{label} (--num_workers 0)", summary, TRAIN_BATCH)
 
     if epochs == 2:
         resumed = train.main(argv + ["--save_dir", resume_dir, "--resume_dir", run_dir,
@@ -3083,6 +3106,224 @@ def vis_paths(out_dir):
             "train_log": train_log_path(os.path.join(out_dir, "train_log"))}
 
 
+# --------------------------------------------------------------------------
+# phase 13: the rest of training: the wlh-finetuning cell (finetune_wlh,
+# aug_wlh, aug_box2d, im_enc_rate 0.5, the threaded prefetch) and its resume,
+# the NeRF-only cell at im_enc_rate 0.5, the per-row prep on the thread pool
+# (sym_aug, render_sz), a resume without optimizer state, the published
+# batch 48 through the CLI with and without the prefetch thread
+# --------------------------------------------------------------------------
+
+HOST_SPLIT = ("producer_prep", "producer_upload", "main_wait_batch")
+# an objects-only epoch of 3 steps at the published batch
+BATCH48_STEPS = 3
+
+
+def _host_split(label, summary, batch):
+    """Print a training run's steps/s, objects/s and host split (each step's
+    producer_prep / producer_upload / main_wait_batch, and their sums)."""
+    steps = summary["metrics"]
+    loop = sum(m["seconds"] for m in steps)
+    split = {k: sum(m["phase_seconds"].get(k, 0.0) for m in steps) for k in HOST_SPLIT}
+    print(f"   {label}: {len(steps)} steps of {batch} objects in {summary['seconds']:.2f} s "
+          f"through the CLI: {len(steps) / summary['seconds']:.3f} steps/s, "
+          f"{len(steps) * batch / summary['seconds']:.2f} objects/s; the step loop alone "
+          f"{len(steps) / loop:.3f} steps/s, {len(steps) * batch / loop:.2f} objects/s")
+    print(f"   host split (s, summed over {len(steps)} steps): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in split.items()))
+    for k in HOST_SPLIT:
+        print(f"     {k} per step (s): " + ", ".join(
+            f"{m['phase_seconds'].get(k, 0.0):.4f}" for m in steps))
+    return split
+
+
+@functools.lru_cache(maxsize=None)
+def _stash_chunks(config, batch):
+    """K3 + K4 launch pairs a training step makes on `batch` objects of
+    `config` (ops.render.render_train_bwd's chunks of STASH_BYTES)."""
+    from supnerf_tpu_torch.config import load_hpams
+    from supnerf_tpu_torch.models.factory import build_model
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.tto.core import render_decoder
+
+    hp = load_hpams(config)
+    ld_pt = render.stash_layout(render_decoder(build_model(hp["arch"],
+                                                           hp["net_hyperparams"])))["ld_pt"]
+    per_object = hp.get("n_rays", 1024) * hp.get("n_samples", 64) * ld_pt * 4
+    chunk = max(1, min(batch, render.STASH_BYTES // per_object))
+    return -(-batch // chunk)
+
+
+def _train_cell(label, config, argv, n_objects, batch, epochs=1):
+    """One cli.train run on the card from a fresh count: the launches
+    exactly K1 one a step (no panels), K3 and K4 one pair a stash chunk a
+    step, K3's data mode never; every loss finite; steps/s and the host
+    split printed. Returns (summary, counts, what it printed)."""
+    import math
+
+    import torch
+
+    from supnerf_tpu_torch.cli import train
+    from supnerf_tpu_torch.ops import render
+
+    render.reset_launch_counts()
+    summary, text = _printed(lambda: train.main(
+        ["--config_file", config, "--dataset", "synthetic", "--num_objects", str(n_objects),
+         "--batch_size", str(batch), "--epochs", str(epochs), "--device", "cuda", "--seed", "0",
+         "--check_iter", "100000"] + argv))
+    torch.cuda.synchronize()
+    n_steps = len(summary["metrics"])
+    pairs = n_steps * _stash_chunks(config, batch)
+    counts = _exact_counts(label, {"render_fwd": n_steps, "render_train_bwd": pairs,
+                                   "wgrad": pairs})
+    if not all(math.isfinite(v) for m in summary["metrics"] for k, v in m.items()
+               if k.startswith(("loss", "psnr"))):
+        raise RuntimeError(f"{label}: a loss is not finite: {summary['metrics']}")
+    _host_split(label, summary, batch)
+    return summary, counts, text
+
+
+def _recompose(label, hp, steps, mode):
+    """Each step's loss_total from its reported terms under its enc_active
+    (training/train_step.py's loss at an im_enc_rate below 1; loss_wlh where
+    reported), to 1e-5 relative of the reported one; both gate states must
+    occur."""
+    occ, code = hp.get("loss_occ_coef", 0.1), hp.get("loss_code_coef", 0.1)
+    pose, wlh = hp.get("loss_pose_coef", 0.01), hp.get("loss_wlh_coef", 1.0)
+    for n, m in enumerate(steps, 1):
+        on = m["enc_active"] == 1.0
+        want = m["loss_rgb"] + occ * m["loss_occ"]
+        if mode == "unified":
+            want += wlh * m.get("loss_wlh", 0.0)
+            if on:
+                want += pose * (m["loss_pose_direct"] + (m["loss_pose_iter1"] + m["loss_pose_iter2"]
+                                                         + m["loss_pose_iter3"]) / 3)
+                want += code * m["loss_code"]
+        else:
+            if not on and m["loss_code"] != 0.0:
+                raise RuntimeError(f"{label}: step {n} ran without the encoder but loss_code is "
+                                   f"{m['loss_code']}")
+            want += code * m["loss_code"]
+        rel = abs(want - m["loss_total"]) / abs(m["loss_total"])
+        print(f"   {label} step {n}: enc_active {int(on)}, loss_total {m['loss_total']:.7f}, "
+              f"recomposed {want:.7f} (rel diff {rel:.2e})")
+        if not rel <= 1e-5:
+            raise RuntimeError(f"{label}: step {n}'s loss_total is not its terms under "
+                               f"enc_active {int(on)}")
+    if {m["enc_active"] for m in steps} != {0.0, 1.0}:
+        raise RuntimeError(f"{label}: the steps did not draw both encoder states: "
+                           f"{[m['enc_active'] for m in steps]}")
+
+
+def check_scatter_rows():
+    """The code tables' scatter-add (train_step.scatter_rows) on the card at
+    the published batch with repeated instances: two calls give the same
+    bits, and the sums agree with float64's on the CPU."""
+    import torch
+
+    from supnerf_tpu_torch.training.train_step import scatter_rows
+
+    g = torch.Generator().manual_seed(0)
+    idx = torch.randint(0, 12, (SWEEP_BATCH,), generator=g)
+    rows = torch.randn(SWEEP_BATCH, 256, generator=g)
+    table = torch.zeros(BATCH48_STEPS * SWEEP_BATCH // 2, 256)
+    a, b = (scatter_rows(table.cuda(), idx.cuda(), rows.cuda()).cpu() for _ in range(2))
+    want = torch.zeros(table.shape, dtype=torch.float64).index_add_(0, idx, rows.double())
+    err = float((a.double() - want).abs().max())
+    print(f"   scatter_rows, {SWEEP_BATCH} rows on {len(set(idx.tolist()))} instances: two calls "
+          f"equal bit for bit: {torch.equal(a, b)}; max abs err against float64 {err:.2e} "
+          f"(tol 1e-5)")
+    if not torch.equal(a, b) or not err <= 1e-5:
+        raise RuntimeError("scatter_rows does not repeat itself or disagrees with float64")
+
+
+def rest_of_training_paths(out_dir):
+    """Phase 13. Returns the launch counts per cell."""
+    from supnerf_tpu_torch.config import load_hpams
+
+    check_scatter_rows()
+    counts = {}
+    demo = os.path.join(HERE, "jsonfiles", "hpam_demo.json")
+    mix = os.path.join(HERE, "jsonfiles", "autorfmix.nusc.vehicle.car.json")
+
+    # (a) wlh finetuning with the augmentations and the encoder gate, then a
+    # resume from epoch 0
+    t0 = time.perf_counter()
+    run_a = os.path.join(out_dir, "wlh")
+    wlh_argv = ["--finetune_wlh", "1", "--aug_wlh", "1", "--aug_box2d", "1",
+                "--im_enc_rate", "0.5", "--num_workers", "4"]
+    summary, counts["wlh_train"], _ = _train_cell(
+        "(a) wlh finetuning", demo, wlh_argv + ["--save_dir", run_a], TRAIN_OBJECTS,
+        TRAIN_BATCH, epochs=2)
+    steps = summary["metrics"]
+    with open(os.path.join(run_a, "runs", "metrics.jsonl")) as f:
+        lines = [json.loads(x) for x in f]
+    if len(lines) != len(steps) or not all("loss_wlh" in x for x in lines):
+        raise RuntimeError(f"(a): metrics.jsonl lacks loss_wlh: {lines}")
+    print("   (a) loss_wlh per step: " + ", ".join(f"{x['loss_wlh']:.5f}" for x in lines))
+    _recompose("(a)", load_hpams(demo), steps, "unified")
+    resumed, counts["wlh_resume"], _ = _train_cell(
+        "(a) resumed from epoch_0", demo,
+        wlh_argv + ["--save_dir", os.path.join(out_dir, "wlh_resumed"), "--resume_dir", run_a,
+                    "--resume_from_epoch", "0"], TRAIN_OBJECTS, TRAIN_BATCH, epochs=2)
+    want, got = steps[2]["loss_total"], resumed["metrics"][0]["loss_total"]
+    print(f"   (a) resumed: step 3 loss {got:.7f} against {want:.7f} "
+          f"(rel diff {abs(got - want) / abs(want):.2e}, tol {RESUME_RTOL:.0e})")
+    if not abs(got - want) <= RESUME_RTOL * abs(want):
+        raise RuntimeError("(a): the resumed run does not repeat step 3's loss")
+    print(f"   (a): {time.perf_counter() - t0:.2f} s")
+
+    # (b) the NeRF-only loss with the encoder gate
+    t0 = time.perf_counter()
+    summary, counts["nerf_only_enc_rate"], _ = _train_cell(
+        "(b) AutoRFMix im_enc_rate 0.5", mix,
+        ["--im_enc_rate", "0.5", "--save_dir", os.path.join(out_dir, "mix")], TRAIN_OBJECTS,
+        TRAIN_BATCH, epochs=2)
+    _recompose("(b)", load_hpams(mix), summary["metrics"], "nerf_only")
+    print(f"   (b): {time.perf_counter() - t0:.2f} s")
+
+    # (c) the per-row prep on the pool: sym_aug and render_sz in the config,
+    # and the optimizer's options (gradient clipping, the cosine schedule)
+    t0 = time.perf_counter()
+    cfg = _config_copy(out_dir, "supnerf.nusc.vehicle.car.json", sym_aug=1, render_sz=64,
+                       grad_clip=1.0, lr_schedule_type="cosine", cosine_total_steps=4)
+    _, counts["per_row_prep"], text = _train_cell(
+        "(c) sym_aug + render_sz 64 + grad_clip 1 + cosine, per-row prep on 2 threads", cfg,
+        ["--num_workers", "2", "--save_dir", os.path.join(out_dir, "per_row")], TRAIN_OBJECTS,
+        TRAIN_BATCH, epochs=2)
+    if "schedule cosine over 4 steps, grad_clip 1.0" not in text:
+        raise RuntimeError("(c): the run did not take the config's grad_clip and cosine schedule")
+    print(f"   (c): {time.perf_counter() - t0:.2f} s")
+
+    # (d) (a)'s epoch 0 without its optimizer file
+    t0 = time.perf_counter()
+    os.remove(os.path.join(run_a, "epoch_0_optim.pth"))
+    _, counts["resume_no_optim"], text = _train_cell(
+        "(d) resumed without epoch_0_optim.pth", demo,
+        wlh_argv + ["--save_dir", os.path.join(out_dir, "wlh_fresh"), "--resume_dir", run_a,
+                    "--resume_from_epoch", "0"], TRAIN_OBJECTS, TRAIN_BATCH, epochs=2)
+    if "both optimizers start fresh" not in text:
+        raise RuntimeError("(d): the resume did not say its moments start fresh")
+    print(f"   (d): {time.perf_counter() - t0:.2f} s")
+
+    # (e) the published batch, with and without the prefetch thread
+    losses = {}
+    for workers in ("4", "0"):
+        t0 = time.perf_counter()
+        summary, counts[f"batch48_workers{workers}"], _ = _train_cell(
+            f"(e) batch {SWEEP_BATCH}, --num_workers {workers}", PUBLISHED,
+            ["--num_workers", workers, "--save_dir", os.path.join(out_dir, f"b48_{workers}")],
+            BATCH48_STEPS * SWEEP_BATCH, SWEEP_BATCH)
+        losses[workers] = [m["loss_total"] for m in summary["metrics"]]
+        print(f"   (e) --num_workers {workers}: losses " + ", ".join(
+            f"{x:.7f}" for x in losses[workers]) + f"; {time.perf_counter() - t0:.2f} s")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["4"], losses["0"]))
+    print(f"   (e) the two loops' losses: largest rel diff {rel:.2e} (tol {RESUME_RTOL:.0e})")
+    if len(losses["4"]) != BATCH48_STEPS or not rel <= RESUME_RTOL:
+        raise RuntimeError("(e): the threaded and the serial loop disagree")
+    return counts
+
+
 def kernel_records(tto_records, train_records, aabb_records, field_records,
                    train_kernel_records, train_field_extra, codenerf_extra, counts_by_path):
     """One record per launch counter, launches from the path that runs it
@@ -3201,13 +3442,19 @@ def main():
     vis_kernels = check_vis_kernels()
     vis_counts = _in_temp_dir(vis_paths)
     done(t0, "visualisation")
+    t0 = phase("the rest of training: (a) wlh finetuning with the augmentations and "
+               "im_enc_rate 0.5, (b) NeRF-only at im_enc_rate 0.5, (c) the per-row prep, "
+               "(d) a resume without optimizer state, (e) batch 48")
+    training_counts = _in_temp_dir(rest_of_training_paths)
+    done(t0, "the rest of training")
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
                              train_kernel_records, train_field_extra, codenerf_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
                               "reg_cli": reg_cli_counts, "reg_lib": reg_lib_counts,
                               "train_render_data": render_data_counts,
                               "train_field": field_train_counts, **dataset_counts,
-                              **baseline_counts, **driver_counts, **vis_counts})
+                              **baseline_counts, **driver_counts, **vis_counts,
+                              **training_counts})
     records_by_name = {r["name"]: r for r in records}
     records_by_name["render_fwd"].update(vis_kernels)
     records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms

@@ -2,6 +2,8 @@
 asks for the CPU."""
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -20,3 +22,20 @@ def resolve_device(device: str | None = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}")
     return dev
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside, its setting before put back
+    after. The training CLI runs under it: cuDNN's default weight-gradient
+    convolutions of the encoder sum partials in an order that changes from
+    run to run, so two training runs from one seed (a run and its resume)
+    part from their first step on, where the JAX package's steps repeat.
+    Test-time optimization and the demo run the encoder forward only (no
+    weight gradients) and run without it."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before

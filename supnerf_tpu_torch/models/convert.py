@@ -166,11 +166,17 @@ def convert_variables(arch: str, variables, net_hyperparams: dict) -> dict:
 
 
 def _adam_moments(opt_state):
-    """The (count, mu, nu) of optax's scale_by_adam inside an adamw state
-    (a tuple of states, found by its fields)."""
-    for s in opt_state:
-        if hasattr(s, "mu") and hasattr(s, "nu"):
-            return int(np.asarray(s.count)), s.mu, s.nu
+    """The (count, mu, nu) of optax's scale_by_adam inside an adamw state, or
+    a chain holding one (gradient clipping first): nested tuples of states,
+    found by its fields."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return int(np.asarray(opt_state.count)), opt_state.mu, opt_state.nu
+    if isinstance(opt_state, tuple):
+        for s in opt_state:
+            try:
+                return _adam_moments(s)
+            except ValueError:
+                continue
     raise ValueError("no scale_by_adam state (mu, nu) in the optimizer state")
 
 

@@ -1,5 +1,6 @@
 """optax.adamw written out for the port's two optimizing loops, test-time
-optimization (tto/core.py) and training (training/train_step.py)."""
+optimization (tto/core.py) and training (training/train_step.py), and
+optax.clip_by_global_norm for training's gradient clipping."""
 from __future__ import annotations
 
 import torch
@@ -58,3 +59,15 @@ class AdamW:
                                  f"parameter of shape {tuple(dst.shape)}")
             dst.copy_(torch.as_tensor(src))
         self.count = int(state["count"])
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float) -> list:
+    """optax.clip_by_global_norm(max_norm) on one set of gradients: each
+    unchanged where their global norm sqrt(sum of squares) is below
+    max_norm, else t / norm * max_norm. On the device, without a host
+    round trip."""
+    grads = list(grads)
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm * max_norm) for g in grads]

@@ -13,6 +13,13 @@ reference schema has no key for, go beside it into epoch_{n}_optim.pth for
 an exact resume; instoken2idx.json repeats the instance map. The mean
 codes of a checkpoint (the JAX module's mean_codes) are cli/common.py's
 mean_codes, which test-time optimization uses without the training stack.
+
+A checkpoint without epoch_{n}_optim.pth (one from the reference trainer, or
+from the JAX package's export_reference_checkpoint) resumes with both
+AdamWs started fresh: zero moments and count 0, so Adam's bias correction
+starts over, and a line printed to say so. The learning-rate schedule reads
+the step count (state.niter, restored from the checkpoint), not the
+optimizers' counts, so its decay goes on where the checkpoint left it.
 """
 from __future__ import annotations
 
@@ -54,14 +61,14 @@ def save_checkpoint(save_dir: str, state: TrainState, nepoch: int, instoken2idx:
 def restore_checkpoint(save_dir: str, state: TrainState, nepoch: int | None = None):
     """Load epoch_{nepoch} (models.pth's epoch when None) into `state` in
     place: weights and buffers strictly, code tables, optimized_idx, niter
-    and both optimizer states. Returns (nepoch, instoken2idx)."""
+    and both optimizer states, or fresh optimizers where the checkpoint has
+    no optimizer file. Returns (nepoch, instoken2idx)."""
     if nepoch is None:
         nepoch = int(torch.load(os.path.join(save_dir, "models.pth"), map_location="cpu",
                                 weights_only=False)["nepoch"])
     saved = torch.load(os.path.join(save_dir, f"epoch_{nepoch}.pth"), map_location="cpu",
                        weights_only=False)
-    optim = torch.load(os.path.join(save_dir, f"epoch_{nepoch}_optim.pth"), map_location="cpu",
-                       weights_only=False)
+    optim_path = os.path.join(save_dir, f"epoch_{nepoch}_optim.pth")
     state.model.load_state_dict(saved["model_params"], strict=True)
     with torch.no_grad():
         for dst, src in ((state.shape_codes, saved["shape_code_params"]["weight"]),
@@ -71,8 +78,15 @@ def restore_checkpoint(save_dir: str, state: TrainState, nepoch: int | None = No
                 raise ValueError(f"checkpoint table of shape {tuple(src.shape)} for a state "
                                  f"of shape {tuple(dst.shape)}")
             dst.copy_(src)
-    state.opt_model.load_state_dict(optim["model"])
-    state.opt_codes.load_state_dict(optim["codes"])
+    if os.path.exists(optim_path):
+        optim = torch.load(optim_path, map_location="cpu", weights_only=False)
+        state.opt_model.load_state_dict(optim["model"])
+        state.opt_codes.load_state_dict(optim["codes"])
+    else:
+        state.opt_model.reset()
+        state.opt_codes.reset()
+        print(f"{optim_path} not found: both optimizers start fresh (zero moments, count 0); "
+              f"the learning-rate schedule goes on from step {int(saved['niter'])}")
     state.niter = int(saved["niter"])
     return int(saved["nepoch"]), dict(saved["instoken2idx"])
 

@@ -6,32 +6,45 @@ ParallelModel.forward :27-148, pose_regress :150-195, set_optimizers
 trainer_nerf_nuscenes.py ParallelModel.forward :18-66).
 
 One step: the encoder (BatchNorm on batch statistics, running buffers moved
-by flax's rule), the direct box-corner loss, three unrolled refiner
-iterations, the NeRF branch on the fused training render (ops/render.py:
-K1 forward, K3 + K4 backward on the card), one backward pass, then AdamW on
-the model and, separately, on the two dense per-instance code tables.
+by flax's rule on every step), the direct box-corner loss, three unrolled
+refiner iterations, the NeRF branch on the fused training render
+(ops/render.py: K1 forward, K3 + K4 backward on the card), one backward
+pass, optional gradient clipping, then AdamW on the model and, separately,
+on the two dense per-instance code tables.
 
 Loss terms (coefficients from the config json):
   loss_rgb + occ_coef * loss_occ                 always
-  + pose_coef * direct-UV corner loss            (the encoder is active)
-  + pose_coef * mean(3 unrolled refiner losses)  (the encoder is active)
-loss_code and loss_reg are reported and not added (loss_code enters only
-with im_enc_rate < 1, which this port does not run).
+  + wlh_coef * loss_wlh                          finetune_wlh (a pred_wlh net)
+  + pose_coef * direct-UV corner loss            the encoder is active
+  + pose_coef * mean(3 unrolled refiner losses)  the encoder is active
+  + code_coef * loss_code                        active, and im_enc_rate < 1
+When the encoder is active its codes are averaged with the table rows, else
+the rows are rendered alone; loss_reg and the terms not added are reported.
 
 The NeRF-only loss (loss_mode "nerf_only": AutoRF, AutoRFMix, CodeNeRF):
-the encoder's codes replace the table rows (they are not averaged), and
+when the encoder is active its codes replace the table rows (they are not
+averaged) and
   loss_rgb + occ_coef * loss_occ + code_coef * loss_code
-with loss_code the encoder's distance from the rows; CodeNeRF, which has no
-encoder, renders the rows and trains them directly (loss_code 0). Its NeRF
+with loss_code the encoder's distance from the rows; inactive, or CodeNeRF,
+which has no encoder, the rows are rendered and loss_code is 0. Its NeRF
 branch runs on the kernels for a kernel-compatible decoder and on the
 original AutoRF's plain decoder under autograd otherwise
 (ops.render.decoder_kernel_compatible).
 
+enc_active, whether this step uses the encoder, comes from the caller: the
+JAX step draws uniform(key) < im_enc_rate from its PRNG, which torch cannot
+reproduce, so the trainer draws it from numpy (training/trainer.py) and the
+tests feed JAX's value (ROADMAP C.17).
+
 Numerics kept from the JAX step: the code tables are dense and every row's
 moments and weight decay move on every step; row gradients are scatter-added
-(duplicate instances in a batch add up); each optimizer's learning rate is
-lr * 2^-(count // interval) at its count before the update; the refiner's
-source pose is detached only inside the corner projection.
+(duplicate instances in a batch add up, in batch order, the same bits on
+every run: scatter_rows); gradient clipping is optax's
+clip_by_global_norm, on the model's gradients and on the two tables'
+separately; each optimizer's learning rate is its schedule (the step
+halving lr * 2^-(t // interval) or optax's cosine decay) at the step count
+before the update; the refiner's source pose is detached only inside the
+corner projection.
 """
 from __future__ import annotations
 
@@ -49,11 +62,13 @@ from supnerf_tpu_torch.ops.render import (
     field_composite_train,
 )
 from supnerf_tpu_torch.ops.volume_render import occupancy_loss, rgb_loss_masked
-from supnerf_tpu_torch.optim import AdamW
+from supnerf_tpu_torch.optim import AdamW, clip_by_global_norm
 from supnerf_tpu_torch.tto.refiner import compose_pose_delta
 
 WEIGHT_DECAY = 0.01
-# each loss mode's metrics, in the JAX step's order (sorted names)
+LR_SCHEDULES = ("step", "cosine")
+# each loss mode's metrics, in the JAX step's order (sorted names); with
+# finetune_wlh the unified loss adds loss_wlh (metric_names)
 METRIC_NAMES = {
     "unified": ("enc_active", "loss_code", "loss_occ", "loss_pose_direct", "loss_pose_iter1",
                 "loss_pose_iter2", "loss_pose_iter3", "loss_reg", "loss_rgb", "loss_total",
@@ -72,22 +87,31 @@ class TrainConfig:
     loss_occ_coef: float = 0.1
     loss_code_coef: float = 0.1
     loss_pose_coef: float = 0.01
+    loss_wlh_coef: float = 1.0
     im_enc_rate: float = 1.0
     finetune_wlh: bool = False
     latent_dim: int = 256
-    grad_clip: float = 0.0
-    lr_schedule_type: str = "step"
+    grad_clip: float = 0.0          # > 0: clip each gradient set's global norm to it
+    lr_schedule_type: str = "step"  # "step" (the reference's halving) or "cosine"
+    cosine_total_steps: int = 200000
 
     def __post_init__(self):
-        unported = {"im_enc_rate": self.im_enc_rate != 1.0, "finetune_wlh": self.finetune_wlh,
-                    "grad_clip": self.grad_clip > 0,
-                    "lr_schedule_type": self.lr_schedule_type != "step"}
-        for name, set_ in unported.items():
-            if set_:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is queued in ROADMAP.md; no published "
-                    "config sets it and this port trains with im_enc_rate 1, no wlh "
-                    "finetuning, no gradient clipping and the step schedule")
+        if self.lr_schedule_type not in LR_SCHEDULES:
+            raise ValueError(f"lr_schedule_type {self.lr_schedule_type!r}: one of "
+                             f"{LR_SCHEDULES}")
+        if self.lr_schedule_type == "cosine" and self.cosine_total_steps <= 0:
+            raise ValueError("cosine_total_steps: a positive step count")
+        if not 0.0 <= self.im_enc_rate <= 1.0:
+            raise ValueError(f"im_enc_rate {self.im_enc_rate}: a rate in [0, 1]")
+
+
+def metric_names(loss_mode: str, cfg: TrainConfig) -> tuple:
+    """The step's metrics for loss_mode under cfg, sorted as the JAX step
+    packs them."""
+    names = METRIC_NAMES[loss_mode]
+    if loss_mode == "unified" and cfg.finetune_wlh:
+        names = tuple(sorted(names + ("loss_wlh",)))
+    return names
 
 
 @dataclasses.dataclass
@@ -112,10 +136,15 @@ class TrainBatch:
     code_idx: torch.Tensor    # (B,) int64 row of the code tables
 
     @classmethod
-    def from_numpy(cls, arrays: dict, device):
-        return cls(**{f.name: torch.as_tensor(
-            arrays[f.name], dtype=torch.int64 if f.name == "code_idx" else torch.float32
-        ).to(device) for f in dataclasses.fields(cls)})
+    def from_numpy(cls, arrays: dict, device, pinned: bool = False):
+        """The batch on `device`; pinned: copied from page-locked host
+        memory without waiting (on the caller's current stream)."""
+        def put(name):
+            t = torch.as_tensor(arrays[name],
+                                dtype=torch.int64 if name == "code_idx" else torch.float32)
+            return (t.pin_memory() if pinned else t).to(device, non_blocking=pinned)
+
+        return cls(**{f.name: put(f.name) for f in dataclasses.fields(cls)})
 
 
 @dataclasses.dataclass
@@ -154,9 +183,33 @@ def init_train_state(model, n_instances: int, cfg: TrainConfig, device,
 
 
 def step_scale(count: int, interval: int) -> float:
-    """The step schedule's factor 2^-(count // interval) at the optimizer's
-    count before the update (optax evaluates the schedule there)."""
+    """The step schedule's factor 2^-(count // interval) at the count before
+    the update (optax evaluates the schedule there)."""
     return 2.0 ** -(count // interval)
+
+
+def cosine_scale(count: int, total_steps: int) -> float:
+    """optax.cosine_decay_schedule(1, total_steps) at `count`:
+    0.5 (1 + cos(pi min(count, T) / T)), 0 from T on."""
+    return 0.5 * (1.0 + math.cos(math.pi * min(count, total_steps) / total_steps))
+
+
+def lr_scale(cfg: TrainConfig, count: int, interval: int) -> float:
+    """The learning-rate factor of cfg's schedule at the step count before
+    the update."""
+    if cfg.lr_schedule_type == "cosine":
+        return cosine_scale(count, cfg.cosine_total_steps)
+    return step_scale(count, interval)
+
+
+def scatter_rows(table, idx, rows):
+    """The dense gradient of `table` from the gradients `rows` of its rows
+    idx, an instance's rows summed in batch order (JAX's .at[idx].add).
+    index_put_ with accumulate sorts the indices on the card and sums each
+    run of one row in order, so a batch with repeated instances (nuScenes
+    has them) gives the same bits on every run, where index_add_ adds them
+    with atomics."""
+    return torch.zeros_like(table).index_put_((idx,), rows, accumulate=True)
 
 
 def expand_compact_rays(batch: TrainBatch) -> TrainBatch:
@@ -186,18 +239,25 @@ def pose_regress_step(model, posecode, src_pose, tgt_uv, wlh, roi, K):
     return loss, pred_pose
 
 
-def unified_loss(model, batch: TrainBatch, code_rows, cfg: TrainConfig, phase=None):
+def unified_loss(model, batch: TrainBatch, code_rows, cfg: TrainConfig, enc_active: bool = True,
+                 phase=None):
     """The full SUP-NeRF training loss of an expanded batch; code_rows =
     (shape rows, texture rows) of the tables for batch.code_idx. The
-    encoder's BatchNorm buffers move. Returns (loss_total, losses dict of
-    0-d tensors)."""
+    encoder runs and its BatchNorm buffers move whether or not it is
+    active. Returns (loss_total, losses dict of 0-d tensors)."""
     phase = phase or (lambda name: contextlib.nullcontext())
     sc_tbl, tc_tbl = code_rows
-    # im_enc_rate 1: the encoder is active on every step (the JAX step's
-    # uniform() < 1), so its terms are always added and its codes averaged in
     with batch_stat_updates(model):
-        sc_enc, tc_enc, posecode, uv_direct, _ = model.encode_img(batch.img_in)
+        sc_enc, tc_enc, posecode, uv_direct, wlh_pred = model.encode_img(batch.img_in)
     losses = {}
+    loss_total = 0.0
+
+    if cfg.finetune_wlh:
+        if wlh_pred is None:
+            raise ValueError("finetune_wlh trains the encoder's wlh head: the net has none "
+                             "(pred_wlh 0)")
+        losses["loss_wlh"] = torch.mean((wlh_pred - batch.wlh) ** 2)
+        loss_total = loss_total + cfg.loss_wlh_coef * losses["loss_wlh"]
 
     # direct box-corner regression, ROI-normalised corners back to pixels
     uv_direct = uv_direct.reshape(-1, 2, 8)
@@ -207,10 +267,15 @@ def unified_loss(model, batch: TrainBatch, code_rows, cfg: TrainConfig, phase=No
     uv_img = uv_direct * (dim[:, None, None] / 2) + centre[:, :, None]
     loss_uv = torch.sqrt(torch.sum((uv_img - batch.tgt_uv) ** 2, dim=-2) + 1e-8)
     losses["loss_pose_direct"] = loss_uv.mean()
-    loss_total = cfg.loss_pose_coef * losses["loss_pose_direct"]
+    if enc_active:
+        loss_total = loss_total + cfg.loss_pose_coef * losses["loss_pose_direct"]
 
     losses["loss_code"] = torch.mean((sc_enc - sc_tbl) ** 2 + (tc_enc - tc_tbl) ** 2)
-    shapecode, texturecode = (sc_tbl + sc_enc) / 2, (tc_tbl + tc_enc) / 2
+    shapecode, texturecode = sc_tbl, tc_tbl
+    if enc_active:
+        if cfg.im_enc_rate < 1.0:
+            loss_total = loss_total + cfg.loss_code_coef * losses["loss_code"]
+        shapecode, texturecode = (sc_tbl + sc_enc) / 2, (tc_tbl + tc_enc) / 2
 
     pose, pose_losses = batch.src_pose, []
     for _ in range(3):
@@ -219,10 +284,11 @@ def unified_loss(model, batch: TrainBatch, code_rows, cfg: TrainConfig, phase=No
         pose_losses.append(l_k.mean())
     for k, v in enumerate(pose_losses, 1):
         losses[f"loss_pose_iter{k}"] = v
-    loss_total = loss_total + cfg.loss_pose_coef * (sum(pose_losses) / 3)
+    if enc_active:
+        loss_total = loss_total + cfg.loss_pose_coef * (sum(pose_losses) / 3)
 
     losses.update(nerf_losses(model, batch, shapecode, texturecode, phase))
-    loss_total = loss_total + losses["loss_rgb"] + cfg.loss_occ_coef * losses["loss_occ"]
+    loss_total = loss_total + (losses["loss_rgb"] + cfg.loss_occ_coef * losses["loss_occ"])
     losses["loss_total"] = loss_total
     return loss_total, losses
 
@@ -231,8 +297,8 @@ def nerf_losses(model, batch: TrainBatch, shapecode, texturecode, phase):
     """The NeRF branch of both losses: the training render of the batch's
     rays (ops.render.field_composite_train, K1 and K3 + K4 on the card, for
     a kernel-compatible decoder; ops.render.decoder_composite under autograd
-    for the original AutoRF) and its terms loss_rgb, psnr, loss_occ,
-    loss_reg and enc_active (1: im_enc_rate 1)."""
+    for the original AutoRF) and its terms loss_rgb, psnr, loss_occ and
+    loss_reg."""
     with phase("render"):
         if decoder_kernel_compatible(model):
             rgb, _, acc = field_composite_train(model, batch.xyz, batch.viewdir, batch.z_vals,
@@ -244,26 +310,28 @@ def nerf_losses(model, batch: TrainBatch, shapecode, texturecode, phase):
     return {"loss_rgb": loss_rgb.mean(), "psnr": -10.0 * torch.log10(loss_rgb.mean()),
             "loss_occ": occupancy_loss(acc, batch.occ_pixels, dim=(-2, -1)).mean(),
             "loss_reg": torch.mean(torch.linalg.norm(shapecode, dim=-1)
-                                   + torch.linalg.norm(texturecode, dim=-1)),
-            "enc_active": torch.ones((), device=rgb.device)}
+                                   + torch.linalg.norm(texturecode, dim=-1))}
 
 
-def nerf_only_loss(model, batch: TrainBatch, code_rows, cfg: TrainConfig, phase=None):
+def nerf_only_loss(model, batch: TrainBatch, code_rows, cfg: TrainConfig,
+                   enc_active: bool = True, phase=None):
     """The NeRF-only loss of the baselines (JAX nerf_only_loss) of an
     expanded batch; code_rows as unified_loss's. With an encoder (AutoRF,
-    AutoRFMix; its BatchNorm buffers move) its codes replace the rows and
-    loss_code, their mean squared distance from the rows, is added times
-    loss_code_coef; without one (CodeNeRF) the rows are rendered and
+    AutoRFMix), which runs and moves its BatchNorm buffers on every step,
+    the active encoder's codes replace the rows and loss_code, their mean
+    squared distance from the rows, is added times loss_code_coef; with the
+    encoder inactive, or none (CodeNeRF), the rows are rendered and
     loss_code is 0. Returns (loss_total, losses dict of 0-d tensors)."""
     phase = phase or (lambda name: contextlib.nullcontext())
     sc_tbl, tc_tbl = code_rows
+    shapecode, texturecode = sc_tbl, tc_tbl
+    loss_code = sc_tbl.new_zeros(())
     if hasattr(model, "encode_img"):
         with batch_stat_updates(model):
-            shapecode, texturecode = model.encode_img(batch.img_in)
-        loss_code = torch.mean((shapecode - sc_tbl) ** 2 + (texturecode - tc_tbl) ** 2)
-    else:
-        shapecode, texturecode = sc_tbl, tc_tbl
-        loss_code = sc_tbl.new_zeros(())
+            sc_enc, tc_enc = model.encode_img(batch.img_in)
+        if enc_active:
+            shapecode, texturecode = sc_enc, tc_enc
+            loss_code = torch.mean((sc_enc - sc_tbl) ** 2 + (tc_enc - tc_tbl) ** 2)
     losses = nerf_losses(model, batch, shapecode, texturecode, phase)
     losses["loss_code"] = loss_code
     losses["loss_total"] = (losses["loss_rgb"] + cfg.loss_occ_coef * losses["loss_occ"]
@@ -275,12 +343,13 @@ LOSSES = {"unified": unified_loss, "nerf_only": nerf_only_loss}
 
 
 def train_step(state: TrainState, batch: TrainBatch, cfg: TrainConfig, timer=None,
-               loss_mode: str = "unified") -> dict:
+               loss_mode: str = "unified", enc_active: bool = True) -> dict:
     """One optimisation step in place on `state` with the loss of loss_mode
-    ("unified" or "nerf_only", LOSSES); returns that mode's metrics
-    (METRIC_NAMES[loss_mode]) as floats. timer: optional
-    timing.PhaseTimer, charged forward (with the render nested in it as
-    "render"), backward, optimizer."""
+    ("unified" or "nerf_only", LOSSES), the encoder active or not
+    (enc_active); returns that mode's metrics (metric_names) as floats,
+    enc_active as 1.0 or 0.0. timer: optional timing.PhaseTimer, charged
+    forward (with the render nested in it as "render"), backward,
+    optimizer."""
     phase = timer.phase if timer is not None else (lambda name: contextlib.nullcontext())
     model = state.model
     with phase("forward"):
@@ -288,18 +357,26 @@ def train_step(state: TrainState, batch: TrainBatch, cfg: TrainConfig, timer=Non
         idx = batch.code_idx
         rows = [t[idx].detach().requires_grad_(True)
                 for t in (state.shape_codes, state.texture_codes)]
-        loss, losses = LOSSES[loss_mode](model, batch, rows, cfg, phase)
+        loss, losses = LOSSES[loss_mode](model, batch, rows, cfg, bool(enc_active), phase)
+        losses["enc_active"] = loss.new_tensor(float(bool(enc_active)))
     with phase("backward"):
         params = list(model.parameters())
         grads = torch.autograd.grad(loss, params + rows, allow_unused=True,
                                     materialize_grads=True)
     with phase("optimizer"):
-        g_tables = [torch.zeros_like(t).index_add_(0, idx, g)
+        g_model = list(grads[:-2])
+        g_tables = [scatter_rows(t, idx, g)
                     for t, g in zip((state.shape_codes, state.texture_codes), grads[-2:])]
-        state.opt_model.step(grads[:-2], step_scale(state.opt_model.count, cfg.lr_interval_model))
-        state.opt_codes.step(g_tables, step_scale(state.opt_codes.count, cfg.lr_interval_codes))
+        if cfg.grad_clip > 0:
+            g_model = clip_by_global_norm(g_model, cfg.grad_clip)
+            g_tables = clip_by_global_norm(g_tables, cfg.grad_clip)
+        # the schedule at the step count: equal to the optimizers' counts in a
+        # run from step 0, and past them after a resume that started the
+        # moments fresh (training/checkpoints.py)
+        state.opt_model.step(g_model, lr_scale(cfg, state.niter, cfg.lr_interval_model))
+        state.opt_codes.step(g_tables, lr_scale(cfg, state.niter, cfg.lr_interval_codes))
         state.optimized_idx[idx] = 1.0
         state.niter += 1
-        names = METRIC_NAMES[loss_mode]
+        names = metric_names(loss_mode, cfg)
         values = torch.stack([losses[k].detach().float() for k in names]).tolist()
     return dict(zip(names, values))

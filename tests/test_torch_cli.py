@@ -16,7 +16,6 @@ import torch
 from supnerf_tpu.tto.driver import TTODriver as JaxTTODriver
 from supnerf_tpu_torch.cli import optimize
 from supnerf_tpu_torch.device import resolve_device
-from supnerf_tpu_torch.training.trainer import UnifiedTrainer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY_CONFIG = {
@@ -67,14 +66,18 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("option", ["training sym_aug"])
+@pytest.mark.parametrize("option", ["training InstanceNorm2d"])
 def test_unported_options_raise(tmp_path, option):
     """Options outside the ported slices refuse to run instead of taking an
-    unverified path: the trainer's sym_aug (a ray-prep augmentation, not the
-    TTO regulariser, which is ported)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        UnifiedTrainer(None, dict(TRAIN_CONFIG, sym_aug=1), None, str(tmp_path / "run"),
-                       device="cpu")
+    unverified path: a SUP-NeRF config whose encoder normalises with
+    InstanceNorm2d (no published config does), through the train CLI."""
+    from supnerf_tpu_torch.cli import train
+
+    hp = dict(TRAIN_CONFIG["net_hyperparams"], norm_layer_type="InstanceNorm2d")
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(dict(TRAIN_CONFIG, net_hyperparams=hp)))
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        train.main(_train_argv(cfg, tmp_path / "run"))
 
 
 @pytest.mark.parametrize("option", ["opt_pose 0", "opt_pose 2", "euler_rot", "opt_cam_pose",
@@ -160,7 +163,8 @@ def test_port_imports_nothing_of_the_jax_world():
     assert len(imported) >= 20
     for name in ("cli.demo", "render.compositor", "utils.image_io", "ops.field",
                  "tto.regularizers", "tto.pnp", "tto.multiview", "cli.eval_saved_result",
-                 "cli.evaluate_all", "utils.draw", "utils.glyphs", "utils.vis", "eval.metrics"):
+                 "cli.evaluate_all", "utils.draw", "utils.glyphs", "utils.vis", "eval.metrics",
+                 "bench.train_loop_ab"):
         assert f"supnerf_tpu_torch.{name}" in imported
 
 
@@ -249,7 +253,8 @@ def test_cli_train_runs_resumes_and_loads(trained, tmp_path):
                  "models.pth", "instoken2idx.json", "hpam.json"):
         assert (out / name).exists(), name
     assert json.loads((out / "instoken2idx.json").read_text()) == {"ins_0": 0, "ins_1": 1}
-    assert {"forward", "render", "backward", "optimizer", "prep"} <= set(summary["phase_seconds"])
+    assert {"forward", "render", "backward", "optimizer", "producer_prep", "producer_upload",
+            "main_wait_batch"} <= set(summary["phase_seconds"])
 
     resumed = train.main(_train_argv(cfg, tmp_path / "resumed", "--resume_dir", str(out),
                                      "--resume_from_epoch", "0"))
@@ -308,21 +313,25 @@ def test_train_entry_point_refuses_a_missing_card(monkeypatch):
         train.main(["--dataset", "synthetic", "--num_objects", "1"])
 
 
-@pytest.mark.parametrize("option", ["aug_box2d", "aug_wlh", "finetune_wlh", "im_enc_rate",
-                                    "dataset"])
+@pytest.mark.parametrize("option", ["pretrained_model_dir", "num_workers", "finetune_wlh",
+                                    "im_enc_rate", "dataset"])
 def test_train_unported_options_raise(tmp_path, option):
+    """What the train CLI refuses, each with its reason: --pretrained_model_dir
+    (the JAX CLI reads it nowhere), a negative --num_workers,
+    --finetune_wlh on a net without the wlh head, an --im_enc_rate outside
+    [0, 1], an unknown dataset."""
     from supnerf_tpu_torch.cli import train
 
     cfg = tmp_path / "tiny.json"
     cfg.write_text(json.dumps(dict(TRAIN_CONFIG, model_dir=str(tmp_path / "no_checkpoint"))))
     argv = _train_argv(cfg, tmp_path / "run")
-    if option == "dataset":
-        with pytest.raises(ValueError, match="Unknown dataset"):
-            train.main(argv + ["--dataset", "nuscenes-lidarseg"])
-        return
-    value = "0.5" if option == "im_enc_rate" else "1"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train.main(argv + [f"--{option}", value])
+    extra, reason = {"pretrained_model_dir": (["--pretrained_model_dir", "x"], "reads it nowhere"),
+                     "num_workers": (["--num_workers", "-1"], "0 or more"),
+                     "finetune_wlh": (["--finetune_wlh", "true"], "wlh head"),
+                     "im_enc_rate": (["--im_enc_rate", "1.5"], r"\[0, 1\]"),
+                     "dataset": (["--dataset", "nuscenes-lidarseg"], "Unknown dataset")}[option]
+    with pytest.raises(ValueError, match=reason):
+        train.main(argv + extra)
 
 
 _TRAIN_ISOLATION = _ISOLATION.split("import supnerf_tpu_torch\n")[0] + r"""
@@ -346,5 +355,5 @@ def test_training_modules_import_nothing_of_the_jax_world():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     imported = proc.stdout.split()
-    for name in ("ray_prep", "train_step", "checkpoints", "trainer"):
+    for name in ("ray_prep", "train_step", "checkpoints", "trainer", "pixel_prep", "prefetch"):
         assert f"supnerf_tpu_torch.training.{name}" in imported

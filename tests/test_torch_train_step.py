@@ -335,14 +335,5 @@ def test_expand_compact_rays_matches_expanded_prep():
     assert tuple(e.viewdir.shape) == (len(CODE_IDX), 16, 3)
 
 
-@pytest.mark.parametrize("option", ["im_enc_rate", "finetune_wlh", "grad_clip",
-                                    "lr_schedule_type"])
-def test_unported_options_raise(option):
-    value = {"im_enc_rate": 0.5, "finetune_wlh": True, "grad_clip": 1.0,
-             "lr_schedule_type": "cosine"}[option]
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        port.TrainConfig(**{option: value})
-
-
 def test_lr_schedule_halves_at_the_count_before_the_update():
     assert [port.step_scale(c, 2) for c in range(5)] == [1.0, 1.0, 0.5, 0.5, 0.25]
