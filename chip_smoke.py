@@ -139,6 +139,21 @@ Phases, each timed; any failure exits non-zero before the result line:
      --num_workers 4 and 0, whose losses must agree. First, the code
      tables' scatter-add at batch 48 with repeated instances: two calls
      the same bits, the sums against float64's.
+ 14. the last modules: (a) run_tto_batch at the published widths with the
+     BatchNorm2d and with an InstanceNorm2d encoder on one batch (each
+     launches exactly K1 200 and K2 96), and the TTO driver's refusal of the
+     InstanceNorm config, as JAX's; (b) training through the CLI with the
+     InstanceNorm2d config (the training cell's launches); (c)
+     run_multiview_tto with opt_model on the original AutoRF (its decoder
+     under autograd, no kernel), finite curves and a loss below its start;
+     (d) cli.generate_video_vis on a --vis 2 folder (ffmpeg's mp4 where
+     there is ffmpeg, else the port's GIF; the GIF writer timed and its
+     frames and delays counted either way); (e) the nuScenes reader on the
+     phase-9 fixture with debug=True (a panel per sample) and
+     dataset_statistics with a visibility table; (f) the TTO cell without
+     and with --profile_dir, the trace's render_fwd_kernel and
+     render_bwd_kernel events equal to the launch counters over the traced
+     span (TTODriver.run: K1 200, K2 96).
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -3324,6 +3339,336 @@ def rest_of_training_paths(out_dir):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 14: the last modules: InstanceNorm encoders (TTO, training),
+# opt_model on the original AutoRF, the frame videos, dataset QA and its
+# drawing, and --profile_dir
+# --------------------------------------------------------------------------
+
+INSTANCE_NORM = {"norm_layer_type": "InstanceNorm2d"}
+PROFILED_KERNELS = {"render_fwd": "render_fwd_kernel", "render_bwd": "render_bwd_kernel"}
+# run_tto_batch on 2 objects, 100 iterations: K1 100 loss and 100 lidar
+# renders, K2 at every updating iteration (4..99)
+TTO_BATCH_COUNTS = {"render_fwd": 200, "render_bwd": 96}
+
+
+def gif_frames(path):
+    """(frame count, delays in centiseconds) of a GIF89a file, by walking its
+    blocks: independent of the port's writer (supnerf_tpu_torch/utils/gif.py)."""
+    import struct
+
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:6] != b"GIF89a":
+        raise RuntimeError(f"{path}: not a GIF89a file")
+    pos, frames, delays = 13, 0, []
+    if data[10] & 0x80:
+        pos += 3 * (2 << (data[10] & 7))
+    while data[pos] != 0x3B:
+        if data[pos] == 0x21:
+            if data[pos + 1] == 0xF9:
+                delays.append(struct.unpack("<H", data[pos + 4:pos + 6])[0])
+            pos += 2
+        elif data[pos] == 0x2C:
+            frames += 1
+            packed = data[pos + 9]
+            pos += 10 + (3 * (2 << (packed & 7)) if packed & 0x80 else 0) + 1
+        else:
+            raise RuntimeError(f"{path}: unknown block 0x{data[pos]:02x} at byte {pos}")
+        while data[pos]:
+            pos += data[pos] + 1
+        pos += 1
+    return frames, delays
+
+
+def instance_norm_paths(out_dir, train_counts):
+    """(a) run_tto_batch at the published widths on one prepared batch of 2
+    synthetic objects, 100 iterations, with the published BatchNorm2d
+    encoder and with an InstanceNorm2d one: each launches exactly K1 200
+    and K2 96 (the TTO cell's, less the cross-view evaluation's 2), with
+    finite curves; the TTO driver, and so every TTO CLI, refuses the
+    InstanceNorm config as JAX's does (ROADMAP C.22). (b) training through
+    the CLI with the InstanceNorm config: the training cell's launches of
+    phase 5. Returns the launch counts."""
+    import torch
+
+    from supnerf_tpu_torch.cli.common import SyntheticDataset, load_model_and_codes
+    from supnerf_tpu_torch.config import load_hpams
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.tto.core import render_decoder, run_tto_batch
+    from supnerf_tpu_torch.tto.driver import TTODriver
+
+    cfg = _option_config(out_dir, "supnerf_instancenorm", net_hyperparams=INSTANCE_NORM)
+    bn_hpams, in_hpams = load_hpams(PUBLISHED), load_hpams(cfg)
+    models = {"BatchNorm2d": load_model_and_codes(bn_hpams, "cuda", seed=0),
+              "InstanceNorm2d": load_model_and_codes(in_hpams, "cuda", seed=0)}
+    try:
+        TTODriver(*models["InstanceNorm2d"], in_hpams, SyntheticDataset(2), out_dir,
+                  device="cuda", batch_size=2)
+    except ValueError as e:
+        print(f"   (a) the TTO driver refuses the InstanceNorm2d config, as JAX's: {e}")
+    else:
+        raise RuntimeError("(a): the TTO driver took an InstanceNorm2d config")
+    driver = TTODriver(*models["BatchNorm2d"], bn_hpams, SyntheticDataset(2), out_dir,
+                       device="cuda", batch_size=2)
+    _, _, batch = driver._prep([0, 1])
+    counts = {}
+    for norm, (model, mean_shape, mean_texture) in models.items():
+        t0 = time.perf_counter()
+        render.reset_launch_counts()
+        res = run_tto_batch(model, render_decoder(model), batch,
+                            torch.as_tensor(mean_shape, device="cuda"),
+                            torch.as_tensor(mean_texture, device="cuda"), driver.cfg,
+                            generator=torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts[f"{norm[:-2].lower()}_tto_batch"] = _exact_counts(f"(a) {norm} run_tto_batch",
+                                                      TTO_BATCH_COUNTS)
+        res = {k: v.detach().cpu() for k, v in res.items()}
+        _check_curves(f"(a) {norm}", [c for k in ("psnr", "rot_err", "trans_err", "depth_err",
+                                                   "loss") for c in res[k]], 2, OPTION_ITERS)
+        print(f"   (a) {norm}: run_tto_batch {seconds:.3f} s for 2 objects x {OPTION_ITERS} "
+              f"iterations, {2 * 60 / seconds:.1f} objects/min; psnr "
+              f"{float(res['psnr'][0, 0]):.3f} -> {float(res['psnr'][0, -1]):.3f}")
+    t0 = time.perf_counter()
+    counts["instancenorm_train"] = train_path(os.path.join(out_dir, "train"), cfg,
+                                              "(b) InstanceNorm training")
+    if counts["instancenorm_train"] != train_counts:
+        raise RuntimeError(f"(b): launches {counts['instancenorm_train']}, the training "
+                           f"cell's {train_counts}")
+    print(f"   (b): {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
+def autorf_opt_model_path(out_dir):
+    """(c) run_multiview_tto with opt_model and opt_pose on the original
+    AutoRF (W 128, 5 and 5 blocks), 1 instance x 2 views, 100 iterations:
+    its decoder copy under autograd (decoder_composite), no kernel launched,
+    the model given unchanged, finite curves and a last loss below the
+    first. Returns the launch counts."""
+    import torch
+
+    from supnerf_tpu_torch.cli.common import SyntheticDataset, load_model_and_codes
+    from supnerf_tpu_torch.config import load_hpams
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.tto.driver import TTODriver
+    from supnerf_tpu_torch.tto.multiview import MultiviewBatch, run_multiview_tto
+
+    cfg = _config_copy(out_dir, "autorfmix.nusc.vehicle.car.json", arch="autorf_original",
+                       net_hyperparams={"latent_dim": 128},
+                       model_dir=os.path.join(out_dir, "no_checkpoint"))
+    hpams = load_hpams(cfg)
+    model, mean_shape, mean_texture = load_model_and_codes(hpams, "cuda", seed=0)
+    driver = TTODriver(model, mean_shape, mean_texture, hpams, SyntheticDataset(2), out_dir,
+                       device="cuda", batch_size=2)
+    _, _, batch = driver._prep([0, 1])
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    render.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = run_multiview_tto(model, driver.wts, MultiviewBatch.from_object_batch(batch),
+                            driver.mean_shape, driver.mean_texture, driver.cfg,
+                            opt_pose=True, opt_model=True, generator=driver.render_gen)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = _plain_counts("(c) original AutoRF multiview opt_model")
+    if not all(torch.equal(v, before[k]) for k, v in model.state_dict().items()):
+        raise RuntimeError("(c): opt_model changed the model given")
+    _check_curves("(c) opt_model", [res["psnr"].cpu(), res["loss"].cpu()], 2, OPTION_ITERS)
+    loss = res["loss"].cpu()
+    if not float(loss[-1]) < float(loss[0]):
+        raise RuntimeError(f"(c): the loss did not fall: {float(loss[0])} -> {float(loss[-1])}")
+    print(f"   (c) run_multiview_tto(opt_model, opt_pose) on the original AutoRF, 1 instance x "
+          f"2 views: {seconds:.2f} s ({seconds / OPTION_ITERS * 1e3:.2f} ms an iteration); psnr "
+          f"{float(res['psnr'][0]):.3f} -> {float(res['psnr'][-1]):.3f}, loss "
+          f"{float(loss[0]):.5f} -> {float(loss[-1]):.5f}")
+    return counts
+
+
+def video_path(out_dir):
+    """(d) cli.generate_video_vis on a --vis 2 results folder (1 object, 100
+    frames): the file it wrote (ffmpeg's mp4, else the port's GIF, whose
+    frames and delays are counted); the GIF writer timed on the same frames
+    either way. Returns the --vis 2 run's launch counts."""
+    from supnerf_tpu_torch.cli import generate_video_vis
+    from supnerf_tpu_torch.utils.gif import write_gif
+    from supnerf_tpu_torch.utils.image_io import read_png as port_read_png
+
+    run = os.path.join(out_dir, "vis2")
+    counts = _vis_run(run, 2, 1, VIS2_COUNTS)
+    written, text = _printed(lambda: generate_video_vis.main([run, "--fps", "10"]))
+    folders = [d for d in os.listdir(run) if os.path.isdir(os.path.join(run, d))]
+    if len(folders) != 1 or len(written) != 1:
+        raise RuntimeError(f"(d): wrote {written} for the folders {folders}")
+    frame_files = sorted(f for f in os.listdir(os.path.join(run, folders[0]))
+                         if f.startswith("opt"))
+    path = written[0]
+    if path.endswith(".mp4"):
+        print(f"   (d) ffmpeg ran: {path}, {os.path.getsize(path)} bytes")
+        if os.path.getsize(path) == 0:
+            raise RuntimeError("(d): ffmpeg wrote an empty file")
+        if shutil.which("ffprobe"):
+            n = subprocess.run(["ffprobe", "-v", "error", "-count_frames", "-select_streams",
+                                "v:0", "-show_entries", "stream=nb_read_frames", "-of",
+                                "csv=p=0", path], capture_output=True, text=True).stdout.strip()
+            if n != str(len(frame_files)):
+                raise RuntimeError(f"(d): the mp4 holds {n} frames, not {len(frame_files)}")
+            print(f"   (d) ffprobe counts {n} frames")
+    else:
+        print(f"   (d) no ffmpeg here: the GIF writer ran ({path})")
+    frames = [port_read_png(os.path.join(run, folders[0], f), mode="RGB") for f in frame_files]
+    gif = os.path.join(out_dir, "timed.gif")
+    t0 = time.perf_counter()
+    write_gif(gif, frames, 10)
+    seconds = time.perf_counter() - t0
+    for p in [gif] + [p for p in written if p.endswith(".gif")]:
+        n, delays = gif_frames(p)
+        if n != len(frame_files) or delays != [10] * n:
+            raise RuntimeError(f"(d): {p} holds {n} frames with delays {set(delays)}, expected "
+                               f"{len(frame_files)} of 10 cs")
+    print(f"   (d) the GIF writer: {len(frames)} frames of {frames[0].shape[1]} x "
+          f"{frames[0].shape[0]} in {seconds:.2f} s ({seconds / len(frames):.4f} s a frame, "
+          f"{os.path.getsize(gif)} bytes), {len(frames)} frames of 10 cs counted")
+    return counts
+
+
+def qa_path(out_dir):
+    """(e) The nuScenes reader on the phase-9 fixture (1600 x 900 JPEGs)
+    with debug=True: a QA panel per sample at {anntoken}_{camera}.png, one
+    decoded by read_png; the panel's seconds a sample; then
+    dataset_statistics with a visibility table added to the fixture: the
+    JAX function's keys, the levels, and both histograms' JSON."""
+    import numpy as np
+
+    from supnerf_tpu_torch.config import load_hpams
+    from supnerf_tpu_torch.data.debug import dataset_statistics, debug_sample_panel
+    from supnerf_tpu_torch.data.nuscenes import NuScenesData
+
+    root = os.path.join(out_dir, "nuscenes")
+    write_nusc_fixture(root)
+    tables = os.path.join(root, "v1.0-mini")
+    with open(os.path.join(tables, "sample_annotation.json")) as f:
+        anns = json.load(f)
+    for i, a in enumerate(anns):
+        a["visibility_token"] = str(1 + i % 4)
+    with open(os.path.join(tables, "sample_annotation.json"), "w") as f:
+        json.dump(anns, f)
+    with open(os.path.join(tables, "visibility.json"), "w") as f:
+        json.dump([{"token": str(k), "level": lvl, "description": ""} for k, lvl in
+                   enumerate(["v0-40", "v40-60", "v60-80", "v80-100"], 1)], f)
+    cfg = _config_copy(out_dir, "supnerf.nusc.vehicle.car.json",
+                       {"test_data_dir": root, "test_nusc_version": "v1.0-mini"})
+    dbg = os.path.join(out_dir, "debug_vis")
+    ds = NuScenesData(load_hpams(cfg), split="val", add_pose_err=1, debug=True, debug_dir=dbg)
+    t0 = time.perf_counter()
+    samples = [ds[i] for i in range(len(ds))]
+    with_panels = time.perf_counter() - t0
+    want = sorted(f"{a}_{c}.png" for a, c in ds.all_valid_samples)
+    if not samples or sorted(os.listdir(dbg)) != want:
+        raise RuntimeError(f"(e): panels {sorted(os.listdir(dbg))}, expected {want}")
+    img = read_png(os.path.join(dbg, want[0]))
+    if img.shape != (900, 3200, 3):
+        raise RuntimeError(f"(e): the panel decodes to {img.shape}")
+    t0 = time.perf_counter()
+    panels = [debug_sample_panel(s) for s in samples]
+    panel_s = (time.perf_counter() - t0) / len(samples)
+    if not all(p.shape == (900, 3200, 3) for p in panels):
+        raise RuntimeError("(e): a panel has another shape")
+    print(f"   (e) {len(samples)} samples read with debug=True in {with_panels:.2f} s; a QA "
+          f"panel alone {panel_s:.3f} s a sample (1600 x 900, the boxes, the ROI and "
+          f"{np.mean([len(s['lidar_u']) for s in samples]):.0f} lidar points a sample)")
+    ds.debug = False
+    stats_dir = os.path.join(out_dir, "stats")
+    t0 = time.perf_counter()
+    stats = dataset_statistics(ds, stats_dir, print_every=0)
+    keys = {"n_samples", "wlh_mean", "wlh_std", "dist_mean", "level_label", "levels"}
+    files = sorted(os.listdir(stats_dir))
+    if (set(stats) != keys or stats["n_samples"] != len(samples)
+            or files != ["nuscenesdata_dist_hist.json", "nuscenesdata_vis_hist.json"]):
+        raise RuntimeError(f"(e): statistics {stats}, files {files}")
+    with open(os.path.join(stats_dir, "nuscenesdata_vis_hist.json")) as f:
+        vis_hist = json.load(f)
+    if sum(vis_hist["counts"]) != len(samples):
+        raise RuntimeError(f"(e): the visibility histogram {vis_hist}")
+    print(f"   (e) dataset_statistics in {time.perf_counter() - t0:.2f} s: wlh mean "
+          f"{np.round(stats['wlh_mean'], 3).tolist()}, dist mean {stats['dist_mean']:.3f} m, "
+          f"visibility levels {stats['levels']}; {files}")
+
+
+def profile_path(out_dir):
+    """(f) The TTO cell through the CLI without and with --profile_dir: the
+    trace's render_fwd_kernel and render_bwd_kernel events must equal the
+    launch counters over the traced span (TTODriver.run, the span JAX's
+    maybe_profile wraps: K1 200, K2 96; the cross-view evaluation after it
+    launches K1 twice more); the traced run's tto_loop beside the untraced
+    one's (the profiler's overhead). Returns the launch counts of both
+    runs."""
+    import torch
+
+    from supnerf_tpu_torch.cli import optimize
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.tto.driver import TTODriver
+
+    counts, loops, in_span = {}, {}, {}
+    cross_view = TTODriver.eval_cross_view
+
+    def after_span(self, *a, **k):
+        in_span.update({c: render.LAUNCHES[c] for c in PROFILED_KERNELS})
+        return cross_view(self, *a, **k)
+
+    TTODriver.eval_cross_view = after_span
+    try:
+        for label, extra in (("untraced", []), ("traced", ["--profile_dir",
+                                                           os.path.join(out_dir, "trace")])):
+            render.reset_launch_counts()
+            t0 = time.perf_counter()
+            summary = optimize.main(["--config_file", PUBLISHED, "--dataset", "synthetic",
+                                     "--num_objects", "2", "--batch_size", "2", "--device",
+                                     "cuda", "--seed", "0", "--save_dir",
+                                     os.path.join(out_dir, label)] + extra)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts[label] = _exact_counts(f"(f) TTO {label}", OPTION_COUNTS)
+            loops[label] = summary["phase_seconds"]["tto_loop"]
+            print(f"   (f) TTO {label}: {seconds:.2f} s through the CLI ({2 * 60 / seconds:.1f} "
+                  f"objects/min, the trace's export included), tto_loop {loops[label]:.3f} s")
+    finally:
+        TTODriver.eval_cross_view = cross_view
+    t0 = time.perf_counter()
+    with open(os.path.join(out_dir, "trace", "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    traced = {c: sum(name in e.get("name", "") for e in kernels)
+              for c, name in PROFILED_KERNELS.items()}
+    print(f"   (f) trace.json: {len(events)} events, {len(kernels)} kernel events (read in "
+          f"{time.perf_counter() - t0:.2f} s); {PROFILED_KERNELS['render_fwd']} "
+          f"{traced['render_fwd']}, {PROFILED_KERNELS['render_bwd']} {traced['render_bwd']}; "
+          f"the counters over the traced span {in_span}")
+    if traced != in_span or min(traced.values()) == 0:
+        raise RuntimeError(f"(f): the trace holds {traced} kernel launches, the counters "
+                           f"{in_span}")
+    print(f"   (f) the profiler's overhead on tto_loop: {loops['traced']:.3f} s against "
+          f"{loops['untraced']:.3f} s ({(loops['traced'] / loops['untraced'] - 1) * 100:+.1f} %)")
+    return {"profile_untraced": counts["untraced"], "profile_traced": counts["traced"]}
+
+
+def last_module_paths(train_counts):
+    """Phase 14. Returns the launch counts per cell."""
+    counts = _in_temp_dir(lambda d: instance_norm_paths(d, train_counts))
+    t0 = time.perf_counter()
+    counts["autorf_original_opt_model"] = _in_temp_dir(autorf_opt_model_path)
+    print(f"   (c): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts["vis2_video"] = _in_temp_dir(video_path)
+    print(f"   (d): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    _in_temp_dir(qa_path)
+    print(f"   (e): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    counts.update(_in_temp_dir(profile_path))
+    print(f"   (f): {time.perf_counter() - t0:.2f} s")
+    return counts
+
+
 def kernel_records(tto_records, train_records, aabb_records, field_records,
                    train_kernel_records, train_field_extra, codenerf_extra, counts_by_path):
     """One record per launch counter, launches from the path that runs it
@@ -3447,6 +3792,12 @@ def main():
                "(d) a resume without optimizer state, (e) batch 48")
     training_counts = _in_temp_dir(rest_of_training_paths)
     done(t0, "the rest of training")
+    t0 = phase("the last modules: (a) run_tto_batch with BatchNorm and InstanceNorm encoders, "
+               "(b) InstanceNorm training, (c) "
+               "opt_model on the original AutoRF, (d) the frame video, (e) dataset QA, "
+               "(f) --profile_dir")
+    last_counts = last_module_paths(train_counts)
+    done(t0, "the last modules")
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
                              train_kernel_records, train_field_extra, codenerf_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
@@ -3454,7 +3805,7 @@ def main():
                               "train_render_data": render_data_counts,
                               "train_field": field_train_counts, **dataset_counts,
                               **baseline_counts, **driver_counts, **vis_counts,
-                              **training_counts})
+                              **training_counts, **last_counts})
     records_by_name = {r["name"]: r for r in records}
     records_by_name["render_fwd"].update(vis_kernels)
     records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms

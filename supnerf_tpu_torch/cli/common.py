@@ -1,15 +1,18 @@
 """CLI plumbing: arguments, model loading and the datasets (synthetic,
 nuScenes, KITTI, Waymo); the parts of supnerf_tpu/cli/common.py the
-optimize and train entry points need."""
+optimize and train entry points need, with the JAX CLIs' device and
+profiler flags (add_device_args, device_from_args, maybe_profile)."""
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 
 import numpy as np
 import torch
 
 from supnerf_tpu_torch.data.synthetic import make_synthetic_object
+from supnerf_tpu_torch.device import resolve_device
 from supnerf_tpu_torch.models.factory import build_model, init_model
 
 
@@ -24,11 +27,47 @@ def str2bool(v) -> bool:
     raise argparse.ArgumentTypeError("Boolean value expected.")
 
 
+def add_device_args(p: argparse.ArgumentParser):
+    """--device, --profile_dir, and the JAX CLIs' --devices, --gpu and
+    --coordinator (JAX cli/common.py add_common_args), which are accepted so
+    that a reference command line runs and select nothing: the port runs on
+    one card, and device_from_args refuses more (ROADMAP.md §A.13)."""
+    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
+                   help="cuda (default; fails without a card) or cpu")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler Chrome trace of the run to DIR/trace.json")
+    for flag in ("--devices", "--gpu"):
+        p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--coordinator", type=str, default=None, help=argparse.SUPPRESS)
+    return p
+
+
+def device_from_args(args) -> torch.device:
+    """The entry point's device (device.resolve_device(--device)). --devices
+    other than 1 and a coordinator (--coordinator or JAX_COORDINATOR_ADDRESS)
+    raise ValueError before any work, rather than run on fewer devices."""
+    coordinator = args.coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
+    if args.devices not in (None, 1) or coordinator:
+        raise ValueError(f"--devices {args.devices}, coordinator {coordinator!r}: the port runs "
+                         "on one card; data parallelism over several cards or hosts is not "
+                         "ported (ROADMAP.md §A.13, multi-GPU)")
+    return resolve_device(args.device)
+
+
+def maybe_profile(args):
+    """utils.profiling.trace(--profile_dir) when the flag is given, else a
+    context that does nothing (JAX cli/common.py maybe_profile)."""
+    if args.profile_dir:
+        from supnerf_tpu_torch.utils.profiling import trace
+
+        return trace(args.profile_dir)
+    return contextlib.nullcontext()
+
+
 def add_optimize_args(p: argparse.ArgumentParser):
     p.add_argument("--config_file", type=str, default="supnerf.nusc.vehicle.car.json")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="cuda (default; fails without a card) or cpu")
+    add_device_args(p)
     p.add_argument("--model_epoch", type=int, default=None)
     p.add_argument("--init_rot_err", type=float, default=None,
                    help="initial rotation error in radians (add_pose_err 1); default 0.0 "
@@ -38,6 +77,7 @@ def add_optimize_args(p: argparse.ArgumentParser):
                         "(nuScenes) / 0.01 (cli.optimize_kitti, cli.optimize_waymo)")
     p.add_argument("--rand_angle_lim", type=float, default=0.0)
     p.add_argument("--seg_source", type=str, default="instance")
+    p.add_argument("--num_workers", type=int, default=0, help=argparse.SUPPRESS)
     p.add_argument("--nusc-version", dest="nusc_version", type=str, default=None)
     p.add_argument("--add_pose_err", type=int, default=2, choices=[0, 1, 2, 3])
     p.add_argument("--reg_iters", type=int, default=3)

@@ -10,7 +10,9 @@ utils/image_io.py says why not a GIF) into --save_dir, beside the TTO
 driver's codes+poses files. --dataset nusc --img_name <file name> takes
 every car the segmentation found in that camera image of the config's
 nuScenes test data (data.nuscenes.get_objects_in_image); --dataset
-synthetic builds a 900 x 1600 scene of three synthetic cars.
+synthetic builds a 900 x 1600 scene of three synthetic cars. The device
+flags are the optimize CLI's; --profile_dir is accepted and traces
+nothing, as in the JAX demo.
 """
 from __future__ import annotations
 
@@ -22,10 +24,13 @@ import time
 import numpy as np
 import torch
 
-from supnerf_tpu_torch.cli.common import load_model_and_codes
+from supnerf_tpu_torch.cli.common import (
+    add_device_args,
+    device_from_args,
+    load_model_and_codes,
+)
 from supnerf_tpu_torch.config import find_config, load_hpams
 from supnerf_tpu_torch.data.synthetic import make_synthetic_object
-from supnerf_tpu_torch.device import resolve_device
 from supnerf_tpu_torch.ops.render import conditioned_latents, decoder_plain
 from supnerf_tpu_torch.render.compositor import render_scene_window, scene_window_from_objects
 from supnerf_tpu_torch.tto.driver import TTODriver, tto_config_from_hpams
@@ -57,8 +62,7 @@ def main(argv=None):
     p = argparse.ArgumentParser("supnerf_tpu_torch demo")
     p.add_argument("--config_file", type=str, default="hpam_demo.json")
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="cuda (default; fails without a card) or cpu")
+    add_device_args(p)
     p.add_argument("--dataset", type=str, default="synthetic", help="synthetic or nusc")
     p.add_argument("--img_name", type=str, default=None,
                    help="the nuScenes camera image to run on (--dataset nusc)")
@@ -73,7 +77,7 @@ def main(argv=None):
                          "JAX demo")
     if args.dataset == "nusc" and not args.img_name:
         raise ValueError("--dataset nusc needs --img_name")
-    device = resolve_device(args.device)
+    device = device_from_args(args)
     hpams = load_hpams(find_config(args.config_file))
     if args.num_opts:
         hpams["optimize"]["num_opts"] = args.num_opts

@@ -20,7 +20,11 @@ panels (opt{t:03d}.png, virt_final.png) into <save_dir>/<annotation>_<camera>/
 and fills ssim_eval. From the config, as in the JAX
 CLI: the regularisers "sym_aug": 1 and "obj_sz_reg": 1 (with
 "loss_obj_sz_coef"), and the pose parameters "euler_rot": 1 and
-"optimize": {"opt_cam_pose": 1}.
+"optimize": {"opt_cam_pose": 1}. --device cuda|cpu; --profile_dir DIR
+writes a torch.profiler trace of the optimization (the span JAX's
+maybe_profile wraps) to DIR/trace.json. The JAX CLI's --devices, --gpu,
+--coordinator and --num_workers are accepted and select nothing
+(cli/common.add_device_args).
 """
 from __future__ import annotations
 
@@ -32,10 +36,11 @@ from supnerf_tpu_torch.cli.common import (
     add_optimize_args,
     build_dataset,
     dataset_name,
+    device_from_args,
     load_model_and_codes,
+    maybe_profile,
 )
 from supnerf_tpu_torch.config import find_config, load_hpams
-from supnerf_tpu_torch.device import resolve_device
 from supnerf_tpu_torch.eval.aggregate import (
     collect_eval_results,
     figure_entry,
@@ -90,7 +95,7 @@ def main(argv=None):
     translation was taken), 'multiview' (the multiview results dict)}."""
     p = argparse.ArgumentParser("supnerf_tpu_torch optimize")
     args = add_optimize_args(p).parse_args(argv)
-    device = resolve_device(args.device)
+    device = device_from_args(args)
     hpams = load_hpams(find_config(args.config_file))
     ds_name = dataset_name(hpams, args)
     model, mean_shape, mean_texture = load_model_and_codes(hpams, device, args.model_epoch,
@@ -118,9 +123,11 @@ def main(argv=None):
             setattr(driver, key, saved[key])
         driver.code_level = saved.get("code_level", 2)
     elif args.opt_multiview:
-        summary["multiview"] = driver.run_multiview(opt_pose=args.opt_pose > 0)
+        with maybe_profile(args):
+            summary["multiview"] = driver.run_multiview(opt_pose=args.opt_pose > 0)
     else:
-        driver.run()
+        with maybe_profile(args):
+            driver.run()
     if not args.opt_multiview:
         cross = driver.eval_cross_view() if ds_name in ("nusc", "synthetic") else None
         agg = collect_eval_results(

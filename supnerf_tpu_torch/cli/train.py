@@ -21,7 +21,11 @@ epoch_{n}.pth, models.pth, epoch_{n}_optim.pth, instoken2idx.json and
 hpam.json into --save_dir, and the training log into --save_dir/runs/:
 metrics.jsonl (one line of losses per step) and train_panel_{step:07d}.png
 (a [render | target] panel every --check_iter steps);
---resume_from_epoch continues from a checkpoint.
+--resume_from_epoch continues from a checkpoint. --device cuda|cpu;
+--profile_dir DIR writes a torch.profiler trace of the training loop (the
+span JAX's maybe_profile wraps) to DIR/trace.json. The JAX CLI's --devices,
+--gpu, --coordinator and --gpus (taken as --devices where that is not
+given) are accepted and select nothing (cli/common.add_device_args).
 """
 from __future__ import annotations
 
@@ -30,9 +34,15 @@ import os
 import time
 from datetime import date
 
-from supnerf_tpu_torch.cli.common import build_dataset, str2bool
+from supnerf_tpu_torch.cli.common import (
+    add_device_args,
+    build_dataset,
+    device_from_args,
+    maybe_profile,
+    str2bool,
+)
 from supnerf_tpu_torch.config import find_config, load_hpams
-from supnerf_tpu_torch.device import deterministic_cudnn, resolve_device
+from supnerf_tpu_torch.device import deterministic_cudnn
 from supnerf_tpu_torch.models.factory import build_model, init_model
 from supnerf_tpu_torch.training.trainer import UnifiedTrainer
 
@@ -45,8 +55,8 @@ def add_train_args(p: argparse.ArgumentParser):
     p.add_argument("--resume_from_epoch", type=int, default=None)
     p.add_argument("--resume_dir", type=str, default=None)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
-                   help="cuda (default; fails without a card) or cpu")
+    add_device_args(p)
+    p.add_argument("--gpus", type=int, default=None, help=argparse.SUPPRESS)
     p.add_argument("--dataset", type=str, default=None,
                    help="nusc (split train) or synthetic (default: the config's)")
     p.add_argument("--nusc-version", dest="nusc_version", type=str, default=None)
@@ -87,7 +97,9 @@ def main(argv=None):
         raise ValueError(f"--im_enc_rate {args.im_enc_rate}: a rate in [0, 1]")
     if args.num_workers < 0:
         raise ValueError("--num_workers: 0 or more")
-    device = resolve_device(args.device)
+    if args.devices is None and args.gpus:
+        args.devices = args.gpus
+    device = device_from_args(args)
     hpams = load_hpams(find_config(args.config_file))
     if args.render_sz:
         hpams["render_sz"] = args.render_sz
@@ -110,7 +122,7 @@ def main(argv=None):
     if args.resume_from_epoch is not None:
         trainer.resume_from_epoch(args.resume_dir or save_dir, args.resume_from_epoch)
     t0 = time.perf_counter()
-    with deterministic_cudnn():
+    with deterministic_cudnn(), maybe_profile(args):
         trainer.train(args.epochs, num_workers=args.num_workers)
     seconds = time.perf_counter() - t0
     steps = len(trainer.metrics_history)

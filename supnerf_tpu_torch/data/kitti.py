@@ -16,6 +16,10 @@ from the reader's numpy generator, as the JAX reader does, and seed a CPU
 torch.Generator with it for geometry.poses.get_random_pose2; the JAX reader
 seeds a JAX key with it, so the bits of that pose differ (ROADMAP.md C.11).
 The TTO driver reads the reader's pose in mode 3 only.
+
+debug=True writes each sample's QA panel (data/debug.debug_sample_panel,
+KITTI's corner convention) to debug_dir/{NAME}_{data_idx}_{obj_idx}.png as
+the JAX reader does.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import os
 import numpy as np
 import torch
 
+from supnerf_tpu_torch.data.debug import debug_sample_panel
 from supnerf_tpu_torch.data.common import (
     get_associate_box_3d,
     get_mask_occ_from_ins,
@@ -72,7 +77,8 @@ class KittiData:
                  add_pose_err: int = 0, init_rot_err: float = 0.2,
                  init_trans_err: float = 0.01, rand_angle_lim: float = 0.0,
                  pred_box2d: bool = False, box2d_rz_ratio: float = 1.2,
-                 data_dir: str | None = None, seed: int = 0):
+                 data_dir: str | None = None, seed: int = 0, debug: bool = False,
+                 debug_dir: str = "debug_vis"):
         ds_cfg = hpams["dataset"]
         self.cat = ds_cfg.get(f"{self.NAME}_cat", "Car")
         self.seg_cat = ds_cfg.get("seg_cat", "car")
@@ -90,6 +96,7 @@ class KittiData:
         self.pred_box2d = pred_box2d
         self.box2d_rz_ratio = box2d_rz_ratio
         self.out_gt_depth = out_gt_depth
+        self.debug, self.debug_dir = debug, debug_dir
         self.rng = np.random.default_rng(seed)
 
         sub = "training" if split != "test" else "testing"
@@ -211,6 +218,13 @@ class KittiData:
         else:
             sample["lidar_u"] = sample["lidar_v"] = sample["lidar_depth"] = \
                 np.zeros(0, np.float32)
+        if self.debug:
+            lidar_cnt = self.sample_attr[data_idx][obj_idx].get("lidar_cnt", -1)
+            print(f"        obj {data_idx}/{obj_idx}: occlusion {obj.occlusion}, "
+                  f"lidar pts cnt: {lidar_cnt}")
+            # the poses are in the KITTI object frame: KITTI's corner convention
+            debug_sample_panel(sample, is_kitti=True, save_path=os.path.join(
+                self.debug_dir, f"{self.NAME}_{data_idx}_{obj_idx}.png"))
         return sample
 
     def _pose_with_err(self, sample, K, obj_pose, ins_masks, tgt_id, data_idx, calib):

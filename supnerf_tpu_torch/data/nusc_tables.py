@@ -5,7 +5,8 @@ surface for the JAX package's tests).
 
 NuScenes(version, dataroot) reads <dataroot>/<version>/*.json in nuScenes'
 own schema (scene, log, sample, sample_data, sample_annotation, instance,
-category, calibrated_sensor, ego_pose, sensor) and builds the devkit's
+category, calibrated_sensor, ego_pose, sensor; visibility where the file
+exists, for the dataset QA) and builds the devkit's
 reverse index: sample_data["channel"] and ["sensor_modality"] through
 calibrated_sensor -> sensor, sample["data"] = {channel: token} over the
 key-frame sample_data, and sample["anns"]. It offers get, field2token
@@ -25,6 +26,8 @@ import numpy as np
 
 TABLES = ("category", "sensor", "calibrated_sensor", "ego_pose", "log", "scene", "sample",
           "sample_data", "sample_annotation", "instance")
+# read where present: the dataset QA's visibility level (data/debug.py)
+OPTIONAL_TABLES = ("visibility",)
 
 
 class BoxVisibility:
@@ -119,10 +122,12 @@ class NuScenes:
         table_root = os.path.join(dataroot, version)
         if not os.path.isdir(table_root):
             raise FileNotFoundError(f"no nuScenes tables at {table_root}")
-        for name in TABLES:
+        names = list(TABLES) + [n for n in OPTIONAL_TABLES
+                                if os.path.exists(os.path.join(table_root, n + ".json"))]
+        for name in names:
             with open(os.path.join(table_root, name + ".json")) as f:
                 setattr(self, name, json.load(f))
-        self._token2row = {name: {r["token"]: r for r in getattr(self, name)} for name in TABLES}
+        self._token2row = {name: {r["token"]: r for r in getattr(self, name)} for name in names}
         self._field_index = {}
         for rec in self.sample_data:
             cs = self.get("calibrated_sensor", rec["calibrated_sensor_token"])

@@ -27,6 +27,9 @@ from the reader's numpy generator, as the JAX reader does, so the stream
 stays aligned, and seeds a CPU torch.Generator with it for
 geometry.poses.get_random_pose2; the bits of that pose differ from the JAX
 reader's (ROADMAP.md C.11). The TTO driver reads it in mode 3 only.
+
+debug=True writes each sample's QA panel (data/debug.debug_sample_panel)
+to debug_dir/{anntoken}_{camera}.png as the JAX reader does.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ import os
 import numpy as np
 
 from supnerf_tpu_torch.data import nusc_tables
+from supnerf_tpu_torch.data.debug import debug_sample_panel
 from supnerf_tpu_torch.data.common import (
     NUSC_CAR_WLH_MEAN,
     get_associate_box_3d,
@@ -87,7 +91,8 @@ class NuScenesData:
                  pred_box2d: bool = False, box2d_rz_ratio: float = 1.2,
                  num_subset: int = 1, id_subset: int = 0,
                  data_dir: str | None = None, seg_dir: str | None = None,
-                 nusc_version: str | None = None, seed: int = 0, tables=nusc_tables):
+                 nusc_version: str | None = None, seed: int = 0, tables=nusc_tables,
+                 debug: bool = False, debug_dir: str = "debug_vis"):
         ds_cfg = hpams["dataset"]
         self.nusc_cat = ds_cfg["nusc_cat"]
         self.seg_cat = ds_cfg.get("seg_cat", "car")
@@ -106,6 +111,7 @@ class NuScenesData:
         self.pred_box2d = pred_box2d
         self.box2d_rz_ratio = box2d_rz_ratio
         self.out_gt_depth = out_gt_depth
+        self.debug, self.debug_dir = debug, debug_dir
         self.rng = np.random.default_rng(seed)
         self.box_vis_all = tables.BoxVisibility.ALL
 
@@ -282,6 +288,16 @@ class NuScenesData:
         else:
             sample["lidar_u"] = sample["lidar_v"] = sample["lidar_depth"] = \
                 np.zeros(0, np.float32)
+        if self.debug:
+            lidar_cnt = self.sample_attr[anntoken][cam].get("lidar_cnt", -1)
+            print(f"        tgt instance id: {tgt_id}, lidar pts cnt: {lidar_cnt} ")
+            try:
+                vis_rec = self.nusc.get("visibility", ann["visibility_token"])
+                print(f"        Visibility: {vis_rec}")
+            except (KeyError, AttributeError):
+                pass  # tables without a visibility table
+            debug_sample_panel(sample, save_path=os.path.join(self.debug_dir,
+                                                              f"{anntoken}_{cam}.png"))
         return sample
 
     def _pose_with_err(self, sample, K, obj_pose, masks, tgt_id, data_path):

@@ -24,10 +24,11 @@ class AutoRF(AutoRFDecoder):
     encode_img(img) -> (shape_feat, texture_feat)."""
 
     def __init__(self, shape_blocks: int = 5, texture_blocks: int = 5, latent_dim: int = 128,
-                 num_xyz_freq: int = 10, num_dir_freq: int = 4):
+                 num_xyz_freq: int = 10, num_dir_freq: int = 4,
+                 norm_layer_type: str = "BatchNorm2d"):
         super().__init__(shape_blocks, texture_blocks, latent_dim, num_xyz_freq, num_dir_freq)
         self.latent_dim = latent_dim
-        self.img_encoder = ImgEncoder(latent_dim, heads=HEADS)
+        self.img_encoder = ImgEncoder(latent_dim, heads=HEADS, norm_layer_type=norm_layer_type)
 
     def encode_img(self, img):
         out = self.img_encoder(img)
@@ -39,11 +40,12 @@ class AutoRFMix(CodeNeRFDecoder):
     latent_dim); encode_img(img) -> (shapecode, texturecode)."""
 
     def __init__(self, shape_blocks: int = 5, texture_blocks: int = 5, latent_dim: int = 128,
-                 num_xyz_freq: int = 10, num_dir_freq: int = 4):
+                 num_xyz_freq: int = 10, num_dir_freq: int = 4,
+                 norm_layer_type: str = "BatchNorm2d"):
         super().__init__(shape_blocks, texture_blocks, latent_dim, latent_dim, num_xyz_freq,
                          num_dir_freq)
         self.latent_dim = latent_dim
-        self.img_encoder = ImgEncoder(latent_dim, heads=HEADS)
+        self.img_encoder = ImgEncoder(latent_dim, heads=HEADS, norm_layer_type=norm_layer_type)
 
     def encode_img(self, img):
         out = self.img_encoder(img)

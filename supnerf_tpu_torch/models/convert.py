@@ -9,7 +9,10 @@ every arch of models/factory.py.
 
 Layouts: flax conv kernels (H, W, I, O) -> torch (O, I, H, W); dense kernels
 (I, O) -> (O, I); BatchNorm scale/bias -> weight/bias, batch_stats
-mean/var -> running_mean/running_var, plus num_batches_tracked.
+mean/var -> running_mean/running_var, plus num_batches_tracked. An
+InstanceNorm encoder (norm_layer_type InstanceNorm2d) has neither
+parameters nor statistics for its norms, in flax as in torch: only its
+convolutions and dense layers are carried.
 """
 from __future__ import annotations
 
@@ -31,6 +34,8 @@ def _dense(out, name, p):
 
 
 def _bn(out, name, p, bs):
+    if p is None:                       # an InstanceNorm: nothing to carry
+        return
     out[f"{name}.weight"] = _t(p["scale"])
     out[f"{name}.bias"] = _t(p["bias"])
     out[f"{name}.running_mean"] = _t(bs["mean"])
@@ -40,14 +45,14 @@ def _bn(out, name, p, bs):
 
 def _stage(out, prefix, params, stats):
     for i in range(len(params)):
-        p, bs, pre = params[f"BasicBlock_{i}"], stats[f"BasicBlock_{i}"], f"{prefix}.{i}"
+        p, bs, pre = params[f"BasicBlock_{i}"], stats.get(f"BasicBlock_{i}", {}), f"{prefix}.{i}"
         _conv(out, f"{pre}.conv1.weight", p["Conv_0"]["kernel"])
-        _bn(out, f"{pre}.bn1", p["BatchNorm_0"], bs["BatchNorm_0"])
+        _bn(out, f"{pre}.bn1", p.get("BatchNorm_0"), bs.get("BatchNorm_0"))
         _conv(out, f"{pre}.conv2.weight", p["Conv_1"]["kernel"])
-        _bn(out, f"{pre}.bn2", p["BatchNorm_1"], bs["BatchNorm_1"])
+        _bn(out, f"{pre}.bn2", p.get("BatchNorm_1"), bs.get("BatchNorm_1"))
         if "Conv_2" in p:
             _conv(out, f"{pre}.downsample.0.weight", p["Conv_2"]["kernel"])
-            _bn(out, f"{pre}.downsample.1", p["BatchNorm_2"], bs["BatchNorm_2"])
+            _bn(out, f"{pre}.downsample.1", p.get("BatchNorm_2"), bs.get("BatchNorm_2"))
 
 
 def convert_encoder(params, stats, heads=("shape", "texture", "pose"), pred_wlh=False):
@@ -55,19 +60,25 @@ def convert_encoder(params, stats, heads=("shape", "texture", "pose"), pred_wlh=
     pre = "img_encoder."
     out = {}
     _conv(out, pre + "conv1.weight", params["conv1"]["kernel"])
-    _bn(out, pre + "bn1", params["bn1"], stats["bn1"])
+    _bn(out, pre + "bn1", params.get("bn1"), stats.get("bn1"))
     for layer in ("layer1", "layer2", "layer3"):
-        _stage(out, pre + layer, params[layer], stats[layer])
+        _stage(out, pre + layer, params[layer], stats.get(layer, {}))
     for h in heads:
-        _stage(out, pre + f"layer4_{h}", params[f"layer4_{h}"], stats[f"layer4_{h}"])
+        _stage(out, pre + f"layer4_{h}", params[f"layer4_{h}"], stats.get(f"layer4_{h}", {}))
         _dense(out, pre + f"fc_{h}", params[f"fc_{h}"])
     if "pose" in heads:
         _dense(out, pre + "fc_uv", params["fc_uv"])
     if pred_wlh:
-        _stage(out, pre + "layer4_wlh", params["layer4_wlh"], stats["layer4_wlh"])
+        _stage(out, pre + "layer4_wlh", params["layer4_wlh"], stats.get("layer4_wlh", {}))
         _dense(out, pre + "fc_wlh.0", params["fc_wlh_hidden"])
         _dense(out, pre + "fc_wlh.2", params["fc_wlh_out"])
     return out
+
+
+def _encoder_stats(variables):
+    """The encoder's batch_stats subtree; empty for an InstanceNorm encoder,
+    whose flax variables have no batch_stats collection."""
+    return variables.get("batch_stats", {}).get("img_encoder", {})
 
 
 def convert_decoder(params, shape_blocks: int, texture_blocks: int):
@@ -113,7 +124,7 @@ def convert_supnerf_variables(variables, net_hyperparams: dict) -> dict:
     """JAX SUPNeRF variables -> this package's SUPNeRF state_dict."""
     hp = net_hyperparams
     params = variables["params"]
-    sd = convert_encoder(params["img_encoder"], variables["batch_stats"]["img_encoder"],
+    sd = convert_encoder(params["img_encoder"], _encoder_stats(variables),
                          pred_wlh=bool(hp.get("pred_wlh", 0)))
     sd.update(convert_decoder(params["decoder"], hp.get("shape_blocks", 5),
                               hp.get("texture_blocks", 5)))
@@ -127,7 +138,7 @@ def convert_autorfmix_variables(variables, net_hyperparams: dict) -> dict:
     package's AutoRFMix state_dict."""
     hp = net_hyperparams
     params = variables["params"]
-    sd = convert_encoder(params["img_encoder"], variables["batch_stats"]["img_encoder"],
+    sd = convert_encoder(params["img_encoder"], _encoder_stats(variables),
                          heads=("shape", "texture"))
     sd.update(convert_decoder(params["decoder"], hp.get("shape_blocks", 5),
                               hp.get("texture_blocks", 5)))
@@ -139,7 +150,7 @@ def convert_autorf_variables(variables, net_hyperparams: dict) -> dict:
     state_dict."""
     hp = net_hyperparams
     params = variables["params"]
-    sd = convert_encoder(params["img_encoder"], variables["batch_stats"]["img_encoder"],
+    sd = convert_encoder(params["img_encoder"], _encoder_stats(variables),
                          heads=("shape", "texture"))
     sd.update(convert_autorf_decoder(params["decoder"], hp.get("shape_blocks", 5),
                                      hp.get("texture_blocks", 5)))

@@ -1,5 +1,10 @@
 """Model construction from a config's 'arch' and 'net_hyperparams'; the port
-of supnerf_tpu/models/factory.py, with its defaults and its name mapping."""
+of supnerf_tpu/models/factory.py, with its defaults and its name mapping.
+
+net_hyperparams' field_dtype is refused unless float32 (ROADMAP C.21): the
+JAX factory turns "bfloat16" into a bf16 field, while the port's kernels
+compute float32 on 3xTF32, and a bf16 field would change the parity
+contract."""
 from __future__ import annotations
 
 import torch
@@ -12,9 +17,11 @@ from supnerf_tpu_torch.models.supnerf import SUPNeRF
 
 def build_model(arch: str, net_hyperparams: dict):
     hp = dict(net_hyperparams)
-    if arch != "codenerf" and hp.get("norm_layer_type", "BatchNorm2d") != "BatchNorm2d":
-        raise ValueError("only BatchNorm2d encoders are supported (every published config); "
-                         "InstanceNorm2d is queued in ROADMAP.md")
+    if hp.get("field_dtype") not in (None, "float32"):
+        raise ValueError(f"field_dtype {hp['field_dtype']!r}: the port's kernels compute "
+                         "float32 on 3xTF32 tensor cores, and a bf16 field would change the "
+                         "parity contract with the JAX package (ROADMAP C.21); use float32")
+    norm = {"norm_layer_type": hp.get("norm_layer_type", "BatchNorm2d")}
     freqs = {"num_xyz_freq": hp.get("num_xyz_freq", 10),
              "num_dir_freq": hp.get("num_dir_freq", 4)}
     if arch == "supnerf":
@@ -26,7 +33,7 @@ def build_model(arch: str, net_hyperparams: dict):
             latent_dim=hp.get("latent_dim", 256),
             pose_shortcut=bool(hp.get("pose_shortcut", 0)),
             pred_wlh=bool(hp.get("pred_wlh", 0)),
-            **freqs,
+            **freqs, **norm,
         )
     if arch in ("autorf", "autorfmix", "autorf_original"):
         # the published AutoRF baseline is the mix variant (AutoRF encoder +
@@ -34,7 +41,7 @@ def build_model(arch: str, net_hyperparams: dict):
         cls = AutoRF if arch == "autorf_original" else AutoRFMix
         return cls(shape_blocks=hp.get("shape_blocks", 5),
                    texture_blocks=hp.get("texture_blocks", 5),
-                   latent_dim=hp.get("latent_dim", 128), **freqs)
+                   latent_dim=hp.get("latent_dim", 128), **freqs, **norm)
     if arch == "codenerf":
         return CodeNeRF(shape_blocks=hp.get("shape_blocks", 2),
                         texture_blocks=hp.get("texture_blocks", 1),

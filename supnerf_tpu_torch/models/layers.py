@@ -45,6 +45,30 @@ class BatchStatNorm2d(nn.BatchNorm2d):
         return (x - mean) * scale + self.bias[:, None, None]
 
 
+class InstanceNorm2d(nn.InstanceNorm2d):
+    """InstanceNorm2d (affine=False, eps 1e-5, no running statistics): each
+    sample's channels normalised over H, W with the biased variance, as the
+    JAX package's InstanceNorm (supnerf_tpu/models/layers.py:70-81). The
+    statistics are computed here, because F.instance_norm refuses a 1 x 1
+    map in training mode where JAX gives zeros; it has no state_dict entry,
+    as torch's and the reference's."""
+
+    def forward(self, x):
+        var, mean = torch.var_mean(x, dim=(2, 3), unbiased=False, keepdim=True)
+        return (x - mean) * torch.rsqrt(var + self.eps)
+
+
+NORMS = {"BatchNorm2d": BatchStatNorm2d, "InstanceNorm2d": InstanceNorm2d}
+
+
+def norm_layer(norm_layer_type: str):
+    """The encoder's normalisation class of a config's norm_layer_type (JAX
+    encoder.make_norm)."""
+    if norm_layer_type not in NORMS:
+        raise ValueError(f"norm_layer_type {norm_layer_type!r}: one of {sorted(NORMS)}")
+    return NORMS[norm_layer_type]
+
+
 @contextlib.contextmanager
 def batch_stat_updates(module: nn.Module):
     """Within the block, every BatchStatNorm2d of `module` updates its

@@ -20,13 +20,15 @@ class SUPNeRF(CodeNeRFDecoder):
     def __init__(self, shape_blocks: int = 5, texture_blocks: int = 5,
                  pose_blocks: int = 3, regress_blocks: int = 3, latent_dim: int = 256,
                  num_xyz_freq: int = 10, num_dir_freq: int = 4,
-                 pose_shortcut: bool = False, pred_wlh: bool = False):
+                 pose_shortcut: bool = False, pred_wlh: bool = False,
+                 norm_layer_type: str = "BatchNorm2d"):
         super().__init__(shape_blocks, texture_blocks, latent_dim, latent_dim,
                          num_xyz_freq, num_dir_freq)
         self.latent_dim = latent_dim
         self.pred_wlh = pred_wlh
         self.img_encoder = ImgEncoder(latent_dim, pred_wlh=pred_wlh,
-                                      pose_shortcut=pose_shortcut)
+                                      pose_shortcut=pose_shortcut,
+                                      norm_layer_type=norm_layer_type)
         add_refiner_layers(self, pose_blocks, regress_blocks, latent_dim, 16, latent_dim)
 
     def forward(self, xyz, viewdir, shapecode, texturecode):

@@ -148,6 +148,17 @@ class TTODriver:
         if opt_pose == 2 and not hasattr(model, "pose_update"):
             raise ValueError("opt_pose 2 solves PnP on the encoder's box-corner prediction, "
                              f"which {type(model).__name__} does not make (SUP-NeRF does)")
+        # the reference pairs non-BatchNorm encoders with a variable-size
+        # keep-ratio crop (preprocess_img_keepratio(max_img_sz),
+        # optimizer_nuscenes.py:179), which neither package prepares; the
+        # JAX driver refuses such a config rather than substitute the square
+        # crop, and so does this one (ROADMAP C.22)
+        norm = hpams.get("net_hyperparams", {}).get("norm_layer_type", "BatchNorm2d")
+        if norm != "BatchNorm2d":
+            raise ValueError(
+                f"norm_layer_type={norm!r}: the keep-ratio (max_img_sz) encoder preprocessing "
+                "the reference pairs with non-BatchNorm encoders needs dynamic input shapes; "
+                "use a BatchNorm2d config for TTO")
         self.device = resolve_device(str(device))
         self.model = model.to(self.device)
         self.wts = render_decoder(self.model)

@@ -11,9 +11,11 @@ the card), the shared codes expanded to V rows, so autograd sums their
 gradient over the views. JAX pads the views to v_max with weight-0 views
 for its compiled shape; the port renders the real views only, which gives
 JAX's loss and PSNR (a padded view carries weight 0). With opt_model the
-decoder is optimized too: a copy per instance (decoder_copy), rendered by
-ops.render.field_composite_train (K1, then K3's data mode and K4), so the
-model given stays as it was.
+decoder is optimized too: a copy per instance (decoder_copy), so the model
+given stays as it was. A kernel-compatible decoder is rendered by
+ops.render.field_composite_train (K1, then K3's data mode and K4); the
+original AutoRF's, which no kernel takes, by ops.render.decoder_composite
+under autograd, as its trainer and the JAX package's flax path run it.
 """
 from __future__ import annotations
 
@@ -22,8 +24,12 @@ import dataclasses
 import torch
 
 from supnerf_tpu_torch.geometry.boxes import invert_pose
-from supnerf_tpu_torch.models.nerf_mlp import CodeNeRFDecoder
-from supnerf_tpu_torch.ops.render import DecoderWeights, field_composite_train
+from supnerf_tpu_torch.models.nerf_mlp import AutoRFDecoder, CodeNeRFDecoder
+from supnerf_tpu_torch.ops.render import (
+    decoder_composite,
+    decoder_kernel_compatible,
+    field_composite_train,
+)
 from supnerf_tpu_torch.ops.volume_render import masked_psnr, occupancy_loss, rgb_loss_masked
 from supnerf_tpu_torch.optim import AdamW
 from supnerf_tpu_torch.render.renderer import render_rays_frustum
@@ -57,17 +63,29 @@ class MultiviewBatch:
                       for f in dataclasses.fields(cls)})
 
 
-def decoder_copy(model) -> CodeNeRFDecoder:
-    """A CodeNeRFDecoder holding copies of `model`'s decoder layers (a
-    kernel-compatible model keeps them under the reference names), on its
-    device: opt_model's per-instance decoder."""
-    W = model.encoding_shape.weight.shape[0]
-    latent = model.get_submodule("shape_latent_layer_1.0").weight.shape[1]
-    dec = CodeNeRFDecoder(model.shape_blocks, model.texture_blocks, W, latent,
-                          model.num_xyz_freq, model.num_dir_freq)
+def decoder_copy(model):
+    """opt_model's per-instance decoder, on `model`'s device: a
+    CodeNeRFDecoder holding copies of a kernel-compatible model's decoder
+    layers, or an AutoRFDecoder holding the original AutoRF's (both models
+    keep them at the top level under the reference names). Any other
+    decoder raises ValueError."""
+    if decoder_kernel_compatible(model):
+        W = model.encoding_shape.weight.shape[0]
+        latent = model.get_submodule("shape_latent_layer_1.0").weight.shape[1]
+        dec = CodeNeRFDecoder(model.shape_blocks, model.texture_blocks, W, latent,
+                              model.num_xyz_freq, model.num_dir_freq)
+    elif isinstance(model, AutoRFDecoder):
+        dec = AutoRFDecoder(model.shape_blocks, model.texture_blocks,
+                            model.encoding_xyz[0].weight.shape[0], model.num_xyz_freq,
+                            model.num_dir_freq)
+    else:
+        raise ValueError(f"opt_model: {type(model).__name__} with {model.shape_blocks} shape "
+                         f"and {model.texture_blocks} texture blocks is neither a decoder the "
+                         "kernels take (ops.render.decoder_kernel_compatible) nor the "
+                         "original AutoRF's")
     own = model.state_dict()
     dec.load_state_dict({k: own[k].detach().clone() for k in dec.state_dict()}, strict=True)
-    return dec.to(model.encoding_shape.weight.device)
+    return dec.to(model.encoding_xyz[0].weight.device)
 
 
 def multiview_loss(wts, sc, tc, pose, batch: MultiviewBatch, cfg: TTOConfig, *, dec=None,
@@ -77,14 +95,18 @@ def multiview_loss(wts, sc, tc, pose, batch: MultiviewBatch, cfg: TTOConfig, *, 
     occupancy loss, and the mean PSNR. sc (latent,); tc (latent,), or with
     slack_tex's residuals added (V, latent); pose (V, 3, 4) object poses.
     wts: tto.core.render_decoder(model); with dec (opt_model's
-    CodeNeRFDecoder) the render runs through field_composite_train instead
-    (K1, then K3's data mode and K4), which gives dec's weights their
+    decoder_copy) the render runs through field_composite_train instead
+    (K1, then K3's data mode and K4), or for a decoder no kernel takes
+    through decoder_composite, either of which gives dec's weights their
     gradient. jitter: optional (V, S) uniform draws, else from `generator`."""
     V = len(batch.img_in)
     sc_v, tc_v = sc.expand(V, -1), tc.expand(V, -1)
-    if dec is not None:
+    if dec is not None and decoder_kernel_compatible(dec):
         def composite(xyz, vd, z):
             return field_composite_train(dec, xyz, vd, z, sc_v, tc_v, data_grads=True)
+    elif dec is not None:
+        def composite(xyz, vd, z):
+            return decoder_composite(dec, xyz, vd, z, sc_v, tc_v)
     else:
         composite = make_composite(wts, sc_v, tc_v)
     out = render_rays_frustum(
@@ -114,8 +136,8 @@ def run_multiview_tto(model, wts, batch: MultiviewBatch, mean_shape, mean_textur
     zeroed; without opt_pose they are not in the optimizer and keep their
     values. slack_tex: per-view texture residuals, zero at the start, added
     to the shared texture code (reference :874-880). opt_model: also a copy
-    of the decoder (decoder_copy) at AdamW lr LR_MODEL (reference :869);
-    needs a kernel-compatible decoder. jitter: optional (num_opts, V, S)
+    of the decoder (decoder_copy) at AdamW lr LR_MODEL (reference :869).
+    jitter: optional (num_opts, V, S)
     uniform draws of the loss renders' stratified samples, else drawn from
     `generator`. Returns codes at CODE_SAVE_ITERS (n_code, latent), the
     final codes, the final per-view poses (V, 3, 4) and the per-iteration
@@ -142,9 +164,6 @@ def run_multiview_tto(model, wts, batch: MultiviewBatch, mean_shape, mean_textur
         lrs.append(cfg.lr_texture)
     dec = None
     if opt_model:
-        if not isinstance(wts, DecoderWeights):
-            raise ValueError("opt_model renders with field_composite_train, which needs a "
-                             "kernel-compatible decoder (ops.render.decoder_kernel_compatible)")
         dec = decoder_copy(model)
         dec_params = list(dec.parameters())
         params += dec_params

@@ -7,6 +7,8 @@ starting from the JAX TrainState before it (models/convert
 trainer's loss modes; cli.optimize and cli.train with "arch": "autorfmix"
 and "codenerf" writing the JAX result and checkpoint schemas, their
 checkpoints strict-loaded back; the results folder's name against JAX's.
+The step is also held for AutoRFMix with an InstanceNorm2d encoder (64 px
+input, so its last stage's maps are 2 x 2).
 
 Tolerances, as tests/test_torch_train_step.py states them: losses rtol
 1e-4; parameters and code tables rtol 5e-3 / atol 3e-4; each tensor's mean
@@ -49,12 +51,16 @@ from torch_memory import release_memory_after_module  # noqa: F401
 
 HP = {"autorfmix": {"shape_blocks": 2, "texture_blocks": 1, "latent_dim": 32},
       "codenerf": {"shape_blocks": 2, "texture_blocks": 1, "latent_dim": 32}}
+# step cases: (arch, net_hyperparams, encoder input size)
+STEP_CASES = {**{arch: (arch, hp, 32) for arch, hp in HP.items()},
+              "autorfmix_instancenorm": ("autorfmix", dict(HP["autorfmix"],
+                                                           norm_layer_type="InstanceNorm2d"), 64)}
 CODE_IDX = (0, 1, 0, 2)        # instance 0 twice: its row gradients add up
 PORT_CFG = port.TrainConfig(latent_dim=32, lr_interval_model=1, lr_interval_codes=1)
 LOSSES = ("loss_total", "loss_rgb", "loss_occ", "psnr", "loss_reg", "loss_code")
 
 
-def _arrays():
+def _arrays(in_img_sz=32):
     """The batch: synthetic objects through the JAX prep (compact rays); the
     refiner's fields, which the NeRF-only loss does not read, at ground
     truth."""
@@ -62,31 +68,31 @@ def _arrays():
     rows = []
     for i, idx in enumerate(CODE_IDX):
         s = make_synthetic_object(seed=20 + i)
-        rows.append(jax_prepare(s, n_rays=32, n_samples=8, in_img_sz=32, rng=rng,
+        rows.append(jax_prepare(s, n_rays=32, n_samples=8, in_img_sz=in_img_sz, rng=rng,
                                 src_pose=np.asarray(s["obj_poses"], np.float32), code_idx=idx,
                                 compact_rays=True, tgt_uv=np.zeros((2, 8), np.float32)))
     return {k: np.stack([r[k] for r in rows]) for k in rows[0]}
 
 
-@pytest.fixture(scope="module", params=list(HP))
+@pytest.fixture(scope="module", params=list(STEP_CASES))
 def step(request):
     """One JAX nerf_only step from its initial state and the port's step from
     the converted initial state; both states after it in the port's types."""
-    arch = request.param
-    hpams = {"arch": arch, "net_hyperparams": HP[arch]}
-    jmodel = jax_build_model(arch, HP[arch])
+    arch, hp, in_img_sz = STEP_CASES[request.param]
+    hpams = {"arch": arch, "net_hyperparams": hp}
+    jmodel = jax_build_model(arch, hp)
     jcfg = JaxConfig(latent_dim=32, im_enc_rate=1.0, lr_interval_model=1, lr_interval_codes=1,
                      field_impl="flax")
     state = jax.tree.map(np.asarray, jax_init_state(jmodel, jax.random.PRNGKey(0), n_instances=3,
                                                     cfg=jcfg, img_size=32))
-    arrays = _arrays()
+    arrays = _arrays(in_img_sz)
     after, jm = make_train_step(jmodel, jcfg, donate=False, loss_mode="nerf_only")(
         state, JaxBatch(**{k: jnp.asarray(v) for k, v in arrays.items()}), jax.random.PRNGKey(0))
     before = convert_train_state(state, hpams, cfg=PORT_CFG)
     ours = copy.deepcopy(before)
     pm = port.train_step(ours, port.TrainBatch.from_numpy(arrays, "cpu"), PORT_CFG,
                          loss_mode="nerf_only")
-    return (arch, before, ours, convert_train_state(jax.tree.map(np.asarray, after), hpams,
+    return (request.param, before, ours, convert_train_state(jax.tree.map(np.asarray, after), hpams,
                                                    cfg=PORT_CFG),
             pm, jax.device_get(jm))
 

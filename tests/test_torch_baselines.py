@@ -75,8 +75,29 @@ def test_factory_matches_jax(arch, hp):
 
 
 def test_factory_refuses_instancenorm_encoders():
-    with pytest.raises(ValueError, match="InstanceNorm2d is queued"):
-        build_model("autorfmix", {"norm_layer_type": "InstanceNorm2d"})
+    """Once refused, InstanceNorm2d encoders now build for every arch with
+    an encoder, as the JAX factory: every norm an InstanceNorm, no norm
+    entry in the state_dict, which the converted JAX variables fill
+    exactly (a strict load); a bf16 field is refused (ROADMAP C.21)."""
+    from supnerf_tpu_torch.models.layers import BatchStatNorm2d, InstanceNorm2d
+
+    for arch in ("supnerf", "autorfmix", "autorf_original"):
+        hp = dict(HP.get(arch, {"shape_blocks": 1, "texture_blocks": 1, "latent_dim": 32}),
+                  norm_layer_type="InstanceNorm2d")
+        model = build_model(arch, hp)
+        norms = [m for m in model.modules() if isinstance(m, (BatchStatNorm2d, InstanceNorm2d))]
+        assert norms and all(isinstance(m, InstanceNorm2d) for m in norms), arch
+        assert not any(".bn" in k or "downsample.1" in k for k in model.state_dict()), arch
+        jmodel = jax_build_model(arch, hp)
+        variables = jax.tree.map(np.asarray, init_model_variables(
+            jmodel, jax.random.PRNGKey(0), img_size=32))
+        assert "batch_stats" not in variables
+        model.load_state_dict(convert_variables(arch, variables, hp), strict=True)
+    with pytest.raises(ValueError, match="norm_layer_type"):
+        build_model("supnerf", {"norm_layer_type": "GroupNorm"})
+    with pytest.raises(ValueError, match="C.21"):
+        build_model("autorfmix", {"field_dtype": "bfloat16"})
+    build_model("supnerf", {"field_dtype": "float32"})
 
 
 @pytest.mark.parametrize("arch", list(HP))

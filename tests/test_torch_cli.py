@@ -68,16 +68,91 @@ def test_entry_points_refuse_a_missing_card(monkeypatch):
 
 @pytest.mark.parametrize("option", ["training InstanceNorm2d"])
 def test_unported_options_raise(tmp_path, option):
-    """Options outside the ported slices refuse to run instead of taking an
-    unverified path: a SUP-NeRF config whose encoder normalises with
-    InstanceNorm2d (no published config does), through the train CLI."""
+    """Once refused, a SUP-NeRF config whose encoder normalises with
+    InstanceNorm2d (no published config does) now trains through the train
+    CLI: finite losses on every step, and a checkpoint with no norm entry
+    that strict-loads into the model the config builds."""
     from supnerf_tpu_torch.cli import train
+    from supnerf_tpu_torch.models.factory import build_model
 
     hp = dict(TRAIN_CONFIG["net_hyperparams"], norm_layer_type="InstanceNorm2d")
     cfg = tmp_path / "tiny.json"
-    cfg.write_text(json.dumps(dict(TRAIN_CONFIG, net_hyperparams=hp)))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        train.main(_train_argv(cfg, tmp_path / "run"))
+    cfg.write_text(json.dumps(dict(TRAIN_CONFIG, net_hyperparams=hp, in_img_sz=64)))
+    out = train.main(_train_argv(cfg, tmp_path / "run"))
+    assert out["steps"] == 2
+    assert all(math.isfinite(m[k]) for m in out["metrics"]
+               for k in ("loss_total", "loss_rgb", "loss_occ", "psnr"))
+    saved = torch.load(tmp_path / "run" / "models.pth", weights_only=False)
+    assert not any(".bn" in k for k in saved["model_params"])
+    build_model("supnerf", hp).load_state_dict(saved["model_params"], strict=True)
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("optimize", ["--devices", "1", "--gpu", "0", "--num_workers", "2"]),
+    ("train", ["--gpus", "1", "--gpu", "3"]),
+    ("train", ["--devices", "1", "--gpus", "2"])], ids=["optimize", "train gpus", "train devices"])
+def test_device_flags_run(tmp_path, monkeypatch, cli, argv):
+    """The JAX CLIs' device flags as one device takes them: --devices 1,
+    --gpu (ignored), the optimize CLIs' --num_workers (unused) and the train
+    CLI's --gpus (taken as --devices unless --devices is given) run on the
+    CPU to their results."""
+    from supnerf_tpu_torch.cli import train
+
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    cfg = tmp_path / "tiny.json"
+    if cli == "optimize":
+        cfg.write_text(json.dumps(dict(TINY_CONFIG, model_dir=str(tmp_path / "no_checkpoint"))))
+        summary = optimize.main(["--config_file", str(cfg), "--dataset", "synthetic",
+                                 "--num_objects", "1", "--device", "cpu",
+                                 "--save_dir", str(tmp_path / "run"), *argv])
+        assert summary["n_objects"] == 1
+    else:
+        cfg.write_text(json.dumps(TRAIN_CONFIG))
+        out = train.main(_train_argv(cfg, tmp_path / "run", *argv)[:-2] + ["--epochs", "1"])
+        assert out["steps"] == 1
+
+
+def test_device_flags_refuse_more_than_one_device(tmp_path, monkeypatch):
+    """--devices 2 (also through --gpus), 0 and 8, --coordinator and
+    JAX_COORDINATOR_ADDRESS raise ValueError naming ROADMAP's multi-GPU
+    item, on every CLI that takes them, before any work; nothing carries on
+    on fewer devices."""
+    from supnerf_tpu_torch.cli import demo, train
+
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(TRAIN_CONFIG))
+    base = {"optimize": ["--dataset", "synthetic", "--num_objects", "1", "--device", "cpu"],
+            "train": _train_argv(cfg, tmp_path / "run"), "demo": ["--device", "cpu"]}
+    mains = {"optimize": optimize.main, "train": train.main, "demo": demo.main}
+    for name, fn in mains.items():
+        for extra in (["--devices", "2"], ["--devices", "0"], ["--devices", "8"],
+                      ["--coordinator", "10.0.0.1:1234"]):
+            with pytest.raises(ValueError, match="A.13"):
+                fn(base[name] + extra)
+    with pytest.raises(ValueError, match="A.13"):
+        train.main(base["train"] + ["--gpus", "2"])
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "10.0.0.1:1234")
+    with pytest.raises(ValueError, match="coordinator"):
+        optimize.main(base["optimize"])
+    assert not os.path.exists(tmp_path / "run")
+
+
+def test_profile_dir_writes_a_trace(tmp_path):
+    """--profile_dir on a tiny CPU TTO run: a Chrome trace (trace.json) that
+    parses and holds the TTO's operator events; the run's results as
+    without it."""
+    cfg = tmp_path / "tiny.json"
+    cfg.write_text(json.dumps(dict(TINY_CONFIG, model_dir=str(tmp_path / "no_checkpoint"))))
+    optimize.main(["--config_file", str(cfg), "--dataset", "synthetic", "--num_objects", "1",
+                   "--device", "cpu", "--save_dir", str(tmp_path / "run"),
+                   "--profile_dir", str(tmp_path / "trace")])
+    with open(tmp_path / "trace" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert len(events) > 100 and "aten::linear" in names
+    with open(tmp_path / "run" / "codes+poses.pkl", "rb") as f:
+        assert pickle.load(f)["num_obj"] == 1
 
 
 @pytest.mark.parametrize("option", ["opt_pose 0", "opt_pose 2", "euler_rot", "opt_cam_pose",
@@ -164,7 +239,8 @@ def test_port_imports_nothing_of_the_jax_world():
     for name in ("cli.demo", "render.compositor", "utils.image_io", "ops.field",
                  "tto.regularizers", "tto.pnp", "tto.multiview", "cli.eval_saved_result",
                  "cli.evaluate_all", "utils.draw", "utils.glyphs", "utils.vis", "eval.metrics",
-                 "bench.train_loop_ab"):
+                 "bench.train_loop_ab", "data.debug", "utils.colormaps", "utils.gif",
+                 "utils.profiling", "cli.generate_video_vis"):
         assert f"supnerf_tpu_torch.{name}" in imported
 
 

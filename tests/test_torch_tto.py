@@ -3,7 +3,13 @@ on the CPU, at the tiny shapes of tests/test_tto.py: the converter
 (supnerf_tpu_torch/models/convert.py) against torch_import.export_state_dict,
 the encoder, refiner and decoder against the flax modules, and
 run_tto_batch against the JAX run_tto_batch on its flax path with the same
-batch, weights and sampling jitter."""
+batch, weights and sampling jitter; the same for an InstanceNorm2d encoder
+(96 px input, so the last stage's maps are 3 x 3): the encoder at atol
+1e-4 / rtol 1e-5, run_tto_batch at this file's tolerances. (At 64 px the
+2 x 2 maps amplify float32 noise: JAX's codes there lie up to 1.3e-4 from
+a float64 run of the same weights, the port's 2.7e-5.)"""
+import dataclasses
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -39,19 +45,32 @@ PORT_CFG = core.TTOConfig(num_opts=T, reg_iters=REG, n_samples=8, render_im_sz=8
                           in_img_sz=32, n_lidar=16, shapenet_obj_cood=True)
 
 
-@pytest.fixture(scope="module")
-def tiny():
-    jmodel = jax_build_model("supnerf", TINY_HP)
+IN_HP = dict(TINY_HP, norm_layer_type="InstanceNorm2d")
+IN_IMG_SZ = 96
+
+
+def _models(hp, in_img_sz):
+    jmodel = jax_build_model("supnerf", hp)
     variables = jax.tree.map(np.asarray, init_model_variables(
-        jmodel, jax.random.PRNGKey(0), img_size=32))
-    raw, _ = make_object_batch(B, seed=3, in_img_sz=32, render_im_sz=8, n_lidar=16)
+        jmodel, jax.random.PRNGKey(0), img_size=in_img_sz))
+    raw, _ = make_object_batch(B, seed=3, in_img_sz=in_img_sz, render_im_sz=8, n_lidar=16)
     keys = jax.random.split(jax.random.PRNGKey(7), B)
     raw["pose_init"] = np.asarray(jax.vmap(
         lambda k, K, roi: jax_poses.get_random_pose2(k, K, roi.astype(jnp.float32)))(
         keys, jnp.asarray(raw["K"]), jnp.asarray(raw["roi_nerf"])))
-    tmodel = build_model("supnerf", TINY_HP)
-    tmodel.load_state_dict(convert_supnerf_variables(variables, TINY_HP), strict=True)
+    tmodel = build_model("supnerf", hp)
+    tmodel.load_state_dict(convert_supnerf_variables(variables, hp), strict=True)
     return jmodel, variables, raw, tmodel
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    return _models(TINY_HP, 32)
+
+
+@pytest.fixture(scope="module")
+def tiny_instance_norm():
+    return _models(IN_HP, IN_IMG_SZ)
 
 
 def test_converter_matches_export_state_dict(tiny):
@@ -93,13 +112,12 @@ def test_refiner_and_decoder_match_flax(tiny):
     np.testing.assert_allclose(rgb.numpy(), np.asarray(rgb_r), atol=1e-5, rtol=1e-5)
 
 
-@pytest.fixture(scope="module")
-def both_runs(tiny):
-    jmodel, variables, raw, tmodel = tiny
+def _run_both(models, jax_cfg, port_cfg):
+    jmodel, variables, raw, tmodel = models
     key = jax.random.PRNGKey(0)
     jres = jax.tree.map(np.asarray, jax_run_tto_batch(
         jmodel, variables, JaxBatch(**{k: jnp.asarray(v) for k, v in raw.items()}),
-        jnp.zeros(32), jnp.zeros(32), JAX_CFG, key))
+        jnp.zeros(32), jnp.zeros(32), jax_cfg, key))
     # the JAX loop's jitter: fold_in(obj_key, t) for the loss render and
     # fold_in(it_key, 1) for the depth render, obj_key = split(key, B)[b]
     obj_keys = jax.random.split(key, B)
@@ -109,10 +127,15 @@ def both_runs(tiny):
                             for row in it_keys])
     batch = core.ObjectBatch.from_numpy(raw, "cpu")
     wts = pack_decoder_params(tmodel)
-    pres = core.run_tto_batch(tmodel, wts, batch, torch.zeros(32), torch.zeros(32), PORT_CFG,
+    pres = core.run_tto_batch(tmodel, wts, batch, torch.zeros(32), torch.zeros(32), port_cfg,
                               jitter=(torch.from_numpy(jit_loss), torch.from_numpy(jit_depth)))
     pres = {k: v.detach().numpy() for k, v in pres.items()}
     return jres, pres, jit_loss, batch, wts
+
+
+@pytest.fixture(scope="module")
+def both_runs(tiny):
+    return _run_both(tiny, JAX_CFG, PORT_CFG)
 
 
 def test_refiner_trajectory_matches(both_runs):
@@ -184,3 +207,59 @@ def test_snapshots_and_final_pose(both_runs):
     np.testing.assert_allclose(pres["poses_saved"][:, -1], pres["final_pose"])
     np.testing.assert_allclose(pres["final_pose"], jres["final_pose"], atol=1e-3)
     np.testing.assert_allclose(pres["final_shapecode"], jres["final_shapecode"], atol=1e-3)
+
+
+def test_instance_norm_encoder_matches_flax(tiny_instance_norm):
+    """The InstanceNorm2d encoder (flax InstanceNorm: per image and channel,
+    biased variance, eps 1e-5) on one and on two images: every head, atol
+    1e-4 / rtol 1e-5; the converted weights carry no norm entry."""
+    jmodel, variables, raw, tmodel = tiny_instance_norm
+    assert "batch_stats" not in variables
+    assert not any(".bn" in k for k in tmodel.state_dict())
+    for img in (raw["img_in"][:1], raw["img_in"]):
+        (ref, _) = jmodel.apply(variables, jnp.asarray(img), True,
+                                method=JaxSUPNeRF.encode_img, mutable=["batch_stats"])
+        with torch.no_grad():
+            ours = tmodel.encode_img(torch.from_numpy(img))
+        for name, a, b in zip(("shape", "texture", "pose", "uv"), ours, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-4, rtol=1e-5,
+                                       err_msg=f"{name}, batch of {len(img)}")
+
+
+def test_instance_norm_tto_matches_jax(tiny_instance_norm):
+    """run_tto_batch with the InstanceNorm2d encoder against the JAX loop:
+    the refiner's trajectory and the encoder's codes at 1e-4, every curve
+    at 1e-4 over the replay iterations and 1e-3 after, the final pose and
+    codes at 1e-3 (test_tto_curves_match's and
+    test_snapshots_and_final_pose's tolerances)."""
+    jax_cfg = dataclasses.replace(JAX_CFG, in_img_sz=IN_IMG_SZ)
+    port_cfg = dataclasses.replace(PORT_CFG, in_img_sz=IN_IMG_SZ)
+    jres, pres, *_ = _run_both(tiny_instance_norm, jax_cfg, port_cfg)
+    np.testing.assert_allclose(pres["pose_traj"], jres["pose_traj"], atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(pres["shapecodes_saved"][:, 0], jres["shapecodes_saved"][:, 0],
+                               atol=1e-4, rtol=1e-4)
+    for curve in ("loss", "psnr", "rot_err", "trans_err", "depth_err"):
+        np.testing.assert_allclose(pres[curve][:, :REG + 1], jres[curve][:, :REG + 1],
+                                   atol=1e-4, rtol=1e-4, err_msg=curve)
+        np.testing.assert_allclose(pres[curve], jres[curve], atol=1e-3, rtol=1e-3,
+                                   err_msg=curve)
+    np.testing.assert_allclose(pres["final_pose"], jres["final_pose"], atol=1e-3)
+    np.testing.assert_allclose(pres["final_shapecode"], jres["final_shapecode"], atol=1e-3)
+
+
+def test_driver_refuses_instance_norm(tiny_instance_norm, tmp_path):
+    """The TTO driver refuses a non-BatchNorm config as JAX's does (the
+    reference pairs such encoders with a variable-size keep-ratio crop that
+    neither package prepares), with the same reason; run_tto_batch above
+    runs the encoder on the square crop, as JAX's does."""
+    from supnerf_tpu.tto.driver import TTODriver as JaxTTODriver
+    from supnerf_tpu_torch.tto.driver import TTODriver
+
+    jmodel, variables, _, tmodel = tiny_instance_norm
+    hpams = {"net_hyperparams": IN_HP, "optimize": {}}
+    codes = np.zeros(IN_HP["latent_dim"], np.float32)
+    with pytest.raises(ValueError, match="keep-ratio") as jerr:
+        JaxTTODriver(jmodel, variables, codes, codes, hpams, [], str(tmp_path))
+    with pytest.raises(ValueError, match="keep-ratio") as err:
+        TTODriver(tmodel, codes, codes, hpams, [], str(tmp_path), device="cpu")
+    assert str(err.value).split(":")[0] == str(jerr.value).split(":")[0]
