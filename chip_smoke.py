@@ -154,6 +154,18 @@ Phases, each timed; any failure exits non-zero before the result line:
      and with --profile_dir, the trace's render_fwd_kernel and
      render_bwd_kernel events equal to the launch counters over the traced
      span (TTODriver.run: K1 200, K2 96).
+ 15. data parallelism (supnerf_tpu_torch/parallel/): (a) cli.train
+     --devices 1 (a world-size-1 NCCL group) at the published config,
+     batch 48, 2 epochs of one step, against the same run without a
+     group: the backend, the world size, the collectives (one gradient
+     all-reduce a step and its size, BatchNorm's global statistics),
+     K1/K3/K4's launches equal to the run's without a group, the first
+     step's loss at 5e-5 and the state after it at the CPU test's
+     one-process tolerances (whether bit for bit), the free-running end
+     state's differences, the all-reduce's ms a step; (b) cli.optimize --devices 1
+     on 2 objects: K1/K2 as phase 4's, one gather, the results against the
+     run without a group (whether bit for bit); (c) both on 2 ranks against
+     1 where torch.cuda.device_count() is 2 or more, else a line saying so.
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -2699,7 +2711,7 @@ def _exact_corner_pnp(pnp_poses):
 
     from supnerf_tpu_torch.tto import pnp
 
-    def exact(self, uv_direct, batch):
+    def exact(self, uv_direct, batch, taken):
         pose, wlh, K, roi = (t.detach().cpu().double().numpy()
                              for t in (batch.obj_pose_gt, batch.wlh, batch.K, batch.roi_refine))
         uv = []
@@ -2709,7 +2721,7 @@ def _exact_corner_pnp(pnp_poses):
             centre = np.array([(roi[i, 0] + roi[i, 2]) / 2, (roi[i, 1] + roi[i, 3]) / 2])
             uv.append(((px - centre[:, None]) / (dim / 2)).reshape(-1))
         return pnp_poses(self, torch.as_tensor(np.stack(uv), dtype=uv_direct.dtype,
-                                               device=uv_direct.device), batch)
+                                               device=uv_direct.device), batch, taken)
     return exact
 
 
@@ -3669,6 +3681,234 @@ def last_module_paths(train_counts):
     return counts
 
 
+# --------------------------------------------------------------------------
+# phase 15: data parallelism (supnerf_tpu_torch/parallel/): training and TTO
+# through a world-size-1 NCCL group against the same runs without one, and on
+# 2 ranks where the machine shows a second card
+# --------------------------------------------------------------------------
+
+DP_STEPS = 2
+DP_TTO_OBJECTS = 2
+# --devices runs against the same runs without a group, at
+# tests/test_torch_parallel.py's one-process tolerances: the first step
+# (one epoch of one batch: both runs start from the seeded state) its loss
+# and end state (its parameters may take one AdamW step of either sign on a
+# float32-noise gradient component: 2 lr); the later steps run free, and
+# float32 runs part there (the CPU test's finding), so their differences
+# are printed and the losses held only to DP_FREE_RTOL
+DP_LOSS_RTOL = 5e-5
+DP_FREE_RTOL = 1e-2
+DP_STATE_TOL = {"params": {"rtol": 5e-3, "atol": 2.5e-4},
+                "tables": {"rtol": 0.0, "atol": 1e-5}, "stats": {"rtol": 1e-5, "atol": 1e-5}}
+DP_TTO_ATOL = {"psnr_eval": 1e-4, "optimized_poses": 1e-5, "optimized_shapecodes": 1e-5,
+               "optimized_texturecodes": 1e-5}
+
+
+def _checkpoint_arrays(path):
+    """{name: float64 array} of a checkpoint: the model's state_dict, both
+    code tables, optimized_idx."""
+    import torch
+
+    saved = torch.load(path, map_location="cpu", weights_only=False)
+    out = {f"model.{k}": v.double().numpy() for k, v in saved["model_params"].items()}
+    out.update(shape_codes=saved["shape_code_params"]["weight"].double().numpy(),
+               texture_codes=saved["texture_code_params"]["weight"].double().numpy(),
+               optimized_idx=saved["optimized_idx"].double().numpy())
+    return out
+
+
+def _states_agree(label, got, want, check=True):
+    """Raise (with check) unless two checkpoints' arrays agree at
+    DP_STATE_TOL (BatchNorm's counts and optimized_idx exactly); returns
+    (bit for bit, the largest difference of each group)."""
+    import numpy as np
+
+    groups = {"params": [], "tables": ["shape_codes", "texture_codes"], "stats": [],
+              "exact": ["optimized_idx"]}
+    for k in want:
+        if k.endswith(("running_mean", "running_var")):
+            groups["stats"].append(k)
+        elif k.endswith("num_batches_tracked"):
+            groups["exact"].append(k)
+        elif k.startswith("model."):
+            groups["params"].append(k)
+    worst = {}
+    for name, keys in groups.items():
+        worst[name] = max(float(np.abs(got[k] - want[k]).max()) for k in keys)
+        for k in keys:
+            tol = DP_STATE_TOL.get(name, {"rtol": 0.0, "atol": 0.0})
+            if check and not np.allclose(got[k], want[k], rtol=tol["rtol"], atol=tol["atol"]):
+                raise RuntimeError(f"{label}: {k} differs beyond {tol} "
+                                   f"(max {float(np.abs(got[k] - want[k]).max()):.3e})")
+    bits = all(np.array_equal(got[k], want[k]) for k in want)
+    return bits, worst
+
+
+def _dp_train(out_dir, devices, label, counts_want=None):
+    """cli.train at the published config, batch 48, DP_STEPS epochs of one
+    step, with --devices `devices` (None: no group); returns (summary,
+    launch counts, [each epoch's checkpoint arrays])."""
+    import torch
+
+    from supnerf_tpu_torch.cli import train
+    from supnerf_tpu_torch.ops import render
+
+    run = os.path.join(out_dir, f"devices_{devices}")
+    argv = ["--config_file", PUBLISHED, "--dataset", "synthetic",
+            "--num_objects", str(SWEEP_BATCH), "--batch_size", str(SWEEP_BATCH),
+            "--epochs", str(DP_STEPS), "--device", "cuda", "--seed", "0", "--check_iter", "100000",
+            "--save_dir", run] + (["--devices", str(devices)] if devices else [])
+    render.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = train.main(argv)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = summary.get("launches") if devices and devices > 1 else dict(render.LAUNCHES)
+    counts = {k: v for k, v in counts.items() if v}
+    steps = summary["metrics"]
+    loop = sum(m["seconds"] for m in steps)
+    reduce_s = summary["phase_seconds"].get("all_reduce", 0.0)
+    print(f"   {label}: {len(steps)} steps of {SWEEP_BATCH} in {seconds:.2f} s through the CLI, "
+          f"the step loop {len(steps) / loop:.3f} steps/s; launches {counts}"
+          + (f"; all_reduce {1e3 * reduce_s / len(steps):.3f} ms a step" if devices else ""))
+    print(f"   {label} losses: " + ", ".join(f"{m['loss_total']:.7f}" for m in steps))
+    if len(steps) != DP_STEPS:
+        raise RuntimeError(f"{label}: {len(steps)} steps instead of {DP_STEPS}")
+    if counts_want is not None and counts != counts_want:
+        raise RuntimeError(f"{label}: launches {counts}, the run without a group {counts_want}")
+    states = [_checkpoint_arrays(os.path.join(run, f"epoch_{e}.pth")) for e in range(DP_STEPS)]
+    shutil.rmtree(run)
+    return summary, counts, states
+
+
+def _dp_tto(out_dir, devices, label):
+    """cli.optimize at the published config on DP_TTO_OBJECTS synthetic
+    objects, with --devices `devices` (None: no group); returns (summary,
+    launch counts, the result file's dict)."""
+    import torch
+
+    from supnerf_tpu_torch.cli import optimize
+    from supnerf_tpu_torch.ops import render
+
+    run = os.path.join(out_dir, f"tto_devices_{devices}")
+    render.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = optimize.main(
+        ["--config_file", PUBLISHED, "--dataset", "synthetic",
+         "--num_objects", str(DP_TTO_OBJECTS), "--batch_size", str(DP_TTO_OBJECTS),
+         "--device", "cuda", "--seed", "0", "--save_dir", run]
+        + (["--devices", str(devices)] if devices else []))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = summary.get("launches") if devices and devices > 1 else dict(render.LAUNCHES)
+    counts = {k: v for k, v in counts.items() if v}
+    print(f"   {label}: {DP_TTO_OBJECTS} objects in {seconds:.2f} s through the CLI "
+          f"({DP_TTO_OBJECTS * 60 / seconds:.1f} objects/min), tto_loop "
+          f"{summary['phase_seconds']['tto_loop']:.3f} s; launches {counts}")
+    with open(os.path.join(run, "codes+poses.pkl"), "rb") as f:
+        return summary, counts, pickle.load(f)
+
+
+def _results_agree(label, got, want):
+    """Raise unless two TTO result dicts hold the same objects within
+    DP_TTO_ATOL; returns (bit for bit, the largest difference of each)."""
+    import numpy as np
+
+    if set(got["psnr_eval"]) != set(want["psnr_eval"]):
+        raise RuntimeError(f"{label}: other objects {sorted(got['psnr_eval'])}")
+    worst, bits = {}, True
+    for key, atol in DP_TTO_ATOL.items():
+        pairs = []
+        for k, v in want[key].items():
+            a, b = got[key][k], v
+            if isinstance(b, dict):
+                pairs += [(np.asarray(a[c], np.float64), np.asarray(b[c], np.float64)) for c in b]
+            else:
+                pairs.append((np.asarray(a, np.float64), np.asarray(b, np.float64)))
+        worst[key] = max(float(np.abs(a - b).max()) for a, b in pairs)
+        bits = bits and all(np.array_equal(a, b) for a, b in pairs)
+        if worst[key] > atol:
+            raise RuntimeError(f"{label}: {key} differs by {worst[key]:.3e} (atol {atol})")
+    return bits, worst
+
+
+def data_parallel_paths(out_dir, tto_counts):
+    """Phase 15: (a) cli.train --devices 1 (one NCCL rank) against the same
+    steps without a group; (b) cli.optimize --devices 1 against the run
+    without a group and phase 4's launches; (c) both again on 2 ranks
+    where the machine shows a second card. Returns the launch counts per
+    cell."""
+    import torch
+
+    from supnerf_tpu_torch.config import load_hpams
+    from supnerf_tpu_torch.models.factory import build_model
+    from supnerf_tpu_torch.training.train_step import TrainConfig, metric_names
+
+    counts = {}
+    t0 = time.perf_counter()
+    base, counts["dp_train_base"], base_states = _dp_train(out_dir, None, "(a) no group")
+    one, counts["dp_train_devices1"], one_states = _dp_train(
+        out_dir, 1, "(a) --devices 1", counts["dp_train_base"])
+    coll = one["collectives"]
+    hp = load_hpams(PUBLISHED)
+    n_params = sum(p.numel() for p in build_model(hp["arch"], hp["net_hyperparams"]).parameters())
+    n_inst = SWEEP_BATCH // 2
+    flat = n_params + 2 * n_inst * hp["net_hyperparams"]["latent_dim"] + n_inst + len(
+        metric_names("unified", TrainConfig()))
+    print(f"   (a) group: backend {one['backend']}, world {one['world']}; collectives "
+          f"{coll}: {coll['grad_all_reduce']} gradient all-reduces of {flat:,} floats "
+          f"({flat * 4 / 1e6:.1f} MB) each, one a step; BatchNorm's statistics "
+          f"{coll['stat_all_reduce']}")
+    if one["backend"] != "nccl" or one["world"] != 1 or coll["grad_all_reduce"] != DP_STEPS:
+        raise RuntimeError(f"(a): backend {one['backend']}, world {one['world']}, "
+                           f"{coll['grad_all_reduce']} gradient all-reduces for {DP_STEPS} steps")
+    if coll["stat_all_reduce"] == 0:
+        raise RuntimeError("(a): BatchNorm took no global statistics")
+    rel = [abs(a["loss_total"] - b["loss_total"]) / abs(b["loss_total"])
+           for a, b in zip(one["metrics"], base["metrics"])]
+    bits, worst = _states_agree("(a) --devices 1 against no group, step 1", one_states[0],
+                                base_states[0])
+    print(f"   (a) against no group: step losses rel diff {', '.join(f'{x:.2e}' for x in rel)} "
+          f"(step 1 tol {DP_LOSS_RTOL:.0e}, later {DP_FREE_RTOL:.0e}); the state after step 1 "
+          f"bit for bit: {bits}, largest differences {worst} (tol {DP_STATE_TOL})")
+    bits, worst = _states_agree("(a) end state", one_states[-1], base_states[-1], check=False)
+    print(f"   (a) the end state after {DP_STEPS} steps (free-running, not held): bit for bit "
+          f"{bits}, largest differences {worst}")
+    if not rel[0] <= DP_LOSS_RTOL or not max(rel) <= DP_FREE_RTOL:
+        raise RuntimeError("(a): a step's loss differs from the run without a group")
+    print(f"   (a) all_reduce {1e3 * one['phase_seconds']['all_reduce'] / DP_STEPS:.3f} ms a "
+          f"step; {time.perf_counter() - t0:.2f} s")
+
+    t0 = time.perf_counter()
+    _, counts["dp_tto_base"], base_res = _dp_tto(out_dir, None, "(b) no group")
+    tto_one, counts["dp_tto_devices1"], one_res = _dp_tto(out_dir, 1, "(b) --devices 1")
+    if counts["dp_tto_devices1"] != tto_counts or counts["dp_tto_base"] != tto_counts:
+        raise RuntimeError(f"(b): launches {counts['dp_tto_devices1']} and "
+                           f"{counts['dp_tto_base']}, phase 4's {tto_counts}")
+    if tto_one["collectives"]["gather"] != 1 or tto_one["backend"] != "nccl":
+        raise RuntimeError(f"(b): {tto_one['collectives']} on {tto_one['backend']}")
+    bits, worst = _results_agree("(b) --devices 1 against no group", one_res, base_res)
+    print(f"   (b) group: backend {tto_one['backend']}, world {tto_one['world']}, "
+          f"{tto_one['collectives']['gather']} gather; launches equal phase 4's {tto_counts}; "
+          f"results bit for bit: {bits}; largest differences {worst} (tol {DP_TTO_ATOL}); "
+          f"{time.perf_counter() - t0:.2f} s")
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        print(f"   (c) one card (torch.cuda.device_count() {cards}): the 2-rank cells do not run")
+        return counts
+    t0 = time.perf_counter()
+    two, counts["dp_train_devices2"], two_states = _dp_train(out_dir, 2, "(c) --devices 2")
+    bits, worst = _states_agree("(c) --devices 2 against 1", two_states[0], one_states[0])
+    print(f"   (c) training on {two['world']} ranks ({two['backend']}) against 1: bit for bit "
+          f"{bits}, largest differences {worst}")
+    _, counts["dp_tto_devices2"], two_res = _dp_tto(out_dir, 2, "(c) TTO --devices 2")
+    bits, worst = _results_agree("(c) TTO --devices 2 against 1", two_res, one_res)
+    print(f"   (c) TTO on 2 ranks against 1: bit for bit {bits}, largest differences {worst}; "
+          f"{time.perf_counter() - t0:.2f} s")
+    return counts
+
+
 def kernel_records(tto_records, train_records, aabb_records, field_records,
                    train_kernel_records, train_field_extra, codenerf_extra, counts_by_path):
     """One record per launch counter, launches from the path that runs it
@@ -3798,6 +4038,10 @@ def main():
                "(f) --profile_dir")
     last_counts = last_module_paths(train_counts)
     done(t0, "the last modules")
+    t0 = phase("data parallelism: (a) training --devices 1 on NCCL, (b) TTO --devices 1, "
+               "(c) 2 ranks where there are 2 cards")
+    dp_counts = _in_temp_dir(lambda d: data_parallel_paths(d, tto_counts))
+    done(t0, "data parallelism")
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
                              train_kernel_records, train_field_extra, codenerf_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
@@ -3805,7 +4049,7 @@ def main():
                               "train_render_data": render_data_counts,
                               "train_field": field_train_counts, **dataset_counts,
                               **baseline_counts, **driver_counts, **vis_counts,
-                              **training_counts, **last_counts})
+                              **training_counts, **last_counts, **dp_counts})
     records_by_name = {r["name"]: r for r in records}
     records_by_name["render_fwd"].update(vis_kernels)
     records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms

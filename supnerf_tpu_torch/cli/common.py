@@ -1,7 +1,8 @@
 """CLI plumbing: arguments, model loading and the datasets (synthetic,
 nuScenes, KITTI, Waymo); the parts of supnerf_tpu/cli/common.py the
-optimize and train entry points need, with the JAX CLIs' device and
-profiler flags (add_device_args, device_from_args, maybe_profile)."""
+optimize and train entry points need, with the JAX CLIs' device, data
+parallelism and profiler flags (add_device_args, launch_plan,
+device_from_args, maybe_profile)."""
 from __future__ import annotations
 
 import argparse
@@ -14,6 +15,7 @@ import torch
 from supnerf_tpu_torch.data.synthetic import make_synthetic_object
 from supnerf_tpu_torch.device import resolve_device
 from supnerf_tpu_torch.models.factory import build_model, init_model
+from supnerf_tpu_torch.parallel.mesh import plan_launch
 
 
 def str2bool(v) -> bool:
@@ -28,36 +30,58 @@ def str2bool(v) -> bool:
 
 
 def add_device_args(p: argparse.ArgumentParser):
-    """--device, --profile_dir, and the JAX CLIs' --devices, --gpu and
-    --coordinator (JAX cli/common.py add_common_args), which are accepted so
-    that a reference command line runs and select nothing: the port runs on
-    one card, and device_from_args refuses more (ROADMAP.md §A.13)."""
+    """--device, --profile_dir, and the JAX CLIs' --devices, --coordinator
+    (JAX cli/common.py add_common_args; parallel/mesh.py says how the ranks
+    run) and --gpu, the reference's card index, which is accepted and
+    selects nothing, as in JAX."""
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; fails without a card) or cpu")
     p.add_argument("--profile_dir", type=str, default=None,
                    help="write a torch.profiler Chrome trace of the run to DIR/trace.json")
-    for flag in ("--devices", "--gpu"):
-        p.add_argument(flag, type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--coordinator", type=str, default=None, help=argparse.SUPPRESS)
+    p.add_argument("--devices", type=int, default=None,
+                   help="data parallelism over N ranks, one process a card (with --device "
+                        "cpu, CPU processes on gloo); with a coordinator, over all hosts")
+    p.add_argument("--coordinator", type=str, default=None,
+                   help="host:port of rank 0 for a group across hosts (also "
+                        "JAX_COORDINATOR_ADDRESS), with JAX_NUM_PROCESSES and JAX_PROCESS_ID")
+    p.add_argument("--gpu", type=int, default=None, help=argparse.SUPPRESS)
     return p
 
 
-def device_from_args(args) -> torch.device:
-    """The entry point's device (device.resolve_device(--device)). --devices
-    other than 1 and a coordinator (--coordinator or JAX_COORDINATOR_ADDRESS)
-    raise ValueError before any work, rather than run on fewer devices."""
-    coordinator = args.coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
-    if args.devices not in (None, 1) or coordinator:
-        raise ValueError(f"--devices {args.devices}, coordinator {coordinator!r}: the port runs "
-                         "on one card; data parallelism over several cards or hosts is not "
-                         "ported (ROADMAP.md §A.13, multi-GPU)")
-    return resolve_device(args.device)
+def launch_plan(args, **batch_sizes):
+    """The data-parallel launch of --devices and --coordinator
+    (parallel.plan_launch; None for neither, today's one-process run),
+    checked before any work: batch_sizes, {what: size}, name the batches
+    the ranks split."""
+    return plan_launch(args.devices, args.coordinator, args.device, batch_sizes)
 
 
-def maybe_profile(args):
-    """utils.profiling.trace(--profile_dir) when the flag is given, else a
-    context that does nothing (JAX cli/common.py maybe_profile)."""
-    if args.profile_dir:
+def device_from_args(args, group=None) -> torch.device:
+    """The entry point's device: the rank's (group.device) under a group,
+    else device.resolve_device(--device)."""
+    return group.device if group is not None else resolve_device(args.device)
+
+
+def group_summary(group) -> dict:
+    """What an entry point's summary reports of its rank under a group: its
+    rank, the world size, the backend, the collectives (parallel.COUNTS)
+    and the kernels this rank launched (ops.render.LAUNCHES); nothing
+    without a group."""
+    if group is None:
+        return {}
+    from supnerf_tpu_torch.ops.render import LAUNCHES
+    from supnerf_tpu_torch.parallel.mesh import COUNTS
+
+    return {"rank": group.rank, "world": group.world,
+            "backend": torch.distributed.get_backend(), "collectives": dict(COUNTS),
+            "launches": dict(LAUNCHES)}
+
+
+def maybe_profile(args, group=None):
+    """utils.profiling.trace(--profile_dir) when the flag is given (on rank
+    0 of a group), else a context that does nothing (JAX cli/common.py
+    maybe_profile)."""
+    if args.profile_dir and (group is None or group.main):
         from supnerf_tpu_torch.utils.profiling import trace
 
         return trace(args.profile_dir)

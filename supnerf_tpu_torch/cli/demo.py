@@ -11,8 +11,10 @@ driver's codes+poses files. --dataset nusc --img_name <file name> takes
 every car the segmentation found in that camera image of the config's
 nuScenes test data (data.nuscenes.get_objects_in_image); --dataset
 synthetic builds a 900 x 1600 scene of three synthetic cars. The device
-flags are the optimize CLI's; --profile_dir is accepted and traces
-nothing, as in the JAX demo.
+flags are the optimize CLI's: --devices N splits the scene's cars, the
+demo's one batch, over N ranks, so N must divide their number (checked
+before any file is written); rank 0 composes the frames. --profile_dir is
+accepted and traces nothing, as in the JAX demo.
 """
 from __future__ import annotations
 
@@ -27,11 +29,13 @@ import torch
 from supnerf_tpu_torch.cli.common import (
     add_device_args,
     device_from_args,
+    launch_plan,
     load_model_and_codes,
 )
 from supnerf_tpu_torch.config import find_config, load_hpams
 from supnerf_tpu_torch.data.synthetic import make_synthetic_object
 from supnerf_tpu_torch.ops.render import conditioned_latents, decoder_plain
+from supnerf_tpu_torch.parallel.mesh import launch
 from supnerf_tpu_torch.render.compositor import render_scene_window, scene_window_from_objects
 from supnerf_tpu_torch.tto.driver import TTODriver, tto_config_from_hpams
 from supnerf_tpu_torch.utils.image_io import image_float_to_uint8, write_png
@@ -58,7 +62,8 @@ def main(argv=None):
     """Returns {'save_dir', 'frames' (paths), 'images' (float frames),
     'tto_seconds', 'phase_seconds' (the driver's), 'frame_seconds', 'win_hw',
     'results', 'wlh_used', 'hit_share' (per object and iteration, the share
-    of the loss render's rays that hit the box)}."""
+    of the loss render's rays that hit the box)}: with --devices, rank 0's,
+    and None on the other ranks."""
     p = argparse.ArgumentParser("supnerf_tpu_torch demo")
     p.add_argument("--config_file", type=str, default="hpam_demo.json")
     p.add_argument("--seed", type=int, default=0)
@@ -77,11 +82,17 @@ def main(argv=None):
                          "JAX demo")
     if args.dataset == "nusc" and not args.img_name:
         raise ValueError("--dataset nusc needs --img_name")
-    device = device_from_args(args)
+    known = {"the scene's cars": args.n_objects} if args.dataset == "synthetic" else {}
+    plan = launch_plan(args, **known)
+    return launch(plan, _demo, args)
+
+
+def _demo(group, args):
+    """The run on one rank of `group`, or alone (group None)."""
+    device = device_from_args(args, group)
     hpams = load_hpams(find_config(args.config_file))
     if args.num_opts:
         hpams["optimize"]["num_opts"] = args.num_opts
-    os.makedirs(args.save_dir, exist_ok=True)
     model, mean_shape, mean_texture = load_model_and_codes(hpams, device, seed=args.seed)
 
     if args.dataset == "nusc":
@@ -97,7 +108,12 @@ def main(argv=None):
         ds_cfg = hpams.get("dataset", {})
         img, objects = synthetic_scene(args.n_objects, ds_cfg.get("img_h", 900),
                                        ds_cfg.get("img_w", 1600))
-    write_png(os.path.join(args.save_dir, "input.png"), image_float_to_uint8(img))
+    if group is not None and len(objects) % group.world:
+        raise ValueError(f"the scene's cars {len(objects)} do not split over {group.world} "
+                         "ranks: each rank takes an equal share")
+    if group is None or group.main:
+        os.makedirs(args.save_dir, exist_ok=True)
+        write_png(os.path.join(args.save_dir, "input.png"), image_float_to_uint8(img))
 
     # the reference demo optimizes with AABB-bounded sampling (rend_aabb=True,
     # scripts/demo.py:616)
@@ -106,10 +122,12 @@ def main(argv=None):
     cfg = dataclasses.replace(cfg, use_aabb_render=True)
     driver = TTODriver(model, mean_shape, mean_texture, hpams, objects, args.save_dir,
                        device=device, cfg=cfg, opt_pose=1, reg_iters=3, add_pose_err=2,
-                       batch_size=len(objects), seed=args.seed)
+                       batch_size=len(objects), seed=args.seed, group=group)
     t0 = time.perf_counter()
     results = driver.run()
     tto_seconds = time.perf_counter() - t0
+    if not driver.main:
+        return None
     for k, share in driver.hit_share.items():
         print(f"  {k}: loss rays in the box {np.mean(share):.4f} on average "
               f"({np.min(share):.4f} .. {np.max(share):.4f})")

@@ -22,9 +22,15 @@ CLI: the regularisers "sym_aug": 1 and "obj_sz_reg": 1 (with
 "loss_obj_sz_coef"), and the pose parameters "euler_rot": 1 and
 "optimize": {"opt_cam_pose": 1}. --device cuda|cpu; --profile_dir DIR
 writes a torch.profiler trace of the optimization (the span JAX's
-maybe_profile wraps) to DIR/trace.json. The JAX CLI's --devices, --gpu,
---coordinator and --num_workers are accepted and select nothing
-(cli/common.add_device_args).
+maybe_profile wraps) to DIR/trace.json. --devices N splits each
+--batch_size batch (which N must divide) over N ranks, one process a card
+(--device cpu: CPU processes on gloo), --coordinator host:port (or
+JAX_COORDINATOR_ADDRESS, with JAX_NUM_PROCESSES and JAX_PROCESS_ID) over
+several hosts (supnerf_tpu_torch/parallel/mesh.py, tto/driver.py); rank 0
+writes the files and runs the cross-view evaluation and the report.
+--opt_multiview and --cross_eval_folder split nothing, as in JAX, and
+refuse more than one rank. The JAX CLI's --gpu and --num_workers are
+accepted and select nothing (cli/common.add_device_args).
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ from supnerf_tpu_torch.cli.common import (
     build_dataset,
     dataset_name,
     device_from_args,
+    group_summary,
+    launch_plan,
     load_model_and_codes,
     maybe_profile,
 )
@@ -46,6 +54,7 @@ from supnerf_tpu_torch.eval.aggregate import (
     figure_entry,
     write_eval_json,
 )
+from supnerf_tpu_torch.parallel.mesh import launch
 from supnerf_tpu_torch.tto.driver import TTODriver
 
 
@@ -92,10 +101,20 @@ def main(argv=None):
     (None for KITTI and Waymo), 'phase_seconds', 'loss' (per object, or per
     instance with --opt_multiview, the per-iteration TTO loss),
     'n_objects', 'pnp_translations' (opt_pose 2: the objects whose PnP
-    translation was taken), 'multiview' (the multiview results dict)}."""
+    translation was taken), 'multiview' (the multiview results dict)}:
+    with --devices, rank 0's, and None on the other ranks."""
     p = argparse.ArgumentParser("supnerf_tpu_torch optimize")
     args = add_optimize_args(p).parse_args(argv)
-    device = device_from_args(args)
+    plan = launch_plan(args, batch_size=args.batch_size)
+    if plan is not None and plan.world > 1 and (args.opt_multiview or args.cross_eval_folder):
+        raise ValueError("--opt_multiview and --cross_eval_folder split nothing over ranks (nor "
+                         "does JAX's mesh): run them without --devices or a coordinator")
+    return launch(plan, _optimize, args)
+
+
+def _optimize(group, args):
+    """The run on one rank of `group`, or alone (group None)."""
+    device = device_from_args(args, group)
     hpams = load_hpams(find_config(args.config_file))
     ds_name = dataset_name(hpams, args)
     model, mean_shape, mean_texture = load_model_and_codes(hpams, device, args.model_epoch,
@@ -111,7 +130,7 @@ def main(argv=None):
         pred_wlh=args.pred_wlh, add_pose_err=args.add_pose_err, batch_size=args.batch_size,
         save_freq=args.save_freq, seed=args.seed, init_rot_err=args.init_rot_err,
         init_trans_err=args.init_trans_err, rand_angle_lim=args.rand_angle_lim,
-        code_level=args.code_level, vis=args.vis)
+        code_level=args.code_level, vis=args.vis, group=group)
     summary = {"save_dir": save_dir, "aggregate": None, "cross": None, "n_objects": len(dataset),
                "multiview": None}
     result_file = os.path.join(save_dir, "codes+poses.pkl")
@@ -126,8 +145,10 @@ def main(argv=None):
         with maybe_profile(args):
             summary["multiview"] = driver.run_multiview(opt_pose=args.opt_pose > 0)
     else:
-        with maybe_profile(args):
+        with maybe_profile(args, group):
             driver.run()
+    if not driver.main:
+        return None
     if not args.opt_multiview:
         cross = driver.eval_cross_view() if ds_name in ("nusc", "synthetic") else None
         agg = collect_eval_results(
@@ -137,7 +158,8 @@ def main(argv=None):
         summary.update(aggregate=agg, cross=agg.get("cross"))
     print("phase seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in driver.timer.seconds.items()))
     return dict(summary, phase_seconds=dict(driver.timer.seconds), loss=driver.loss_curve,
-                pnp_translations=driver.pnp_translations if args.opt_pose == 2 else None)
+                pnp_translations=driver.pnp_translations if args.opt_pose == 2 else None,
+                **group_summary(group))
 
 
 if __name__ == "__main__":

@@ -23,9 +23,14 @@ metrics.jsonl (one line of losses per step) and train_panel_{step:07d}.png
 (a [render | target] panel every --check_iter steps);
 --resume_from_epoch continues from a checkpoint. --device cuda|cpu;
 --profile_dir DIR writes a torch.profiler trace of the training loop (the
-span JAX's maybe_profile wraps) to DIR/trace.json. The JAX CLI's --devices,
---gpu, --coordinator and --gpus (taken as --devices where that is not
-given) are accepted and select nothing (cli/common.add_device_args).
+span JAX's maybe_profile wraps) to DIR/trace.json. --devices N trains on
+N ranks, one process a card (--device cpu: CPU processes on gloo), each on
+its share of every --batch_size batch, which N must divide;
+--coordinator host:port (or JAX_COORDINATOR_ADDRESS, with
+JAX_NUM_PROCESSES and JAX_PROCESS_ID) forms one group over several hosts
+(supnerf_tpu_torch/parallel/mesh.py); --gpus is taken as --devices where
+that is not given, and --gpu selects nothing, as in the JAX CLI. Rank 0
+writes the files; the state is every rank's.
 """
 from __future__ import annotations
 
@@ -34,16 +39,21 @@ import os
 import time
 from datetime import date
 
+import torch
+
 from supnerf_tpu_torch.cli.common import (
     add_device_args,
     build_dataset,
     device_from_args,
+    group_summary,
+    launch_plan,
     maybe_profile,
     str2bool,
 )
 from supnerf_tpu_torch.config import find_config, load_hpams
 from supnerf_tpu_torch.device import deterministic_cudnn
 from supnerf_tpu_torch.models.factory import build_model, init_model
+from supnerf_tpu_torch.parallel.mesh import launch
 from supnerf_tpu_torch.training.trainer import UnifiedTrainer
 
 
@@ -88,7 +98,8 @@ def add_train_args(p: argparse.ArgumentParser):
 
 def main(argv=None):
     """Returns {'save_dir', 'metrics' (one dict per step), 'phase_seconds',
-    'seconds', 'steps'}."""
+    'seconds', 'steps'}: with --devices, local rank 0's (the metrics are
+    the global batch's on every rank)."""
     args = add_train_args(argparse.ArgumentParser("supnerf_tpu_torch train")).parse_args(argv)
     if args.pretrained_model_dir is not None:
         raise ValueError("--pretrained_model_dir: the JAX CLI parses it and reads it nowhere, so "
@@ -99,7 +110,13 @@ def main(argv=None):
         raise ValueError("--num_workers: 0 or more")
     if args.devices is None and args.gpus:
         args.devices = args.gpus
-    device = device_from_args(args)
+    plan = launch_plan(args, batch_size=args.batch_size)
+    return launch(plan, _train, args)
+
+
+def _train(group, args):
+    """The run on one rank of `group`, or alone (group None)."""
+    device = device_from_args(args, group)
     hpams = load_hpams(find_config(args.config_file))
     if args.render_sz:
         hpams["render_sz"] = args.render_sz
@@ -113,24 +130,32 @@ def main(argv=None):
                              im_enc_rate=args.im_enc_rate, aug_wlh=args.aug_wlh,
                              aug_box2d=args.aug_box2d, finetune_wlh=args.finetune_wlh,
                              seed=args.seed, check_iter=args.check_iter,
-                             save_every=args.save_every)
+                             save_every=args.save_every, group=group)
     cfg = trainer.cfg
-    print(f"optimizer: AdamW, lr {cfg.lr_model} (model) / {cfg.lr_codes} (codes), schedule "
-          f"{cfg.lr_schedule_type}" + (f" over {cfg.cosine_total_steps} steps"
-                                       if cfg.lr_schedule_type == "cosine" else "")
-          + f", grad_clip {cfg.grad_clip or 'off'}")
+    if group is not None:
+        print(f"rank {group.rank} of {group.world} ({torch.distributed.get_backend()}) on "
+              f"{device}: rows {group.rank * args.batch_size // group.world}.."
+              f"{(group.rank + 1) * args.batch_size // group.world - 1} of each batch of "
+              f"{args.batch_size}", flush=True)
+    if trainer.main:
+        print(f"optimizer: AdamW, lr {cfg.lr_model} (model) / {cfg.lr_codes} (codes), schedule "
+              f"{cfg.lr_schedule_type}" + (f" over {cfg.cosine_total_steps} steps"
+                                           if cfg.lr_schedule_type == "cosine" else "")
+              + f", grad_clip {cfg.grad_clip or 'off'}")
     if args.resume_from_epoch is not None:
         trainer.resume_from_epoch(args.resume_dir or save_dir, args.resume_from_epoch)
     t0 = time.perf_counter()
-    with deterministic_cudnn(), maybe_profile(args):
+    with deterministic_cudnn(), maybe_profile(args, group):
         trainer.train(args.epochs, num_workers=args.num_workers)
     seconds = time.perf_counter() - t0
     steps = len(trainer.metrics_history)
     phase_seconds = {**trainer.timer.seconds, **trainer.host_seconds}
-    print(f"training done: {steps} steps in {seconds:.2f} s; checkpoints in {save_dir}")
-    print("phase seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in phase_seconds.items()))
+    if trainer.main:
+        print(f"training done: {steps} steps in {seconds:.2f} s; checkpoints in {save_dir}")
+        print("phase seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in phase_seconds.items()))
     return {"save_dir": save_dir, "metrics": trainer.metrics_history,
-            "phase_seconds": phase_seconds, "seconds": seconds, "steps": steps}
+            "phase_seconds": phase_seconds, "seconds": seconds, "steps": steps,
+            **group_summary(group)}
 
 
 if __name__ == "__main__":

@@ -30,12 +30,28 @@ class BatchStatNorm2d(nn.BatchNorm2d):
     momentum 0.9): mean <- 0.9 mean + 0.1 batch_mean and var <- 0.9 var +
     0.1 batch_var with the BIASED batch variance. torch's own BatchNorm2d
     would use the unbiased one, n/(n-1) larger: a factor of 4/3 on the 1 x 1
-    maps of the last stage at batch 4."""
+    maps of the last stage at batch 4.
+
+    Under global_batch_stats (data-parallel training) the statistics are
+    those of the global batch, every rank's rows (JAX
+    training/train_step.py:1-15 psums them over the mesh; the reference's
+    DataParallel kept each replica's): two passes, each one reduction of
+    per-channel sums over the ranks by the function global_batch_stats
+    hands in (stat_reduce; the training step's is parallel.all_reduce_sum,
+    whose backward all-reduces too, so the statistics' gradient is
+    global), the mean first and then
+    the centred second moment, where E[x^2] - mean^2 would lose float32
+    digits against var_mean. The running buffers then move by the global
+    values, equal on every rank."""
 
     update_stats = False
+    stat_reduce = None
 
     def forward(self, x):
-        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False, keepdim=True)
+        if self.stat_reduce is not None:
+            mean, var = global_moments(x, self.stat_reduce)
+        else:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False, keepdim=True)
         if self.update_stats:
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(mean.flatten(), alpha=0.1)
@@ -43,6 +59,19 @@ class BatchStatNorm2d(nn.BatchNorm2d):
                 self.num_batches_tracked += 1
         scale = self.weight[:, None, None] * torch.rsqrt(var + self.eps)
         return (x - mean) * scale + self.bias[:, None, None]
+
+
+def global_moments(x, reduce):
+    """(mean, biased variance) per channel, (1, C, 1, 1) each, of x (n, C,
+    H, W) over the rows of every rank: the count and sums summed over the
+    ranks by reduce (a differentiable sum, as parallel.all_reduce_sum),
+    then the centred squares'."""
+    sums = torch.cat([x.sum(dim=(0, 2, 3)), x.new_full((1,), x.numel() / x.shape[1])])
+    sums = reduce(sums)
+    count = sums[-1]
+    mean = (sums[:-1] / count)[None, :, None, None]
+    var = reduce(((x - mean) ** 2).sum(dim=(0, 2, 3))) / count
+    return mean, var[None, :, None, None]
 
 
 class InstanceNorm2d(nn.InstanceNorm2d):
@@ -82,6 +111,22 @@ def batch_stat_updates(module: nn.Module):
     finally:
         for m in norms:
             m.update_stats = False
+
+
+@contextlib.contextmanager
+def global_batch_stats(module: nn.Module, reduce):
+    """Within the block, every BatchStatNorm2d of `module` normalises with
+    the statistics of all ranks' rows (global_moments), summed over the
+    ranks by reduce: the data-parallel training step runs its loss under
+    it with parallel.all_reduce_sum."""
+    norms = [m for m in module.modules() if isinstance(m, BatchStatNorm2d)]
+    for m in norms:
+        m.stat_reduce = reduce
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.stat_reduce = None
 
 
 @torch.no_grad()

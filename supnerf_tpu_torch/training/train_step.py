@@ -55,7 +55,7 @@ import math
 import torch
 
 from supnerf_tpu_torch.geometry.boxes import corners_of_box, normalize_by_roi, view_points
-from supnerf_tpu_torch.models.layers import batch_stat_updates
+from supnerf_tpu_torch.models.layers import batch_stat_updates, global_batch_stats
 from supnerf_tpu_torch.ops.render import (
     decoder_composite,
     decoder_kernel_compatible,
@@ -63,6 +63,7 @@ from supnerf_tpu_torch.ops.render import (
 )
 from supnerf_tpu_torch.ops.volume_render import occupancy_loss, rgb_loss_masked
 from supnerf_tpu_torch.optim import AdamW, clip_by_global_norm
+from supnerf_tpu_torch.parallel.mesh import all_reduce_flat, all_reduce_sum
 from supnerf_tpu_torch.tto.refiner import compose_pose_delta
 
 WEIGHT_DECAY = 0.01
@@ -342,14 +343,36 @@ def nerf_only_loss(model, batch: TrainBatch, code_rows, cfg: TrainConfig,
 LOSSES = {"unified": unified_loss, "nerf_only": nerf_only_loss}
 
 
+def reduce_over_ranks(group, g_model, g_tables, values, trained, names):
+    """The data-parallel step's one all-reduce (parallel.all_reduce_flat):
+    the rank means of the gradients and of the metrics (with equal shards,
+    the global batch's means and their gradients), psnr then from the
+    global loss_rgb, and the rows any rank trained."""
+    n = len(g_model)
+    *grads, values, trained = all_reduce_flat(g_model + g_tables + [values, trained])
+    grads = [g / group.world for g in grads]
+    values = values / group.world
+    if "psnr" in names:
+        values[names.index("psnr")] = -10.0 * torch.log10(values[names.index("loss_rgb")])
+    return grads[:n], grads[n:], values, trained > 0
+
+
 def train_step(state: TrainState, batch: TrainBatch, cfg: TrainConfig, timer=None,
-               loss_mode: str = "unified", enc_active: bool = True) -> dict:
+               loss_mode: str = "unified", enc_active: bool = True, group=None) -> dict:
     """One optimisation step in place on `state` with the loss of loss_mode
     ("unified" or "nerf_only", LOSSES), the encoder active or not
     (enc_active); returns that mode's metrics (metric_names) as floats,
     enc_active as 1.0 or 0.0. timer: optional timing.PhaseTimer, charged
     forward (with the render nested in it as "render"), backward,
-    optimizer."""
+    optimizer (with a group, the all-reduce nested in it as "all_reduce").
+
+    group: a parallel.Group, whose every rank runs this step on its equal
+    share of the global batch from the same state: BatchNorm takes the
+    global batch's statistics (layers.global_batch_stats), and one
+    all-reduce (reduce_over_ranks) gives every rank the global means'
+    gradients, of the model and of both code tables, before clipping and
+    AdamW, so every rank's state after the step is the same, and the
+    global batch's metrics."""
     phase = timer.phase if timer is not None else (lambda name: contextlib.nullcontext())
     model = state.model
     with phase("forward"):
@@ -357,16 +380,26 @@ def train_step(state: TrainState, batch: TrainBatch, cfg: TrainConfig, timer=Non
         idx = batch.code_idx
         rows = [t[idx].detach().requires_grad_(True)
                 for t in (state.shape_codes, state.texture_codes)]
-        loss, losses = LOSSES[loss_mode](model, batch, rows, cfg, bool(enc_active), phase)
+        with (global_batch_stats(model, all_reduce_sum) if group is not None
+              else contextlib.nullcontext()):
+            loss, losses = LOSSES[loss_mode](model, batch, rows, cfg, bool(enc_active), phase)
         losses["enc_active"] = loss.new_tensor(float(bool(enc_active)))
     with phase("backward"):
         params = list(model.parameters())
         grads = torch.autograd.grad(loss, params + rows, allow_unused=True,
                                     materialize_grads=True)
     with phase("optimizer"):
+        names = metric_names(loss_mode, cfg)
+        values = torch.stack([losses[k].detach().float() for k in names])
         g_model = list(grads[:-2])
         g_tables = [scatter_rows(t, idx, g)
                     for t, g in zip((state.shape_codes, state.texture_codes), grads[-2:])]
+        trained = idx
+        if group is not None:
+            with phase("all_reduce"):
+                hit = torch.zeros_like(state.optimized_idx).index_fill_(0, idx, 1.0)
+                g_model, g_tables, values, trained = reduce_over_ranks(
+                    group, g_model, g_tables, values, hit, names)
         if cfg.grad_clip > 0:
             g_model = clip_by_global_norm(g_model, cfg.grad_clip)
             g_tables = clip_by_global_norm(g_tables, cfg.grad_clip)
@@ -375,8 +408,7 @@ def train_step(state: TrainState, batch: TrainBatch, cfg: TrainConfig, timer=Non
         # moments fresh (training/checkpoints.py)
         state.opt_model.step(g_model, lr_scale(cfg, state.niter, cfg.lr_interval_model))
         state.opt_codes.step(g_tables, lr_scale(cfg, state.niter, cfg.lr_interval_codes))
-        state.optimized_idx[idx] = 1.0
+        state.optimized_idx[trained] = 1.0
         state.niter += 1
-        names = metric_names(loss_mode, cfg)
-        values = torch.stack([losses[k].detach().float() for k in names]).tolist()
+        values = values.tolist()
     return dict(zip(names, values))

@@ -42,6 +42,17 @@ of the epoch's first sample go to the log sink RunLog, <save_dir>/runs/
 (the JAX trainer writes them to tensorboardX, which the card's machine
 lacks); log_writer=False turns it off. A failed panel raises (the JAX
 trainer prints it and goes on).
+
+Data parallelism (group, a parallel.Group; the JAX trainer's mesh,
+trainer.py:159, :173-174, :539-540, :713-714): every rank holds the same
+state, and after every step the state a one-card run of the same global
+batch reaches. Each rank draws the epoch order and the encoder gate as
+every other and prepares its rows [r B / N, (r + 1) B / N) of each global
+batch by the per-row streams above, so the rows are a one-card run's; the
+step (train_step.train_step) takes BatchNorm's statistics and the
+gradients over all ranks. The metrics are the global batch's. Rank 0
+alone writes hpam.json, the checkpoints and the log; every rank loads a
+resume.
 """
 from __future__ import annotations
 
@@ -60,6 +71,7 @@ from supnerf_tpu_torch.geometry.roi import (
     roi_process,
     roi_resize,
 )
+from supnerf_tpu_torch.parallel.mesh import is_main, row_slice
 from supnerf_tpu_torch.render.renderer import render_full_image
 from supnerf_tpu_torch.timing import PhaseTimer
 from supnerf_tpu_torch.training import pixel_prep as pp
@@ -132,13 +144,15 @@ class UnifiedTrainer:
     dicts of data.synthetic with an 'instoken' key for the code-table row.
     aug_box2d / aug_wlh: the JAX trainer's augmentations; finetune_wlh
     trains the encoder's wlh head (a pred_wlh net). log_writer: None for
-    the RunLog under save_dir/runs, False for none."""
+    the RunLog under save_dir/runs, False for none. group: a
+    parallel.Group to train on with its other ranks (batch_size is the
+    global batch, which its world size must divide), or None."""
 
     def __init__(self, model, hpams: dict, dataset, save_dir: str, *, device,
                  batch_size: int = 8, loss_mode: str = "unified", im_enc_rate: float = 1.0,
                  aug_wlh: bool = False, aug_box2d: bool = False, finetune_wlh: bool = False,
                  seed: int = 0, check_iter: int = 1000, save_every: int = 1,
-                 log_writer: bool | None = None):
+                 log_writer: bool | None = None, group=None):
         if log_writer not in (None, False):
             raise ValueError("log_writer: None (the runs/ directory) or False (no log)")
         if loss_mode not in LOSSES:
@@ -150,6 +164,9 @@ class UnifiedTrainer:
         if finetune_wlh and not getattr(model, "pred_wlh", False):
             raise ValueError(f"finetune_wlh trains the encoder's wlh head: {type(model).__name__} "
                              "has none (pred_wlh 0)")
+        if group is not None and batch_size % group.world:
+            raise ValueError(f"batch_size {batch_size} does not split over {group.world} ranks")
+        self.group, self.main = group, is_main(group)
         self.hpams, self.dataset, self.save_dir = hpams, dataset, save_dir
         self.device = torch.device(device)
         self.batch_size, self.seed, self.loss_mode = batch_size, seed, loss_mode
@@ -174,10 +191,13 @@ class UnifiedTrainer:
         self.host_seconds = {}
         self._copy_stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
         self.metrics_history = []
-        os.makedirs(save_dir, exist_ok=True)
-        with open(os.path.join(save_dir, "hpam.json"), "w") as f:
-            json.dump(dict(hpams, model_dir=save_dir), f, indent=2)
-        self.log = None if log_writer is False else RunLog(os.path.join(save_dir, "runs"))
+        self.log = None
+        if self.main:
+            os.makedirs(save_dir, exist_ok=True)
+            with open(os.path.join(save_dir, "hpam.json"), "w") as f:
+                json.dump(dict(hpams, model_dir=save_dir), f, indent=2)
+            if log_writer is not False:
+                self.log = RunLog(os.path.join(save_dir, "runs"))
 
     def _instoken(self, i):
         s = self.dataset[i]
@@ -323,10 +343,21 @@ class UnifiedTrainer:
         return batch, {"producer_prep": prep_seconds + t1 - t0,
                        "producer_upload": time.perf_counter() - t1}
 
-    def _batches(self, order, salt: int, num_workers: int):
-        """The epoch's batches with their host split: prepared on the main
-        thread when num_workers is 0, else on PrefetchBatcher's producer."""
+    def _rank_rows(self, order):
+        """This rank's rows of each global batch of the epoch's order, in
+        order: all of them without a group."""
+        if self.group is None:
+            return order
         B = self.batch_size
+        sl = row_slice(self.group, B)
+        return [i for s in range(len(order) // B) for i in order[s * B:(s + 1) * B][sl]]
+
+    def _batches(self, order, salt: int, num_workers: int):
+        """The epoch's batches (this rank's share of each) with their host
+        split: prepared on the main thread when num_workers is 0, else on
+        PrefetchBatcher's producer."""
+        order = self._rank_rows(order)
+        B = self.batch_size // (self.group.world if self.group is not None else 1)
         if num_workers == 0:
             for s in range(len(order) // B):
                 t0 = time.perf_counter()
@@ -375,7 +406,7 @@ class UnifiedTrainer:
                     for f in dataclasses.fields(batch):
                         getattr(batch, f.name).record_stream(torch.cuda.current_stream())
                 metrics = train_step(self.state, batch, self.cfg, self.timer, self.loss_mode,
-                                     enc_active=self.encoder_active(salt, s))
+                                     enc_active=self.encoder_active(salt, s), group=self.group)
                 seconds = time.perf_counter() - t0
                 self._log(metrics, seconds, self.state.niter)
                 for k, v in host.items():
@@ -385,7 +416,7 @@ class UnifiedTrainer:
                                                  for k, v in self.timer.seconds.items()},
                                               **host})
                 self.metrics_history.append(metrics)
-                if self.state.niter % self.check_iter == 0:
+                if self.main and self.state.niter % self.check_iter == 0:
                     print(f"epoch {self.nepoch} step {self.state.niter}: "
                           f"loss {metrics['loss_total']:.5f} rgb {metrics['loss_rgb']:.5f} "
                           f"occ {metrics['loss_occ']:.5f} psnr {metrics['psnr']:.3f} "
@@ -433,7 +464,8 @@ class UnifiedTrainer:
     def train(self, epochs: int, num_workers: int = 0):
         while self.nepoch < epochs:
             self.training_epoch(num_workers)
-            if (self.nepoch + 1) % self.save_every == 0 or self.nepoch == epochs - 1:
+            if self.main and ((self.nepoch + 1) % self.save_every == 0
+                              or self.nepoch == epochs - 1):
                 save_checkpoint(self.save_dir, self.state, self.nepoch, self.instoken2idx)
             self.nepoch += 1
         return self.state

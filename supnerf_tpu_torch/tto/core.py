@@ -261,6 +261,40 @@ def tto_loss(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_diag
     return loss, psnr, hit_share
 
 
+def iteration_draws(cfg: TTOConfig, B: int, generator, device) -> dict:
+    """One TTO iteration's uniform draws for B objects, taken from
+    `generator` in the order the iteration uses them: the sym_aug flips
+    (B,) (None without sym_aug), the loss render's jitter (B, S) or, with
+    use_aabb_render, (B, R, S), the object-size draws (B, 3,
+    SAMPLES_PER_PLANE) (None without obj_sz_reg), the lidar render's jitter
+    (B, S). The one definition of that order: run_tto_batch draws each
+    iteration's here, and tto_draws stacks them for a whole run."""
+    R, S = cfg.render_im_sz ** 2, cfg.n_samples
+    draws = {"sym_flip": (torch.rand(B, generator=generator, device=device) < 0.5
+                          if cfg.sym_aug else None)}
+    draws["loss_jitter"] = torch.rand((B, R, S) if cfg.use_aabb_render else (B, S),
+                                      generator=generator, device=device)
+    draws["obj_sz_draws"] = (torch.rand((B, 3, SAMPLES_PER_PLANE), generator=generator,
+                                        device=device) if cfg.obj_sz_reg else None)
+    draws["depth_jitter"] = torch.rand((B, S), generator=generator, device=device)
+    return draws
+
+
+def tto_draws(cfg: TTOConfig, B: int, generator, device) -> dict:
+    """A whole run's draws for B objects (iteration_draws for each of
+    num_opts iterations), as run_tto_batch's keyword arguments jitter,
+    sym_flips and obj_sz_draws: a run given them is the run that draws them
+    itself from the same generator state. The driver takes them for a whole
+    batch and hands each rank its objects' rows."""
+    its = [iteration_draws(cfg, B, generator, device) for _ in range(cfg.num_opts)]
+
+    def stack(key):
+        return None if its[0][key] is None else torch.stack([d[key] for d in its])
+
+    return {"jitter": (stack("loss_jitter"), stack("depth_jitter")),
+            "sym_flips": stack("sym_flip"), "obj_sz_draws": stack("obj_sz_draws")}
+
+
 @torch.no_grad()
 def depth_error(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_diag,
                 cfg: TTOConfig, jitter=None, generator=None):
@@ -325,7 +359,9 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
     of each iteration's two renders, (num_opts, B, S) each, the loss
     render's (num_opts, B, R, S) with use_aabb_render. sym_flips (num_opts,
     B) bool and obj_sz_draws (num_opts, B, 3, SAMPLES_PER_PLANE): the
-    regularisers' draws (tto_loss). Draws not given come from `generator`.
+    regularisers' draws (tto_loss). Given none, each iteration takes its
+    draws from `generator` (iteration_draws); draws left None beside given
+    ones come from `generator` where tto_loss and the renders need them.
     timer: optional timing.PhaseTimer. pose_hook: encode_and_refine's.
     With cfg.opt_pose False only the codes are parameters (the pose is not
     in the optimizer, so weight decay does not touch it either) and every
@@ -358,13 +394,20 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
               + (("hit_share",) if cfg.use_aabb_render else ())}
     snaps = {"shapecode": {}, "texturecode": {}, "pose": {}}
     pose_obj = traj[:, 0]
+    B = len(batch.img_in)
+    own_draws = jitter is None and sym_flips is None and obj_sz_draws is None
     with phase("tto_loop"):
         for t in range(cfg.num_opts):
             replay = t <= cfg.reg_iters
-            j_loss = None if jitter is None else jitter[0][t]
-            j_depth = None if jitter is None else jitter[1][t]
-            reg = {"sym_flip": None if sym_flips is None else sym_flips[t],
-                   "obj_sz_draws": None if obj_sz_draws is None else obj_sz_draws[t]}
+            if own_draws:
+                d = iteration_draws(cfg, B, generator, sc.device)
+                j_loss, j_depth = d["loss_jitter"], d["depth_jitter"]
+                reg = {k: d[k] for k in ("sym_flip", "obj_sz_draws")}
+            else:
+                j_loss = None if jitter is None else jitter[0][t]
+                j_depth = None if jitter is None else jitter[1][t]
+                reg = {"sym_flip": None if sym_flips is None else sym_flips[t],
+                       "obj_sz_draws": None if obj_sz_draws is None else obj_sz_draws[t]}
             if replay:
                 pose_obj = traj[:, t]
                 with torch.no_grad():

@@ -32,6 +32,22 @@ optimizer_kitti.py:24,638-639): there the initial and ground-truth poses
 move to the nuScenes frame in the prep, the refiner sees the box corners
 scaled by KITTI_BOX_FAC unless the predicted wlh is used, and the field's
 samples rotate into the nuScenes frame.
+
+Data parallelism (group, a parallel.Group; the JAX driver's mesh,
+driver.py:184-186, :413-414, :432-433): each batch is padded to batch_size
+with its last row, as JAX pads it, and rank r optimizes the r-th of the
+world's equal contiguous shares. The loop needs no reduction across ranks:
+the loss is a sum over objects and the encoder normalises one object at a
+time. The results must be a one-card run's, so the draws stay aligned:
+every rank prepares the whole batch (the host streams prep_gen and np_rng
+and the readers' own draws advance as on one card) and draws the whole
+batch's render randomness (tto_draws: the flips, the jitter, the
+object-size draws, in the order of run_tto_batch's iteration_draws),
+keeping its objects' rows. A run without a group takes the same path with
+all rows its own. The results are gathered to rank 0, which alone keeps
+the bookkeeping (opt_pose 2's PnP count over the batch's real rows, not
+the padding), writes the result files and the panels, and runs what the
+JAX driver does not shard: the cross-view evaluation and multiview.
 """
 from __future__ import annotations
 
@@ -54,6 +70,7 @@ from supnerf_tpu_torch.geometry.boxes import (
 )
 from supnerf_tpu_torch.geometry.roi import resize_linear, roi_coord_trans
 from supnerf_tpu_torch.ops.volume_render import masked_psnr
+from supnerf_tpu_torch.parallel.mesh import gather_to_main, is_main, row_slice
 from supnerf_tpu_torch.render.renderer import (
     render_full_image,
     render_rays_at_pixels,
@@ -68,6 +85,7 @@ from supnerf_tpu_torch.tto.core import (
     make_composite,
     render_decoder,
     run_tto_batch,
+    tto_draws,
 )
 from supnerf_tpu_torch.tto.multiview import MultiviewBatch, run_multiview_tto
 from supnerf_tpu_torch.tto.pnp import pnp_bootstrap
@@ -130,7 +148,9 @@ class TTODriver:
     (annotation, camera), the default; the poses stay per (annotation,
     camera) at every level. vis: 0 none, 1 or 2 the panels of _save_vis
     under save_dir/<annotation>_<camera>/ at vis_im_sz; vis 2 has the TTO
-    return every iteration's codes and pose (TTOConfig.emit_code_curves)."""
+    return every iteration's codes and pose (TTOConfig.emit_code_curves).
+    group: a parallel.Group to split each batch's objects with (its world
+    size must divide batch_size), or None."""
 
     def __init__(self, model, mean_shape, mean_texture, hpams: dict, dataset, save_dir: str,
                  *, device, cfg: TTOConfig | None = None, opt_pose: int = 1,
@@ -138,13 +158,16 @@ class TTODriver:
                  add_pose_err: int = 2, batch_size: int = 16, save_freq: int = 100,
                  seed: int = 0, init_rot_err: float | None = None,
                  init_trans_err: float | None = None, rand_angle_lim: float = 0.0,
-                 code_level: int | None = None, vis: int = 0, vis_im_sz: int = 128):
+                 code_level: int | None = None, vis: int = 0, vis_im_sz: int = 128,
+                 group=None):
         if vis not in (0, 1, 2):
             raise ValueError(f"vis {vis}: 0, 1 or 2")
         if add_pose_err not in (0, 1, 2, 3):
             raise ValueError(f"add_pose_err {add_pose_err}: 0, 1, 2 or 3")
         if code_level not in (None, 0, 1, 2):
             raise ValueError(f"code_level {code_level}: 0, 1 or 2")
+        if group is not None and batch_size % group.world:
+            raise ValueError(f"batch_size {batch_size} does not split over {group.world} ranks")
         if opt_pose == 2 and not hasattr(model, "pose_update"):
             raise ValueError("opt_pose 2 solves PnP on the encoder's box-corner prediction, "
                              f"which {type(model).__name__} does not make (SUP-NeRF does)")
@@ -188,7 +211,9 @@ class TTODriver:
         self.vis, self.vis_im_sz = vis, vis_im_sz
         if vis >= 2 and not self.cfg.emit_code_curves:
             self.cfg = dataclasses.replace(self.cfg, emit_code_curves=True)
-        os.makedirs(save_dir, exist_ok=True)
+        self.group, self.main = group, is_main(group)
+        if self.main:
+            os.makedirs(save_dir, exist_ok=True)
         self.optimized_shapecodes, self.optimized_texturecodes = {}, {}
         self.optimized_poses = {}
         self.psnr_eval, self.ssim_eval, self.R_eval, self.T_eval = {}, {}, {}, {}
@@ -264,47 +289,85 @@ class TTODriver:
     # ------------------------------------------------------------------- run
     def run(self):
         """Optimize the whole dataset batch by batch; writes codes+poses.pkl
-        (and its .pth twin) and returns results_dict()."""
+        (and its .pth twin) and returns results_dict(); with a group, rank 0
+        does so and the other ranks return None."""
         n = len(self.dataset)
         for bi, start in enumerate(range(0, n, self.batch_size)):
             idxs = list(range(start, min(start + self.batch_size, n)))
-            print(f"num obj: {start}/{n}")
+            if self.main:
+                print(f"num obj: {start}/{n}")
             with self.timer.phase("host_prep"):
                 samples, prepped, batch = self._prep(idxs)
-            hook = (lambda uv: self._pnp_poses(uv, batch)) if self.opt_pose == 2 else None
-            res = run_tto_batch(self.model, self.wts, batch, self.mean_shape,
-                                self.mean_texture, self.cfg, generator=self.render_gen,
-                                timer=self.timer, pose_hook=hook)
+            res = self._optimize(batch)
+            if res is None:
+                continue
             with self.timer.phase("bookkeeping"):
-                res = {k: v.detach().cpu().numpy() for k, v in res.items()}
                 log_idxs = self._bookkeep(idxs, samples, prepped, res)
             if self.vis:
                 with self.timer.phase("vis"):
                     self._save_vis(log_idxs, prepped, res)
             if bi % max(self.save_freq // self.batch_size, 1) == 0:
                 self.save_results()
+        if not self.main:
+            return None
         self.save_results()
         self.save_results_pth()
         return self.results_dict()
+
+    def _optimize(self, batch: ObjectBatch):
+        """One batch (of B objects) through run_tto_batch with the whole
+        batch's draws (tto_draws), on this rank's share: all B rows without
+        a group; with one, its rows of the batch padded to batch_size with
+        its last row, and of the draws. Returns the batch's results (numpy,
+        B rows) on rank 0, None elsewhere."""
+        B = len(batch.img_in)
+        draws = tto_draws(self.cfg, B, self.render_gen, self.device)
+        n = B if self.group is None else self.batch_size
+        pick = torch.arange(n).clamp_(max=B - 1)[row_slice(self.group, n)].to(self.device)
+        share = ObjectBatch(**{f.name: getattr(batch, f.name)[pick]
+                               for f in dataclasses.fields(ObjectBatch)})
+        loss_j, depth_j = draws["jitter"]
+        rows = {k: None if draws[k] is None else draws[k][:, pick]
+                for k in ("sym_flips", "obj_sz_draws")}
+        taken = []
+        hook = (lambda uv: self._pnp_poses(uv, share, taken)) if self.opt_pose == 2 else None
+        res = run_tto_batch(self.model, self.wts, share, self.mean_shape, self.mean_texture,
+                            self.cfg, jitter=(loss_j[:, pick], depth_j[:, pick]),
+                            timer=self.timer, pose_hook=hook, **rows)
+        part = ({k: v.detach().cpu().numpy() for k, v in res.items()},
+                np.concatenate(taken) if taken else None)
+        if self.group is None:
+            parts = [part]
+        else:
+            with self.timer.phase("gather"):
+                parts = gather_to_main(self.group, part)
+            if parts is None:
+                return None
+        if self.opt_pose == 2:
+            # the padding's repeated rows are counted nowhere
+            took = int(np.concatenate([t for _, t in parts])[:B].sum())
+            self.pnp_translations += took
+            print(f"PnP bootstrap: {took} of {B} objects took the PnP translation")
+        return {k: np.concatenate([p[k] for p, _ in parts])[:B] for k in parts[0][0]}
 
     def _corner_uv(self, uv_direct):
         """The encoder's 16-wide direct corner prediction on the host, (B, 16)."""
         return uv_direct.detach().cpu().numpy()
 
-    def _pnp_poses(self, uv_direct, batch: ObjectBatch):
+    def _pnp_poses(self, uv_direct, batch: ObjectBatch, taken: list):
         """opt_pose 2 (JAX driver _dispatch_batch; reference
         optimizer_nuscenes.py:464-494): each object's initial pose from
         P3P-RANSAC on its predicted corners (tto/pnp.pnp_bootstrap, with the
         annotated wlh, roi_refine and K), the rotation always, the
-        translation where its depth is in (0, 60) m."""
+        translation where its depth is in (0, 60) m. Appends to `taken`
+        whether each object took the PnP translation, (B,) bool."""
         uv = self._corner_uv(uv_direct)
         src = batch.pose_init.detach().cpu().numpy()
         roi, wlh, K = (t.detach().cpu().numpy() for t in (batch.roi_refine, batch.wlh, batch.K))
         out = np.stack([pnp_bootstrap(uv[i], roi[i], wlh[i], K[i], src[i])
                         for i in range(len(src))])
-        taken = int(sum(not np.array_equal(out[i, :, 3], src[i, :, 3]) for i in range(len(src))))
-        self.pnp_translations += taken
-        print(f"PnP bootstrap: {taken} of {len(src)} objects took the PnP translation")
+        taken.append(np.array([not np.array_equal(out[i, :, 3], src[i, :, 3])
+                               for i in range(len(src))], bool))
         return torch.as_tensor(out, device=batch.pose_init.device)
 
     def _store_codes(self, ins, ann, cam, sc, tc):

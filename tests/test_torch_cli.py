@@ -113,29 +113,52 @@ def test_device_flags_run(tmp_path, monkeypatch, cli, argv):
 
 
 def test_device_flags_refuse_more_than_one_device(tmp_path, monkeypatch):
-    """--devices 2 (also through --gpus), 0 and 8, --coordinator and
-    JAX_COORDINATOR_ADDRESS raise ValueError naming ROADMAP's multi-GPU
-    item, on every CLI that takes them, before any work; nothing carries on
-    on fewer devices."""
+    """The device requests that cannot run as asked raise ValueError on
+    every CLI that takes them, before any work and before any file is
+    written, and nothing carries on with fewer cards or on the CPU:
+    --devices 0; a batch that the ranks do not divide (--batch_size 4 over
+    3 ranks, the demo's 3 cars over 2; also through --gpus); more than one
+    rank for --opt_multiview or --cross_eval_folder, which split nothing,
+    as in JAX; --devices 2 on
+    --device cuda where torch.cuda.device_count() is 1; a coordinator
+    (--coordinator or JAX_COORDINATOR_ADDRESS) without JAX_NUM_PROCESSES
+    and JAX_PROCESS_ID. --devices 2, --gpus 2 and --coordinator run in
+    tests/test_torch_parallel.py."""
     from supnerf_tpu_torch.cli import demo, train
 
     monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    monkeypatch.delenv("JAX_NUM_PROCESSES", raising=False)
+    monkeypatch.delenv("JAX_PROCESS_ID", raising=False)
     cfg = tmp_path / "tiny.json"
     cfg.write_text(json.dumps(TRAIN_CONFIG))
-    base = {"optimize": ["--dataset", "synthetic", "--num_objects", "1", "--device", "cpu"],
-            "train": _train_argv(cfg, tmp_path / "run"), "demo": ["--device", "cpu"]}
+    run = tmp_path / "run"
+    base = {"optimize": ["--dataset", "synthetic", "--num_objects", "1", "--batch_size", "4",
+                         "--device", "cpu", "--save_dir", str(run)],
+            "train": _train_argv(cfg, run),
+            "demo": ["--device", "cpu", "--save_dir", str(run)]}
     mains = {"optimize": optimize.main, "train": train.main, "demo": demo.main}
+    indivisible = {"optimize": "3", "train": "3", "demo": "2"}
     for name, fn in mains.items():
-        for extra in (["--devices", "2"], ["--devices", "0"], ["--devices", "8"],
-                      ["--coordinator", "10.0.0.1:1234"]):
-            with pytest.raises(ValueError, match="A.13"):
+        for extra, match in ((["--devices", "0"], "one rank or more"),
+                             (["--devices", indivisible[name]], "does not split"),
+                             (["--coordinator", "10.0.0.1:1234"], "JAX_NUM_PROCESSES")):
+            with pytest.raises(ValueError, match=match):
                 fn(base[name] + extra)
-    with pytest.raises(ValueError, match="A.13"):
-        train.main(base["train"] + ["--gpus", "2"])
+    with pytest.raises(ValueError, match="does not split"):
+        train.main(base["train"] + ["--gpus", "3"])
+    for extra in (["--opt_multiview", "1"], ["--cross_eval_folder", str(run)]):
+        with pytest.raises(ValueError, match="split nothing over ranks"):
+            optimize.main(base["optimize"] + extra + ["--devices", "2"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for name, fn in mains.items():
+        argv = [a if a != "cpu" else "cuda" for a in base[name]]
+        with pytest.raises(ValueError, match="2 ranks on this host and 1 cards"):
+            fn(argv + ["--devices", "2"])
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "10.0.0.1:1234")
-    with pytest.raises(ValueError, match="coordinator"):
+    with pytest.raises(ValueError, match="JAX_NUM_PROCESSES"):
         optimize.main(base["optimize"])
-    assert not os.path.exists(tmp_path / "run")
+    assert not os.path.exists(run)
 
 
 def test_profile_dir_writes_a_trace(tmp_path):
@@ -240,7 +263,7 @@ def test_port_imports_nothing_of_the_jax_world():
                  "tto.regularizers", "tto.pnp", "tto.multiview", "cli.eval_saved_result",
                  "cli.evaluate_all", "utils.draw", "utils.glyphs", "utils.vis", "eval.metrics",
                  "bench.train_loop_ab", "data.debug", "utils.colormaps", "utils.gif",
-                 "utils.profiling", "cli.generate_video_vis"):
+                 "utils.profiling", "cli.generate_video_vis", "parallel", "parallel.mesh"):
         assert f"supnerf_tpu_torch.{name}" in imported
 
 
@@ -419,17 +442,25 @@ for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules if hit(m))
 assert not leaked, leaked
-print(" ".join(names))
+sys.path.insert(0, "tests")
+import torch_parallel_worker
+from supnerf_tpu_torch.parallel.mesh import launch, plan_launch
+ranks = launch(plan_launch(2, None, "cpu"), torch_parallel_worker.rank_imports)
+assert ranks == [[], []], ranks
+print(" ".join(names + ["spawned-ranks-clean"]))
 """
 
 
 def test_training_modules_import_nothing_of_the_jax_world():
     """The training entry point and every supnerf_tpu_torch.training module
     import where jax, flax, optax, supnerf_tpu, cv2, PIL and matplotlib
-    raise on import."""
+    raise on import; so do the two ranks a data-parallel launch spawns
+    (parallel.launch, 2 gloo ranks), whose fresh interpreters hold nothing
+    of those once they have imported the port."""
     proc = subprocess.run([sys.executable, "-c", _TRAIN_ISOLATION % (_BLOCKED,)], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     imported = proc.stdout.split()
     for name in ("ray_prep", "train_step", "checkpoints", "trainer", "pixel_prep", "prefetch"):
         assert f"supnerf_tpu_torch.training.{name}" in imported
+    assert "spawned-ranks-clean" in imported
