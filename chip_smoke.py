@@ -166,6 +166,24 @@ Phases, each timed; any failure exits non-zero before the result line:
      on 2 objects: K1/K2 as phase 4's, one gather, the results against the
      run without a group (whether bit for bit); (c) both on 2 ranks against
      1 where torch.cuda.device_count() is 2 or more, else a line saying so.
+ 16. the pipelined TTO driver (tto/driver.py TTODriver.run: batch i + 1
+     prepared in the worker process while batch i runs, batch i - 1
+     bookkept after batch i is dispatched) against its serial order (a loop
+     of optimize_object_batch), through cli.optimize at the published
+     config: (a) phase 9's nuScenes fixture, 4 objects at --batch_size 2,
+     add_pose_err 2; (b) 8 synthetic objects at --batch_size 2; each run
+     serial, pipelined, pipelined, serial, and (b) once more pipelined with
+     --devices 1 (a world-size-1 NCCL group, a gather a batch):
+     codes+poses.pkl, its .pth twin and cross_eval.pkl the same bytes in
+     every run (the --devices 1 run's codes+poses.pkl the same values, bit
+     for bit), K1/K2 launches equal;
+     (c) each run's wall time, objects/min, host_prep seconds, the
+     worker's start and stop and the main thread's waits for its preps,
+     each batch's tto_loop, and the share of the serial prep the pipeline
+     hid;
+     (d) the decode seconds of the committed progressive 1600 x 900 JPEG
+     beside the baseline one, and its pinned sha256 (the baseline's
+     pixels).
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -3909,6 +3927,178 @@ def data_parallel_paths(out_dir, tto_counts):
     return counts
 
 
+# Phase 16: the pipelined TTO driver against its serial order, the decoders
+PIPE_BATCH, PIPE_NUSC_OBJECTS, PIPE_SYNTHETIC_OBJECTS = 2, 4, 8
+NUSC_FIXTURE_PROGRESSIVE = os.path.join(HERE, "tests", "fixtures",
+                                        "nusc_cam_1600x900_progressive.jpg")
+# the files a TTO run writes whose bytes must not depend on the order (eval.json
+# names its run's folder)
+PIPE_RESULT_FILES = ("codes+poses.pkl", "codes+poses.pth", "cross_eval.pkl")
+
+
+def _serial_run(self):
+    """TTODriver.run's serial order: a loop of optimize_object_batch over the
+    same batches, then the result files."""
+    n = len(self.dataset)
+    for start in range(0, n, self.batch_size):
+        self.optimize_object_batch(list(range(start, min(start + self.batch_size, n))))
+    self.save_results()
+    self.save_results_pth()
+    return self.results_dict()
+
+
+def _same_values(a, b):
+    """Whether two unpickled results are equal leaf for leaf: arrays of the
+    same dtype and shape with the same bits, everything else ==."""
+    import numpy as np
+
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(_same_values(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same_values(x, y) for x, y in zip(a, b)))
+    if isinstance(a, np.ndarray):
+        return (isinstance(b, np.ndarray) and a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    return type(a) is type(b) and a == b
+
+
+def _pipeline_cell(label, argv, n_objects, out_dir, group_run=False):
+    """cli.optimize with argv four times, serial (TTODriver.run replaced by
+    _serial_run), pipelined, pipelined, serial, and with group_run a fifth
+    time pipelined with --devices 1 (a world-size-1 NCCL group: the worker
+    forked beside NCCL, each batch's gather before the next one's
+    launches): every run's result files byte for byte and its K1/K2
+    launches equal to the first's. Returns (the pipelined runs' launch
+    counts, the cell's times)."""
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.cli import optimize
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.tto import driver as driver_mod
+
+    runs, pipelined_run = [], driver_mod.TTODriver.run
+    orders = ("serial", "pipelined", "pipelined", "serial")
+    orders += ("--devices 1",) if group_run else ()
+    for i, order in enumerate(orders):
+        save = os.path.join(out_dir, f"{label}_{i}_{order.replace(' ', '')}")
+        render.reset_launch_counts()
+        if order == "serial":
+            driver_mod.TTODriver.run = _serial_run
+        try:
+            t0 = time.perf_counter()
+            summary = optimize.main(argv + ["--device", "cuda", "--seed", "0", "--save_dir", save]
+                                    + (order.split() if order == "--devices 1" else []))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            driver_mod.TTODriver.run = pipelined_run
+        files = {}
+        for name in PIPE_RESULT_FILES:
+            with open(os.path.join(save, name), "rb") as f:
+                files[name] = f.read()
+        shutil.rmtree(save)
+        phases = summary["phase_seconds"]
+        runs.append({"order": order, "wall_s": wall, "objects_per_min": n_objects * 60 / wall,
+                     "host_prep_s": phases["host_prep"],
+                     "worker_s": phases.get("worker_start", 0.0) + phases.get("worker_stop", 0.0),
+                     "prep_wait_s": phases.get("prep_wait", 0.0),
+                     "tto_loop_s": [s for name, s in summary["phase_log"] if name == "tto_loop"],
+                     "launches": {k: v for k, v in render.LAUNCHES.items() if v}, "files": files})
+        if order == "--devices 1":
+            batches = -(-n_objects // PIPE_BATCH)
+            if summary["backend"] != "nccl" or summary["collectives"]["gather"] != batches:
+                raise RuntimeError(f"{label} --devices 1: {summary['collectives']} on "
+                                   f"{summary['backend']}, expected {batches} gathers on nccl")
+    first = runs[0]
+    for r in runs[1:]:
+        differ = [name for name in PIPE_RESULT_FILES if r["files"][name] != first["files"][name]]
+        if r["order"] == "--devices 1" and differ == ["codes+poses.pkl"] and _same_values(
+                pickle.loads(r["files"][differ[0]]), pickle.loads(first["files"][differ[0]])):
+            # the gathered arrays' dtype objects are unpickled copies, so the
+            # results pickle to other bytes; their values are the same bits
+            differ = []
+        if differ:
+            raise RuntimeError(f"{label}: the {r['order']} run's {differ} differ from the serial "
+                               "run's")
+        if r["launches"] != first["launches"]:
+            raise RuntimeError(f"{label}: the {r['order']} run launched {r['launches']}, the "
+                               f"serial run {first['launches']}")
+    mean = {o: {k: float(np.mean([r[k] for r in runs if r["order"] == o]))
+                for k in ("wall_s", "objects_per_min", "host_prep_s")}
+            for o in ("serial", "pipelined")}
+    for o in mean:
+        mean[o]["tto_loop_s"] = np.mean([r["tto_loop_s"] for r in runs if r["order"] == o],
+                                        0).tolist()
+    saved = mean["serial"]["wall_s"] - mean["pipelined"]["wall_s"]
+    hidden = saved / mean["serial"]["host_prep_s"]
+    times = {"runs": [{k: v for k, v in r.items() if k not in ("files", "launches")}
+                      for r in runs], "mean": mean, "prep_hidden_share": hidden,
+             "files_bit_for_bit": True}
+    same = " (the --devices 1 run's codes+poses.pkl: the same values)" if group_run else ""
+    print(f"   {label}: the {len(runs)} runs' {', '.join(PIPE_RESULT_FILES)} the same bytes"
+          f"{same}, launches "
+          f"{first['launches']} each")
+    for r in runs:
+        print(f"   {label} {r['order']}: {r['wall_s']:.3f} s, {r['objects_per_min']:.2f} "
+              f"objects/min, host_prep {r['host_prep_s']:.3f} s, the worker's start and stop "
+              f"{r['worker_s']:.3f} s, waits for its preps {r['prep_wait_s']:.3f} s, tto_loop "
+              "per batch "
+              + ", ".join(f"{s:.3f}" for s in r["tto_loop_s"]) + " s")
+    print(f"   {label} means: serial {mean['serial']['wall_s']:.3f} s "
+          f"({mean['serial']['objects_per_min']:.2f} objects/min), pipelined "
+          f"{mean['pipelined']['wall_s']:.3f} s ({mean['pipelined']['objects_per_min']:.2f} "
+          f"objects/min); host_prep {mean['serial']['host_prep_s']:.3f} s serial, "
+          f"{mean['pipelined']['host_prep_s']:.3f} s in the worker; share of the serial prep "
+          f"hidden {hidden:.3f}")
+    return runs[1]["launches"], times
+
+
+def pipeline_paths(out_dir):
+    """Phase 16: (a) cli.optimize on phase 9's nuScenes fixture (4 objects,
+    --batch_size 2, add_pose_err 2) and (b) on 8 synthetic objects at
+    --batch_size 2, at the published config, each pipelined against the
+    serial loop of optimize_object_batch, A B B A (_pipeline_cell); (d) the
+    decode seconds of the progressive fixture beside the baseline one, whose
+    pixels are the same. Returns (launch counts per path, the times)."""
+    import argparse
+    import hashlib
+
+    from supnerf_tpu_torch.bench.decode_seconds import jpeg_seconds
+    from supnerf_tpu_torch.cli.common import build_dataset
+    from supnerf_tpu_torch.config import load_hpams
+    from supnerf_tpu_torch.data.jpeg import read_jpeg
+
+    counts, times = {}, {}
+    nusc_root = os.path.join(out_dir, "nuscenes")
+    write_nusc_fixture(nusc_root)
+    cfg = _config_copy(out_dir, "supnerf.nusc.vehicle.car.json",
+                       {"test_data_dir": nusc_root, "test_nusc_version": "v1.0-mini"})
+    # curation, once before the timed runs (it writes the index they read)
+    n = len(build_dataset(load_hpams(cfg), argparse.Namespace(dataset="nusc", add_pose_err=2)))
+    if n != PIPE_NUSC_OBJECTS:
+        raise RuntimeError(f"(a): curation kept {n} objects, expected {PIPE_NUSC_OBJECTS}")
+    counts["pipelined_nusc"], times["nusc"] = _pipeline_cell(
+        "(a) nuScenes", ["--config_file", cfg, "--dataset", "nusc", "--batch_size",
+                         str(PIPE_BATCH), "--add_pose_err", "2"], n, out_dir)
+    counts["pipelined_synthetic"], times["synthetic"] = _pipeline_cell(
+        "(b) synthetic", ["--config_file", PUBLISHED, "--dataset", "synthetic", "--num_objects",
+                          str(PIPE_SYNTHETIC_OBJECTS), "--batch_size", str(PIPE_BATCH)],
+        PIPE_SYNTHETIC_OBJECTS, out_dir, group_run=True)
+    digest = hashlib.sha256(read_jpeg(NUSC_FIXTURE_PROGRESSIVE).tobytes()).hexdigest()
+    if digest != NUSC_FIXTURE_SHA256:
+        raise RuntimeError(f"the progressive fixture decodes to sha256 {digest}, pinned "
+                           f"{NUSC_FIXTURE_SHA256}")
+    times["decode"] = jpeg_seconds(repeats=3)
+    print(f"   (d) the progressive fixture decodes to the pinned sha256 (the baseline's "
+          f"pixels); host decode seconds (median of 3) on this machine: "
+          f"{json.dumps(times['decode'])}")
+    print("   pipeline: " + json.dumps(times))
+    return counts, times
+
+
 def kernel_records(tto_records, train_records, aabb_records, field_records,
                    train_kernel_records, train_field_extra, codenerf_extra, counts_by_path):
     """One record per launch counter, launches from the path that runs it
@@ -4042,6 +4232,10 @@ def main():
                "(c) 2 ranks where there are 2 cards")
     dp_counts = _in_temp_dir(lambda d: data_parallel_paths(d, tto_counts))
     done(t0, "data parallelism")
+    t0 = phase("the pipelined TTO driver and the decoders: (a) nuScenes, (b) synthetic, "
+               "(c) serial and pipelined A B B A, (d) the progressive JPEG")
+    pipeline_counts, _ = _in_temp_dir(pipeline_paths)
+    done(t0, "the pipelined TTO driver and the decoders")
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
                              train_kernel_records, train_field_extra, codenerf_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
@@ -4049,7 +4243,8 @@ def main():
                               "train_render_data": render_data_counts,
                               "train_field": field_train_counts, **dataset_counts,
                               **baseline_counts, **driver_counts, **vis_counts,
-                              **training_counts, **last_counts, **dp_counts})
+                              **training_counts, **last_counts, **dp_counts,
+                              **pipeline_counts})
     records_by_name = {r["name"]: r for r in records}
     records_by_name["render_fwd"].update(vis_kernels)
     records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms

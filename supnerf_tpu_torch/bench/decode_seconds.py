@@ -4,7 +4,10 @@
 
 Prints one JSON object: the median seconds of
 - read_jpeg on the committed 1600 x 900 baseline 4:2:0 street scene
-  (tests/fixtures/nusc_cam_1600x900.jpg, a nuScenes camera image's size);
+  (tests/fixtures/nusc_cam_1600x900.jpg, a nuScenes camera image's size),
+  and on the same scene saved progressive
+  (tests/fixtures/nusc_cam_1600x900_progressive.jpg, which decodes to the
+  same pixels);
 - read_png on a 1600 x 900 greyscale mask (an ellipse) written with every
   row Paeth-filtered, the decoder's slowest case (the wavefront), and on the
   same mask with every row unfiltered (write_png's files);
@@ -31,6 +34,7 @@ from supnerf_tpu_torch.utils.image_io import PNG_SIGNATURE, _chunk, read_png, wr
 
 FIXTURE_JPEG = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "tests", "fixtures", "nusc_cam_1600x900.jpg")
+FIXTURE_PROGRESSIVE = FIXTURE_JPEG[:-len(".jpg")] + "_progressive.jpg"
 
 
 def write_png_paeth(path: str, img: np.ndarray):
@@ -62,6 +66,16 @@ def _median_seconds(fn, repeats):
     return statistics.median(times)
 
 
+def jpeg_seconds(repeats: int = 3) -> dict:
+    """Median seconds of read_jpeg on the baseline and the progressive
+    fixture; checks that both decode to the same pixels."""
+    if not np.array_equal(read_jpeg(FIXTURE_JPEG), read_jpeg(FIXTURE_PROGRESSIVE)):
+        raise RuntimeError("the progressive fixture does not decode to the baseline's pixels")
+    return {"jpeg_1600x900_s": _median_seconds(lambda: read_jpeg(FIXTURE_JPEG), repeats),
+            "jpeg_progressive_1600x900_s": _median_seconds(
+                lambda: read_jpeg(FIXTURE_PROGRESSIVE), repeats)}
+
+
 def measure(repeats: int = 3) -> dict:
     """Median seconds per decode (see the module's docstring); also checks
     that every decode gives back its image."""
@@ -70,7 +84,7 @@ def measure(repeats: int = 3) -> dict:
     mask = np.where(((yy - 450) / 260.0) ** 2 + ((xx - 800) / 420.0) ** 2 < 1, 255, 0)
     mask = mask.astype(np.uint8)
     kitti = np.ascontiguousarray(street[450:825, 179:1421])
-    out = {"jpeg_1600x900_s": _median_seconds(lambda: read_jpeg(FIXTURE_JPEG), repeats)}
+    out = jpeg_seconds(repeats)
     with tempfile.TemporaryDirectory() as d:
         cases = (("png_mask_1600x900_paeth_s", mask, write_png_paeth),
                  ("png_mask_1600x900_unfiltered_s", mask, write_png),

@@ -211,6 +211,12 @@ class _Subset:
     def __getitem__(self, i):
         return self.base[self.idx[i]]
 
+    @property
+    def rng(self):
+        """The reader's own numpy stream, which the TTO driver's prep worker
+        hands back (tto/driver.py _stream_state)."""
+        return getattr(self.base, "rng", None)
+
 
 def dataset_name(hpams: dict, args) -> str:
     return args.dataset or hpams.get("dataset", {}).get("name", "synthetic")

@@ -98,8 +98,10 @@ def _auto_save_postfix(args, hpams: dict, ds_name: str) -> str:
 
 def main(argv=None):
     """Returns {'save_dir', 'aggregate' (None for --opt_multiview), 'cross'
-    (None for KITTI and Waymo), 'phase_seconds', 'loss' (per object, or per
-    instance with --opt_multiview, the per-iteration TTO loss),
+    (None for KITTI and Waymo), 'phase_seconds', 'phase_log' ((phase,
+    seconds) in the order the phases were timed: each batch's encode_refine
+    and tto_loop among them), 'loss' (per object, or per instance with
+    --opt_multiview, the per-iteration TTO loss),
     'n_objects', 'pnp_translations' (opt_pose 2: the objects whose PnP
     translation was taken), 'multiview' (the multiview results dict)}:
     with --devices, rank 0's, and None on the other ranks."""
@@ -157,7 +159,8 @@ def _optimize(group, args):
         write_eval_json(os.path.join(save_dir, "eval.json"), [figure_entry(result_file, agg)])
         summary.update(aggregate=agg, cross=agg.get("cross"))
     print("phase seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in driver.timer.seconds.items()))
-    return dict(summary, phase_seconds=dict(driver.timer.seconds), loss=driver.loss_curve,
+    return dict(summary, phase_seconds=dict(driver.timer.seconds), phase_log=driver.timer.log,
+                loss=driver.loss_curve,
                 pnp_translations=driver.pnp_translations if args.opt_pose == 2 else None,
                 **group_summary(group))
 

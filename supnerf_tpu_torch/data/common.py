@@ -118,7 +118,8 @@ def get_associate_box_3d(objects, tgt_mask: np.ndarray, tgt_cat: str,
 
 def load_instance_masks(seg_dir: str, stem: str):
     """The segmentation's prediction json and per-instance mask PNGs
-    (reference data_nuscenes.py:492-498): (preds, [masks (H, W) uint8])."""
+    (reference data_nuscenes.py:492-498): (preds, [masks (H, W)]), each mask
+    as PIL reads it (read_png): uint8, bool at 1 bit."""
     with open(os.path.join(seg_dir, stem + ".json")) as f:
         preds = json.load(f)
     masks = [read_png(os.path.join(seg_dir, f"{stem}_{box_id}.png"))

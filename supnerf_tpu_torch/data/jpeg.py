@@ -1,5 +1,5 @@
-"""Baseline JPEG decoder in numpy, for nuScenes' camera images
-(samples/CAM_*/*.jpg), where the JAX package decodes through PIL.
+"""Baseline and progressive JPEG decoder in numpy, for nuScenes' camera
+images (samples/CAM_*/*.jpg), where the JAX package decodes through PIL.
 
 The target is the bytes PIL gives, which decodes with libjpeg-turbo's
 defaults, so every step after the entropy decode is that library's integer
@@ -14,15 +14,35 @@ arithmetic, vectorised over all blocks of a component:
 Integer arithmetic also makes the result the same on every machine.
 
 Read: SOI, APPn (APP14 for Adobe's colour transform flag), COM, DQT (8 and
-16-bit tables), SOF0 and SOF1 at 8 bits, DHT, DRI with RSTn, SOS (one or
-several scans, interleaved or not), DNL-free EOI. Refused with the marker
-named: progressive (SOF2), lossless, hierarchical and arithmetic-coded
-frames, 12-bit samples, and four-component (CMYK) images.
+16-bit tables), SOF0 and SOF1 at 8 bits, SOF2 (progressive, Huffman-coded)
+at 8 bits, DHT, DRI with RSTn, SOS (one or several scans, interleaved or
+not), DNL-free EOI. Each component's quantisation table is the one defined
+when its first scan starts (libjpeg latches it there, jdinput.c
+latch_quant_tables), so a later DQT of the same slot does not change it.
+Refused with the marker named: lossless, hierarchical and arithmetic-coded
+frames, 12-bit samples and four-component (CMYK) images; and a progressive
+file whose scans leave bits of one of the first nine AC coefficients unsent,
+which libjpeg-turbo decodes with its block smoothing
+(jdcoefct.c decompress_smooth_data), not done here. PIL's own progressive
+script (jcparam.c jpeg_simple_progression) sends every bit.
 
-The entropy decode is one Python loop per Huffman symbol. It peeks 16 bits
-from a list of 64-bit big-endian windows, one per byte offset, and looks the
-peek up in a 65,536-entry table per Huffman table; an AC entry whose code
-and magnitude bits both fit in the peek carries the decoded run and value.
+A progressive frame (jdphuff.c) sends its coefficients in scans of one
+spectral band and some of their bits: DC first scans (interleaved or not)
+send each block's DC value shifted by Al, DC refinement scans one more bit
+per block; AC first scans (one component, its own block grid of
+ceil(width / 8) x ceil(height / 8) blocks, not the MCU-padded one) send a
+band's coefficients shifted by Al, with end-of-band runs (EOBn: 2^n plus n
+appended bits of blocks) that span blocks within a restart interval; AC
+refinement scans send one correction bit for each coefficient of the band
+that is already nonzero and the new coefficients of magnitude 1 << Al,
+whose zero runs count only coefficients still zero. The coefficients add
+up in a buffer per component (zig-zag order) until EOI.
+
+The entropy decode is one Python loop per Huffman symbol (DC refinement
+bits, which need no table, are read with numpy). It peeks 16 bits from a
+list of 64-bit big-endian windows, one per byte offset, and looks the peek
+up in a 65,536-entry table per Huffman table; an AC entry whose code and
+magnitude bits both fit in the peek carries the decoded run and value.
 """
 from __future__ import annotations
 
@@ -38,7 +58,7 @@ ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
 
 _REFUSED_SOF = {
-    0xC2: "SOF2 (progressive DCT)", 0xC3: "SOF3 (lossless)",
+    0xC3: "SOF3 (lossless)",
     0xC5: "SOF5 (differential sequential)", 0xC6: "SOF6 (differential progressive)",
     0xC7: "SOF7 (differential lossless)", 0xC9: "SOF9 (arithmetic-coded sequential)",
     0xCA: "SOF10 (arithmetic-coded progressive)", 0xCB: "SOF11 (arithmetic-coded lossless)",
@@ -172,38 +192,39 @@ class _Huffman:
     DC entries: (code length, magnitude category). AC entries: (bits, run,
     value, extra): bits to skip, the zero run before the coefficient, and
     its value when the magnitude bits fit in the peek (extra 0), else the
-    magnitude bit count to read next (extra > 0). End of block has run 64."""
+    magnitude bit count to read next (extra > 0). End of block (EOBn) has run
+    64 + n."""
 
     def __init__(self, counts, symbols, is_ac: bool, where: str):
-        lengths = np.repeat(np.arange(1, 17), counts)
-        codes, code = [], 0
+        # canonical codes ascend with their length, so each code's entries
+        # (the peeks it begins) follow the previous code's
+        lut, code, i = [], 0, 0
         for n in range(1, 17):
+            span = 1 << (16 - n)
             for _ in range(counts[n - 1]):
-                codes.append(code)
+                sym = symbols[i]
+                i += 1
                 code += 1
+                if not is_ac:
+                    lut.extend([(n, sym)] * span)
+                    continue
+                run, size = sym >> 4, sym & 15
+                if size == 0:
+                    # end of block / band: EOB (0x00) and the progressive
+                    # EOBn (n << 4, a run of 2^n plus n appended bits of
+                    # blocks) as 64 + n; ZRL (0xF0) keeps its run 15
+                    lut.extend([(n, run if run == 15 else 64 + run, 0, 0)] * span)
+                elif n + size <= 16:               # the magnitude bits fit in the peek
+                    rep, half = 1 << (16 - n - size), 1 << (size - 1)
+                    for m in range(1 << size):
+                        lut.extend([(n + size, run, m if m >= half else m - 2 * half + 1, 0)] * rep)
+                else:
+                    lut.extend([(n, run, 0, size)] * span)
             if code > (1 << n):
                 raise ValueError(f"{where}: bad Huffman table (over-subscribed codes)")
             code <<= 1
-        peek = np.arange(1 << 16)
-        length = np.zeros(1 << 16, np.int64)
-        sym = np.zeros(1 << 16, np.int64)
-        for c, n, s in zip(codes, lengths, symbols):
-            lo = c << (16 - n)
-            length[lo:lo + (1 << (16 - n))] = n
-            sym[lo:lo + (1 << (16 - n))] = s
-        if not is_ac:
-            self.lut = list(zip(length.tolist(), sym.tolist()))
-            return
-        run, size = sym >> 4, sym & 15
-        fits = (length + size <= 16) & (size > 0)
-        bits = (peek >> np.maximum(16 - length - size, 0)) & ((1 << size) - 1)
-        value = np.where(bits < (1 << np.maximum(size - 1, 0)), bits - (1 << size) + 1, bits)
-        value = np.where(fits, value, 0)
-        nbits = np.where(fits, length + size, length)
-        extra = np.where(fits | (size == 0), 0, size)
-        run = np.where(sym == 0, 64, run)                       # end of block
-        nbits = np.where(length == 0, 0, nbits)                 # no code: invalid data
-        self.lut = list(zip(nbits.tolist(), run.tolist(), value.tolist(), extra.tolist()))
+        lut.extend([(0, 0, 0, 0) if is_ac else (0, 0)] * ((1 << 16) - len(lut)))   # no code
+        self.lut = lut
 
 
 class _Component:
@@ -303,13 +324,201 @@ def _decode_scan(win, starts, n_bits, plan, n_mcu, restart, dc_luts, ac_luts):
     return pos_out, val_out, dc_vals
 
 
+def _refine_dc_bits(data, starts, n_blocks, per_interval):
+    """DC refinement: one raw bit per block, blocks [i * per_interval, (i +
+    1) * per_interval) from the byte where restart interval i starts."""
+    bits = np.unpackbits(data)
+    out = np.empty(n_blocks, np.int64)
+    for i, lo in enumerate(range(0, n_blocks, per_interval)):
+        hi = min(lo + per_interval, n_blocks)
+        if i >= len(starts):
+            raise ValueError("JPEG: fewer RSTn markers than the restart interval needs")
+        seg = bits[8 * starts[i]:8 * starts[i] + hi - lo]
+        if len(seg) < hi - lo:
+            raise IndexError("past the scan's data")
+        out[lo:hi] = seg
+    return out
+
+
+def _decode_dc_first(win, starts, n_bits, plan, n_mcu, restart, dc_luts):
+    """A progressive DC first scan: per block of an MCU (plan: component slot,
+    dc table), the DC values (before the Al shift) in decode order."""
+    n_slots = max(s for s, _ in plan) + 1
+    blocks = [(slot, dc_luts[dc].lut) for slot, dc in plan]
+    masks = [(1 << s) - 1 for s in range(17)]
+    halves = [1 << (s - 1) if s else 0 for s in range(17)]
+    out = []
+    append = out.append
+    p, interval = starts[0] * 8, 0
+    pred = [0] * n_slots
+    for m in range(n_mcu):
+        if restart and m and m % restart == 0:
+            interval += 1
+            if interval >= len(starts):
+                raise ValueError("JPEG: fewer RSTn markers than the restart interval needs")
+            p = starts[interval] * 8
+            pred = [0] * n_slots
+        for slot, dc in blocks:
+            n, s = dc[(win[p >> 3] >> (48 - (p & 7))) & 0xFFFF]
+            if n == 0:
+                raise ValueError("JPEG: corrupt entropy-coded data (no Huffman code matches)")
+            p += n
+            if s:
+                v = (win[p >> 3] >> (64 - (p & 7) - s)) & masks[s]
+                p += s
+                if v < halves[s]:
+                    v -= masks[s]
+                pred[slot] += v
+            append(pred[slot])
+    if p > n_bits + 64:
+        raise IndexError("past the scan's data")
+    return out
+
+
+def _decode_ac_first(win, starts, n_bits, lut, n_blocks, restart, ss, se):
+    """A progressive AC first scan of one component's blocks (scan order):
+    (flat positions block * 64 + zig-zag index, values before the Al shift)
+    of the nonzero coefficients of the band ss..se."""
+    masks = [(1 << s) - 1 for s in range(17)]
+    halves = [1 << (s - 1) if s else 0 for s in range(17)]
+    pos_out, val_out = [], []
+    pos_append, val_append = pos_out.append, val_out.append
+    p, interval, eobrun, base = starts[0] * 8, 0, 0, 0
+    for b in range(n_blocks):
+        if restart and b and b % restart == 0:
+            interval += 1
+            if interval >= len(starts):
+                raise ValueError("JPEG: fewer RSTn markers than the restart interval needs")
+            p, eobrun = starts[interval] * 8, 0
+        if eobrun:
+            eobrun -= 1
+            base += 64
+            continue
+        k = ss
+        while k <= se:
+            n, r, v, s = lut[(win[p >> 3] >> (48 - (p & 7))) & 0xFFFF]
+            if n == 0:
+                raise ValueError("JPEG: corrupt entropy-coded data (no Huffman code matches)")
+            p += n
+            if r >= 64:                         # EOBn: this block and 2^n + bits - 1 more
+                r -= 64
+                eobrun = (1 << r) - 1
+                if r:
+                    eobrun += (win[p >> 3] >> (64 - (p & 7) - r)) & masks[r]
+                    p += r
+                break
+            if s:
+                v = (win[p >> 3] >> (64 - (p & 7) - s)) & masks[s]
+                p += s
+                if v < halves[s]:
+                    v -= masks[s]
+            k += r
+            if v:                               # ZRL (r 15, v 0): 16 zeros
+                pos_append(base + k)
+                val_append(v)
+            k += 1
+        base += 64
+    if p > n_bits + 64:
+        raise IndexError("past the scan's data")
+    return pos_out, val_out
+
+
+def _decode_ac_refine(win, bits, starts, lut, band, restart, al):
+    """A progressive AC refinement scan (jdphuff.c decode_mcu_AC_refine) of
+    one component's blocks in scan order. band: (blocks, band width) int64,
+    each block's coefficients of the band (zig-zag order, the values so
+    far), refined in place: a correction bit for each coefficient already
+    nonzero (a 1 adds 1 << al to its magnitude unless that bit is set), and
+    +-(1 << al) for each new one, whose zero run counts only coefficients
+    still zero; an end-of-band run still owes the correction bits of the
+    rest of each of its blocks. bits: the scan's data as single bits
+    (np.unpackbits).
+
+    The loop walks the symbols and, between them, only the coefficients
+    already nonzero (each block's, listed before the scan): it notes where
+    each one's correction bit is (the nonzeros of the blocks wholly inside
+    a run take consecutive bits) and where each new coefficient goes; both
+    are applied with numpy at the end."""
+    masks = [(1 << s) - 1 for s in range(17)]
+    p1 = 1 << al
+    n_blocks, width = band.shape
+    per = restart or n_blocks
+    rows, cols = np.nonzero(band)                 # row-major: by block, then position
+    first = np.searchsorted(rows, np.arange(n_blocks + 1)).tolist()
+    cols = cols.tolist()
+    bitpos = [-1] * len(cols)                     # each nonzero's correction bit
+    new_at, new_val = [], []                      # flat band index, value of each new one
+    for interval, lo in enumerate(range(0, n_blocks, per)):
+        if interval >= len(starts):
+            raise ValueError("JPEG: fewer RSTn markers than the restart interval needs")
+        hi = min(lo + per, n_blocks)
+        p, eobrun, b = starts[interval] * 8, 0, lo
+        while b < hi:
+            if eobrun:                            # whole blocks of an end-of-band run
+                m = min(eobrun, hi - b)
+                i0, i1 = first[b], first[b + m]
+                bitpos[i0:i1] = range(p, p + i1 - i0)
+                p += i1 - i0
+                eobrun -= m
+                b += m
+                continue
+            i, end = first[b], first[b + 1]
+            k = 0
+            while k < width:
+                n, r, v, s = lut[(win[p >> 3] >> (48 - (p & 7))) & 0xFFFF]
+                if n == 0:
+                    raise ValueError("JPEG: corrupt entropy-coded data (no Huffman code matches)")
+                p += n
+                if r >= 64:                       # EOBn: the rest of this block below
+                    r -= 64
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (win[p >> 3] >> (64 - (p & 7) - r)) & masks[r]
+                        p += r
+                    break
+                if s:                             # the sign bit did not fit in the peek
+                    v = 1 if (win[p >> 3] >> (63 - (p & 7))) & 1 else -1
+                    p += s
+                # past r still-zero coefficients to the zero the new one goes
+                # to (v 0: ZRL, 16 zeros), a correction bit for each nonzero
+                while True:
+                    j = cols[i] if i < end else width
+                    if r < j - k:
+                        k += r
+                        break
+                    if j == width:                # the band ends first (corrupt data)
+                        k = width
+                        break
+                    r -= j - k
+                    bitpos[i] = p
+                    p += 1
+                    i += 1
+                    k = j + 1
+                if v and k < width:
+                    new_at.append(b * width + k)
+                    new_val.append(p1 if v > 0 else -p1)
+                k += 1
+            if eobrun:                            # the block's rest, in the run
+                bitpos[i:end] = range(p, p + end - i)
+                p += end - i
+                eobrun -= 1
+            b += 1
+    pos = np.asarray(bitpos, np.int64)
+    if pos.size and pos.max() >= len(bits):
+        raise IndexError("past the scan's data")
+    vals = band[rows, np.asarray(cols, np.int64)]
+    up = (pos >= 0) & (bits[np.maximum(pos, 0)] == 1) & ((vals & p1) == 0)
+    band[rows, np.asarray(cols, np.int64)] = vals + np.where(up, np.where(vals > 0, p1, -p1), 0)
+    band.reshape(-1)[np.asarray(new_at, np.int64)] = np.asarray(new_val, np.int64)
+
+
 def decode_jpeg(buf: bytes, name: str = "<bytes>") -> np.ndarray:
-    """Decode baseline JPEG bytes; see read_jpeg."""
+    """Decode baseline or progressive JPEG bytes; see read_jpeg."""
     if buf[:2] != b"\xff\xd8":
         raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
     qt, dc_tabs, ac_tabs = {}, {}, {}
-    comps, frame, restart, adobe_transform = None, None, 0, None
-    coef = {}
+    comps, frame, restart, adobe_transform, progressive = None, None, 0, None, False
+    coef, latched, coef_bits = {}, {}, {}
     pos = 2
     while True:
         while pos < len(buf) and buf[pos] == 0xFF and pos + 1 < len(buf) and buf[pos + 1] == 0xFF:
@@ -326,10 +535,10 @@ def decode_jpeg(buf: bytes, name: str = "<bytes>") -> np.ndarray:
         where = f"{name}: marker 0x{mk:02X}"
         if mk in _REFUSED_SOF:
             raise ValueError(f"{name}: {_REFUSED_SOF[mk]} is not decoded "
-                             "(baseline and extended sequential Huffman only)")
+                             "(baseline, extended sequential and progressive Huffman only)")
         if mk == 0xCC:
             raise ValueError(f"{name}: DAC (arithmetic coding) is not decoded")
-        if mk in (0xC0, 0xC1):                                # SOF0 / SOF1
+        if mk in (0xC0, 0xC1, 0xC2):                          # SOF0 / SOF1 / SOF2
             depth, height, width, nc = struct.unpack(">BHHB", seg[:6])
             if depth != 8:
                 raise ValueError(f"{name}: SOF{mk - 0xC0} with {depth}-bit samples is not "
@@ -341,7 +550,7 @@ def decode_jpeg(buf: bytes, name: str = "<bytes>") -> np.ndarray:
                 raise ValueError(f"{name}: a DNL-defined height is not decoded")
             comps = [_Component(seg[6 + 3 * i], seg[7 + 3 * i] >> 4, seg[7 + 3 * i] & 15,
                                 seg[8 + 3 * i]) for i in range(nc)]
-            frame = (height, width)
+            frame, progressive = (height, width), mk == 0xC2
         elif mk == 0xC4:                                      # DHT
             i = 0
             while i < len(seg):
@@ -372,15 +581,41 @@ def decode_jpeg(buf: bytes, name: str = "<bytes>") -> np.ndarray:
                 raise ValueError(f"{name}: SOS before SOF")
             ns = seg[0]
             sel = [(seg[1 + 2 * i], seg[2 + 2 * i] >> 4, seg[2 + 2 * i] & 15) for i in range(ns)]
-            pos = _read_scan(buf, pos + 2 + seg_len, frame, comps, sel, restart, dc_tabs,
-                             ac_tabs, coef, name)
+            by_id = {c.id: c for c in comps}
+            for cid, _, _ in sel:
+                if cid not in by_id:
+                    raise ValueError(f"{name}: SOS names an unknown component {cid}")
+                if cid not in latched:                        # the table as the first scan finds it
+                    if by_id[cid].tq not in qt:
+                        raise ValueError(f"{name}: component {cid} uses an undefined "
+                                         "quantisation table")
+                    latched[cid] = qt[by_id[cid].tq]
+            scan = (buf, pos + 2 + seg_len, frame, comps, sel, restart, dc_tabs, ac_tabs, coef,
+                    name)
+            if progressive:
+                spectral = (seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4,
+                            seg[3 + 2 * ns] & 15)
+                pos = _read_progressive_scan(*scan, spectral, coef_bits)
+            else:
+                pos = _read_scan(*scan)
             continue
         elif mk in (0xD8, 0x01) or 0xD0 <= mk <= 0xD7:
             raise ValueError(f"{name}: unexpected marker 0x{mk:02X} at byte {pos}")
         pos += 2 + seg_len
     if frame is None or not coef:
         raise ValueError(f"{name}: no frame or no scan")
-    return _reconstruct(frame, comps, coef, qt, adobe_transform, name)
+    if progressive:
+        for cid, bits in coef_bits.items():
+            if (bits[1:10] != 0).any():
+                raise ValueError(
+                    f"{name}: the progressive scans leave bits of component {cid}'s first AC "
+                    f"coefficients unsent (bits still owed, -1 none sent: {bits[1:10].tolist()}); "
+                    "libjpeg-turbo's block smoothing of such a file is not done here")
+        for cid, zz in coef.items():
+            nat = np.empty_like(zz)
+            nat[:, ZIGZAG] = zz
+            coef[cid] = nat
+    return _reconstruct(frame, comps, coef, latched, adobe_transform, name)
 
 
 def _grid(frame, comps):
@@ -390,33 +625,40 @@ def _grid(frame, comps):
     return hmax, vmax, mcux, mcuy
 
 
-def _read_scan(buf, start, frame, comps, sel, restart, dc_tabs, ac_tabs, coef, name):
+def _scan_blocks(frame, comps, sel, coef):
+    """The blocks of a scan: per block of an MCU its component slot, and
+    (n_mcu, blocks per MCU) indices into each component's coefficient store
+    (rows of its MCU-padded block grid, created here at the first scan). A
+    scan of one component is not interleaved: an MCU is one block, in
+    raster order over the component's own grid."""
     hmax, vmax, mcux, mcuy = _grid(frame, comps)
     by_id = {c.id: c for c in comps}
-    plan, base_rows = [], []
-    for slot, (cid, td, ta) in enumerate(sel):
-        if cid not in by_id:
-            raise ValueError(f"{name}: SOS names an unknown component {cid}")
-        if td not in dc_tabs or ta not in ac_tabs:
-            raise ValueError(f"{name}: SOS uses an undefined Huffman table")
+    slots, base_rows = [], []
+    for slot, (cid, _, _) in enumerate(sel):
         c = by_id[cid]
         bw, bh = mcux * c.h, mcuy * c.v                      # the component's block grid
         coef.setdefault(cid, np.zeros((bh * bw, 64), np.int64))
-        if len(sel) == 1:                                    # non-interleaved: raster order
+        if len(sel) == 1:
             cw = -(-frame[1] * c.h // hmax)
             ch = -(-frame[0] * c.v // vmax)
             nbx, nby = -(-cw // 8), -(-ch // 8)
-            rows = (np.arange(nby)[:, None] * bw + np.arange(nbx)[None]).reshape(-1, 1)
-            plan.append((slot, td, ta))
-            base_rows.append(rows)
+            slots.append(slot)
+            base_rows.append((np.arange(nby)[:, None] * bw + np.arange(nbx)[None]).reshape(-1, 1))
         else:
             my, mx = np.meshgrid(np.arange(mcuy), np.arange(mcux), indexing="ij")
             for v in range(c.v):
                 for h in range(c.h):
-                    idx = ((my * c.v + v) * bw + mx * c.h + h).reshape(-1, 1)
-                    plan.append((slot, td, ta))
-                    base_rows.append(idx)
-    block_ids = np.concatenate(base_rows, 1)                 # (n_mcu, blocks per MCU)
+                    slots.append(slot)
+                    base_rows.append(((my * c.v + v) * bw + mx * c.h + h).reshape(-1, 1))
+    return slots, np.concatenate(base_rows, 1)
+
+
+def _read_scan(buf, start, frame, comps, sel, restart, dc_tabs, ac_tabs, coef, name):
+    for cid, td, ta in sel:
+        if td not in dc_tabs or ta not in ac_tabs:
+            raise ValueError(f"{name}: SOS uses an undefined Huffman table")
+    slots, block_ids = _scan_blocks(frame, comps, sel, coef)
+    plan = [(s, sel[s][1], sel[s][2]) for s in slots]
     n_mcu = block_ids.shape[0]
     data, starts, end = _entropy_segments(buf, start)
     try:
@@ -428,7 +670,7 @@ def _read_scan(buf, start, frame, comps, sel, restart, dc_tabs, ac_tabs, coef, n
     val = np.asarray(val, np.int64)
     dc = np.asarray(dc, np.int64)
     order = block_ids.reshape(-1)                            # decode order -> block id
-    slot_of = np.tile(np.array([s for s, _, _ in plan]), n_mcu)
+    slot_of = np.tile(np.array(slots), n_mcu)
     for slot, (cid, _, _) in enumerate(sel):
         store = coef[cid]
         mine = slot_of == slot
@@ -439,19 +681,78 @@ def _read_scan(buf, start, frame, comps, sel, restart, dc_tabs, ac_tabs, coef, n
     return end
 
 
-def _reconstruct(frame, comps, coef, qt, adobe_transform, name):
+def _read_progressive_scan(buf, start, frame, comps, sel, restart, dc_tabs, ac_tabs, coef, name,
+                           spectral, coef_bits):
+    """One scan of a progressive frame into coef (zig-zag order per block);
+    coef_bits[cid][k]: the Al of the last scan that sent coefficient k of a
+    component, -1 before any (libjpeg's coef_bits)."""
+    ss, se, ah, al = spectral
+    if ss == 0 and se != 0:
+        raise ValueError(f"{name}: a progressive scan mixes DC and AC coefficients (Ss 0, "
+                         f"Se {se})")
+    if ss > 0 and (len(sel) != 1 or se < ss or se > 63):
+        raise ValueError(f"{name}: bad progressive AC scan (Ss {ss}, Se {se}, "
+                         f"{len(sel)} components)")
+    if al > 13 or (ah and ah != al + 1):
+        raise ValueError(f"{name}: bad progressive successive approximation (Ah {ah}, Al {al})")
+    slots, block_ids = _scan_blocks(frame, comps, sel, coef)
+    order = block_ids.reshape(-1)                            # decode order -> block id
+    for cid, _, _ in sel:
+        coef_bits.setdefault(cid, np.full(64, -1))
+    data, starts, end = _entropy_segments(buf, start)
+    try:
+        if ss == 0:
+            slot_of = np.tile(np.array(slots), block_ids.shape[0])
+            if ah == 0:
+                if any(td not in dc_tabs for _, td, _ in sel):
+                    raise ValueError(f"{name}: SOS uses an undefined Huffman table")
+                dc = np.asarray(_decode_dc_first(
+                    _windows(data), starts, 8 * len(data), [(s, sel[s][1]) for s in slots],
+                    block_ids.shape[0], restart, dc_tabs), np.int64) << al
+            else:
+                per = restart * len(slots) if restart else len(order)
+                dc = _refine_dc_bits(data, starts, len(order), per) << al
+            for slot, (cid, _, _) in enumerate(sel):
+                mine = slot_of == slot
+                if ah == 0:
+                    coef[cid][order[mine], 0] = dc[mine]
+                else:
+                    coef[cid][order[mine], 0] |= dc[mine]
+                coef_bits[cid][0] = al
+        else:
+            cid, _, ta = sel[0]
+            if ta not in ac_tabs:
+                raise ValueError(f"{name}: SOS uses an undefined Huffman table")
+            store, lut = coef[cid], ac_tabs[ta].lut
+            if ah == 0:
+                pos, val = _decode_ac_first(_windows(data), starts, 8 * len(data), lut,
+                                            len(order), restart, ss, se)
+                pos = np.asarray(pos, np.int64)
+                store[order[pos >> 6], pos & 63] = np.asarray(val, np.int64) << al
+            else:
+                band = store[order, ss:se + 1]
+                _decode_ac_refine(_windows(data), np.unpackbits(data), starts, lut, band,
+                                  restart, al)
+                store[order, ss:se + 1] = band
+            coef_bits[cid][ss:se + 1] = al
+    except IndexError:
+        raise ValueError(f"{name}: the scan's data ends before its last block") from None
+    return end
+
+
+def _reconstruct(frame, comps, coef, qt_of, adobe_transform, name):
+    """The image of natural-order coefficients coef[component id] and the
+    components' latched quantisation tables qt_of[component id]."""
     height, width = frame
     hmax, vmax, mcux, mcuy = _grid(frame, comps)
     planes = []
     for c in comps:
         if c.id not in coef:
             raise ValueError(f"{name}: component {c.id} has no scan")
-        if c.tq not in qt:
-            raise ValueError(f"{name}: component {c.id} uses an undefined quantisation table")
         if hmax % c.h or vmax % c.v:
             raise ValueError(f"{name}: non-integer sampling ratio of component {c.id}")
         bw, bh = mcux * c.h, mcuy * c.v
-        blocks = idct_islow(coef[c.id], qt[c.tq]).reshape(bh, bw, 8, 8)
+        blocks = idct_islow(coef[c.id], qt_of[c.id]).reshape(bh, bw, 8, 8)
         plane = blocks.swapaxes(1, 2).reshape(bh * 8, bw * 8)
         cw = -(-width * c.h // hmax)
         ch = -(-height * c.v // vmax)
@@ -469,7 +770,7 @@ def is_jpeg(head: bytes) -> bool:
 
 
 def read_jpeg(path: str) -> np.ndarray:
-    """Decode a baseline JPEG file to what np.asarray(PIL.Image.open(path))
+    """Decode a baseline or progressive JPEG file to what np.asarray(PIL.Image.open(path))
     gives: (H, W, 3) uint8 RGB, or (H, W) for a greyscale image."""
     with open(path, "rb") as f:
         return decode_jpeg(f.read(), path)

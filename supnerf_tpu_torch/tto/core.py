@@ -37,6 +37,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 
+import numpy as np
 import torch
 
 from supnerf_tpu_torch.data.common import NUSC_CAR_WLH_MEAN
@@ -123,7 +124,14 @@ class ObjectBatch:
 
     @classmethod
     def from_numpy(cls, arrays: dict, device):
-        return cls(**{f.name: torch.tensor(arrays[f.name], dtype=torch.float32, device=device)
+        """The batch on `device`; to a CUDA device the copies go from pinned
+        memory, and the host does not wait for them (the pipelined TTO
+        driver uploads a batch while the card runs the one before)."""
+        if torch.device(device).type != "cuda":
+            return cls(**{f.name: torch.tensor(arrays[f.name], dtype=torch.float32, device=device)
+                          for f in dataclasses.fields(cls)})
+        return cls(**{f.name: torch.from_numpy(np.asarray(arrays[f.name], np.float32))
+                      .pin_memory().to(device, non_blocking=True)
                       for f in dataclasses.fields(cls)})
 
 
@@ -362,9 +370,10 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
     regularisers' draws (tto_loss). Given none, each iteration takes its
     draws from `generator` (iteration_draws); draws left None beside given
     ones come from `generator` where tto_loss and the renders need them.
-    timer: optional timing.PhaseTimer. pose_hook: encode_and_refine's.
-    With cfg.opt_pose False only the codes are parameters (the pose is not
-    in the optimizer, so weight decay does not touch it either) and every
+    timer: optional timing.PhaseTimer, whose device phases encode_refine
+    and tto_loop wait for nothing. pose_hook: encode_and_refine's. With
+    cfg.opt_pose False only the codes are parameters (the pose is not in
+    the optimizer, so weight decay does not touch it either) and every
     iteration after reg_iters renders the refined pose itself.
     Returns a dict of per-object results (leading dim B): codes and poses at
     CODE_SAVE_ITERS, the final codes and pose, and the per-iteration psnr,
@@ -376,7 +385,7 @@ def run_tto_batch(model, wts, batch: ObjectBatch, mean_shape, mean_texture, cfg:
     that iteration's update (the vis 2 panels)."""
     if cfg.use_aabb_render and cfg.sym_loss_coef > 0:
         raise ValueError("sym_loss requires the frustum renderer (sample reuse)")
-    phase = timer.phase if timer is not None else (lambda name: contextlib.nullcontext())
+    phase = timer.device if timer is not None else (lambda name: contextlib.nullcontext())
     with phase("encode_refine"):
         sc0, tc0, traj, uv_direct, wlh_pred, wlh_use = encode_and_refine(
             model, batch, mean_shape, mean_texture, cfg, pose_hook)

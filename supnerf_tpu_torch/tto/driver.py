@@ -33,6 +33,16 @@ move to the nuScenes frame in the prep, the refiner sees the box corners
 scaled by KITTI_BOX_FAC unless the predicted wlh is used, and the field's
 samples rotate into the nuScenes frame.
 
+run pipelines the batches as the JAX driver's run does (driver.py:354-398):
+one worker process (_PrepWorker) prepares batch i + 1 while batch i runs,
+batch i is dispatched (its launches and its results' copies to pinned
+memory enqueued, an event recorded) before batch i - 1 is fetched (that
+event waited on, not the card) and bookkept, and the results are saved at
+JAX's cadence. optimize_object_batch runs one batch in the serial order,
+and run gives the serial loop's results bit for bit: the worker is forked
+with the prep's streams as they stand and hands them back at the end, so
+that later reads (the cross-view evaluation) see the serial loop's draws.
+
 Data parallelism (group, a parallel.Group; the JAX driver's mesh,
 driver.py:184-186, :413-414, :432-433): each batch is padded to batch_size
 with its last row, as JAX pads it, and rank r optimizes the r-th of the
@@ -51,9 +61,15 @@ JAX driver does not shard: the cross-view evaluation and multiview.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
+import multiprocessing
 import os
 import pickle
+import sys
+import time
+import traceback
 
 import numpy as np
 import torch
@@ -99,6 +115,115 @@ KITTI_BOX_FAC = 1.1
 # the panels' box colour (RGB) and the virtual views' ring
 VIS_BOX_COLOR = (1.0, 144 / 255, 30 / 255)
 VIRTUAL_VIEWS = 8
+# what the bookkeeping reads of a sample (the rest, the camera image among
+# it, stays in the prep worker)
+_BOOKKEEPING_KEYS = ("anntoken", "cam_ids", "instoken")
+
+
+@contextlib.contextmanager
+def _one_intraop_thread():
+    """torch's CPU ops on one thread for the block. The host prep runs so,
+    in the worker and in the serial loop alike: a forked process must not
+    enter the pools of threads it inherited (MKL's and OpenMP's hang there),
+    and a CPU op's bits can depend on the thread count (F.interpolate's
+    bilinear resize of the encoder's crop does), so that both must use
+    one."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+def _serve_prep(conn, prep_fn, state_fn):
+    """The prep worker's loop: prepare each batch of indices it receives,
+    in order, and send back ("batch", prep_fn(idxs)); on None send back
+    ("state", state_fn()) and end; on a failure send back ("error", the
+    exception, its traceback as a note) and end."""
+    torch.set_num_threads(1)
+    try:
+        while True:
+            idxs = conn.recv()
+            if idxs is None:
+                conn.send(("state", state_fn()))
+                return
+            conn.send(("batch", prep_fn(idxs)))
+    except BaseException as e:          # raised again in the driver's process
+        e.add_note("in the TTO prep worker:\n" + "".join(traceback.format_exception(e)))
+        try:
+            conn.send(("error", e))
+        except Exception:               # an exception that does not pickle
+            conn.send(("error", RuntimeError(f"{type(e).__name__}: {e}\n" + e.__notes__[-1])))
+
+
+class _PrepWorker:
+    """The one process that prepares run's batches ahead of the card.
+
+    It is forked from the driver's process when run starts, so it holds the
+    dataset and the prep's streams as they stand then, without pickling
+    either (as torch's DataLoader workers do on Linux); it touches neither
+    the card nor the thread pools it inherited (torch's CPU ops on one
+    thread, _one_intraop_thread). Batches come back through a pipe in the
+    order they were submitted, so every stream advances as in the serial
+    loop, and finish() brings back the streams' state for the driver to
+    adopt. The prep runs in a process, not a thread, because the prep is
+    Python (the JPEG decoder's entropy loop, the readers) and would hold the
+    interpreter lock that each of the TTO loop's launches takes (PERF.md §6:
+    a thread slowed the loop by a third). A failure raises in the driver's
+    process, and a worker that ends without an answer is an error there
+    too. The pipe is the standard library's, which pickles a tensor by
+    value (torch's multiprocessing would pass it as a shared-memory handle
+    that dies with the worker)."""
+
+    def __init__(self, prep_fn, state_fn):
+        ctx = multiprocessing.get_context("fork")
+        self.conn, child = ctx.Pipe()
+        self.proc = ctx.Process(target=_serve_prep, args=(child, prep_fn, state_fn),
+                                name="tto-prep", daemon=True)
+        # the objects that exist now are left out of the collector's passes
+        # until stop(): a pass writes to every object it visits, and each
+        # page the driver's process writes while the worker lives is copied
+        gc.freeze()
+        try:
+            self.proc.start()
+        except BaseException:
+            gc.unfreeze()
+            raise
+        child.close()
+
+    def submit(self, idxs):
+        self.conn.send(list(idxs))
+
+    def _receive(self, kind):
+        try:
+            got, value = self.conn.recv()
+        except EOFError:
+            self.proc.join(10)
+            raise RuntimeError(f"the TTO prep worker (pid {self.proc.pid}) ended with exit code "
+                               f"{self.proc.exitcode} before sending its {kind}") from None
+        if got == "error":
+            raise value
+        return value
+
+    def result(self):
+        """The next submitted batch's prep."""
+        return self._receive("batch")
+
+    def finish(self):
+        """End the worker (every submitted batch taken); returns the state
+        of its streams."""
+        self.conn.send(None)
+        state = self._receive("streams' state")
+        self.proc.join()
+        return state
+
+    def stop(self):
+        if self.proc.is_alive():
+            self.proc.terminate()
+        self.proc.join()
+        self.conn.close()
+        gc.unfreeze()
 
 
 def is_kitti_frame(dataset_frame: str) -> bool:
@@ -279,47 +404,137 @@ class TTODriver:
         return inputs
 
     def _prep(self, idxs, poses=None):
-        samples = [self.dataset[i] for i in idxs]
-        if poses is None:
-            poses = self._initial_poses(samples)
-        prepped = [self.prep_sample(s, p) for s, p in zip(samples, poses)]
-        stacked = {k: np.stack([p[k] for p in prepped]) for k in prepped[0]}
+        """Objects idxs prepared on the host and uploaded: (samples,
+        prepped, ObjectBatch)."""
+        samples, prepped, stacked = self._prep_arrays(idxs, poses)
         return samples, prepped, ObjectBatch.from_numpy(stacked, self.device)
+
+    def _prep_arrays(self, idxs, poses=None):
+        """Read and prepare objects idxs on the host, on one intra-op thread
+        (_one_intraop_thread): (samples, prepped (one dict of numpy arrays
+        an object), the arrays stacked)."""
+        with _one_intraop_thread():
+            samples = [self.dataset[i] for i in idxs]
+            if poses is None:
+                poses = self._initial_poses(samples)
+            prepped = [self.prep_sample(s, p) for s, p in zip(samples, poses)]
+        return samples, prepped, {k: np.stack([p[k] for p in prepped]) for k in prepped[0]}
+
+    def _prep_batch(self, idxs):
+        """One batch's host prep as the worker sends it back: the samples'
+        bookkeeping keys, the prepped arrays, the stacked arrays and the
+        seconds it took."""
+        t0 = time.perf_counter()
+        samples, prepped, stacked = self._prep_arrays(idxs)
+        kept = [{k: s[k] for k in _BOOKKEEPING_KEYS if k in s} for s in samples]
+        return kept, prepped, stacked, time.perf_counter() - t0
+
+    def _stream_state(self):
+        """The state of the prep's random streams: prep_gen, np_rng and the
+        reader's own numpy Generator (its attribute rng, C.11), where it has
+        one."""
+        rng = getattr(self.dataset, "rng", None)
+        return {"prep_gen": self.prep_gen.get_state().numpy(),
+                "np_rng": self.np_rng.bit_generator.state,
+                "dataset_rng": (rng.bit_generator.state if isinstance(rng, np.random.Generator)
+                                else None)}
+
+    def _adopt_stream_state(self, state):
+        self.prep_gen.set_state(torch.from_numpy(state["prep_gen"]))
+        self.np_rng.bit_generator.state = state["np_rng"]
+        if state["dataset_rng"] is not None:
+            self.dataset.rng.bit_generator.state = state["dataset_rng"]
 
     # ------------------------------------------------------------------- run
     def run(self):
-        """Optimize the whole dataset batch by batch; writes codes+poses.pkl
-        (and its .pth twin) and returns results_dict(); with a group, rank 0
-        does so and the other ranks return None."""
+        """Optimize the whole dataset in batches, pipelined as the JAX
+        driver's run: the worker (_PrepWorker, one process, forked once
+        batch 0 is prepared) prepares batch i + 1 while batch i runs, and
+        batch i is dispatched before batch i - 1 is fetched, bookkept and
+        drawn (--vis), so that the host's work of one batch lies under the
+        card's work of the next. Results are saved at JAX's cadence, then
+        codes+poses.pkl and its .pth twin at the end. The results are those
+        of a loop of optimize_object_batch over the same batches. Returns
+        results_dict(); with a group, rank 0 does so and the other ranks
+        return None. A failure of the worker raises here, after the worker
+        is stopped."""
         n = len(self.dataset)
-        for bi, start in enumerate(range(0, n, self.batch_size)):
-            idxs = list(range(start, min(start + self.batch_size, n)))
-            if self.main:
-                print(f"num obj: {start}/{n}")
-            with self.timer.phase("host_prep"):
-                samples, prepped, batch = self._prep(idxs)
-            res = self._optimize(batch)
-            if res is None:
-                continue
-            with self.timer.phase("bookkeeping"):
-                log_idxs = self._bookkeep(idxs, samples, prepped, res)
-            if self.vis:
-                with self.timer.phase("vis"):
-                    self._save_vis(log_idxs, prepped, res)
-            if bi % max(self.save_freq // self.batch_size, 1) == 0:
-                self.save_results()
+        batches = [list(range(s, min(s + self.batch_size, n)))
+                   for s in range(0, n, self.batch_size)]
+        every = max(self.save_freq // self.batch_size, 1)
+        pending, done, worker = None, 0, None
+        # batch 0 is prepared here, as the serial loop does: the card has
+        # nothing to run meanwhile, and the worker, forked after it with the
+        # streams it advanced, starts beside batch 0's launches
+        prep = self._prep_batch(batches[0]) if batches else None
+        if len(batches) > 1:
+            with self.timer.host("worker_start"):
+                worker = _PrepWorker(self._prep_batch, self._stream_state)
+        try:
+            for bi, idxs in enumerate(batches):
+                if bi:
+                    with self.timer.host("prep_wait"):
+                        prep = worker.result()
+                if bi + 1 < len(batches):
+                    worker.submit(batches[bi + 1])
+                prep = self._take_prep(prep)
+                if self.main:
+                    print(f"num obj: {idxs[0]}/{n}")
+                if pending is not None and self.group is not None:
+                    # the gather's collective runs on the card's stream: it
+                    # goes before this batch's launches, not behind them
+                    self._fetch_batch(pending)
+                launched = self._dispatch_batch(idxs, prep)
+                if pending is not None:
+                    self._postprocess_batch(pending)
+                    done += 1
+                    if self.main and (done - 1) % every == 0:
+                        self.save_results()
+                pending = launched
+            if pending is not None:
+                self._postprocess_batch(pending)
+            if worker is not None:
+                with self.timer.host("worker_stop"):
+                    self._adopt_stream_state(worker.finish())
+        finally:
+            if worker is not None:
+                with self.timer.host("worker_stop"):
+                    worker.stop()
+        self.timer.collect()
         if not self.main:
             return None
         self.save_results()
         self.save_results_pth()
         return self.results_dict()
 
-    def _optimize(self, batch: ObjectBatch):
-        """One batch (of B objects) through run_tto_batch with the whole
-        batch's draws (tto_draws), on this rank's share: all B rows without
-        a group; with one, its rows of the batch padded to batch_size with
-        its last row, and of the draws. Returns the batch's results (numpy,
-        B rows) on rank 0, None elsewhere."""
+    def optimize_object_batch(self, idxs):
+        """Prepare, dispatch, fetch and bookkeep one batch synchronously:
+        the serial order that run pipelines. Returns the batch's results
+        (numpy, one row an object) on rank 0, None elsewhere."""
+        prep = self._take_prep(self._prep_batch(idxs))
+        return self._postprocess_batch(self._dispatch_batch(idxs, prep))
+
+    def _take_prep(self, prep):
+        samples, prepped, stacked, seconds = prep
+        self.timer.add("host_prep", seconds)
+        # the keys as interned str (a reader's may be numpy.str_), so that the
+        # result files pickle each as one object however the samples came
+        # (the worker's pipe makes new strings)
+        samples = [{k: sys.intern(str(v)) if isinstance(v, str) else v for k, v in s.items()}
+                   for s in samples]
+        return samples, prepped, stacked
+
+    def _dispatch_batch(self, idxs, prep):
+        """Upload one prepared batch and enqueue its TTO (run_tto_batch)
+        with the whole batch's draws (tto_draws), on this rank's share: all
+        B rows without a group; with one, its rows of the batch padded to
+        batch_size with its last row, and of the draws. The results' copies
+        to the host are enqueued behind it (into pinned memory on the card)
+        with an event that _fetch_batch waits on; nothing here waits for
+        the card but opt_pose 2's PnP, which needs the encoder's corners on
+        the host. Returns the batch's handle."""
+        samples, prepped, stacked = prep
+        batch = ObjectBatch.from_numpy(stacked, self.device)
         B = len(batch.img_in)
         draws = tto_draws(self.cfg, B, self.render_gen, self.device)
         n = B if self.group is None else self.batch_size
@@ -334,21 +549,58 @@ class TTODriver:
         res = run_tto_batch(self.model, self.wts, share, self.mean_shape, self.mean_texture,
                             self.cfg, jitter=(loss_j[:, pick], depth_j[:, pick]),
                             timer=self.timer, pose_hook=hook, **rows)
-        part = ({k: v.detach().cpu().numpy() for k, v in res.items()},
-                np.concatenate(taken) if taken else None)
+        if self.device.type == "cuda":
+            host = {k: torch.empty(v.shape, dtype=v.dtype, pin_memory=True).copy_(
+                v.detach(), non_blocking=True) for k, v in res.items()}
+            ready = torch.cuda.Event()
+            ready.record()
+        else:
+            host, ready = {k: v.detach() for k, v in res.items()}, None
+        return {"idxs": idxs, "samples": samples, "prepped": prepped, "B": B, "host": host,
+                "ready": ready, "taken": taken, "res": None, "fetched": False}
+
+    def _fetch_batch(self, handle):
+        """Wait for a dispatched batch's results on the host (its event, not
+        the whole card) and, with a group, gather them to rank 0; sets
+        handle["res"] to the batch's results (numpy, B rows) on rank 0, None
+        elsewhere."""
+        with self.timer.host("fetch"):
+            if handle["ready"] is not None:
+                handle["ready"].synchronize()
+            part = ({k: v.numpy() for k, v in handle["host"].items()},
+                    np.concatenate(handle["taken"]) if handle["taken"] else None)
+        self.timer.collect()
+        handle["fetched"] = True
         if self.group is None:
             parts = [part]
         else:
-            with self.timer.phase("gather"):
+            with self.timer.host("gather"):
                 parts = gather_to_main(self.group, part)
             if parts is None:
-                return None
+                return
+        B = handle["B"]
         if self.opt_pose == 2:
             # the padding's repeated rows are counted nowhere
             took = int(np.concatenate([t for _, t in parts])[:B].sum())
             self.pnp_translations += took
             print(f"PnP bootstrap: {took} of {B} objects took the PnP translation")
-        return {k: np.concatenate([p[k] for p, _ in parts])[:B] for k in parts[0][0]}
+        handle["res"] = {k: np.concatenate([p[k] for p, _ in parts])[:B] for k in parts[0][0]}
+
+    def _postprocess_batch(self, handle):
+        """Fetch a dispatched batch (unless done) and, on rank 0, bookkeep
+        it and draw its --vis panels. Returns its results on rank 0, None
+        elsewhere."""
+        if not handle["fetched"]:
+            self._fetch_batch(handle)
+        res = handle["res"]
+        if res is None:
+            return None
+        with self.timer.host("bookkeeping"):
+            log_idxs = self._bookkeep(handle["idxs"], handle["samples"], handle["prepped"], res)
+        if self.vis:
+            with self.timer.host("vis"):
+                self._save_vis(log_idxs, handle["prepped"], res)
+        return res
 
     def _corner_uv(self, uv_direct):
         """The encoder's 16-wide direct corner prediction on the host, (B, 16)."""

@@ -4,10 +4,13 @@ The JAX package reads its masks and KITTI images through PIL and writes the
 demo's input.png and scene.gif through imageio (supnerf_tpu/cli/demo.py).
 PIL, imageio and cv2 are not installed where the port runs, so:
 
-- read_png decodes what PIL writes and what the datasets ship: 8-bit
-  greyscale, greyscale + alpha, RGB, RGBA and palette images, non-interlaced,
-  with all five scanline filters. It returns what np.asarray(Image.open(f))
-  returns, or with mode="RGB" what Image.open(f).convert("RGB") returns.
+- read_png decodes what PIL writes and what the datasets ship: greyscale
+  and palette images at 1, 2, 4 and 8 bits, 8-bit greyscale + alpha, RGB and
+  RGBA, non-interlaced or Adam7-interlaced (seven passes, each filtered on
+  its own), with all five scanline filters. It returns what
+  np.asarray(Image.open(f)) returns, or with mode="RGB" what
+  Image.open(f).convert("RGB") returns. 16-bit samples are refused: no
+  reader of either package takes them.
 - write_png writes an (H, W, 3) uint8 image as 8-bit RGB or an (H, W) one
   as 8-bit greyscale: a signature, an IHDR chunk, one zlib-compressed IDAT
   chunk of unfiltered scanlines (filter byte 0) and an IEND chunk. The demo
@@ -128,13 +131,52 @@ def _unfilter_wavefront(raw, out, y0, y1, bpp):
     out[y0:y1] = dec.reshape(h + 1, w + 1, bpp)[1:, 1:].reshape(h, w * bpp).astype(np.uint8)
 
 
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _unfilter(raw, h, row_bytes, bpp, path):
+    """The h filtered rows of row_bytes bytes (each after its filter byte)
+    at the start of raw, unfiltered: (h, row_bytes) uint8. bpp: the bytes
+    a filter steps back by (1 for samples under 8 bits)."""
+    if raw.size < h * (1 + row_bytes):
+        raise ValueError(f"{path}: image data too short")
+    raw = raw[:h * (1 + row_bytes)].reshape(h, 1 + row_bytes)
+    if (raw[:, 0] > 4).any():
+        raise ValueError(f"{path}: unknown scanline filter {int(raw[:, 0].max())}")
+    out = np.empty((h, row_bytes), np.uint8)
+    slow = np.flatnonzero(raw[:, 0] >= 3)
+    if slow.size:
+        _unfilter_rows(raw, out, range(slow[0]), bpp)
+        _unfilter_wavefront(raw, out, slow[0], slow[-1] + 1, bpp)
+        _unfilter_rows(raw, out, range(slow[-1] + 1, h), bpp)
+    else:
+        _unfilter_rows(raw, out, range(h), bpp)
+    return out
+
+
+def _samples(rows, w, depth, channels):
+    """Unfiltered rows (h, row_bytes) as (h, w, channels) samples: bytes at
+    8 bits, else the packed samples (most significant bits first) of each
+    row, its padding bits dropped."""
+    if depth == 8:
+        return rows.reshape(len(rows), w, channels)
+    bits = np.unpackbits(rows, axis=1)[:, :w * depth].reshape(len(rows), w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[..., None]
+
+
 def read_png(path: str, mode: str | None = None) -> np.ndarray:
-    """Decode a PNG file. mode None: (H, W) uint8 for greyscale and palette
-    (the indices) images, (H, W, 2) for greyscale + alpha, (H, W, 3) for RGB,
-    (H, W, 4) for RGBA, as np.asarray(PIL.Image.open(path)). mode "RGB":
-    (H, W, 3), greyscale replicated, alpha dropped and palette indices looked
-    up, as Image.open(path).convert("RGB"). Refuses 16-bit samples, samples
-    under 8 bits and Adam7 interlace with the reason."""
+    """Decode a PNG file. mode None: as np.asarray(PIL.Image.open(path)):
+    (H, W) bool for 1-bit greyscale (PIL's mode "1"), (H, W) uint8 for
+    greyscale (2- and 4-bit samples scaled to 8 bits, by 85 and 17, as PIL
+    does) and palette images (the indices), (H, W, 2) for greyscale + alpha,
+    (H, W, 3) for RGB, (H, W, 4) for RGBA. mode "RGB": (H, W, 3) uint8,
+    greyscale replicated (1-bit as 0 and 255), alpha dropped and palette
+    indices looked up, as Image.open(path).convert("RGB"). Reads bit depths
+    1, 2, 4 and 8 and Adam7 interlace; refuses 16-bit samples with the
+    reason."""
     with open(path, "rb") as f:
         data = f.read()
     hdr, palette, idat = None, None, []
@@ -148,35 +190,39 @@ def read_png(path: str, mode: str | None = None) -> np.ndarray:
     if hdr is None:
         raise ValueError(f"{path}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = hdr
-    if depth == 16:
-        raise ValueError(f"{path}: 16-bit samples are not read (8-bit images only)")
-    if depth != 8:
-        raise ValueError(f"{path}: bit depth {depth} is not read (samples under 8 bits are "
-                         "packed several to a byte; 8-bit images only)")
-    if interlace:
-        raise ValueError(f"{path}: Adam7 interlace is not read (non-interlaced images only)")
     if ctype not in _CHANNELS:
         raise ValueError(f"{path}: unknown colour type {ctype}")
+    if depth == 16:
+        raise ValueError(f"{path}: 16-bit samples are not read (bit depths 1, 2, 4 and 8 only)")
+    if depth not in ((1, 2, 4, 8) if ctype in (0, 3) else (8,)):
+        raise ValueError(f"{path}: bit depth {depth} is not valid for colour type {ctype}")
+    if interlace not in (0, 1):
+        raise ValueError(f"{path}: unknown interlace method {interlace}")
     if ctype == 3 and palette is None:
         raise ValueError(f"{path}: palette image without a PLTE chunk")
-    bpp = _CHANNELS[ctype]
+    channels = _CHANNELS[ctype]
+    bpp = max(1, depth * channels // 8)
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < h * (1 + w * bpp):
-        raise ValueError(f"{path}: image data too short for {w} x {h}")
-    raw = raw[:h * (1 + w * bpp)].reshape(h, 1 + w * bpp)
-    if (raw[:, 0] > 4).any():
-        raise ValueError(f"{path}: unknown scanline filter {int(raw[:, 0].max())}")
-    out = np.empty((h, w * bpp), np.uint8)
-    slow = np.flatnonzero(raw[:, 0] >= 3)
-    if slow.size:
-        _unfilter_rows(raw, out, range(slow[0]), bpp)
-        _unfilter_wavefront(raw, out, slow[0], slow[-1] + 1, bpp)
-        _unfilter_rows(raw, out, range(slow[-1] + 1, h), bpp)
+    if not interlace:
+        img = _samples(_unfilter(raw, h, -(-w * channels * depth // 8), bpp, path), w, depth,
+                       channels)
     else:
-        _unfilter_rows(raw, out, range(h), bpp)
-    img = out.reshape(h, w, bpp)
+        img = np.empty((h, w, channels), np.uint8)
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:          # an empty pass has no rows, no filter bytes
+                continue
+            row_bytes = -(-pw * channels * depth // 8)
+            img[y0::dy, x0::dx] = _samples(_unfilter(raw, ph, row_bytes, bpp, path), pw, depth,
+                                           channels)
+            raw = raw[ph * (1 + row_bytes):]
+    if ctype == 0 and depth < 8:
+        if depth == 1:
+            img = img.astype(bool) if mode is None else img * np.uint8(255)
+        else:
+            img = img * np.uint8(255 // (2 ** depth - 1))
     if mode is None:
-        return img[..., 0] if bpp == 1 else img
+        return img[..., 0] if channels == 1 else img
     if mode != "RGB":
         raise ValueError(f"mode {mode!r}: read_png converts to 'RGB' only")
     if ctype == 3:
@@ -187,4 +233,3 @@ def read_png(path: str, mode: str | None = None) -> np.ndarray:
     if ctype in (0, 4):
         return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
-

@@ -1,14 +1,17 @@
 """Writes nusc_cam_1600x900.jpg beside this file: a synthetic street scene
 at nuScenes' camera size, saved by PIL as a baseline 4:2:0 JPEG at its
-default quality (75).
+default quality (75); with --progressive, nusc_cam_1600x900_progressive.jpg
+instead: the same scene saved as a progressive JPEG (PIL's progressive=True,
+libjpeg's simple progression script), the same sampling and quality.
 
-    python tests/fixtures/make_nusc_cam.py
+    python tests/fixtures/make_nusc_cam.py [--progressive]
 
-The committed file is the one the tests and chip_smoke.py decode; running
+The committed files are the ones the tests and chip_smoke.py decode; running
 this again with another PIL or numpy may write other bytes, and the pinned
-hash of its decoded pixels (tests/test_torch_image_io.py) then changes.
+hashes of their decoded pixels (tests/test_torch_image_io.py) then change.
 """
 import os
+import sys
 
 import numpy as np
 from PIL import Image
@@ -64,6 +67,9 @@ def street_scene(seed: int = 0) -> np.ndarray:
 
 
 if __name__ == "__main__":
-    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "nusc_cam_1600x900.jpg")
-    Image.fromarray(street_scene()).save(out, "JPEG")
+    progressive = "--progressive" in sys.argv[1:]
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "nusc_cam_1600x900_progressive.jpg" if progressive
+                       else "nusc_cam_1600x900.jpg")
+    Image.fromarray(street_scene()).save(out, "JPEG", progressive=progressive)
     print(out, os.path.getsize(out), "bytes")

@@ -29,14 +29,16 @@ are the same bits.
 TTO: the optimize CLI on 6 objects, batch 4 (the second batch padded
 with its last row), add_pose_err 2 and sym_aug on 2 ranks against one
 process, each drawing its own randomness (psnr atol 1e-4, poses and codes
-atol 1e-5; measured 5e-7 and 2e-6); and the driver on 4 objects fed the
-JAX driver's initial poses and render draws, on 2 ranks and on 1, against
-JAX's TTODriver at n_devices=2: psnr atol 2e-3 and rotations atol 1e-4
-(tests/test_tto_mesh.py's; measured 4.1e-5 and 4.7e-6), translations atol
+atol 1e-5; measured 5e-7 and 2e-6); and the driver on 4 objects in two
+batches of 2 fed the JAX driver's initial poses and render draws, on 2
+ranks and in one process at batch 1 (an object a batch, as each rank
+holds one: a batch of 2 in one process rounds apart from it by 1.3e-4
+in a pose), against JAX's TTODriver at n_devices=2: psnr atol 2e-3 and rotations atol 1e-4
+(tests/test_tto_mesh.py's; measured 1.2e-5 and 1.4e-5), translations atol
 1e-3 (tests/test_torch_tto.py's for the port's final pose against JAX;
-measured 8.6e-4 on 2 ranks and the same on 1: the port's own distance
-from JAX after two AdamW steps, ROADMAP C.14), and 2 ranks against 1 at
-atol 1e-5 (measured 9.8e-6).
+measured 8.8e-4 on 2 ranks and the same in one process: the port's own
+distance from JAX after two AdamW steps, ROADMAP C.14), and 2 ranks
+against one process at atol 1e-5 (measured 0: the same bits).
 """
 import json
 import os
@@ -292,33 +294,53 @@ def _jax_draws(key, B, T, S):
 
 
 def test_two_ranks_tto_like_the_jax_mesh(tmp_path):
-    """The driver on 2 ranks and on 1 (4 objects, batch 4, add_pose_err 2,
-    sym_aug) fed the JAX driver's initial poses and render draws against
-    JAX's TTODriver at n_devices=2, at the module docstring's tolerances:
-    every psnr curve and saved pose; the 2 ranks' distance from JAX is the
-    1 rank's."""
+    """The driver on 2 ranks (4 objects in two batches of 2, add_pose_err 2,
+    sym_aug) and in one process at batch 1 (each object alone, as on a
+    rank), fed the JAX driver's initial poses and render draws (each
+    batch's) against JAX's TTODriver at n_devices=2, at the module
+    docstring's tolerances: every psnr curve and saved pose; the 2 ranks'
+    distance from JAX is the one process's."""
     jmodel = jax_build_model("supnerf", TINY_NET)
     variables = jax.tree.map(np.asarray, init_model_variables(jmodel, jax.random.PRNGKey(0),
                                                               img_size=32))
-    spec = {"hpams": TTO_HP, "n_objects": N_TTO, "first_seed": TTO_SEED, "batch_size": N_TTO,
+    n_objects, batch = N_TTO, N_TTO // 2
+    spec = {"hpams": TTO_HP, "n_objects": n_objects, "first_seed": TTO_SEED, "batch_size": batch,
             "reg_iters": TTO_REG, "weights": str(tmp_path / "weights.pt"),
             "out_dir": str(tmp_path / "port")}
     torch.save(convert_supnerf_variables(variables, TINY_NET), spec["weights"])
-    samples = worker.tto_samples(N_TTO, TTO_SEED)
+    samples = worker.tto_samples(n_objects, TTO_SEED)
     zeros = np.zeros(32, np.float32)
     jdrv = JaxTTODriver(jmodel, variables, zeros, zeros, TTO_HP, samples, str(tmp_path / "jax"),
-                        batch_size=N_TTO, reg_iters=TTO_REG, n_devices=2, add_pose_err=2)
+                        batch_size=batch, reg_iters=TTO_REG, n_devices=2, add_pose_err=2)
+    batches = [list(range(s, min(s + batch, n_objects))) for s in range(0, n_objects, batch)]
     prep_key = jdrv.prep_key
-    spec["poses"] = [np.asarray(p) for p in jdrv._initial_poses(samples)]
+    spec["poses"] = [np.asarray(p) for idxs in batches
+                     for p in jdrv._initial_poses([samples[i] for i in idxs])]
     jdrv.prep_key = prep_key
-    cfg = jdrv.cfg
-    spec["draws"] = _jax_draws(jax.random.split(jdrv.key)[1], N_TTO, cfg.num_opts,
-                               cfg.n_samples)
-    assert spec["draws"]["sym_flips"].any() and not spec["draws"]["sym_flips"].all()
-    jdrv.optimize_object_batch(list(range(N_TTO)))
-    runs = {n: launch(plan_launch(n, None, "cpu"), worker.tto_run,
-                      dict(spec, out_dir=str(tmp_path / f"ranks{n}"))) for n in (2, 1)}
-    assert runs[2]["jax_world"] == [] and runs[2]["collectives"]["gather"] == 1
+    cfg, key, spec["draws"] = jdrv.cfg, jdrv.key, []
+    for idxs in batches:    # each dispatch splits the driver's key over the padded batch
+        key, k = jax.random.split(key)
+        draws = _jax_draws(k, batch, cfg.num_opts, cfg.n_samples)
+        spec["draws"].append({"jitter": tuple(d[:, :len(idxs)] for d in draws["jitter"]),
+                              "sym_flips": draws["sym_flips"][:, :len(idxs)]})
+    flips = np.concatenate([d["sym_flips"] for d in spec["draws"]], 1)
+    assert flips.any() and not flips.all()
+    for idxs in batches:
+        jdrv.optimize_object_batch(idxs)
+    runs = {2: launch(plan_launch(2, None, "cpu"), worker.tto_run,
+                      dict(spec, out_dir=str(tmp_path / "ranks2")))}
+    # one process at batch 1: each object alone, as each of the 2 ranks
+    # holds one, with its rows of the same draws
+    alone = [{"jitter": tuple(d[:, i:i + 1] for d in draws["jitter"]),
+              "sym_flips": draws["sym_flips"][:, i:i + 1]}
+             for draws in spec["draws"] for i in range(batch)]
+    threads = torch.get_num_threads()
+    try:
+        runs[1] = launch(None, worker.tto_run, dict(spec, out_dir=str(tmp_path / "ranks1"),
+                                                    batch_size=1, draws=alone))
+    finally:
+        torch.set_num_threads(threads)
+    assert runs[2]["jax_world"] == [] and runs[2]["collectives"]["gather"] == len(batches)
     diffs = {}
     for n, got in runs.items():
         res = got["results"]

@@ -162,12 +162,12 @@ def tto_run(group, spec: dict) -> dict:
     """TTODriver.run on spec's synthetic objects (two views an instance)
     with spec's weights (a state_dict file), its initial poses
     (spec["poses"], in place of the driver's own draws) and, where given,
-    its render draws (spec["draws"]: tto_draws' dict as numpy, in place of
-    the driver's generator), its opt_pose (default 1) and, with
-    spec["pnp_moves"], a PnP solve that moves every object's translation
-    by 5 % (so every object takes it). Returns results_dict() on rank 0,
-    the count of PnP translations taken and the JAX-world modules this
-    process imported."""
+    its render draws (spec["draws"]: a list of tto_draws' dicts as numpy,
+    one a batch, in place of the driver's generator), its opt_pose (default
+    1) and, with spec["pnp_moves"], a PnP solve that moves every object's
+    translation by 5 % (so every object takes it). Returns results_dict()
+    on rank 0, the count of PnP translations taken and the JAX-world
+    modules this process imported."""
     torch.set_num_threads(1)
     hp = spec["hpams"]
     model = build_model(hp["arch"], hp["net_hyperparams"])
@@ -184,9 +184,10 @@ def tto_run(group, spec: dict) -> dict:
     # driver's own
     patched = {}
     if spec.get("draws") is not None:
-        draws = spec["draws"]
+        batches = list(spec["draws"])
 
         def given(cfg, B, generator, device):
+            draws = batches.pop(0)
             return {"jitter": tuple(torch.from_numpy(d) for d in draws["jitter"]),
                     "sym_flips": torch.from_numpy(draws["sym_flips"]),
                     "obj_sz_draws": None}
