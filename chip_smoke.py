@@ -184,6 +184,14 @@ Phases, each timed; any failure exits non-zero before the result line:
      (d) the decode seconds of the committed progressive 1600 x 900 JPEG
      beside the baseline one, and its pinned sha256 (the baseline's
      pixels).
+ 17. the batch layout (ROADMAP C.27): run_tto_batch at the published config
+     (full width, 100 iterations, random weights from seed 0) on 4
+     synthetic objects as one batch of 4 and as 4 batches of 1, each object
+     given its rows of one tto_draws: the largest code, rotation and
+     translation difference of each object's run at iterations 0-5 and
+     100, iterations 0-5 held to tests/test_torch_batch_layout.py's bound
+     (the JAX package's own layout spread on the CPU), K1/K2 launches
+     exact; both runs' seconds.
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -4099,6 +4107,94 @@ def pipeline_paths(out_dir):
     return counts, times
 
 
+# --------------------------------------------------------------------------
+# phase 17: the batch layout (ROADMAP C.27): one object's run_tto_batch in a
+# batch of 4 against the same object alone
+# --------------------------------------------------------------------------
+
+LAYOUT_OBJECTS = 4
+# the JAX package's own spread between batch 1 and batches 2 and 4 at
+# iterations 0-5 on the CPU: tests/test_torch_batch_layout.py LAYOUT_SPREAD
+# (measured by tests/tto_layout_witness.py)
+LAYOUT_SPREAD = {"code": 8.28e-5, "rotation": 1.21e-5, "translation": 1.70e-4}
+LAYOUT_HELD_ITERS = 6
+
+
+def _layout_spread(a, b, its):
+    """The largest difference of run b from run a over iterations `its`
+    (a slice of the curves): codes, the rendered pose's rotation and
+    translation."""
+    pa, pb = a["pose_curve"][:, its], b["pose_curve"][:, its]
+    return {"code": max(float((a[k][:, its] - b[k][:, its]).abs().max())
+                        for k in ("shapecode_curve", "texturecode_curve")),
+            "rotation": float((pa[..., :3] - pb[..., :3]).abs().max()),
+            "translation": float((pa[..., 3] - pb[..., 3]).abs().max())}
+
+
+def batch_layout_path(out_dir):
+    """Phase 17. Returns the launch counts of the batch of 4 and of the 4
+    batches of 1."""
+    import dataclasses
+
+    import torch
+
+    from supnerf_tpu_torch.cli.common import SyntheticDataset, load_model_and_codes
+    from supnerf_tpu_torch.config import load_hpams
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.tto.core import ObjectBatch, render_decoder, run_tto_batch, tto_draws
+    from supnerf_tpu_torch.tto.driver import TTODriver
+
+    n = LAYOUT_OBJECTS
+    hpams = load_hpams(PUBLISHED)
+    model, mean_shape, mean_texture = load_model_and_codes(hpams, "cuda", seed=0)
+    driver = TTODriver(model, mean_shape, mean_texture, hpams, SyntheticDataset(n), out_dir,
+                       device="cuda", batch_size=n)
+    cfg = dataclasses.replace(driver.cfg, emit_code_curves=True)
+    _, _, arrays = driver._prep_arrays(list(range(n)))
+    draws = tto_draws(cfg, n, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    wts = render_decoder(model)
+    means = [torch.as_tensor(m, device="cuda") for m in (mean_shape, mean_texture)]
+
+    def rows(idx):
+        sub = {k: None if v is None else v[:, idx] for k, v in draws.items() if k != "jitter"}
+        sub["jitter"] = tuple(j[:, idx] for j in draws["jitter"])
+        return ObjectBatch.from_numpy({k: v[idx] for k, v in arrays.items()}, "cuda"), sub
+
+    def run(idx):
+        batch, sub = rows(idx)
+        t0 = time.perf_counter()
+        res = run_tto_batch(model, wts, batch, *means, cfg, **sub)
+        torch.cuda.synchronize()
+        return {k: v.detach() for k, v in res.items()}, time.perf_counter() - t0
+
+    counts = {}
+    render.reset_launch_counts()
+    four, seconds = run(slice(0, n))
+    counts["batch_layout_4"] = _exact_counts("batch of 4", TTO_BATCH_COUNTS)
+    render.reset_launch_counts()
+    alone = [run(slice(b, b + 1)) for b in range(n)]
+    counts["batch_layout_1"] = _exact_counts(
+        "4 batches of 1", {k: n * v for k, v in TTO_BATCH_COUNTS.items()})
+    one = {k: torch.cat([r[k] for r, _ in alone]) for k in four}
+    _check_curves("batch of 4", [c for k in ("psnr", "rot_err", "trans_err", "depth_err", "loss")
+                                 for c in four[k].cpu()], n, OPTION_ITERS)
+    held = _layout_spread(one, four, slice(0, LAYOUT_HELD_ITERS))
+    last = _layout_spread(one, four, slice(OPTION_ITERS - 1, OPTION_ITERS))
+    last["final_code"] = max(float((one[k] - four[k]).abs().max())
+                             for k in ("final_shapecode", "final_texturecode"))
+    same = all(torch.equal(one[k], four[k]) for k in four)
+    print(f"   batch of 4 against 4 batches of 1 (the same objects and draws): iterations "
+          f"0-{LAYOUT_HELD_ITERS - 1} {json.dumps(held)}, iteration {OPTION_ITERS - 1} and the "
+          f"final codes {json.dumps(last)}; every result the same bits: {same}")
+    over = {k: v for k, v in held.items() if v > LAYOUT_SPREAD[k]}
+    if over:
+        raise RuntimeError(f"the batch layout moved iterations 0-{LAYOUT_HELD_ITERS - 1} by "
+                           f"{over}, beyond the JAX package's own spread {LAYOUT_SPREAD}")
+    print(f"   run_tto_batch, {OPTION_ITERS} iterations: the batch of {n} {seconds:.3f} s, "
+          f"4 batches of 1 {sum(s for _, s in alone):.3f} s")
+    return counts
+
+
 def kernel_records(tto_records, train_records, aabb_records, field_records,
                    train_kernel_records, train_field_extra, codenerf_extra, counts_by_path):
     """One record per launch counter, launches from the path that runs it
@@ -4236,6 +4332,10 @@ def main():
                "(c) serial and pipelined A B B A, (d) the progressive JPEG")
     pipeline_counts, _ = _in_temp_dir(pipeline_paths)
     done(t0, "the pipelined TTO driver and the decoders")
+    t0 = phase("the batch layout: run_tto_batch on 4 objects as one batch and as 4 batches "
+               "of 1")
+    layout_counts = _in_temp_dir(batch_layout_path)
+    done(t0, "the batch layout")
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
                              train_kernel_records, train_field_extra, codenerf_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
@@ -4244,7 +4344,7 @@ def main():
                               "train_field": field_train_counts, **dataset_counts,
                               **baseline_counts, **driver_counts, **vis_counts,
                               **training_counts, **last_counts, **dp_counts,
-                              **pipeline_counts})
+                              **pipeline_counts, **layout_counts})
     records_by_name = {r["name"]: r for r in records}
     records_by_name["render_fwd"].update(vis_kernels)
     records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms

@@ -245,10 +245,17 @@ def pack_decoder_params(decoder) -> DecoderWeights:
 
 def conditioned_latents(wts: DecoderWeights, shapecode, texturecode):
     """Per-object latent projections z_j = relu(code @ Wz_j + bz_j):
-    codes (B, latent) -> (zs (B, n_shape, W), zt (B, n_tex, W))."""
-    zs = F.relu(torch.einsum("bl,jlw->bjw", shapecode, wts.w_shape_latent) + wts.b_shape_latent)
-    zt = F.relu(torch.einsum("bl,jlw->bjw", texturecode, wts.w_tex_latent) + wts.b_tex_latent)
-    return zs, zt
+    codes (B, latent) -> (zs (B, n_shape, W), zt (B, n_tex, W)), as one
+    batched product of a (1, latent) row by Wz_j per object and layer: a
+    matmul over the B rows rounds each row with B (the CPU library picks
+    its routine by the row count), and an object's latents, so its whole
+    TTO run, must be the same bits in any batch (ROADMAP C.27)."""
+
+    def each(code, w, b):
+        return F.relu(torch.matmul(code[:, None, None], w).squeeze(2) + b)
+
+    return (each(shapecode, wts.w_shape_latent, wts.b_shape_latent),
+            each(texturecode, wts.w_tex_latent, wts.b_tex_latent))
 
 
 # --------------------------------------------------------------------------

@@ -24,6 +24,12 @@ replicated. The port takes torch's idiom instead, one process per card:
                               host 0 listens there.
   neither                     no group: the caller runs as before.
 
+On one host the group meets at a file (torch's FileStore, init_method
+file://) in a directory that launch creates and removes: no port is picked
+beforehand, so no other process can take it between the plan and the
+group. Across hosts it meets at the caller's --coordinator host:port, as
+JAX's mesh does.
+
 plan_launch checks the request before any work: --devices 0, more ranks on
 a host than it has cards, a batch that the ranks do not divide and a
 coordinator without its process count or id raise ValueError. Nothing falls
@@ -43,7 +49,6 @@ import dataclasses
 import inspect
 import os
 import pickle
-import socket
 import tempfile
 
 import torch
@@ -67,13 +72,14 @@ def reset_counts():
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """A launch: `world` ranks in all, `local` of them on this host, which
-    is host `host`; the group forms at init_method on `backend` ("nccl" for
-    cuda, "gloo" for cpu)."""
+    is host `host`; the group forms on `backend` ("nccl" for cuda, "gloo"
+    for cpu) at init_method, the coordinator's tcp:// address, or, when it
+    is None (one host), at the file rendezvous that launch makes."""
 
     world: int
     local: int
     host: int
-    init_method: str
+    init_method: str | None
     device: str
 
     @property
@@ -101,12 +107,6 @@ class Group:
 def is_main(group) -> bool:
     """True without a group and on rank 0."""
     return group is None or group.main
-
-
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
 
 
 def _env_int(name, value):
@@ -147,8 +147,7 @@ def plan_launch(devices: int | None, coordinator: str | None, device: str = "cud
                              "the same number")
         init_method = f"tcp://{coordinator}"
     else:
-        hosts, host, world = 1, 0, devices
-        init_method = f"tcp://127.0.0.1:{free_port()}"
+        hosts, host, world, init_method = 1, 0, devices, None
     local = world // hosts
     if device == "cuda":
         if not torch.cuda.is_available():
@@ -202,13 +201,17 @@ def launch(plan: Plan | None, fn, *args):
     built once for them on the card."""
     if plan is None:
         return fn(None, *args)
-    if plan.local == 1:
+    if plan.local == 1 and plan.init_method is not None:
         return _run_rank(0, plan, fn, args)
-    if plan.device == "cuda":
+    if plan.local > 1 and plan.device == "cuda":
         from supnerf_tpu_torch.ops.render import build_kernels
 
         build_kernels()
     with tempfile.TemporaryDirectory(prefix="supnerf_ranks_") as d:
+        if plan.init_method is None:        # one host: meet at a file of this launch's own
+            plan = dataclasses.replace(plan, init_method="file://" + os.path.join(d, "rendezvous"))
+        if plan.local == 1:
+            return _run_rank(0, plan, fn, args)
         path = os.path.join(d, "local_rank0.pkl")
         torch.multiprocessing.start_processes(_spawned, args=(plan, fn, args, path),
                                               nprocs=plan.local, start_method="spawn")

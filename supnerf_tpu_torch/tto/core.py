@@ -321,8 +321,9 @@ def depth_error(wts, shapecode, texturecode, pose_obj, batch: ObjectBatch, obj_d
 def encode_and_refine(model, batch: ObjectBatch, mean_shape, mean_texture, cfg: TTOConfig,
                       pose_hook=None):
     """Encoder (one object per BatchNorm batch, as the reference encodes one
-    image at a time) and the feed-forward refiner on the effective box size
-    (effective_wlh; the annotation for a model without a wlh head). A
+    image at a time) and the feed-forward refiner (one object at a time, so
+    a batch's rows are the same bits as each object alone) on the effective
+    box size (effective_wlh; the annotation for a model without a wlh head). A
     two-head encoder (AutoRF, AutoRFMix) gives zero pose code and uv; a
     model without an encoder (CodeNeRF) starts from the mean codes with zero
     uv; a model without a refiner replays pose_init for reg_iters + 1
@@ -349,7 +350,14 @@ def encode_and_refine(model, batch: ObjectBatch, mean_shape, mean_texture, cfg: 
         pc, uv = (torch.cat([e[i] for e in enc]) for i in (2, 3))
     pose_init = batch.pose_init if pose_hook is None else pose_hook(uv)
     if refine:
-        traj = fw_pose_refine(model.pose_update, pc, pose_init, wlh_use, batch.roi_refine,
+        # the refiner's layers one object at a time too, as the encoder's:
+        # a Linear over B rows rounds each row with B, and the refined pose
+        # must be the same bits in any batch (ROADMAP C.27)
+        def pose_update(posecode, uv_norm):
+            return torch.cat([model.pose_update(posecode[b:b + 1], uv_norm[b:b + 1])
+                              for b in range(B)])
+
+        traj = fw_pose_refine(pose_update, pc, pose_init, wlh_use, batch.roi_refine,
                               batch.K, batch.K_inv, iters=cfg.reg_iters, box_fac=cfg.box_fac)
     else:
         traj = pose_init[:, None].expand(B, cfg.reg_iters + 1, 3, 4).clone()

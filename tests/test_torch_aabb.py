@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.geometry import rays as jrays
 from supnerf_tpu.geometry.boxes import invert_pose as jax_invert_pose
 from supnerf_tpu.geometry.rotations import axis_angle_to_matrix as jax_aa_to_matrix

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.cli.optimize import _auto_save_postfix as jax_auto_save_postfix
 from supnerf_tpu.data.synthetic import make_synthetic_object
 from supnerf_tpu.models import build_model as jax_build_model

@@ -16,6 +16,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import torch_threads  # noqa: F401
 import chip_smoke as cs
 from supnerf_tpu_torch.models.nerf_mlp import CodeNeRFDecoder, positional_encoding
 from supnerf_tpu_torch.ops import field, render

@@ -13,6 +13,7 @@ import types
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.tto.driver import TTODriver as JaxTTODriver
 from supnerf_tpu_torch.cli import optimize
 from supnerf_tpu_torch.device import resolve_device

@@ -18,6 +18,7 @@ import pytest
 from scipy.spatial.transform import Rotation
 
 import supnerf_tpu.data.common as jax_common
+import torch_threads  # noqa: F401
 from supnerf_tpu.data.kitti import KittiData as JaxKittiData
 from supnerf_tpu.data.waymo import WaymoData as JaxWaymoData
 from supnerf_tpu.data.kitti_format import Object3d

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from chip_smoke import read_png
+import torch_threads  # noqa: F401
 from supnerf_tpu.data.synthetic import make_object_batch
 from supnerf_tpu.geometry import poses as jax_poses
 from supnerf_tpu.models import SUPNeRF as JaxSUPNeRF

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.cli import eval_saved_result as jax_cli
 from supnerf_tpu.eval import aggregate as jax_agg
 from supnerf_tpu_torch.cli import eval_saved_result, evaluate_all, optimize

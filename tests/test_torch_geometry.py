@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.data.synthetic import make_synthetic_object as jax_make_object
 from supnerf_tpu.data.synthetic import prepare_object_inputs as jax_prepare
 from supnerf_tpu.geometry import boxes as jb

@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 from PIL import Image
 
+import torch_threads  # noqa: F401
 from supnerf_tpu_torch.data.jpeg import decode_jpeg, read_jpeg
 from supnerf_tpu_torch.utils.image_io import _chunks, read_png, write_png
 

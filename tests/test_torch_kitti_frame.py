@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.cli.optimize import _auto_save_postfix as jax_auto_save_postfix
 from supnerf_tpu.data.synthetic import make_object_batch
 from supnerf_tpu.geometry import boxes as jax_boxes

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.data.synthetic import make_object_batch
 from supnerf_tpu.geometry import poses as jax_poses
 from supnerf_tpu.models import build_model as jax_build_model

@@ -31,19 +31,21 @@ with its last row), add_pose_err 2 and sym_aug on 2 ranks against one
 process, each drawing its own randomness (psnr atol 1e-4, poses and codes
 atol 1e-5; measured 5e-7 and 2e-6); and the driver on 4 objects in two
 batches of 2 fed the JAX driver's initial poses and render draws, on 2
-ranks and in one process at batch 1 (an object a batch, as each rank
-holds one: a batch of 2 in one process rounds apart from it by 1.3e-4
-in a pose), against JAX's TTODriver at n_devices=2: psnr atol 2e-3 and rotations atol 1e-4
+ranks (an object each) and in one process (the same batches of 2: an
+object's run is the same bits in any batch, tests/test_torch_batch_layout.py),
+against JAX's TTODriver at n_devices=2: psnr atol 2e-3 and rotations atol 1e-4
 (tests/test_tto_mesh.py's; measured 1.2e-5 and 1.4e-5), translations atol
 1e-3 (tests/test_torch_tto.py's for the port's final pose against JAX;
 measured 8.8e-4 on 2 ranks and the same in one process: the port's own
 distance from JAX after two AdamW steps, ROADMAP C.14), and 2 ranks
 against one process at atol 1e-5 (measured 0: the same bits).
 """
+import contextlib
 import json
 import os
 import pickle
 import shutil
+import socket
 import subprocess
 import sys
 import types
@@ -53,13 +55,14 @@ import jax
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 import torch_parallel_worker as worker
 from supnerf_tpu.models import build_model as jax_build_model
 from supnerf_tpu.models import init_model_variables
 from supnerf_tpu.training.trainer import UnifiedTrainer as JaxTrainer
 from supnerf_tpu.tto.driver import TTODriver as JaxTTODriver
 from supnerf_tpu_torch.models.convert import convert_supnerf_variables, convert_train_state
-from supnerf_tpu_torch.parallel.mesh import free_port, launch, plan_launch
+from supnerf_tpu_torch.parallel.mesh import launch, plan_launch
 from supnerf_tpu_torch.training.checkpoints import save_checkpoint
 from supnerf_tpu_torch.training.trainer import UnifiedTrainer, train_config_from_hpams
 from torch_memory import release_memory_after_module  # noqa: F401
@@ -86,6 +89,19 @@ LOSSES = ("loss_total", "loss_rgb", "loss_occ", "psnr", "loss_reg", "loss_code",
 
 def _cpu2():
     return plan_launch(2, None, "cpu")
+
+
+@contextlib.contextmanager
+def coordinator_port():
+    """A 127.0.0.1 port for --coordinator, held until the block ends by a
+    socket bound with SO_REUSEADDR that never listens: no other process
+    takes it meanwhile (bind to port 0 does not hand it out, and a bind
+    without SO_REUSEADDR is refused), while host 0's store, which sets
+    SO_REUSEADDR too, may bind it and listen (ROADMAP C.26)."""
+    with socket.socket() as s:
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind(("127.0.0.1", 0))
+        yield s.getsockname()[1]
 
 
 # --------------------------------------------------------------------------
@@ -217,26 +233,25 @@ def test_two_hosts_from_the_jax_names(port_train, tmp_path):
     spec = dict(port_train["spec"], resume_epochs=[0], out_dir=str(tmp_path / "hosts"))
     spec_path = tmp_path / "spec.pkl"
     spec_path.write_bytes(pickle.dumps(spec))
-    port = free_port()
-    procs = []
-    for pid in range(2):
-        env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
-                   JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid), OMP_NUM_THREADS="1",
-                   PYTHONPATH=REPO)
-        env.pop("PYTEST_CURRENT_TEST", None)
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(REPO, "tests", "torch_parallel_worker.py"),
-             str(spec_path), str(tmp_path / f"host{pid}.pkl")],
-            env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
-    outs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=240)
-            outs.append((p.returncode, out, err))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+    procs, outs = [], []
+    with coordinator_port() as port:
+        for pid in range(2):
+            env = dict(os.environ, JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid), OMP_NUM_THREADS="1",
+                       PYTHONPATH=REPO)
+            env.pop("PYTEST_CURRENT_TEST", None)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(REPO, "tests", "torch_parallel_worker.py"),
+                 str(spec_path), str(tmp_path / f"host{pid}.pkl")],
+                env=env, cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        try:
+            for p in procs:
+                out, err = p.communicate(timeout=240)
+                outs.append((p.returncode, out, err))
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
     for rc, out, err in outs:
         assert rc == 0, err[-3000:]
     host0 = pickle.loads((tmp_path / "host0.pkl").read_bytes())
@@ -295,11 +310,11 @@ def _jax_draws(key, B, T, S):
 
 def test_two_ranks_tto_like_the_jax_mesh(tmp_path):
     """The driver on 2 ranks (4 objects in two batches of 2, add_pose_err 2,
-    sym_aug) and in one process at batch 1 (each object alone, as on a
-    rank), fed the JAX driver's initial poses and render draws (each
-    batch's) against JAX's TTODriver at n_devices=2, at the module
-    docstring's tolerances: every psnr curve and saved pose; the 2 ranks'
-    distance from JAX is the one process's."""
+    sym_aug) and in one process (the same batches of 2), fed the JAX
+    driver's initial poses and render draws (each batch's) against JAX's
+    TTODriver at n_devices=2, at the module docstring's tolerances: every
+    psnr curve and saved pose; the 2 ranks' distance from JAX is the one
+    process's."""
     jmodel = jax_build_model("supnerf", TINY_NET)
     variables = jax.tree.map(np.asarray, init_model_variables(jmodel, jax.random.PRNGKey(0),
                                                               img_size=32))
@@ -329,15 +344,9 @@ def test_two_ranks_tto_like_the_jax_mesh(tmp_path):
         jdrv.optimize_object_batch(idxs)
     runs = {2: launch(plan_launch(2, None, "cpu"), worker.tto_run,
                       dict(spec, out_dir=str(tmp_path / "ranks2")))}
-    # one process at batch 1: each object alone, as each of the 2 ranks
-    # holds one, with its rows of the same draws
-    alone = [{"jitter": tuple(d[:, i:i + 1] for d in draws["jitter"]),
-              "sym_flips": draws["sym_flips"][:, i:i + 1]}
-             for draws in spec["draws"] for i in range(batch)]
     threads = torch.get_num_threads()
     try:
-        runs[1] = launch(None, worker.tto_run, dict(spec, out_dir=str(tmp_path / "ranks1"),
-                                                    batch_size=1, draws=alone))
+        runs[1] = launch(None, worker.tto_run, dict(spec, out_dir=str(tmp_path / "ranks1")))
     finally:
         torch.set_num_threads(threads)
     assert runs[2]["jax_world"] == [] and runs[2]["collectives"]["gather"] == len(batches)
@@ -486,25 +495,25 @@ def test_train_cli_resumes_on_two_ranks(tmp_path, monkeypatch):
                                                  f"--{flag}", "2"])
         got[flag], files = _state_of(tmp_path / flag)
         assert files == want_files
-    port = free_port()
     procs = []
-    for pid in range(2):
-        env = dict(os.environ, JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid),
-                   OMP_NUM_THREADS="1", PYTHONPATH=REPO)
-        env.pop("PYTEST_CURRENT_TEST", None)
-        procs.append(subprocess.Popen(
-            [sys.executable, "-m", "supnerf_tpu_torch.cli.train", *base, *resume,
-             "--save_dir", str(tmp_path / "coordinator"), "--coordinator",
-             f"127.0.0.1:{port}"], env=env, cwd=REPO, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True))
-    try:
-        for p in procs:
-            _, err = p.communicate(timeout=240)
-            assert p.returncode == 0, err[-3000:]
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
+    with coordinator_port() as port:
+        for pid in range(2):
+            env = dict(os.environ, JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(pid),
+                       OMP_NUM_THREADS="1", PYTHONPATH=REPO)
+            env.pop("PYTEST_CURRENT_TEST", None)
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "supnerf_tpu_torch.cli.train", *base, *resume,
+                 "--save_dir", str(tmp_path / "coordinator"), "--coordinator",
+                 f"127.0.0.1:{port}"], env=env, cwd=REPO, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        try:
+            for p in procs:
+                _, err = p.communicate(timeout=240)
+                assert p.returncode == 0, err[-3000:]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
     for flag, summary in runs.items():
         assert summary["world"] == 2 and summary["backend"] == "gloo" and summary["rank"] == 0
         assert summary["collectives"]["grad_all_reduce"] == summary["steps"] == 1
@@ -563,6 +572,7 @@ def test_launch_plan_from_the_jax_names(monkeypatch):
     assert plan_launch(None, None, "cpu") is None
     plan = plan_launch(4, None, "cpu", {"batch_size": 8})
     assert (plan.world, plan.local, plan.host, plan.backend) == (4, 4, 0, "gloo")
+    assert plan.init_method is None     # launch's own file rendezvous
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "10.0.0.1:1234")
     monkeypatch.setenv("JAX_NUM_PROCESSES", "2")
     monkeypatch.setenv("JAX_PROCESS_ID", "1")

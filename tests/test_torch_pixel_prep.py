@@ -18,6 +18,7 @@ pose errors (pose-error mode 1), so both trainers take its source poses
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.data.synthetic import make_synthetic_object
 from supnerf_tpu.models import build_model as jax_build_model
 from supnerf_tpu.training import pixel_prep as jax_pp

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from supnerf_tpu_torch.cli import train
 from supnerf_tpu_torch.cli.common import SyntheticDataset
 from supnerf_tpu_torch.models.factory import build_model, init_model

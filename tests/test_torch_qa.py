@@ -18,6 +18,7 @@ import matplotlib
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.data import debug as jax_debug
 from supnerf_tpu.data.kitti import KittiData as JaxKittiData
 from supnerf_tpu.data.kitti_format import KittiObjectDataset as JaxKittiObjectDataset

@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.models.nerf_mlp import CodeNeRFDecoder as JaxDecoder
 from supnerf_tpu.ops.pallas_field import pack_decoder_params as jax_pack
 from supnerf_tpu.ops.pallas_render import field_composite_apply, field_composite_pallas

@@ -60,6 +60,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import torch_threads  # noqa: F401
 from supnerf_tpu_torch.models.nerf_mlp import CodeNeRFDecoder, positional_encoding
 from supnerf_tpu_torch.ops import render
 from supnerf_tpu_torch.ops.volume_render import volume_render

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.data.synthetic import make_object_batch
 from supnerf_tpu.geometry import poses as jax_poses
 from supnerf_tpu.geometry.boxes import invert_pose as jax_invert_pose

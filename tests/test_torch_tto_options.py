@@ -17,6 +17,7 @@ import optax
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.data.synthetic import make_object_batch
 from supnerf_tpu.geometry import poses as jax_poses
 from supnerf_tpu.geometry import rotations as jax_rot

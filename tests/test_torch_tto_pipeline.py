@@ -26,6 +26,7 @@ import types
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.tto.driver import TTODriver as JaxTTODriver
 from supnerf_tpu_torch.cli.common import SyntheticDataset
 from supnerf_tpu_torch.data.nuscenes import NuScenesData

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 from PIL import Image, ImageSequence
 
+import torch_threads  # noqa: F401
 from supnerf_tpu_torch.cli import generate_video_vis, optimize
 from supnerf_tpu_torch.utils.gif import lzw_encode, write_gif
 from supnerf_tpu_torch.utils.image_io import read_png, write_png

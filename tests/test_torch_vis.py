@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import cv2
+import torch_threads  # noqa: F401
 from supnerf_tpu.data.synthetic import make_synthetic_object
 from supnerf_tpu.eval.metrics import ssim as jax_ssim
 from supnerf_tpu.geometry.roi import roi_coord_trans as jax_roi_coord_trans

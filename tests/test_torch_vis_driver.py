@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from supnerf_tpu.data.synthetic import make_synthetic_object
 from supnerf_tpu.models.nerf_mlp import CodeNeRFDecoder as JaxDecoder
 from supnerf_tpu.training.trainer import UnifiedTrainer as JaxTrainer

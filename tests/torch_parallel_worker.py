@@ -122,6 +122,15 @@ def rank_imports(group):
     return gather_to_main(group, jax_world_modules())
 
 
+def group_probe(group):
+    """The group as each rank sees it, in rank order, on rank 0: (rank,
+    world, backend, the sum over the ranks of rank + 1)."""
+    x = torch.tensor([group.rank + 1.0])
+    torch.distributed.all_reduce(x)
+    return gather_to_main(group, (group.rank, group.world, torch.distributed.get_backend(),
+                                  float(x)))
+
+
 def batchnorm_share(group, spec: dict):
     """BatchStatNorm2d under global_batch_stats on this rank's rows of
     spec["x"] (float64, (n, C, H, W)), the running statistics moving:
