@@ -192,6 +192,24 @@ Phases, each timed; any failure exits non-zero before the result line:
      100, iterations 0-5 held to tests/test_torch_batch_layout.py's bound
      (the JAX package's own layout spread on the CPU), K1/K2 launches
      exact; both runs' seconds.
+ 18. the bfloat16 mode (net_hyperparams' field_dtype "bfloat16", the
+     precision of the JAX package's kernels on its accelerator): (a) K1
+     (shared z at the TTO shape, also with the exact encodings of A11a;
+     AABB at the demo's), K2 (both modes), K5 (also exact, A11b) and K6 at
+     the regulariser paths' two shapes, each bfloat16 build against its
+     bfloat16 plain version, which it must lie BF16_CLOSER times closer to
+     than that version lies to the float32 plain version in root mean
+     square, with no element beyond that version's largest distance and at
+     most BF16_POINT_SHARE beyond a tenth of it (closer_than_float32), each
+     timed beside its bfloat16 bound (bound_bf16) and the float32 build at
+     the same shape; (b) the optimize CLI on 2 synthetic objects at the
+     published config and at a copy with field_dtype "bfloat16", A B B A:
+     exact launches (the bfloat16 runs K1 202 and K2 96 on the bfloat16
+     builds, no float32 launch), objects/min, tto_loop and the final
+     metrics of both, and again on 8 objects in one batch (the float32
+     runs' launches on the bfloat16 builds); (c) phase 7's cell (b) in the mode (K5 400, K6 384);
+     (d) the demo at hpam_demo.json in the mode (K1's AABB build 100, K2's
+     96; the frames through the plain decoder's bfloat16 mode).
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -1682,6 +1700,9 @@ REG_LIB_KERNELS = ("render_fwd", "field_fwd", "field_bwd")
 KERNEL_OF = {"render_fwd": "K1", "render_fwd_aabb": "K1", "render_bwd": "K2",
              "render_bwd_aabb": "K2", "render_train_bwd": "K3", "render_train_bwd_data": "K3",
              "wgrad": "K4", "field_fwd": "K5", "field_bwd": "K6", "field_train_bwd": "K7"}
+KERNEL_OF.update({k + "_bf16": v for k, v in KERNEL_OF.items()
+                  if k in ("render_fwd", "render_fwd_aabb", "render_bwd", "render_bwd_aabb",
+                           "field_fwd", "field_bwd")})
 
 
 def _in_temp_dir(fn):
@@ -1999,12 +2020,12 @@ def reg_cli_path(out_dir):
     return counts
 
 
-def reg_lib_path(out_dir):
+def reg_lib_path(out_dir, field_dtype="float32"):
     """(b) run_tto_batch with sym_aug, obj_sz_reg and sym_loss_coef 1.0 at
-    the published config on 2 synthetic objects, 100 iterations: the loss
-    render goes through the per-point field (K5/K6 at 65,536 points per
-    object) and volume_render, its mirror for the symmetry loss too, and the
-    object-size loss. Returns the launch counts."""
+    the published config (with field_dtype) on 2 synthetic objects, 100
+    iterations: the loss render goes through the per-point field (K5/K6 at
+    65,536 points per object) and volume_render, its mirror for the symmetry
+    loss too, and the object-size loss. Returns the launch counts."""
     import dataclasses
 
     import numpy as np
@@ -2017,6 +2038,8 @@ def reg_lib_path(out_dir):
     from supnerf_tpu_torch.tto.driver import TTODriver, tto_config_from_hpams
 
     hpams = load_hpams(_reg_config(out_dir))
+    hpams["net_hyperparams"]["field_dtype"] = field_dtype
+    kernels = tuple(k + ("" if field_dtype == "float32" else "_bf16") for k in REG_LIB_KERNELS)
     cfg = dataclasses.replace(tto_config_from_hpams(hpams), sym_loss_coef=1.0)
     if not (cfg.sym_aug and cfg.obj_sz_reg and cfg.num_opts == REG_ITERS):
         raise RuntimeError(f"the regulariser config did not reach TTOConfig: {cfg}")
@@ -2030,7 +2053,7 @@ def reg_lib_path(out_dir):
                         generator=driver.render_gen)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    counts = _path_counts("regulariser library", REG_LIB_KERNELS)
+    counts = _path_counts("regulariser library", kernels)
     res = {k: v.detach().cpu().numpy() for k, v in res.items()}
     _check_curves("regulariser library", [c for k in ("psnr", "rot_err", "trans_err",
                                                        "depth_err", "loss") for c in res[k]],
@@ -4195,6 +4218,336 @@ def batch_layout_path(out_dir):
     return counts
 
 
+# ---- phase 18: the bfloat16 mode ----------------------------------------
+
+# The H100 SXM's dense bfloat16 tensor-core peak at its 700 W limit (NVIDIA
+# data sheet): a bfloat16 kernel's least time is its products at this rate
+# or its bytes at PEAK_BYTES_PER_S, whichever is longer.
+PEAK_BF16_FLOPS = 989e12
+# A bfloat16 kernel must lie this many times closer to its bfloat16 plain
+# version than that version lies to the float32 plain version, in the root
+# mean square over each output: it rounds where the Pallas kernel rounds,
+# not merely near a bfloat16 result (a rounding point left out moves every
+# point by a bfloat16 rounding, as the float32 version does).
+BF16_CLOSER = 10
+# The share of an output's elements that may lie beyond a BF16_CLOSER-th of
+# the bfloat16-against-float32 largest difference, and none beyond that
+# difference itself: a float32 sum in another order (the tensor cores',
+# cuBLAS's), or a sine one unit apart (the kernel's sincosf, torch's sin;
+# the doubling recurrence doubles it nine times), can round an operand to
+# the neighbouring bfloat16 value or put a ReLU gate on the other side
+# (render_common.cuh's note on the mode), and that point's outputs and
+# gradient row then part as a bfloat16 point's do from a float32 one's
+# (the card's first run of the mode: at most 2.5e-3 of K5's rgb at the
+# loss render's shape, 0.51 of the largest difference).
+BF16_POINT_SHARE = 1e-2
+BF16_TTO_COUNTS = {"render_fwd_bf16": 202, "render_bwd_bf16": 96}
+BF16_REG_COUNTS = {"field_fwd_bf16": 400, "field_bwd_bf16": 384}
+BF16_DEMO_COUNTS = {"render_fwd_aabb_bf16": DEMO_ITERS, "render_bwd_aabb_bf16": DEMO_ITERS - 4}
+BF16_AB_RUNS = ("float32", "bfloat16", "bfloat16", "float32")
+# the A B B A TTO cell once more at a batch whose kernels outlast the
+# loop's host work (at 2 objects they do not: the card's first run of the
+# mode measured the same tto_loop in both modes)
+BF16_BATCH_OBJECTS = 8
+
+
+def bound_bf16(flops, nbytes):
+    """The least time (ms) of `flops` bfloat16 tensor-core operations moving
+    `nbytes`: (ms, "operations" or "bytes")."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_mem = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes"
+
+
+def closer_than_float32(names, got, p16, p32):
+    """Each output of a bfloat16 kernel (got) against its bfloat16 plain
+    version (p16), beside p16 against the float32 plain version (p32): the
+    largest |difference| and the root mean square of both. An output
+    passes when it is finite, lies BF16_CLOSER times closer to p16 than p16
+    to p32 in root mean square, has no element farther from p16 than p16's
+    largest difference from p32, and at most BF16_POINT_SHARE of its
+    elements beyond a BF16_CLOSER-th of that. Returns (largest
+    kernel-vs-p16 difference, ok, {name: numbers})."""
+    import torch
+
+    worst, ok, out = 0.0, True, {}
+    for name, a, b, c in zip(names, got, p16, p32):
+        d_k, d_16 = (a - b).double(), (b - c).double()
+        m_k, m_16 = float(d_k.abs().max()), float(d_16.abs().max())
+        r_k, r_16 = float(d_k.pow(2).mean().sqrt()), float(d_16.pow(2).mean().sqrt())
+        beyond = int((d_k.abs() > m_16 / BF16_CLOSER).sum())
+        good = (bool(torch.isfinite(a).all()) and r_k * BF16_CLOSER <= r_16 and m_k <= m_16
+                and beyond <= BF16_POINT_SHARE * a.numel())
+        ok &= good
+        worst = max(worst, m_k)
+        out[name] = {"max_abs": m_k, "rms": r_k, "max_abs_bf16_vs_f32": m_16,
+                     "rms_bf16_vs_f32": r_16, "beyond": beyond}
+        print(f"   {name:12s} kernel-bf16 plain: max {m_k:.3e} rms {r_k:.3e}; bf16-f32 plain: "
+              f"max {m_16:.3e} rms {r_16:.3e}; ratio max {m_k / max(m_16, 1e-30):.1e} rms "
+              f"{r_k / max(r_16, 1e-30):.1e}; beyond a {BF16_CLOSER}th {beyond} of {a.numel()}"
+              f"  {'ok' if good else 'FAIL'}")
+    return worst, ok, out
+
+
+def record_bf16(name, ports, tpu, src, t_k, t_p, t_32, err, b, detail):
+    print(f"   {name}: {t_k:.3f} ms (plain {t_p:.3f} ms, bf16 bound {b[0]:.3f} ms by {b[1]}; "
+          f"the float32 kernel {t_32:.3f} ms at this shape)")
+    return {"name": name, "route": "cuda", "source": src, "replaces": tpu, "ports": ports,
+            "launches": 0, "max_abs_err": err, "ms": t_k, "plain_ms": t_p, "bound_ms": b[0],
+            "bound_by": b[1], "library_ms": None, "float32_ms": t_32, "errors": detail}
+
+
+def check_bf16_kernels():
+    """Phase 18 (a): K1 (shared z, the encodings in place too) and K2 at the
+    TTO shape, K1 and K2 in the AABB mode at the demo's, K5 and K6 at the
+    regulariser paths' two shapes, each in the bfloat16 mode against its
+    bfloat16 plain version and that against the float32 plain version
+    (closer_than_float32), timed beside the bfloat16 bound and the float32
+    kernel at the same shape. Returns the records."""
+    import torch
+
+    from supnerf_tpu_torch.ops import field, render
+
+    records = []
+    ok = True
+    w32, args, cot = kernel_inputs(seed=0)
+    _, args_ab, hit, cot_ab = aabb_inputs()
+    w16 = render.with_field_dtype(w32, "bfloat16")
+    W, ns, nt = w32.W, w32.n_shape, w32.n_tex
+    w_fwd = sum(getattr(w32, f).numel() for f in render._PTR_FIELDS if not f.startswith("wt_"))
+    w_all = sum(getattr(w32, f).numel() for f in render._PTR_FIELDS)
+    for label, a, h, c in (("shared z", args, None, cot), ("AABB", args_ab, hit, cot_ab)):
+        B, R, S = a[0].shape[:3]
+        suffix = "" if h is None else "_aabb"
+        print(f"   K1/K2 bfloat16 ({label}), {B} objects x {R} rays x {S} samples:")
+        # the encodings by the doubling recurrence (A1, A3), and in place (A11a)
+        for exact in (False,) if h is not None else (False, True):
+            with torch.no_grad():
+                got = render.render_fwd(w16, *a, False, h, exact_pe=exact)
+                torch.cuda.synchronize()
+                p16 = render.render_fwd_plain(w16, *a, False, h, exact_pe=exact)
+                p32 = render.render_fwd_plain(w32, *a, False, h)
+            names = [n + ("(exact_pe)" if exact else "") for n in ("rgb", "depth", "acc")]
+            e, good, d = closer_than_float32(names, got, p16, p32)
+            ok &= good
+            if not exact:
+                err_f, det_f = e, d
+        got = render.render_bwd(w16, *a, False, *c, h)
+        torch.cuda.synchronize()
+        p16 = render.render_bwd_plain(w16, *a, False, *c, h)
+        p32 = render.render_bwd_plain(w32, *a, False, *c, h)
+        err_b, good, det_b = closer_than_float32(("dxyz", "dviewdir", "dz", "dzs", "dzt"), got,
+                                                 p16, p32)
+        ok &= good
+        del got, p16, p32
+        t_f = _timed(lambda: render.render_fwd(w16, *a, False, h), 10)
+        t_fx = _timed(lambda: render.render_fwd(w16, *a, False, h, exact_pe=True), 10)
+        t_f32 = _timed(lambda: render.render_fwd(w32, *a, False, h), 10)
+        with torch.no_grad():
+            t_fp = _timed(lambda: render.render_fwd_plain(w16, *a, False, h), 3)
+        t_b = _timed(lambda: render.render_bwd(w16, *a, False, *c, h), 5)
+        t_b32 = _timed(lambda: render.render_bwd(w32, *a, False, *c, h), 5)
+        t_bp = _timed(lambda: render.render_bwd_plain(w16, *a, False, *c, h), 3)
+        pts = (B * R if h is None else int(h.sum())) * S
+        act = sum(t.numel() for t in a) * 4 + (0 if h is None else B * R * 4)
+        f_flops = 2 * pts * decoder_macs(W, ns, nt)
+        b_flops = f_flops + 2 * pts * transposed_macs(W, ns, nt)
+        f_bytes = act + w_fwd * 4 + B * R * 5 * 4
+        b_bytes = (act + w_all * 4 + B * R * 5 * 4
+                   + (B * R * S * 3 + B * R * 3 + B * (S if h is None else R * S)
+                      + B * (ns + nt) * W) * 4)
+        records += [
+            record_bf16(f"render_fwd{suffix}_bf16", ["A3"] if h is not None else ["A1", "A11a"],
+                        "supnerf_tpu/ops/pallas_render.py:127",
+                        "supnerf_tpu_torch/csrc/render_fwd.cu", t_f, t_fp, t_f32, err_f,
+                        bound_bf16(f_flops, f_bytes), det_f),
+            record_bf16(f"render_bwd{suffix}_bf16", ["A4"] if h is not None else ["A2"],
+                        "supnerf_tpu/ops/pallas_render.py:478",
+                        "supnerf_tpu_torch/csrc/render_bwd.cu", t_b, t_bp, t_b32, err_b,
+                        bound_bf16(b_flops, b_bytes), det_b)]
+        records[-2]["exact_pe_ms"] = t_fx
+        print(f"   render_fwd{suffix}_bf16 with exact_pe (A11a's encodings): {t_fx:.3f} ms")
+    w32f, cases = field_inputs()
+    w16f = render.with_field_dtype(w32f, "bfloat16")
+    dir_macs = 3 * (2 * w32f.num_dir_freq + 1) * W
+    by_shape = {}
+    for label, a, c in cases:
+        B, M = a[0].shape[:2]
+        print(f"   K5/K6 bfloat16 at the {label} shape, {B} objects x {M} points:")
+        for exact in (False, True):
+            with torch.no_grad():
+                got = field.field_fwd(w16f, *a, exact_pe=exact)
+                torch.cuda.synchronize()
+                p16 = field.field_fwd_plain(w16f, *a, exact_pe=exact)
+                p32 = field.field_fwd_plain(w32f, *a)
+            names = ("sigma(exact_pe)", "rgb(exact_pe)") if exact else ("sigma", "rgb")
+            e, good, d = closer_than_float32(names, got, p16, p32)
+            ok &= good
+            if not exact:
+                err_f, det_f = e, d
+        got = field.field_bwd(w16f, *a, *c)
+        torch.cuda.synchronize()
+        p16 = field.field_bwd_plain(w16f, *a, *c)
+        p32 = field.field_bwd_plain(w32f, *a, *c)
+        err_b, good, det_b = closer_than_float32(("dxyz", "dviewdir", "dzs", "dzt"), got, p16,
+                                                 p32)
+        ok &= good
+        del got, p16, p32
+        n = 10 if M > 10000 else 50
+        t_f = _timed(lambda: field.field_fwd(w16f, *a), n)
+        t_fx = _timed(lambda: field.field_fwd(w16f, *a, exact_pe=True), n)
+        t_f32 = _timed(lambda: field.field_fwd(w32f, *a), n)
+        with torch.no_grad():
+            t_fp = _timed(lambda: field.field_fwd_plain(w16f, *a), max(n // 4, 3))
+        t_b = _timed(lambda: field.field_bwd(w16f, *a, *c), max(n // 2, 3))
+        t_b32 = _timed(lambda: field.field_bwd(w32f, *a, *c), max(n // 2, 3))
+        t_bp = _timed(lambda: field.field_bwd_plain(w16f, *a, *c), max(n // 4, 3))
+        pts = B * M
+        act = sum(t.numel() for t in a) * 4
+        f_flops = 2 * pts * (decoder_macs(W, ns, nt) + dir_macs)
+        b_flops = f_flops + 2 * pts * (transposed_macs(W, ns, nt) + dir_macs)
+        by_shape[label] = [
+            record_bf16("field_fwd_bf16", ["A7", "A11b"], "supnerf_tpu/ops/pallas_field.py:183",
+                        "supnerf_tpu_torch/csrc/field_fwd.cu", t_f, t_fp, t_f32, err_f,
+                        bound_bf16(f_flops, act + w_fwd * 4 + pts * 4 * 4), det_f),
+            record_bf16("field_bwd_bf16", ["A8"], "supnerf_tpu/ops/pallas_field.py:384",
+                        "supnerf_tpu_torch/csrc/field_bwd.cu", t_b, t_bp, t_b32, err_b,
+                        bound_bf16(b_flops, act + w_all * 4 + pts * 4 * 4
+                                   + (pts * 6 + B * (ns + nt) * W) * 4), det_b)]
+        by_shape[label][0]["exact_pe_ms"] = t_fx
+        print(f"   field_fwd_bf16 with exact_pe (A11b's encodings): {t_fx:.3f} ms")
+    if not ok:
+        raise RuntimeError("a bfloat16 kernel is not BF16_CLOSER times closer to its bfloat16 "
+                           "plain version than that is to the float32 one")
+    for r, small in zip(by_shape["sym"], by_shape["objsz"]):
+        r["objsz_shape"] = {k: small[k] for k in ("ms", "plain_ms", "float32_ms", "bound_ms",
+                                                   "bound_by", "max_abs_err", "exact_pe_ms")
+                            if k in small}
+    return records + by_shape["sym"]
+
+
+def bf16_tto_cells(out_dir, n_objects=2):
+    """Phase 18 (b): the optimize CLI at the published config and at a copy
+    with net_hyperparams' field_dtype "bfloat16", n_objects synthetic
+    objects in one batch, 100 iterations, A B B A (float32, bfloat16,
+    bfloat16, float32): exact launch counts (each bfloat16 run the float32
+    runs' counts on the bfloat16 builds, with 2 objects K1 202 and K2 96,
+    every other counter 0), objects/min, tto_loop and the final metrics of
+    both. Returns the launch counts of the first bfloat16 run."""
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.cli import optimize
+    from supnerf_tpu_torch.ops import render
+
+    configs = {"float32": PUBLISHED,
+               "bfloat16": _option_config(out_dir, "bf16",
+                                          net_hyperparams={"field_dtype": "bfloat16"})}
+    runs, counts = {"float32": [], "bfloat16": []}, {}
+    for i, mode in enumerate(BF16_AB_RUNS):
+        render.reset_launch_counts()
+        t0 = time.perf_counter()
+        summary = optimize.main([
+            "--config_file", configs[mode], "--dataset", "synthetic", "--num_objects",
+            str(n_objects), "--batch_size", str(n_objects), "--device", "cuda", "--seed", "0",
+            "--save_dir", os.path.join(out_dir, f"run{i}")])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        if mode == "float32":
+            want = OPTION_COUNTS if n_objects == 2 else dict(counts.get("float32") or {
+                k: render.LAUNCHES[k] for k in TTO_KERNELS})
+        else:
+            want = {k + "_bf16": v for k, v in counts["float32"].items()}
+        counts.setdefault(mode, _exact_counts(f"{mode} TTO run {i}, {n_objects} objects", want))
+        agg = summary["aggregate"]
+        final = {"psnr": agg["psnr"][-1], "rot_err_deg": agg["rot_err_deg"][-1],
+                 "trans_err": agg["trans_err"][-1], "depth_err": agg["depth_err"][-1]}
+        if not all(np.isfinite(v) for v in final.values()):
+            raise RuntimeError(f"{mode} TTO: a final metric is not finite: {final}")
+        runs[mode].append({"seconds": seconds, "tto_loop": summary["phase_seconds"]["tto_loop"],
+                           "final": final})
+        print(f"   run {i} ({mode}, {n_objects} objects): {seconds:.3f} s, "
+              f"{n_objects * 60 / seconds:.1f} objects/min, tto_loop "
+              f"{summary['phase_seconds']['tto_loop']:.3f} s; final " + json.dumps(
+                  {k: round(float(v), 4) for k, v in final.items()}))
+    if n_objects == 2 and counts["bfloat16"] != BF16_TTO_COUNTS:
+        raise RuntimeError(f"the bfloat16 TTO runs launched {counts['bfloat16']}")
+    for mode, rs in runs.items():
+        print(f"   {mode}, {n_objects} objects: objects/min "
+              + ", ".join(f"{n_objects * 60 / r['seconds']:.1f}" for r in rs)
+              + "; tto_loop " + ", ".join(f"{r['tto_loop']:.3f}" for r in rs) + " s")
+    a, b = runs["float32"][0]["final"], runs["bfloat16"][0]["final"]
+    print("   final metrics, bfloat16 - float32: " + json.dumps(
+        {k: round(float(b[k] - a[k]), 4) for k in a}))
+    return counts["bfloat16"]
+
+
+def bf16_reg_cell(out_dir):
+    """Phase 18 (c): cell (b) of phase 7 (run_tto_batch with sym_aug,
+    obj_sz_reg and sym_loss_coef 1.0) at the published config with
+    field_dtype "bfloat16": K5 400 and K6 384 on their bfloat16 builds, K1's
+    bfloat16 build, and no other launch. Returns the launch counts."""
+    from supnerf_tpu_torch.ops import render
+
+    reg_lib_path(out_dir, field_dtype="bfloat16")
+    return _exact_counts("bfloat16 regulariser library", dict(
+        BF16_REG_COUNTS, render_fwd_bf16=render.LAUNCHES["render_fwd_bf16"]))
+
+
+def bf16_demo_cell(out_dir):
+    """Phase 18 (d): the demo CLI at a copy of hpam_demo.json with
+    field_dtype "bfloat16": the AABB TTO on K1/K2's bfloat16 AABB builds
+    (100 and 96 launches, K1's bfloat16 build, no other launch), the frames
+    through the plain decoder's bfloat16 mode (flax TorchDense's contract),
+    finite curves and frames. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from supnerf_tpu_torch.cli import demo
+    from supnerf_tpu_torch.ops import render
+
+    with open(os.path.join(HERE, "jsonfiles", "hpam_demo.json")) as f:
+        config = json.load(f)
+    config["net_hyperparams"]["field_dtype"] = "bfloat16"
+    path = os.path.join(out_dir, "hpam_demo_bf16.json")
+    with open(path, "w") as f:
+        json.dump(config, f)
+    render.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = demo.main(["--config_file", path, "--dataset", "synthetic", "--n_objects",
+                         str(DEMO_OBJECTS), "--num_opts", str(DEMO_ITERS), "--device", "cuda",
+                         "--seed", "0", "--save_dir", os.path.join(out_dir, "demo")])
+    torch.cuda.synchronize()
+    counts = _exact_counts("bfloat16 demo", dict(
+        BF16_DEMO_COUNTS, render_fwd_bf16=render.LAUNCHES["render_fwd_bf16"]))
+    res = summary["results"]
+    curves = [np.asarray(v, np.float64) for key in ("psnr_eval", "R_eval", "T_eval")
+              for v in res[key].values()]
+    if not all(np.isfinite(c).all() and len(c) == DEMO_ITERS for c in curves) or not all(
+            np.isfinite(img).all() for img in summary["images"]):
+        raise RuntimeError("the bfloat16 demo's curves or frames are not finite")
+    print(f"   bfloat16 demo: {time.perf_counter() - t0:.2f} s; TTO {summary['tto_seconds']:.2f}"
+          f" s, frames " + ", ".join(f"{t:.3f}" for t in summary["frame_seconds"]) + " s")
+    return counts
+
+
+def bf16_paths():
+    """Phase 18. Returns (kernel records, launch counts by path)."""
+    records = check_bf16_kernels()
+    counts = {"bf16_tto": _in_temp_dir(bf16_tto_cells),
+              "bf16_tto_8": _in_temp_dir(lambda d: bf16_tto_cells(d, BF16_BATCH_OBJECTS)),
+              "bf16_reg_lib": _in_temp_dir(bf16_reg_cell),
+              "bf16_demo": _in_temp_dir(bf16_demo_cell)}
+    main_path = {"render_fwd_bf16": "bf16_tto", "render_bwd_bf16": "bf16_tto",
+                 "render_fwd_aabb_bf16": "bf16_demo", "render_bwd_aabb_bf16": "bf16_demo",
+                 "field_fwd_bf16": "bf16_reg_lib", "field_bwd_bf16": "bf16_reg_lib"}
+    for r in records:
+        r["kernel"] = KERNEL_OF[r["name"]]
+        r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in counts.items()}
+        r["launches"] = r["launches_by_path"][main_path[r["name"]]]
+    return records, counts
+
+
 def kernel_records(tto_records, train_records, aabb_records, field_records,
                    train_kernel_records, train_field_extra, codenerf_extra, counts_by_path):
     """One record per launch counter, launches from the path that runs it
@@ -4336,6 +4689,11 @@ def main():
                "of 1")
     layout_counts = _in_temp_dir(batch_layout_path)
     done(t0, "the batch layout")
+    t0 = phase("the bfloat16 mode: (a) K1, K2, K5 and K6 against their bfloat16 plain "
+               "versions, (b) the optimize CLI float32 / bfloat16 A B B A, (c) the "
+               "regulariser cell, (d) the demo")
+    bf16_records, bf16_counts = bf16_paths()
+    done(t0, "the bfloat16 mode")
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
                              train_kernel_records, train_field_extra, codenerf_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
@@ -4344,7 +4702,7 @@ def main():
                               "train_field": field_train_counts, **dataset_counts,
                               **baseline_counts, **driver_counts, **vis_counts,
                               **training_counts, **last_counts, **dp_counts,
-                              **pipeline_counts, **layout_counts})
+                              **pipeline_counts, **layout_counts, **bf16_counts})
     records_by_name = {r["name"]: r for r in records}
     records_by_name["render_fwd"].update(vis_kernels)
     records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms
@@ -4352,6 +4710,7 @@ def main():
     records_by_name["render_fwd"]["batch48_max_abs_err"] = render_data_err
     records_by_name["field_fwd"]["batch48_max_abs_err"] = field_train_err
     records_by_name["render_train_bwd_data"]["multiview_opt_model"] = opt_model_check
+    records += bf16_records
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("kernels: " + " ".join(f"{r['kernel']}:{r['name']}({','.join(r['ports'])})"
                                  for r in records))

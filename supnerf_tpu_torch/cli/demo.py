@@ -34,7 +34,7 @@ from supnerf_tpu_torch.cli.common import (
 )
 from supnerf_tpu_torch.config import find_config, load_hpams
 from supnerf_tpu_torch.data.synthetic import make_synthetic_object
-from supnerf_tpu_torch.ops.render import conditioned_latents, decoder_plain
+from supnerf_tpu_torch.ops.render import conditioned_latents, decoder_field, decoder_plain
 from supnerf_tpu_torch.parallel.mesh import launch
 from supnerf_tpu_torch.render.compositor import render_scene_window, scene_window_from_objects
 from supnerf_tpu_torch.tto.driver import TTODriver, tto_config_from_hpams
@@ -159,8 +159,15 @@ def _demo(group, args):
     window_scaled = torch.as_tensor(window / sc, device=device)
     wts = driver.wts
 
-    def field_fn(xyz, vd, s_code, t_code):
-        return decoder_plain(wts, xyz, vd, *conditioned_latents(wts, s_code, t_code))
+    if getattr(wts, "field_dtype", "float32") == "bfloat16":
+        def field_fn(xyz, vd, s_code, t_code):
+            # as the JAX compositor's model.apply: flax TorchDense's bfloat16
+            # contract (models/nerf_mlp.decode_bf16), not the kernels'
+            sigma, rgb = decoder_field(driver.model, xyz, vd[:, :, None, :], s_code, t_code)
+            return sigma[..., 0], rgb
+    else:
+        def field_fn(xyz, vd, s_code, t_code):
+            return decoder_plain(wts, xyz, vd, *conditioned_latents(wts, s_code, t_code))
 
     print("Novel-view rendering frame by frame ...")
     frames, images, frame_seconds = [], [], []

@@ -48,6 +48,10 @@
 // in the same buffer once the first layer has read them, and both
 // encodings' chain rules recompute their sines and cosines from the raw
 // points and directions (encode_backward_points).
+//
+// The bfloat16 mode (field_bwd_bf16_kernel: field_backward with kBf16): the
+// Pallas kernel at dtype=bfloat16 (pallas_field.py:_field_bwd_kernel;
+// render_common.cuh's note), its recompute with the ReLU outputs rounded.
 #include "render_common.cuh"
 
 namespace supnerf {
@@ -72,6 +76,26 @@ field_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
                                StashLayout{}, nullptr, nullptr);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+field_bwd_bf16_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
+                      const float* __restrict__ zs, const float* __restrict__ zt,
+                      const __grid_constant__ DecoderWeights w, const __grid_constant__ Dims d,
+                      const float* __restrict__ g_sigma, const float* __restrict__ g_rgb,
+                      float* __restrict__ dxyz, float* __restrict__ dvd,
+                      float* __restrict__ dzs_part, float* __restrict__ dzt_part) {
+  const int blk = blockIdx.x, obj = blockIdx.y, nblk = gridDim.x;
+  const int W = d.W, M = d.R;                         // d.R: points per object
+  const size_t p0 = (size_t)obj * M + (size_t)blk * kRows;
+  const int n = min(kRows, M - blk * kRows);          // this block's real rows
+  const size_t part = (size_t)obj * nblk + blk;       // this block's partial-sum row
+  extern __shared__ float smem[];
+  field_backward<false, false, true>(
+      xyz + p0 * 3, vd + p0 * 3, n, zs + (size_t)obj * d.n_shape * W,
+      zt + (size_t)obj * d.n_tex * W, w, d, g_sigma + p0, g_rgb + p0 * 3, smem, dxyz + p0 * 3,
+      dvd + p0 * 3, dzs_part + part * d.n_shape * W, dzt_part + part * d.n_tex * W,
+      StashLayout{}, nullptr, nullptr);
+}
+
 }  // namespace supnerf
 
 // Plain C entry, bound with ctypes. Launches on `stream` and returns
@@ -90,5 +114,24 @@ extern "C" int supnerf_field_bwd(const float* xyz, const float* vd, const float*
   field_bwd_kernel<<<dim3((M + kRows - 1) / kRows, B), kThreads, smem,
                      (cudaStream_t)stream>>>(
       xyz, vd, zs, zt, *w, d, g_sigma, g_rgb, dxyz, dvd, dzs_part, dzt_part);
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 mode's entry: supnerf_field_bwd's arguments.
+extern "C" int supnerf_field_bwd_bf16(const float* xyz, const float* vd, const float* zs,
+                                      const float* zt, const supnerf::DecoderWeights* w, int B,
+                                      int M, int W, int n_shape, int n_tex, int l_xyz,
+                                      int l_dir, const float* g_sigma, const float* g_rgb,
+                                      float* dxyz, float* dvd, float* dzs_part,
+                                      float* dzt_part, void* stream) {
+  using namespace supnerf;
+  const Dims d{B, M, kRows, W, n_shape, n_tex, l_xyz, l_dir};
+  const size_t smem = field_backward_smem_bytes(W, n_shape, n_tex);
+  cudaError_t err = cudaFuncSetAttribute(
+      field_bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  field_bwd_bf16_kernel<<<dim3((M + kRows - 1) / kRows, B), kThreads, smem,
+                          (cudaStream_t)stream>>>(xyz, vd, zs, zt, *w, d, g_sigma, g_rgb, dxyz,
+                                                  dvd, dzs_part, dzt_part);
   return (int)cudaGetLastError();
 }

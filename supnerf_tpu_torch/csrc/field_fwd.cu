@@ -48,6 +48,11 @@
 // 8 warps per SM; the sigma and rgb heads stay on the CUDA cores. The body
 // is render_common.cuh:field_forward, which field_gates.cu also builds with
 // the ReLU gates written out, for a check.
+//
+// The bfloat16 mode (field_fwd_bf16_kernel: field_forward with kBf16): the
+// Pallas kernel at dtype=bfloat16 (render_common.cuh's note), the
+// encodings by the doubling recurrence (A7's XLA-side encodings) or with
+// exact_pe the exact ones (A11b), every dense layer on dense_mma_bf16.
 #include "render_common.cuh"
 
 namespace supnerf {
@@ -67,6 +72,21 @@ field_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
                        out_rgb + p0 * 3, nullptr);
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+field_fwd_bf16_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
+                      const float* __restrict__ zs, const float* __restrict__ zt,
+                      const __grid_constant__ DecoderWeights w, const __grid_constant__ Dims d,
+                      int exact_pe, float* __restrict__ out_sigma, float* __restrict__ out_rgb) {
+  const int blk = blockIdx.x, obj = blockIdx.y;
+  const int W = d.W, M = d.R;                        // d.R: points per object
+  const size_t p0 = (size_t)obj * M + (size_t)blk * kRows;
+  const int n = min(kRows, M - blk * kRows);          // this block's real rows
+  extern __shared__ float smem[];
+  field_forward<false, true>(xyz + p0 * 3, vd + p0 * 3, n, zs + (size_t)obj * d.n_shape * W,
+                             zt + (size_t)obj * d.n_tex * W, w, d, smem, out_sigma + p0,
+                             out_rgb + p0 * 3, nullptr, exact_pe != 0);
+}
+
 }  // namespace supnerf
 
 // Plain C entry, bound with ctypes. Launches on `stream` and returns
@@ -83,5 +103,23 @@ extern "C" int supnerf_field_fwd(const float* xyz, const float* vd, const float*
   if (err != cudaSuccess) return (int)err;
   field_fwd_kernel<<<dim3((M + kRows - 1) / kRows, B), kThreads, smem, (cudaStream_t)stream>>>(
       xyz, vd, zs, zt, *w, d, out_sigma, out_rgb);
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 mode's entry: supnerf_field_fwd's arguments, exact_pe after the outputs.
+extern "C" int supnerf_field_fwd_bf16(const float* xyz, const float* vd, const float* zs,
+                                      const float* zt, const supnerf::DecoderWeights* w, int B,
+                                      int M, int W, int n_shape, int n_tex, int l_xyz,
+                                      int l_dir, float* out_sigma, float* out_rgb, int exact_pe,
+                                      void* stream) {
+  using namespace supnerf;
+  const Dims d{B, M, kRows, W, n_shape, n_tex, l_xyz, l_dir};
+  const size_t smem = field_forward_smem_bytes(W, n_shape, n_tex, false);
+  cudaError_t err = cudaFuncSetAttribute(
+      field_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  field_fwd_bf16_kernel<<<dim3((M + kRows - 1) / kRows, B), kThreads, smem,
+                          (cudaStream_t)stream>>>(xyz, vd, zs, zt, *w, d, exact_pe, out_sigma,
+                                                  out_rgb);
   return (int)cudaGetLastError();
 }

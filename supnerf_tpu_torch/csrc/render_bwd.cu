@@ -52,20 +52,29 @@
 // tensor cores' wgmma rate, so the layers stay short of the bound; the
 // compositing VJP's single thread and the other non-matrix steps leave the
 // tensor cores idle for their span.
+//
+// The bfloat16 mode (render_bwd_bf16_kernel, the same body with kBf16): the
+// Pallas kernel at dtype=bfloat16 (render_common.cuh's note;
+// pallas_render.py:_render_bwd_kernel): the recompute runs K1's bfloat16
+// layers with each ReLU output rounded to bfloat16 (its stash), so it is not
+// K1's bits; the compositing VJP takes the ray's rgb cotangent rounded; the
+// transposed layers run on dense_mma_bf16; the sigma and rgb cotangents are
+// rounded where they enter a product; the direction encodings' cotangent is
+// formed per sample (g_v @ Wvd_b^T), rounded and summed over the ray (the
+// Pallas kernel's seg_reduce), and both chain rules take the rounded
+// encodings and round each term (encode_backward_one_bf16).
 #include "render_common.cuh"
 
 namespace supnerf {
 
-__global__ void __launch_bounds__(kThreads, 1)
-render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
-                  const float* __restrict__ z, const float* __restrict__ zs,
-                  const float* __restrict__ zt, DecoderWeights w, Dims d,
-                  int white_bkgd, int z_per_ray, const float* __restrict__ hit,
-                  const float* __restrict__ g_rgb,
-                  const float* __restrict__ g_depth, const float* __restrict__ g_acc,
-                  float* __restrict__ dxyz, float* __restrict__ dvd,
-                  float* __restrict__ dzs_part, float* __restrict__ dzt_part,
-                  float* __restrict__ dz_part) {
+template <bool kBf16>
+static __device__ __forceinline__ void render_bwd_body(
+    const float* __restrict__ xyz, const float* __restrict__ vd, const float* __restrict__ z,
+    const float* __restrict__ zs, const float* __restrict__ zt, const DecoderWeights& w,
+    const Dims& d, int white_bkgd, int z_per_ray, const float* __restrict__ hit,
+    const float* __restrict__ g_rgb, const float* __restrict__ g_depth,
+    const float* __restrict__ g_acc, float* __restrict__ dxyz, float* __restrict__ dvd,
+    float* __restrict__ dzs_part, float* __restrict__ dzt_part, float* __restrict__ dz_part) {
   const int ray = blockIdx.x, obj = blockIdx.y;
   const int W = d.W, W2 = d.W / 2, S = d.S;
   const int nj = W / 32;
@@ -106,82 +115,112 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   const int m_vd = d.n_shape + 1, m_tx0 = d.n_shape + 2, m_r1 = n_masks - 1;
 
   // ---- forward recompute, stashing ReLU patterns -------------------------
-  encode_points(xyz + ray_idx * S * 3, S, d.l_xyz, pe);
-  direction_term(vd + ray_idx * 3, d.l_dir, w, W, dpe, hdir);
+  // (kBf16: and each ReLU output rounded, round_out)
+  if constexpr (kBf16) {
+    encode_points_bf16(xyz + ray_idx * S * 3, S, d.l_xyz, false, pe);
+    direction_term_bf16(vd + ray_idx * 3, d.l_dir, false, w, W, dpe, hdir);
+  } else {
+    encode_points(xyz + ray_idx * S * 3, S, d.l_xyz, pe);
+    direction_term(vd + ray_idx * 3, d.l_dir, w, W, dpe, hdir);
+  }
 
-  dense_mma<true>(pe, kPeStride, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, Ws, true,
-                  mask_of(0), stage);
+  dense_layer<kBf16, true>(pe, kPeStride, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, Ws,
+                           true, mask_of(0), stage, nullptr, 0, 0, nullptr, nullptr, kBf16);
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
     add_row_vector(cur, Ws, W, zs + ((size_t)obj * d.n_shape + j) * W);
-    dense_mma<true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
-                    mask_of(1 + j), stage);
+    dense_layer<kBf16, true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws,
+                             true, mask_of(1 + j), stage, nullptr, 0, 0, nullptr, nullptr,
+                             kBf16);
     float* t = cur; cur = nxt; nxt = t;
   }
-  dense_mma(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
+  dense_layer<kBf16>(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
-  head(cur, Ws, W, w.w_sg, 1, w.b_sg, logit);
-  dense_mma<true>(cur, Ws, W, w.w_vd_a, W, hdir, nxt, Ws, true, mask_of(m_vd), stage);
+  head<kBf16>(cur, Ws, W, w.w_sg, 1, w.b_sg, logit);
+  dense_layer<kBf16, true>(cur, Ws, W, w.w_vd_a, W, hdir, nxt, Ws, true, mask_of(m_vd), stage,
+                           nullptr, 0, 0, nullptr, nullptr, kBf16);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
     add_row_vector(cur, Ws, W, zt + ((size_t)obj * d.n_tex + j) * W);
-    dense_mma<true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
-                    mask_of(m_tx0 + j), stage);
+    dense_layer<kBf16, true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws,
+                             true, mask_of(m_tx0 + j), stage, nullptr, 0, 0, nullptr, nullptr,
+                             kBf16);
     float* t = cur; cur = nxt; nxt = t;
   }
-  dense_mma<true>(cur, Ws, W, w.w_r1, W2, w.b_r1, nxt, Ws, true, mask_of(m_r1), stage);
-  head(nxt, Ws, W2, w.w_r2, 3, w.b_r2, rgb);
+  dense_layer<kBf16, true>(cur, Ws, W, w.w_r1, W2, w.b_r1, nxt, Ws, true, mask_of(m_r1), stage,
+                           nullptr, 0, 0, nullptr, nullptr, kBf16);
+  head<kBf16>(nxt, Ws, W2, w.w_r2, 3, w.b_r2, rgb);
 
   // ---- compositing forward replay + manual VJP (one thread per ray) -------
   // Reuses buf_a as per-sample scratch: alpha, T (exclusive), w, gw.
   if (threadIdx.x == 0)
-    composite_vjp(logit, rgb, z + (z_per_ray ? ray_idx : (size_t)obj) * S, S, white_bkgd,
-                  g_rgb + ray_idx * 3, g_depth[ray_idx], g_acc[ray_idx], buf_a, dsig, drgb,
-                  dz_part + ray_idx * S);
+    composite_vjp<kBf16>(logit, rgb, z + (z_per_ray ? ray_idx : (size_t)obj) * S, S, white_bkgd,
+                         g_rgb + ray_idx * 3, g_depth[ray_idx], g_acc[ray_idx], buf_a, dsig,
+                         drgb, dz_part + ray_idx * S);
   __syncthreads();
 
   // ---- transposed decoder chain ------------------------------------------
   // rgb_out: g_hh[r][c] = relu'(hh) * sum_k drgb[r][k] w_r2[c][k]
+  auto rd = [](float x) { return kBf16 ? bf16_round(x) : x; };
   for (int e = threadIdx.x; e < kRows * W2; e += kThreads) {
     const int r = e / W2, c = e - r * W2;
-    buf_a[r * Ws + c] = drgb[3 * r] * w.w_r2[3 * c] + drgb[3 * r + 1] * w.w_r2[3 * c + 1]
-                        + drgb[3 * r + 2] * w.w_r2[3 * c + 2];
+    buf_a[r * Ws + c] = rd(drgb[3 * r]) * w.w_r2[3 * c] + rd(drgb[3 * r + 1]) * w.w_r2[3 * c + 1]
+                        + rd(drgb[3 * r + 2]) * w.w_r2[3 * c + 2];
   }
   __syncthreads();
   apply_mask(buf_a, Ws, W2, mask_of(m_r1));
-  dense_mma(buf_a, Ws, W2, w.wt_r1, W, nullptr, buf_b, Ws, false, nullptr, stage);
+  dense_layer<kBf16>(buf_a, Ws, W2, w.wt_r1, W, nullptr, buf_b, Ws, false, nullptr, stage);
   cur = buf_b; nxt = buf_a;
   float* colsum = hdir;   // the direction term is no longer needed
   for (int j = d.n_tex - 1; j >= 0; --j) {
     apply_mask(cur, Ws, W, mask_of(m_tx0 + j));
-    dense_mma(cur, Ws, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
-              stage);
+    dense_layer<kBf16>(cur, Ws, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, Ws, false,
+                       nullptr, stage);
     { float* t = cur; cur = nxt; nxt = t; }
     column_sums(cur, Ws, W, S, colsum);
     for (int c = threadIdx.x; c < W; c += kThreads)
       dzt_part[(ray_idx * d.n_tex + j) * W + c] = colsum[c];
   }
   apply_mask(cur, Ws, W, mask_of(m_vd));           // cur = g_v
-  // viewdir: the direction encoding is per ray, so its cotangent is
-  // (sum over the ray's rows of g_v) @ Wvd_b^T
-  column_sums(cur, Ws, W, S, colsum);
-  ray_direction_cotangent(colsum, dpe, w, W, d.l_dir, ddpe, dvd + ray_idx * 3);
+  if constexpr (kBf16) {
+    // viewdir: per sample g_v @ Wvd_b^T (into nxt, kPeStride a row), each
+    // value rounded, summed over the ray's rows, then the chain rule
+    dense_layer<true>(cur, Ws, W, w.wt_vd_b, pe_width(d.l_dir), nullptr, nxt, kPeStride, false,
+                      nullptr, stage);
+    for (int k = threadIdx.x; k < pe_width(d.l_dir); k += kThreads) {
+      float s = 0.f;
+      for (int r = 0; r < S; ++r) s += bf16_round(nxt[r * kPeStride + k]);
+      ddpe[k] = s;
+    }
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      float dv[3];
+      encode_backward_one_bf16(dpe, ddpe, d.l_dir, dv);
+      for (int c = 0; c < 3; ++c) dvd[ray_idx * 3 + c] = dv[c];
+    }
+    __syncthreads();
+  } else {
+    // viewdir: the direction encoding is per ray, so its cotangent is
+    // (sum over the ray's rows of g_v) @ Wvd_b^T
+    column_sums(cur, Ws, W, S, colsum);
+    ray_direction_cotangent(colsum, dpe, w, W, d.l_dir, ddpe, dvd + ray_idx * 3);
+  }
   // encoding_shape output e feeds both the viewdir layer and the sigma head
-  dense_mma(cur, Ws, W, w.wt_vd_a, W, nullptr, nxt, Ws, false, nullptr, stage);
+  dense_layer<kBf16>(cur, Ws, W, w.wt_vd_a, W, nullptr, nxt, Ws, false, nullptr, stage);
   for (int e = threadIdx.x; e < kRows * W; e += kThreads) {
     const int r = e / W, c = e - r * W;
-    const float g_sig = (r < S) ? dsig[r] * sigmoid(logit[r]) : 0.f;
+    const float g_sig = (r < S) ? rd(dsig[r] * sigmoid(logit[r])) : 0.f;
     nxt[r * Ws + c] = fmaf(g_sig, w.w_sg[c], nxt[r * Ws + c]);
   }
   __syncthreads();
   { float* t = cur; cur = nxt; nxt = t; }
-  dense_mma(cur, Ws, W, w.wt_es, W, nullptr, nxt, Ws, false, nullptr, stage);
+  dense_layer<kBf16>(cur, Ws, W, w.wt_es, W, nullptr, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = d.n_shape - 1; j >= 0; --j) {
     apply_mask(cur, Ws, W, mask_of(1 + j));
-    dense_mma(cur, Ws, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
-              stage);
+    dense_layer<kBf16>(cur, Ws, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, Ws, false,
+                       nullptr, stage);
     { float* t = cur; cur = nxt; nxt = t; }
     column_sums(cur, Ws, W, S, colsum);
     for (int c = threadIdx.x; c < W; c += kThreads)
@@ -190,9 +229,37 @@ render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   apply_mask(cur, Ws, W, mask_of(0));
   // the points' cotangents: g @ Wxyz^T (into nxt, kPeStride a row), then the
   // encoding's chain rule
-  dense_mma(cur, Ws, W, w.wt_xyz, pe_width(d.l_xyz), nullptr, nxt, kPeStride, false, nullptr,
-            stage);
-  encode_backward_rows(pe, nxt, d.l_xyz, S, dxyz + ray_idx * S * 3);
+  dense_layer<kBf16>(cur, Ws, W, w.wt_xyz, pe_width(d.l_xyz), nullptr, nxt, kPeStride, false,
+                     nullptr, stage);
+  encode_backward_rows<kBf16>(pe, nxt, d.l_xyz, S, dxyz + ray_idx * S * 3);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+render_bwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
+                  const float* __restrict__ z, const float* __restrict__ zs,
+                  const float* __restrict__ zt, DecoderWeights w, Dims d,
+                  int white_bkgd, int z_per_ray, const float* __restrict__ hit,
+                  const float* __restrict__ g_rgb,
+                  const float* __restrict__ g_depth, const float* __restrict__ g_acc,
+                  float* __restrict__ dxyz, float* __restrict__ dvd,
+                  float* __restrict__ dzs_part, float* __restrict__ dzt_part,
+                  float* __restrict__ dz_part) {
+  render_bwd_body<false>(xyz, vd, z, zs, zt, w, d, white_bkgd, z_per_ray, hit, g_rgb, g_depth,
+                         g_acc, dxyz, dvd, dzs_part, dzt_part, dz_part);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+render_bwd_bf16_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
+                       const float* __restrict__ z, const float* __restrict__ zs,
+                       const float* __restrict__ zt, DecoderWeights w, Dims d,
+                       int white_bkgd, int z_per_ray, const float* __restrict__ hit,
+                       const float* __restrict__ g_rgb,
+                       const float* __restrict__ g_depth, const float* __restrict__ g_acc,
+                       float* __restrict__ dxyz, float* __restrict__ dvd,
+                       float* __restrict__ dzs_part, float* __restrict__ dzt_part,
+                       float* __restrict__ dz_part) {
+  render_bwd_body<true>(xyz, vd, z, zs, zt, w, d, white_bkgd, z_per_ray, hit, g_rgb, g_depth,
+                        g_acc, dxyz, dvd, dzs_part, dzt_part, dz_part);
 }
 
 size_t render_bwd_smem_bytes(int W, int n_shape, int n_tex) {
@@ -222,6 +289,28 @@ extern "C" int supnerf_render_bwd(const float* xyz, const float* vd, const float
       render_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   render_bwd_kernel<<<dim3(R, B), kThreads, smem, (cudaStream_t)stream>>>(
+      xyz, vd, z, zs, zt, *w, d, white_bkgd, z_per_ray, hit, g_rgb, g_depth, g_acc, dxyz,
+      dvd, dzs_part, dzt_part, dz_part);
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 mode's entry: supnerf_render_bwd's arguments.
+extern "C" int supnerf_render_bwd_bf16(const float* xyz, const float* vd, const float* z,
+                                       const float* zs, const float* zt,
+                                       const supnerf::DecoderWeights* w, int B, int R, int S,
+                                       int W, int n_shape, int n_tex, int l_xyz, int l_dir,
+                                       int white_bkgd, int z_per_ray, const float* hit,
+                                       const float* g_rgb, const float* g_depth,
+                                       const float* g_acc, float* dxyz, float* dvd,
+                                       float* dzs_part, float* dzt_part, float* dz_part,
+                                       void* stream) {
+  using namespace supnerf;
+  const Dims d{B, R, S, W, n_shape, n_tex, l_xyz, l_dir};
+  const size_t smem = render_bwd_smem_bytes(W, n_shape, n_tex);
+  cudaError_t err = cudaFuncSetAttribute(
+      render_bwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  render_bwd_bf16_kernel<<<dim3(R, B), kThreads, smem, (cudaStream_t)stream>>>(
       xyz, vd, z, zs, zt, *w, d, white_bkgd, z_per_ray, hit, g_rgb, g_depth, g_acc, dxyz,
       dvd, dzs_part, dzt_part, dz_part);
   return (int)cudaGetLastError();

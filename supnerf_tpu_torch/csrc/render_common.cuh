@@ -14,11 +14,31 @@
 // floats, 65 KB at W = 256). 256 threads = 8 warps. `dense_mma` (3xTF32
 // on the tensor cores: every dense layer of every kernel) splits each
 // layer's output columns across the warps.
+//
+// The bfloat16 mode (K1, K2, K5, K6 built with kBf16; ops/render.py's
+// DecoderWeights.field_dtype "bfloat16"): the Pallas kernels at
+// dtype=bfloat16. Every dense layer runs on dense_mma_bf16 (bf16.cuh:
+// bfloat16 operands, exact products, float32 sums; the weights arrive
+// rounded from the pack), the encodings by the doubling recurrence and
+// rounded (encode_one_bf16), the per-ray direction term rounded
+// (direction_term_bf16), the heads on rounded operands (head<true>); the
+// backward recompute rounds its ReLU outputs (dense_mma_bf16's round_out,
+// the Pallas kernels' stash) and the transposed chain its cotangents where
+// they enter a product. Activations stay float32 in shared memory, rounded
+// as the fragments are built. The mode has no kRefine step and no exact
+// step: its gates and a plain version's part mostly where a float32
+// sum that differs by a unit rounds to another bfloat16 value at the next
+// layer's operand (about 2^-16 of the values), which moves a later
+// pre-activation by ~2^-8 of one term, far outside any window a
+// re-summation of the same operands could settle. chip_smoke.py holds the
+// mode's gradients by their root mean square and by the count of points
+// outside a bound, with a reason for each.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "cp_async.cuh"
 #include "tf32.cuh"
 
@@ -406,6 +426,191 @@ static __device__ void dense_mma(const float* in, int in_stride, int K, const fl
                                   stage, in2, in2_stride, K2, M2, rows);
 }
 
+// dense_mma's bfloat16 mode (bf16.cuh; the common note at the top): out[r][c]
+// = act(sum_k bf16(in[r][k]) M[k][c] (+ with kDir sum_k bf16(in2[r][k])
+// M2[k][c]) + bias[c]), M and M2 holding bfloat16 values (the pack rounds
+// them), each activation rounded to nearest even as its fragment is built.
+// The same split of the output columns over the warps as dense_mma_t, and
+// the same ring of kBStages slots of 8 weight rows per warp, taken two at a
+// time: a k-step is 16 rows (one mma.sync m16n8k16), kBStages / 2 of them
+// in flight; each k-step's products summed on the tensor cores from zero
+// and added into the float32 sums. Reduction indices past K (K2) are
+// masked on both sides. With round_out each stored value is rounded to
+// bfloat16 after the bias and the ReLU (the backward recompute's stash);
+// the ReLU masks come from the stored values. Ends with __syncthreads().
+template <int NT, bool kDir>
+static __device__ __noinline__ void dense_mma_bf16_t(const float* in, int in_stride, int K,
+                                                     const float* __restrict__ M, int N,
+                                                     const float* bias, float* out,
+                                                     int out_stride, bool relu, uint32_t* mask,
+                                                     float* stage, const float* in2,
+                                                     int in2_stride, int K2,
+                                                     const float* __restrict__ M2,
+                                                     bool round_out) {
+  constexpr int kSteps = kBStages / 2;               // 16-row k-steps the ring holds
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int n_tiles = (N + 7) >> 3;
+  const int t0 = warp * NT;
+  if (t0 < n_tiles) {                                // warp-uniform
+    float* ring = stage + warp * kBStages * 8 * kBLd;
+    const int c0 = t0 * 8, n_first = (K + 15) >> 4;
+    const int n_steps = n_first + (kDir ? (K2 + 15) >> 4 : 0);
+    const bool vec = (N & 3) == 0;                   // M's rows start on 16 bytes
+    // rows 16 step .. 16 step + 15 of M's (with kDir past the first pair's
+    // steps: M2's) columns c0 .. c0 + 8 NT - 1 into a 16-row slot
+    auto fetch = [&](int step) {
+      float* dst = ring + (step % kSteps) * 16 * kBLd;
+      const float* Ms = M;
+      int Ks = K, k0 = step * 16;
+      if (kDir && step >= n_first) {
+        Ms = M2;
+        Ks = K2;
+        k0 = (step - n_first) * 16;
+      }
+      if (vec) {
+        for (int q = lane; q < 32 * NT; q += 32) {
+          const int row = q / (2 * NT), col = (q % (2 * NT)) * 4;
+          const bool ok = k0 + row < Ks && c0 + col < N;
+          cp_async<16>(dst + row * kBLd + col, ok ? Ms + (size_t)(k0 + row) * N + c0 + col : Ms,
+                       ok ? 16 : 0);
+        }
+      } else {
+        for (int q = lane; q < 128 * NT; q += 32) {
+          const int row = q / (8 * NT), col = q % (8 * NT);
+          const bool ok = k0 + row < Ks && c0 + col < N;
+          cp_async<4>(dst + row * kBLd + col, ok ? Ms + (size_t)(k0 + row) * N + c0 + col : Ms,
+                      ok ? 4 : 0);
+        }
+      }
+    };
+#pragma unroll
+    for (int s = 0; s < kSteps - 1; ++s) {
+      if (s < n_steps) fetch(s);
+      cp_async_commit();
+    }
+    float acc[4][NT][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int t = 0; t < NT; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][t][e] = 0.f;
+    const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 1
+    for (int step = 0; step < n_steps; ++step) {
+      __syncwarp();                                  // the slot refilled here was read last step
+      if (step + kSteps - 1 < n_steps) fetch(step + kSteps - 1);
+      cp_async_commit();
+      cp_async_wait<kSteps - 1>();
+      __syncwarp();
+      const float* b = ring + (step % kSteps) * 16 * kBLd + 2 * tig * kBLd + gid;
+      uint32_t bq[NT][2];
+#pragma unroll
+      for (int t = 0; t < NT; ++t) {
+        bq[t][0] = bf16_pair(b[8 * t], b[kBLd + 8 * t]);
+        bq[t][1] = bf16_pair(b[8 * kBLd + 8 * t], b[9 * kBLd + 8 * t]);
+      }
+      const float* a_in = in;
+      int a_ld = in_stride, Ka = K, k0 = step * 16;
+      if (kDir && step >= n_first) {
+        a_in = in2;
+        a_ld = in2_stride;
+        Ka = K2;
+        k0 = (step - n_first) * 16;
+      }
+      const int ka = k0 + 2 * tig;
+      const bool ok0 = ka < Ka, ok1 = ka + 1 < Ka, ok8 = ka + 8 < Ka, ok9 = ka + 9 < Ka;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float* r_lo = a_in + (16 * i + gid) * a_ld + ka;
+        const float* r_hi = r_lo + 8 * a_ld;
+        uint32_t a[4];
+        a[0] = bf16_pair(ok0 ? r_lo[0] : 0.f, ok1 ? r_lo[1] : 0.f);
+        a[1] = bf16_pair(ok0 ? r_hi[0] : 0.f, ok1 ? r_hi[1] : 0.f);
+        a[2] = bf16_pair(ok8 ? r_lo[8] : 0.f, ok9 ? r_lo[9] : 0.f);
+        a[3] = bf16_pair(ok8 ? r_hi[8] : 0.f, ok9 ? r_hi[9] : 0.f);
+#pragma unroll
+        for (int t = 0; t < NT; ++t) {     // this k-step's 16 products, then a float32 add
+          float p[4];
+          mma_bf16(p, a, bq[t], zero);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][t][e] += p[e];
+        }
+      }
+    }
+    cp_async_wait<0>();
+    // with NT 4 the warp's 32 columns are mask word `warp` of every row, as
+    // in dense_mma_t
+    uint32_t bits[4][2] = {};
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      const int c = (t0 + t) * 8 + 2 * tig;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = 16 * i + gid + (e >> 1) * 8, cc = c + (e & 1);
+          if (cc >= N) continue;
+          float v = acc[i][t][e] + (bias != nullptr ? bias[cc] : 0.f);
+          if (relu) v = fmaxf(v, 0.f);
+          if (round_out) v = bf16_round(v);
+          out[r * out_stride + cc] = v;
+          if (NT == 4 && v > 0.f) bits[i][e >> 1] |= 1u << (8 * t + 2 * tig + (e & 1));
+        }
+    }
+    if (NT == 4 && mask != nullptr) {   // OR the words over the 4 lanes of a row
+      const int nj = (N + 31) / 32;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          uint32_t w = bits[i][h];
+          w |= __shfl_xor_sync(0xffffffffu, w, 1);
+          w |= __shfl_xor_sync(0xffffffffu, w, 2);
+          if (tig == 0) mask[(16 * i + gid + 8 * h) * nj + warp] = w;
+        }
+    }
+  }
+  __syncthreads();
+  if (NT != 4 && mask != nullptr) {     // narrower layers: from the stored outputs
+    const int nj = (N + 31) / 32;
+    for (int q = warp; q < kRows * nj; q += kThreads / 32) {
+      const int r = q / nj, c = 32 * (q - r * nj) + lane;
+      const uint32_t bits = __ballot_sync(0xffffffffu, c < N && out[r * out_stride + c] > 0.f);
+      if (lane == 0) mask[q] = bits;
+    }
+    __syncthreads();
+  }
+}
+
+// One dense layer in either mode: dense_mma<kRefine, kDir> (float32 on
+// 3xTF32; rows: its exact-step word) or, with kBf16, dense_mma_bf16_t at
+// the column count's tile width (round_out: its stash rounding; kRefine
+// and rows unused).
+template <bool kBf16, bool kRefine = false, bool kDir = false>
+static __device__ __forceinline__ void dense_layer(
+    const float* in, int in_stride, int K, const float* M, int N, const float* bias, float* out,
+    int out_stride, bool relu, uint32_t* mask, float* stage, const float* in2 = nullptr,
+    int in2_stride = 0, int K2 = 0, const float* M2 = nullptr,
+    unsigned long long* rows = nullptr, bool round_out = false) {
+  if constexpr (kBf16) {
+    const int nt = ((N + 7) / 8 + 7) / 8;
+    if (nt <= 1)
+      dense_mma_bf16_t<1, kDir>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
+                                stage, in2, in2_stride, K2, M2, round_out);
+    else if (nt == 2)
+      dense_mma_bf16_t<2, kDir>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
+                                stage, in2, in2_stride, K2, M2, round_out);
+    else
+      dense_mma_bf16_t<4, kDir>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask,
+                                stage, in2, in2_stride, K2, M2, round_out);
+  } else {
+    dense_mma<kRefine, kDir>(in, in_stride, K, M, N, bias, out, out_stride, relu, mask, stage,
+                             in2, in2_stride, K2, M2, rows);
+  }
+}
+
 // buf[r][c] += vec[c] over all rows (the per-object latent of a shape or
 // texture block, added before the block's matmul): a warp per row, no
 // integer division.
@@ -463,6 +668,73 @@ static __device__ void encode_points(const float* xyz, int S, int degree, float*
   }
 }
 
+// One step of the doubling recurrence: (sin 2y, cos 2y) = (2 s c, 1 - 2 s^2)
+// from (s, c) = (sin y, cos y), each product and the difference rounded
+// apart, as torch's and XLA's elementwise ops compute
+// positional_encoding_doubling (no fused multiply-add).
+static __device__ __forceinline__ void doubling_step(float& s, float& c) {
+  const float s2 = 2.f * s;                          // exact
+  const float sn = __fmul_rn(s2, c);
+  c = __fsub_rn(1.f, __fmul_rn(s2, s));
+  s = sn;
+}
+
+// The encoding the bfloat16 kernels read (ops/render.py encode_bf16; the
+// layout of encode_one): every value rounded to bfloat16, the sines and
+// cosines by the doubling recurrence from sin(x) and cos(x)
+// (pallas_field.py:_pe_for_dtype), or with exact those of 2^i x (the Pallas
+// kernels that encode in place, A11a and A11b).
+static __device__ __forceinline__ void encode_one_bf16(const float x[3], int degree, bool exact,
+                                                       float* pe) {
+  for (int c = 0; c < 3; ++c) {
+    pe[c] = bf16_round(x[c]);
+    float s, co;
+    sincosf(x[c], &s, &co);
+    for (int i = 0; i < degree; ++i) {
+      if (exact) sincosf(x[c] * (float)(1 << i), &s, &co);
+      pe[3 + 3 * i + c] = bf16_round(s);
+      pe[3 + 3 * degree + 3 * i + c] = bf16_round(co);
+      doubling_step(s, co);
+    }
+  }
+}
+
+// encode_points with encode_one_bf16.
+template <int kStride = kPeStride>
+static __device__ void encode_points_bf16(const float* xyz, int S, int degree, bool exact,
+                                          float* pe) {
+  for (int r = threadIdx.x; r < kRows; r += kThreads) {
+    float* row = pe + r * kStride;
+    if (r < S) {
+      const float x[3] = {xyz[3 * r], xyz[3 * r + 1], xyz[3 * r + 2]};
+      encode_one_bf16(x, degree, exact, row);
+    } else {
+      for (int k = 0; k < kStride; ++k) row[k] = 0.f;
+    }
+  }
+}
+
+// One term of the encoding's chain rule in the bfloat16 mode (ops/render.py
+// encode_bwd_bf16): cos g_sin - sin g_cos, its two products and their
+// difference rounded apart, rounded to bfloat16 (the ladder matmul's
+// operand).
+static __device__ __forceinline__ float encode_term_bf16(float s, float co, float gs, float gc) {
+  return bf16_round(__fsub_rn(__fmul_rn(co, gs), __fmul_rn(s, gc)));
+}
+
+// encode_backward_one in the bfloat16 mode, on the rounded encoding pe the
+// forward read: dx_c = g[c] + sum_i 2^i encode_term_bf16(...).
+static __device__ __forceinline__ void encode_backward_one_bf16(const float* pe, const float* g,
+                                                                int degree, float dx[3]) {
+  for (int c = 0; c < 3; ++c) {
+    float t = 0.f;
+    for (int i = 0; i < degree; ++i)
+      t += (float)(1 << i) * encode_term_bf16(pe[3 + 3 * i + c], pe[3 + 3 * degree + 3 * i + c],
+                                              g[3 + 3 * i + c], g[3 + 3 * degree + 3 * i + c]);
+    dx[c] = g[c] + t;
+  }
+}
+
 // Chain rule of the encoding on the values it produced:
 // dx_c = g[c] + sum_i 2^i (cos(2^i x_c) g_sin[i][c] - sin(2^i x_c) g_cos[i][c]).
 static __device__ __forceinline__ void encode_backward_one(const float* pe, const float* g,
@@ -504,7 +776,9 @@ static __device__ __forceinline__ float warp_sum(float v) {
 
 // Per-row dot products against one or three weight columns (the sigma head
 // (W -> 1) and the rgb head (W/2 -> 3)): warp w takes rows 8w..8w+7, lanes
-// stride the reduction. M is (K, ncols) row-major.
+// stride the reduction. M is (K, ncols) row-major. kBf16: each input value
+// rounded to bfloat16 (M holds bfloat16 values), the products exact.
+template <bool kBf16 = false>
 static __device__ void head(const float* in, int stride, int K, const float* __restrict__ M,
                      int ncols, const float* __restrict__ bias, float* out) {
   const int lane = threadIdx.x & 31;
@@ -513,7 +787,10 @@ static __device__ void head(const float* in, int stride, int K, const float* __r
     const int r = r0 + i;
     for (int c = 0; c < ncols; ++c) {
       float s = 0.f;
-      for (int k = lane; k < K; k += 32) s = fmaf(in[r * stride + k], __ldg(M + k * ncols + c), s);
+      for (int k = lane; k < K; k += 32) {
+        const float a = kBf16 ? bf16_round(in[r * stride + k]) : in[r * stride + k];
+        s = fmaf(a, __ldg(M + k * ncols + c), s);
+      }
       s = warp_sum(s);
       if (lane == 0) out[r * ncols + c] = s + __ldg(bias + c);
     }
@@ -540,6 +817,28 @@ static __device__ void direction_term(const float* vd, int degree, const Decoder
   __syncthreads();
 }
 
+// direction_term in the bfloat16 mode: dpe the rounded encoding
+// (encode_one_bf16), the term dpe @ Wvd_b (exact products, float32 sums)
+// rounded to bfloat16 before b_vd is added (the Pallas kernel rounds the
+// per-ray term before it expands it to the samples), not rounded with
+// exact (A11a sums it with the layer's other products).
+static __device__ void direction_term_bf16(const float* vd, int degree, bool exact,
+                                           const DecoderWeights& w, int W, float* dpe,
+                                           float* hdir) {
+  if (threadIdx.x == 0) {
+    const float x[3] = {vd[0], vd[1], vd[2]};
+    encode_one_bf16(x, degree, exact, dpe);
+  }
+  __syncthreads();
+  const int d_dir = pe_width(degree);
+  for (int n = threadIdx.x; n < W; n += kThreads) {
+    float s = 0.f;
+    for (int k = 0; k < d_dir; ++k) s = fmaf(dpe[k], __ldg(w.w_vd_b + k * W + n), s);
+    hdir[n] = (exact ? s : bf16_round(s)) + w.b_vd[n];
+  }
+  __syncthreads();
+}
+
 // Compositing replay and its manual VJP for one ray, run by ONE thread (the
 // algebra of pallas_render.py:_render_bwd_kernel's docstring in stable
 // product form; the only division is by a transmittance factor >= 1e-10).
@@ -548,7 +847,10 @@ static __device__ void direction_term(const float* vd, int degree, const Decoder
 // the density's cotangent before the softplus gate, and drgb per sample,
 // zero on rows S..kRows-1; with dz not null also the ray's z cotangent row,
 // dz_s = g_depth w_s + ddelta_{s-1} - ddelta_s (delta_s = z_{s+1} - z_s).
-// scratch: 4 x kRows floats.
+// scratch: 4 x kRows floats. kBf16: the rgb cotangent rounded to bfloat16
+// where it meets the colours and the weights (the Pallas kernel's
+// seg_expand), not in the white background's term.
+template <bool kBf16 = false>
 static __device__ void composite_vjp(const float* logit, const float* rgb, const float* zr,
                                      int S, int white_bkgd, const float* g_rgb, float gd,
                                      float ga, float* scratch, float* dsig, float* drgb,
@@ -557,8 +859,10 @@ static __device__ void composite_vjp(const float* logit, const float* rgb, const
   float* T = alpha + kRows;
   float* wt = T + kRows;
   float* gw = wt + kRows;
-  const float gr0 = g_rgb[0], gr1 = g_rgb[1], gr2 = g_rgb[2];
-  const float gwhite = white_bkgd ? (gr0 + gr1 + gr2) : 0.f;
+  const float gr0 = kBf16 ? bf16_round(g_rgb[0]) : g_rgb[0];
+  const float gr1 = kBf16 ? bf16_round(g_rgb[1]) : g_rgb[1];
+  const float gr2 = kBf16 ? bf16_round(g_rgb[2]) : g_rgb[2];
+  const float gwhite = white_bkgd ? (g_rgb[0] + g_rgb[1] + g_rgb[2]) : 0.f;
   float Tc = 1.f;
   for (int s = 0; s < S; ++s) {
     const float delta = (s < S - 1) ? zr[s + 1] - zr[s] : kLastDelta;
@@ -628,11 +932,13 @@ static __device__ void ray_direction_cotangent(const float* gv_sum, const float*
 // The encoding's chain rule on the point encodings pe for the n real rows,
 // from the encodings' cotangents dpe (both kRows x kPeStride); dxyz gets 3
 // floats per row.
+template <bool kBf16 = false>
 static __device__ void encode_backward_rows(const float* pe, const float* dpe, int l_xyz, int n,
                                             float* dxyz) {
   for (int r = threadIdx.x; r < n; r += kThreads) {
     float dx[3];
-    encode_backward_one(pe + r * kPeStride, dpe + r * kPeStride, l_xyz, dx);
+    if constexpr (kBf16) encode_backward_one_bf16(pe + r * kPeStride, dpe + r * kPeStride, l_xyz, dx);
+    else encode_backward_one(pe + r * kPeStride, dpe + r * kPeStride, l_xyz, dx);
     float* o = dxyz + r * 3;
     o[0] = dx[0]; o[1] = dx[1]; o[2] = dx[2];
   }
@@ -843,12 +1149,20 @@ static __device__ __noinline__ void field_exact64(int slot, unsigned long long r
 // encoding_shape layer's barrier has passed. The last copy, of the returned
 // buffer, has no barrier after it: the caller must not rewrite that buffer
 // before its next __syncthreads().
-template <bool kStash = false>
+// kBf16 (K5, K6 in the bfloat16 mode): the encodings rounded
+// (encode_points_bf16; exact_pe: A11b's exact sines and cosines), every
+// layer on dense_mma_bf16, the sigma head on rounded operands, no exact
+// step; round_stash (K6's recompute) rounds each ReLU output to bfloat16
+// (pallas_field.py:_field_bwd_kernel's stash), so the next layer adds its
+// latent to the rounded value. Not with kStash.
+template <bool kStash = false, bool kBf16 = false>
 static __device__ __forceinline__ float* field_chain(const float* xyz, const float* vd, int n, const float* zs,
                                      const float* zt, const DecoderWeights& w, const Dims& d,
                                      float* stage, float* buf_a, float* buf_b, float* enc,
                                      float* logit, uint32_t* masks, unsigned long long* exact,
-                                     const StashLayout& st = {}, float* pt = nullptr) {
+                                     const StashLayout& st = {}, float* pt = nullptr,
+                                     bool exact_pe = false, bool round_stash = false) {
+  static_assert(!(kStash && kBf16), "the stash has no bfloat16 mode");
   const int W = d.W, Ws = W + kMmaPad;
   const unsigned long long real = n < 64 ? (1ull << n) - 1 : ~0ull;
   auto mask_of = [&](int slot) {
@@ -860,54 +1174,63 @@ static __device__ __forceinline__ float* field_chain(const float* xyz, const flo
   // after a ReLU layer (its output in out; free: the buffer its input was
   // in), the exact step for the real rows its refine step noted
   auto settle = [&](int slot, float* out, float* free) {
-    const unsigned long long rows = exact[slot] & real;      // block-uniform
-    if (rows != 0)
-      field_exact64(slot, rows, xyz, vd, zs, zt, w, d, out, Ws, mask_of(slot),
-                    reinterpret_cast<double*>(free));
+    if constexpr (!kBf16) {
+      const unsigned long long rows = exact[slot] & real;    // block-uniform
+      if (rows != 0)
+        field_exact64(slot, rows, xyz, vd, zs, zt, w, d, out, Ws, mask_of(slot),
+                      reinterpret_cast<double*>(free));
+    }
+  };
+  auto encode = [&](const float* x, int degree) {
+    if constexpr (kBf16) encode_points_bf16<kPeLd>(x, n, degree, exact_pe, enc);
+    else encode_points<kPeLd>(x, n, degree, enc);
   };
   if ((int)threadIdx.x < field_slots(d)) exact[threadIdx.x] = 0;
-  encode_points<kPeLd>(xyz, n, d.l_xyz, enc);
+  encode(xyz, d.l_xyz);
   __syncthreads();
   stash(enc, kPeLd, pe_width(d.l_xyz), st.a_xyz);
-  dense_mma<true>(enc, kPeLd, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, Ws, true,
-                  mask_of(0), stage, nullptr, 0, 0, nullptr, exact);
+  dense_layer<kBf16, true>(enc, kPeLd, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, Ws, true,
+                           mask_of(0), stage, nullptr, 0, 0, nullptr, exact, round_stash);
   settle(0, buf_a, buf_b);
   // the point encodings are read: the direction encodings take their place,
   // read by the viewdir layer after the barriers of the layers between
-  encode_points<kPeLd>(vd, n, d.l_dir, enc);
+  encode(vd, d.l_dir);
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
     add_row_vector(cur, Ws, W, zs + (size_t)j * W);
     stash(cur, Ws, W, st.a_sh + j * W);
-    dense_mma<true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
-                    mask_of(1 + j), stage, nullptr, 0, 0, nullptr, exact + 1 + j);
+    dense_layer<kBf16, true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws,
+                             true, mask_of(1 + j), stage, nullptr, 0, 0, nullptr, exact + 1 + j,
+                             round_stash);
     settle(1 + j, nxt, cur);
     float* t = cur; cur = nxt; nxt = t;
   }
   stash(cur, Ws, W, st.a_es);
-  dense_mma(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
+  dense_layer<kBf16>(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }                       // cur = e
   stash(cur, Ws, W, st.a_e);
   stash(enc, kPeLd, pe_width(d.l_dir), st.a_dpe);
-  head(cur, Ws, W, w.w_sg, 1, w.b_sg, logit);
+  head<kBf16>(cur, Ws, W, w.w_sg, 1, w.b_sg, logit);
   const int s_vd = d.n_shape + 1;
-  dense_mma<true, true>(cur, Ws, W, w.w_vd_a, W, w.b_vd, nxt, Ws, true, mask_of(s_vd), stage,
-                        enc, kPeLd, pe_width(d.l_dir), w.w_vd_b, exact + s_vd);
+  dense_layer<kBf16, true, true>(cur, Ws, W, w.w_vd_a, W, w.b_vd, nxt, Ws, true, mask_of(s_vd),
+                                 stage, enc, kPeLd, pe_width(d.l_dir), w.w_vd_b, exact + s_vd,
+                                 round_stash);
   settle(s_vd, nxt, cur);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
     add_row_vector(cur, Ws, W, zt + (size_t)j * W);
     stash(cur, Ws, W, st.a_tx + j * W);
-    dense_mma<true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
-                    mask_of(s_vd + 1 + j), stage, nullptr, 0, 0, nullptr, exact + s_vd + 1 + j);
+    dense_layer<kBf16, true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws,
+                             true, mask_of(s_vd + 1 + j), stage, nullptr, 0, 0, nullptr,
+                             exact + s_vd + 1 + j, round_stash);
     settle(s_vd + 1 + j, nxt, cur);
     float* t = cur; cur = nxt; nxt = t;
   }
   const int s_r1 = field_slots(d) - 1;
   stash(cur, Ws, W, st.a_r1);
-  dense_mma<true>(cur, Ws, W, w.w_r1, W / 2, w.b_r1, nxt, Ws, true, mask_of(s_r1), stage,
-                  nullptr, 0, 0, nullptr, exact + s_r1);
+  dense_layer<kBf16, true>(cur, Ws, W, w.w_r1, W / 2, w.b_r1, nxt, Ws, true, mask_of(s_r1), stage,
+                           nullptr, 0, 0, nullptr, exact + s_r1, round_stash);
   settle(s_r1, nxt, cur);
   stash(nxt, Ws, W / 2, st.a_hh);
   return nxt;
@@ -947,6 +1270,25 @@ static __device__ void encode_backward_points(const float* x, const float* g, in
   }
 }
 
+// encode_backward_points in the bfloat16 mode: the sines and cosines those
+// of encode_one_bf16's doubling recurrence, rounded (the encodings K6's
+// forward read), each term encode_term_bf16, dx_c = g[c] + sum_i 2^i term.
+static __device__ void encode_backward_points_bf16(const float* x, const float* g, int ld,
+                                                   int degree, int n, float* dx) {
+  for (int e = threadIdx.x; e < 3 * n; e += kThreads) {
+    const int r = e / 3, c = e - 3 * r;
+    const float* gr = g + r * ld;
+    float s, co, t = 0.f;
+    sincosf(x[e], &s, &co);
+    for (int i = 0; i < degree; ++i) {
+      t += (float)(1 << i) * encode_term_bf16(bf16_round(s), bf16_round(co), gr[3 + 3 * i + c],
+                                              gr[3 + 3 * degree + 3 * i + c]);
+      doubling_step(s, co);
+    }
+    dx[e] = gr[c] + t;
+  }
+}
+
 // Dynamic shared memory of field_forward's block: the weight rings, two
 // activation buffers, the encodings, the heads' outputs and the exact
 // step's words, then, with the gates (kGates), the ReLU masks (~208 KB at W
@@ -965,12 +1307,13 @@ static inline size_t field_forward_smem_bytes(int W, int n_shape, int n_tex, boo
 // (3) start at the block's first point; zs, zt are the object's latents.
 // smem: field_forward_smem_bytes. kGates (field_gates.cu): the ReLU masks
 // kept too and written into gates from the block's first point
-// (store_gates).
-template <bool kGates>
+// (store_gates). kBf16: the bfloat16 mode (field_chain's; exact_pe: A11b's
+// encodings), the rgb head on rounded operands.
+template <bool kGates, bool kBf16 = false>
 static __device__ __forceinline__ void field_forward(
     const float* xyz, const float* vd, int n, const float* zs, const float* zt,
     const DecoderWeights& w, const Dims& d, float* smem, float* out_sigma, float* out_rgb,
-    uint32_t* gates) {
+    uint32_t* gates, bool exact_pe = false) {
   const int W = d.W, Ws = W + kMmaPad;       // Ws: activation row stride
   float* stage = smem;                       // kMmaStageFloats, dense_mma's weight slices
   float* buf_a = stage + kMmaStageFloats;    // kRows x Ws
@@ -981,10 +1324,11 @@ static __device__ __forceinline__ void field_forward(
   auto* exact = reinterpret_cast<unsigned long long*>(rgb + kRows * 3);  // field_slots(d)
   uint32_t* masks = kGates ? reinterpret_cast<uint32_t*>(exact + field_slots(d)) : nullptr;
 
-  const float* hh = field_chain(xyz, vd, n, zs, zt, w, d, stage, buf_a, buf_b, enc, sig, masks,
-                                exact);
+  const float* hh = field_chain<false, kBf16>(xyz, vd, n, zs, zt, w, d, stage, buf_a, buf_b,
+                                              enc, sig, masks, exact, StashLayout{}, nullptr,
+                                              exact_pe);
   if constexpr (kGates) store_gates(masks, n, d, gates);
-  head(hh, Ws, W / 2, w.w_r2, 3, w.b_r2, rgb);
+  head<kBf16>(hh, Ws, W / 2, w.w_r2, 3, w.b_r2, rgb);
   for (int r = threadIdx.x; r < n; r += kThreads) {
     out_sigma[r] = softplus(sig[r]);
     out_rgb[3 * r] = rgb[3 * r];
@@ -1030,7 +1374,13 @@ static inline size_t field_backward_smem_bytes(int W, int n_shape, int n_tex) {
 // n real rows from pt on (st's columns), each copy of a buffer that nothing
 // rewrites before the chain's next __syncthreads(); so K6 and K7 give the
 // same bits.
-template <bool kStash, bool kGates>
+// kBf16 (K6's bfloat16 mode, pallas_field.py:_field_bwd_kernel at
+// dtype=bfloat16): field_chain's recompute with its ReLU outputs rounded
+// (round_stash), every transposed layer on dense_mma_bf16 (its cotangent
+// rounded as its fragments are built), the rgb and sigma cotangents rounded
+// where they enter a product, the direction encodings' cotangent per point
+// unrounded and both chain rules encode_backward_points_bf16's.
+template <bool kStash, bool kGates, bool kBf16 = false>
 static __device__ __forceinline__ void field_backward(
     const float* xyz, const float* vd, int n, const float* zs, const float* zt,
     const DecoderWeights& w, const Dims& d, const float* g_sigma, const float* g_rgb,
@@ -1066,8 +1416,8 @@ static __device__ __forceinline__ void field_backward(
   }
   // ---- forward recompute, ReLU patterns to shared memory (syncs) ---------
   // nxt: rgb_hidden's output, read by the a_hh copy until the next barrier
-  float* nxt = field_chain<kStash>(xyz, vd, n, zs, zt, w, d, stage, buf_a, buf_b, enc, logit,
-                                   masks, exact, st, pt);
+  float* nxt = field_chain<kStash, kBf16>(xyz, vd, n, zs, zt, w, d, stage, buf_a, buf_b, enc,
+                                          logit, masks, exact, st, pt, false, kBf16);
   float* cur = nxt == buf_a ? buf_b : buf_a;
   if constexpr (kGates) store_gates(masks, n, d, gates);
   if constexpr (kStash) {
@@ -1079,20 +1429,21 @@ static __device__ __forceinline__ void field_backward(
   // ---- transposed decoder chain ------------------------------------------
   // rgb_out: g_hh[r][c] = relu'(hh) * sum_k drgb[r][k] w_r2[c][k]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  auto rd = [](float x) { return kBf16 ? bf16_round(x) : x; };
   for (int r = warp; r < kRows; r += kThreads / 32)
     for (int c = lane; c < W2; c += 32)
-      cur[r * Ws + c] = drgb[3 * r] * w.w_r2[3 * c] + drgb[3 * r + 1] * w.w_r2[3 * c + 1]
-                        + drgb[3 * r + 2] * w.w_r2[3 * c + 2];
+      cur[r * Ws + c] = rd(drgb[3 * r]) * w.w_r2[3 * c] + rd(drgb[3 * r + 1]) * w.w_r2[3 * c + 1]
+                        + rd(drgb[3 * r + 2]) * w.w_r2[3 * c + 2];
   __syncthreads();
   apply_mask(cur, Ws, W2, mask_of(m_r1));
   stash(cur, W2, st.g_hh);
-  dense_mma(cur, Ws, W2, w.wt_r1, W, nullptr, nxt, Ws, false, nullptr, stage);
+  dense_layer<kBf16>(cur, Ws, W2, w.wt_r1, W, nullptr, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = d.n_tex - 1; j >= 0; --j) {
     apply_mask(cur, Ws, W, mask_of(m_tx0 + j));
     stash(cur, W, st.g_tx + j * W);
-    dense_mma(cur, Ws, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
-              stage);
+    dense_layer<kBf16>(cur, Ws, W, w.wt_tx + (size_t)j * W * W, W, nullptr, nxt, Ws, false,
+                       nullptr, stage);
     { float* t = cur; cur = nxt; nxt = t; }
     column_sums(cur, Ws, W, n, colsum);
     for (int c = threadIdx.x; c < W; c += kThreads) dzt_part[j * W + c] = colsum[c];
@@ -1101,25 +1452,26 @@ static __device__ __forceinline__ void field_backward(
   stash(cur, W, st.g_v);
   // viewdir: the direction encodings' cotangent g_v @ Wvd_b^T per point
   // (into enc, free since the forward, kPeStride a row), then its chain rule
-  dense_mma(cur, Ws, W, w.wt_vd_b, pe_width(d.l_dir), nullptr, enc, kPeStride, false, nullptr,
-            stage);
-  encode_backward_points(vd, enc, kPeStride, d.l_dir, n, dvd);
+  dense_layer<kBf16>(cur, Ws, W, w.wt_vd_b, pe_width(d.l_dir), nullptr, enc, kPeStride, false,
+                     nullptr, stage);
+  if constexpr (kBf16) encode_backward_points_bf16(vd, enc, kPeStride, d.l_dir, n, dvd);
+  else encode_backward_points(vd, enc, kPeStride, d.l_dir, n, dvd);
   // encoding_shape output e feeds both the viewdir layer and the sigma head
-  dense_mma(cur, Ws, W, w.wt_vd_a, W, nullptr, nxt, Ws, false, nullptr, stage);
+  dense_layer<kBf16>(cur, Ws, W, w.wt_vd_a, W, nullptr, nxt, Ws, false, nullptr, stage);
   for (int r = warp; r < kRows; r += kThreads / 32) {
-    const float g_sig = dsig[r] * sigmoid(logit[r]);     // softplus' = sigmoid
+    const float g_sig = rd(dsig[r] * sigmoid(logit[r]));     // softplus' = sigmoid
     for (int c = lane; c < W; c += 32) nxt[r * Ws + c] = fmaf(g_sig, w.w_sg[c], nxt[r * Ws + c]);
   }
   __syncthreads();
   { float* t = cur; cur = nxt; nxt = t; }         // cur = g_e
   stash(cur, W, st.g_e);
-  dense_mma(cur, Ws, W, w.wt_es, W, nullptr, nxt, Ws, false, nullptr, stage);
+  dense_layer<kBf16>(cur, Ws, W, w.wt_es, W, nullptr, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = d.n_shape - 1; j >= 0; --j) {
     apply_mask(cur, Ws, W, mask_of(1 + j));
     stash(cur, W, st.g_sh + j * W);
-    dense_mma(cur, Ws, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, Ws, false, nullptr,
-              stage);
+    dense_layer<kBf16>(cur, Ws, W, w.wt_sh + (size_t)j * W * W, W, nullptr, nxt, Ws, false,
+                       nullptr, stage);
     { float* t = cur; cur = nxt; nxt = t; }
     column_sums(cur, Ws, W, n, colsum);
     for (int c = threadIdx.x; c < W; c += kThreads) dzs_part[j * W + c] = colsum[c];
@@ -1128,9 +1480,10 @@ static __device__ __forceinline__ void field_backward(
   stash(cur, W, st.g_xyz);
   // the points' cotangents: g @ Wxyz^T (into nxt, kPeStride a row), then the
   // encoding's chain rule
-  dense_mma(cur, Ws, W, w.wt_xyz, pe_width(d.l_xyz), nullptr, nxt, kPeStride, false, nullptr,
-            stage);
-  encode_backward_points(xyz, nxt, kPeStride, d.l_xyz, n, dxyz);
+  dense_layer<kBf16>(cur, Ws, W, w.wt_xyz, pe_width(d.l_xyz), nullptr, nxt, kPeStride, false,
+                     nullptr, stage);
+  if constexpr (kBf16) encode_backward_points_bf16(xyz, nxt, kPeStride, d.l_xyz, n, dxyz);
+  else encode_backward_points(xyz, nxt, kPeStride, d.l_xyz, n, dxyz);
 }
 
 }  // namespace supnerf

@@ -54,17 +54,26 @@
 // stay on the CUDA cores and leave the tensor cores idle for their span,
 // and mma.sync runs below wgmma's rate, so the kernel stays short of the
 // bound.
+//
+// The bfloat16 mode (render_fwd_bf16_kernel, the same body with kBf16): the
+// Pallas kernel at dtype=bfloat16 (render_common.cuh's note): every dense
+// layer on dense_mma_bf16, one bfloat16 mma.sync per product where 3xTF32
+// takes three, at twice TF32's rate, so the same work's bound is about a
+// sixth of the float32 mode's (989 against 495 / 3 TFLOP/s); the encodings
+// by the doubling recurrence and rounded, the per-ray direction term
+// rounded, the heads on rounded operands; compositing stays float32.
+// exact_pe: the exact encodings and an unrounded direction term (A11a,
+// field_composite_pallas(pe_in_kernel=True)).
 #include "render_common.cuh"
 
 namespace supnerf {
 
-__global__ void __launch_bounds__(kThreads, 1)
-render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
-                  const float* __restrict__ z, const float* __restrict__ zs,
-                  const float* __restrict__ zt, DecoderWeights w, Dims d,
-                  int white_bkgd, int z_per_ray, const float* __restrict__ hit,
-                  float* __restrict__ out_rgb,
-                  float* __restrict__ out_depth, float* __restrict__ out_acc) {
+template <bool kBf16>
+static __device__ __forceinline__ void render_fwd_body(
+    const float* __restrict__ xyz, const float* __restrict__ vd, const float* __restrict__ z,
+    const float* __restrict__ zs, const float* __restrict__ zt, const DecoderWeights& w,
+    const Dims& d, int white_bkgd, int z_per_ray, const float* __restrict__ hit, bool exact_pe,
+    float* __restrict__ out_rgb, float* __restrict__ out_depth, float* __restrict__ out_acc) {
   const int ray = blockIdx.x, obj = blockIdx.y;
   const int W = d.W, W2 = d.W / 2, S = d.S;
   const size_t ray_idx = (size_t)obj * d.R + ray;
@@ -92,32 +101,37 @@ render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   float* sig = dpe + kMaxDirPe;              // kRows
   float* rgb = sig + kRows;                  // kRows x 3
 
-  encode_points<kPeLd>(xyz + ray_idx * S * 3, S, d.l_xyz, pe);
-  direction_term(vd + ray_idx * 3, d.l_dir, w, W, dpe, hdir);  // syncs
+  if constexpr (kBf16) {
+    encode_points_bf16<kPeLd>(xyz + ray_idx * S * 3, S, d.l_xyz, exact_pe, pe);
+    direction_term_bf16(vd + ray_idx * 3, d.l_dir, exact_pe, w, W, dpe, hdir);  // syncs
+  } else {
+    encode_points<kPeLd>(xyz + ray_idx * S * 3, S, d.l_xyz, pe);
+    direction_term(vd + ray_idx * 3, d.l_dir, w, W, dpe, hdir);  // syncs
+  }
 
-  dense_mma<true>(pe, kPeLd, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, Ws, true, nullptr,
-                  stage);
+  dense_layer<kBf16, true>(pe, kPeLd, pe_width(d.l_xyz), w.w_xyz, W, w.b_xyz, buf_a, Ws, true,
+                           nullptr, stage);
   float* cur = buf_a;
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
     add_row_vector(cur, Ws, W, zs + ((size_t)obj * d.n_shape + j) * W);
-    dense_mma<true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws, true,
-                    nullptr, stage);
+    dense_layer<kBf16, true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws,
+                             true, nullptr, stage);
     float* t = cur; cur = nxt; nxt = t;
   }
-  dense_mma(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
+  dense_layer<kBf16>(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
-  head(cur, Ws, W, w.w_sg, 1, w.b_sg, sig);
-  dense_mma<true>(cur, Ws, W, w.w_vd_a, W, hdir, nxt, Ws, true, nullptr, stage);
+  head<kBf16>(cur, Ws, W, w.w_sg, 1, w.b_sg, sig);
+  dense_layer<kBf16, true>(cur, Ws, W, w.w_vd_a, W, hdir, nxt, Ws, true, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
     add_row_vector(cur, Ws, W, zt + ((size_t)obj * d.n_tex + j) * W);
-    dense_mma<true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws, true,
-                    nullptr, stage);
+    dense_layer<kBf16, true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws,
+                             true, nullptr, stage);
     float* t = cur; cur = nxt; nxt = t;
   }
-  dense_mma<true>(cur, Ws, W, w.w_r1, W2, w.b_r1, nxt, Ws, true, nullptr, stage);
-  head(nxt, Ws, W2, w.w_r2, 3, w.b_r2, rgb);
+  dense_layer<kBf16, true>(cur, Ws, W, w.w_r1, W2, w.b_r1, nxt, Ws, true, nullptr, stage);
+  head<kBf16>(nxt, Ws, W2, w.w_r2, 3, w.b_r2, rgb);
 
   if (threadIdx.x == 0) {
     const float* zr = z + (z_per_ray ? ray_idx : (size_t)obj) * S;
@@ -147,6 +161,28 @@ render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
+                  const float* __restrict__ z, const float* __restrict__ zs,
+                  const float* __restrict__ zt, DecoderWeights w, Dims d,
+                  int white_bkgd, int z_per_ray, const float* __restrict__ hit,
+                  float* __restrict__ out_rgb,
+                  float* __restrict__ out_depth, float* __restrict__ out_acc) {
+  render_fwd_body<false>(xyz, vd, z, zs, zt, w, d, white_bkgd, z_per_ray, hit, false, out_rgb,
+                         out_depth, out_acc);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+render_fwd_bf16_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
+                       const float* __restrict__ z, const float* __restrict__ zs,
+                       const float* __restrict__ zt, DecoderWeights w, Dims d,
+                       int white_bkgd, int z_per_ray, const float* __restrict__ hit,
+                       int exact_pe, float* __restrict__ out_rgb,
+                       float* __restrict__ out_depth, float* __restrict__ out_acc) {
+  render_fwd_body<true>(xyz, vd, z, zs, zt, w, d, white_bkgd, z_per_ray, hit, exact_pe != 0,
+                        out_rgb, out_depth, out_acc);
+}
+
 size_t render_fwd_smem_bytes(int W) {
   return sizeof(float) * ((size_t)kMmaStageFloats + 2 * kRows * (W + kMmaPad) + kRows * kPeLd
                           + W + kMaxDirPe + kRows + kRows * 3);
@@ -171,5 +207,25 @@ extern "C" int supnerf_render_fwd(const float* xyz, const float* vd, const float
   if (err != cudaSuccess) return (int)err;
   render_fwd_kernel<<<dim3(R, B), kThreads, smem, (cudaStream_t)stream>>>(
       xyz, vd, z, zs, zt, *w, d, white_bkgd, z_per_ray, hit, out_rgb, out_depth, out_acc);
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 mode's entry: supnerf_render_fwd's arguments and exact_pe.
+extern "C" int supnerf_render_fwd_bf16(const float* xyz, const float* vd, const float* z,
+                                       const float* zs, const float* zt,
+                                       const supnerf::DecoderWeights* w, int B, int R, int S,
+                                       int W, int n_shape, int n_tex, int l_xyz, int l_dir,
+                                       int white_bkgd, int z_per_ray, const float* hit,
+                                       int exact_pe, float* out_rgb, float* out_depth,
+                                       float* out_acc, void* stream) {
+  using namespace supnerf;
+  const Dims d{B, R, S, W, n_shape, n_tex, l_xyz, l_dir};
+  const size_t smem = render_fwd_smem_bytes(W);
+  cudaError_t err = cudaFuncSetAttribute(
+      render_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  render_fwd_bf16_kernel<<<dim3(R, B), kThreads, smem, (cudaStream_t)stream>>>(
+      xyz, vd, z, zs, zt, *w, d, white_bkgd, z_per_ray, hit, exact_pe, out_rgb, out_depth,
+      out_acc);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,13 @@
 """Model construction from a config's 'arch' and 'net_hyperparams'; the port
 of supnerf_tpu/models/factory.py, with its defaults and its name mapping.
 
-net_hyperparams' field_dtype is refused unless float32 (ROADMAP C.21): the
-JAX factory turns "bfloat16" into a bf16 field, while the port's kernels
-compute float32 on 3xTF32, and a bf16 field would change the parity
-contract."""
+net_hyperparams' field_dtype ("bfloat16", "float32", None or absent) sets
+SUPNeRF's field precision, as in the JAX factory; the baselines ignore it,
+as there. With "bfloat16" the render and field kernels run in their
+bfloat16 mode (ops/render.py) and the plain decoder in flax TorchDense's
+(models/nerf_mlp.decode_bf16). The JAX package picks its kernels'
+precision by backend (bfloat16 on an accelerator); the port by this key
+(ROADMAP C.28)."""
 from __future__ import annotations
 
 import torch
@@ -12,15 +15,16 @@ import torch
 from supnerf_tpu_torch.models.autorf import AutoRF, AutoRFMix
 from supnerf_tpu_torch.models.codenerf import CodeNeRF
 from supnerf_tpu_torch.models.layers import init_parameters
+from supnerf_tpu_torch.models.nerf_mlp import FIELD_DTYPES
 from supnerf_tpu_torch.models.supnerf import SUPNeRF
 
 
 def build_model(arch: str, net_hyperparams: dict):
     hp = dict(net_hyperparams)
-    if hp.get("field_dtype") not in (None, "float32"):
-        raise ValueError(f"field_dtype {hp['field_dtype']!r}: the port's kernels compute "
-                         "float32 on 3xTF32 tensor cores, and a bf16 field would change the "
-                         "parity contract with the JAX package (ROADMAP C.21); use float32")
+    field_dtype = "float32" if hp.get("field_dtype") is None else hp["field_dtype"]
+    if field_dtype not in FIELD_DTYPES:
+        raise ValueError(f"field_dtype {hp['field_dtype']!r}: one of {FIELD_DTYPES}, None or "
+                         "absent")
     norm = {"norm_layer_type": hp.get("norm_layer_type", "BatchNorm2d")}
     freqs = {"num_xyz_freq": hp.get("num_xyz_freq", 10),
              "num_dir_freq": hp.get("num_dir_freq", 4)}
@@ -33,7 +37,7 @@ def build_model(arch: str, net_hyperparams: dict):
             latent_dim=hp.get("latent_dim", 256),
             pose_shortcut=bool(hp.get("pose_shortcut", 0)),
             pred_wlh=bool(hp.get("pred_wlh", 0)),
-            **freqs, **norm,
+            field_dtype=field_dtype, **freqs, **norm,
         )
     if arch in ("autorf", "autorfmix", "autorf_original"):
         # the published AutoRF baseline is the mix variant (AutoRF encoder +

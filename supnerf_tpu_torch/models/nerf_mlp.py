@@ -7,7 +7,18 @@ so that its state_dicts load strictly.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+# net_hyperparams' field_dtype values (the JAX factory's): "bfloat16" rounds
+# the operands of every dense layer of the field to bfloat16 and sums in
+# float32; "float32" (or absent) is the reference's float32 field
+FIELD_DTYPES = ("float32", "bfloat16")
+
+
+def bf16_round(t):
+    """t rounded to bfloat16 (to nearest, ties to even), in t's own dtype."""
+    return t.to(torch.bfloat16).to(t.dtype)
 
 
 def positional_encoding(x, degree: int):
@@ -47,8 +58,12 @@ class CodeNeRFDecoder(nn.Module):
     evaluated once per code and broadcast-added."""
 
     def __init__(self, shape_blocks: int = 3, texture_blocks: int = 1, W: int = 256,
-                 latent_dim: int = 256, num_xyz_freq: int = 10, num_dir_freq: int = 4):
+                 latent_dim: int = 256, num_xyz_freq: int = 10, num_dir_freq: int = 4,
+                 field_dtype: str = "float32"):
         super().__init__()
+        if field_dtype not in FIELD_DTYPES:
+            raise ValueError(f"field_dtype {field_dtype!r}: one of {FIELD_DTYPES}")
+        self.field_dtype = field_dtype
         self.shape_blocks, self.texture_blocks = shape_blocks, texture_blocks
         self.num_xyz_freq, self.num_dir_freq = num_xyz_freq, num_dir_freq
         d_xyz, d_dir = 3 + 6 * num_xyz_freq, 3 + 6 * num_dir_freq
@@ -70,7 +85,10 @@ class CodeNeRFDecoder(nn.Module):
 
 def decode(m, xyz, viewdir, shapecode, texturecode):
     """The CodeNeRF decoder chain on any module `m` that holds its layers
-    under the reference names (CodeNeRFDecoder, SUPNeRF)."""
+    under the reference names (CodeNeRFDecoder, SUPNeRF); in m's
+    field_dtype (decode_bf16 for "bfloat16")."""
+    if m.field_dtype == "bfloat16":
+        return decode_bf16(m, xyz, viewdir, shapecode, texturecode)
     y = m.encoding_xyz(positional_encoding(xyz, m.num_xyz_freq))
     for j in range(1, m.shape_blocks + 1):
         y = y + getattr(m, f"shape_latent_layer_{j}")(shapecode)
@@ -83,6 +101,34 @@ def decode(m, xyz, viewdir, shapecode, texturecode):
         y = y + getattr(m, f"texture_latent_layer_{j}")(texturecode)
         y = getattr(m, f"texture_layer_{j}")(y)
     return sigmas, m.rgb(y)
+
+
+def decode_bf16(m, xyz, viewdir, shapecode, texturecode):
+    """decode with flax TorchDense's bfloat16 contract
+    (supnerf_tpu/models/layers.py TorchDense(dtype=bfloat16), the JAX
+    decoder with field_dtype "bfloat16"): every layer, the latent
+    projections included, takes its input and weight rounded to bfloat16,
+    sums in float32 and adds its float32 bias; the encodings are the exact
+    ones. Not the kernels' contract (ops/render.py decoder_chain_bf16)."""
+
+    def dense(lin, x):
+        return F.linear(bf16_round(x), bf16_round(lin.weight), lin.bias)
+
+    def dense_relu(block, x):          # a _lin_relu block
+        return F.relu(dense(block[0], x))
+
+    y = dense_relu(m.encoding_xyz, positional_encoding(xyz, m.num_xyz_freq))
+    for j in range(1, m.shape_blocks + 1):
+        y = y + dense_relu(getattr(m, f"shape_latent_layer_{j}"), shapecode)
+        y = dense_relu(getattr(m, f"shape_layer_{j}"), y)
+    y = dense(m.encoding_shape, y)
+    sigmas = F.softplus(dense(m.sigma[0], y))
+    dir_pe = positional_encoding(viewdir, m.num_dir_freq)
+    y = dense_relu(m.encoding_viewdir, torch.cat([y, dir_pe.expand(*y.shape[:-1], -1)], -1))
+    for j in range(1, m.texture_blocks + 1):
+        y = y + dense_relu(getattr(m, f"texture_latent_layer_{j}"), texturecode)
+        y = dense_relu(getattr(m, f"texture_layer_{j}"), y)
+    return sigmas, dense(m.rgb[2], F.relu(dense(m.rgb[0], y)))
 
 
 class AutoRFDecoder(nn.Module):

@@ -15,15 +15,18 @@ from supnerf_tpu_torch.models.nerf_mlp import (
 
 class SUPNeRF(CodeNeRFDecoder):
     """forward(xyz, viewdir, shapecode, texturecode) is the NeRF field;
-    encode_img and pose_update are the other two entry points."""
+    encode_img and pose_update are the other two entry points. field_dtype
+    ("float32" or "bfloat16", net_hyperparams' key) is the precision of the
+    field: of this module's forward (nerf_mlp.decode) and of the render
+    kernels that ops.render.pack_decoder_params packs it for."""
 
     def __init__(self, shape_blocks: int = 5, texture_blocks: int = 5,
                  pose_blocks: int = 3, regress_blocks: int = 3, latent_dim: int = 256,
                  num_xyz_freq: int = 10, num_dir_freq: int = 4,
                  pose_shortcut: bool = False, pred_wlh: bool = False,
-                 norm_layer_type: str = "BatchNorm2d"):
+                 norm_layer_type: str = "BatchNorm2d", field_dtype: str = "float32"):
         super().__init__(shape_blocks, texture_blocks, latent_dim, latent_dim,
-                         num_xyz_freq, num_dir_freq)
+                         num_xyz_freq, num_dir_freq, field_dtype)
         self.latent_dim = latent_dim
         self.pred_wlh = pred_wlh
         self.img_encoder = ImgEncoder(latent_dim, pred_wlh=pred_wlh,

@@ -33,6 +33,13 @@ direction (xyz, viewdir (B,M,3)), latent projections zs (B,n_shape,W), zt
 decoder operands, build, library, stash layout, K4 and launch counts
 (LAUNCHES["field_fwd"], ["field_bwd"], ["field_train_bwd"], ["wgrad"]).
 
+The bfloat16 mode (render.DecoderWeights.field_dtype "bfloat16", ops/render.py's
+module docstring): K5 and K6 launch their bfloat16 builds (LAUNCHES'
+field_fwd_bf16, field_bwd_bf16), the Pallas kernels at dtype=bfloat16,
+and their plain versions follow those kernels' rounding (field_fwd_plain,
+field_bwd_plain_bf16); K7 has no bfloat16 build, and field_train refuses
+a bfloat16 decoder.
+
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 For CUDA tensors it launches its kernel or raises; there is no fallback.
 FieldApply freezes the decoder (test-time optimization): the weights get no
@@ -58,13 +65,19 @@ from supnerf_tpu_torch.ops.render import (
     conditioned_latents,
     conditioned_latents_of,
     decoder_chain,
+    decoder_chain_bf16,
     decoder_linear_params,
+    encode_bf16,
+    encode_bwd_bf16,
+    launch_key,
     linear_params_of,
     pack_linear_params,
+    recompute_bf16,
     stash_grads,
     stash_layout,
     stash_struct,
     stashed_chain,
+    transposed_bf16,
     wgrad,
     wgrad_problems,
     write_stash,
@@ -73,22 +86,48 @@ from supnerf_tpu_torch.ops.render import (
 ROWS = 64          # points per block of K5 and K6 (kRows in csrc/render_common.cuh)
 
 
-def field_fwd_plain(wts: DecoderWeights, xyz, viewdir, zs, zt):
+def field_fwd_plain(wts: DecoderWeights, xyz, viewdir, zs, zt, exact_pe=False):
     """K5's plain version: the decoder as matmuls with a per-point view
-    direction. xyz, viewdir (B,M,3) -> (sigma (B,M,1), rgb (B,M,3))."""
+    direction. xyz, viewdir (B,M,3) -> (sigma (B,M,1), rgb (B,M,3)). In the
+    bfloat16 mode render.decoder_chain_bf16 on the rounded encodings
+    (render.encode_bf16: by the doubling recurrence as A7, exact_pe the
+    exact ones as A11b), the direction term per point and unrounded
+    (pallas_field.py:_field_chain_to_heads)."""
+    if wts.field_dtype == "bfloat16":
+        dpe = encode_bf16(viewdir, wts.num_dir_freq, exact_pe)
+        sigma, rgb = decoder_chain_bf16(wts, encode_bf16(xyz, wts.num_xyz_freq, exact_pe),
+                                        dpe @ wts.w_vd_b, zs, zt)
+        return sigma[..., None], rgb
     hdir = positional_encoding(viewdir, wts.num_dir_freq) @ wts.w_vd_b
     sigma, rgb = decoder_chain(wts, xyz, hdir, zs, zt)
     return sigma[..., None], rgb
 
 
 def field_bwd_plain(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb):
-    """K6's plain version: autograd through field_fwd_plain.
-    Returns (dxyz, dviewdir, dzs, dzt)."""
+    """K6's plain version: autograd through field_fwd_plain (in the bfloat16
+    mode field_bwd_plain_bf16). Returns (dxyz, dviewdir, dzs, dzt)."""
+    if wts.field_dtype == "bfloat16":
+        return field_bwd_plain_bf16(wts, xyz, viewdir, zs, zt, g_sigma, g_rgb)
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_(True) for t in (xyz, viewdir, zs, zt)]
         outs = field_fwd_plain(wts, *inputs)
         return torch.autograd.grad(outs, inputs, (g_sigma, g_rgb), allow_unused=True,
                                    materialize_grads=True)
+
+
+def field_bwd_plain_bf16(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb):
+    """K6's plain version in the bfloat16 mode: the backward kernel's own
+    arithmetic (pallas_field.py:_field_bwd_kernel at dtype=bfloat16):
+    render.recompute_bf16 (the stash) with the per-point direction term,
+    render.transposed_bf16, and the encodings' chain rules
+    (render.encode_bwd_bf16). Returns (dxyz, dviewdir, dzs, dzt)."""
+    xpe = encode_bf16(xyz, wts.num_xyz_freq)
+    dpe = encode_bf16(viewdir, wts.num_dir_freq)
+    rec = recompute_bf16(wts, xpe, dpe @ wts.w_vd_b, zs, zt)
+    gpe, gdir, dzs, dzt = transposed_bf16(wts, rec, g_sigma[..., 0] * torch.sigmoid(rec["logit"]),
+                                          g_rgb, 1)
+    return (encode_bwd_bf16(xpe, gpe, wts.num_xyz_freq),
+            encode_bwd_bf16(dpe, gdir, wts.num_dir_freq), dzs, dzt)
 
 
 def _check_field_inputs(wts: DecoderWeights, xyz, viewdir, zs, zt, *grads):
@@ -123,11 +162,14 @@ def _gates_args(wts: DecoderWeights, xyz, gates):
     """The C entry's name suffix and extra arguments for gates: ("", []) for
     none, else ("_gates", [its pointer]) (csrc/field_gates.cu) once gates is
     checked against gate_buffer's shape on xyz's device. The plain versions
-    keep no gates, so CPU tensors with gates raise."""
+    keep no gates, so CPU tensors with gates raise, and neither do the
+    bfloat16 builds."""
     if gates is None:
         return "", []
     if xyz.device.type == "cpu":
         raise ValueError("only the kernels report their gates")
+    if wts.field_dtype != "float32":
+        raise ValueError("only the float32 builds report their gates")
     shape = (*xyz.shape[:2], wts.n_shape + wts.n_tex + 3, wts.W // 32)
     if (gates.shape != shape or gates.dtype != torch.int32 or not gates.is_contiguous()
             or gates.device != xyz.device):
@@ -135,12 +177,16 @@ def _gates_args(wts: DecoderWeights, xyz, gates):
     return "_gates", [gates.data_ptr()]
 
 
-def field_fwd(wts: DecoderWeights, xyz, viewdir, zs, zt, gates=None):
+def field_fwd(wts: DecoderWeights, xyz, viewdir, zs, zt, gates=None, exact_pe=False):
     """K5 wrapper. Returns (sigma (B,M,1), rgb (B,M,3)); with gates
-    (gate_buffer), the kernel's ReLU gates are written into it too."""
+    (gate_buffer), the kernel's ReLU gates are written into it too. In wts'
+    bfloat16 mode it launches K5's bfloat16 build, exact_pe selecting its
+    exact encodings (A11b; field_fwd_plain)."""
     entry, extra = _gates_args(wts, xyz, gates)
     if xyz.device.type == "cpu":
-        return field_fwd_plain(wts, xyz, viewdir, zs, zt)
+        return field_fwd_plain(wts, xyz, viewdir, zs, zt, exact_pe)
+    if wts.field_dtype == "bfloat16":
+        entry, extra = "_bf16", [int(bool(exact_pe))]
     _check_field_inputs(wts, xyz, viewdir, zs, zt)
     B, M = xyz.shape[:2]
     sigma = torch.empty((B, M, 1), device=xyz.device)
@@ -152,7 +198,7 @@ def field_fwd(wts: DecoderWeights, xyz, viewdir, zs, zt, gates=None):
             ctypes.byref(ptrs), *_dims(wts, xyz), sigma.data_ptr(), rgb.data_ptr(), *extra,
             torch.cuda.current_stream(xyz.device).cuda_stream)
     _raise_on(err, "field_fwd")
-    LAUNCHES["field_fwd"] += 1
+    LAUNCHES[launch_key("field_fwd", wts)] += 1
     return sigma, rgb
 
 
@@ -165,6 +211,8 @@ def field_bwd(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb, gates=N
     entry, extra = _gates_args(wts, xyz, gates)
     if xyz.device.type == "cpu":
         return field_bwd_plain(wts, xyz, viewdir, zs, zt, g_sigma, g_rgb)
+    if wts.field_dtype == "bfloat16":
+        entry = "_bf16"
     _check_field_inputs(wts, xyz, viewdir, zs, zt, g_sigma, g_rgb)
     B, M = xyz.shape[:2]
     dev = xyz.device
@@ -181,7 +229,7 @@ def field_bwd(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb, gates=N
             dxyz.data_ptr(), dvd.data_ptr(), dzs_part.data_ptr(), dzt_part.data_ptr(), *extra,
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "field_bwd")
-    LAUNCHES["field_bwd"] += 1
+    LAUNCHES[launch_key("field_bwd", wts)] += 1
     return dxyz, dvd, dzs_part.sum(1), dzt_part.sum(1)
 
 
@@ -355,8 +403,10 @@ def field_train(decoder, xyz, viewdir, shapecode, texturecode):
     for CPU tensors). Gradients reach every weight and bias of the decoder,
     the points, the view directions and, through the live latent layers,
     the codes. Raises ValueError for a decoder that is not kernel-compatible
-    (render.decoder_kernel_compatible)."""
+    (render.decoder_kernel_compatible), and for one in the bfloat16 mode
+    (render.check_float32_decoder)."""
     render.check_kernel_decoder(decoder)
+    render.check_float32_decoder(decoder, "the training field")
     lead = xyz.shape[:-1]
     zs, zt = conditioned_latents_of(decoder, shapecode, texturecode)
     meta = (decoder.shape_blocks, decoder.texture_blocks, decoder.num_xyz_freq,

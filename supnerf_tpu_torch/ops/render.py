@@ -31,6 +31,22 @@ projections zs (B,n_shape,W), zt (B,n_tex,W). Everything is float32. The
 AABB mode (reference render_rays_v3) takes per-ray z (B,R,S) and hit (B,R):
 the density of a ray that misses its box is zero, and dz is per ray.
 
+The bfloat16 mode (DecoderWeights.field_dtype "bfloat16", packed from a
+model built with net_hyperparams' field_dtype "bfloat16") is the Pallas
+kernels' at dtype=bfloat16, the precision the JAX package runs them at on
+its accelerator: every dense layer's operands rounded to bfloat16 (the
+weights once, at pack time, as pallas_field.py:_precast_weights), float32
+sums and biases, the encodings by the doubling recurrence and rounded
+(pallas_field.py:_pe_for_dtype), the per-ray direction term rounded; the
+backward kernels recompute with their ReLU outputs rounded (the stash) and
+round each transposed layer's operand, the rgb cotangent per ray and the
+encodings' chain-rule terms (decoder_chain_bf16, recompute_bf16,
+transposed_bf16, composite_vjp_bf16, encode_bwd_bf16). Inputs, outputs,
+latents and compositing stay float32. K1 and K2 (both modes) and K5 and
+K6 (ops/field.py) have bfloat16 builds, counted apart (LAUNCHES' *_bf16
+keys); the training kernels (K3, K4, K7, K1 with per-object latents) do
+not, and their entry points refuse a bfloat16 decoder.
+
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 For CUDA tensors it launches its kernel or raises; there is no fallback.
 FieldComposite freezes the decoder (test-time optimization, reference
@@ -56,8 +72,14 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from supnerf_tpu_torch.models.nerf_mlp import CodeNeRFDecoder, positional_encoding
-from supnerf_tpu_torch.ops.volume_render import volume_render
+from supnerf_tpu_torch.models.nerf_mlp import (
+    FIELD_DTYPES,
+    CodeNeRFDecoder,
+    bf16_round,
+    positional_encoding,
+    positional_encoding_doubling,
+)
+from supnerf_tpu_torch.ops.volume_render import EPS_TRANS, LAST_DELTA, volume_render
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -69,11 +91,13 @@ MAX_SAMPLES = 64          # kRows in csrc/render_common.cuh
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one where it launches its kernel and nowhere else.
 # K1 and K2 count their AABB-mode launches (render_*_aabb) apart, K3 its
-# data-mode launches (render_train_bwd_data). K5, K6 and K7 (ops/field.py)
-# count here too.
+# data-mode launches (render_train_bwd_data), K1, K2, K5 and K6 their
+# bfloat16 builds' (*_bf16). K5, K6 and K7 (ops/field.py) count here too.
 LAUNCHES = {"render_fwd": 0, "render_bwd": 0, "render_fwd_aabb": 0, "render_bwd_aabb": 0,
             "render_train_bwd": 0, "render_train_bwd_data": 0, "wgrad": 0, "field_fwd": 0,
-            "field_bwd": 0, "field_train_bwd": 0}
+            "field_bwd": 0, "field_train_bwd": 0, "render_fwd_bf16": 0, "render_bwd_bf16": 0,
+            "render_fwd_aabb_bf16": 0, "render_bwd_aabb_bf16": 0, "field_fwd_bf16": 0,
+            "field_bwd_bf16": 0}
 
 
 def reset_launch_counts():
@@ -90,7 +114,10 @@ class DecoderWeights:
     """The decoder as kernel operands: w_* in the (in, out) layout the
     forward chain reads, wt_* in torch's (out, in) layout for the backward's
     transposed chain, and the latent projections (applied outside the
-    kernels, once per object; None where only the kernels need the pack)."""
+    kernels, once per object; None where only the kernels need the pack).
+    field_dtype "bfloat16": the kernels' bfloat16 mode, every w_* and wt_*
+    matrix holding its bfloat16-rounded values (the biases and latent
+    projections stay float32)."""
 
     w_xyz: torch.Tensor
     b_xyz: torch.Tensor
@@ -122,6 +149,7 @@ class DecoderWeights:
     b_tex_latent: torch.Tensor | None     # (n_tex, W)
     num_xyz_freq: int
     num_dir_freq: int
+    field_dtype: str = "float32"
 
     @property
     def W(self):
@@ -140,6 +168,10 @@ class DecoderWeights:
 _PTR_FIELDS = ("w_xyz", "b_xyz", "w_sh", "b_sh", "w_es", "b_es", "w_sg", "b_sg",
                "w_vd_a", "w_vd_b", "b_vd", "w_tx", "b_tx", "w_r1", "b_r1", "w_r2",
                "b_r2", "wt_xyz", "wt_sh", "wt_es", "wt_vd_a", "wt_tx", "wt_r1", "wt_vd_b")
+
+
+# the dense layers' matrices, which the bfloat16 mode rounds at pack time
+_MATRIX_FIELDS = tuple(name for name in _PTR_FIELDS if not name.startswith("b_"))
 
 
 class _DecoderPtrs(ctypes.Structure):
@@ -186,14 +218,17 @@ def decoder_linear_params(decoder) -> list:
 
 
 def pack_linear_params(params, n_shape: int, n_tex: int, num_xyz_freq: int,
-                       num_dir_freq: int, latents=None) -> DecoderWeights:
+                       num_dir_freq: int, latents=None,
+                       field_dtype: str = "float32") -> DecoderWeights:
     """Kernel operands from the flat Linear-layout list of
     decoder_linear_params: the (in, out) copies the forward chain reads,
     w_vd split into its trunk and direction rows, w_sg flattened, the block
     layers stacked, and the (out, in) wt_* copies of the transposed chain.
     Differentiable in `params` (the plain training backward relies on it).
     latents: optional ((w, b) of each shape latent layer, (w, b) of each
-    texture latent layer); without it the latent fields are None."""
+    texture latent layer); without it the latent fields are None.
+    field_dtype "bfloat16": the matrices rounded to bfloat16 once, here (the
+    kernels' bfloat16 mode, DecoderWeights; with_field_dtype)."""
     lin = [(params[2 * i], params[2 * i + 1]) for i in range(len(params) // 2)]
     (w_xyz, b_xyz), sh = lin[0], lin[1:1 + n_shape]
     (w_es, b_es), (w_sg, b_sg), (w_vd, b_vd) = lin[1 + n_shape:4 + n_shape]
@@ -212,7 +247,7 @@ def pack_linear_params(params, n_shape: int, n_tex: int, num_xyz_freq: int,
         sl, tl = latents
         lat = {"w_shape_latent": stack(sl, 0, True), "b_shape_latent": stack(sl, 1),
                "w_tex_latent": stack(tl, 0, True), "b_tex_latent": stack(tl, 1)}
-    return DecoderWeights(
+    wts = DecoderWeights(
         w_xyz=c(w_xyz.t()), b_xyz=c(b_xyz), w_sh=stack(sh, 0, True), b_sh=stack(sh, 1),
         w_es=c(w_es.t()), b_es=c(b_es), w_sg=c(w_sg.reshape(-1)), b_sg=c(b_sg),
         w_vd_a=c(w_vd[:, :W].t()), w_vd_b=c(w_vd[:, W:].t()), b_vd=c(b_vd),
@@ -222,14 +257,28 @@ def pack_linear_params(params, n_shape: int, n_tex: int, num_xyz_freq: int,
         wt_tx=stack(tx, 0), wt_r1=c(w_r1), wt_vd_b=c(w_vd[:, W:]), **lat,
         num_xyz_freq=num_xyz_freq, num_dir_freq=num_dir_freq,
     )
+    return with_field_dtype(wts, field_dtype)
+
+
+def with_field_dtype(wts: DecoderWeights, field_dtype: str) -> DecoderWeights:
+    """wts in field_dtype's mode: a float32 pack as it is, or in the
+    bfloat16 mode with its matrices rounded to bfloat16 (DecoderWeights)."""
+    if field_dtype not in FIELD_DTYPES:
+        raise ValueError(f"field_dtype {field_dtype!r}: one of {FIELD_DTYPES}")
+    if field_dtype == wts.field_dtype:
+        return wts
+    if wts.field_dtype != "float32":
+        raise ValueError(f"a {wts.field_dtype} pack does not convert to {field_dtype}")
+    return dataclasses.replace(wts, field_dtype=field_dtype,
+                               **{n: bf16_round(getattr(wts, n)) for n in _MATRIX_FIELDS})
 
 
 def pack_decoder_params(decoder) -> DecoderWeights:
     """Frozen (detached), contiguous float32 kernel operands of a
     CodeNeRF-style decoder (any module holding the reference layer names:
     CodeNeRFDecoder, SUPNeRF), latent projections included, on the
-    decoder's device. Raises ValueError for a decoder that is not
-    kernel-compatible (decoder_kernel_compatible)."""
+    decoder's device, in the decoder's field_dtype. Raises ValueError for a
+    decoder that is not kernel-compatible (decoder_kernel_compatible)."""
     check_kernel_decoder(decoder)
     n_sh, n_tx = decoder.shape_blocks, decoder.texture_blocks
 
@@ -240,7 +289,8 @@ def pack_decoder_params(decoder) -> DecoderWeights:
     latents = ([pair(f"shape_latent_layer_{j}.0") for j in range(1, n_sh + 1)],
                [pair(f"texture_latent_layer_{j}.0") for j in range(1, n_tx + 1)])
     return pack_linear_params([t.detach() for t in decoder_linear_params(decoder)], n_sh, n_tx,
-                              decoder.num_xyz_freq, decoder.num_dir_freq, latents)
+                              decoder.num_xyz_freq, decoder.num_dir_freq, latents,
+                              decoder.field_dtype)
 
 
 def conditioned_latents(wts: DecoderWeights, shapecode, texturecode):
@@ -288,11 +338,16 @@ def decoder_plain(wts: DecoderWeights, xyz, viewdir, zs, zt):
 
 
 def render_fwd_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False,
-                     hit=None):
-    """K1's plain version: decoder_plain + ops.volume_render (differentiable).
-    With hit (B,R) (the AABB mode) z is per ray (B,R,S) and the density of
-    missed rays is zero, the unfused where(hit, sigma, 0) of render_rays_aabb."""
-    sigma, rgb = decoder_plain(wts, xyz, viewdir, zs, zt)
+                     hit=None, exact_pe=False):
+    """K1's plain version: decoder_plain (decoder_plain_bf16 in the bfloat16
+    mode) + ops.volume_render (differentiable). With hit (B,R) (the AABB
+    mode) z is per ray (B,R,S) and the density of missed rays is zero, the
+    unfused where(hit, sigma, 0) of render_rays_aabb. exact_pe: see
+    decoder_plain_bf16 (the float32 mode's encodings are exact anyway)."""
+    if wts.field_dtype == "bfloat16":
+        sigma, rgb = decoder_plain_bf16(wts, xyz, viewdir, zs, zt, exact_pe)
+    else:
+        sigma, rgb = decoder_plain(wts, xyz, viewdir, zs, zt)
     if hit is None:
         z = z[:, None, :]
     else:
@@ -302,13 +357,193 @@ def render_fwd_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=Fa
 
 def render_bwd_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
                      g_rgb, g_depth, g_acc, hit=None):
-    """K2's plain version: autograd through render_fwd_plain.
-    Returns (dxyz, dviewdir, dz, dzs, dzt); dz is per ray with hit."""
+    """K2's plain version: autograd through render_fwd_plain (in the
+    bfloat16 mode render_bwd_plain_bf16, the backward kernel's own
+    rounding). Returns (dxyz, dviewdir, dz, dzs, dzt); dz is per ray with
+    hit."""
+    if wts.field_dtype == "bfloat16":
+        return render_bwd_plain_bf16(wts, xyz, viewdir, z, zs, zt, white_bkgd, g_rgb, g_depth,
+                                     g_acc, hit)
     with torch.enable_grad():
         inputs = [t.detach().requires_grad_(True) for t in (xyz, viewdir, z, zs, zt)]
         outs = render_fwd_plain(wts, *inputs, white_bkgd=white_bkgd, hit=hit)
         return torch.autograd.grad(outs, inputs, (g_rgb, g_depth, g_acc),
                                    allow_unused=True, materialize_grads=True)
+
+
+# --------------------------------------------------------------------------
+# plain versions of the bfloat16 mode (the Pallas kernels at dtype=bfloat16)
+# --------------------------------------------------------------------------
+
+def encode_bf16(x, degree: int, exact_pe: bool = False):
+    """The encoding the bfloat16 kernels read: by the doubling recurrence
+    (pallas_field.py:_pe_for_dtype; exact_pe: the exact sines and cosines,
+    as the kernels that encode in place, A11a and A11b), rounded to
+    bfloat16."""
+    pe = positional_encoding if exact_pe else positional_encoding_doubling
+    return bf16_round(pe(x, degree))
+
+
+def decoder_chain_bf16(wts: DecoderWeights, xpe, hdir, zs, zt):
+    """decoder_chain in the bfloat16 mode (pallas_field.py:
+    _field_chain_to_heads and the heads at dtype=bfloat16): each dense
+    layer's input rounded to bfloat16 (the weights are, from the pack),
+    float32 sums, float32 biases added after; each latent added in float32
+    before its layer's rounding. xpe: the rounded encodings (encode_bf16)
+    (B,...,d_xyz); hdir: the viewdir layer's direction term (float32),
+    broadcastable to (B,...,W) -> (sigma (B,...), rgb (B,...,3))."""
+    r = bf16_round
+    mid = (slice(None),) + (None,) * (xpe.dim() - 2)
+    y = F.relu(xpe @ wts.w_xyz + wts.b_xyz)
+    for j in range(wts.n_shape):
+        y = F.relu(r(y + zs[mid + (j,)]) @ wts.w_sh[j] + wts.b_sh[j])
+    e = r(y) @ wts.w_es + wts.b_es
+    sigma = F.softplus(r(e) @ wts.w_sg + wts.b_sg)
+    h = F.relu(r(e) @ wts.w_vd_a + hdir + wts.b_vd)
+    for j in range(wts.n_tex):
+        h = F.relu(r(h + zt[mid + (j,)]) @ wts.w_tx[j] + wts.b_tx[j])
+    rgb = r(F.relu(r(h) @ wts.w_r1 + wts.b_r1)) @ wts.w_r2 + wts.b_r2
+    return sigma, rgb
+
+
+def render_direction_bf16(wts: DecoderWeights, viewdir, exact_pe: bool = False):
+    """The render kernels' per-ray direction input in the bfloat16 mode:
+    (dpe, hdir), the rounded encoding (B,R,d_dir) and the viewdir layer's
+    direction term dpe @ w_vd_b (B,R,W), rounded before the per-ray term is
+    expanded to the samples (pallas_render.py:_render_kernel's dir_term); not
+    rounded with exact_pe (A11a, whose split matmuls sum it in float32)."""
+    dpe = encode_bf16(viewdir, wts.num_dir_freq, exact_pe)
+    hdir = dpe @ wts.w_vd_b
+    return dpe, hdir if exact_pe else bf16_round(hdir)
+
+
+def decoder_plain_bf16(wts: DecoderWeights, xyz, viewdir, zs, zt, exact_pe: bool = False):
+    """decoder_plain in the bfloat16 mode: xyz (B,R,S,3), viewdir (B,R,3)
+    per ray -> (sigma (B,R,S), rgb (B,R,S,3)). exact_pe: the encodings'
+    exact sines and cosines and an unrounded direction term, the Pallas
+    kernel that encodes in place (A11a, field_composite_pallas(pe_in_kernel=
+    True)); else the encodings by the doubling recurrence (A1, A3)."""
+    _, hdir = render_direction_bf16(wts, viewdir, exact_pe)
+    return decoder_chain_bf16(wts, encode_bf16(xyz, wts.num_xyz_freq, exact_pe),
+                              hdir[:, :, None], zs, zt)
+
+
+def recompute_bf16(wts: DecoderWeights, xpe, hdir, zs, zt) -> dict:
+    """The backward kernels' forward recompute in the bfloat16 mode
+    (pallas_render.py:_render_bwd_kernel, pallas_field.py:_field_bwd_kernel):
+    decoder_chain_bf16 with each ReLU layer's output rounded to bfloat16
+    (the stash), so the next layer adds its latent to the rounded value and
+    rounds again; not the forward's bits. Returns the stashed outputs y0,
+    ys (shape blocks), v (viewdir layer), hs (texture blocks), hh
+    (rgb_hidden), the sigma head's pre-activation logit and rgb."""
+    r = bf16_round
+    mid = (slice(None),) + (None,) * (xpe.dim() - 2)
+    y0 = r(F.relu(xpe @ wts.w_xyz + wts.b_xyz))
+    ys, y = [], y0
+    for j in range(wts.n_shape):
+        y = r(F.relu(r(y + zs[mid + (j,)]) @ wts.w_sh[j] + wts.b_sh[j]))
+        ys.append(y)
+    e = y @ wts.w_es + wts.b_es
+    v = r(F.relu(r(e) @ wts.w_vd_a + hdir + wts.b_vd))
+    hs, h = [], v
+    for j in range(wts.n_tex):
+        h = r(F.relu(r(h + zt[mid + (j,)]) @ wts.w_tx[j] + wts.b_tx[j]))
+        hs.append(h)
+    hh = r(F.relu(h @ wts.w_r1 + wts.b_r1))
+    return {"y0": y0, "ys": ys, "v": v, "hs": hs, "hh": hh,
+            "logit": r(e) @ wts.w_sg + wts.b_sg, "rgb": hh @ wts.w_r2 + wts.b_r2}
+
+
+def transposed_bf16(wts: DecoderWeights, rec: dict, g_sig, drgb, dims):
+    """The backward kernels' transposed chain in the bfloat16 mode: each
+    layer's cotangent rounded to bfloat16 before its product (mm_t), the
+    ReLU masks from the stashed outputs of recompute_bf16. g_sig: the sigma
+    head's pre-activation cotangent, drgb the rgb cotangent (B,...,3);
+    dims: the point axes the latents' cotangents sum over. Returns (gpe,
+    gdir, dzs (B,n_shape,W), dzt (B,n_tex,W)): gpe the point encodings'
+    cotangent (B,...,d_xyz), gdir the direction encodings' per point
+    (B,...,d_dir), both float32."""
+    r = bf16_round
+    g = torch.where(rec["hh"] > 0, r(drgb) @ wts.w_r2.t(), 0.0)
+    g = r(g) @ wts.wt_r1
+    dzt = [None] * wts.n_tex
+    for j in reversed(range(wts.n_tex)):
+        g = r(torch.where(rec["hs"][j] > 0, g, 0.0)) @ wts.wt_tx[j]
+        dzt[j] = g.sum(dims)
+    g_v = r(torch.where(rec["v"] > 0, g, 0.0))
+    g = r(g_v @ wts.wt_vd_a + r(g_sig)[..., None] * wts.w_sg) @ wts.wt_es
+    dzs = [None] * wts.n_shape
+    for j in reversed(range(wts.n_shape)):
+        g = r(torch.where(rec["ys"][j] > 0, g, 0.0)) @ wts.wt_sh[j]
+        dzs[j] = g.sum(dims)
+    gpe = r(torch.where(rec["y0"] > 0, g, 0.0)) @ wts.wt_xyz
+    return gpe, g_v @ wts.wt_vd_b, torch.stack(dzs, 1), torch.stack(dzt, 1)
+
+
+def encode_bwd_bf16(pe, g, degree: int):
+    """The encoding's chain rule in the bfloat16 mode
+    (pallas_field.py:_pe_bwd_from_streamed): the sines and cosines are the
+    rounded encoding pe the forward read, each term cos g_sin - sin g_cos
+    is rounded to bfloat16 before its 2^i weight (the ladder matmul):
+    (..., d) cotangents g -> (..., 3)."""
+    L3 = 3 * degree
+    s, c = pe[..., 3:3 + L3], pe[..., 3 + L3:]
+    dxx = bf16_round(c * g[..., 3:3 + L3] - s * g[..., 3 + L3:])
+    freq = (2.0 ** torch.arange(degree, dtype=g.dtype, device=g.device)).repeat_interleave(3)
+    return g[..., :3] + (dxx * freq).reshape(*dxx.shape[:-1], degree, 3).sum(-2)
+
+
+def composite_vjp_bf16(sigma, rgb, z, white_bkgd, g_rgb, g_depth, g_acc):
+    """The compositing replay and its manual VJP of
+    pallas_render.py:_render_bwd_kernel (stable product form) with the rgb
+    cotangent rounded to bfloat16 per ray (its seg_expand), except in the
+    white background's term. sigma (B,R,S) the density (zero for a missed
+    ray), rgb (B,R,S,3), z (B,R,S); cotangents (B,R,3), (B,R), (B,R).
+    Returns (dsig, drgb, dz): the density's cotangent where it is positive,
+    the colours' (B,R,S,3) and the per-ray z cotangent (B,R,S)."""
+    delta = torch.cat([z[..., 1:] - z[..., :-1], torch.full_like(z[..., :1], LAST_DELTA)], -1)
+    alpha = 1.0 - torch.exp(-F.relu(sigma) * delta)
+    tt = F.relu(1.0 - alpha) + EPS_TRANS
+    t_excl = F.pad(torch.cumprod(tt, -1)[..., :-1], (1, 0), value=1.0)
+    w = alpha * t_excl
+    g_pts = bf16_round(g_rgb)[..., None, :]
+    gw = (g_pts * rgb).sum(-1) + g_depth[..., None] * z
+    if white_bkgd:
+        gw = gw - g_rgb.sum(-1, keepdim=True)
+    suffix = F.pad(torch.flip(torch.cumsum(torch.flip((gw * w)[..., 1:], [-1]), -1), [-1]),
+                   (0, 1))                                   # sum over i > s of gw_i w_i
+    not_last = torch.ones_like(z)
+    not_last[..., -1] = 0.0
+    de = (suffix + g_acc[..., None] * t_excl[..., -1:] * not_last) / tt - gw * t_excl
+    e_val = 1.0 - alpha
+    dsig = torch.where(sigma > 0, de * (-delta) * e_val, 0.0)
+    dd = de * (-F.relu(sigma)) * e_val * not_last
+    return dsig, w[..., None] * g_pts, g_depth[..., None] * w + F.pad(dd[..., :-1], (1, 0)) - dd
+
+
+def render_bwd_plain_bf16(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
+                          g_rgb, g_depth, g_acc, hit=None):
+    """K2's plain version in the bfloat16 mode: the backward kernel's own
+    arithmetic (pallas_render.py:_render_bwd_kernel at dtype=bfloat16), not
+    autograd through the forward: recompute_bf16 (the stash), the
+    compositing VJP with the per-ray rgb cotangent rounded, transposed_bf16,
+    and the encodings' chain rules, the per-point direction cotangents
+    rounded before their sum over the ray (its seg_reduce). Returns (dxyz,
+    dviewdir, dz, dzs, dzt) as render_bwd_plain."""
+    xpe = encode_bf16(xyz, wts.num_xyz_freq)
+    dpe, hdir = render_direction_bf16(wts, viewdir)
+    rec = recompute_bf16(wts, xpe, hdir[:, :, None], zs, zt)
+    sigma = F.softplus(rec["logit"])
+    if hit is None:
+        z = z[:, None, :].expand_as(sigma)
+    else:
+        sigma = torch.where(hit[..., None] != 0, sigma, torch.zeros_like(sigma))
+    dsig, drgb, dz = composite_vjp_bf16(sigma, rec["rgb"], z, white_bkgd, g_rgb, g_depth, g_acc)
+    gpe, gdir, dzs, dzt = transposed_bf16(wts, rec, dsig * torch.sigmoid(rec["logit"]), drgb,
+                                          (1, 2))
+    return (encode_bwd_bf16(xpe, gpe, wts.num_xyz_freq),
+            encode_bwd_bf16(dpe, bf16_round(gdir).sum(2), wts.num_dir_freq),
+            dz.sum(1) if hit is None else dz, dzs, dzt)
 
 
 # --------------------------------------------------------------------------
@@ -383,6 +618,11 @@ def _library():
     lib.supnerf_render_fwd.restype = i
     lib.supnerf_render_bwd.argtypes = head + [i, p] + [p] * 3 + [p] * 5 + [p]
     lib.supnerf_render_bwd.restype = i
+    # the bfloat16 builds (K1 also takes exact_pe after hit)
+    lib.supnerf_render_fwd_bf16.argtypes = head + [i, p, i] + [p] * 3 + [p]
+    lib.supnerf_render_fwd_bf16.restype = i
+    lib.supnerf_render_bwd_bf16.argtypes = head + [i, p] + [p] * 3 + [p] * 5 + [p]
+    lib.supnerf_render_bwd_bf16.restype = i
     lib.supnerf_render_train_bwd.argtypes = (head + [p] * 3 + [ctypes.POINTER(_StashLayout)]
                                              + [p] * 6)
     lib.supnerf_render_train_bwd.restype = i
@@ -393,6 +633,10 @@ def _library():
     lib.supnerf_field_fwd.restype = i
     lib.supnerf_field_bwd.argtypes = field + [p] * 7
     lib.supnerf_field_bwd.restype = i
+    lib.supnerf_field_fwd_bf16.argtypes = field + [p] * 2 + [i, p]
+    lib.supnerf_field_fwd_bf16.restype = i
+    lib.supnerf_field_bwd_bf16.argtypes = field + [p] * 7
+    lib.supnerf_field_bwd_bf16.restype = i
     lib.supnerf_field_train_bwd.argtypes = field + [p] * 2 + [ctypes.POINTER(_StashLayout)] + [p] * 5
     lib.supnerf_field_train_bwd.restype = i
     # the same kernels with their ReLU gates written out (csrc/field_gates.cu)
@@ -466,12 +710,22 @@ def _mode_args(hit):
     return [int(hit is not None), hit.data_ptr() if hit is not None else None]
 
 
-def render_fwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False, hit=None):
+def launch_key(name: str, wts: DecoderWeights, hit=None) -> str:
+    """The LAUNCHES key of kernel `name` (render_fwd, render_bwd, field_fwd,
+    field_bwd) in wts' mode: _aabb with hit, _bf16 in the bfloat16 mode."""
+    return (name + ("_aabb" if hit is not None else "")
+            + ("_bf16" if wts.field_dtype == "bfloat16" else ""))
+
+
+def render_fwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False, hit=None,
+               exact_pe=False):
     """K1 wrapper. Returns (rgb (B,R,3), depth (B,R), acc_trans (B,R)).
     With hit (B,R) (bool or float, nonzero for a hit) it runs the AABB mode:
-    z is per ray (B,R,S) and missed rays have zero density."""
+    z is per ray (B,R,S) and missed rays have zero density. In wts'
+    bfloat16 mode it launches K1's bfloat16 build; exact_pe selects that
+    build's exact encodings (A11a, decoder_plain_bf16)."""
     if xyz.device.type == "cpu":
-        return render_fwd_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd, hit)
+        return render_fwd_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd, hit, exact_pe)
     hit = _hit_operand(hit)
     _check_inputs(wts, xyz, viewdir, z, zs, zt, hit=hit)
     B, R = xyz.shape[:2]
@@ -479,14 +733,16 @@ def render_fwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False, h
     depth = torch.empty((B, R), device=xyz.device)
     acc = torch.empty((B, R), device=xyz.device)
     ptrs = _ptrs(wts)
+    bf16 = wts.field_dtype == "bfloat16"
     with torch.cuda.device(xyz.device):     # the runtime launches on its current device
-        err = _library().supnerf_render_fwd(
+        err = getattr(_library(), "supnerf_render_fwd" + ("_bf16" if bf16 else ""))(
             xyz.data_ptr(), viewdir.data_ptr(), z.data_ptr(), zs.data_ptr(), zt.data_ptr(),
             ctypes.byref(ptrs), *_dims(wts, xyz, white_bkgd), *_mode_args(hit),
+            *([int(bool(exact_pe))] if bf16 else []),
             rgb.data_ptr(), depth.data_ptr(), acc.data_ptr(),
             torch.cuda.current_stream(xyz.device).cuda_stream)
     _raise_on(err, "render_fwd")
-    LAUNCHES["render_fwd" if hit is None else "render_fwd_aabb"] += 1
+    LAUNCHES[launch_key("render_fwd", wts, hit)] += 1
     return rgb, depth, acc
 
 
@@ -496,7 +752,8 @@ def render_bwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
     dzs (B,n_shape,W), dzt (B,n_tex,W)). The kernel writes per-ray partial
     sums of dz, dzs and dzt; summing them over rays here is the second,
     deterministic pass of the cross-block reduction. With hit (the AABB
-    mode) z and dz are per ray, (B,R,S), and dz is returned unsummed."""
+    mode) z and dz are per ray, (B,R,S), and dz is returned unsummed. In
+    wts' bfloat16 mode it launches K2's bfloat16 build."""
     if xyz.device.type == "cpu":
         return render_bwd_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd, g_rgb, g_depth, g_acc,
                                 hit)
@@ -513,14 +770,15 @@ def render_bwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
     dz_part = torch.empty((B, R, S), device=dev)
     ptrs = _ptrs(wts)
     with torch.cuda.device(dev):
-        err = _library().supnerf_render_bwd(
+        err = getattr(_library(), "supnerf_render_bwd"
+                      + ("_bf16" if wts.field_dtype == "bfloat16" else ""))(
             xyz.data_ptr(), viewdir.data_ptr(), z.data_ptr(), zs.data_ptr(), zt.data_ptr(),
             ctypes.byref(ptrs), *_dims(wts, xyz, white_bkgd), *_mode_args(hit),
             g_rgb.data_ptr(), g_depth.data_ptr(), g_acc.data_ptr(),
             dxyz.data_ptr(), dvd.data_ptr(), dzs_part.data_ptr(), dzt_part.data_ptr(),
             dz_part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "render_bwd")
-    LAUNCHES["render_bwd" if hit is None else "render_bwd_aabb"] += 1
+    LAUNCHES[launch_key("render_bwd", wts, hit)] += 1
     dz = dz_part.sum(1) if hit is None else dz_part
     return dxyz, dvd, dz, dzs_part.sum(1), dzt_part.sum(1)
 
@@ -1021,6 +1279,16 @@ class FieldCompositeTrain(torch.autograd.Function):
         return (*(dx or (None,) * 3), dzs, dzt, None, None, None, *grads)
 
 
+def check_float32_decoder(decoder, what: str):
+    """Raise ValueError for a decoder in the bfloat16 mode: `what` runs the
+    training kernels (K1 with per-object latents, K3, K4, K7), which have no
+    bfloat16 build yet (ROADMAP §B)."""
+    if getattr(decoder, "field_dtype", "float32") != "float32":
+        raise ValueError(f"{what} with field_dtype {decoder.field_dtype!r}: the training "
+                         "kernels (K1 with per-object latents, K3, K4, K7) have no bfloat16 "
+                         "mode yet (ROADMAP §B); use float32")
+
+
 def conditioned_latents_of(decoder, shapecode, texturecode):
     """conditioned_latents through the decoder's live latent layers, so the
     layers and the codes get gradients: (zs (B,n_shape,W), zt (B,n_tex,W))."""
@@ -1044,8 +1312,10 @@ def field_composite_train(decoder, xyz, viewdir, z, shapecode, texturecode,
     gradient: this raises where JAX returns zeros. Runs
     FieldCompositeTrain: K1 and K3 + K4 for CUDA tensors, their plain
     versions inside the same wrappers for CPU tensors. Raises ValueError for
-    a decoder that is not kernel-compatible (decoder_kernel_compatible)."""
+    a decoder that is not kernel-compatible (decoder_kernel_compatible) and
+    for one in the bfloat16 mode (check_float32_decoder)."""
     check_kernel_decoder(decoder)
+    check_float32_decoder(decoder, "the training render")
     if viewdir.dim() == 4:
         viewdir = viewdir[:, :, 0]
     zs, zt = conditioned_latents_of(decoder, shapecode, texturecode)

@@ -183,7 +183,8 @@ def effective_wlh(wlh_gt, wlh_pred, mode: int):
 def render_decoder(model):
     """What the renders run (the `wts` of run_tto_batch and tto_loss): the
     kernel operands (ops.render.pack_decoder_params) of a kernel-compatible
-    decoder, else the model itself, whose decoder then runs as the plain
+    decoder, in its field_dtype (the bfloat16 mode reaches every render and
+    the regularisers' field_apply through them), else the model itself, whose decoder then runs as the plain
     decoder under autograd (the original AutoRF). The decoder's structure
     decides (ops.render.decoder_kernel_compatible), never a failed build or
     launch."""

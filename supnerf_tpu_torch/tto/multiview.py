@@ -26,6 +26,7 @@ import torch
 from supnerf_tpu_torch.geometry.boxes import invert_pose
 from supnerf_tpu_torch.models.nerf_mlp import AutoRFDecoder, CodeNeRFDecoder
 from supnerf_tpu_torch.ops.render import (
+    check_float32_decoder,
     decoder_composite,
     decoder_kernel_compatible,
     field_composite_train,
@@ -136,12 +137,16 @@ def run_multiview_tto(model, wts, batch: MultiviewBatch, mean_shape, mean_textur
     zeroed; without opt_pose they are not in the optimizer and keep their
     values. slack_tex: per-view texture residuals, zero at the start, added
     to the shared texture code (reference :874-880). opt_model: also a copy
-    of the decoder (decoder_copy) at AdamW lr LR_MODEL (reference :869).
+    of the decoder (decoder_copy) at AdamW lr LR_MODEL (reference :869),
+    refused for a model in the bfloat16 mode, whose decoder's training
+    kernels have no bfloat16 build yet (ops.render.check_float32_decoder).
     jitter: optional (num_opts, V, S)
     uniform draws of the loss renders' stratified samples, else drawn from
     `generator`. Returns codes at CODE_SAVE_ITERS (n_code, latent), the
     final codes, the final per-view poses (V, 3, 4) and the per-iteration
     loss and PSNR (num_opts,), both means over the views."""
+    if opt_model:
+        check_float32_decoder(model, "multiview opt_model")
     V, dev = len(batch.img_in), batch.img_in.device
     with torch.no_grad():
         if hasattr(model, "encode_img"):

@@ -79,7 +79,9 @@ def test_factory_refuses_instancenorm_encoders():
     """Once refused, InstanceNorm2d encoders now build for every arch with
     an encoder, as the JAX factory: every norm an InstanceNorm, no norm
     entry in the state_dict, which the converted JAX variables fill
-    exactly (a strict load); a bf16 field is refused (ROADMAP C.21)."""
+    exactly (a strict load); net_hyperparams' field_dtype sets SUPNeRF's
+    field precision and the baselines ignore it, as in the JAX factory
+    (ROADMAP C.28)."""
     from supnerf_tpu_torch.models.layers import BatchStatNorm2d, InstanceNorm2d
 
     for arch in ("supnerf", "autorfmix", "autorf_original"):
@@ -96,9 +98,16 @@ def test_factory_refuses_instancenorm_encoders():
         model.load_state_dict(convert_variables(arch, variables, hp), strict=True)
     with pytest.raises(ValueError, match="norm_layer_type"):
         build_model("supnerf", {"norm_layer_type": "GroupNorm"})
-    with pytest.raises(ValueError, match="C.21"):
-        build_model("autorfmix", {"field_dtype": "bfloat16"})
-    build_model("supnerf", {"field_dtype": "float32"})
+    # field_dtype as the JAX factory takes it: SUPNeRF's field precision, a
+    # key the baselines ignore; an unknown value raises (JAX: KeyError)
+    assert build_model("supnerf", {"field_dtype": "bfloat16"}).field_dtype == "bfloat16"
+    for value in ("float32", None):
+        assert build_model("supnerf", {"field_dtype": value}).field_dtype == "float32"
+    assert build_model("autorfmix", {"field_dtype": "bfloat16"}).field_dtype == "float32"
+    assert not hasattr(build_model("autorf_original", {"field_dtype": "bfloat16"}),
+                       "field_dtype")
+    with pytest.raises(ValueError, match="float16"):
+        build_model("supnerf", {"field_dtype": "float16"})
 
 
 @pytest.mark.parametrize("arch", list(HP))

@@ -179,7 +179,8 @@ def test_field_train_bwd_runs_k6s_backward_on_field_chain():
     render_common.cuh:field_backward, whose forward recompute is
     field_chain, the chain K5 runs, its exact step (field_exact64) inside
     it, so K7 differentiates at K6's gates and both at K5's; the float32
-    FMA layer K7 had before is gone."""
+    FMA layer K7 had before is gone. (Both bodies take the bfloat16 mode
+    as a template argument; K7 instantiates the float32 one.)"""
     k7 = (render.CSRC_DIR / "field_train_bwd.cu").read_text()
     k6 = (render.CSRC_DIR / "field_bwd.cu").read_text()
     k5 = (render.CSRC_DIR / "field_fwd.cu").read_text()
@@ -191,7 +192,9 @@ def test_field_train_bwd_runs_k6s_backward_on_field_chain():
         start = common.index(name)
         return common[start:common.index("\n}\n", start)]
 
-    assert "field_chain(" in body("static __device__ __forceinline__ void field_forward(")
-    assert "field_chain<kStash>(" in body("static __device__ __forceinline__ void field_backward(")
+    assert "field_chain<false, kBf16>(" in body(
+        "static __device__ __forceinline__ void field_forward(")
+    assert "field_chain<kStash, kBf16>(" in body(
+        "static __device__ __forceinline__ void field_backward(")
     assert "field_exact64(" in body("static __device__ __forceinline__ float* field_chain(")
     assert "dense_t" not in common and "dense(" not in k7
