@@ -210,6 +210,20 @@ Phases, each timed; any failure exits non-zero before the result line:
      runs' launches on the bfloat16 builds); (c) phase 7's cell (b) in the mode (K5 400, K6 384);
      (d) the demo at hpam_demo.json in the mode (K1's AABB build 100, K2's
      96; the frames through the plain decoder's bfloat16 mode).
+ 19. training in the bfloat16 mode: (a) at the training shape (8 objects x
+     1024 rays x 64 samples) K1 with the training encodings (A5), K3 in
+     both modes and K4 (A6) against their bfloat16 plain versions
+     (closer_than_float32, phase 18's rule), the weight gradients of K3 +
+     K4 and K4 alone on one shared stash (a float32 sum order apart,
+     WGRAD_RTOL), each timed beside bound_bf16 and its float32 build;
+     (b) cli.train at the published config and a copy with field_dtype
+     "bfloat16", A B B A, on the training cell (16 objects, batch 8, 4
+     steps) and on 48 objects at batch 48 (2 steps): exact launches (K1's
+     training-encoding build one a step, K3 and K4 one pair a stash chunk,
+     nothing else), steps/s, each step's render / backward split and the
+     losses bf16 - float32; (c) field_composite_train(data_grads=True) at
+     batch 48 in the mode (K3's data mode), its forward against the
+     bfloat16 plain version and one forward + backward timed.
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -770,11 +784,13 @@ def _timed(fn, n):
     return t0.elapsed_time(t1) / n
 
 
-def published_model(seed):
-    """The published config's SUPNeRF (random weights from `seed`) on the card."""
+def published_model(seed, field_dtype="float32"):
+    """The published config's SUPNeRF (random weights from `seed`) on the
+    card, in field_dtype's mode."""
     from supnerf_tpu_torch.models.factory import build_model, init_model
 
-    hp = {"shape_blocks": 3, "texture_blocks": 1, "latent_dim": 256, "pose_shortcut": 1}
+    hp = {"shape_blocks": 3, "texture_blocks": 1, "latent_dim": 256, "pose_shortcut": 1,
+          "field_dtype": field_dtype}
     return init_model(build_model("supnerf", hp), seed).cuda()
 
 
@@ -1702,7 +1718,9 @@ KERNEL_OF = {"render_fwd": "K1", "render_fwd_aabb": "K1", "render_bwd": "K2",
              "wgrad": "K4", "field_fwd": "K5", "field_bwd": "K6", "field_train_bwd": "K7"}
 KERNEL_OF.update({k + "_bf16": v for k, v in KERNEL_OF.items()
                   if k in ("render_fwd", "render_fwd_aabb", "render_bwd", "render_bwd_aabb",
-                           "field_fwd", "field_bwd")})
+                           "field_fwd", "field_bwd", "render_train_bwd",
+                           "render_train_bwd_data", "wgrad")})
+KERNEL_OF["render_fwd_train_bf16"] = "K1"
 
 
 def _in_temp_dir(fn):
@@ -2079,15 +2097,17 @@ def _decoder_params(model):
     return [getattr(model.get_submodule(n), k) for n in names for k in ("weight", "bias")]
 
 
-def _training_kernel_path(name, kernels, step, out_names, plain):
+def _training_kernel_path(name, kernels, step, out_names, plain, check=None):
     """Drives `step` (forward, loss, backward; returns the loss, the
     gradients, the data's gradients and the forward's outputs) once with
-    the launch counts set to 0 just before and read just after, holds the
-    forward's outputs against `plain()` (the forward kernel's plain version
-    on the same inputs) within VALUE_ATOL, checks that every gradient is
-    finite and that the data's are not all zero, then times one more call
-    with CUDA events. Returns the launch counts, the timed call's ms and the
-    forward's max abs error."""
+    the launch counts set to 0 just before and read just after (kernels:
+    the counters that must be positive, or a dict of the exact counts),
+    holds the forward's outputs against `plain()` (the forward kernel's
+    plain version on the same inputs) within VALUE_ATOL, or by
+    check(outputs, plain()) -> (max abs error, ok), checks that every
+    gradient is finite and that the data's are not all zero, then times
+    one more call with CUDA events. Returns the launch counts, the timed
+    call's ms and the forward's max abs error."""
     import torch
 
     from supnerf_tpu_torch.ops import render
@@ -2095,11 +2115,13 @@ def _training_kernel_path(name, kernels, step, out_names, plain):
     render.reset_launch_counts()
     loss, grads, data, outs = step()
     torch.cuda.synchronize()
-    counts = _path_counts(name, kernels)
+    counts = (_exact_counts(name, kernels) if isinstance(kernels, dict)
+              else _path_counts(name, kernels))
     with torch.no_grad():
         ref = plain()
-    err_fwd, ok_fwd = compare(out_names, [o.detach() for o in outs], ref,
-                              lambda n, s: VALUE_ATOL[n])
+    outs = [o.detach() for o in outs]
+    err_fwd, ok_fwd = (check(outs, ref) if check is not None else
+                       compare(out_names, outs, ref, lambda n, s: VALUE_ATOL[n]))
     del outs, ref
     if not ok_fwd:
         raise RuntimeError(f"the {name} path's forward kernel disagrees with its plain version")
@@ -3230,11 +3252,12 @@ def _stash_chunks(config, batch):
     return -(-batch // chunk)
 
 
-def _train_cell(label, config, argv, n_objects, batch, epochs=1):
+def _train_cell(label, config, argv, n_objects, batch, epochs=1, bf16=False):
     """One cli.train run on the card from a fresh count: the launches
     exactly K1 one a step (no panels), K3 and K4 one pair a stash chunk a
-    step, K3's data mode never; every loss finite; steps/s and the host
-    split printed. Returns (summary, counts, what it printed)."""
+    step (with bf16, of their bfloat16 builds: K1's with the training
+    encodings), K3's data mode never; every loss finite; steps/s and the
+    host split printed. Returns (summary, counts, what it printed)."""
     import math
 
     import torch
@@ -3250,8 +3273,9 @@ def _train_cell(label, config, argv, n_objects, batch, epochs=1):
     torch.cuda.synchronize()
     n_steps = len(summary["metrics"])
     pairs = n_steps * _stash_chunks(config, batch)
-    counts = _exact_counts(label, {"render_fwd": n_steps, "render_train_bwd": pairs,
-                                   "wgrad": pairs})
+    keys = (("render_fwd_train_bf16", "render_train_bwd_bf16", "wgrad_bf16") if bf16
+            else ("render_fwd", "render_train_bwd", "wgrad"))
+    counts = _exact_counts(label, dict(zip(keys, (n_steps, pairs, pairs))))
     if not all(math.isfinite(v) for m in summary["metrics"] for k, v in m.items()
                if k.startswith(("loss", "psnr"))):
         raise RuntimeError(f"{label}: a loss is not finite: {summary['metrics']}")
@@ -4323,9 +4347,10 @@ def check_bf16_kernels():
         # the encodings by the doubling recurrence (A1, A3), and in place (A11a)
         for exact in (False,) if h is not None else (False, True):
             with torch.no_grad():
-                got = render.render_fwd(w16, *a, False, h, exact_pe=exact)
+                pe = "exact" if exact else "doubling"
+                got = render.render_fwd(w16, *a, False, h, pe=pe)
                 torch.cuda.synchronize()
-                p16 = render.render_fwd_plain(w16, *a, False, h, exact_pe=exact)
+                p16 = render.render_fwd_plain(w16, *a, False, h, pe=pe)
                 p32 = render.render_fwd_plain(w32, *a, False, h)
             names = [n + ("(exact_pe)" if exact else "") for n in ("rgb", "depth", "acc")]
             e, good, d = closer_than_float32(names, got, p16, p32)
@@ -4341,7 +4366,7 @@ def check_bf16_kernels():
         ok &= good
         del got, p16, p32
         t_f = _timed(lambda: render.render_fwd(w16, *a, False, h), 10)
-        t_fx = _timed(lambda: render.render_fwd(w16, *a, False, h, exact_pe=True), 10)
+        t_fx = _timed(lambda: render.render_fwd(w16, *a, False, h, pe="exact"), 10)
         t_f32 = _timed(lambda: render.render_fwd(w32, *a, False, h), 10)
         with torch.no_grad():
             t_fp = _timed(lambda: render.render_fwd_plain(w16, *a, False, h), 3)
@@ -4548,6 +4573,256 @@ def bf16_paths():
     return records, counts
 
 
+# ---- phase 19: training in the bfloat16 mode -----------------------------
+
+BF16_TRAIN_CELLS = (("training cell", TRAIN_OBJECTS, TRAIN_BATCH, 2),
+                    ("batch 48", SWEEP_BATCH, SWEEP_BATCH, 2))
+
+
+def check_bf16_train_kernels():
+    """Phase 19 (a): at the training path's shape, K1 with the training
+    encodings (A5), K3 in both modes and K4 (A6) in the bfloat16 mode
+    against their bfloat16 plain versions, beside those against the float32
+    plain versions (closer_than_float32): K1's outputs; K3's dzs and dzt
+    (and in the data mode dxyz, dviewdir, dz); the weight gradients of K3 +
+    K4 (render_train_bwd against render_train_bwd_plain, K3's plain version
+    then K4's); K4 alone against wgrad_plain in the mode on the stash K3
+    wrote (a float32 sum order apart: WGRAD_RTOL of each gradient's largest
+    value) and twice on it, the same bits. Each timed beside bound_bf16
+    and the float32 build at the same shape. Returns the records."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    w32, args, cot = kernel_inputs(seed=1, B=TRAIN_BATCH)
+    w16 = render.with_field_dtype(w32, "bfloat16")
+    B, R, S = args[0].shape[:3]
+    W, ns, nt = w32.W, w32.n_shape, w32.n_tex
+    pts, rays = B * R * S, B * R
+    names = ["d" + n for n in _linear_param_names(w32)]
+    print(f"   at the training path's shape, {B} objects x {R} rays x {S} samples:")
+    ok = True
+    with torch.no_grad():
+        got = render.render_fwd(w16, *args, pe="train")
+        torch.cuda.synchronize()
+        p16 = render.render_fwd_plain(w16, *args, pe="train")
+        p32 = render.render_fwd_plain(w32, *args)
+    err_f, good, det_f = closer_than_float32(("rgb", "depth", "acc"), got, p16, p32)
+    ok &= good
+    del got, p16, p32
+
+    p16 = render.render_train_bwd_plain(w16, *args, False, *cot, data_grads=True)
+    p32 = render.render_train_bwd_plain(w32, *args, False, *cot, data_grads=True)
+    torch.cuda.synchronize()
+    out_names = ("dzs", "dzt", "dxyz", "dviewdir", "dz")
+    err_k3, det_k3 = {}, {}
+    for data in (False, True):
+        got = render.render_train_bwd(w16, *args, False, *cot, data_grads=data)
+        torch.cuda.synchronize()
+        n = 5 if data else 2
+        print(f"   K3 (data_grads={data}) against its plain versions:")
+        sel = [0, 1] + ([3, 4, 5] if data else [])
+        err_k3[data], good, det_k3[data] = closer_than_float32(
+            out_names[:n], [got[i] for i in sel], [p16[i] for i in sel], [p32[i] for i in sel])
+        ok &= good
+        if not data:
+            print("   K3 + K4's weight gradients against their plain versions:")
+            err_w, good, det_w = closer_than_float32(names, got[2], p16[2], p32[2])
+            ok &= good
+        del got
+    del p16, p32
+
+    # one stash buffer of a chunk, reused chunk by chunk as render_train_bwd does
+    L = render.stash_layout(w16)
+    chunk = max(1, min(B, render.STASH_BYTES // (R * S * L["ld_pt"] * 4)))
+    pt = torch.empty((chunk * R * S, L["ld_pt"]), device="cuda")
+    ray = torch.empty((chunk * R, L["ld_ray"]), device="cuda")
+    chunks = [slice(o, min(B, o + chunk)) for o in range(0, B, chunk)]
+
+    def k3(fn, wts, **kw):
+        for sl in chunks:
+            nb = sl.stop - sl.start
+            fn(wts, *(t[sl] for t in args), False, *(c[sl] for c in cot), pt[:nb * R * S],
+               ray[:nb * R], **kw)
+
+    k3(render.render_train_bwd_stash, w16)
+    nb = chunks[-1].stop - chunks[-1].start
+    view = (pt[:nb * R * S], ray[:nb * R])
+    gk, gp, again = (render._linear_grad_buffers(w16, "cuda") for _ in range(3))
+    render.wgrad(render.wgrad_problems(w16, *view, gk), field_dtype="bfloat16")
+    render.wgrad(render.wgrad_problems(w16, *view, again), field_dtype="bfloat16")
+    torch.cuda.synchronize()
+    render.wgrad_plain(render.wgrad_problems(w16, *view, gp), field_dtype="bfloat16")
+    print(f"   K4 in the mode against wgrad_plain in the mode on one stash (tolerance "
+          f"WGRAD_RTOL {WGRAD_RTOL:.0e} of each gradient's largest value: float32 sums of "
+          "the same rounded products in another order):")
+    err_k4, good = compare(names, gk, gp, lambda n, s: WGRAD_RTOL * s)
+    same = all(torch.equal(a, b) for a, b in zip(gk, again))
+    print(f"   K4 in the mode twice on the same stash, the same bits: "
+          f"{'ok' if same else 'FAIL'}")
+    ok &= good and same
+    del gk, gp, again
+    if not ok:
+        raise RuntimeError("a bfloat16 training kernel disagrees with its plain version")
+
+    # K4 on every chunk's view of the stash buffer, as check_wgrad times it
+    probs = [render.wgrad_problems(w16, pt[:(sl.stop - sl.start) * R * S],
+                                   ray[:(sl.stop - sl.start) * R],
+                                   render._linear_grad_buffers(w16, "cuda")) for sl in chunks]
+    t_f = _timed(lambda: render.render_fwd(w16, *args, pe="train"), 5)
+    t_f32 = _timed(lambda: render.render_fwd(w32, *args), 5)
+    with torch.no_grad():
+        t_fp = _timed(lambda: render.render_fwd_plain(w16, *args, pe="train"), 3)
+    t_k3 = {d: _timed(lambda: k3(render.render_train_bwd_stash, w16, data_grads=d), 3)
+            for d in (False, True)}
+    t_k3_32 = {d: _timed(lambda: k3(render.render_train_bwd_stash, w32, data_grads=d), 3)
+               for d in (False, True)}
+    t_k3_p = {d: _timed(lambda: k3(render.render_train_bwd_stash_plain, w16, data_grads=d), 2)
+              for d in (False, True)}
+    k3(render.render_train_bwd_stash, w16)
+    t_k4 = _timed(lambda: [render.wgrad(q, field_dtype="bfloat16") for q in probs], 5)
+    t_k4_32 = _timed(lambda: [render.wgrad(q) for q in probs], 5)
+    t_k4_p = _timed(lambda: [render.wgrad_plain(q, field_dtype="bfloat16") for q in probs], 3)
+    t_all = _timed(lambda: render.render_train_bwd(w16, *args, False, *cot), 3)
+    t_all32 = _timed(lambda: render.render_train_bwd(w32, *args, False, *cot), 3)
+    print(f"   training backward K3 + K4 through render_train_bwd: bfloat16 {t_all:.3f} ms, "
+          f"float32 {t_all32:.3f} ms ({len(chunks)} chunks of {chunk} objects)")
+
+    w_fwd = sum(getattr(w32, f).numel() for f in render._PTR_FIELDS if not f.startswith("wt_"))
+    w_all = sum(getattr(w32, f).numel() for f in render._PTR_FIELDS)
+    act = sum(t.numel() for t in args) * 4
+    stash_bytes = (pts * L["width"] + rays * (L["r_gv"] + W)) * 4
+    fwd_flops = 2 * pts * decoder_macs(W, ns, nt)
+    k3_flops = fwd_flops + 2 * pts * (transposed_macs(W, ns, nt) - W * 63)
+    k3_bytes = act + w_all * 4 + rays * 5 * 4 + stash_bytes + rays * (ns + nt) * W * 4
+    data_flops = fwd_flops + 2 * pts * transposed_macs(W, ns, nt)
+    data_bytes = k3_bytes + (pts * 3 + rays * 3 + B * S) * 4
+    k4_flops = sum(2 * p.A.shape[0] * p.A.shape[1] * p.G.shape[1]
+                   + (p.A.shape[0] * p.G.shape[1] if p.b_out is not None else 0)
+                   for q in probs for p in q)
+    k4_bytes = stash_bytes + sum(t.numel() for t in render.linear_params_of(w32)) * 4
+    tpu = "supnerf_tpu/ops/pallas_render.py:991"
+    src = "supnerf_tpu_torch/csrc/render_train_bwd.cu"
+    records = [
+        record_bf16("render_fwd_train_bf16", ["A5"], "supnerf_tpu/ops/pallas_render.py:127",
+                    "supnerf_tpu_torch/csrc/render_fwd.cu", t_f, t_fp, t_f32, err_f,
+                    bound_bf16(fwd_flops, act + w_fwd * 4 + rays * 5 * 4), det_f),
+        record_bf16("render_train_bwd_bf16", ["A6"], tpu, src, t_k3[False], t_k3_p[False],
+                    t_k3_32[False], err_k3[False], bound_bf16(k3_flops, k3_bytes),
+                    det_k3[False]),
+        record_bf16("render_train_bwd_data_bf16", ["A6"], tpu, src, t_k3[True], t_k3_p[True],
+                    t_k3_32[True], err_k3[True], bound_bf16(data_flops, data_bytes),
+                    det_k3[True]),
+        record_bf16("wgrad_bf16", ["A6"], tpu, "supnerf_tpu_torch/csrc/wgrad.cu", t_k4, t_k4_p,
+                    t_k4_32, err_k4, bound_bf16(k4_flops, k4_bytes), {})]
+    records[-1]["weight_grads_k3_k4"] = det_w
+    records[-1]["max_abs_err_k3_k4"] = err_w
+    records[1]["render_train_bwd_ms"] = {"bfloat16": t_all, "float32": t_all32}
+    return records
+
+
+def bf16_train_cells(out_dir):
+    """Phase 19 (b): cli.train at the published config and at a copy with
+    field_dtype "bfloat16", A B B A, on each of BF16_TRAIN_CELLS: exact
+    launches (_train_cell), steps/s, each step's render and backward split,
+    and the losses bf16 - float32 step by step (one seed: the same
+    weights, codes and batches). Returns the launch counts of each cell's
+    first bfloat16 run, keyed bf16_train and bf16_train_48."""
+    import numpy as np
+
+    configs = {"float32": PUBLISHED,
+               "bfloat16": _option_config(out_dir, "bf16",
+                                          net_hyperparams={"field_dtype": "bfloat16"})}
+    counts = {}
+    for (label, n_objects, batch, epochs), key in zip(BF16_TRAIN_CELLS,
+                                                      ("bf16_train", "bf16_train_48")):
+        runs = {"float32": [], "bfloat16": []}
+        for i, mode in enumerate(BF16_AB_RUNS):
+            summary, c, _ = _train_cell(
+                f"{label}, {mode} run {i}", configs[mode],
+                ["--save_dir", os.path.join(out_dir, f"{key}_{i}"), "--save_every", "1000"],
+                n_objects, batch, epochs, bf16=mode == "bfloat16")
+            runs[mode].append(summary)
+            if mode == "bfloat16":
+                counts.setdefault(key, c)
+        for mode, rs in runs.items():
+            split = [{k: float(np.mean([m["phase_seconds"].get(k, 0.0) for m in r["metrics"]]))
+                      for k in ("render", "backward")} for r in rs]
+            print(f"   {label}, {mode}: steps/s " + ", ".join(
+                f"{len(r['metrics']) / sum(m['seconds'] for m in r['metrics']):.3f}"
+                for r in rs) + "; mean render / backward per step (s) " + ", ".join(
+                f"{sp['render']:.4f} / {sp['backward']:.4f}" for sp in split))
+        a, b = runs["float32"][0]["metrics"], runs["bfloat16"][0]["metrics"]
+        print(f"   {label}: losses bf16 - float32 per step: " + json.dumps(
+            {k: [float(mb[k]) - float(ma[k]) for ma, mb in zip(a, b)]
+             for k in ("loss_total", "loss_rgb", "loss_occ")}))
+    return counts
+
+
+def bf16_train_data_path():
+    """Phase 19 (c): train_render_data_path in the bfloat16 mode: K1 with
+    the training encodings, then K3's data mode and K4 per stash chunk, at
+    batch 48, the exact launches, its forward held to the bfloat16 plain
+    version (closer_than_float32), one forward + backward timed. Returns
+    the launch counts and the timed call's ms."""
+    import torch
+
+    from supnerf_tpu_torch.ops import render
+
+    model = published_model(5, "bfloat16")
+    _, (xyz, vd, z, _, _), _ = kernel_inputs(seed=5, B=SWEEP_BATCH, model=model)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    codes = torch.randn((2, SWEEP_BATCH, 256), generator=g, device="cuda") * 0.3
+    target = torch.rand((SWEEP_BATCH, xyz.shape[1], 3), generator=g, device="cuda")
+    params = _decoder_params(model)
+    pairs = _stash_chunks(PUBLISHED, SWEEP_BATCH)
+
+    def step():
+        data = [t.detach().requires_grad_(True) for t in (xyz, vd, z)]
+        sc, tc = (c.detach().requires_grad_(True) for c in codes)
+        rgb, depth, acc = render.field_composite_train(model, *data, sc, tc)
+        loss = ((rgb - target) ** 2).mean() + (acc ** 2).mean() + 1e-3 * depth.mean()
+        grads = torch.autograd.grad(loss, params + [sc, tc] + data)
+        return loss, grads, grads[-3:], (rgb, depth, acc)
+
+    def plain():
+        live = [t.detach() for t in render.decoder_linear_params(model)]
+        meta = (model.shape_blocks, model.texture_blocks, model.num_xyz_freq,
+                model.num_dir_freq)
+        lat = render.conditioned_latents_of(model, *codes)
+        return (render.render_fwd_plain(render.pack_linear_params(live, *meta,
+                                                                  field_dtype="bfloat16"),
+                                        xyz, vd, z, *lat, pe="train"),
+                render.render_fwd_plain(render.pack_linear_params(live, *meta), xyz, vd, z,
+                                        *lat))
+
+    def check(outs, ref):
+        return closer_than_float32(("rgb", "depth", "acc"), outs, *ref)[:2]
+
+    print(f"   field_composite_train(data_grads=True) in the bfloat16 mode, {SWEEP_BATCH} "
+          f"objects x {xyz.shape[1]} rays x {xyz.shape[2]} samples:")
+    return _training_kernel_path(
+        "bfloat16 training render with data gradients",
+        {"render_fwd_train_bf16": 1, "render_train_bwd_data_bf16": pairs, "wgrad_bf16": pairs},
+        step, ("rgb", "depth", "acc"), plain, check)
+
+
+def bf16_train_paths():
+    """Phase 19. Returns (kernel records, launch counts by path)."""
+    records = check_bf16_train_kernels()
+    counts = _in_temp_dir(bf16_train_cells)
+    counts["bf16_train_data"], data_ms, data_err = bf16_train_data_path()
+    main_path = {"render_fwd_train_bf16": "bf16_train", "render_train_bwd_bf16": "bf16_train",
+                 "render_train_bwd_data_bf16": "bf16_train_data", "wgrad_bf16": "bf16_train"}
+    for r in records:
+        r["kernel"] = KERNEL_OF[r["name"]]
+        r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in counts.items()}
+        r["launches"] = r["launches_by_path"][main_path[r["name"]]]
+    records[2]["batch48_fwd_bwd_ms"] = data_ms
+    records[0]["batch48_max_abs_err"] = data_err
+    return records, counts
+
+
 def kernel_records(tto_records, train_records, aabb_records, field_records,
                    train_kernel_records, train_field_extra, codenerf_extra, counts_by_path):
     """One record per launch counter, launches from the path that runs it
@@ -4694,6 +4969,11 @@ def main():
                "regulariser cell, (d) the demo")
     bf16_records, bf16_counts = bf16_paths()
     done(t0, "the bfloat16 mode")
+    t0 = phase("training in the bfloat16 mode: (a) K1 (training encodings), K3 (both modes) "
+               "and K4 against their bfloat16 plain versions, (b) cli.train float32 / bfloat16 "
+               "A B B A at batch 8 and 48, (c) field_composite_train(data_grads=True)")
+    bf16_train_records, bf16_train_counts = bf16_train_paths()
+    done(t0, "training in the bfloat16 mode")
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
                              train_kernel_records, train_field_extra, codenerf_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
@@ -4702,7 +4982,8 @@ def main():
                               "train_field": field_train_counts, **dataset_counts,
                               **baseline_counts, **driver_counts, **vis_counts,
                               **training_counts, **last_counts, **dp_counts,
-                              **pipeline_counts, **layout_counts, **bf16_counts})
+                              **pipeline_counts, **layout_counts, **bf16_counts,
+                              **bf16_train_counts})
     records_by_name = {r["name"]: r for r in records}
     records_by_name["render_fwd"].update(vis_kernels)
     records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms
@@ -4710,7 +4991,7 @@ def main():
     records_by_name["render_fwd"]["batch48_max_abs_err"] = render_data_err
     records_by_name["field_fwd"]["batch48_max_abs_err"] = field_train_err
     records_by_name["render_train_bwd_data"]["multiview_opt_model"] = opt_model_check
-    records += bf16_records
+    records += bf16_records + bf16_train_records
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("kernels: " + " ".join(f"{r['kernel']}:{r['name']}({','.join(r['ports'])})"
                                  for r in records))

@@ -118,7 +118,7 @@ static __device__ __forceinline__ void render_bwd_body(
   // (kBf16: and each ReLU output rounded, round_out)
   if constexpr (kBf16) {
     encode_points_bf16(xyz + ray_idx * S * 3, S, d.l_xyz, false, pe);
-    direction_term_bf16(vd + ray_idx * 3, d.l_dir, false, w, W, dpe, hdir);
+    direction_term_bf16(vd + ray_idx * 3, d.l_dir, kPeDoubling, w, W, dpe, hdir);
   } else {
     encode_points(xyz + ray_idx * S * 3, S, d.l_xyz, pe);
     direction_term(vd + ray_idx * 3, d.l_dir, w, W, dpe, hdir);

@@ -15,13 +15,14 @@
 // on the tensor cores: every dense layer of every kernel) splits each
 // layer's output columns across the warps.
 //
-// The bfloat16 mode (K1, K2, K5, K6 built with kBf16; ops/render.py's
-// DecoderWeights.field_dtype "bfloat16"): the Pallas kernels at
-// dtype=bfloat16. Every dense layer runs on dense_mma_bf16 (bf16.cuh:
-// bfloat16 operands, exact products, float32 sums; the weights arrive
-// rounded from the pack), the encodings by the doubling recurrence and
-// rounded (encode_one_bf16), the per-ray direction term rounded
-// (direction_term_bf16), the heads on rounded operands (head<true>); the
+// The bfloat16 mode (K1, K2, K3, K5, K6 built with kBf16; K4's bfloat16
+// entry in wgrad.cu; ops/render.py's DecoderWeights.field_dtype
+// "bfloat16"): the Pallas kernels at dtype=bfloat16. Every dense layer runs
+// on dense_mma_bf16 (bf16.cuh: bfloat16 operands, exact products, float32
+// sums; the weights arrive rounded from the pack), the encodings rounded
+// (encode_one_bf16: by the doubling recurrence, or exact, PeMode), the
+// per-ray direction term rounded except in A11a (direction_term_bf16), the
+// heads on rounded operands (head<true>); the
 // backward recompute rounds its ReLU outputs (dense_mma_bf16's round_out,
 // the Pallas kernels' stash) and the transposed chain its cotangents where
 // they enter a product. Activations stay float32 in shared memory, rounded
@@ -50,6 +51,13 @@ constexpr int kPeStride = 64;    // row stride of the point-encoding buffer
 constexpr int kMaxDirPe = 64;    // direction encoding slots
 constexpr float kEpsTrans = 1e-10f;
 constexpr float kLastDelta = 1e10f;
+
+// The bfloat16 render kernels' encodings (ops/render.py PE_MODES, in its
+// order): kPeDoubling, the sines and cosines by the doubling recurrence and
+// the direction term rounded (A1-A4); kPeExact, exact sines and cosines
+// and an unrounded direction term (A11a); kPeTrain, exact sines and cosines
+// and the direction term rounded (the training kernels A5 and A6).
+enum PeMode { kPeDoubling = 0, kPeExact = 1, kPeTrain = 2 };
 
 // Pointers into the frozen decoder (all float32, row-major). The forward
 // chain reads the (in, out) "kernel" layout; the transposed chain of the
@@ -753,11 +761,13 @@ static __device__ __forceinline__ void encode_backward_one(const float* pe, cons
 static __device__ __forceinline__ float sigmoid(float x) { return 1.f / (1.f + expf(-x)); }
 
 // Column sums over the S real rows: the cotangent of a latent that was added
-// to every row of a block's input.
+// to every row of a block's input. kRound: each value rounded to bfloat16
+// before the float32 sum (the Pallas training kernel's seg_reduce of g_v).
+template <bool kRound = false>
 static __device__ void column_sums(const float* buf, int stride, int N, int S, float* out) {
   for (int c = threadIdx.x; c < N; c += kThreads) {
     float s = 0.f;
-    for (int r = 0; r < S; ++r) s += buf[r * stride + c];
+    for (int r = 0; r < S; ++r) s += kRound ? bf16_round(buf[r * stride + c]) : buf[r * stride + c];
     out[c] = s;
   }
   __syncthreads();
@@ -817,24 +827,25 @@ static __device__ void direction_term(const float* vd, int degree, const Decoder
   __syncthreads();
 }
 
-// direction_term in the bfloat16 mode: dpe the rounded encoding
-// (encode_one_bf16), the term dpe @ Wvd_b (exact products, float32 sums)
-// rounded to bfloat16 before b_vd is added (the Pallas kernel rounds the
-// per-ray term before it expands it to the samples), not rounded with
-// exact (A11a sums it with the layer's other products).
-static __device__ void direction_term_bf16(const float* vd, int degree, bool exact,
+// direction_term in the bfloat16 mode with the encodings pe_mode (PeMode):
+// dpe the rounded encoding (encode_one_bf16, exact sines and cosines but
+// for kPeDoubling), the term dpe @ Wvd_b (exact products, float32 sums)
+// rounded to bfloat16 before b_vd is added (the Pallas kernels round the
+// per-ray term before they expand it to the samples), not rounded with
+// kPeExact (A11a sums it with the layer's other products).
+static __device__ void direction_term_bf16(const float* vd, int degree, int pe_mode,
                                            const DecoderWeights& w, int W, float* dpe,
                                            float* hdir) {
   if (threadIdx.x == 0) {
     const float x[3] = {vd[0], vd[1], vd[2]};
-    encode_one_bf16(x, degree, exact, dpe);
+    encode_one_bf16(x, degree, pe_mode != kPeDoubling, dpe);
   }
   __syncthreads();
   const int d_dir = pe_width(degree);
   for (int n = threadIdx.x; n < W; n += kThreads) {
     float s = 0.f;
     for (int k = 0; k < d_dir; ++k) s = fmaf(dpe[k], __ldg(w.w_vd_b + k * W + n), s);
-    hdir[n] = (exact ? s : bf16_round(s)) + w.b_vd[n];
+    hdir[n] = (pe_mode == kPeExact ? s : bf16_round(s)) + w.b_vd[n];
   }
   __syncthreads();
 }
@@ -967,7 +978,10 @@ struct StashLayout {
 // where N >= 4): a warp per row, the row's whole quads as 16-byte streaming
 // stores (the stash is read once, by K4, and is far larger than L2), the
 // last N mod 4 columns one float at a time. No barrier: the caller's next
-// __syncthreads() comes before anything rewrites buf.
+// __syncthreads() comes before anything rewrites buf. kRound: each value
+// stored rounded to bfloat16 (K3's bfloat16 mode: the A side of its stash,
+// the operands the Pallas kernel's mm_xg casts).
+template <bool kRound = false>
 static __device__ __forceinline__ void stash_rows(const float* buf, int stride, int N, int n,
                                                   float* dst, int ld) {
   const int lane = threadIdx.x & 31;
@@ -975,9 +989,17 @@ static __device__ __forceinline__ void stash_rows(const float* buf, int stride, 
   for (int r = threadIdx.x >> 5; r < n; r += kThreads / 32) {
     const float* src = buf + r * stride;
     float* out = dst + (size_t)r * ld;
-    for (int q = lane; q < nq; q += 32)
-      __stcs(reinterpret_cast<float4*>(out) + q, reinterpret_cast<const float4*>(src)[q]);
-    for (int c = 4 * nq + lane; c < N; c += 32) __stcs(out + c, src[c]);
+    for (int q = lane; q < nq; q += 32) {
+      float4 v = reinterpret_cast<const float4*>(src)[q];
+      if (kRound) {
+        v.x = bf16_round(v.x);
+        v.y = bf16_round(v.y);
+        v.z = bf16_round(v.z);
+        v.w = bf16_round(v.w);
+      }
+      __stcs(reinterpret_cast<float4*>(out) + q, v);
+    }
+    for (int c = 4 * nq + lane; c < N; c += 32) __stcs(out + c, kRound ? bf16_round(src[c]) : src[c]);
   }
 }
 

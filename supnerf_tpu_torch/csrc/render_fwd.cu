@@ -62,8 +62,11 @@
 // sixth of the float32 mode's (989 against 495 / 3 TFLOP/s); the encodings
 // by the doubling recurrence and rounded, the per-ray direction term
 // rounded, the heads on rounded operands; compositing stays float32.
-// exact_pe: the exact encodings and an unrounded direction term (A11a,
-// field_composite_pallas(pe_in_kernel=True)).
+// pe_mode (render_common.cuh PeMode): kPeExact, the exact encodings and an
+// unrounded direction term (A11a, field_composite_pallas(pe_in_kernel=
+// True)); kPeTrain, the exact encodings and the direction term rounded
+// (A5, the training forward of field_composite_train_pallas on per-object
+// latents: _make_render_train_core's encode).
 #include "render_common.cuh"
 
 namespace supnerf {
@@ -72,7 +75,7 @@ template <bool kBf16>
 static __device__ __forceinline__ void render_fwd_body(
     const float* __restrict__ xyz, const float* __restrict__ vd, const float* __restrict__ z,
     const float* __restrict__ zs, const float* __restrict__ zt, const DecoderWeights& w,
-    const Dims& d, int white_bkgd, int z_per_ray, const float* __restrict__ hit, bool exact_pe,
+    const Dims& d, int white_bkgd, int z_per_ray, const float* __restrict__ hit, int pe_mode,
     float* __restrict__ out_rgb, float* __restrict__ out_depth, float* __restrict__ out_acc) {
   const int ray = blockIdx.x, obj = blockIdx.y;
   const int W = d.W, W2 = d.W / 2, S = d.S;
@@ -102,8 +105,8 @@ static __device__ __forceinline__ void render_fwd_body(
   float* rgb = sig + kRows;                  // kRows x 3
 
   if constexpr (kBf16) {
-    encode_points_bf16<kPeLd>(xyz + ray_idx * S * 3, S, d.l_xyz, exact_pe, pe);
-    direction_term_bf16(vd + ray_idx * 3, d.l_dir, exact_pe, w, W, dpe, hdir);  // syncs
+    encode_points_bf16<kPeLd>(xyz + ray_idx * S * 3, S, d.l_xyz, pe_mode != kPeDoubling, pe);
+    direction_term_bf16(vd + ray_idx * 3, d.l_dir, pe_mode, w, W, dpe, hdir);  // syncs
   } else {
     encode_points<kPeLd>(xyz + ray_idx * S * 3, S, d.l_xyz, pe);
     direction_term(vd + ray_idx * 3, d.l_dir, w, W, dpe, hdir);  // syncs
@@ -168,8 +171,8 @@ render_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ vd,
                   int white_bkgd, int z_per_ray, const float* __restrict__ hit,
                   float* __restrict__ out_rgb,
                   float* __restrict__ out_depth, float* __restrict__ out_acc) {
-  render_fwd_body<false>(xyz, vd, z, zs, zt, w, d, white_bkgd, z_per_ray, hit, false, out_rgb,
-                         out_depth, out_acc);
+  render_fwd_body<false>(xyz, vd, z, zs, zt, w, d, white_bkgd, z_per_ray, hit, kPeDoubling,
+                         out_rgb, out_depth, out_acc);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -177,10 +180,10 @@ render_fwd_bf16_kernel(const float* __restrict__ xyz, const float* __restrict__ 
                        const float* __restrict__ z, const float* __restrict__ zs,
                        const float* __restrict__ zt, DecoderWeights w, Dims d,
                        int white_bkgd, int z_per_ray, const float* __restrict__ hit,
-                       int exact_pe, float* __restrict__ out_rgb,
+                       int pe_mode, float* __restrict__ out_rgb,
                        float* __restrict__ out_depth, float* __restrict__ out_acc) {
-  render_fwd_body<true>(xyz, vd, z, zs, zt, w, d, white_bkgd, z_per_ray, hit, exact_pe != 0,
-                        out_rgb, out_depth, out_acc);
+  render_fwd_body<true>(xyz, vd, z, zs, zt, w, d, white_bkgd, z_per_ray, hit, pe_mode, out_rgb,
+                        out_depth, out_acc);
 }
 
 size_t render_fwd_smem_bytes(int W) {
@@ -210,22 +213,24 @@ extern "C" int supnerf_render_fwd(const float* xyz, const float* vd, const float
   return (int)cudaGetLastError();
 }
 
-// The bfloat16 mode's entry: supnerf_render_fwd's arguments and exact_pe.
+// The bfloat16 mode's entry: supnerf_render_fwd's arguments and pe_mode
+// (PeMode; any other value is refused).
 extern "C" int supnerf_render_fwd_bf16(const float* xyz, const float* vd, const float* z,
                                        const float* zs, const float* zt,
                                        const supnerf::DecoderWeights* w, int B, int R, int S,
                                        int W, int n_shape, int n_tex, int l_xyz, int l_dir,
                                        int white_bkgd, int z_per_ray, const float* hit,
-                                       int exact_pe, float* out_rgb, float* out_depth,
+                                       int pe_mode, float* out_rgb, float* out_depth,
                                        float* out_acc, void* stream) {
   using namespace supnerf;
+  if (pe_mode < kPeDoubling || pe_mode > kPeTrain) return (int)cudaErrorInvalidValue;
   const Dims d{B, R, S, W, n_shape, n_tex, l_xyz, l_dir};
   const size_t smem = render_fwd_smem_bytes(W);
   cudaError_t err = cudaFuncSetAttribute(
       render_fwd_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   render_fwd_bf16_kernel<<<dim3(R, B), kThreads, smem, (cudaStream_t)stream>>>(
-      xyz, vd, z, zs, zt, *w, d, white_bkgd, z_per_ray, hit, exact_pe, out_rgb, out_depth,
+      xyz, vd, z, zs, zt, *w, d, white_bkgd, z_per_ray, hit, pe_mode, out_rgb, out_depth,
       out_acc);
   return (int)cudaGetLastError();
 }

@@ -39,9 +39,22 @@
 // Pass 2 (wgrad_reduce_kernel): every output element sums its splits in
 // split order and adds into (or overwrites) the Linear-layout gradient, so
 // the result does not depend on scheduling: the same bits run to run.
+//
+// The bfloat16 mode (supnerf_wgrad_bf16, wgrad_kernel<true>): the Pallas
+// kernel's mm_xg at dtype=bfloat16, both operands rounded to bfloat16 and
+// the products summed in float32, on bfloat16 mma.sync m16n8k16 (bf16.cuh):
+// one product where 3xTF32 makes three, k-steps of 16 stash rows, the
+// fragments rounded as they are built from the same float32 stage tiles.
+// The bias sums stay those of the unrounded float32 G tile (the Pallas
+// kernel's jnp.sum(g, 0)), so no cotangent passes through a bfloat16
+// operand on its way to a bias. The stash is K3's float32 layout (its A
+// side already bfloat16-exact), so the mode moves the same bytes as the
+// float32 one; at the training shape that makes it bound by them (8.2 GB,
+// 2.4 ms) where its products take 0.47 ms at the bfloat16 peak.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bf16.cuh"
 #include "cp_async.cuh"
 #include "tf32.cuh"
 
@@ -173,6 +186,56 @@ static __device__ __forceinline__ void stage_products(const float* As, const flo
         for (int e = 0; e < 4; ++e) acc[i][j][e] += seg[i][j][e];
 }
 
+// stage_products in the bfloat16 mode: per m16n8k16 tile the stage's 64
+// rows as four k-steps of 16 on bfloat16 mma.sync, summed on the tensor
+// cores, then added to acc with float32 adds. Fragments (bf16.cuh's
+// layout; mma rows are n, its k the stash rows, its columns k): G^T's a[0]
+// (n gid, rows 2 tig, 2 tig + 1), a[1] n + 8, a[2] and a[3] rows + 8; A's
+// b[0] (rows 2 tig, 2 tig + 1, column gid), b[1] rows + 8. copy(i0) twice
+// a k-step, as stage_products calls it once per 8 rows.
+template <bool kMasked, typename Copy>
+static __device__ __forceinline__ void stage_products_bf16(const float* As, const float* Gs,
+                                                           int wn, int wk, const bool m_on[4],
+                                                           const bool k_on[4],
+                                                           float acc[4][4][4], Copy&& copy) {
+  const int lane = threadIdx.x & 31, gid = lane >> 2, tig = lane & 3;
+  const float zero[4] = {0.f, 0.f, 0.f, 0.f};
+  float seg[4][4][4];
+#pragma unroll
+  for (int rr = 0; rr < kStageRows; rr += 16) {
+    const float* g0 = Gs + (rr + 2 * tig) * kLd + wn + gid;
+    const float* a0 = As + (rr + 2 * tig) * kLd + wk + gid;
+    uint32_t bq[4][2];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* a = a0 + 8 * j;
+      bq[j][0] = bf16_pair(a[0], a[kLd]);
+      bq[j][1] = bf16_pair(a[8 * kLd], a[9 * kLd]);
+    }
+    copy(rr / 4);
+    copy(rr / 4 + 2);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (kMasked && !m_on[i]) continue;
+      const float* g = g0 + 16 * i;
+      const uint32_t ga[4] = {bf16_pair(g[0], g[kLd]), bf16_pair(g[8], g[kLd + 8]),
+                              bf16_pair(g[8 * kLd], g[9 * kLd]),
+                              bf16_pair(g[8 * kLd + 8], g[9 * kLd + 8])};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (!kMasked || k_on[j]) mma_bf16(seg[i][j], ga, bq[j], rr == 0 ? zero : seg[i][j]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (!kMasked || (m_on[i] && k_on[j]))
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] += seg[i][j][e];
+}
+
+template <bool kBf16>
 __global__ void __launch_bounds__(kWgThreads, 1)
 wgrad_kernel(const __grid_constant__ WgradTable tab) {
   extern __shared__ float smem[];
@@ -229,8 +292,13 @@ wgrad_kernel(const __grid_constant__ WgradTable tab) {
     };
     const float* As = smem + (step % kStages) * kStageFloats;
     const float* Gs = As + kStageRows * kLd;
-    if (full) stage_products<false>(As, Gs, wn, wk, m_on, k_on, acc, copy);
-    else stage_products<true>(As, Gs, wn, wk, m_on, k_on, acc, copy);
+    if constexpr (kBf16) {
+      if (full) stage_products_bf16<false>(As, Gs, wn, wk, m_on, k_on, acc, copy);
+      else stage_products_bf16<true>(As, Gs, wn, wk, m_on, k_on, acc, copy);
+    } else {
+      if (full) stage_products<false>(As, Gs, wn, wk, m_on, k_on, acc, copy);
+      else stage_products<true>(As, Gs, wn, wk, m_on, k_on, acc, copy);
+    }
     cp_async_commit();
     if (do_bias) {     // thread t: column t % 128, rows 32 (t / 128) .. + 31
       const float* g = Gs + (threadIdx.x >> 7) * 32 * kLd + (threadIdx.x & 127);
@@ -277,14 +345,9 @@ wgrad_reduce_kernel(const __grid_constant__ WgradTable tab, int accumulate) {
   *o = accumulate ? *o + s : s;
 }
 
-}  // namespace supnerf
-
-// Plain C entry, bound with ctypes: both passes on `stream` for n problems;
-// returns cudaGetLastError() (0 on success, or cudaErrorInvalidValue for a
-// table that does not fit); never synchronises or allocates.
-extern "C" int supnerf_wgrad(const supnerf::WgradProblem* problems, int n, int accumulate,
-                             void* stream) {
-  using namespace supnerf;
+// Both passes on `stream` for n problems, the first in the mode kBf16.
+template <bool kBf16>
+static int wgrad_launch(const WgradProblem* problems, int n, int accumulate, void* stream) {
   if (n < 1 || n > kMaxProblems) return (int)cudaErrorInvalidValue;
   WgradTable t;
   t.n = n;
@@ -297,12 +360,29 @@ extern "C" int supnerf_wgrad(const supnerf::WgradProblem* problems, int n, int a
     rblocks += (p.N * (p.K + 1) + kWgThreads - 1) / kWgThreads;
     t.p[i] = p;
   }
-  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(wgrad_kernel<kBf16>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)kWgradSmem);
   if (err != cudaSuccess) return (int)err;
-  wgrad_kernel<<<blocks, kWgThreads, kWgradSmem, (cudaStream_t)stream>>>(t);
+  wgrad_kernel<kBf16><<<blocks, kWgThreads, kWgradSmem, (cudaStream_t)stream>>>(t);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   wgrad_reduce_kernel<<<rblocks, kWgThreads, 0, (cudaStream_t)stream>>>(t, accumulate);
   return (int)cudaGetLastError();
+}
+
+}  // namespace supnerf
+
+// Plain C entry, bound with ctypes: both passes on `stream` for n problems;
+// returns cudaGetLastError() (0 on success, or cudaErrorInvalidValue for a
+// table that does not fit); never synchronises or allocates.
+extern "C" int supnerf_wgrad(const supnerf::WgradProblem* problems, int n, int accumulate,
+                             void* stream) {
+  return supnerf::wgrad_launch<false>(problems, n, accumulate, stream);
+}
+
+// The bfloat16 mode's entry: supnerf_wgrad's arguments.
+extern "C" int supnerf_wgrad_bf16(const supnerf::WgradProblem* problems, int n, int accumulate,
+                                  void* stream) {
+  return supnerf::wgrad_launch<true>(problems, n, accumulate, stream);
 }

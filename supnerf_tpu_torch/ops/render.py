@@ -35,17 +35,21 @@ The bfloat16 mode (DecoderWeights.field_dtype "bfloat16", packed from a
 model built with net_hyperparams' field_dtype "bfloat16") is the Pallas
 kernels' at dtype=bfloat16, the precision the JAX package runs them at on
 its accelerator: every dense layer's operands rounded to bfloat16 (the
-weights once, at pack time, as pallas_field.py:_precast_weights), float32
-sums and biases, the encodings by the doubling recurrence and rounded
-(pallas_field.py:_pe_for_dtype), the per-ray direction term rounded; the
-backward kernels recompute with their ReLU outputs rounded (the stash) and
-round each transposed layer's operand, the rgb cotangent per ray and the
-encodings' chain-rule terms (decoder_chain_bf16, recompute_bf16,
-transposed_bf16, composite_vjp_bf16, encode_bwd_bf16). Inputs, outputs,
-latents and compositing stay float32. K1 and K2 (both modes) and K5 and
-K6 (ops/field.py) have bfloat16 builds, counted apart (LAUNCHES' *_bf16
-keys); the training kernels (K3, K4, K7, K1 with per-object latents) do
-not, and their entry points refuse a bfloat16 decoder.
+weights at pack time, as pallas_field.py:_precast_weights), float32 sums
+and biases, the encodings rounded (PE_MODES: by the doubling recurrence
+for TTO, pallas_field.py:_pe_for_dtype; exact for the kernels that encode
+in place and for training), the per-ray direction term rounded except in
+A11a; the backward kernels recompute with their ReLU outputs rounded (the
+stash) and round each transposed layer's operand, the rgb cotangent per
+ray and the encodings' chain-rule terms (decoder_chain_bf16,
+recompute_bf16, transposed_bf16, composite_vjp_bf16, encode_bwd_bf16);
+the training backward's weight products take both operands rounded and
+its bias sums the unrounded float32 cotangents (wgrad_plain). Inputs,
+outputs, latents and compositing stay float32. K1 (both modes and the
+training encodings), K2 (both modes), K3 (both modes), K4, K5 and K6
+(ops/field.py) have bfloat16 builds, counted apart (LAUNCHES' *_bf16
+keys); K7 (field_train) does not, and its entry point refuses a bfloat16
+decoder.
 
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 For CUDA tensors it launches its kernel or raises; there is no fallback.
@@ -91,13 +95,27 @@ MAX_SAMPLES = 64          # kRows in csrc/render_common.cuh
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one where it launches its kernel and nowhere else.
 # K1 and K2 count their AABB-mode launches (render_*_aabb) apart, K3 its
-# data-mode launches (render_train_bwd_data), K1, K2, K5 and K6 their
-# bfloat16 builds' (*_bf16). K5, K6 and K7 (ops/field.py) count here too.
+# data-mode launches (render_train_bwd_data), K1-K6 their bfloat16 builds'
+# (*_bf16), K1's bfloat16 build with the training encodings
+# (render_fwd_train_bf16) apart from its other encodings. K5, K6 and K7
+# (ops/field.py) count here too.
 LAUNCHES = {"render_fwd": 0, "render_bwd": 0, "render_fwd_aabb": 0, "render_bwd_aabb": 0,
             "render_train_bwd": 0, "render_train_bwd_data": 0, "wgrad": 0, "field_fwd": 0,
             "field_bwd": 0, "field_train_bwd": 0, "render_fwd_bf16": 0, "render_bwd_bf16": 0,
             "render_fwd_aabb_bf16": 0, "render_bwd_aabb_bf16": 0, "field_fwd_bf16": 0,
-            "field_bwd_bf16": 0}
+            "field_bwd_bf16": 0, "render_fwd_train_bf16": 0, "render_train_bwd_bf16": 0,
+            "render_train_bwd_data_bf16": 0, "wgrad_bf16": 0}
+
+# The bfloat16 render kernels' encodings (K1's pe argument): "doubling",
+# the sines and cosines by the doubling recurrence and the direction term
+# rounded (A1-A4, pallas_field.py:_pe_for_dtype); "exact", exact sines and
+# cosines and an unrounded direction term (A11a, the kernel that encodes in
+# place and sums the term with its split matmuls); "train", exact sines and
+# cosines and the direction term rounded (A5 and A6,
+# pallas_render.py:_make_render_train_core's encode). Every value of an
+# encoding is rounded to bfloat16; the index is csrc/render_common.cuh's
+# PeMode. The float32 mode's encodings are exact in all three.
+PE_MODES = ("doubling", "exact", "train")
 
 
 def reset_launch_counts():
@@ -338,14 +356,14 @@ def decoder_plain(wts: DecoderWeights, xyz, viewdir, zs, zt):
 
 
 def render_fwd_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False,
-                     hit=None, exact_pe=False):
+                     hit=None, pe="doubling"):
     """K1's plain version: decoder_plain (decoder_plain_bf16 in the bfloat16
     mode) + ops.volume_render (differentiable). With hit (B,R) (the AABB
     mode) z is per ray (B,R,S) and the density of missed rays is zero, the
-    unfused where(hit, sigma, 0) of render_rays_aabb. exact_pe: see
-    decoder_plain_bf16 (the float32 mode's encodings are exact anyway)."""
+    unfused where(hit, sigma, 0) of render_rays_aabb. pe: the bfloat16
+    mode's encodings (PE_MODES; the float32 mode's are exact in all)."""
     if wts.field_dtype == "bfloat16":
-        sigma, rgb = decoder_plain_bf16(wts, xyz, viewdir, zs, zt, exact_pe)
+        sigma, rgb = decoder_plain_bf16(wts, xyz, viewdir, zs, zt, pe)
     else:
         sigma, rgb = decoder_plain(wts, xyz, viewdir, zs, zt)
     if hit is None:
@@ -378,8 +396,8 @@ def render_bwd_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
 def encode_bf16(x, degree: int, exact_pe: bool = False):
     """The encoding the bfloat16 kernels read: by the doubling recurrence
     (pallas_field.py:_pe_for_dtype; exact_pe: the exact sines and cosines,
-    as the kernels that encode in place, A11a and A11b), rounded to
-    bfloat16."""
+    as the kernels that encode in place, A11a and A11b, and the training
+    kernels, A5 and A6), rounded to bfloat16."""
     pe = positional_encoding if exact_pe else positional_encoding_doubling
     return bf16_round(pe(x, degree))
 
@@ -406,25 +424,32 @@ def decoder_chain_bf16(wts: DecoderWeights, xpe, hdir, zs, zt):
     return sigma, rgb
 
 
-def render_direction_bf16(wts: DecoderWeights, viewdir, exact_pe: bool = False):
-    """The render kernels' per-ray direction input in the bfloat16 mode:
-    (dpe, hdir), the rounded encoding (B,R,d_dir) and the viewdir layer's
-    direction term dpe @ w_vd_b (B,R,W), rounded before the per-ray term is
-    expanded to the samples (pallas_render.py:_render_kernel's dir_term); not
-    rounded with exact_pe (A11a, whose split matmuls sum it in float32)."""
-    dpe = encode_bf16(viewdir, wts.num_dir_freq, exact_pe)
+def check_pe(pe: str):
+    if pe not in PE_MODES:
+        raise ValueError(f"pe {pe!r}: one of {PE_MODES}")
+
+
+def render_direction_bf16(wts: DecoderWeights, viewdir, pe: str = "doubling"):
+    """The render kernels' per-ray direction input in the bfloat16 mode with
+    the encodings `pe` (PE_MODES): (dpe, hdir), the rounded encoding
+    (B,R,d_dir) and the viewdir layer's direction term dpe @ w_vd_b (B,R,W),
+    rounded before the per-ray term is expanded to the samples
+    (pallas_render.py:_render_kernel's dir_term and the training backward's
+    seg_expand); not rounded with "exact" (A11a, whose split matmuls sum it
+    in float32)."""
+    check_pe(pe)
+    dpe = encode_bf16(viewdir, wts.num_dir_freq, pe != "doubling")
     hdir = dpe @ wts.w_vd_b
-    return dpe, hdir if exact_pe else bf16_round(hdir)
+    return dpe, hdir if pe == "exact" else bf16_round(hdir)
 
 
-def decoder_plain_bf16(wts: DecoderWeights, xyz, viewdir, zs, zt, exact_pe: bool = False):
-    """decoder_plain in the bfloat16 mode: xyz (B,R,S,3), viewdir (B,R,3)
-    per ray -> (sigma (B,R,S), rgb (B,R,S,3)). exact_pe: the encodings'
-    exact sines and cosines and an unrounded direction term, the Pallas
-    kernel that encodes in place (A11a, field_composite_pallas(pe_in_kernel=
-    True)); else the encodings by the doubling recurrence (A1, A3)."""
-    _, hdir = render_direction_bf16(wts, viewdir, exact_pe)
-    return decoder_chain_bf16(wts, encode_bf16(xyz, wts.num_xyz_freq, exact_pe),
+def decoder_plain_bf16(wts: DecoderWeights, xyz, viewdir, zs, zt, pe: str = "doubling"):
+    """decoder_plain in the bfloat16 mode with the encodings `pe`
+    (PE_MODES: "doubling" for A1 and A3, "exact" for A11a,
+    field_composite_pallas(pe_in_kernel=True), "train" for A5): xyz
+    (B,R,S,3), viewdir (B,R,3) per ray -> (sigma (B,R,S), rgb (B,R,S,3))."""
+    _, hdir = render_direction_bf16(wts, viewdir, pe)
+    return decoder_chain_bf16(wts, encode_bf16(xyz, wts.num_xyz_freq, pe != "doubling"),
                               hdir[:, :, None], zs, zt)
 
 
@@ -434,8 +459,9 @@ def recompute_bf16(wts: DecoderWeights, xpe, hdir, zs, zt) -> dict:
     decoder_chain_bf16 with each ReLU layer's output rounded to bfloat16
     (the stash), so the next layer adds its latent to the rounded value and
     rounds again; not the forward's bits. Returns the stashed outputs y0,
-    ys (shape blocks), v (viewdir layer), hs (texture blocks), hh
-    (rgb_hidden), the sigma head's pre-activation logit and rgb."""
+    ys (shape blocks), e (encoding_shape's, rounded), v (viewdir layer), hs
+    (texture blocks), hh (rgb_hidden), the sigma head's pre-activation logit
+    and rgb."""
     r = bf16_round
     mid = (slice(None),) + (None,) * (xpe.dim() - 2)
     y0 = r(F.relu(xpe @ wts.w_xyz + wts.b_xyz))
@@ -443,18 +469,18 @@ def recompute_bf16(wts: DecoderWeights, xpe, hdir, zs, zt) -> dict:
     for j in range(wts.n_shape):
         y = r(F.relu(r(y + zs[mid + (j,)]) @ wts.w_sh[j] + wts.b_sh[j]))
         ys.append(y)
-    e = y @ wts.w_es + wts.b_es
-    v = r(F.relu(r(e) @ wts.w_vd_a + hdir + wts.b_vd))
+    e = r(y @ wts.w_es + wts.b_es)
+    v = r(F.relu(e @ wts.w_vd_a + hdir + wts.b_vd))
     hs, h = [], v
     for j in range(wts.n_tex):
         h = r(F.relu(r(h + zt[mid + (j,)]) @ wts.w_tx[j] + wts.b_tx[j]))
         hs.append(h)
     hh = r(F.relu(h @ wts.w_r1 + wts.b_r1))
-    return {"y0": y0, "ys": ys, "v": v, "hs": hs, "hh": hh,
-            "logit": r(e) @ wts.w_sg + wts.b_sg, "rgb": hh @ wts.w_r2 + wts.b_r2}
+    return {"y0": y0, "ys": ys, "e": e, "v": v, "hs": hs, "hh": hh,
+            "logit": e @ wts.w_sg + wts.b_sg, "rgb": hh @ wts.w_r2 + wts.b_r2}
 
 
-def transposed_bf16(wts: DecoderWeights, rec: dict, g_sig, drgb, dims):
+def transposed_bf16(wts: DecoderWeights, rec: dict, g_sig, drgb, dims, pre=None):
     """The backward kernels' transposed chain in the bfloat16 mode: each
     layer's cotangent rounded to bfloat16 before its product (mm_t), the
     ReLU masks from the stashed outputs of recompute_bf16. g_sig: the sigma
@@ -462,21 +488,29 @@ def transposed_bf16(wts: DecoderWeights, rec: dict, g_sig, drgb, dims):
     dims: the point axes the latents' cotangents sum over. Returns (gpe,
     gdir, dzs (B,n_shape,W), dzt (B,n_tex,W)): gpe the point encodings'
     cotangent (B,...,d_xyz), gdir the direction encodings' per point
-    (B,...,d_dir), both float32."""
+    (B,...,d_dir), both float32. pre: a dict that receives each layer's
+    pre-activation gradient, unrounded float32 (the training stash's g_*
+    rows, keyed as stashed_chain's pre: xyz, sh{j}, e, v, tx{j}, hh)."""
     r = bf16_round
-    g = torch.where(rec["hh"] > 0, r(drgb) @ wts.w_r2.t(), 0.0)
-    g = r(g) @ wts.wt_r1
+    pre = {} if pre is None else pre
+    pre["hh"] = torch.where(rec["hh"] > 0, r(drgb) @ wts.w_r2.t(), 0.0)
+    g = r(pre["hh"]) @ wts.wt_r1
     dzt = [None] * wts.n_tex
     for j in reversed(range(wts.n_tex)):
-        g = r(torch.where(rec["hs"][j] > 0, g, 0.0)) @ wts.wt_tx[j]
+        pre[f"tx{j}"] = torch.where(rec["hs"][j] > 0, g, 0.0)
+        g = r(pre[f"tx{j}"]) @ wts.wt_tx[j]
         dzt[j] = g.sum(dims)
-    g_v = r(torch.where(rec["v"] > 0, g, 0.0))
-    g = r(g_v @ wts.wt_vd_a + r(g_sig)[..., None] * wts.w_sg) @ wts.wt_es
+    pre["v"] = torch.where(rec["v"] > 0, g, 0.0)
+    g_v = r(pre["v"])
+    pre["e"] = g_v @ wts.wt_vd_a + r(g_sig)[..., None] * wts.w_sg
+    g = r(pre["e"]) @ wts.wt_es
     dzs = [None] * wts.n_shape
     for j in reversed(range(wts.n_shape)):
-        g = r(torch.where(rec["ys"][j] > 0, g, 0.0)) @ wts.wt_sh[j]
+        pre[f"sh{j}"] = torch.where(rec["ys"][j] > 0, g, 0.0)
+        g = r(pre[f"sh{j}"]) @ wts.wt_sh[j]
         dzs[j] = g.sum(dims)
-    gpe = r(torch.where(rec["y0"] > 0, g, 0.0)) @ wts.wt_xyz
+    pre["xyz"] = torch.where(rec["y0"] > 0, g, 0.0)
+    gpe = r(pre["xyz"]) @ wts.wt_xyz
     return gpe, g_v @ wts.wt_vd_b, torch.stack(dzs, 1), torch.stack(dzt, 1)
 
 
@@ -522,16 +556,21 @@ def composite_vjp_bf16(sigma, rgb, z, white_bkgd, g_rgb, g_depth, g_acc):
 
 
 def render_bwd_plain_bf16(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
-                          g_rgb, g_depth, g_acc, hit=None):
+                          g_rgb, g_depth, g_acc, hit=None, pe="doubling", stash=None):
     """K2's plain version in the bfloat16 mode: the backward kernel's own
     arithmetic (pallas_render.py:_render_bwd_kernel at dtype=bfloat16), not
     autograd through the forward: recompute_bf16 (the stash), the
     compositing VJP with the per-ray rgb cotangent rounded, transposed_bf16,
     and the encodings' chain rules, the per-point direction cotangents
     rounded before their sum over the ray (its seg_reduce). Returns (dxyz,
-    dviewdir, dz, dzs, dzt) as render_bwd_plain."""
-    xpe = encode_bf16(xyz, wts.num_xyz_freq)
-    dpe, hdir = render_direction_bf16(wts, viewdir)
+    dviewdir, dz, dzs, dzt) as render_bwd_plain. pe: the encodings
+    (PE_MODES; "train" for K3, pallas_render.py:_render_train_bwd_kernel,
+    which runs this arithmetic on the training encodings); stash: a dict
+    that receives the encodings (xpe, dpe), recompute_bf16's dict (rec),
+    the sigma head's and the colours' cotangents (g_sig, drgb) and
+    transposed_bf16's pre-activation gradients (pre)."""
+    xpe = encode_bf16(xyz, wts.num_xyz_freq, pe != "doubling")
+    dpe, hdir = render_direction_bf16(wts, viewdir, pe)
     rec = recompute_bf16(wts, xpe, hdir[:, :, None], zs, zt)
     sigma = F.softplus(rec["logit"])
     if hit is None:
@@ -539,8 +578,11 @@ def render_bwd_plain_bf16(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bk
     else:
         sigma = torch.where(hit[..., None] != 0, sigma, torch.zeros_like(sigma))
     dsig, drgb, dz = composite_vjp_bf16(sigma, rec["rgb"], z, white_bkgd, g_rgb, g_depth, g_acc)
-    gpe, gdir, dzs, dzt = transposed_bf16(wts, rec, dsig * torch.sigmoid(rec["logit"]), drgb,
-                                          (1, 2))
+    g_sig = dsig * torch.sigmoid(rec["logit"])
+    pre = {}
+    gpe, gdir, dzs, dzt = transposed_bf16(wts, rec, g_sig, drgb, (1, 2), pre)
+    if stash is not None:
+        stash.update(xpe=xpe, dpe=dpe, rec=rec, g_sig=g_sig, drgb=drgb, pre=pre)
     return (encode_bwd_bf16(xpe, gpe, wts.num_xyz_freq),
             encode_bwd_bf16(dpe, bf16_round(gdir).sum(2), wts.num_dir_freq),
             dz.sum(1) if hit is None else dz, dzs, dzt)
@@ -618,7 +660,7 @@ def _library():
     lib.supnerf_render_fwd.restype = i
     lib.supnerf_render_bwd.argtypes = head + [i, p] + [p] * 3 + [p] * 5 + [p]
     lib.supnerf_render_bwd.restype = i
-    # the bfloat16 builds (K1 also takes exact_pe after hit)
+    # the bfloat16 builds (K1 also takes its PE_MODES index after hit)
     lib.supnerf_render_fwd_bf16.argtypes = head + [i, p, i] + [p] * 3 + [p]
     lib.supnerf_render_fwd_bf16.restype = i
     lib.supnerf_render_bwd_bf16.argtypes = head + [i, p] + [p] * 3 + [p] * 5 + [p]
@@ -626,8 +668,11 @@ def _library():
     lib.supnerf_render_train_bwd.argtypes = (head + [p] * 3 + [ctypes.POINTER(_StashLayout)]
                                              + [p] * 6)
     lib.supnerf_render_train_bwd.restype = i
-    lib.supnerf_wgrad.argtypes = [ctypes.POINTER(_WgradProblem), i, i, p]
-    lib.supnerf_wgrad.restype = i
+    lib.supnerf_render_train_bwd_bf16.argtypes = lib.supnerf_render_train_bwd.argtypes
+    lib.supnerf_render_train_bwd_bf16.restype = i
+    for fn in ("supnerf_wgrad", "supnerf_wgrad_bf16"):
+        getattr(lib, fn).argtypes = [ctypes.POINTER(_WgradProblem), i, i, p]
+        getattr(lib, fn).restype = i
     field = [p] * 4 + [ctypes.POINTER(_DecoderPtrs)] + [i] * 7
     lib.supnerf_field_fwd.argtypes = field + [p] * 3
     lib.supnerf_field_fwd.restype = i
@@ -710,22 +755,27 @@ def _mode_args(hit):
     return [int(hit is not None), hit.data_ptr() if hit is not None else None]
 
 
-def launch_key(name: str, wts: DecoderWeights, hit=None) -> str:
+def launch_key(name: str, wts: DecoderWeights, hit=None, pe="doubling") -> str:
     """The LAUNCHES key of kernel `name` (render_fwd, render_bwd, field_fwd,
-    field_bwd) in wts' mode: _aabb with hit, _bf16 in the bfloat16 mode."""
-    return (name + ("_aabb" if hit is not None else "")
-            + ("_bf16" if wts.field_dtype == "bfloat16" else ""))
+    field_bwd) in wts' mode: _aabb with hit, _bf16 in the bfloat16 mode,
+    render_fwd_train_bf16 for K1's bfloat16 build with the training
+    encodings (pe "train")."""
+    bf16 = wts.field_dtype == "bfloat16"
+    if bf16 and pe == "train":
+        return name + "_train_bf16"
+    return name + ("_aabb" if hit is not None else "") + ("_bf16" if bf16 else "")
 
 
 def render_fwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False, hit=None,
-               exact_pe=False):
+               pe="doubling"):
     """K1 wrapper. Returns (rgb (B,R,3), depth (B,R), acc_trans (B,R)).
     With hit (B,R) (bool or float, nonzero for a hit) it runs the AABB mode:
     z is per ray (B,R,S) and missed rays have zero density. In wts'
-    bfloat16 mode it launches K1's bfloat16 build; exact_pe selects that
-    build's exact encodings (A11a, decoder_plain_bf16)."""
+    bfloat16 mode it launches K1's bfloat16 build with the encodings `pe`
+    (PE_MODES; "train" counted as render_fwd_train_bf16)."""
+    check_pe(pe)
     if xyz.device.type == "cpu":
-        return render_fwd_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd, hit, exact_pe)
+        return render_fwd_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd, hit, pe)
     hit = _hit_operand(hit)
     _check_inputs(wts, xyz, viewdir, z, zs, zt, hit=hit)
     B, R = xyz.shape[:2]
@@ -738,11 +788,11 @@ def render_fwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False, h
         err = getattr(_library(), "supnerf_render_fwd" + ("_bf16" if bf16 else ""))(
             xyz.data_ptr(), viewdir.data_ptr(), z.data_ptr(), zs.data_ptr(), zt.data_ptr(),
             ctypes.byref(ptrs), *_dims(wts, xyz, white_bkgd), *_mode_args(hit),
-            *([int(bool(exact_pe))] if bf16 else []),
+            *([PE_MODES.index(pe)] if bf16 else []),
             rgb.data_ptr(), depth.data_ptr(), acc.data_ptr(),
             torch.cuda.current_stream(xyz.device).cuda_stream)
     _raise_on(err, "render_fwd")
-    LAUNCHES[launch_key("render_fwd", wts, hit)] += 1
+    LAUNCHES[launch_key("render_fwd", wts, hit, pe)] += 1
     return rgb, depth, acc
 
 
@@ -916,7 +966,13 @@ def stash_layout(wts: DecoderWeights, per_point: bool = False) -> dict:
     there are no ray rows (ld_ray 0). Every column block, and every row,
     starts on 16 bytes (a multiple of 4 floats), as K4's 16-byte copies
     need; the pad columns between blocks are written by nobody and read
-    into no output."""
+    into no output. The bfloat16 mode keeps the layout: every a_* column
+    and r_dpe holds bfloat16-exact values (the operands
+    pallas_render.py:_render_train_bwd_kernel's mm_xg casts: the rounded
+    encodings, the ReLU outputs rounded, each latent-added layer input
+    rounded once more after the float32 add), the g_* columns and r_gv
+    (the ray's sum of the rounded g_v) stay float32, since the biases sum
+    the unrounded cotangents; K4 rounds G where it enters a product."""
     W, ns, nt = wts.W, wts.n_shape, wts.n_tex
     d_dir = 3 * (2 * wts.num_dir_freq + 1)
     widths = {"a_xyz": 3 * (2 * wts.num_xyz_freq + 1), "a_sh": ns * W, "a_es": W, "a_e": W,
@@ -991,11 +1047,16 @@ def wgrad_problems(wts: DecoderWeights, pt, ray, grads) -> list:
     return probs
 
 
-def wgrad_plain(problems, accumulate: bool = False):
-    """K4's plain version: G^T A and the column sums of G, in place."""
+def wgrad_plain(problems, accumulate: bool = False, field_dtype: str = "float32"):
+    """K4's plain version: G^T A and the column sums of G, in place. In the
+    bfloat16 mode the product takes both operands rounded to bfloat16
+    (float32 sums, pallas_render.py:_render_train_bwd_kernel's mm_xg) and
+    the bias sums the unrounded G (its jnp.sum(g, 0))."""
+    bf16 = field_dtype == "bfloat16"
     for p in problems:
         K = p.A.shape[1]
-        pairs = [(p.w_out[:, p.col0:p.col0 + K], p.G.t() @ p.A)]
+        a, g = (bf16_round(p.A), bf16_round(p.G)) if bf16 else (p.A, p.G)
+        pairs = [(p.w_out[:, p.col0:p.col0 + K], g.t() @ a)]
         if p.b_out is not None:
             pairs.append((p.b_out, p.G.sum(0)))
         for out, val in pairs:
@@ -1044,13 +1105,14 @@ def check_wgrad_problems(problems):
                                  "column blocks do)")
 
 
-def wgrad(problems, accumulate: bool = False):
+def wgrad(problems, accumulate: bool = False, field_dtype: str = "float32"):
     """K4 wrapper: every problem's weight and bias gradient in one grouped
     launch (plus its fixed-order reduction pass), written into (or, with
-    accumulate, added to) w_out and b_out."""
+    accumulate, added to) w_out and b_out; in the bfloat16 mode on
+    bfloat16 mma.sync (wgrad_plain's rounding; LAUNCHES["wgrad_bf16"])."""
     dev = problems[0].A.device
     if dev.type == "cpu":
-        return wgrad_plain(problems, accumulate)
+        return wgrad_plain(problems, accumulate, field_dtype)
     check_wgrad_problems(problems)
     table = (_WgradProblem * len(problems))()
     partials = []
@@ -1064,11 +1126,12 @@ def wgrad(problems, accumulate: bool = False):
         s.b_out = p.b_out.data_ptr() if p.b_out is not None else None
         s.lda, s.ldg, s.M, s.K, s.N = p.A.stride(0), p.G.stride(0), M, K, N
         s.ldw, s.col0, s.n_split, s.rows_per_split = p.w_out.shape[1], p.col0, n_split, rows
+    key = "wgrad_bf16" if field_dtype == "bfloat16" else "wgrad"
     with torch.cuda.device(dev):
-        err = _library().supnerf_wgrad(table, len(problems), int(bool(accumulate)),
-                                       torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "wgrad")
-    LAUNCHES["wgrad"] += 1
+        err = getattr(_library(), "supnerf_" + key)(table, len(problems), int(bool(accumulate)),
+                                                   torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, key)
+    LAUNCHES[key] += 1
 
 
 def _linear_grad_buffers(wts: DecoderWeights, device) -> list:
@@ -1140,8 +1203,13 @@ def render_train_bwd_stash_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, w
                                  g_rgb, g_depth, g_acc, pt, ray, data_grads: bool = False):
     """K3's plain version: the decoder chain written out with every layer
     input kept (stashed_chain), autograd for the pre-activation gradients,
-    the rows written into pt and ray as stash_layout places them. Returns
-    (dzs, dzt), and with data_grads (dxyz, dviewdir, dz) after them."""
+    the rows written into pt and ray as stash_layout places them (in the
+    bfloat16 mode the kernel's own arithmetic, train_bwd_stash_plain_bf16).
+    Returns (dzs, dzt), and with data_grads (dxyz, dviewdir, dz) after
+    them."""
+    if wts.field_dtype == "bfloat16":
+        return train_bwd_stash_plain_bf16(wts, xyz, viewdir, z, zs, zt, white_bkgd, g_rgb,
+                                          g_depth, g_acc, pt, ray, data_grads)
     L, nd = stash_layout(wts), wts.num_dir_freq
     with torch.enable_grad():
         lat = _leaves((zs, zt))
@@ -1159,6 +1227,46 @@ def render_train_bwd_stash_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, w
     return tuple(dlat)
 
 
+def train_bwd_stash_plain_bf16(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
+                               g_rgb, g_depth, g_acc, pt, ray, data_grads: bool = False):
+    """K3's plain version in the bfloat16 mode
+    (pallas_render.py:_render_train_bwd_kernel at dtype=bfloat16): K2's
+    bfloat16 arithmetic (render_bwd_plain_bf16) on the training encodings
+    (pe "train"), its values written into pt and ray as stash_layout places
+    them: the A side bfloat16-exact (the encodings, the stashed ReLU outputs
+    and e, each latent-added input rounded after its float32 add), the G
+    side the unrounded float32 pre-activation gradients, the colours'
+    cotangent w * bf16(g_rgb) and the sigma head's; per ray the rounded
+    direction encoding and the sum over its samples of the rounded g_v
+    (seg_reduce). Returns (dzs, dzt), and with data_grads (dxyz, dviewdir,
+    dz) after them."""
+    r, W, ns, nt = bf16_round, wts.W, wts.n_shape, wts.n_tex
+    st = {}
+    with torch.no_grad():
+        dxyz, dvd, dz, dzs, dzt = render_bwd_plain_bf16(wts, xyz, viewdir, z, zs, zt, white_bkgd,
+                                                        g_rgb, g_depth, g_acc, pe="train",
+                                                        stash=st)
+        rec, pre = st["rec"], st["pre"]
+        mid = (slice(None), None, None)
+        inputs_sh = [rec["y0"]] + rec["ys"][:-1]
+        inputs_tx = [rec["v"]] + rec["hs"][:-1]
+        rows = {"a_xyz": st["xpe"], "a_es": rec["ys"][-1], "a_e": rec["e"],
+                "a_r1": rec["hs"][-1], "a_hh": rec["hh"],
+                "a_sh": torch.cat([r(inputs_sh[j] + zs[mid + (j,)]) for j in range(ns)], -1),
+                "a_tx": torch.cat([r(inputs_tx[j] + zt[mid + (j,)]) for j in range(nt)], -1),
+                "g_xyz": pre["xyz"], "g_e": pre["e"], "g_sig": st["g_sig"][..., None],
+                "g_v": pre["v"], "g_hh": pre["hh"], "g_rgb": st["drgb"],
+                "g_sh": torch.cat([pre[f"sh{j}"] for j in range(ns)], -1),
+                "g_tx": torch.cat([pre[f"tx{j}"] for j in range(nt)], -1)}
+        L = stash_layout(wts)
+        for name, t in rows.items():
+            pt[:, L[name]:L[name] + t.shape[-1]] = t.reshape(-1, t.shape[-1])
+        dpe = st["dpe"]
+        ray[:, L["r_dpe"]:L["r_dpe"] + dpe.shape[-1]] = dpe.reshape(-1, dpe.shape[-1])
+        ray[:, L["r_gv"]:L["r_gv"] + W] = r(pre["v"]).sum(2).reshape(-1, W)
+    return (dzs, dzt, dxyz, dvd, dz) if data_grads else (dzs, dzt)
+
+
 def render_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
                            g_rgb, g_depth, g_acc, pt, ray, data_grads: bool = False):
     """K3 wrapper: writes the stash rows of these B objects into pt
@@ -1167,7 +1275,9 @@ def render_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_b
     of that reduction). With data_grads it runs K3's data mode
     (LAUNCHES["render_train_bwd_data"]) and also returns (dxyz (B,R,S,3),
     dviewdir (B,R,3), dz (B,S)), dz summed over rays here too; the stash,
-    dzs and dzt are the same bits in both modes."""
+    dzs and dzt are the same bits in both modes. In wts' bfloat16 mode it
+    launches K3's bfloat16 build (counted as render_train_bwd_bf16 and
+    render_train_bwd_data_bf16)."""
     if xyz.device.type == "cpu":
         return render_train_bwd_stash_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd,
                                             g_rgb, g_depth, g_acc, pt, ray, data_grads)
@@ -1188,16 +1298,17 @@ def render_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_b
             if data_grads else (None, None, None))
     layout = stash_struct(L, pt, ray)
     ptrs = _ptrs(wts)
+    bf16 = "_bf16" if wts.field_dtype == "bfloat16" else ""
     with torch.cuda.device(dev):
-        err = _library().supnerf_render_train_bwd(
+        err = getattr(_library(), "supnerf_render_train_bwd" + bf16)(
             xyz.data_ptr(), viewdir.data_ptr(), z.data_ptr(), zs.data_ptr(), zt.data_ptr(),
             ctypes.byref(ptrs), *_dims(wts, xyz, white_bkgd),
             g_rgb.data_ptr(), g_depth.data_ptr(), g_acc.data_ptr(), ctypes.byref(layout),
             dzs_part.data_ptr(), dzt_part.data_ptr(),
             *[t.data_ptr() if t is not None else None for t in data],
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "render_train_bwd")
-    LAUNCHES["render_train_bwd_data" if data_grads else "render_train_bwd"] += 1
+    _raise_on(err, "render_train_bwd" + bf16)
+    LAUNCHES["render_train_bwd" + ("_data" if data_grads else "") + bf16] += 1
     out = (dzs_part.sum(1), dzt_part.sum(1))
     return out + (data[0], data[1], data[2].sum(1)) if data_grads else out
 
@@ -1205,9 +1316,14 @@ def render_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_b
 def render_train_bwd_plain(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
                            g_rgb, g_depth, g_acc, data_grads: bool = False):
     """K3 + K4's plain version: autograd through render_fwd_plain with the
-    layer weights as inputs. Returns (dzs, dzt, grads), grads in the order
-    and Linear layout of linear_params_of, and with data_grads (dxyz,
-    dviewdir, dz) after them."""
+    layer weights as inputs; in the bfloat16 mode, whose backward rounds
+    its cotangents, K3's plain version then K4's (render_train_bwd's
+    chunks). Returns (dzs, dzt, grads), grads in the order and Linear layout
+    of linear_params_of, and with data_grads (dxyz, dviewdir, dz) after
+    them."""
+    if wts.field_dtype == "bfloat16":
+        return _train_bwd_chunks(render_train_bwd_stash_plain, wgrad_plain, wts, xyz, viewdir,
+                                 z, zs, zt, white_bkgd, g_rgb, g_depth, g_acc, data_grads)
     with torch.enable_grad():
         params = _leaves(linear_params_of(wts))
         lat = _leaves((zs, zt))
@@ -1232,6 +1348,15 @@ def render_train_bwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
     if xyz.device.type == "cpu":
         return render_train_bwd_plain(wts, xyz, viewdir, z, zs, zt, white_bkgd,
                                       g_rgb, g_depth, g_acc, data_grads)
+    return _train_bwd_chunks(render_train_bwd_stash, wgrad, wts, xyz, viewdir, z, zs, zt,
+                             white_bkgd, g_rgb, g_depth, g_acc, data_grads)
+
+
+def _train_bwd_chunks(stash_fn, wgrad_fn, wts: DecoderWeights, xyz, viewdir, z, zs, zt,
+                      white_bkgd, g_rgb, g_depth, g_acc, data_grads):
+    """stash_fn (K3 or its plain version) then wgrad_fn (K4 or its plain
+    version) on each chunk of objects that fits STASH_BYTES, into one stash
+    buffer; the weight gradients accumulated over chunks in order."""
     B, R, S = xyz.shape[:3]
     dev = xyz.device
     L = stash_layout(wts)
@@ -1244,10 +1369,10 @@ def render_train_bwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
         sl = slice(o0, min(B, o0 + chunk))
         nb = sl.stop - o0
         pt_c, ray_c = pt[:nb * R * S], ray[:nb * R]
-        outs.append(render_train_bwd_stash(wts, xyz[sl], viewdir[sl], z[sl], zs[sl], zt[sl],
-                                           white_bkgd, g_rgb[sl], g_depth[sl], g_acc[sl],
-                                           pt_c, ray_c, data_grads))
-        wgrad(wgrad_problems(wts, pt_c, ray_c, grads), accumulate=o0 > 0)
+        outs.append(stash_fn(wts, xyz[sl], viewdir[sl], z[sl], zs[sl], zt[sl], white_bkgd,
+                             g_rgb[sl], g_depth[sl], g_acc[sl], pt_c, ray_c, data_grads))
+        wgrad_fn(wgrad_problems(wts, pt_c, ray_c, grads), accumulate=o0 > 0,
+                 field_dtype=wts.field_dtype)
     cat = [torch.cat(parts) for parts in zip(*outs)]
     return (cat[0], cat[1], grads) + tuple(cat[2:])
 
@@ -1256,8 +1381,13 @@ class FieldCompositeTrain(torch.autograd.Function):
     """(xyz, viewdir, z, zs, zt, decoder layer weights) -> (rgb, depth, acc)
     with K1 as the forward and K3 + K4 as the backward. The weights enter in
     torch.nn.Linear's layout (decoder_linear_params) and get their gradients
-    in it. xyz, viewdir and z get theirs from K3's data mode where autograd
-    asks for them; with data_grads False they are data and must not ask."""
+    in it, float32 and unrounded in either mode (in the bfloat16 mode the
+    pack rounds the live weights each call, as pallas_render.py's
+    _precast_weights, and their gradient is the rounded matrices'). meta:
+    pack_linear_params' arguments after params. K1 runs the training
+    encodings (pe "train"). xyz, viewdir and z get theirs from K3's data
+    mode where autograd asks for them; with data_grads False they are data
+    and must not ask."""
 
     @staticmethod
     def forward(ctx, xyz, viewdir, z, zs, zt, meta, white_bkgd, data_grads, *params):
@@ -1267,7 +1397,7 @@ class FieldCompositeTrain(torch.autograd.Function):
         wts = pack_linear_params(params, *meta)
         ctx.save_for_backward(xyz, viewdir, z, zs, zt)
         ctx.wts, ctx.white_bkgd = wts, white_bkgd
-        return render_fwd(wts, xyz, viewdir, z, zs, zt, white_bkgd)
+        return render_fwd(wts, xyz, viewdir, z, zs, zt, white_bkgd, pe="train")
 
     @staticmethod
     def backward(ctx, g_rgb, g_depth, g_acc):
@@ -1280,13 +1410,12 @@ class FieldCompositeTrain(torch.autograd.Function):
 
 
 def check_float32_decoder(decoder, what: str):
-    """Raise ValueError for a decoder in the bfloat16 mode: `what` runs the
-    training kernels (K1 with per-object latents, K3, K4, K7), which have no
-    bfloat16 build yet (ROADMAP §B)."""
+    """Raise ValueError for a decoder in the bfloat16 mode: `what` has no
+    bfloat16 mode yet (ROADMAP §B): the training field (ops.field.
+    field_train: K5 on per-object latents and K7) and multiview opt_model."""
     if getattr(decoder, "field_dtype", "float32") != "float32":
-        raise ValueError(f"{what} with field_dtype {decoder.field_dtype!r}: the training "
-                         "kernels (K1 with per-object latents, K3, K4, K7) have no bfloat16 "
-                         "mode yet (ROADMAP §B); use float32")
+        raise ValueError(f"{what} with field_dtype {decoder.field_dtype!r}: no bfloat16 mode "
+                         "yet (ROADMAP §B); use float32")
 
 
 def conditioned_latents_of(decoder, shapecode, texturecode):
@@ -1311,16 +1440,16 @@ def field_composite_train(decoder, xyz, viewdir, z, shapecode, texturecode,
     are data (the NeRF branch of a training step) and must not require a
     gradient: this raises where JAX returns zeros. Runs
     FieldCompositeTrain: K1 and K3 + K4 for CUDA tensors, their plain
-    versions inside the same wrappers for CPU tensors. Raises ValueError for
-    a decoder that is not kernel-compatible (decoder_kernel_compatible) and
-    for one in the bfloat16 mode (check_float32_decoder)."""
+    versions inside the same wrappers for CPU tensors, in the decoder's
+    field_dtype (the latent projections float32 in both, as
+    pallas_field.py:conditioned_latents_batched). Raises ValueError for a
+    decoder that is not kernel-compatible (decoder_kernel_compatible)."""
     check_kernel_decoder(decoder)
-    check_float32_decoder(decoder, "the training render")
     if viewdir.dim() == 4:
         viewdir = viewdir[:, :, 0]
     zs, zt = conditioned_latents_of(decoder, shapecode, texturecode)
     meta = (decoder.shape_blocks, decoder.texture_blocks, decoder.num_xyz_freq,
-            decoder.num_dir_freq)
+            decoder.num_dir_freq, None, decoder.field_dtype)
     return FieldCompositeTrain.apply(xyz.contiguous(), viewdir.contiguous(), z.contiguous(),
                                      zs.contiguous(), zt.contiguous(), meta, white_bkgd,
                                      data_grads, *decoder_linear_params(decoder))

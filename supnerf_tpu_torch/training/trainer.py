@@ -77,7 +77,6 @@ from supnerf_tpu_torch.timing import PhaseTimer
 from supnerf_tpu_torch.training import pixel_prep as pp
 from supnerf_tpu_torch.training.checkpoints import restore_checkpoint, save_checkpoint
 from supnerf_tpu_torch.training.prefetch import PrefetchBatcher
-from supnerf_tpu_torch.ops.render import check_float32_decoder
 from supnerf_tpu_torch.training.ray_prep import prepare_train_sample, project_box_corners
 from supnerf_tpu_torch.training.train_step import (  # noqa: F401 (METRIC_NAMES re-exported)
     LOSSES,
@@ -148,8 +147,8 @@ class UnifiedTrainer:
     the RunLog under save_dir/runs, False for none. group: a
     parallel.Group to train on with its other ranks (batch_size is the
     global batch, which its world size must divide), or None. A model in
-    the bfloat16 mode (field_dtype) is refused: the training kernels have
-    no bfloat16 build yet (ops.render.check_float32_decoder)."""
+    the bfloat16 mode (net_hyperparams' field_dtype) trains its NeRF branch
+    on the kernels' bfloat16 builds (ops.render.field_composite_train)."""
 
     def __init__(self, model, hpams: dict, dataset, save_dir: str, *, device,
                  batch_size: int = 8, loss_mode: str = "unified", im_enc_rate: float = 1.0,
@@ -169,7 +168,6 @@ class UnifiedTrainer:
                              "has none (pred_wlh 0)")
         if group is not None and batch_size % group.world:
             raise ValueError(f"batch_size {batch_size} does not split over {group.world} ranks")
-        check_float32_decoder(model, "training")
         self.group, self.main = group, is_main(group)
         self.hpams, self.dataset, self.save_dir = hpams, dataset, save_dir
         self.device = torch.device(device)

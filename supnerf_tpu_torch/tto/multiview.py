@@ -138,8 +138,9 @@ def run_multiview_tto(model, wts, batch: MultiviewBatch, mean_shape, mean_textur
     values. slack_tex: per-view texture residuals, zero at the start, added
     to the shared texture code (reference :874-880). opt_model: also a copy
     of the decoder (decoder_copy) at AdamW lr LR_MODEL (reference :869),
-    refused for a model in the bfloat16 mode, whose decoder's training
-    kernels have no bfloat16 build yet (ops.render.check_float32_decoder).
+    refused for a model in the bfloat16 mode (ops.render.
+    check_float32_decoder; JAX's opt_model trains its flax decoder, not
+    the Pallas training kernels, ROADMAP §B).
     jitter: optional (num_opts, V, S)
     uniform draws of the loss renders' stratified samples, else drawn from
     `generator`. Returns codes at CODE_SAVE_ITERS (n_code, latent), the
