@@ -224,6 +224,19 @@ Phases, each timed; any failure exits non-zero before the result line:
      losses bf16 - float32; (c) field_composite_train(data_grads=True) at
      batch 48 in the mode (K3's data mode), its forward against the
      bfloat16 plain version and one forward + backward timed.
+ 20. the training field in the bfloat16 mode: (a) at the training field's
+     shape (8 objects x 65,536 points) K5's bfloat16 build on the exact
+     encodings (A9) and K7 + K4 in the mode (A10) against their bfloat16
+     plain versions (closer_than_float32), K4 alone on K7's stash against
+     wgrad_plain in the mode (WGRAD_RTOL) and twice on it the same bits,
+     the stash's A side bfloat16-exact, each timed beside bound_bf16 and
+     its float32 build; (b) field_train at batch 48, float32 / bfloat16 A
+     B B A, with exact launches (the bfloat16 runs: K5's training build
+     once, K7 and K4 one pair a stash chunk, nothing else) and one forward
+     + backward timed; (c) phase 12 (c)'s multiview opt_model cell, float32
+     / bfloat16 A B B A: the bfloat16 runs on the plain decoder's bfloat16
+     mode (no launch), finite curves, the model unchanged, ms an
+     iteration.
 The line before the last is a JSON object with one record per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -1016,14 +1029,13 @@ def k7_against_k6(wts, args, cot):
     from supnerf_tpu_torch.ops import field, render
 
     B, M = args[0].shape[:2]
-    L = render.stash_layout(wts, per_point=True)
-    chunk = max(1, min(B, render.STASH_BYTES // (M * L["ld_pt"] * 4)))
-    pt = torch.empty((chunk * M, L["ld_pt"]), device=args[0].device)
+    chunk, chunks = field.field_train_chunks(wts, B, M)
+    pt = torch.empty((chunk * M, render.stash_layout(wts, per_point=True)["ld_pt"]),
+                     device=args[0].device)
     k7, k6 = [], []
-    for o in range(0, B, chunk):
-        sl = slice(o, min(B, o + chunk))
+    for sl in chunks:
         part = [t[sl] for t in args] + [c[sl] for c in cot]
-        k7.append(field.field_train_bwd_stash(wts, *part, pt[:(sl.stop - o) * M]))
+        k7.append(field.field_train_bwd_stash(wts, *part, pt[:(sl.stop - sl.start) * M]))
         k6.append(field.field_bwd(wts, *part))
     torch.cuda.synchronize()
     del pt
@@ -1061,14 +1073,13 @@ def gates_against_k5(wts, args, cot, k7=True):
     apart = {"K6": int((g6 != g5).sum())}
     del g6
     if k7:
-        L = render.stash_layout(wts, per_point=True)
-        chunk = max(1, min(B, render.STASH_BYTES // (M * L["ld_pt"] * 4)))
-        pt = torch.empty((chunk * M, L["ld_pt"]), device=args[0].device)
+        chunk, chunks = field.field_train_chunks(wts, B, M)
+        pt = torch.empty((chunk * M, render.stash_layout(wts, per_point=True)["ld_pt"]),
+                         device=args[0].device)
         g7 = field.gate_buffer(wts, args[0])
-        for o in range(0, B, chunk):
-            sl = slice(o, min(B, o + chunk))
+        for sl in chunks:
             part = [t[sl] for t in args] + [c[sl] for c in cot]
-            view = pt[:(sl.stop - o) * M]
+            view = pt[:(sl.stop - sl.start) * M]
             out = field.field_train_bwd_stash(wts, *part, view, gates=g7[sl])
             same += [torch.equal(a, b)
                      for a, b in zip(out, field.field_train_bwd_stash(wts, *part, view))]
@@ -1113,9 +1124,10 @@ def check_wgrad(wts, views, stash_bytes, names, ports, tpu):
     flops = sum(2 * p.A.shape[0] * p.A.shape[1] * p.G.shape[1]
                 + (p.A.shape[0] * p.G.shape[1] if p.b_out is not None else 0)
                 for ps in probs for p in ps)
-    nbytes = stash_bytes + sum(t.numel() for t in gk) * 4
-    return record("wgrad", ports, tpu, "supnerf_tpu_torch/csrc/wgrad.cu", t_k4, t_k4_p, err,
-                  bound(flops, nbytes), library_ms=t_lib), ok
+    rec = record("wgrad", ports, tpu, "supnerf_tpu_torch/csrc/wgrad.cu", t_k4, t_k4_p, err,
+                 bound(flops, sum(t.numel() for t in gk) * 4), library_ms=t_lib)
+    rec["stash_ms"] = stash_ms(stash_bytes)
+    return rec, ok
 
 
 def wgrad_on_stash(wts, pt, ray):
@@ -1202,7 +1214,8 @@ def check_train_kernels(model=None, seed=1):
     fwd_flops = 2 * pts * decoder_macs(W, ns, nt)
     fwd_bytes = act_bytes + w_fwd * 4 + rays * 5 * 4
     k3_flops = fwd_flops + 2 * pts * (transposed_macs(W, ns, nt) - W * 63)
-    k3_bytes = act_bytes + w_all * 4 + rays * 5 * 4 + stash_bytes + rays * (ns + nt) * W * 4
+    # the bounds leave out the stash (stash_ms), as A6 keeps its rows on chip
+    k3_bytes = act_bytes + w_all * 4 + rays * 5 * 4 + rays * (ns + nt) * W * 4
     records = [
         record("render_fwd", ["A1", "A5"], "supnerf_tpu/ops/pallas_render.py:127",
                "supnerf_tpu_torch/csrc/render_fwd.cu", t_fwd, t_fwd_p, err_fwd,
@@ -1211,6 +1224,7 @@ def check_train_kernels(model=None, seed=1):
                "supnerf_tpu_torch/csrc/render_train_bwd.cu", t_k3, t_k3_p, err_k3,
                bound(k3_flops, k3_bytes)),
         k4_rec]
+    records[1]["stash_ms"] = stash_ms(stash_bytes)
     records[1]["max_abs_err_float32_plain"] = arb["off_err32"]
     records[1]["kink_rays"] = kink_rays_record(arb["kinks"])
     if not (ok and ok_k3 and ok_k4):
@@ -1268,11 +1282,12 @@ def check_train_data_kernels(arb):
     act_bytes = sum(t.numel() for t in args) * 4
     stash_bytes = (pts * L["width"] + rays * (L["r_gv"] + W)) * 4
     flops = 2 * pts * (decoder_macs(W, ns, nt) + transposed_macs(W, ns, nt))
-    nbytes = (act_bytes + w_all * 4 + rays * 5 * 4 + stash_bytes + rays * (ns + nt) * W * 4
+    nbytes = (act_bytes + w_all * 4 + rays * 5 * 4 + rays * (ns + nt) * W * 4
               + (pts * 3 + rays * 3 + B * S) * 4)
     rec = record("render_train_bwd_data", ["A6"], "supnerf_tpu/ops/pallas_render.py:991",
                  "supnerf_tpu_torch/csrc/render_train_bwd.cu", t_k3, t_k3_p, arb["err"],
                  bound(flops, nbytes))
+    rec["stash_ms"] = stash_ms(stash_bytes)
     rec["max_abs_err_float32_plain"] = arb["err32"]
     rec["kink_rays"] = kink_rays_record(arb["kinks"])
     rec["other_mode_ms"] = t_off
@@ -1387,8 +1402,7 @@ def check_field_train_kernels():
     del got, ref, ref64
 
     L = render.stash_layout(wts, per_point=True)
-    chunk = max(1, min(B, render.STASH_BYTES // (M * L["ld_pt"] * 4)))
-    chunks = [slice(o, min(B, o + chunk)) for o in range(0, B, chunk)]
+    chunk, chunks = field.field_train_chunks(wts, B, M)
     pt = torch.empty((chunk * M, L["ld_pt"]), device="cuda")
 
     def view(sl):
@@ -1420,11 +1434,12 @@ def check_field_train_kernels():
     fwd_flops = 2 * pts * (decoder_macs(W, ns, nt) + dir_macs)
     fwd_bytes = act_bytes + w_fwd * 4 + pts * 4 * 4
     k7_flops = fwd_flops + 2 * pts * (transposed_macs(W, ns, nt) + dir_macs)
-    k7_bytes = (act_bytes + w_all * 4 + pts * 4 * 4 + (pts * 6 + B * (ns + nt) * W) * 4
-                + stash_bytes)
+    # the bound leaves out the stash (stash_ms), as A10 keeps its rows on chip
+    k7_bytes = act_bytes + w_all * 4 + pts * 4 * 4 + (pts * 6 + B * (ns + nt) * W) * 4
     k7_rec = record("field_train_bwd", ["A10"], "supnerf_tpu/ops/pallas_field.py:723",
                     "supnerf_tpu_torch/csrc/field_train_bwd.cu", t_k7, t_k7_p, err_k7,
                     bound(k7_flops, k7_bytes))
+    k7_rec["stash_ms"] = stash_ms(stash_bytes)
     k7_rec["max_abs_err_float32_plain"] = err_k7_32
     k7_rec["weights_max_abs_err"] = err_w
     k7_rec["weights_max_abs_err_float32_plain"] = err_w32
@@ -1721,6 +1736,8 @@ KERNEL_OF.update({k + "_bf16": v for k, v in KERNEL_OF.items()
                            "field_fwd", "field_bwd", "render_train_bwd",
                            "render_train_bwd_data", "wgrad")})
 KERNEL_OF["render_fwd_train_bf16"] = "K1"
+KERNEL_OF["field_fwd_train_bf16"] = "K5"
+KERNEL_OF["field_train_bwd_bf16"] = "K7"
 
 
 def _in_temp_dir(fn):
@@ -2181,18 +2198,22 @@ def train_render_data_path():
     return out
 
 
-def train_field_path():
+def train_field_path(field_dtype="float32"):
     """field_train at the published config's width and the sweep scripts'
     batch 48 x 65,536 points (1024 rays x 64 samples each, a direction per
     point), with test_pallas_field.py's loss head on sigma and rgb, whose
     gradient reaches every decoder weight, the latent projections, the
-    codes, and xyz and viewdir: K5, then K7 and K4 per stash chunk. Returns
-    the launch counts and the timed call's ms."""
+    codes, and xyz and viewdir: K5, then K7 and K4 per stash chunk. In the
+    bfloat16 mode (field_dtype) their bfloat16 builds, K5's on the training
+    encodings, with exact launches (one K5, one K7 + K4 pair a stash chunk,
+    nothing else), the forward held to its bfloat16 plain version by
+    closer_than_float32. Returns the launch counts, the timed call's ms and
+    the forward's max abs error."""
     import torch
 
     from supnerf_tpu_torch.ops import field, render
 
-    model = published_model(6)
+    model = published_model(6, field_dtype)
     _, (pts, dirs, _, _), _ = field_train_inputs(seed=6, B=SWEEP_BATCH, model=model)
     g = torch.Generator(device="cuda").manual_seed(6)
     codes = torch.randn((2, SWEEP_BATCH, 256), generator=g, device="cuda") * 0.3
@@ -2206,13 +2227,25 @@ def train_field_path():
         grads = torch.autograd.grad(loss, params + [sc, tc] + data)
         return loss, grads, grads[-2:], (sigma, rgb)
 
-    def plain():
-        return field.field_fwd_plain(render.pack_decoder_params(model), pts, dirs,
-                                     *render.conditioned_latents_of(model, *codes))
+    def plain(mode=field_dtype):
+        live = [t.detach() for t in render.decoder_linear_params(model)]
+        meta = (model.shape_blocks, model.texture_blocks, model.num_xyz_freq,
+                model.num_dir_freq)
+        return field.field_fwd_plain(render.pack_linear_params(live, *meta, field_dtype=mode),
+                                     pts, dirs, *render.conditioned_latents_of(model, *codes),
+                                     exact_pe=True)
 
-    print(f"   field_train, {SWEEP_BATCH} objects x {pts.shape[1]} points:")
-    return _training_kernel_path("training field", TRAIN_FIELD_KERNELS, step,
-                                 ("sigma", "rgb"), plain)
+    print(f"   field_train, {SWEEP_BATCH} objects x {pts.shape[1]} points, {field_dtype}:")
+    if field_dtype == "float32":
+        return _training_kernel_path("training field", TRAIN_FIELD_KERNELS, step,
+                                     ("sigma", "rgb"), plain)
+    pairs = len(field.field_train_chunks(render.pack_decoder_params(model), SWEEP_BATCH,
+                                         pts.shape[1])[1])
+    return _training_kernel_path(
+        "bfloat16 training field",
+        {"field_fwd_train_bf16": 1, "field_train_bwd_bf16": pairs, "wgrad_bf16": pairs}, step,
+        ("sigma", "rgb"), lambda: (plain(), plain("float32")),
+        lambda outs, ref: closer_than_float32(("sigma", "rgb"), outs, *ref)[:2])
 
 
 # --------------------------------------------------------------------------
@@ -4313,6 +4346,13 @@ def closer_than_float32(names, got, p16, p32):
     return worst, ok, out
 
 
+def stash_ms(nbytes):
+    """The time (ms) to write or read a stash of `nbytes` once at the card's
+    memory rate: a cost of the port's design, kept apart from the bounds of
+    the training backward kernels (A6 and A10 keep their rows on chip)."""
+    return nbytes / PEAK_BYTES_PER_S * 1e3
+
+
 def record_bf16(name, ports, tpu, src, t_k, t_p, t_32, err, b, detail):
     print(f"   {name}: {t_k:.3f} ms (plain {t_p:.3f} ms, bf16 bound {b[0]:.3f} ms by {b[1]}; "
           f"the float32 kernel {t_32:.3f} ms at this shape)")
@@ -4401,7 +4441,7 @@ def check_bf16_kernels():
         print(f"   K5/K6 bfloat16 at the {label} shape, {B} objects x {M} points:")
         for exact in (False, True):
             with torch.no_grad():
-                got = field.field_fwd(w16f, *a, exact_pe=exact)
+                got = field.field_fwd(w16f, *a, pe="exact" if exact else "doubling")
                 torch.cuda.synchronize()
                 p16 = field.field_fwd_plain(w16f, *a, exact_pe=exact)
                 p32 = field.field_fwd_plain(w32f, *a)
@@ -4420,7 +4460,7 @@ def check_bf16_kernels():
         del got, p16, p32
         n = 10 if M > 10000 else 50
         t_f = _timed(lambda: field.field_fwd(w16f, *a), n)
-        t_fx = _timed(lambda: field.field_fwd(w16f, *a, exact_pe=True), n)
+        t_fx = _timed(lambda: field.field_fwd(w16f, *a, pe="exact"), n)
         t_f32 = _timed(lambda: field.field_fwd(w32f, *a), n)
         with torch.no_grad():
             t_fp = _timed(lambda: field.field_fwd_plain(w16f, *a), max(n // 4, 3))
@@ -4694,13 +4734,15 @@ def check_bf16_train_kernels():
     stash_bytes = (pts * L["width"] + rays * (L["r_gv"] + W)) * 4
     fwd_flops = 2 * pts * decoder_macs(W, ns, nt)
     k3_flops = fwd_flops + 2 * pts * (transposed_macs(W, ns, nt) - W * 63)
-    k3_bytes = act + w_all * 4 + rays * 5 * 4 + stash_bytes + rays * (ns + nt) * W * 4
+    # A6, as A10, keeps its rows on chip and sums the weight gradients in
+    # the kernel: the stash's bytes are the port's own round trip (stash_ms)
+    k3_bytes = act + w_all * 4 + rays * 5 * 4 + rays * (ns + nt) * W * 4
     data_flops = fwd_flops + 2 * pts * transposed_macs(W, ns, nt)
     data_bytes = k3_bytes + (pts * 3 + rays * 3 + B * S) * 4
     k4_flops = sum(2 * p.A.shape[0] * p.A.shape[1] * p.G.shape[1]
                    + (p.A.shape[0] * p.G.shape[1] if p.b_out is not None else 0)
                    for q in probs for p in q)
-    k4_bytes = stash_bytes + sum(t.numel() for t in render.linear_params_of(w32)) * 4
+    k4_bytes = sum(t.numel() for t in render.linear_params_of(w32)) * 4
     tpu = "supnerf_tpu/ops/pallas_render.py:991"
     src = "supnerf_tpu_torch/csrc/render_train_bwd.cu"
     records = [
@@ -4713,11 +4755,17 @@ def check_bf16_train_kernels():
         record_bf16("render_train_bwd_data_bf16", ["A6"], tpu, src, t_k3[True], t_k3_p[True],
                     t_k3_32[True], err_k3[True], bound_bf16(data_flops, data_bytes),
                     det_k3[True]),
-        record_bf16("wgrad_bf16", ["A6"], tpu, "supnerf_tpu_torch/csrc/wgrad.cu", t_k4, t_k4_p,
-                    t_k4_32, err_k4, bound_bf16(k4_flops, k4_bytes), {})]
+        record_bf16("wgrad_bf16", ["A6", "A10"], tpu, "supnerf_tpu_torch/csrc/wgrad.cu", t_k4,
+                    t_k4_p, t_k4_32, err_k4, bound_bf16(k4_flops, k4_bytes), {})]
     records[-1]["weight_grads_k3_k4"] = det_w
     records[-1]["max_abs_err_k3_k4"] = err_w
-    records[1]["render_train_bwd_ms"] = {"bfloat16": t_all, "float32": t_all32}
+    for r in records[1:]:
+        r["stash_ms"] = stash_ms(stash_bytes)
+    b_all = bound_bf16(k3_flops + k4_flops, k3_bytes + k4_bytes)
+    records[1]["render_train_bwd_ms"] = {"bfloat16": t_all, "float32": t_all32,
+                                         "bound_ms": b_all[0], "bound_by": b_all[1]}
+    print(f"   A6 (K3 + K4) bf16 bound {b_all[0]:.3f} ms by {b_all[1]}; the stash's read or "
+          f"write {stash_ms(stash_bytes):.3f} ms at the memory rate")
     return records
 
 
@@ -4821,6 +4869,244 @@ def bf16_train_paths():
     records[2]["batch48_fwd_bwd_ms"] = data_ms
     records[0]["batch48_max_abs_err"] = data_err
     return records, counts
+
+
+# ---- phase 20: the training field in the bfloat16 mode ------------------
+
+def check_bf16_field_train_kernels():
+    """Phase 20 (a): at the training field's shape (field_train_inputs, 8
+    objects x 65,536 points, a direction per point) K5's bfloat16 build on
+    the exact encodings (A9) and K7 + K4 in the bfloat16 mode (A10,
+    field_train_bwd) against their bfloat16 plain versions, beside those
+    against the float32 plain versions (closer_than_float32): K5's sigma
+    and rgb; K7's dxyz, dviewdir, dzs and dzt; the weight gradients of K7
+    + K4 (the rgb head's bias, a sum of the cotangent alone, to
+    WGRAD_RTOL); K4 alone against wgrad_plain in the mode on the stash K7 wrote (a
+    float32 sum order apart: WGRAD_RTOL of each gradient's largest value),
+    twice on it the same bits, that stash's A side bfloat16-exact. Each
+    timed beside bound_bf16 and its float32 build at the same shape.
+    Returns (the records of K5's and K7's bfloat16 builds, K4's numbers on
+    K7's stash)."""
+    import torch
+
+    from supnerf_tpu_torch.ops import field, render
+
+    w32, args, cot = field_train_inputs()
+    w16 = render.with_field_dtype(w32, "bfloat16")
+    B, M = args[0].shape[:2]
+    W, ns, nt = w32.W, w32.n_shape, w32.n_tex
+    dir_macs = 3 * (2 * w32.num_dir_freq + 1) * W
+    names = ["d" + n for n in _linear_param_names(w32)]
+    print(f"   the training field's shape, {B} objects x {M} points, a direction per point:")
+    ok = True
+    with torch.no_grad():
+        got = field.field_fwd(w16, *args, pe="train")
+        torch.cuda.synchronize()
+        p16 = field.field_fwd_plain(w16, *args, exact_pe=True)
+        p32 = field.field_fwd_plain(w32, *args)
+    err_f, good, det_f = closer_than_float32(("sigma", "rgb"), got, p16, p32)
+    ok &= good
+    del got, p16, p32
+
+    got = field.field_train_bwd(w16, *args, *cot)
+    torch.cuda.synchronize()
+    p16 = field.field_train_bwd_plain(w16, *args, *cot)
+    p32 = field.field_train_bwd_plain(w32, *args, *cot)
+    print("   K7 + K4 (field_train_bwd) against their plain versions:")
+    err_k7, good, det_k7 = closer_than_float32(("dxyz", "dviewdir", "dzs", "dzt"), got[:4],
+                                               p16[:4], p32[:4])
+    ok &= good
+    # the rgb head's bias gradient is the column sums of drgb, which neither
+    # mode rounds (pallas_field.py's jnp.sum(drgb, 0)): its two plain
+    # versions part by the float32 order of one sum alone, so it is held as
+    # K4's sums are, to WGRAD_RTOL of its largest value
+    i_b = names.index("drgb.2.bias")
+    rest = [i for i in range(len(names)) if i != i_b]
+    print("   their weight gradients:")
+    err_w, good, det_w = closer_than_float32([names[i] for i in rest],
+                                             [got[4][i] for i in rest],
+                                             [p16[4][i] for i in rest],
+                                             [p32[4][i] for i in rest])
+    ok &= good
+    err_b, good = compare(names[i_b:i_b + 1], got[4][i_b:i_b + 1], p16[4][i_b:i_b + 1],
+                          lambda n, s: WGRAD_RTOL * s)
+    ok &= good
+    err_w = max(err_w, err_b)
+    del got, p16, p32
+
+    # one stash buffer of a chunk, reused chunk by chunk as field_train_bwd does
+    L = render.stash_layout(w16, per_point=True)
+    chunk, chunks = field.field_train_chunks(w16, B, M)
+    pt = torch.empty((chunk * M, L["ld_pt"]), device="cuda")
+
+    def view(sl):
+        return pt[:(sl.stop - sl.start) * M]
+
+    def k7(fn, wts):
+        for sl in chunks:
+            fn(wts, *(t[sl] for t in args), *(c[sl] for c in cot), view(sl))
+
+    k7(field.field_train_bwd_stash, w16)
+    last = view(chunks[-1])
+    gk, gp, again = (render._linear_grad_buffers(w16, "cuda") for _ in range(3))
+    render.wgrad(render.wgrad_problems(w16, last, None, gk), field_dtype="bfloat16")
+    render.wgrad(render.wgrad_problems(w16, last, None, again), field_dtype="bfloat16")
+    torch.cuda.synchronize()
+    render.wgrad_plain(render.wgrad_problems(w16, last, None, gp), field_dtype="bfloat16")
+    print(f"   K4 in the mode against wgrad_plain in the mode on K7's stash (tolerance "
+          f"WGRAD_RTOL {WGRAD_RTOL:.0e} of each gradient's largest value):")
+    err_k4, good = compare(names, gk, gp, lambda n, s: WGRAD_RTOL * s)
+    same = all(torch.equal(a, b) for a, b in zip(gk, again))
+    a_exact = all(torch.equal(q.A, render.bf16_round(q.A))
+                  for q in render.wgrad_problems(w16, last, None, gk))
+    print(f"   K4 in the mode twice on the same stash, the same bits: "
+          f"{'ok' if same else 'FAIL'}; the stash's A side bfloat16-exact: "
+          f"{'ok' if a_exact else 'FAIL'}")
+    ok &= good and same and a_exact
+    del gk, gp, again
+    if not ok:
+        raise RuntimeError("a bfloat16 training-field kernel disagrees with its plain version")
+
+    probs = [render.wgrad_problems(w16, view(sl), None, render._linear_grad_buffers(w16, "cuda"))
+             for sl in chunks]
+    t_f = _timed(lambda: field.field_fwd(w16, *args, pe="train"), 5)
+    t_f32 = _timed(lambda: field.field_fwd(w32, *args), 5)
+    with torch.no_grad():
+        t_fp = _timed(lambda: field.field_fwd_plain(w16, *args, exact_pe=True), 3)
+    t_k7 = _timed(lambda: k7(field.field_train_bwd_stash, w16), 3)
+    t_k7_32 = _timed(lambda: k7(field.field_train_bwd_stash, w32), 3)
+    t_k7_p = _timed(lambda: k7(field.field_train_bwd_stash_plain, w16), 2)
+    k7(field.field_train_bwd_stash, w16)
+    t_k4 = _timed(lambda: [render.wgrad(q, field_dtype="bfloat16") for q in probs], 5)
+    t_k4_32 = _timed(lambda: [render.wgrad(q) for q in probs], 5)
+    t_k4_p = _timed(lambda: [render.wgrad_plain(q, field_dtype="bfloat16") for q in probs], 3)
+    t_all = _timed(lambda: field.field_train_bwd(w16, *args, *cot), 3)
+    t_all32 = _timed(lambda: field.field_train_bwd(w32, *args, *cot), 3)
+    print(f"   training field backward K7 + K4 through field_train_bwd: bfloat16 {t_all:.3f} ms, "
+          f"float32 {t_all32:.3f} ms ({len(chunks)} chunks of {chunk} objects)")
+
+    pts = B * M
+    stash_bytes = pts * L["width"] * 4
+    w_fwd = sum(getattr(w32, f).numel() for f in render._PTR_FIELDS if not f.startswith("wt_"))
+    w_all = sum(getattr(w32, f).numel() for f in render._PTR_FIELDS)
+    act_bytes = sum(t.numel() for t in args) * 4
+    fwd_flops = 2 * pts * (decoder_macs(W, ns, nt) + dir_macs)
+    fwd_bytes = act_bytes + w_fwd * 4 + pts * 4 * 4
+    k7_flops = fwd_flops + 2 * pts * (transposed_macs(W, ns, nt) + dir_macs)
+    # A10 keeps its per-point rows on chip and sums the weight gradients
+    # in the kernel: its bytes are the points, cotangents, latents and
+    # weights in and the gradients out. The stash K7 writes and K4 reads
+    # is the port's own round trip, its time apart (stash_ms)
+    k7_bytes = act_bytes + w_all * 4 + pts * 4 * 4 + (pts * 6 + B * (ns + nt) * W) * 4
+    k4_flops = sum(2 * q.A.shape[0] * q.A.shape[1] * q.G.shape[1]
+                   + (q.A.shape[0] * q.G.shape[1] if q.b_out is not None else 0)
+                   for qs in probs for q in qs)
+    k4_bytes = sum(t.numel() for t in render.linear_params_of(w32)) * 4
+    records = [
+        record_bf16("field_fwd_train_bf16", ["A9"], "supnerf_tpu/ops/pallas_field.py:704",
+                    "supnerf_tpu_torch/csrc/field_fwd.cu", t_f, t_fp, t_f32, err_f,
+                    bound_bf16(fwd_flops, fwd_bytes), det_f),
+        record_bf16("field_train_bwd_bf16", ["A10"], "supnerf_tpu/ops/pallas_field.py:723",
+                    "supnerf_tpu_torch/csrc/field_train_bwd.cu", t_k7, t_k7_p, t_k7_32, err_k7,
+                    bound_bf16(k7_flops, k7_bytes), det_k7)]
+    records[1]["weight_grads_k7_k4"] = det_w
+    records[1]["max_abs_err_k7_k4"] = err_w
+    records[1]["stash_ms"] = stash_ms(stash_bytes)
+    b_all = bound_bf16(k7_flops + k4_flops, k7_bytes + k4_bytes)
+    records[1]["field_train_bwd_ms"] = {"bfloat16": t_all, "float32": t_all32,
+                                        "bound_ms": b_all[0], "bound_by": b_all[1]}
+    print(f"   A10 (K7 + K4) bf16 bound {b_all[0]:.3f} ms by {b_all[1]}; the stash's round "
+          f"trip {2 * stash_ms(stash_bytes):.3f} ms at the memory rate")
+    b4 = bound_bf16(k4_flops, k4_bytes)
+    print(f"   wgrad_bf16 on K7's stash: {t_k4:.3f} ms (plain {t_k4_p:.3f} ms, bf16 bound "
+          f"{b4[0]:.3f} ms by {b4[1]}, the stash's read {stash_ms(stash_bytes):.3f} ms; the "
+          f"float32 kernel {t_k4_32:.3f} ms)")
+    k4_field = {"ms": t_k4, "plain_ms": t_k4_p, "float32_ms": t_k4_32, "bound_ms": b4[0],
+                "bound_by": b4[1], "stash_ms": stash_ms(stash_bytes), "max_abs_err": err_k4,
+                "library_ms": None}
+    return records, k4_field
+
+
+def bf16_multiview_model_cell(out_dir):
+    """Phase 20 (c): phase 12 (c)'s multiview opt_model cell (one instance
+    of 2 views, opt_pose, 100 iterations, the published config's weights
+    from seed 0), float32 and with field_dtype "bfloat16", A B B A. The
+    float32 runs launch K1, K3's data mode and K4 as phase 12 (c); the
+    bfloat16 runs train the decoder copy on the plain decoder's bfloat16
+    mode (decode_bf16 under autograd, as JAX's opt_model trains its flax
+    decoder) and launch nothing. Finite curves, the model given unchanged,
+    ms an iteration. Returns the first bfloat16 run's launch counts and the
+    ms an iteration of each run by mode."""
+    import copy
+
+    import torch
+
+    from supnerf_tpu_torch.cli.common import SyntheticDataset, load_model_and_codes
+    from supnerf_tpu_torch.config import load_hpams
+    from supnerf_tpu_torch.ops import render
+    from supnerf_tpu_torch.tto.driver import TTODriver
+    from supnerf_tpu_torch.tto.multiview import MultiviewBatch, run_multiview_tto
+
+    ms, counts = {"float32": [], "bfloat16": []}, None
+    for i, mode in enumerate(BF16_AB_RUNS):
+        hpams = copy.deepcopy(load_hpams(PUBLISHED))
+        hpams["net_hyperparams"]["field_dtype"] = mode
+        model, mean_shape, mean_texture = load_model_and_codes(hpams, "cuda", seed=0)
+        driver = TTODriver(model, mean_shape, mean_texture, hpams, SyntheticDataset(2),
+                           os.path.join(out_dir, f"run_{i}"), device="cuda", batch_size=2)
+        _, _, batch = driver._prep([0, 1])
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        render.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = run_multiview_tto(model, driver.wts, MultiviewBatch.from_object_batch(batch),
+                                driver.mean_shape, driver.mean_texture, driver.cfg,
+                                opt_pose=True, opt_model=True, generator=driver.render_gen)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        label = f"multiview opt_model, {mode} run {i}"
+        if mode == "float32":
+            _path_counts(label, MULTIVIEW_MODEL_KERNELS)
+        else:
+            c = dict(render.LAUNCHES)
+            print(f"   launches on the {label} path: none (route: the plain decoder's bfloat16 "
+                  "mode, as the JAX package's flax opt_model)")
+            if any(c.values()):
+                raise RuntimeError(f"{label} launched a kernel: {c}")
+            counts = counts or c
+        if not all(torch.equal(v, before[k]) for k, v in model.state_dict().items()):
+            raise RuntimeError(f"{label} changed the model given")
+        _check_curves(label, [res["psnr"].cpu(), res["loss"].cpu()], 2, OPTION_ITERS)
+        ms[mode].append(seconds / OPTION_ITERS * 1e3)
+        print(f"   {label}: {seconds:.2f} s ({ms[mode][-1]:.2f} ms an iteration); psnr "
+              f"{float(res['psnr'][0]):.3f} -> {float(res['psnr'][-1]):.3f}, loss "
+              f"{float(res['loss'][0]):.5f} -> {float(res['loss'][-1]):.5f}")
+        del model, driver
+    return counts, ms
+
+
+def bf16_field_train_paths():
+    """Phase 20. Returns (kernel records, K4's numbers on K7's bfloat16
+    stash, launch counts by path)."""
+    records, k4_field = check_bf16_field_train_kernels()
+    counts, ms = {}, {"float32": [], "bfloat16": []}
+    for mode in BF16_AB_RUNS:
+        c, t, _ = train_field_path(mode)
+        ms[mode].append(t)
+        if mode == "bfloat16":
+            counts.setdefault("bf16_train_field", c)
+    print("   field_train at batch 48, one forward + backward (ms), float32: "
+          + ", ".join(f"{t:.1f}" for t in ms["float32"]) + "; bfloat16: "
+          + ", ".join(f"{t:.1f}" for t in ms["bfloat16"]))
+    counts["bf16_multiview_opt_model"], mv_ms = _in_temp_dir(bf16_multiview_model_cell)
+    for r in records:
+        r["kernel"] = KERNEL_OF[r["name"]]
+        r["launches_by_path"] = {p: c.get(r["name"], 0) for p, c in counts.items()}
+        r["launches"] = r["launches_by_path"]["bf16_train_field"]
+    records[1]["batch48_fwd_bwd_ms"] = ms
+    records[1]["multiview_opt_model_ms_per_iteration"] = mv_ms
+    k4_field["launches"] = counts["bf16_train_field"]["wgrad_bf16"]
+    return records, k4_field, counts
 
 
 def kernel_records(tto_records, train_records, aabb_records, field_records,
@@ -4974,6 +5260,16 @@ def main():
                "A B B A at batch 8 and 48, (c) field_composite_train(data_grads=True)")
     bf16_train_records, bf16_train_counts = bf16_train_paths()
     done(t0, "training in the bfloat16 mode")
+    t0 = phase("the training field in the bfloat16 mode: (a) K5 (exact encodings), K7 and K4 "
+               "against their bfloat16 plain versions, (b) field_train at batch 48 float32 / "
+               "bfloat16 A B B A, (c) multiview opt_model float32 / bfloat16 A B B A")
+    bf16_field_records, k4_field, bf16_field_counts = bf16_field_train_paths()
+    done(t0, "the training field in the bfloat16 mode")
+    for r in bf16_train_records:
+        if r["name"] == "wgrad_bf16":
+            r["field_stash"] = k4_field
+            r["launches_by_path"].update({p: c.get("wgrad_bf16", 0)
+                                          for p, c in bf16_field_counts.items()})
     records = kernel_records(tto_records, train_records, aabb_records, field_records,
                              train_kernel_records, train_field_extra, codenerf_extra,
                              {"tto": tto_counts, "train": train_counts, "demo": demo_counts,
@@ -4983,7 +5279,7 @@ def main():
                               **baseline_counts, **driver_counts, **vis_counts,
                               **training_counts, **last_counts, **dp_counts,
                               **pipeline_counts, **layout_counts, **bf16_counts,
-                              **bf16_train_counts})
+                              **bf16_train_counts, **bf16_field_counts})
     records_by_name = {r["name"]: r for r in records}
     records_by_name["render_fwd"].update(vis_kernels)
     records_by_name["render_train_bwd_data"]["batch48_fwd_bwd_ms"] = render_data_ms
@@ -4991,7 +5287,7 @@ def main():
     records_by_name["render_fwd"]["batch48_max_abs_err"] = render_data_err
     records_by_name["field_fwd"]["batch48_max_abs_err"] = field_train_err
     records_by_name["render_train_bwd_data"]["multiview_opt_model"] = opt_model_check
-    records += bf16_records + bf16_train_records
+    records += bf16_records + bf16_train_records + bf16_field_records
     print(f"total {time.perf_counter() - t_all:.1f} s")
     print("kernels: " + " ".join(f"{r['kernel']}:{r['name']}({','.join(r['ports'])})"
                                  for r in records))

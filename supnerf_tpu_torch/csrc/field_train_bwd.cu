@@ -47,15 +47,36 @@
 // memory of their own: the block's is K6's (228,664 B at W 256), one block
 // of 8 warps per SM. The last block's missing rows are left out of the
 // stash, the outputs and the column sums.
+//
+// The bfloat16 mode (field_train_bwd_bf16_kernel: field_backward with kBf16
+// and exact_pe): the Pallas kernel at dtype=bfloat16. Its recompute is
+// K6's bfloat16 arithmetic on the exact encodings that field_train_pallas
+// computes outside the kernel, the ReLU outputs rounded (its bfloat16
+// stash), every transposed layer's cotangent rounded where it enters a
+// product; dz_shape and dz_tex the float32 sums of the unrounded products.
+// The stash keeps the float32 layout: its A side bfloat16-exact (the
+// operands the Pallas kernel's mm_xg casts: the rounded encodings and ReLU
+// outputs, e and each latent-added input rounded as they are stored), its
+// G side float32 and unrounded, since every bias gradient sums the float32
+// cotangent; K4's bfloat16 entry rounds G where it enters a product. The
+// Pallas kernel returns the encodings' cotangents, and XLA differentiates
+// the float32 encoding: so dxyz and dviewdir take the float32 chain rule
+// (encode_backward_points) on the unrounded cotangents, not K6's bfloat16
+// one. It needs no other shared memory than the float32 build. What bounds
+// it in the mode: the stash's bytes, 8.3 GB for 8 x 65,536 points, 2.5 ms at
+// 3.35 TB/s, against about 1.8 MFLOP a point on the bfloat16 tensor cores,
+// 0.96 ms at 989 TFLOP/s.
 #include "render_common.cuh"
 
 namespace supnerf {
 
-__global__ void __launch_bounds__(kThreads, 1) field_train_bwd_kernel(
+// One block of kRows points of one object (grid (ceil(M / 64), B)), either
+// mode: field_backward with the stash.
+template <bool kBf16>
+static __device__ __forceinline__ void field_train_bwd_block(
     const float* __restrict__ xyz, const float* __restrict__ vd, const float* __restrict__ zs,
-    const float* __restrict__ zt, const __grid_constant__ DecoderWeights w,
-    const __grid_constant__ Dims d,
-    const float* __restrict__ g_sigma, const float* __restrict__ g_rgb, StashLayout st,
+    const float* __restrict__ zt, const DecoderWeights& w, const Dims& d,
+    const float* __restrict__ g_sigma, const float* __restrict__ g_rgb, const StashLayout& st,
     float* __restrict__ dxyz, float* __restrict__ dvd, float* __restrict__ dzs_part,
     float* __restrict__ dzt_part) {
   const int blk = blockIdx.x, obj = blockIdx.y, nblk = gridDim.x;
@@ -64,11 +85,56 @@ __global__ void __launch_bounds__(kThreads, 1) field_train_bwd_kernel(
   const int n = min(kRows, M - blk * kRows);          // this block's real rows
   const size_t part = (size_t)obj * nblk + blk;       // this block's partial-sum row
   extern __shared__ float smem[];
-  field_backward<true, false>(xyz + p0 * 3, vd + p0 * 3, n, zs + (size_t)obj * d.n_shape * W,
-                              zt + (size_t)obj * d.n_tex * W, w, d, g_sigma + p0,
-                              g_rgb + p0 * 3, smem, dxyz + p0 * 3, dvd + p0 * 3,
-                              dzs_part + part * d.n_shape * W, dzt_part + part * d.n_tex * W,
-                              st, st.pt + p0 * st.ld_pt, nullptr);
+  if constexpr (kBf16)
+    field_backward<true, false, true>(
+        xyz + p0 * 3, vd + p0 * 3, n, zs + (size_t)obj * d.n_shape * W,
+        zt + (size_t)obj * d.n_tex * W, w, d, g_sigma + p0, g_rgb + p0 * 3, smem, dxyz + p0 * 3,
+        dvd + p0 * 3, dzs_part + part * d.n_shape * W, dzt_part + part * d.n_tex * W, st,
+        st.pt + p0 * st.ld_pt, nullptr, true);
+  else
+    field_backward<true, false>(xyz + p0 * 3, vd + p0 * 3, n, zs + (size_t)obj * d.n_shape * W,
+                                zt + (size_t)obj * d.n_tex * W, w, d, g_sigma + p0,
+                                g_rgb + p0 * 3, smem, dxyz + p0 * 3, dvd + p0 * 3,
+                                dzs_part + part * d.n_shape * W, dzt_part + part * d.n_tex * W,
+                                st, st.pt + p0 * st.ld_pt, nullptr);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) field_train_bwd_kernel(
+    const float* __restrict__ xyz, const float* __restrict__ vd, const float* __restrict__ zs,
+    const float* __restrict__ zt, const __grid_constant__ DecoderWeights w,
+    const __grid_constant__ Dims d,
+    const float* __restrict__ g_sigma, const float* __restrict__ g_rgb, StashLayout st,
+    float* __restrict__ dxyz, float* __restrict__ dvd, float* __restrict__ dzs_part,
+    float* __restrict__ dzt_part) {
+  field_train_bwd_block<false>(xyz, vd, zs, zt, w, d, g_sigma, g_rgb, st, dxyz, dvd, dzs_part,
+                               dzt_part);
+}
+
+__global__ void __launch_bounds__(kThreads, 1) field_train_bwd_bf16_kernel(
+    const float* __restrict__ xyz, const float* __restrict__ vd, const float* __restrict__ zs,
+    const float* __restrict__ zt, const __grid_constant__ DecoderWeights w,
+    const __grid_constant__ Dims d,
+    const float* __restrict__ g_sigma, const float* __restrict__ g_rgb, StashLayout st,
+    float* __restrict__ dxyz, float* __restrict__ dvd, float* __restrict__ dzs_part,
+    float* __restrict__ dzt_part) {
+  field_train_bwd_block<true>(xyz, vd, zs, zt, w, d, g_sigma, g_rgb, st, dxyz, dvd, dzs_part,
+                              dzt_part);
+}
+
+// Launches `kernel` (either build) on `stream`.
+template <typename Kernel>
+static int launch_field_train_bwd(Kernel kernel, const float* xyz, const float* vd,
+                                  const float* zs, const float* zt, const DecoderWeights* w,
+                                  const Dims& d, const float* g_sigma, const float* g_rgb,
+                                  const StashLayout* stash, float* dxyz, float* dvd,
+                                  float* dzs_part, float* dzt_part, void* stream) {
+  const size_t smem = field_backward_smem_bytes(d.W, d.n_shape, d.n_tex);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((d.R + kRows - 1) / kRows, d.B), kThreads, smem, (cudaStream_t)stream>>>(
+      xyz, vd, zs, zt, *w, d, g_sigma, g_rgb, *stash, dxyz, dvd, dzs_part, dzt_part);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace supnerf
@@ -83,13 +149,22 @@ extern "C" int supnerf_field_train_bwd(const float* xyz, const float* vd, const 
                                        float* dvd, float* dzs_part, float* dzt_part,
                                        void* stream) {
   using namespace supnerf;
-  const Dims d{B, M, kRows, W, n_shape, n_tex, l_xyz, l_dir};
-  const size_t smem = field_backward_smem_bytes(W, n_shape, n_tex);
-  cudaError_t err = cudaFuncSetAttribute(
-      field_train_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  field_train_bwd_kernel<<<dim3((M + kRows - 1) / kRows, B), kThreads, smem,
-                           (cudaStream_t)stream>>>(
-      xyz, vd, zs, zt, *w, d, g_sigma, g_rgb, *stash, dxyz, dvd, dzs_part, dzt_part);
-  return (int)cudaGetLastError();
+  return launch_field_train_bwd(field_train_bwd_kernel, xyz, vd, zs, zt, w,
+                                Dims{B, M, kRows, W, n_shape, n_tex, l_xyz, l_dir}, g_sigma,
+                                g_rgb, stash, dxyz, dvd, dzs_part, dzt_part, stream);
+}
+
+// The bfloat16 mode's entry: supnerf_field_train_bwd's arguments.
+extern "C" int supnerf_field_train_bwd_bf16(const float* xyz, const float* vd, const float* zs,
+                                            const float* zt, const supnerf::DecoderWeights* w,
+                                            int B, int M, int W, int n_shape, int n_tex,
+                                            int l_xyz, int l_dir, const float* g_sigma,
+                                            const float* g_rgb,
+                                            const supnerf::StashLayout* stash, float* dxyz,
+                                            float* dvd, float* dzs_part, float* dzt_part,
+                                            void* stream) {
+  using namespace supnerf;
+  return launch_field_train_bwd(field_train_bwd_bf16_kernel, xyz, vd, zs, zt, w,
+                                Dims{B, M, kRows, W, n_shape, n_tex, l_xyz, l_dir}, g_sigma,
+                                g_rgb, stash, dxyz, dvd, dzs_part, dzt_part, stream);
 }

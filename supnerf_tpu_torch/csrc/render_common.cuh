@@ -15,7 +15,7 @@
 // on the tensor cores: every dense layer of every kernel) splits each
 // layer's output columns across the warps.
 //
-// The bfloat16 mode (K1, K2, K3, K5, K6 built with kBf16; K4's bfloat16
+// The bfloat16 mode (K1, K2, K3, K5, K6, K7 built with kBf16; K4's bfloat16
 // entry in wgrad.cu; ops/render.py's DecoderWeights.field_dtype
 // "bfloat16"): the Pallas kernels at dtype=bfloat16. Every dense layer runs
 // on dense_mma_bf16 (bf16.cuh: bfloat16 operands, exact products, float32
@@ -1171,12 +1171,16 @@ static __device__ __noinline__ void field_exact64(int slot, unsigned long long r
 // encoding_shape layer's barrier has passed. The last copy, of the returned
 // buffer, has no barrier after it: the caller must not rewrite that buffer
 // before its next __syncthreads().
-// kBf16 (K5, K6 in the bfloat16 mode): the encodings rounded
-// (encode_points_bf16; exact_pe: A11b's exact sines and cosines), every
-// layer on dense_mma_bf16, the sigma head on rounded operands, no exact
-// step; round_stash (K6's recompute) rounds each ReLU output to bfloat16
-// (pallas_field.py:_field_bwd_kernel's stash), so the next layer adds its
-// latent to the rounded value. Not with kStash.
+// kBf16 (K5, K6, K7 in the bfloat16 mode): the encodings rounded
+// (encode_points_bf16; exact_pe: the exact sines and cosines of A11b and of
+// the training field, A9 and A10), every layer on dense_mma_bf16, the sigma
+// head on rounded operands, no exact step; round_stash (K6's and K7's
+// recompute) rounds each ReLU output to bfloat16 (the Pallas backward
+// kernels' stash), so the next layer adds its latent to the rounded value.
+// With kStash (K7) the A side of the stash is bfloat16-exact, as
+// pallas_field.py:_field_train_bwd_kernel's weight products (mm_xg) cast
+// it: the rounded encodings and ReLU outputs as they are, e and each
+// latent-added layer input rounded as stash_rows<true> stores them.
 template <bool kStash = false, bool kBf16 = false>
 static __device__ __forceinline__ float* field_chain(const float* xyz, const float* vd, int n, const float* zs,
                                      const float* zt, const DecoderWeights& w, const Dims& d,
@@ -1184,7 +1188,6 @@ static __device__ __forceinline__ float* field_chain(const float* xyz, const flo
                                      float* logit, uint32_t* masks, unsigned long long* exact,
                                      const StashLayout& st = {}, float* pt = nullptr,
                                      bool exact_pe = false, bool round_stash = false) {
-  static_assert(!(kStash && kBf16), "the stash has no bfloat16 mode");
   const int W = d.W, Ws = W + kMmaPad;
   const unsigned long long real = n < 64 ? (1ull << n) - 1 : ~0ull;
   auto mask_of = [&](int slot) {
@@ -1192,6 +1195,10 @@ static __device__ __forceinline__ float* field_chain(const float* xyz, const flo
   };
   auto stash = [&](const float* buf, int stride, int N, int col) {
     if constexpr (kStash) stash_rows(buf, stride, N, n, pt + col, st.ld_pt);
+  };
+  // a value the bfloat16 mode has not rounded yet: e, a latent-added input
+  auto stash_rounded = [&](const float* buf, int N, int col) {
+    if constexpr (kStash) stash_rows<kBf16>(buf, Ws, N, n, pt + col, st.ld_pt);
   };
   // after a ReLU layer (its output in out; free: the buffer its input was
   // in), the exact step for the real rows its refine step noted
@@ -1221,7 +1228,7 @@ static __device__ __forceinline__ float* field_chain(const float* xyz, const flo
   float* nxt = buf_b;
   for (int j = 0; j < d.n_shape; ++j) {
     add_row_vector(cur, Ws, W, zs + (size_t)j * W);
-    stash(cur, Ws, W, st.a_sh + j * W);
+    stash_rounded(cur, W, st.a_sh + j * W);
     dense_layer<kBf16, true>(cur, Ws, W, w.w_sh + (size_t)j * W * W, W, w.b_sh + j * W, nxt, Ws,
                              true, mask_of(1 + j), stage, nullptr, 0, 0, nullptr, exact + 1 + j,
                              round_stash);
@@ -1231,7 +1238,7 @@ static __device__ __forceinline__ float* field_chain(const float* xyz, const flo
   stash(cur, Ws, W, st.a_es);
   dense_layer<kBf16>(cur, Ws, W, w.w_es, W, w.b_es, nxt, Ws, false, nullptr, stage);
   { float* t = cur; cur = nxt; nxt = t; }                       // cur = e
-  stash(cur, Ws, W, st.a_e);
+  stash_rounded(cur, W, st.a_e);
   stash(enc, kPeLd, pe_width(d.l_dir), st.a_dpe);
   head<kBf16>(cur, Ws, W, w.w_sg, 1, w.b_sg, logit);
   const int s_vd = d.n_shape + 1;
@@ -1242,7 +1249,7 @@ static __device__ __forceinline__ float* field_chain(const float* xyz, const flo
   { float* t = cur; cur = nxt; nxt = t; }
   for (int j = 0; j < d.n_tex; ++j) {
     add_row_vector(cur, Ws, W, zt + (size_t)j * W);
-    stash(cur, Ws, W, st.a_tx + j * W);
+    stash_rounded(cur, W, st.a_tx + j * W);
     dense_layer<kBf16, true>(cur, Ws, W, w.w_tx + (size_t)j * W * W, W, w.b_tx + j * W, nxt, Ws,
                              true, mask_of(s_vd + 1 + j), stage, nullptr, 0, 0, nullptr,
                              exact + s_vd + 1 + j, round_stash);
@@ -1396,18 +1403,23 @@ static inline size_t field_backward_smem_bytes(int W, int n_shape, int n_tex) {
 // n real rows from pt on (st's columns), each copy of a buffer that nothing
 // rewrites before the chain's next __syncthreads(); so K6 and K7 give the
 // same bits.
-// kBf16 (K6's bfloat16 mode, pallas_field.py:_field_bwd_kernel at
-// dtype=bfloat16): field_chain's recompute with its ReLU outputs rounded
-// (round_stash), every transposed layer on dense_mma_bf16 (its cotangent
-// rounded as its fragments are built), the rgb and sigma cotangents rounded
-// where they enter a product, the direction encodings' cotangent per point
-// unrounded and both chain rules encode_backward_points_bf16's.
+// kBf16 (the bfloat16 mode: K6, pallas_field.py:_field_bwd_kernel, and K7,
+// _field_train_bwd_kernel, at dtype=bfloat16): field_chain's recompute with
+// its ReLU outputs rounded (round_stash), every transposed layer on
+// dense_mma_bf16 (its cotangent rounded as its fragments are built), the
+// rgb and sigma cotangents rounded where they enter a product, the
+// encodings' cotangents unrounded float32. K6 (exact_pe false) reads the
+// doubling encodings and takes both chain rules as the Pallas kernel does
+// in place (encode_backward_points_bf16). K7 (exact_pe true) reads the
+// exact encodings, which field_train_pallas computes in XLA outside the
+// kernel, and takes XLA's autodiff of them: the float32 chain rule
+// (encode_backward_points) on the unrounded cotangents.
 template <bool kStash, bool kGates, bool kBf16 = false>
 static __device__ __forceinline__ void field_backward(
     const float* xyz, const float* vd, int n, const float* zs, const float* zt,
     const DecoderWeights& w, const Dims& d, const float* g_sigma, const float* g_rgb,
     float* smem, float* dxyz, float* dvd, float* dzs_part, float* dzt_part,
-    const StashLayout& st, float* pt, uint32_t* gates) {
+    const StashLayout& st, float* pt, uint32_t* gates, bool exact_pe = false) {
   const int W = d.W, W2 = d.W / 2, Ws = W + kMmaPad;   // Ws: activation row stride
   const int nj = W / 32;
   const int n_masks = field_slots(d);
@@ -1439,7 +1451,7 @@ static __device__ __forceinline__ void field_backward(
   // ---- forward recompute, ReLU patterns to shared memory (syncs) ---------
   // nxt: rgb_hidden's output, read by the a_hh copy until the next barrier
   float* nxt = field_chain<kStash, kBf16>(xyz, vd, n, zs, zt, w, d, stage, buf_a, buf_b, enc,
-                                          logit, masks, exact, st, pt, false, kBf16);
+                                          logit, masks, exact, st, pt, exact_pe, kBf16);
   float* cur = nxt == buf_a ? buf_b : buf_a;
   if constexpr (kGates) store_gates(masks, n, d, gates);
   if constexpr (kStash) {
@@ -1476,7 +1488,7 @@ static __device__ __forceinline__ void field_backward(
   // (into enc, free since the forward, kPeStride a row), then its chain rule
   dense_layer<kBf16>(cur, Ws, W, w.wt_vd_b, pe_width(d.l_dir), nullptr, enc, kPeStride, false,
                      nullptr, stage);
-  if constexpr (kBf16) encode_backward_points_bf16(vd, enc, kPeStride, d.l_dir, n, dvd);
+  if (kBf16 && !exact_pe) encode_backward_points_bf16(vd, enc, kPeStride, d.l_dir, n, dvd);
   else encode_backward_points(vd, enc, kPeStride, d.l_dir, n, dvd);
   // encoding_shape output e feeds both the viewdir layer and the sigma head
   dense_layer<kBf16>(cur, Ws, W, w.wt_vd_a, W, nullptr, nxt, Ws, false, nullptr, stage);
@@ -1504,7 +1516,7 @@ static __device__ __forceinline__ void field_backward(
   // encoding's chain rule
   dense_layer<kBf16>(cur, Ws, W, w.wt_xyz, pe_width(d.l_xyz), nullptr, nxt, kPeStride, false,
                      nullptr, stage);
-  if constexpr (kBf16) encode_backward_points_bf16(xyz, nxt, kPeStride, d.l_xyz, n, dxyz);
+  if (kBf16 && !exact_pe) encode_backward_points_bf16(xyz, nxt, kPeStride, d.l_xyz, n, dxyz);
   else encode_backward_points(xyz, nxt, kPeStride, d.l_xyz, n, dxyz);
 }
 

@@ -34,11 +34,14 @@ decoder operands, build, library, stash layout, K4 and launch counts
 (LAUNCHES["field_fwd"], ["field_bwd"], ["field_train_bwd"], ["wgrad"]).
 
 The bfloat16 mode (render.DecoderWeights.field_dtype "bfloat16", ops/render.py's
-module docstring): K5 and K6 launch their bfloat16 builds (LAUNCHES'
-field_fwd_bf16, field_bwd_bf16), the Pallas kernels at dtype=bfloat16,
-and their plain versions follow those kernels' rounding (field_fwd_plain,
-field_bwd_plain_bf16); K7 has no bfloat16 build, and field_train refuses
-a bfloat16 decoder.
+module docstring): K5, K6 and K7 launch their bfloat16 builds (LAUNCHES'
+field_fwd_bf16, field_bwd_bf16, field_train_bwd_bf16; K5 on the training
+field's exact encodings as field_fwd_train_bf16) and K4 its bfloat16
+entry (wgrad_bf16), the Pallas kernels at dtype=bfloat16, and their plain
+versions follow those kernels' rounding (field_fwd_plain,
+field_bwd_plain_bf16, field_train_bwd_stash_plain_bf16,
+render.wgrad_plain in the mode). field_train takes the mode from the
+decoder's field_dtype, as the training render does.
 
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 For CUDA tensors it launches its kernel or raises; there is no fallback.
@@ -81,6 +84,7 @@ from supnerf_tpu_torch.ops.render import (
     wgrad,
     wgrad_problems,
     write_stash,
+    write_stash_bf16,
 )
 
 ROWS = 64          # points per block of K5 and K6 (kRows in csrc/render_common.cuh)
@@ -177,16 +181,20 @@ def _gates_args(wts: DecoderWeights, xyz, gates):
     return "_gates", [gates.data_ptr()]
 
 
-def field_fwd(wts: DecoderWeights, xyz, viewdir, zs, zt, gates=None, exact_pe=False):
+def field_fwd(wts: DecoderWeights, xyz, viewdir, zs, zt, gates=None, pe="doubling"):
     """K5 wrapper. Returns (sigma (B,M,1), rgb (B,M,3)); with gates
     (gate_buffer), the kernel's ReLU gates are written into it too. In wts'
-    bfloat16 mode it launches K5's bfloat16 build, exact_pe selecting its
-    exact encodings (A11b; field_fwd_plain)."""
+    bfloat16 mode it launches K5's bfloat16 build with the encodings `pe`
+    (render.PE_MODES): "doubling" for A7, "exact" for A11b, "train" for the
+    training field's forward (A9: the exact encodings, counted as
+    field_fwd_train_bf16). The float32 build's encodings are exact in all."""
+    render.check_pe(pe)
+    exact_pe = pe != "doubling"
     entry, extra = _gates_args(wts, xyz, gates)
     if xyz.device.type == "cpu":
         return field_fwd_plain(wts, xyz, viewdir, zs, zt, exact_pe)
     if wts.field_dtype == "bfloat16":
-        entry, extra = "_bf16", [int(bool(exact_pe))]
+        entry, extra = "_bf16", [int(exact_pe)]
     _check_field_inputs(wts, xyz, viewdir, zs, zt)
     B, M = xyz.shape[:2]
     sigma = torch.empty((B, M, 1), device=xyz.device)
@@ -198,7 +206,7 @@ def field_fwd(wts: DecoderWeights, xyz, viewdir, zs, zt, gates=None, exact_pe=Fa
             ctypes.byref(ptrs), *_dims(wts, xyz), sigma.data_ptr(), rgb.data_ptr(), *extra,
             torch.cuda.current_stream(xyz.device).cuda_stream)
     _raise_on(err, "field_fwd")
-    LAUNCHES[launch_key("field_fwd", wts)] += 1
+    LAUNCHES[launch_key("field_fwd", wts, pe=pe)] += 1
     return sigma, rgb
 
 
@@ -289,8 +297,11 @@ def field_train_bwd_stash_plain(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sig
     """K7's plain version: the decoder chain written out with every layer
     input kept (render.stashed_chain), autograd for the pre-activation
     gradients and the data, the rows written into pt as
-    stash_layout(per_point=True) places them. Returns (dxyz, dviewdir, dzs,
-    dzt)."""
+    stash_layout(per_point=True) places them (in the bfloat16 mode the
+    kernel's own arithmetic, field_train_bwd_stash_plain_bf16). Returns
+    (dxyz, dviewdir, dzs, dzt)."""
+    if wts.field_dtype == "bfloat16":
+        return field_train_bwd_stash_plain_bf16(wts, xyz, viewdir, zs, zt, g_sigma, g_rgb, pt)
     with torch.enable_grad():
         inputs = _leaves((xyz, viewdir, zs, zt))
         dpe = positional_encoding(inputs[1], wts.num_dir_freq)
@@ -301,6 +312,41 @@ def field_train_bwd_stash_plain(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sig
     return tuple(grads)
 
 
+def encode_bwd_exact(x, g, degree: int):
+    """The chain rule of the float32 encoding (positional_encoding, exact
+    sines and cosines) by autograd: (..., d) cotangents g -> (..., 3), as
+    XLA differentiates the encoding that field_train_pallas computes
+    outside its kernels."""
+    with torch.enable_grad():
+        x = x.detach().requires_grad_(True)
+        return torch.autograd.grad(positional_encoding(x, degree), x, g)[0]
+
+
+def field_train_bwd_stash_plain_bf16(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb,
+                                     pt):
+    """K7's plain version in the bfloat16 mode
+    (pallas_field.py:_field_train_bwd_kernel at dtype=bfloat16): K6's
+    bfloat16 arithmetic on the exact encodings (render.encode_bf16 with
+    exact_pe), render.recompute_bf16 (the stash) with the per-point
+    direction term, render.transposed_bf16, the unrounded float32
+    cotangents of the encodings through the float32 encoding's chain rule
+    (encode_bwd_exact, XLA's autodiff outside the kernel), and the stash
+    rows written into pt as stash_layout(per_point=True) places them, the A
+    side bfloat16-exact and the G side float32 (render.write_stash_bf16).
+    Returns (dxyz, dviewdir, dzs, dzt)."""
+    with torch.no_grad():
+        xpe = encode_bf16(xyz, wts.num_xyz_freq, True)
+        dpe = encode_bf16(viewdir, wts.num_dir_freq, True)
+        rec = recompute_bf16(wts, xpe, dpe @ wts.w_vd_b, zs, zt)
+        g_sig = g_sigma[..., 0] * torch.sigmoid(rec["logit"])
+        pre = {}
+        gpe, gdir, dzs, dzt = transposed_bf16(wts, rec, g_sig, g_rgb, 1, pre)
+        write_stash_bf16(wts, {"xpe": xpe, "dpe": dpe, "rec": rec, "pre": pre, "g_sig": g_sig,
+                               "drgb": g_rgb}, zs, zt, pt, per_point=True)
+    return (encode_bwd_exact(xyz, gpe, wts.num_xyz_freq),
+            encode_bwd_exact(viewdir, gdir, wts.num_dir_freq), dzs, dzt)
+
+
 def field_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb, pt,
                           gates=None):
     """K7 wrapper: writes the stash rows of these B objects' points into pt
@@ -308,10 +354,13 @@ def field_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_
     dviewdir (B,M,3), dzs (B,n_shape,W), dzt (B,n_tex,W)); the kernel
     writes per-block partial sums of dzs and dzt, summed over blocks here
     (the second, deterministic pass of that reduction). gates: as
-    field_bwd's."""
+    field_bwd's. In wts' bfloat16 mode it launches K7's bfloat16 build
+    (LAUNCHES["field_train_bwd_bf16"])."""
     entry, extra = _gates_args(wts, xyz, gates)
     if xyz.device.type == "cpu":
         return field_train_bwd_stash_plain(wts, xyz, viewdir, zs, zt, g_sigma, g_rgb, pt)
+    if wts.field_dtype == "bfloat16":
+        entry = "_bf16"
     _check_field_inputs(wts, xyz, viewdir, zs, zt, g_sigma, g_rgb)
     B, M = xyz.shape[:2]
     dev = xyz.device
@@ -332,14 +381,19 @@ def field_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_
             ctypes.byref(layout), dxyz.data_ptr(), dvd.data_ptr(), dzs_part.data_ptr(),
             dzt_part.data_ptr(), *extra, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "field_train_bwd")
-    LAUNCHES["field_train_bwd"] += 1
+    LAUNCHES[launch_key("field_train_bwd", wts)] += 1
     return dxyz, dvd, dzs_part.sum(1), dzt_part.sum(1)
 
 
 def field_train_bwd_plain(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb):
     """K7 + K4's plain version: autograd through field_fwd_plain with the
-    layer weights as inputs. Returns (dxyz, dviewdir, dzs, dzt, grads),
-    grads in the order and Linear layout of render.linear_params_of."""
+    layer weights as inputs; in the bfloat16 mode, whose backward rounds
+    its cotangents, K7's plain version then K4's (field_train_bwd's
+    chunks). Returns (dxyz, dviewdir, dzs, dzt, grads), grads in the order
+    and Linear layout of render.linear_params_of."""
+    if wts.field_dtype == "bfloat16":
+        return _field_train_bwd_chunks(field_train_bwd_stash_plain, render.wgrad_plain, wts,
+                                       xyz, viewdir, zs, zt, g_sigma, g_rgb)
     with torch.enable_grad():
         params = _leaves(linear_params_of(wts))
         inputs = _leaves((xyz, viewdir, zs, zt))
@@ -353,24 +407,42 @@ def field_train_bwd_plain(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_
 def field_train_bwd(wts: DecoderWeights, xyz, viewdir, zs, zt, g_sigma, g_rgb):
     """The per-point training backward (A10): K7 then K4 on each chunk of
     objects whose stash fits render.STASH_BYTES, the weight gradients
-    accumulated over chunks in order. Returns (dxyz (B,M,3), dviewdir
-    (B,M,3), dzs (B,n_shape,W), dzt (B,n_tex,W), grads) with grads in the
-    order and Linear layout of render.linear_params_of."""
+    accumulated over chunks in order, in wts' mode. Returns (dxyz (B,M,3),
+    dviewdir (B,M,3), dzs (B,n_shape,W), dzt (B,n_tex,W), grads) with grads
+    in the order and Linear layout of render.linear_params_of."""
     if xyz.device.type == "cpu":
         return field_train_bwd_plain(wts, xyz, viewdir, zs, zt, g_sigma, g_rgb)
+    return _field_train_bwd_chunks(field_train_bwd_stash, wgrad, wts, xyz, viewdir, zs, zt,
+                                   g_sigma, g_rgb)
+
+
+def field_train_chunks(wts: DecoderWeights, B: int, M: int):
+    """How field_train_bwd splits B objects of M points: (chunk, slices),
+    chunk the most objects whose per-point stash fits render.STASH_BYTES and
+    slices the objects of each launch of K7 and K4, in order."""
+    chunk = max(1, min(B, render.STASH_BYTES // (M * stash_layout(wts, per_point=True)["ld_pt"]
+                                                 * 4)))
+    return chunk, [slice(o0, min(B, o0 + chunk)) for o0 in range(0, B, chunk)]
+
+
+def _field_train_bwd_chunks(stash_fn, wgrad_fn, wts: DecoderWeights, xyz, viewdir, zs, zt,
+                            g_sigma, g_rgb):
+    """stash_fn (K7 or its plain version) then wgrad_fn (K4 or its plain
+    version) in wts' mode on each chunk of objects whose stash fits
+    render.STASH_BYTES, into one stash buffer; the weight gradients
+    accumulated over chunks in order."""
     B, M = xyz.shape[:2]
     dev = xyz.device
-    L = stash_layout(wts, per_point=True)
-    chunk = max(1, min(B, render.STASH_BYTES // (M * L["ld_pt"] * 4)))
-    pt = torch.empty((chunk * M, L["ld_pt"]), device=dev)
+    chunk, chunks = field_train_chunks(wts, B, M)
+    pt = torch.empty((chunk * M, stash_layout(wts, per_point=True)["ld_pt"]), device=dev)
     grads = _linear_grad_buffers(wts, dev)
     outs = []
-    for o0 in range(0, B, chunk):
-        sl = slice(o0, min(B, o0 + chunk))
-        pt_c = pt[:(sl.stop - o0) * M]
-        outs.append(field_train_bwd_stash(wts, xyz[sl], viewdir[sl], zs[sl], zt[sl],
-                                          g_sigma[sl], g_rgb[sl], pt_c))
-        wgrad(wgrad_problems(wts, pt_c, None, grads), accumulate=o0 > 0)
+    for sl in chunks:
+        pt_c = pt[:(sl.stop - sl.start) * M]
+        outs.append(stash_fn(wts, xyz[sl], viewdir[sl], zs[sl], zt[sl], g_sigma[sl], g_rgb[sl],
+                             pt_c))
+        wgrad_fn(wgrad_problems(wts, pt_c, None, grads), accumulate=sl.start > 0,
+                 field_dtype=wts.field_dtype)
     return (*[torch.cat(parts) for parts in zip(*outs)], grads)
 
 
@@ -378,14 +450,19 @@ class FieldTrain(torch.autograd.Function):
     """(xyz, viewdir, zs, zt, decoder layer weights) -> (sigma, rgb) with K5
     as the forward and K7 + K4 as the backward (the counterpart of
     field_train_pallas's custom_vjp). The weights enter in torch.nn.Linear's
-    layout (render.decoder_linear_params) and get their gradients in it."""
+    layout (render.decoder_linear_params) and get their gradients in it,
+    float32 and unrounded in either mode (in the bfloat16 mode the pack
+    rounds the live weights each call, as pallas_field.py's
+    _precast_weights, and their gradient is the rounded matrices'). meta:
+    pack_linear_params' arguments after params. K5 runs the training
+    field's encodings (field_fwd's pe "train")."""
 
     @staticmethod
     def forward(ctx, xyz, viewdir, zs, zt, meta, *params):
         wts = pack_linear_params(params, *meta)
         ctx.save_for_backward(xyz, viewdir, zs, zt)
         ctx.wts = wts
-        return field_fwd(wts, xyz, viewdir, zs, zt)
+        return field_fwd(wts, xyz, viewdir, zs, zt, pe="train")
 
     @staticmethod
     def backward(ctx, g_sigma, g_rgb):
@@ -400,17 +477,17 @@ def field_train(decoder, xyz, viewdir, shapecode, texturecode):
     (counterpart of field_train_pallas): xyz, viewdir (B,...,3), codes
     (B, latent) -> (sigma (B,...,1), rgb (B,...,3)), through FieldTrain (the
     kernels for CUDA tensors, the plain versions inside the same wrappers
-    for CPU tensors). Gradients reach every weight and bias of the decoder,
-    the points, the view directions and, through the live latent layers,
-    the codes. Raises ValueError for a decoder that is not kernel-compatible
-    (render.decoder_kernel_compatible), and for one in the bfloat16 mode
-    (render.check_float32_decoder)."""
+    for CPU tensors), in the decoder's field_dtype (the latent projections
+    float32 in both, as pallas_field.py:conditioned_latents_batched).
+    Gradients reach every weight and bias of the decoder, the points, the
+    view directions and, through the live latent layers, the codes. Raises
+    ValueError for a decoder that is not kernel-compatible
+    (render.decoder_kernel_compatible)."""
     render.check_kernel_decoder(decoder)
-    render.check_float32_decoder(decoder, "the training field")
     lead = xyz.shape[:-1]
     zs, zt = conditioned_latents_of(decoder, shapecode, texturecode)
     meta = (decoder.shape_blocks, decoder.texture_blocks, decoder.num_xyz_freq,
-            decoder.num_dir_freq)
+            decoder.num_dir_freq, None, decoder.field_dtype)
     sigma, rgb = FieldTrain.apply(_flat(xyz), _flat(viewdir), zs.contiguous(), zt.contiguous(),
                                   meta, *decoder_linear_params(decoder))
     return sigma.reshape(*lead, 1), rgb.reshape(*lead, 3)

@@ -46,10 +46,11 @@ recompute_bf16, transposed_bf16, composite_vjp_bf16, encode_bwd_bf16);
 the training backward's weight products take both operands rounded and
 its bias sums the unrounded float32 cotangents (wgrad_plain). Inputs,
 outputs, latents and compositing stay float32. K1 (both modes and the
-training encodings), K2 (both modes), K3 (both modes), K4, K5 and K6
-(ops/field.py) have bfloat16 builds, counted apart (LAUNCHES' *_bf16
-keys); K7 (field_train) does not, and its entry point refuses a bfloat16
-decoder.
+training encodings), K2 (both modes), K3 (both modes), K4, K5 (its
+encodings by the doubling recurrence, or exact for A11b and the training
+field), K6 and K7 (ops/field.py) have bfloat16 builds, counted apart
+(LAUNCHES' *_bf16 keys); every kernel has one, and no entry point refuses
+the mode.
 
 Each wrapper takes its plain version for tensors on the CPU, and only then.
 For CUDA tensors it launches its kernel or raises; there is no fallback.
@@ -95,16 +96,17 @@ MAX_SAMPLES = 64          # kRows in csrc/render_common.cuh
 # Launches of each kernel since the last reset_launch_counts(); a wrapper
 # adds one where it launches its kernel and nowhere else.
 # K1 and K2 count their AABB-mode launches (render_*_aabb) apart, K3 its
-# data-mode launches (render_train_bwd_data), K1-K6 their bfloat16 builds'
-# (*_bf16), K1's bfloat16 build with the training encodings
-# (render_fwd_train_bf16) apart from its other encodings. K5, K6 and K7
-# (ops/field.py) count here too.
+# data-mode launches (render_train_bwd_data), K1-K7 their bfloat16 builds'
+# (*_bf16), K1's and K5's bfloat16 builds on the training encodings
+# (render_fwd_train_bf16, field_fwd_train_bf16) apart from their other
+# encodings. K5, K6 and K7 (ops/field.py) count here too.
 LAUNCHES = {"render_fwd": 0, "render_bwd": 0, "render_fwd_aabb": 0, "render_bwd_aabb": 0,
             "render_train_bwd": 0, "render_train_bwd_data": 0, "wgrad": 0, "field_fwd": 0,
             "field_bwd": 0, "field_train_bwd": 0, "render_fwd_bf16": 0, "render_bwd_bf16": 0,
             "render_fwd_aabb_bf16": 0, "render_bwd_aabb_bf16": 0, "field_fwd_bf16": 0,
             "field_bwd_bf16": 0, "render_fwd_train_bf16": 0, "render_train_bwd_bf16": 0,
-            "render_train_bwd_data_bf16": 0, "wgrad_bf16": 0}
+            "render_train_bwd_data_bf16": 0, "wgrad_bf16": 0, "field_fwd_train_bf16": 0,
+            "field_train_bwd_bf16": 0}
 
 # The bfloat16 render kernels' encodings (K1's pe argument): "doubling",
 # the sines and cosines by the doubling recurrence and the direction term
@@ -684,6 +686,8 @@ def _library():
     lib.supnerf_field_bwd_bf16.restype = i
     lib.supnerf_field_train_bwd.argtypes = field + [p] * 2 + [ctypes.POINTER(_StashLayout)] + [p] * 5
     lib.supnerf_field_train_bwd.restype = i
+    lib.supnerf_field_train_bwd_bf16.argtypes = lib.supnerf_field_train_bwd.argtypes
+    lib.supnerf_field_train_bwd_bf16.restype = i
     # the same kernels with their ReLU gates written out (csrc/field_gates.cu)
     lib.supnerf_field_fwd_gates.argtypes = field + [p] * 4
     lib.supnerf_field_bwd_gates.argtypes = field + [p] * 8
@@ -757,9 +761,9 @@ def _mode_args(hit):
 
 def launch_key(name: str, wts: DecoderWeights, hit=None, pe="doubling") -> str:
     """The LAUNCHES key of kernel `name` (render_fwd, render_bwd, field_fwd,
-    field_bwd) in wts' mode: _aabb with hit, _bf16 in the bfloat16 mode,
-    render_fwd_train_bf16 for K1's bfloat16 build with the training
-    encodings (pe "train")."""
+    field_bwd, field_train_bwd) in wts' mode: _aabb with hit, _bf16 in the
+    bfloat16 mode, render_fwd_train_bf16 and field_fwd_train_bf16 for K1's
+    and K5's bfloat16 builds on the training encodings (pe "train")."""
     bf16 = wts.field_dtype == "bfloat16"
     if bf16 and pe == "train":
         return name + "_train_bf16"
@@ -1240,31 +1244,49 @@ def train_bwd_stash_plain_bf16(wts: DecoderWeights, xyz, viewdir, z, zs, zt, whi
     direction encoding and the sum over its samples of the rounded g_v
     (seg_reduce). Returns (dzs, dzt), and with data_grads (dxyz, dviewdir,
     dz) after them."""
-    r, W, ns, nt = bf16_round, wts.W, wts.n_shape, wts.n_tex
+    r, W = bf16_round, wts.W
     st = {}
     with torch.no_grad():
         dxyz, dvd, dz, dzs, dzt = render_bwd_plain_bf16(wts, xyz, viewdir, z, zs, zt, white_bkgd,
                                                         g_rgb, g_depth, g_acc, pe="train",
                                                         stash=st)
-        rec, pre = st["rec"], st["pre"]
-        mid = (slice(None), None, None)
-        inputs_sh = [rec["y0"]] + rec["ys"][:-1]
-        inputs_tx = [rec["v"]] + rec["hs"][:-1]
-        rows = {"a_xyz": st["xpe"], "a_es": rec["ys"][-1], "a_e": rec["e"],
-                "a_r1": rec["hs"][-1], "a_hh": rec["hh"],
-                "a_sh": torch.cat([r(inputs_sh[j] + zs[mid + (j,)]) for j in range(ns)], -1),
-                "a_tx": torch.cat([r(inputs_tx[j] + zt[mid + (j,)]) for j in range(nt)], -1),
-                "g_xyz": pre["xyz"], "g_e": pre["e"], "g_sig": st["g_sig"][..., None],
-                "g_v": pre["v"], "g_hh": pre["hh"], "g_rgb": st["drgb"],
-                "g_sh": torch.cat([pre[f"sh{j}"] for j in range(ns)], -1),
-                "g_tx": torch.cat([pre[f"tx{j}"] for j in range(nt)], -1)}
-        L = stash_layout(wts)
-        for name, t in rows.items():
-            pt[:, L[name]:L[name] + t.shape[-1]] = t.reshape(-1, t.shape[-1])
+        write_stash_bf16(wts, st, zs, zt, pt)
+        pre, L = st["pre"], stash_layout(wts)
         dpe = st["dpe"]
         ray[:, L["r_dpe"]:L["r_dpe"] + dpe.shape[-1]] = dpe.reshape(-1, dpe.shape[-1])
         ray[:, L["r_gv"]:L["r_gv"] + W] = r(pre["v"]).sum(2).reshape(-1, W)
     return (dzs, dzt, dxyz, dvd, dz) if data_grads else (dzs, dzt)
+
+
+def write_stash_bf16(wts: DecoderWeights, st: dict, zs, zt, pt, per_point: bool = False):
+    """The point rows of a stash plain version in the bfloat16 mode, written
+    into pt at stash_layout(per_point)'s columns from st, the backward's
+    values (render_bwd_plain_bf16's stash dict: the rounded encodings xpe
+    (and with per_point dpe), recompute_bf16's rec, transposed_bf16's pre,
+    g_sig, drgb): the A side bfloat16-exact (the encodings, the stashed
+    ReLU outputs and e, each latent-added input rounded after its float32
+    add: the operands the Pallas kernels' mm_xg casts), the G side the
+    unrounded float32 pre-activation gradients and the sigma head's and the
+    colours' cotangents."""
+    r, ns, nt = bf16_round, wts.n_shape, wts.n_tex
+    rec, pre = st["rec"], st["pre"]
+    mid = (slice(None),) + (None,) * (st["xpe"].dim() - 2)
+    inputs_sh = [rec["y0"]] + rec["ys"][:-1]
+    inputs_tx = [rec["v"]] + rec["hs"][:-1]
+    rows = {"a_xyz": st["xpe"], "a_es": rec["ys"][-1], "a_e": rec["e"],
+            "a_r1": rec["hs"][-1], "a_hh": rec["hh"],
+            "a_sh": torch.cat([r(inputs_sh[j] + zs[mid + (j,)]) for j in range(ns)], -1),
+            "a_tx": torch.cat([r(inputs_tx[j] + zt[mid + (j,)]) for j in range(nt)], -1),
+            "g_xyz": pre["xyz"], "g_e": pre["e"], "g_sig": st["g_sig"][..., None],
+            "g_v": pre["v"], "g_hh": pre["hh"], "g_rgb": st["drgb"],
+            "g_sh": torch.cat([pre[f"sh{j}"] for j in range(ns)], -1),
+            "g_tx": torch.cat([pre[f"tx{j}"] for j in range(nt)], -1)}
+    if per_point:
+        rows["a_dpe"] = st["dpe"]
+    L = stash_layout(wts, per_point)
+    with torch.no_grad():
+        for name, t in rows.items():
+            pt[:, L[name]:L[name] + t.shape[-1]] = t.reshape(-1, t.shape[-1])
 
 
 def render_train_bwd_stash(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
@@ -1407,15 +1429,6 @@ class FieldCompositeTrain(torch.autograd.Function):
                                                 g_rgb.contiguous(), g_depth.contiguous(),
                                                 g_acc.contiguous(), data)
         return (*(dx or (None,) * 3), dzs, dzt, None, None, None, *grads)
-
-
-def check_float32_decoder(decoder, what: str):
-    """Raise ValueError for a decoder in the bfloat16 mode: `what` has no
-    bfloat16 mode yet (ROADMAP §B): the training field (ops.field.
-    field_train: K5 on per-object latents and K7) and multiview opt_model."""
-    if getattr(decoder, "field_dtype", "float32") != "float32":
-        raise ValueError(f"{what} with field_dtype {decoder.field_dtype!r}: no bfloat16 mode "
-                         "yet (ROADMAP §B); use float32")
 
 
 def conditioned_latents_of(decoder, shapecode, texturecode):

@@ -12,10 +12,14 @@ gradient over the views. JAX pads the views to v_max with weight-0 views
 for its compiled shape; the port renders the real views only, which gives
 JAX's loss and PSNR (a padded view carries weight 0). With opt_model the
 decoder is optimized too: a copy per instance (decoder_copy), so the model
-given stays as it was. A kernel-compatible decoder is rendered by
-ops.render.field_composite_train (K1, then K3's data mode and K4); the
-original AutoRF's, which no kernel takes, by ops.render.decoder_composite
-under autograd, as its trainer and the JAX package's flax path run it.
+given stays as it was. A kernel-compatible decoder in the float32 mode is
+rendered by ops.render.field_composite_train (K1, then K3's data mode and
+K4); the original AutoRF's, which no kernel takes, and one in the
+bfloat16 mode by ops.render.decoder_composite under autograd, as the JAX
+package's opt_model runs every decoder on its flax path: the copy's
+forward is then models.nerf_mlp.decode_bf16, flax TorchDense's bfloat16
+contract, which the training kernels' bfloat16 mode (the Pallas kernels'
+rounding) is not.
 """
 from __future__ import annotations
 
@@ -26,7 +30,6 @@ import torch
 from supnerf_tpu_torch.geometry.boxes import invert_pose
 from supnerf_tpu_torch.models.nerf_mlp import AutoRFDecoder, CodeNeRFDecoder
 from supnerf_tpu_torch.ops.render import (
-    check_float32_decoder,
     decoder_composite,
     decoder_kernel_compatible,
     field_composite_train,
@@ -67,14 +70,14 @@ class MultiviewBatch:
 def decoder_copy(model):
     """opt_model's per-instance decoder, on `model`'s device: a
     CodeNeRFDecoder holding copies of a kernel-compatible model's decoder
-    layers, or an AutoRFDecoder holding the original AutoRF's (both models
-    keep them at the top level under the reference names). Any other
-    decoder raises ValueError."""
+    layers, in the model's field_dtype, or an AutoRFDecoder holding the
+    original AutoRF's (both models keep them at the top level under the
+    reference names). Any other decoder raises ValueError."""
     if decoder_kernel_compatible(model):
         W = model.encoding_shape.weight.shape[0]
         latent = model.get_submodule("shape_latent_layer_1.0").weight.shape[1]
         dec = CodeNeRFDecoder(model.shape_blocks, model.texture_blocks, W, latent,
-                              model.num_xyz_freq, model.num_dir_freq)
+                              model.num_xyz_freq, model.num_dir_freq, model.field_dtype)
     elif isinstance(model, AutoRFDecoder):
         dec = AutoRFDecoder(model.shape_blocks, model.texture_blocks,
                             model.encoding_xyz[0].weight.shape[0], model.num_xyz_freq,
@@ -97,17 +100,25 @@ def multiview_loss(wts, sc, tc, pose, batch: MultiviewBatch, cfg: TTOConfig, *, 
     slack_tex's residuals added (V, latent); pose (V, 3, 4) object poses.
     wts: tto.core.render_decoder(model); with dec (opt_model's
     decoder_copy) the render runs through field_composite_train instead
-    (K1, then K3's data mode and K4), or for a decoder no kernel takes
-    through decoder_composite, either of which gives dec's weights their
-    gradient. jitter: optional (V, S) uniform draws, else from `generator`."""
+    (K1, then K3's data mode and K4), or for a decoder no kernel takes or
+    one in the bfloat16 mode through decoder_composite, either of which
+    gives dec's weights their gradient. jitter: optional (V, S) uniform
+    draws, else from `generator`."""
     V = len(batch.img_in)
     sc_v, tc_v = sc.expand(V, -1), tc.expand(V, -1)
-    if dec is not None and decoder_kernel_compatible(dec):
+    if (dec is not None and decoder_kernel_compatible(dec)
+            and dec.field_dtype == "float32"):
         def composite(xyz, vd, z):
             return field_composite_train(dec, xyz, vd, z, sc_v, tc_v, data_grads=True)
     elif dec is not None:
+        sc_r, tc_r = sc_v, tc_v
+        if getattr(dec, "field_dtype", "float32") == "bfloat16":
+            # a code the views share as one row: JAX's vmap over the views
+            # computes its latent projections once (DenseBf16's rounding)
+            sc_r, tc_r = sc[None], tc if tc.dim() == 2 else tc[None]
+
         def composite(xyz, vd, z):
-            return decoder_composite(dec, xyz, vd, z, sc_v, tc_v)
+            return decoder_composite(dec, xyz, vd, z, sc_r, tc_r)
     else:
         composite = make_composite(wts, sc_v, tc_v)
     out = render_rays_frustum(
@@ -138,16 +149,12 @@ def run_multiview_tto(model, wts, batch: MultiviewBatch, mean_shape, mean_textur
     values. slack_tex: per-view texture residuals, zero at the start, added
     to the shared texture code (reference :874-880). opt_model: also a copy
     of the decoder (decoder_copy) at AdamW lr LR_MODEL (reference :869),
-    refused for a model in the bfloat16 mode (ops.render.
-    check_float32_decoder; JAX's opt_model trains its flax decoder, not
-    the Pallas training kernels, ROADMAP §B).
+    in the model's field_dtype (multiview_loss's routes).
     jitter: optional (num_opts, V, S)
     uniform draws of the loss renders' stratified samples, else drawn from
     `generator`. Returns codes at CODE_SAVE_ITERS (n_code, latent), the
     final codes, the final per-view poses (V, 3, 4) and the per-iteration
     loss and PSNR (num_opts,), both means over the views."""
-    if opt_model:
-        check_float32_decoder(model, "multiview opt_model")
     V, dev = len(batch.img_in), batch.img_in.device
     with torch.no_grad():
         if hasattr(model, "encode_img"):

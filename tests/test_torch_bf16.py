@@ -4,7 +4,7 @@ kernels' bfloat16 mode against the JAX package's Pallas entry points at
 dtype=bfloat16 in interpret mode, the plain decoder's bfloat16 mode
 (nerf_mlp.decode_bf16) against flax's CodeNeRFDecoder(dtype=bfloat16),
 run_tto_batch with field_dtype "bfloat16" against the JAX TTO on its
-Pallas kernels at bfloat16, and the entry points that refuse the mode.
+Pallas kernels at bfloat16, and the entry points that take the mode.
 
 Each comparison asserts two things: the port lies within a stated
 tolerance of JAX's bfloat16 result (float32 sums in another order on both
@@ -447,30 +447,44 @@ def test_pack_rounds_the_matrices_once(decoders):
         assert torch.equal(getattr(f32, name), getattr(b16, name)), name
 
 
-def test_bf16_refusals(tmp_path):
-    """The paths that have no bfloat16 mode yet (the training field: K5 on
-    per-object latents and K7; multiview opt_model, whose JAX counterpart
-    trains its flax decoder) refuse a SUPNeRF in the bfloat16 mode before
-    any work, naming ROADMAP §B; the trainer and the training render, which
-    have it (K1 with the training encodings, K3, K4), accept it; an unknown
-    field_dtype raises."""
+def test_bf16_entry_points_accept_the_mode(tmp_path):
+    """No entry point refuses the bfloat16 mode the JAX package runs: the
+    trainer, the training render (K1 with the training encodings, K3, K4),
+    the training field (K5 on the exact encodings, K7, K4) and multiview
+    opt_model (its decoder copy on decode_bf16, as JAX's opt_model trains
+    its flax decoder) take a SUPNeRF in the mode and give finite results,
+    with no launch on CPU tensors; an unknown field_dtype raises."""
     from supnerf_tpu_torch.models.factory import build_model
     from supnerf_tpu_torch.training.trainer import UnifiedTrainer
-    from supnerf_tpu_torch.tto.multiview import run_multiview_tto
+    from supnerf_tpu_torch.tto.multiview import MultiviewBatch, decoder_copy, run_multiview_tto
 
     model = build_model("supnerf", {"shape_blocks": 1, "texture_blocks": 1, "latent_dim": 32,
                                     "field_dtype": "bfloat16"})
     UnifiedTrainer(model, {}, [{"instoken": "a"}], str(tmp_path), device="cpu", log_writer=False)
-    with pytest.raises(ValueError, match="ROADMAP §B"):
-        run_multiview_tto(model, render.pack_decoder_params(model), None, None, None,
-                          core.TTOConfig(), opt_model=True)
+    render.reset_launch_counts()
     x = torch.zeros((1, 2, 4, 3))
     codes = torch.zeros((1, 32))
     rgb, depth, acc = render.field_composite_train(model, x, x[:, :, 0], torch.zeros((1, 4)),
                                                    codes, codes, data_grads=False)
     assert rgb.shape == (1, 2, 3) and depth.shape == acc.shape == (1, 2)
-    with pytest.raises(ValueError, match="ROADMAP §B"):
-        field.field_train(model, x, x, codes, codes)
+    sigma, rgb = field.field_train(model, x, x, codes, codes)
+    assert sigma.shape == (1, 2, 4, 1) and rgb.shape == (1, 2, 4, 3)
+    assert bool(torch.isfinite(sigma).all() and torch.isfinite(rgb).all())
+    assert decoder_copy(model).field_dtype == "bfloat16"
+    V, g = 2, torch.Generator().manual_seed(0)
+    K = torch.tensor([[40.0, 0.0, 16.0], [0.0, 40.0, 16.0], [0.0, 0.0, 1.0]]).expand(V, 3, 3)
+    pose = torch.cat([torch.eye(3), torch.tensor([[0.0], [0.0], [8.0]])], 1).expand(V, 3, 4)
+    batch = MultiviewBatch(img_in=torch.rand((V, 32, 32, 3), generator=g),
+                           rgb_tgt=torch.rand((V, 16, 3), generator=g),
+                           occ_tgt=torch.ones((V, 16, 1)), K=K,
+                           roi_nerf=torch.tensor([[8.0, 8.0, 24.0, 24.0]]).expand(V, 4),
+                           pose_init=pose, wlh=torch.tensor([[1.8, 4.5, 1.6]]).expand(V, 3),
+                           obj_pose_gt=pose)
+    res = run_multiview_tto(model, render.pack_decoder_params(model), batch, codes[0], codes[0],
+                            core.TTOConfig(num_opts=2, n_samples=4, render_im_sz=4,
+                                           in_img_sz=32), opt_model=True)
+    assert res["loss"].shape == (2,) and bool(torch.isfinite(res["loss"]).all())
+    assert not any(render.LAUNCHES.values())
     for bad in ("float16", "bf16"):
         with pytest.raises(ValueError, match="field_dtype"):
             build_model("supnerf", {"field_dtype": bad})
