@@ -769,10 +769,16 @@ def ptxas_summary(log):
     return out
 
 
+# nvcc's log of this run's build (build()); phase 18 (a) reads the redesigned
+# kernels' ptxas lines from it
+BUILD_LOG = []
+
+
 def build():
     from supnerf_tpu_torch.ops import render
 
     info = render.build_kernels()
+    BUILD_LOG.append(info["log"])
     print(f"   built {info['path'].name} in {info['seconds']:.1f} s")
     for line in ptxas_summary(info["log"]):
         print("   " + line)
@@ -4432,6 +4438,24 @@ def check_bf16_kernels():
                         bound_bf16(b_flops, b_bytes), det_b)]
         records[-2]["exact_pe_ms"] = t_fx
         print(f"   render_fwd{suffix}_bf16 with exact_pe (A11a's encodings): {t_fx:.3f} ms")
+        # the redesign's stream: every active ray pair a block streams the
+        # pack's tiles (K1 the forward ones, K2 all) from L2
+        flat = None if h is None else h.reshape(-1) != 0
+        pairs = (B * R + 1) // 2 if h is None else int(torch.cat(
+            [flat, flat.new_zeros((B * R) % 2)]).reshape(-1, 2).any(1).sum())
+        tile_bytes = {"render_fwd": 2 * sum(
+            rows * -(-m.shape[1] // render.TILE_K) * render.TILE_K
+            for _, part, m, rows in render.bf16_tile_plan(w16) if part == "forward"),
+                      "render_bwd": 2 * render.bf16_tile_count(w16)}
+        for r, kind in zip(records[-2:], ("render_fwd", "render_bwd")):
+            r["weight_bytes_per_launch"] = pairs * tile_bytes[kind]
+            r["ptxas"] = [line for line in ptxas_summary("\n".join(BUILD_LOG))
+                          if f"{kind}_bf16_kernel" in line]
+            print(f"   {r['name']}: {r['ms']:.3f} ms against its bound {r['bound_ms']:.3f} ms "
+                  f"({r['ms'] / r['bound_ms']:.1f}x); weight tiles read {pairs} pairs x "
+                  f"{tile_bytes[kind]} B = {r['weight_bytes_per_launch'] / 1e6:.1f} MB a launch")
+            for line in r["ptxas"]:
+                print("   ptxas: " + line)
     w32f, cases = field_inputs()
     w16f = render.with_field_dtype(w32f, "bfloat16")
     dir_macs = 3 * (2 * w32f.num_dir_freq + 1) * W
@@ -4619,6 +4643,37 @@ BF16_TRAIN_CELLS = (("training cell", TRAIN_OBJECTS, TRAIN_BATCH, 2),
                     ("batch 48", SWEEP_BATCH, SWEEP_BATCH, 2))
 
 
+def wgrad_bf16_library_ms(probs):
+    """K4's bfloat16 mode's library yardstick: one torch.mm per problem of
+    every chunk, r(G)^T r(A) with float32 sums: on bfloat16 operands with a
+    float32 output where this PyTorch's torch.mm takes out_dtype, else on
+    the bfloat16-valued float32 operands with TF32 allowed (TF32 holds a
+    bfloat16 value exactly, so the products are exact and the function the
+    same). The operands are converted before the timing. Returns (ms, the
+    route)."""
+    import torch
+
+    from supnerf_tpu_torch.models.nerf_mlp import bf16_round
+
+    one = torch.ones((16, 16), dtype=torch.bfloat16, device="cuda")
+    try:
+        torch.mm(one, one, out_dtype=torch.float32)
+        route = "torch.mm, bfloat16 operands, out_dtype float32"
+        ops = [(p.G.to(torch.bfloat16), p.A.to(torch.bfloat16)) for q in probs for p in q]
+        return _timed(lambda: [torch.mm(g.t(), a, out_dtype=torch.float32) for g, a in ops],
+                      5), route
+    except (TypeError, RuntimeError):
+        pass
+    route = "torch.mm, bfloat16-valued float32 operands, TF32"
+    ops = [(bf16_round(p.G), bf16_round(p.A)) for q in probs for p in q]
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return _timed(lambda: [torch.mm(g.t(), a) for g, a in ops], 5), route
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
 def check_bf16_train_kernels():
     """Phase 19 (a): at the training path's shape, K1 with the training
     encodings (A5), K3 in both modes and K4 (A6) in the bfloat16 mode
@@ -4723,6 +4778,7 @@ def check_bf16_train_kernels():
     t_k4 = _timed(lambda: [render.wgrad(q, field_dtype="bfloat16") for q in probs], 5)
     t_k4_32 = _timed(lambda: [render.wgrad(q) for q in probs], 5)
     t_k4_p = _timed(lambda: [render.wgrad_plain(q, field_dtype="bfloat16") for q in probs], 3)
+    t_lib, lib_route = wgrad_bf16_library_ms(probs)
     t_all = _timed(lambda: render.render_train_bwd(w16, *args, False, *cot), 3)
     t_all32 = _timed(lambda: render.render_train_bwd(w32, *args, False, *cot), 3)
     print(f"   training backward K3 + K4 through render_train_bwd: bfloat16 {t_all:.3f} ms, "
@@ -4757,6 +4813,8 @@ def check_bf16_train_kernels():
                     det_k3[True]),
         record_bf16("wgrad_bf16", ["A6", "A10"], tpu, "supnerf_tpu_torch/csrc/wgrad.cu", t_k4,
                     t_k4_p, t_k4_32, err_k4, bound_bf16(k4_flops, k4_bytes), {})]
+    records[-1].update(library_ms=t_lib, library_route=lib_route)
+    print(f"   wgrad_bf16's library call ({lib_route}): {t_lib:.3f} ms")
     records[-1]["weight_grads_k3_k4"] = det_w
     records[-1]["max_abs_err_k3_k4"] = err_w
     for r in records[1:]:

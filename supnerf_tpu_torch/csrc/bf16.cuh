@@ -1,7 +1,9 @@
-// bfloat16 operands on the tensor cores, for the bfloat16 mode of K1, K2,
-// K5 and K6 (render_common.cuh:dense_mma_bf16): the precision at which the
-// JAX package runs its Pallas kernels on its accelerator (dtype=bfloat16:
-// every matmul operand cast to bfloat16, float32 accumulation).
+// bfloat16 operands on the tensor cores, for the bfloat16 mode of K3, K5,
+// K6 and K7 (render_common.cuh:dense_mma_bf16) and K4 (wgrad.cu): the
+// precision at which the JAX package runs its Pallas kernels on its
+// accelerator (dtype=bfloat16: every matmul operand cast to bfloat16,
+// float32 accumulation). K1's and K2's bfloat16 builds take their
+// fragments from here and run wgmma (render_bf16.cuh).
 //
 // A bfloat16 operand keeps float32's exponent and 8 of its 24 significand
 // bits, so the product of two of them is exact in float32 and one
@@ -9,7 +11,8 @@
 // 3xTF32 makes three (tf32.cuh). The tensor core sums a k-step's 16
 // products and its accumulator input without rounding to nearest, so the
 // kernels sum each k-step from zero and add it into their float32 sums
-// with float32 adds, as tf32.cuh's callers do.
+// with float32 adds, as tf32.cuh's callers do (render_bf16.cuh sums a
+// 64-row K-tile so, on wgmma).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -15,18 +15,23 @@
 // on the tensor cores: every dense layer of every kernel) splits each
 // layer's output columns across the warps.
 //
-// The bfloat16 mode (K1, K2, K3, K5, K6, K7 built with kBf16; K4's bfloat16
-// entry in wgrad.cu; ops/render.py's DecoderWeights.field_dtype
-// "bfloat16"): the Pallas kernels at dtype=bfloat16. Every dense layer runs
-// on dense_mma_bf16 (bf16.cuh: bfloat16 operands, exact products, float32
+// The bfloat16 mode (K3, K5, K6, K7 built with kBf16; K4's bfloat16 entry
+// in wgrad.cu; K1's and K2's bfloat16 builds in render_bf16.cuh;
+// ops/render.py's DecoderWeights.field_dtype "bfloat16"): the Pallas
+// kernels at dtype=bfloat16. Here every dense layer runs on
+// dense_mma_bf16 (bf16.cuh: bfloat16 operands, exact products, float32
 // sums; the weights arrive rounded from the pack), the encodings rounded
 // (encode_one_bf16: by the doubling recurrence, or exact, PeMode), the
 // per-ray direction term rounded except in A11a (direction_term_bf16), the
-// heads on rounded operands (head<true>); the
-// backward recompute rounds its ReLU outputs (dense_mma_bf16's round_out,
-// the Pallas kernels' stash) and the transposed chain its cotangents where
-// they enter a product. Activations stay float32 in shared memory, rounded
-// as the fragments are built. The mode has no kRefine step and no exact
+// heads on rounded operands (head<true>); the backward recompute rounds its
+// ReLU outputs (dense_mma_bf16's round_out, the Pallas kernels' stash) and
+// the transposed chain its cotangents where they enter a product.
+// Activations stay float32 in shared memory, rounded as the fragments are
+// built, and each warp streams its float32 weight slice per block: what
+// bounds these builds is that traffic and those conversions, not the
+// tensor cores (K1's and K2's were 18-24x their bound so, and
+// render_bf16.cuh redesigns them: bfloat16 weight tiles in a shared ring,
+// two rays a block, wgmma). The mode has no kRefine step and no exact
 // step: its gates and a plain version's part mostly where a float32
 // sum that differs by a unit rounds to another bfloat16 value at the next
 // layer's operand (about 2^-16 of the values), which moves a later

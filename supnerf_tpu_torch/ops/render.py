@@ -137,7 +137,9 @@ class DecoderWeights:
     kernels, once per object; None where only the kernels need the pack).
     field_dtype "bfloat16": the kernels' bfloat16 mode, every w_* and wt_*
     matrix holding its bfloat16-rounded values (the biases and latent
-    projections stay float32)."""
+    projections stay float32), and `tiles`, the same matrices as the
+    bfloat16 builds of K1 and K2 read them (bf16_tile_pack); None in the
+    float32 mode."""
 
     w_xyz: torch.Tensor
     b_xyz: torch.Tensor
@@ -170,6 +172,7 @@ class DecoderWeights:
     num_xyz_freq: int
     num_dir_freq: int
     field_dtype: str = "float32"
+    tiles: torch.Tensor | None = None     # bf16_tile_pack's, in the bfloat16 mode
 
     @property
     def W(self):
@@ -282,15 +285,85 @@ def pack_linear_params(params, n_shape: int, n_tex: int, num_xyz_freq: int,
 
 def with_field_dtype(wts: DecoderWeights, field_dtype: str) -> DecoderWeights:
     """wts in field_dtype's mode: a float32 pack as it is, or in the
-    bfloat16 mode with its matrices rounded to bfloat16 (DecoderWeights)."""
+    bfloat16 mode with its matrices rounded to bfloat16 and their tiles
+    packed (DecoderWeights)."""
     if field_dtype not in FIELD_DTYPES:
         raise ValueError(f"field_dtype {field_dtype!r}: one of {FIELD_DTYPES}")
     if field_dtype == wts.field_dtype:
         return wts
     if wts.field_dtype != "float32":
         raise ValueError(f"a {wts.field_dtype} pack does not convert to {field_dtype}")
-    return dataclasses.replace(wts, field_dtype=field_dtype,
-                               **{n: bf16_round(getattr(wts, n)) for n in _MATRIX_FIELDS})
+    out = dataclasses.replace(wts, field_dtype=field_dtype,
+                              **{n: bf16_round(getattr(wts, n)) for n in _MATRIX_FIELDS})
+    return dataclasses.replace(out, tiles=bf16_tile_pack(out))
+
+
+# K rows of a weight tile of the bfloat16 builds of K1 and K2 (128 bytes of
+# bfloat16: csrc/render_bf16.cuh kTileK) and its rows at most (kTileRows)
+TILE_K = 64
+TILE_ROWS = 128
+
+
+def direction_tile_rows(num_dir_freq: int) -> int:
+    """The padded width of the direction encoding as K2's transposed chain
+    reads it (the wgmma N of its direction rows: 32 or 64)."""
+    return 32 if 3 * (2 * num_dir_freq + 1) <= 32 else 64
+
+
+def bf16_tile_plan(wts: DecoderWeights) -> list:
+    """The matrices of bf16_tile_pack, in its order: (layer name of
+    linear_names, "forward" or "transposed", M (N, K), N padded), M the
+    layer's product as the kernels' wgmma B operand reads it, K-major: row
+    n holds the K values output column n takes. The forward chain in
+    kernel order (linear_names without the heads; the viewdir layer's
+    trunk rows), then K2's transposed chain (rgb.0 from the last, the
+    viewdir layer's direction rows before its trunk rows) in the order K2
+    runs it."""
+    W, ns, nt = wts.W, wts.n_shape, wts.n_tex
+    names = linear_names(ns, nt)
+    sh, tx = names[1:1 + ns], names[4 + ns:4 + ns + nt]
+    fwd = ([(names[0], wts.wt_xyz, W)] + [(sh[j], wts.wt_sh[j], W) for j in range(ns)]
+           + [("encoding_shape", wts.wt_es, W), ("encoding_viewdir.0", wts.wt_vd_a, W)]
+           + [(tx[j], wts.wt_tx[j], W) for j in range(nt)] + [("rgb.0", wts.wt_r1, W // 2)])
+    bwd = ([("rgb.0", wts.w_r1, W)] + [(tx[j], wts.w_tx[j], W) for j in reversed(range(nt))]
+           + [("encoding_viewdir.0", wts.w_vd_b, direction_tile_rows(wts.num_dir_freq)),
+              ("encoding_viewdir.0", wts.w_vd_a, W), ("encoding_shape", wts.w_es, W)]
+           + [(sh[j], wts.w_sh[j], W) for j in reversed(range(ns))]
+           + [(names[0], wts.w_xyz, 64)])
+    return ([(n, "forward", m, rows) for n, m, rows in fwd]
+            + [(n, "transposed", m, rows) for n, m, rows in bwd])
+
+
+def _tiles_of(m, rows: int):
+    """M (N, K) as its tiles, flat bfloat16: K zero-padded to whole K-tiles
+    of TILE_K, N to `rows`; per K-tile, blocks of up to TILE_ROWS rows,
+    each a tile of TILE_K values (128 bytes) a row, 16-byte chunk c of row
+    n stored at chunk c ^ (n % 8) (the 128-byte swizzle of a wgmma
+    shared-memory descriptor)."""
+    N, K = m.shape
+    kt, rb = -(-K // TILE_K), min(rows, TILE_ROWS)
+    t = torch.zeros((rows, kt * TILE_K), dtype=torch.bfloat16, device=m.device)
+    t[:N, :K] = m.detach()
+    # (K-tile, row block, row, 16-byte chunk, value)
+    t = t.view(rows // rb, rb, kt, 8, 8).permute(2, 0, 1, 3, 4)
+    n = torch.arange(rb, device=m.device)[:, None]
+    chunk = torch.arange(8, device=m.device)[None, :] ^ (n % 8)
+    return t[:, :, n, chunk].reshape(-1)
+
+
+def bf16_tile_pack(wts: DecoderWeights):
+    """The weight tiles of the bfloat16 builds of K1 and K2
+    (csrc/render_bf16.cuh tile_sequence): bf16_tile_plan's matrices in
+    bfloat16 (their values are, in the mode), each cut into K-tiles
+    (_tiles_of), all in one flat tensor. K1 reads the forward part, K2 all
+    of it; each tile is one bulk copy into a ring slot. Built once with the
+    pack."""
+    return torch.cat([_tiles_of(m, rows) for _, _, m, rows in bf16_tile_plan(wts)])
+
+
+def bf16_tile_count(wts: DecoderWeights) -> int:
+    """The bfloat16 values bf16_tile_pack holds."""
+    return sum(rows * -(-m.shape[1] // TILE_K) * TILE_K for _, _, m, rows in bf16_tile_plan(wts))
 
 
 def pack_decoder_params(decoder) -> DecoderWeights:
@@ -662,10 +735,12 @@ def _library():
     lib.supnerf_render_fwd.restype = i
     lib.supnerf_render_bwd.argtypes = head + [i, p] + [p] * 3 + [p] * 5 + [p]
     lib.supnerf_render_bwd.restype = i
-    # the bfloat16 builds (K1 also takes its PE_MODES index after hit)
-    lib.supnerf_render_fwd_bf16.argtypes = head + [i, p, i] + [p] * 3 + [p]
+    # the bfloat16 builds: the weight tiles after the weights (K1 also takes
+    # its PE_MODES index after hit)
+    head16 = head[:6] + [p] + head[6:]
+    lib.supnerf_render_fwd_bf16.argtypes = head16 + [i, p, i] + [p] * 3 + [p]
     lib.supnerf_render_fwd_bf16.restype = i
-    lib.supnerf_render_bwd_bf16.argtypes = head + [i, p] + [p] * 3 + [p] * 5 + [p]
+    lib.supnerf_render_bwd_bf16.argtypes = head16 + [i, p] + [p] * 3 + [p] * 5 + [p]
     lib.supnerf_render_bwd_bf16.restype = i
     lib.supnerf_render_train_bwd.argtypes = (head + [p] * 3 + [ctypes.POINTER(_StashLayout)]
                                              + [p] * 6)
@@ -722,6 +797,20 @@ def check_operands(wts: DecoderWeights, expect: dict, device):
         raise ValueError(f"the decoder kernels take W in {{64, 128, 256}}, got {wts.W}")
     if wts.num_xyz_freq > 10 or wts.num_dir_freq > 10:
         raise ValueError("the decoder kernels take at most 10 encoding frequencies")
+
+
+def _tiles_operand(wts: DecoderWeights, device) -> list:
+    """The weight tiles argument of the bfloat16 builds of K1 and K2 ([]
+    in the float32 mode); raises ValueError unless the pack's tiles are
+    bf16_tile_pack's, on `device`."""
+    if wts.field_dtype != "bfloat16":
+        return []
+    t = wts.tiles
+    if (t is None or t.dtype != torch.bfloat16 or t.device != device or not t.is_contiguous()
+            or t.numel() != bf16_tile_count(wts)):
+        raise ValueError("a bfloat16 pack needs its weight tiles (bf16_tile_pack) on "
+                         f"{device}: build it with pack_decoder_params or with_field_dtype")
+    return [t.data_ptr()]
 
 
 def _check_inputs(wts: DecoderWeights, xyz, viewdir, z, zs, zt, *extra, hit=None):
@@ -791,8 +880,8 @@ def render_fwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd=False, h
     with torch.cuda.device(xyz.device):     # the runtime launches on its current device
         err = getattr(_library(), "supnerf_render_fwd" + ("_bf16" if bf16 else ""))(
             xyz.data_ptr(), viewdir.data_ptr(), z.data_ptr(), zs.data_ptr(), zt.data_ptr(),
-            ctypes.byref(ptrs), *_dims(wts, xyz, white_bkgd), *_mode_args(hit),
-            *([PE_MODES.index(pe)] if bf16 else []),
+            ctypes.byref(ptrs), *_tiles_operand(wts, xyz.device), *_dims(wts, xyz, white_bkgd),
+            *_mode_args(hit), *([PE_MODES.index(pe)] if bf16 else []),
             rgb.data_ptr(), depth.data_ptr(), acc.data_ptr(),
             torch.cuda.current_stream(xyz.device).cuda_stream)
     _raise_on(err, "render_fwd")
@@ -827,8 +916,8 @@ def render_bwd(wts: DecoderWeights, xyz, viewdir, z, zs, zt, white_bkgd,
         err = getattr(_library(), "supnerf_render_bwd"
                       + ("_bf16" if wts.field_dtype == "bfloat16" else ""))(
             xyz.data_ptr(), viewdir.data_ptr(), z.data_ptr(), zs.data_ptr(), zt.data_ptr(),
-            ctypes.byref(ptrs), *_dims(wts, xyz, white_bkgd), *_mode_args(hit),
-            g_rgb.data_ptr(), g_depth.data_ptr(), g_acc.data_ptr(),
+            ctypes.byref(ptrs), *_tiles_operand(wts, dev), *_dims(wts, xyz, white_bkgd),
+            *_mode_args(hit), g_rgb.data_ptr(), g_depth.data_ptr(), g_acc.data_ptr(),
             dxyz.data_ptr(), dvd.data_ptr(), dzs_part.data_ptr(), dzt_part.data_ptr(),
             dz_part.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "render_bwd")
